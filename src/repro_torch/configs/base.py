@@ -1,0 +1,119 @@
+"""Model configuration schema, field for field as the JAX package's
+``repro.configs.base``.
+
+The family sub-configs (``moe``, ``mamba``, ``mlstm``, ``slstm``,
+``encoder``) keep their fields but stay ``None`` in this port: only the
+attention-only dense path (gemma2) is ported.  Defaults differ in one
+place: ``decode_backend`` / ``prefill_backend`` are ``"auto"`` (the CUDA
+kernels for CUDA tensors, their plain versions on the CPU).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+__all__ = ["LayerSpec", "EncoderConfig", "ModelConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """One layer's composition: a sequence mixer + a channel mixer (FFN)."""
+    mixer: str = "gqa"          # gqa | mla | mamba2 | mlstm | slstm | shared_attn | none
+    ffn: str = "swiglu"         # swiglu | gelu | moe | none
+    window: Optional[int] = None        # sliding-window size (local attn)
+    attn_softcap: Optional[float] = None
+    qk_norm: bool = False
+    use_rope: bool = True
+    post_norms: bool = False            # gemma2-style sandwich norms
+    cross_attn: bool = False            # whisper decoder
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Whisper-style encoder stack (not ported)."""
+    n_layers: int
+    n_frames: int
+    n_heads: int
+    d_ff: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str              # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
+    prefix: Tuple[LayerSpec, ...] = ()
+    suffix: Tuple[LayerSpec, ...] = ()
+    norm: str = "rmsnorm"                  # rmsnorm | layernorm
+    norm_eps: float = 1e-6
+    rope_theta: float = 1e4
+    tie_embeddings: bool = True
+    logit_softcap: Optional[float] = None
+    emb_scale: Optional[float] = None
+    residual_scale: float = 1.0
+    mlp_bias: bool = False
+    # MLA dims (not ported)
+    q_lora: Optional[int] = None
+    kv_lora: int = 0
+    nope_dim: int = 0
+    rope_dim: int = 0
+    v_head_dim: int = 0
+    # family sub-configs (not ported)
+    moe: Optional[Any] = None
+    mamba: Optional[Any] = None
+    mlstm: Optional[Any] = None
+    slstm: Optional[Any] = None
+    shared_block: Optional[LayerSpec] = None
+    encoder: Optional[EncoderConfig] = None
+    frontend: Optional[str] = None
+    n_frontend_tokens: int = 0
+    max_seq: int = 0
+    sub_quadratic: bool = False
+    attn_chunk: int = 512    # query-chunk size of the dense attention path
+    unroll_scan: bool = False
+    windowed_slice: bool = False
+    decode_backend: str = "auto"   # auto | kernel | plain | dense
+    prefill_backend: str = "auto"  # auto | kernel | plain | dense
+    paged_kv: bool = False
+    page_size: int = 64
+    ce_dtype: str = "fp32"
+    embed_sharding: str = "vocab"
+    remat_policy: str = "full"
+    narrow_partials: bool = False
+    seq_parallel: bool = False
+    dropout: float = 0.0
+
+    @property
+    def n_scanned(self) -> int:
+        return self.n_layers - len(self.prefix) - len(self.suffix)
+
+    @property
+    def repeats(self) -> int:
+        n, p = self.n_scanned, len(self.pattern)
+        assert n % p == 0, (self.name, n, p)
+        return n // p
+
+    def layer_list(self) -> Tuple[LayerSpec, ...]:
+        return self.prefix + self.pattern * self.repeats + self.suffix
+
+    def paged_unsupported_reason(self) -> Optional[str]:
+        """Why ``paged_kv`` cannot serve this arch (None = it can)."""
+        bad = sorted({s.mixer for s in self.layer_list()
+                      if s.mixer not in ("gqa", "shared_attn", "none")})
+        if bad:
+            return "/".join(bad)
+        if self.encoder is not None:
+            return "cross-attention caches"
+        return None
+
+    def validate(self):
+        assert self.n_heads % max(self.n_kv_heads, 1) == 0, self.name
+        assert self.repeats >= 1
+        return self

@@ -1,0 +1,89 @@
+"""Common policy-aware layers: norms, rotary embeddings, the SwiGLU MLP,
+logit soft-capping and the init helpers.  Every matmul routes through
+``core.ops`` so the active PrecisionPolicy applies uniformly.  Weights keep
+the JAX layout ``[d_in, d_out]`` (``x @ W``)."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..core import ops as tp
+from ..core.policy import PrecisionPolicy
+
+F32 = torch.float32
+
+
+def param_dtype(policy: PrecisionPolicy) -> torch.dtype:
+    return tp.storage_dtype(policy.param_fmt, policy.mode)
+
+
+# ---------------------------------------------------------------------------
+# init helpers (numbers differ from jax.random's; tests convert JAX weights)
+# ---------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, d_in, d_out, dtype, device,
+               scale: Optional[float] = None):
+    scale = scale if scale is not None else d_in ** -0.5
+    w = torch.randn((d_in, d_out), generator=gen, dtype=F32, device=device)
+    return (w * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab, d, dtype, device):
+    # d^-1/2 keeps tied-unembedding logits at unit scale
+    w = torch.randn((vocab, d), generator=gen, dtype=F32, device=device)
+    return (w * d ** -0.5).to(dtype)
+
+
+def mlp_params(gen, d, f, dtype, device):
+    return {"gate": dense_init(gen, d, f, dtype, device),
+            "up": dense_init(gen, d, f, dtype, device),
+            "down": dense_init(gen, f, d, dtype, device)}
+
+
+# ---------------------------------------------------------------------------
+# norms (always f32 — FPnew keeps normalization in full precision)
+# ---------------------------------------------------------------------------
+def rmsnorm(x, gamma, eps: float = 1e-6):
+    xf = x.to(F32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + gamma.to(F32))
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=F32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float = 1e4):
+    """x: [..., S, D] (D even), positions: broadcastable to [..., S]."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)
+    ang = torch.as_tensor(positions, device=x.device)[..., None].to(F32) \
+        * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+def swiglu(x, w_gate, w_up, w_down, policy):
+    """SwiGLU MLP: matmuls under the multi-format FMA policy, the
+    activation under the elementwise policy."""
+    g = tp.tp_matmul(x, w_gate, policy)
+    u = tp.tp_matmul(x, w_up, policy)
+    h = tp.tp_elementwise("silu", g, policy=policy) * u
+    return tp.tp_matmul(h, w_down, policy)
+
+
+def softcap(x, cap: Optional[float]):
+    if cap is None:
+        return x
+    xf = x.to(F32)
+    return (cap * torch.tanh(xf / cap)).to(x.dtype)

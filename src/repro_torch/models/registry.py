@@ -1,0 +1,37 @@
+"""Architecture registry: ``--arch <id>`` -> (ModelConfig, Model).
+
+Only gemma2-9b (full width and ``reduced()``) is ported; any other arch id
+raises ``NotImplementedError``."""
+from __future__ import annotations
+
+import importlib
+
+from ..core.device import DeviceLike, resolve_device
+from ..core.policy import get_policy
+from .transformer import Model
+
+ARCHS = ("gemma2_9b",)
+
+ALIASES = {"gemma2-9b": "gemma2_9b"}
+
+
+def canonical(arch: str) -> str:
+    return ALIASES.get(arch, arch.replace("-", "_").replace(".", "_"))
+
+
+def get_config(arch: str, reduced: bool = False):
+    name = canonical(arch)
+    if name not in ARCHS:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet (ported: {', '.join(ARCHS)})")
+    mod = importlib.import_module(f"repro_torch.configs.{name}")
+    cfg = mod.reduced() if reduced else mod.CONFIG
+    return cfg.validate()
+
+
+def build_model(arch: str, policy="tp_bf16", reduced: bool = False,
+                device: DeviceLike = None, **cfg_overrides) -> Model:
+    """The model on ``device`` (default: the GPU; raises without one)."""
+    model = Model(cfg=get_config(arch, reduced=reduced),
+                  policy=get_policy(policy), device=resolve_device(device))
+    return model.with_cfg(**cfg_overrides) if cfg_overrides else model

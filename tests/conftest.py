@@ -58,3 +58,9 @@ def engine_model():
     """The continuous-engine house model: reduced gemma2 over a paged
     16-token-page pool (what every engine suite builds first)."""
     return cached_model("gemma2-9b", paged_kv=True, page_size=16)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (the port's kernels); skips "
+        "without one")
