@@ -6,16 +6,26 @@
 Phases, in order; the first failure ends the run with a non-zero exit:
 
 1. The card's name and power limit (``nvidia-smi``), then the build of
-   every CUDA kernel of the serving path (one ``nvcc`` per source, all
-   started together).
-2. Kernel phase: each kernel against its plain PyTorch version on the card,
-   in the working dtype, at the serving path's shapes (head_dim 256, GQA
+   every CUDA kernel (one ``nvcc`` per source, all started together).
+2. Kernel phase: each attention kernel against its plain PyTorch version on
+   the card, in the working dtype, at the serving path's shapes (head_dim 256, GQA
    group 2, pages of 64 and 16 tokens; bf16 and fp8-e5m2 pools; ragged
    ``kv_len`` with an idle row; window, softcap, aliased pages; a prefill
    chunk at ``q_offset > 0``).  One JSON line per case: error and
    tolerance, kernel / plain / library time, and the card's least time for
    the same work (``bound_ms``).
-3. Slice phase: full-width gemma2-9b under ``tp_bf16`` with seeded random
+3. Op-path phase: the transprecision op path at gemma2-9b's MLP widths
+   (d_model 3584, d_ff 14336).  Each of its kernels (tp_matmul,
+   tp_quantize, cast_and_pack, dotp_ex) against its plain version on the
+   card: quantize and pack bit for bit, tp_matmul within
+   ``2 K 2^-24 (|A| @ |B|)`` plus one output ulp (with its fused snap read
+   back bit for bit), dotp_ex within ``1e-5 sum |a b|`` of the exact f64
+   sum, and the paper's Table III stream to >= 22 correct bits.  Then the
+   public entry points in sequence — quantize two weights to fp8, two
+   ``core.ops.tp_matmul(..., "em_fp8", use_kernel=True)`` products, pack
+   them, and the expanding dot product of the two weights — with every
+   launch counter > 0 afterwards.
+4. Slice phase: full-width gemma2-9b under ``tp_bf16`` with seeded random
    weights, served by ``ContinuousEngine`` (4 slots, 8 requests, pages of
    64 tokens, one request crossing the 4096-token local window).  Every
    request must get its whole budget and both kernels must have launched
@@ -24,7 +34,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    device's idle share.  Then one
    request is served again with the plain versions and its first-token
    logits and greedy tokens are compared.
-4. The kernels line, the card line, and as the last line
+5. The kernels line (all six kernels), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports no JAX.  Needs one CUDA device and ``nvcc`` (``CUDA_HOME``, PATH
@@ -34,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -42,9 +53,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: H100 SXM dense peaks (NVIDIA data sheet): HBM3 bytes/s, bf16 FLOP/s
+#: H100 SXM dense peaks (NVIDIA data sheet): HBM3 bytes/s, bf16 / fp16 and
+#: fp8 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
+FP8_FLOP_S = 1979e12
+F32_FLOP_S = 67e12
 
 #: kernel-vs-plain tolerance: both sum in f32 and round p to bf16 before
 #: p.V; a summation-order difference can flip one such rounding, worth up
@@ -71,6 +85,22 @@ KERNELS = {
         route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:201"),
+    "tp_matmul": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/tp_matmul.cu",
+        replaces="src/repro/kernels/tp_matmul.py:61"),
+    "tp_quantize": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/tp_quant.cu",
+        replaces="src/repro/kernels/tp_quant.py:40"),
+    "cast_and_pack": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/tp_quant.cu",
+        replaces="src/repro/kernels/tp_quant.py:63"),
+    "dotp_ex": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/dotp_ex.cu",
+        replaces="src/repro/kernels/dotp_ex.py:43"),
 }
 
 
@@ -102,8 +132,8 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOP_S
+def bound(nbytes: float, flops: float, flop_s: float = BF16_FLOP_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / flop_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -343,7 +373,362 @@ def kernel_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the slice, end to end
+# phase 3: the transprecision op path at gemma2-9b's MLP widths
+# ---------------------------------------------------------------------------
+D_MODEL, D_FF = 3584, 14336
+#: integer operations of the CONV snap per element (``quantize_bits``:
+#: mask, shift, add, compare and select steps), counted at the f32 rate
+SNAP_OPS = 12
+#: dotp_ex: each of kernel and plain within this share of sum |a_i b_i| of
+#: the exact f64 sum (f32 sums of 51M exact products in two orders)
+DOTP_REL_TOL = 1e-5
+#: Table III (paper): the expanding FMA keeps >= 22 correct bits (variant e)
+TABLE3_MIN_BITS = 22
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _bit_mismatches(got, want) -> int:
+    """Elements whose bits differ, NaN-aware (a NaN only has to be NaN)
+    and sign-of-zero aware."""
+    import torch
+    idt = {4: torch.int32, 2: torch.int16}[got.element_size()]
+    nan_g, nan_w = torch.isnan(got.float()), torch.isnan(want.float())
+    diff = (got.view(idt) != want.view(idt)) & ~(nan_g & nan_w)
+    return int((diff | (nan_g != nan_w)).sum().item())
+
+
+def _edges(x):
+    """Put the snap's edge cases into the first row of ``x``: both zeros,
+    Inf, NaN, an f32 subnormal, values at and under fp8 min normal, fp8 max
+    normal and its overflow tie."""
+    import torch
+    e = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"),
+                      1e-40, 2.0 ** -14, 2.0 ** -14 * (1 - 2.0 ** -3),
+                      2.0 ** -15, 57344.0, 61440.0, -61440.0],
+                     device=x.device)
+    x[0, :e.numel()] = e
+    return x
+
+
+def _snap_readback(a, b, quant):
+    """The kernel's snapped operands, read back through identity products
+    (x * 1 plus zeros is exact) in K chunks of 2048, against the plain
+    snap.  Values are compared: an f32 sum starting at +0 turns a snapped
+    -0 into +0.  Returns the number of differing elements."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.tp_matmul import tp_matmul_cuda
+    k, c = a.shape[1], 2048
+    bad = 0
+    for k0 in range(0, k, c):
+        eye = torch.eye(min(c, k - k0), device="cuda")
+        sa = tp_matmul_cuda(a[:, k0:k0 + c].contiguous(), eye,
+                            quant_fmt_name=quant)
+        sb = tp_matmul_cuda(eye, b[k0:k0 + c], quant_fmt_name=quant)
+        bad += int((sa != ref.tp_quantize_ref(a[:, k0:k0 + c],
+                                              fmt_name=quant)).sum().item())
+        bad += int((sb != ref.tp_quantize_ref(b[k0:k0 + c],
+                                              fmt_name=quant)).sum().item())
+    return bad
+
+
+def mm_case(name, *, m, k, n, dtype, out_dtype, quant=None, seed,
+            flop_s=BF16_FLOP_S, library=True, library_note=None, iters=20):
+    """One tp_matmul case: ``a [m, k] @ b [k, n]`` (b scaled by k^-1/2,
+    a weight's scale) in ``dtype``, stored in ``out_dtype``."""
+    import torch
+    from repro_torch.kernels.tp_matmul import (agreement_tol, tp_matmul_cuda,
+                                               tp_matmul_plain)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    b = (torch.randn((k, n), generator=gen, device="cuda")
+         * k ** -0.5).to(dtype)
+    kern = lambda: tp_matmul_cuda(a, b, out_dtype=out_dtype,
+                                  quant_fmt_name=quant)
+    plain = lambda: tp_matmul_plain(a, b, out_dtype=out_dtype,
+                                    quant_fmt_name=quant)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: kernel output is not finite")
+    err = (got.float() - want.float()).abs()
+    tol = agreement_tol(a, b, got, want, quant)
+    over = int((err > tol).sum().item())
+    snap_bad = _snap_readback(a, b, quant) if quant else None
+    bound_ms, bound_by = bound(_nbytes(a, b, got), 2.0 * m * k * n, flop_s)
+    lib = (cuda_ms(lambda: torch.mm(a, b), 50) if library else None)
+    rec = dict(case=name, kernel="tp_matmul", max_abs_err=err.max().item(),
+               elements_over_tol=over,
+               max_err_over_tol=(err / tol).max().item(),
+               snap_mismatches=snap_bad,
+               kernel_ms=cuda_ms(kern, iters),
+               plain_ms=cuda_ms(plain, 5, warmup=1),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
+               library_note=library_note,
+               shape=dict(m=m, k=k, n=n, operands=str(dtype)[6:],
+                          out=str(out_dtype)[6:], quant=quant))
+    log(json.dumps(rec))
+    if over:
+        raise AssertionError(f"{name}: {over} elements beyond the tolerance")
+    if snap_bad:
+        raise AssertionError(f"{name}: {snap_bad} snapped operands differ")
+    return rec
+
+
+def quant_case(name, *, rows, cols, fmt, stochastic, out_dtype, seed,
+               pack=False):
+    """One tp_quantize (or, with ``pack``, cast_and_pack) case on f32
+    weights of scale cols^-1/2 with the edge cases in their first row."""
+    import torch
+    from repro_torch.kernels.tp_quant import (cast_and_pack_cuda,
+                                              cast_and_pack_plain,
+                                              tp_quantize_cuda,
+                                              tp_quantize_plain)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda: _edges(torch.randn((rows, cols), generator=gen,
+                                    device="cuda") * cols ** -0.5)
+    x = mk()
+    y = mk() if pack else None
+    rbits = (torch.randint(-(1 << 31), 1 << 31, (rows, cols),
+                           dtype=torch.int32, generator=gen, device="cuda")
+             if stochastic else None)
+    kw = dict(fmt_name=fmt, stochastic=stochastic, out_dtype=out_dtype)
+    if pack:
+        kern = lambda: cast_and_pack_cuda(x, y, rbits, **kw)
+        plain = lambda: cast_and_pack_plain(x, y, rbits, **kw)
+        ins = (x, y) + ((rbits,) if stochastic else ())
+    else:
+        kern = lambda: tp_quantize_cuda(x, rbits, **kw)
+        plain = lambda: tp_quantize_plain(x, rbits, **kw)
+        ins = (x,) + ((rbits,) if stochastic else ())
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    bad = _bit_mismatches(got, want)
+    live = ~torch.isnan(want.float())
+    err = (got.float() - want.float())[live].abs()
+    err = err[torch.isfinite(err)].max().item()
+    n_el = x.numel() * (2 if pack else 1)
+    bound_ms, bound_by = bound(_nbytes(*ins, got), SNAP_OPS * n_el,
+                               F32_FLOP_S)
+    rec = dict(case=name, kernel="cast_and_pack" if pack else "tp_quantize",
+               max_abs_err=err, bit_mismatches=bad,
+               kernel_ms=cuda_ms(kern, 20),
+               plain_ms=cuda_ms(plain, 5, warmup=1),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               library_note="no one torch call computes the FTZ grid snap: "
+                            ".to(float8_e5m2) / .to(bfloat16) keep "
+                            "subnormals",
+               shape=dict(rows=rows, cols=cols, fmt=fmt,
+                          stochastic=stochastic, out=str(out_dtype)[6:]))
+    log(json.dumps(rec))
+    if bad:
+        raise AssertionError(f"{name}: {bad} elements differ in their bits")
+    return rec
+
+
+def _dotp_check(name, a, b, lanes_k, lanes_p):
+    """(kernel total, plain total, exact f64 sum, sum |a b|) on the card;
+    raises when either total is off the exact sum by more than the
+    tolerance."""
+    import torch
+    pa, pb = a.double(), b.double()
+    exact = (pa * pb).sum().item()
+    scale = (pa * pb).abs().sum().item()
+    tk, tp = lanes_k.double().sum().item(), lanes_p.double().sum().item()
+    for who, t in (("kernel", tk), ("plain", tp)):
+        if not (math.isfinite(t) and abs(t - exact) <= DOTP_REL_TOL * scale):
+            raise AssertionError(f"{name}: {who} sum {t} vs exact {exact} "
+                                 f"(sum |ab| {scale})")
+    return tk, tp, exact, scale
+
+
+def dotp_case(name, *, n, seed):
+    """dotp_ex over two fp16 streams of ``n`` values at a weight's scale
+    (d_model^-1/2)."""
+    import torch
+    from repro_torch.kernels.dotp_ex import dotp_ex_cuda, dotp_ex_plain
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = (torch.randn(n, generator=gen, device="cuda") * D_MODEL ** -0.5).half()
+    b = (torch.randn(n, generator=gen, device="cuda") * D_MODEL ** -0.5).half()
+    kern = lambda: dotp_ex_cuda(a, b, src_dtype=torch.float16)
+    plain = lambda: dotp_ex_plain(a, b, src_dtype=torch.float16)
+    tk, tp, exact, scale = _dotp_check(name, a, b, kern(), plain())
+    bound_ms, bound_by = bound(_nbytes(a, b), 2.0 * n, F32_FLOP_S)
+    rec = dict(case=name, kernel="dotp_ex", max_abs_err=abs(tk - tp),
+               kernel_err_vs_exact=abs(tk - exact),
+               plain_err_vs_exact=abs(tp - exact), sum_abs=scale,
+               tol=DOTP_REL_TOL * scale,
+               kernel_ms=cuda_ms(kern, 20),
+               plain_ms=cuda_ms(plain, 5, warmup=1),
+               bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=cuda_ms(lambda: torch.mm(
+                   a.view(1, -1), b.view(-1, 1), out_dtype=torch.float32),
+                   20),
+               library_note="torch.mm([1, n] fp16, [n, 1] fp16, "
+                            "out_dtype=float32)",
+               shape=dict(n=n, dtype="float16", src="float16"))
+    log(json.dumps(rec))
+    return rec
+
+
+def table3_case(seed: int = 0, n: int = 1024):
+    """The paper's Table III stream (``benchmarks/table3_case_study.py``):
+    two uniform [0, 1) streams of ``n`` values rounded to fp16; the
+    expanding dot product must keep >= ``TABLE3_MIN_BITS`` correct bits
+    against the exact f64 sum, in the kernel and in the plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.core import softfloat
+    from repro_torch.kernels.dotp_ex import dotp_ex_cuda, dotp_ex_plain
+    rs = np.random.RandomState(seed)
+    a64, b64 = rs.uniform(0.0, 1.0, n), rs.uniform(0.0, 1.0, n)
+    a = softfloat.quantize(torch.tensor(a64, dtype=torch.float32,
+                                        device="cuda"), "fp16").half()
+    b = softfloat.quantize(torch.tensor(b64, dtype=torch.float32,
+                                        device="cuda"), "fp16").half()
+    lk = dotp_ex_cuda(a, b, src_dtype=torch.float16)
+    lp = dotp_ex_plain(a, b, src_dtype=torch.float16)
+    tk, tp, exact, _ = _dotp_check("dotp_fp16_table3", a, b, lk, lp)
+
+    def bits(res):
+        rel = abs(res - exact) / abs(exact)
+        return 30 if rel == 0 else max(0, math.floor(-math.log2(rel)))
+    rec = dict(case="dotp_fp16_table3", kernel="dotp_ex",
+               max_abs_err=abs(tk - tp), exact=exact, kernel_sum=tk,
+               plain_sum=tp, kernel_bits=bits(tk), plain_bits=bits(tp),
+               min_bits=TABLE3_MIN_BITS,
+               kernel_ms=cuda_ms(lambda: dotp_ex_cuda(
+                   a, b, src_dtype=torch.float16), 50),
+               bound_ms=bound(_nbytes(a, b), 2.0 * n, F32_FLOP_S)[0],
+               shape=dict(n=n, dtype="float16", src="float16"))
+    log(json.dumps(rec))
+    if min(rec["kernel_bits"], rec["plain_bits"]) < TABLE3_MIN_BITS:
+        raise AssertionError(f"Table III stream: {rec['kernel_bits']} / "
+                             f"{rec['plain_bits']} correct bits < "
+                             f"{TABLE3_MIN_BITS}")
+    return rec
+
+
+def op_kernel_phase() -> dict:
+    """Every op-path case; returns {kernel name: [records]} (the first
+    record of each kernel is its main case)."""
+    import torch
+    # switches off reduced-precision bf16 reductions, so torch.mm computes
+    # the kernel's function (one f32 sum rounded once)
+    import repro_torch.core.ops  # noqa: F401
+    bf16, f32 = torch.bfloat16, torch.float32
+    recs = {"tp_matmul": [], "tp_quantize": [], "cast_and_pack": [],
+            "dotp_ex": []}
+    mm = recs["tp_matmul"]
+    mm.append(mm_case("mm_bf16_mlp_up", m=256, k=D_MODEL, n=D_FF, dtype=bf16,
+                      out_dtype=bf16, seed=11))
+    mm.append(mm_case("mm_bf16_decode", m=4, k=D_MODEL, n=D_FF, dtype=bf16,
+                      out_dtype=bf16, seed=12))
+    mm.append(mm_case("mm_em_fp8_mlp_down", m=256, k=D_FF, n=D_MODEL,
+                      dtype=f32, out_dtype=f32, quant="fp8", seed=13,
+                      library=False, iters=10,
+                      library_note="no one torch call fuses the FTZ fp8 "
+                                   "grid snap into the product"))
+    mm.append(mm_case("mm_fp8_native", m=256, k=D_MODEL, n=D_FF,
+                      dtype=torch.float8_e5m2, out_dtype=bf16, seed=14,
+                      flop_s=FP8_FLOP_S, library=False,
+                      library_note="torch.mm does not take float8 operands; "
+                                   "torch._scaled_mm is a private call"))
+    mm.append(mm_case("mm_ragged", m=50, k=100, n=70, dtype=bf16,
+                      out_dtype=bf16, seed=15))
+    q = recs["tp_quantize"]
+    q.append(quant_case("quant_fp8_rne_weight", rows=D_MODEL, cols=D_FF,
+                        fmt="fp8", stochastic=False, out_dtype=f32, seed=21))
+    q.append(quant_case("quant_fp8_stoch_weight", rows=D_MODEL, cols=D_FF,
+                        fmt="fp8", stochastic=True, out_dtype=f32, seed=22))
+    q.append(quant_case("quant_fp16alt_bf16out", rows=D_MODEL, cols=D_FF,
+                        fmt="fp16alt", stochastic=False, out_dtype=bf16,
+                        seed=23))
+    recs["cast_and_pack"].append(quant_case(
+        "pack_fp8_weight", rows=D_MODEL, cols=D_FF, fmt="fp8",
+        stochastic=False, out_dtype=f32, seed=24, pack=True))
+    recs["dotp_ex"].append(dotp_case("dotp_fp16_weight", n=D_MODEL * D_FF,
+                                     seed=31))
+    recs["dotp_ex"].append(table3_case())
+    torch.cuda.empty_cache()
+    return recs
+
+
+def op_path_phase(seed: int = 0) -> dict:
+    """The op path's public entry points in sequence at gemma2-9b's MLP
+    widths, each through its kernel: two f32 weights [3584, 14336] quantized
+    to fp8, the two em_fp8 products of x [256, 3584] with them, the two
+    products packed, and the expanding dot product of the two weights as
+    fp16 streams.  Every launch counter must be > 0 afterwards and every
+    output finite; slices are held against the plain versions."""
+    import torch
+    from repro_torch.core import ops as tops
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.dotp_ex import dotp_ex_cuda
+    from repro_torch.kernels.tp_matmul import (agreement_tol, tp_matmul_cuda,
+                                               tp_matmul_plain)
+    from repro_torch.kernels.tp_quant import (cast_and_pack_cuda,
+                                              tp_quantize_cuda,
+                                              tp_quantize_plain)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w1, w2 = (torch.randn((D_MODEL, D_FF), generator=gen, device="cuda")
+              * D_MODEL ** -0.5 for _ in range(2))
+    x = torch.randn((256, D_MODEL), generator=gen, device="cuda")
+    kernels = {"tp_matmul": tp_matmul_cuda, "tp_quantize": tp_quantize_cuda,
+               "cast_and_pack": cast_and_pack_cuda, "dotp_ex": dotp_ex_cuda}
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    w1q = kops.tp_quantize(w1, fmt="fp8")
+    w2q = kops.tp_quantize(w2, fmt="fp8")
+    y1 = tops.tp_matmul(x, w1q, "em_fp8", use_kernel=True)
+    y2 = tops.tp_matmul(x, w2q, "em_fp8", use_kernel=True)
+    packed = kops.cast_and_pack(y1, y2, fmt="fp8")
+    d = kops.dotp_ex(w1q.half().reshape(-1), w2q.half().reshape(-1),
+                     policy="tp_fp16")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the op path")
+    outs = dict(w1q=w1q, w2q=w2q, y1=y1, y2=y2, packed=packed, d=d)
+    for name, t in outs.items():
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"op path: {name} is not finite")
+    if packed.shape != (256, 2 * D_FF) or y1.shape != (256, D_FF):
+        raise AssertionError(f"op path shapes {tuple(y1.shape)}, "
+                             f"{tuple(packed.shape)}")
+    # against the plain versions on slices of the same data
+    w_bad = _bit_mismatches(w1q[:64], tp_quantize_plain(w1[:64],
+                                                        fmt_name="fp8"))
+    ys = tp_matmul_plain(x[:16], w1q[:, :256], quant_fmt_name="fp8")
+    y_over = int(((y1[:16, :256] - ys).abs() > agreement_tol(
+        x[:16], w1q[:, :256], y1[:16, :256], ys, "fp8")).sum().item())
+    p_bad = _bit_mismatches(packed[:16, 1::2], tp_quantize_plain(
+        y2[:16].contiguous(), fmt_name="fp8"))
+    _, _, exact, scale = _dotp_check(
+        "op path dotp", w1q.half().reshape(-1), w2q.half().reshape(-1),
+        d.reshape(1, 1), d.reshape(1, 1))
+    res = dict(wall_s=wall, launches=launches, weight_snap_mismatches=w_bad,
+               matmul_elements_over_tol=y_over, pack_mismatches=p_bad,
+               dotp=d.item(), dotp_exact=exact, dotp_sum_abs=scale,
+               fp8_share_of_weight_zero=(w1q == 0).float().mean().item())
+    log(json.dumps({"op_path": res}))
+    if w_bad or y_over or p_bad:
+        raise AssertionError(f"op path disagrees with the plain versions: "
+                             f"{res}")
+    del w1, w2, x, outs, w1q, w2q, y1, y2, packed
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the slice, end to end
 # ---------------------------------------------------------------------------
 #: device-time classes of the profiled run, by kernel-name fragment
 KERNEL_CLASSES = (("decode_attention", ("decode_kernel",)),
@@ -492,12 +877,15 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     build_phase()
     recs = kernel_phase()
+    recs.update(op_kernel_phase())
+    op_res = op_path_phase()
     res = slice_phase()
+    launches = {**res["launches"], **op_res["launches"]}
     line = []
     for name, cases in recs.items():
         main_case = cases[0]
         line.append(dict(
-            name=name, **KERNELS[name], launches=res["launches"][name],
+            name=name, **KERNELS[name], launches=launches[name],
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],

@@ -1,7 +1,7 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
-library with a plain C entry point, loaded through ``ctypes`` (no PyTorch
+library with plain C entry points, loaded through ``ctypes`` (no PyTorch
 headers: a build takes seconds, not minutes).  Libraries land in the
 git-ignored ``build/`` directory beside this module, named by a digest of
 the sources and flags, so an edited source rebuilds and an unchanged one
@@ -24,17 +24,30 @@ from ..core.formats import get_format
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("decode_attention", "flash_attention")
+KERNELS = ("decode_attention", "flash_attention", "tp_matmul", "tp_quant",
+           "dotp_ex")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _VOIDP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
+#: library -> {C entry point: argtypes}; every pointer and the stream are
+#: ``c_void_p``, and every entry point returns an int (a cudaError_t)
 ARGTYPES = {
-    "decode_attention": [_VOIDP] * 7 + [_INT] * 16 + [_FLOAT, _INT, _FLOAT,
-                                                      _VOIDP],
-    "flash_attention": [_VOIDP] * 6 + [_INT] * 16 + [_FLOAT, _FLOAT, _VOIDP],
+    "decode_attention": {"decode_attention_launch":
+                         [_VOIDP] * 7 + [_INT] * 16
+                         + [_FLOAT, _INT, _FLOAT, _VOIDP]},
+    "flash_attention": {"flash_attention_launch":
+                        [_VOIDP] * 6 + [_INT] * 16 + [_FLOAT, _FLOAT, _VOIDP]},
+    "tp_matmul": {"tp_matmul_launch": [_VOIDP] * 3 + [_INT] * 8 + [_VOIDP]},
+    "tp_quant": {"tp_quantize_launch": [_VOIDP] * 3 + [_LL] + [_INT] * 5
+                 + [_VOIDP],
+                 "cast_and_pack_launch": [_VOIDP] * 4 + [_LL] + [_INT] * 5
+                 + [_VOIDP]},
+    "dotp_ex": {"dotp_ex_launch": [_VOIDP] * 4 + [_LL, _INT, _INT, _VOIDP],
+                "dotp_ex_max_blocks": []},
 }
 
 
@@ -95,9 +108,10 @@ def load(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_all([name])
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        for entry, argtypes in ARGTYPES[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 
@@ -109,7 +123,7 @@ SRC_KINDS = {"float32": 0, "bfloat16": 1, "float16": 2}
 def dtype_code(dt) -> int:
     name = str(dt).replace("torch.", "")
     if name not in DTYPE_CODES:
-        raise TypeError(f"the CUDA attention kernels do not take {dt}")
+        raise TypeError(f"the CUDA kernels do not take {dt}")
     return DTYPE_CODES[name]
 
 
@@ -126,6 +140,16 @@ def snap_args(fmt_name):
         return (0, 0, 0)
     f = get_format(fmt_name)
     return (f.m_bits, f.emax, f.emin)
+
+
+def grid_args(fmt_name):
+    """``snap_args`` of a grid the in-kernel snap can take: one that fits an
+    f32 container (e_bits <= 8, 1 <= m_bits < 23); raises otherwise."""
+    f = get_format(fmt_name)
+    if f.e_bits > 8 or not 1 <= f.m_bits < 23:
+        raise ValueError(f"{f}: the in-kernel snap needs a grid inside f32 "
+                         f"(e_bits <= 8, 1 <= m_bits < 23)")
+    return snap_args(f)
 
 
 def check(err: int, name: str) -> None:

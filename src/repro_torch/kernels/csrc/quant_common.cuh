@@ -1,14 +1,16 @@
-// CONV-stage device helpers shared by the attention kernels (FPnew CONV
-// block): storage format -> compute format at the FMA input.
+// CONV-stage device helpers shared by every kernel of the port (FPnew CONV
+// block): storage format -> compute format at the FMA input, and the
+// standalone grid snap of tp_quant.
 //
 // CUDA twin of src/repro_torch/kernels/quant_common.py (and of the JAX
-// package's kernels/quant_common.py ``quantize_rne_bits`` / ``widen``):
+// package's kernels/quant_common.py ``quantize_bits`` / ``widen``):
 //   * to_f32:      exact widening of a stored element (f32, bf16, fp16,
 //                  fp8 e5m2) to f32;
-//   * quantize_rne_bits: integer-space RNE snap of an f32 container onto an
-//                  (e, m) grid — FTZ below min normal except the RNE
-//                  boundary band, which rounds up to min normal; overflow to
-//                  +-Inf; Inf/NaN pass through;
+//   * quantize_bits: integer-space RNE or stochastic snap of an f32
+//                  container onto an (e, m) grid — FTZ below min normal
+//                  except the RNE boundary band, which rounds up to min
+//                  normal; overflow to +-Inf (or saturate); Inf/NaN pass
+//                  through; ``quantize_rne_bits`` is its RNE form;
 //   * round_src:   the cast to the multiply ("src") dtype — f32 (none), bf16
 //                  or fp16, round to nearest even.
 #pragma once
@@ -35,26 +37,42 @@ __device__ __forceinline__ float to_f32(__nv_fp8_e5m2 x) {
   return static_cast<float>(x);
 }
 
-// RNE snap onto the grid of a format with m mantissa bits and exponent range
-// [emin, emax]; m == 0 means "no snap".
-__device__ __forceinline__ float quantize_rne_bits(float x, int m, int emax,
-                                                   int emin) {
+// Integer-space rounding onto the grid of a format with m mantissa bits and
+// exponent range [emin, emax] (1 <= m <= 22): RNE, or stochastic with the
+// low 23 - m bits of ``rbits`` as the addend.  Below min normal the value
+// flushes to zero, except (RNE only) the boundary band
+// [min_normal * (1 - 2^-(m+1)), min_normal), which rounds up to min normal.
+// Overflow goes to +-Inf, or +-max normal with ``saturate``.  Inf and NaN
+// pass through.  The one rounding stage every kernel of the port shares.
+__device__ __forceinline__ float quantize_bits(float x, uint32_t rbits, int m,
+                                               int emax, int emin,
+                                               bool stochastic,
+                                               bool saturate) {
   const uint32_t s = 23u - (uint32_t)m;
   const uint32_t bits = __float_as_uint(x);
   const uint32_t sign = bits & 0x80000000u;
   const uint32_t mag = bits ^ sign;
   if (mag >= (0xFFu << 23)) return x;  // Inf / NaN pass through
-  const uint32_t tie = (mag >> s) & 1u;
-  const uint32_t addend = (1u << (s - 1u)) - 1u + tie;
+  const uint32_t addend =
+      stochastic ? (rbits & ((1u << s) - 1u))
+                 : (1u << (s - 1u)) - 1u + ((mag >> s) & 1u);
   uint32_t rmag = ((mag + addend) >> s) << s;
   const uint32_t max_bits =
       ((uint32_t)(emax + 127) << 23) | ((((1u << m) - 1u)) << s);
-  if (rmag > max_bits) rmag = 0xFFu << 23;
+  if (rmag > max_bits) rmag = saturate ? max_bits : (0xFFu << 23);
   const uint32_t min_bits = (uint32_t)(emin + 127) << 23;
-  const uint32_t boundary = ((uint32_t)(emin - 1 + 127) << 23) |
-                            ((((1u << m) - 1u)) << (23u - (uint32_t)m));
-  if (rmag < min_bits) rmag = (mag >= boundary) ? min_bits : 0u;
+  if (rmag < min_bits) {
+    const uint32_t boundary =
+        ((uint32_t)(emin - 1 + 127) << 23) | ((((1u << m) - 1u)) << s);
+    rmag = (!stochastic && mag >= boundary) ? min_bits : 0u;
+  }
   return __uint_as_float(sign | rmag);
+}
+
+// RNE snap (m == 0 is never passed here: callers test ``Snap::m`` first).
+__device__ __forceinline__ float quantize_rne_bits(float x, int m, int emax,
+                                                   int emin) {
+  return quantize_bits(x, 0u, m, emax, emin, false, false);
 }
 
 __device__ __forceinline__ float round_src(float x, int src_kind) {

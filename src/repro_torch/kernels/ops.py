@@ -1,5 +1,11 @@
-"""Public wrappers around the attention kernels: policy plumbing, head
-flattening, per-row length and page-table expansion, backend choice.
+"""Public wrappers around the kernels: policy plumbing, head flattening,
+per-row length and page-table expansion, backend choice.
+
+The attention wrappers take a ``backend``; the op-path wrappers
+(``tp_matmul``, ``tp_quantize``, ``cast_and_pack``, ``dotp_ex``) choose by
+the tensors' device alone (``resolve_backend("auto", ...)``): the kernel
+for CUDA tensors, the plain version for CPU ones.  There is no padding:
+the kernels mask their ragged edges.
 
 Backends (``cfg.decode_backend`` / ``cfg.prefill_backend``):
 
@@ -21,9 +27,14 @@ from typing import Optional
 
 import torch
 
+from ..core.formats import get_format
 from ..core.policy import get_policy
 from .decode_attention import decode_attention_cuda, decode_attention_plain
+from .dotp_ex import dotp_ex_cuda, dotp_ex_plain
 from .flash_attention import flash_attention_cuda, flash_attention_plain
+from .tp_matmul import tp_matmul_cuda, tp_matmul_plain
+from .tp_quant import (cast_and_pack_cuda, cast_and_pack_plain,
+                       tp_quantize_cuda, tp_quantize_plain)
 
 BACKENDS = ("auto", "kernel", "plain", "dense")
 
@@ -147,3 +158,91 @@ def decode_attention(q, k, v, *, kv_len, policy=None, block_table=None,
            softcap=softcap, kv_fmt_name=kv_fmt_name, q_fmt_name=q_fmt_name,
            src_dtype=src_dt, out_dtype=torch.float32)
     return o.reshape(b, h, 1, d)
+
+
+# ---------------------------------------------------------------------------
+# the transprecision op path
+# ---------------------------------------------------------------------------
+def _on_card(x) -> bool:
+    return resolve_backend("auto", x.device) == "kernel"
+
+
+def tp_matmul(a, b, *, policy=None, out_fmt=None, bk: Optional[int] = None):
+    """Policy-aware kernel matmul ``a [.., M, K] @ b [K, N]``.
+
+    native : operands cast to ``src_fmt``'s dtype, f32 sums, stored in
+             ``out_fmt`` (default: the policy's resolved out format).
+    emulate: f32 operands snapped onto the ``src_fmt`` grid inside the
+             kernel (FTZ), f32 sums, and the f32 result returned WITHOUT an
+             out-format snap — the JAX package's Pallas route, which
+             differs from ``core.ops.tp_einsum``.
+    ``bk`` fixes the plain version's K-block schedule; the CUDA kernel has
+    its own and ignores it."""
+    policy = get_policy(policy if policy is not None else "tp_bf16")
+    mp = policy.matmul
+    lead = a.shape[:-2]
+    a2 = a.reshape(-1, a.shape[-1])
+    if policy.mode == "native":
+        src = mp.src_fmt.native_dtype
+        a2, b2 = a2.to(src), b.to(src)
+        qname = None
+        out_fmt = get_format(out_fmt) if out_fmt is not None \
+            else mp.resolved_out()
+        out_dtype = out_fmt.native_dtype
+    else:
+        a2, b2 = a2.to(torch.float32), b.to(torch.float32)
+        qname = mp.src_fmt.name if mp.src_fmt.name != "fp32" else None
+        out_dtype = torch.float32
+    if _on_card(a2):
+        r = tp_matmul_cuda(a2, b2, out_dtype=out_dtype, quant_fmt_name=qname)
+    else:
+        r = tp_matmul_plain(a2, b2, out_dtype=out_dtype,
+                            quant_fmt_name=qname, bk=bk)
+    return r.reshape(*lead, a.shape[-2], b.shape[-1])
+
+
+def _rbits(shape, generator, device):
+    """32 random bits per element (int32), from the caller's generator."""
+    if generator is None:
+        raise ValueError("stochastic rounding requires a torch.Generator")
+    return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
+                         generator=generator, device=device)
+
+
+def tp_quantize(x, *, fmt, stochastic: bool = False,
+                generator: Optional[torch.Generator] = None,
+                out_dtype=None):
+    """Kernel quantization of a 2-D f32 tensor onto ``fmt``'s grid (CONV
+    block): RNE or stochastic, FTZ below min normal, stored in
+    ``out_dtype`` (default f32).  Stochastic bits come from ``generator``
+    (on x's device), drawn here and handed to the kernel."""
+    fmt = get_format(fmt)
+    x = x.to(torch.float32)
+    rbits = _rbits(x.shape, generator, x.device) if stochastic else None
+    fn = tp_quantize_cuda if _on_card(x) else tp_quantize_plain
+    return fn(x, rbits, fmt_name=fmt.name, stochastic=stochastic,
+              out_dtype=out_dtype or torch.float32)
+
+
+def cast_and_pack(a, b, *, fmt, stochastic: bool = False,
+                  generator: Optional[torch.Generator] = None):
+    """Kernel cast-and-pack: two 2-D f32 tensors [R, C] snapped onto
+    ``fmt``'s grid (b with the complemented random bits) and interleaved
+    column by column into [R, 2C] f32.  Flushes below min normal, unlike
+    ``core.ops.cast_and_pack``, which keeps gradual underflow."""
+    fmt = get_format(fmt)
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    rbits = _rbits(a.shape, generator, a.device) if stochastic else None
+    fn = cast_and_pack_cuda if _on_card(a) else cast_and_pack_plain
+    return fn(a, b, rbits, fmt_name=fmt.name, stochastic=stochastic)
+
+
+def dotp_ex(a, b, *, policy=None):
+    """Expanding dot product of two 1-D streams (paper Fig 11e): the
+    kernel's 128 lane sums, added here.  Operands widen to ``src_fmt``'s
+    dtype in native mode, stay f32 in emulate mode."""
+    policy = get_policy(policy if policy is not None else "tp_fp16")
+    src_dt = (policy.matmul.src_fmt.native_dtype
+              if policy.mode == "native" else torch.float32)
+    fn = dotp_ex_cuda if _on_card(a) else dotp_ex_plain
+    return fn(a, b, src_dtype=src_dt).sum()

@@ -1,16 +1,19 @@
 """Shared CONV-stage helpers (FPnew CONV block) in torch.
 
-Integer-space RNE rounding of f32 containers onto an arbitrary (e, m) grid
-— the plain-torch twin of the ``__device__`` functions in
-``csrc/quant_common.cuh`` that both attention kernels use to widen their
-operands.  The arithmetic is int32: the magnitude of an f32 fits in 31 bits,
-and torch on the CPU has no uint32 ``>>``, ``+`` or ``<``.
+Integer-space rounding (RNE or stochastic) of f32 containers onto an
+arbitrary (e, m) grid — the plain-torch twin of the ``__device__`` functions
+in ``csrc/quant_common.cuh`` that every CUDA kernel of the port uses: the
+attention kernels to widen their operands, tp_matmul for its fused operand
+snap, tp_quant for the standalone CONV.  The arithmetic is int32: the
+magnitude of an f32 fits in 31 bits, and torch on the CPU has no uint32
+``>>``, ``+`` or ``<``.
 
 Semantics (bit for bit as the JAX package's ``quant_common``): normals
-round to nearest even; below min normal the value flushes to zero, except
-the RNE boundary band ``[min_normal * (1 - 2^-(m+1)), min_normal)`` which
-rounds up to min normal; overflow goes to ±Inf (±max normal with
-``saturate=True``); Inf and NaN pass through.
+round to nearest even (or up by a random s-bit addend); below min normal the
+value flushes to zero, except the RNE boundary band
+``[min_normal * (1 - 2^-(m+1)), min_normal)`` which rounds up to min normal;
+overflow goes to ±Inf (±max normal with ``saturate=True``); Inf and NaN pass
+through.
 """
 from __future__ import annotations
 
@@ -23,10 +26,19 @@ _MAG = (1 << 31) - 1        # 0x7FFFFFFF
 _INF = 0xFF << 23
 
 
-def quantize_rne_bits(x: torch.Tensor, fmt: FPFormat,
-                      saturate: bool = False) -> torch.Tensor:
-    """RNE grid snap of an f32 tensor onto ``fmt`` (FTZ below min normal,
-    boundary band to min normal)."""
+def quantize_bits(x: torch.Tensor, rbits, fmt, stochastic: bool,
+                  saturate: bool = False) -> torch.Tensor:
+    """Integer-space rounding of an f32 tensor onto ``fmt``'s grid (normals;
+    FTZ below min normal, the MXU-input-stage contract of the JAX
+    package's ``quantize_bits``; ``softfloat.quantize`` keeps the gradual-
+    underflow oracle).
+
+    ``rbits`` holds x's shape of 32 random bits (int32 or uint32; the bit
+    pattern is what counts) for the stochastic addend; ignored (may be
+    None) when ``stochastic`` is False.  RNE rounds the boundary band
+    ``[min_normal * (1 - 2^-(m+1)), min_normal)`` up to min normal;
+    stochastic mode flushes everything below min normal.  ``saturate=True``
+    clamps overflow to +-max normal instead of +-Inf."""
     fmt = get_format(fmt)
     m, emax, emin = fmt.m_bits, fmt.emax, fmt.emin
     assert x.dtype == torch.float32, x.dtype
@@ -36,19 +48,31 @@ def quantize_rne_bits(x: torch.Tensor, fmt: FPFormat,
     sign = bits & _SIGN
     mag = bits & _MAG
     special = mag >= _INF
-    mag_c = torch.where(special, torch.zeros_like(mag), mag)
-    tie = (mag_c >> s) & 1
-    rmag = ((mag_c + ((1 << (s - 1)) - 1) + tie) >> s) << s
+    mag_c = torch.where(special, 0, mag)
+    if stochastic:
+        r = rbits if rbits.dtype == torch.int32 else rbits.view(torch.int32)
+        addend = r.reshape(x.shape) & ((1 << s) - 1)
+    else:
+        addend = ((1 << (s - 1)) - 1) + ((mag_c >> s) & 1)
+    rmag = ((mag_c + addend) >> s) << s
     max_bits = ((emax + 127) << 23) | (((1 << m) - 1) << s)
-    ovf = max_bits if saturate else _INF
-    rmag = torch.where(rmag > max_bits, torch.full_like(rmag, ovf), rmag)
+    rmag = torch.where(rmag > max_bits, max_bits if saturate else _INF, rmag)
     min_bits = (emin + 127) << 23
-    boundary = ((emin - 1 + 127) << 23) | (((1 << m) - 1) << (23 - m))
-    low = torch.where(mag_c >= boundary, torch.full_like(rmag, min_bits),
-                      torch.zeros_like(rmag))
+    if stochastic:
+        low = 0
+    else:
+        boundary = ((emin - 1 + 127) << 23) | (((1 << m) - 1) << s)
+        low = torch.where(mag_c >= boundary, min_bits, 0).to(torch.int32)
     rmag = torch.where(rmag < min_bits, low, rmag)
     rmag = torch.where(special, mag, rmag)
     return (sign | rmag).view(torch.float32)
+
+
+def quantize_rne_bits(x: torch.Tensor, fmt: FPFormat,
+                      saturate: bool = False) -> torch.Tensor:
+    """RNE grid snap of an f32 tensor onto ``fmt`` (FTZ below min normal,
+    boundary band to min normal)."""
+    return quantize_bits(x, None, fmt, stochastic=False, saturate=saturate)
 
 
 def widen(x: torch.Tensor, fmt, src_dtype: torch.dtype) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Plain-torch versions of the attention kernels (the contracts the CUDA
-kernels are held against).
+"""Plain-torch oracles of the kernels (the contracts the CUDA kernels are
+held against): the two attention kernels and the transprecision op path
+(tp_matmul, tp_quantize, cast_and_pack, dotp_ex).
 
 Each function computes what one kernel computes — same formats, same
 masking, same accumulation dtype — written as straight torch, vectorized
@@ -10,6 +11,10 @@ kernels up to f32 summation order, never bitwise across frameworks.
 
 The softcap is always the exp form ``cap * (1 - 2 / (exp(2 s / cap) + 1))``
 (``softcap_scores``), never ``tanh``.
+
+The op-path oracles snap with ``softfloat.quantize`` (gradual underflow)
+and then flush below min normal (``_ftz``), which is the kernels' CONV
+contract (``quant_common.quantize_bits``, RNE) reached another way.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from ..core import softfloat
 from ..core.formats import get_format
 from .quant_common import widen
 
@@ -225,3 +231,70 @@ def flash_attention_paged_ref(q, k_pool, v_pool, block_table, *, bq,
     return flash_attention_ref(q, paged_gather(k_pool, block_table),
                                paged_gather(v_pool, block_table),
                                kv_len=kv_len, bq=bq, bk=page, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the transprecision op path
+# ---------------------------------------------------------------------------
+def _ftz(x, fmt):
+    """Flush magnitudes below ``fmt``'s min normal to a zero of x's sign."""
+    return torch.where(x.abs() < fmt.min_normal,
+                       torch.copysign(torch.zeros_like(x), x), x)
+
+
+def tp_matmul_ref(a, b, *, out_dtype=torch.float32, quant_fmt_name=None,
+                  bk: Optional[int] = None):
+    """Expanding-FMA matmul oracle: optional fp-grid operand snap (FTZ like
+    the kernel), exact widening to f32, f32 accumulation, ``out_dtype``
+    store.  ``bk`` fixes the K-block schedule: partial products are summed
+    per K-block in order (a last block shorter than ``bk`` is summed as
+    it is)."""
+    if quant_fmt_name is not None:
+        fmt = get_format(quant_fmt_name)
+        a = _ftz(softfloat.quantize(a.to(torch.float32), fmt), fmt)
+        b = _ftz(softfloat.quantize(b.to(torch.float32), fmt), fmt)
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    k = a.shape[-1]
+    if bk is None or bk >= k:
+        r = a @ b
+    else:
+        r = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                        device=a.device)
+        for kk in range(0, k, bk):  # sequential K-block accumulation
+            r = r + a[:, kk:kk + bk] @ b[kk:kk + bk, :]
+    return r.to(out_dtype)
+
+
+def tp_quantize_ref(x, *, fmt_name, out_dtype=torch.float32):
+    """RNE snap onto ``fmt_name``'s grid with FTZ, stored in ``out_dtype``."""
+    fmt = get_format(fmt_name)
+    q = _ftz(softfloat.quantize(x.to(torch.float32), fmt), fmt)
+    return q.to(out_dtype)
+
+
+def cast_and_pack_ref(a, b, *, fmt_name, out_dtype=torch.float32):
+    """Both streams snapped (RNE, FTZ), columns interleaved a, b, a, b..."""
+    qa = tp_quantize_ref(a, fmt_name=fmt_name, out_dtype=out_dtype)
+    qb = tp_quantize_ref(b, fmt_name=fmt_name, out_dtype=out_dtype)
+    r, c = qa.shape
+    return torch.stack([qa, qb], dim=-1).reshape(r, 2 * c)
+
+
+def dotp_ex_ref(a, b, *, src_dtype=torch.float16):
+    """Expanding dot product oracle (f32 accumulate of exact products)."""
+    prod = (a.to(src_dtype).to(torch.float32)
+            * b.to(src_dtype).to(torch.float32))
+    return prod.sum()
+
+
+def dotp_sequential_ref(a, b, *, src_fmt="fp16", acc_fmt="fp32"):
+    """Sequential oracle of the paper's fmacex loop (Fig 11e):
+    ``acc_{i+1} = round_acc(acc_i + a_i * b_i)``, products exact, one f32
+    step per element in order."""
+    src, acc = get_format(src_fmt), get_format(acc_fmt)
+    qa = softfloat.quantize(a, src)
+    qb = softfloat.quantize(b, src)
+    out = torch.zeros((), dtype=qa.dtype, device=qa.device)
+    for x, y in zip(qa.reshape(-1), qb.reshape(-1)):
+        out = softfloat.quantize(out + x * y, acc)
+    return out

@@ -14,7 +14,11 @@ torch = pytest.importorskip("torch")
 import repro_torch  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
+from repro_torch.kernels.dotp_ex import dotp_ex_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.tp_matmul import tp_matmul_cuda  # noqa: E402
+from repro_torch.kernels.tp_quant import (  # noqa: E402
+    cast_and_pack_cuda, tp_quantize_cuda)
 
 torch.set_num_threads(1)
 
@@ -97,6 +101,25 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                              k[0], torch.tensor([8, 8, 5, 5]), group=2)
     assert decode_attention_cuda.launches == 0
     assert flash_attention_cuda.launches == 0
+    # the op path: the same rule for its four wrappers and their launchers
+    op_kernels = (tp_matmul_cuda, tp_quantize_cuda, cast_and_pack_cuda,
+                  dotp_ex_cuda)
+    for fn in op_kernels:
+        fn.launches = 0
+    x, w = torch.randn(6, 10), torch.randn(10, 12)
+    assert kops.tp_matmul(x, w, policy="em_fp8").shape == (6, 12)
+    assert kops.tp_quantize(w, fmt="fp8").shape == (10, 12)
+    assert kops.cast_and_pack(w, w, fmt="fp8").shape == (10, 24)
+    assert torch.isfinite(kops.dotp_ex(w.reshape(-1), w.reshape(-1)))
+    with pytest.raises(ValueError, match="CUDA"):
+        tp_matmul_cuda(x, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        tp_quantize_cuda(w, fmt_name="fp8")
+    with pytest.raises(ValueError, match="CUDA"):
+        cast_and_pack_cuda(w, w, fmt_name="fp8")
+    with pytest.raises(ValueError, match="CUDA"):
+        dotp_ex_cuda(w.reshape(-1), w.reshape(-1))
+    assert [fn.launches for fn in op_kernels] == [0, 0, 0, 0]
 
 
 def test_backend_resolution():
