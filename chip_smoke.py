@@ -6,35 +6,49 @@
 Phases, in order; the first failure ends the run with a non-zero exit:
 
 1. The card's name and power limit (``nvidia-smi``), then the build of
-   every CUDA kernel (one ``nvcc`` per source, all started together).
+   every CUDA kernel (one ``nvcc`` per source, all started together), and
+   the count of ``HGMMA`` (wgmma) instructions in each library's SASS
+   (``cuobjdump -sass``): flash attention and tp_matmul must have some.
 2. Kernel phase: each attention kernel against its plain PyTorch version on
    the card, in the working dtype, at the serving path's shapes (head_dim 256, GQA
    group 2, pages of 64 and 16 tokens; bf16 and fp8-e5m2 pools; ragged
    ``kv_len`` with an idle row; window, softcap, aliased pages; a prefill
-   chunk at ``q_offset > 0``).  One JSON line per case: error and
-   tolerance, kernel / plain / library time, and the card's least time for
-   the same work (``bound_ms``).
+   chunk at ``q_offset > 0``), the plain flash version walking the
+   kernel's own key tiles.  One JSON line per case: error and tolerance,
+   the variant that ran, kernel / plain / library time, and the card's
+   least time for the same work (``bound_ms``).  Kernel and library times
+   are device times per call from a replayed CUDA graph (``device_ms``);
+   ``eager_ms`` is the same call launched from Python, host overhead
+   included; ``plain_ms`` is eager.  The main flash cases also
+   time the kept FMA variant (``fma_ms``) and the tensor-core variant with
+   the query tile (64 or 128 rows) that ``plan_q_rows`` did not pick; a small
+   policy-``fp32`` case holds the FMA variant against its plain version.
 3. Op-path phase: the transprecision op path at gemma2-9b's MLP widths
    (d_model 3584, d_ff 14336).  Each of its kernels (tp_matmul,
    tp_quantize, cast_and_pack, dotp_ex) against its plain version on the
    card: quantize and pack bit for bit, tp_matmul within
    ``2 K 2^-24 (|A| @ |B|)`` plus one output ulp (with its fused snap read
    back bit for bit), dotp_ex within ``1e-5 sum |a b|`` of the exact f64
-   sum, and the paper's Table III stream to >= 22 correct bits.  Then the
+   sum, and the paper's Table III stream to >= 22 correct bits.  The main
+   tp_matmul cases also time the kept FMA variant; a small tf32-grid case
+   holds it against its plain version.  Then the
    public entry points in sequence — quantize two weights to fp8, two
    ``core.ops.tp_matmul(..., "em_fp8", use_kernel=True)`` products, pack
    them, and the expanding dot product of the two weights — with every
-   launch counter > 0 afterwards.
+   launch counter > 0 afterwards and both products on the tensor-core
+   variant.
 4. Slice phase: full-width gemma2-9b under ``tp_bf16`` with seeded random
    weights, served by ``ContinuousEngine`` (4 slots, 8 requests, pages of
    64 tokens, one request crossing the 4096-token local window).  Every
    request must get its whole budget and both kernels must have launched
-   in that run.  A short window (the first four requests, 8 tokens each)
-   under ``torch.profiler`` gives device time by kernel class and the
-   device's idle share.  Then one
-   request is served again with the plain versions and its first-token
-   logits and greedy tokens are compared.
-5. The kernels line (all six kernels), the card line, and as the last line
+   in that run, every flash launch on the tensor-core variant.  A short
+   window (the first four requests, 8 tokens each) under
+   ``torch.profiler`` gives device time by kernel class and the device's
+   idle share.  Then one request is served again with the plain versions
+   and its first-token logits and greedy tokens are compared.
+5. The kernels line (all six kernels; flash attention and tp_matmul with
+   their launches by variant and the FMA variant's time), the card line,
+   and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports no JAX.  Needs one CUDA device and ``nvcc`` (``CUDA_HOME``, PATH
@@ -104,6 +118,10 @@ KERNELS = {
 }
 
 
+#: libraries with a tensor-core (wgmma) variant
+TC_LIBRARIES = ("flash_attention", "tp_matmul")
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -132,6 +150,38 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def device_ms(fn, calls: int = 10, replays: int = 3) -> float:
+    """Device time of one ``fn()`` call: ``calls`` calls captured into one
+    CUDA graph and replayed ``replays`` times between CUDA events, so the
+    host's launch overhead (the Python wrapper, tensor-map encoding, the
+    ctypes call) is not counted.  Warm-up calls run first on a side stream,
+    as capture requires."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / (calls * replays)
+    del graph
+    return ms
+
+
 def bound(nbytes: float, flops: float, flop_s: float = BF16_FLOP_S):
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / flop_s
     return (max(t_bytes, t_ops) * 1e3,
@@ -141,7 +191,18 @@ def bound(nbytes: float, flops: float, flop_s: float = BF16_FLOP_S):
 # ---------------------------------------------------------------------------
 # phase 1: build
 # ---------------------------------------------------------------------------
+def hgmma_count(lib) -> int:
+    """``HGMMA`` (wgmma) instructions in a built library's SASS."""
+    from repro_torch.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return sum(1 for ln in sass.splitlines() if "HGMMA" in ln)
+
+
 def build_phase() -> dict:
+    """Builds every library; returns {library: HGMMA count}.  The two
+    tensor-core libraries must contain wgmma instructions."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -150,9 +211,15 @@ def build_phase() -> dict:
         ptxas = [ln.strip() for ln in entry["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
         log(json.dumps({"build": name, "seconds": round(entry["seconds"], 2),
-                        "ptxas": ptxas[:8]}))
+                        "ptxas": ptxas[:16]}))
     log(f"kernels built in {secs:.1f} s")
-    return logs
+    hgmma = {name: hgmma_count(_build.library_path(name))
+             for name in _build.KERNELS}
+    log(json.dumps({"hgmma_instructions": hgmma}))
+    for name in TC_LIBRARIES:
+        if hgmma[name] <= 0:
+            raise AssertionError(f"{name}: no HGMMA instruction in its build")
+    return hgmma
 
 
 # ---------------------------------------------------------------------------
@@ -247,10 +314,11 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
     bound_ms, bound_by = bound(nbytes, flops)
     lib = None
     if softcap is None and min(kv_lens) > 0:
-        lib = cuda_ms(_sdpa_decode(q, k, v, table, kvl, window), 20)
+        lib = device_ms(_sdpa_decode(q, k, v, table, kvl, window))
     rec = dict(case=name, kernel="decode_attention", max_abs_err=err,
                tol=KERNEL_TOL, q_scale=q_scale, cap_effect=cap,
-               kernel_ms=cuda_ms(lambda: call("kernel"), 50),
+               kernel_ms=device_ms(lambda: call("kernel")),
+               eager_ms=cuda_ms(lambda: call("kernel"), 20),
                plain_ms=cuda_ms(lambda: call("plain"), 5),
                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
                shape=dict(slots=b, hkv=hkv, group=g, d=d, page=page,
@@ -265,23 +333,56 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
     return rec
 
 
+def _flat_flash(q, k, v, kvl, table, policy):
+    """The flattened arguments ``kernels.ops.flash_attention`` hands to the
+    kernels (head rows, flat pools, per-head page ids), for timing each
+    variant alone."""
+    from repro_torch.kernels import ops as kops
+    b, h, sq, d = q.shape
+    if table is not None:
+        n_pages, hkv, page, _ = k.shape
+        kf, vf = (x.reshape(n_pages * hkv, page, d) for x in (k, v))
+        tab, skv = kops.expand_block_table(table, hkv), table.shape[1] * page
+    else:
+        _, hkv, skv, _ = k.shape
+        kf, vf = (x.reshape(b * hkv, skv, d) for x in (k, v))
+        tab = None
+    src_dt, src_fmt = kops.policy_src(policy)
+    args = (q.reshape(b * h, sq, d), kf, vf,
+            kops.expand_kv_lens(kvl, b, h, skv, q.device), tab)
+    kw = dict(group=h // hkv, scale=d ** -0.5, src_fmt_name=src_fmt,
+              src_dtype=src_dt)
+    return args, kw
+
+
 def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
-               softcap, alias, seed, q_scale=1.0):
+               softcap, alias, seed, q_scale=1.0, policy=None, heads=(8, 2),
+               d=256, main=False):
     """A prefill chunk of width ``chunk`` at ``q_offset`` for ``rows``
     live chunk lengths, through the paged pool (``page`` > 0) or, with
     ``page == 0``, over contiguous K/V (fresh prompt, q_offset 0).
-    ``q_scale`` as in :func:`decode_case`."""
+    ``q_scale`` as in :func:`decode_case`.  The plain version walks the
+    kernel's own key tiles.  ``main`` cases also time the FMA variant
+    (``fma_ms``) and the tensor-core variant with the query tile that
+    ``plan_q_rows`` did not pick (``other_q_rows``: 64 or 128 rows) beside
+    the routed kernel."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops as kops
-    b, hkv, g, d = len(rows), 8, 2, 256
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_fma, flash_attention_tc,
+        kernel_block_k, plan_q_rows, tc_tile_dtype)
+    b, (hkv, g) = len(rows), heads
     h = hkv * g
     gen = torch.Generator(device="cuda").manual_seed(seed)
     kv_lens = [q_offset + r for r in rows]
+    if policy is None:
+        policy = "tp_bf16" if dtype == torch.bfloat16 else "tp_bf16_kv8"
+    src_dt, src_fmt = kops.policy_src(policy)
+    q_dt = torch.float32 if src_dt == torch.float32 else torch.bfloat16
     q = (torch.randn((b, h, chunk, d), generator=gen, device="cuda")
-         * q_scale).to(torch.bfloat16)
+         * q_scale).to(q_dt)
     kvl = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
-    policy = "tp_bf16" if dtype == torch.bfloat16 else "tp_bf16_kv8"
     if page:
         max_pages = -(-(q_offset + chunk) // page)
         k, v, table = _pool_and_table(gen, b, hkv, max_pages, page, d, dtype,
@@ -292,12 +393,22 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
         v = torch.randn((b, hkv, chunk, d), generator=gen,
                         device="cuda").to(dtype)
         table = None
+    bk = kernel_block_k(src_dt, src_fmt, d)
+    variant = "tc" if tc_tile_dtype(src_dt, src_fmt, d) is not None else "fma"
     call = lambda backend, cap=softcap: kops.flash_attention(
         q, k, v, kv_len=kvl, block_table=table, policy=policy,
         causal=True, window=window, softcap=cap, q_offset=q_offset,
-        backend=backend)
-    got, want = call("kernel"), call("plain")
+        backend=backend, block_k=bk)
+    before = (flash_attention_cuda.launches_tc,
+              flash_attention_cuda.launches_fma)
+    got = call("kernel")
+    routed = (flash_attention_cuda.launches_tc - before[0],
+              flash_attention_cuda.launches_fma - before[1])
+    want = call("plain")
     torch.cuda.synchronize()
+    if routed != ((1, 0) if variant == "tc" else (0, 1)):
+        raise AssertionError(f"{name}: launches (tc, fma) {routed}, "
+                             f"expected the {variant} variant")
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel output is not finite")
     err = (got - want).abs().max().item()
@@ -315,24 +426,50 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
     nbytes = (q.numel() * q.element_size() + keys * hkv * d * 2 * esz
               + got.numel() * 4 + kvl.numel() * 4)
     flops = 4.0 * d * pairs
-    bound_ms, bound_by = bound(nbytes, flops)
+    bound_ms, bound_by = bound(nbytes, flops,
+                               BF16_FLOP_S if variant == "tc" else F32_FLOP_S)
     lib = None
     if (softcap is None and window is None and table is None
-            and q_offset == 0 and min(rows) == chunk):
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 10)
-    rec = dict(case=name, kernel="flash_attention", max_abs_err=err,
+            and q_offset == 0 and min(rows) == chunk
+            and q_dt != torch.float32):
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+    extra = {}
+    if main:
+        args, kw = _flat_flash(q, k, v, kvl, table, policy)
+        kw.update(causal=True, window=window, softcap=softcap,
+                  q_offset=q_offset)
+        rows_planned = plan_q_rows(chunk, b * hkv, g)
+        alt = 64 if rows_planned == 128 else 128
+        extra = dict(
+            fma_ms=device_ms(lambda: flash_attention_fma(*args, **kw), 3, 1),
+            q_rows=rows_planned, other_q_rows=alt,
+            other_q_rows_ms=device_ms(lambda: flash_attention_tc(
+                *args, q_rows=alt, **kw)))
+        other = flash_attention_tc(*args, q_rows=alt, **kw)
+        extra["other_q_rows_max_abs_err"] = (other.reshape(got.shape)
+                                             - want).abs().max().item()
+    rec = dict(case=name, kernel="flash_attention", variant=variant,
+               block_k=bk, max_abs_err=err,
                tol=KERNEL_TOL, q_scale=q_scale, cap_effect=cap,
-               kernel_ms=cuda_ms(lambda: call("kernel"), 10),
+               kernel_ms=device_ms(lambda: call("kernel")),
+               eager_ms=cuda_ms(lambda: call("kernel"), 10), **extra,
                plain_ms=cuda_ms(lambda: call("plain"), 2, warmup=1),
                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
                shape=dict(rows=b, heads=h, hkv=hkv, d=d, chunk=chunk,
                           q_offset=q_offset, page=page, kv_len=kv_lens,
-                          window=window, softcap=softcap,
+                          window=window, softcap=softcap, policy=policy,
                           pool=str(dtype).replace("torch.", "")))
+    if main:
+        rec["speedup_vs_fma"] = rec["fma_ms"] / rec["kernel_ms"]
     log(json.dumps(rec))
     if not err <= KERNEL_TOL:
         raise AssertionError(f"{name}: max_abs_err {err} > {KERNEL_TOL}")
+    if main and not extra["other_q_rows_max_abs_err"] <= KERNEL_TOL:
+        raise AssertionError(f"{name}: {extra['other_q_rows']}-row tiles, "
+                             f"max_abs_err "
+                             f"{extra['other_q_rows_max_abs_err']} > "
+                             f"{KERNEL_TOL}")
     if cap is not None and not cap >= CAP_EFFECT_MIN:
         raise AssertionError(f"{name}: the softcap changes the output by "
                              f"{cap} < {CAP_EFFECT_MIN}")
@@ -362,13 +499,21 @@ def kernel_phase() -> dict:
     # the slice's prefill: a 256-token chunk continuing two prompts
     f.append(flash_case("flash_bf16_p64_chunk", dtype=bf16, page=64,
                         rows=[256, 200], q_offset=768, chunk=256,
-                        window=4096, softcap=50.0, alias=4, seed=4))
+                        window=4096, softcap=50.0, alias=4, seed=4,
+                        main=True))
     f.append(flash_case("flash_fp8_p16_window", dtype=fp8, page=16,
                         rows=[256, 31], q_offset=320, chunk=256, window=200,
                         softcap=50.0, alias=3, seed=5, q_scale=24.0))
     f.append(flash_case("flash_bf16_contig_nocap", dtype=bf16, page=0,
                         rows=[1024, 1024], q_offset=0, chunk=1024,
-                        window=None, softcap=None, alias=0, seed=6))
+                        window=None, softcap=None, alias=0, seed=6,
+                        main=True))
+    # the FMA variant, held against its plain version (policy fp32: f32
+    # operands without a grid)
+    f.append(flash_case("flash_f32_fp32_small", dtype=torch.float32, page=16,
+                        rows=[96, 40], q_offset=32, chunk=96, window=48,
+                        softcap=50.0, alias=2, seed=7, policy="fp32",
+                        heads=(2, 2), d=128))
     return recs
 
 
@@ -436,11 +581,15 @@ def _snap_readback(a, b, quant):
 
 
 def mm_case(name, *, m, k, n, dtype, out_dtype, quant=None, seed,
-            flop_s=BF16_FLOP_S, library=True, library_note=None, iters=20):
+            flop_s=BF16_FLOP_S, library=True, library_note=None, iters=20,
+            main=False):
     """One tp_matmul case: ``a [m, k] @ b [k, n]`` (b scaled by k^-1/2,
-    a weight's scale) in ``dtype``, stored in ``out_dtype``."""
+    a weight's scale) in ``dtype``, stored in ``out_dtype``.  ``main``
+    cases also time the FMA variant (``fma_ms``)."""
     import torch
-    from repro_torch.kernels.tp_matmul import (agreement_tol, tp_matmul_cuda,
+    from repro_torch.kernels.tp_matmul import (agreement_tol, plan_tc,
+                                               tc_operand_dtype,
+                                               tp_matmul_cuda, tp_matmul_fma,
                                                tp_matmul_plain)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
@@ -450,8 +599,17 @@ def mm_case(name, *, m, k, n, dtype, out_dtype, quant=None, seed,
                                   quant_fmt_name=quant)
     plain = lambda: tp_matmul_plain(a, b, out_dtype=out_dtype,
                                     quant_fmt_name=quant)
-    got, want = kern(), plain()
+    variant = ("tc" if tc_operand_dtype(dtype, quant) is not None
+               else "fma")
+    before = tp_matmul_cuda.launches_tc, tp_matmul_cuda.launches_fma
+    got = kern()
+    routed = (tp_matmul_cuda.launches_tc - before[0],
+              tp_matmul_cuda.launches_fma - before[1])
+    want = plain()
     torch.cuda.synchronize()
+    if routed != ((1, 0) if variant == "tc" else (0, 1)):
+        raise AssertionError(f"{name}: launches (tc, fma) {routed}, "
+                             f"expected the {variant} variant")
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: kernel output is not finite")
     err = (got.float() - want.float()).abs()
@@ -459,17 +617,27 @@ def mm_case(name, *, m, k, n, dtype, out_dtype, quant=None, seed,
     over = int((err > tol).sum().item())
     snap_bad = _snap_readback(a, b, quant) if quant else None
     bound_ms, bound_by = bound(_nbytes(a, b, got), 2.0 * m * k * n, flop_s)
-    lib = (cuda_ms(lambda: torch.mm(a, b), 50) if library else None)
-    rec = dict(case=name, kernel="tp_matmul", max_abs_err=err.max().item(),
+    lib = device_ms(lambda: torch.mm(a, b)) if library else None
+    extra = {}
+    if main:
+        extra["fma_ms"] = device_ms(lambda: tp_matmul_fma(
+            a, b, out_dtype=out_dtype, quant_fmt_name=quant), 3, 1)
+    plan = plan_tc(m, k, n) if variant == "tc" else None
+    rec = dict(case=name, kernel="tp_matmul", variant=variant,
+               plan=dataclasses.asdict(plan) if plan else None,
+               max_abs_err=err.max().item(),
                elements_over_tol=over,
                max_err_over_tol=(err / tol).max().item(),
                snap_mismatches=snap_bad,
-               kernel_ms=cuda_ms(kern, iters),
+               kernel_ms=device_ms(kern), eager_ms=cuda_ms(kern, iters),
+               **extra,
                plain_ms=cuda_ms(plain, 5, warmup=1),
                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
                library_note=library_note,
                shape=dict(m=m, k=k, n=n, operands=str(dtype)[6:],
                           out=str(out_dtype)[6:], quant=quant))
+    if main:
+        rec["speedup_vs_fma"] = rec["fma_ms"] / rec["kernel_ms"]
     log(json.dumps(rec))
     if over:
         raise AssertionError(f"{name}: {over} elements beyond the tolerance")
@@ -515,7 +683,7 @@ def quant_case(name, *, rows, cols, fmt, stochastic, out_dtype, seed,
                                F32_FLOP_S)
     rec = dict(case=name, kernel="cast_and_pack" if pack else "tp_quantize",
                max_abs_err=err, bit_mismatches=bad,
-               kernel_ms=cuda_ms(kern, 20),
+               kernel_ms=device_ms(kern), eager_ms=cuda_ms(kern, 20),
                plain_ms=cuda_ms(plain, 5, warmup=1),
                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                library_note="no one torch call computes the FTZ grid snap: "
@@ -561,12 +729,11 @@ def dotp_case(name, *, n, seed):
                kernel_err_vs_exact=abs(tk - exact),
                plain_err_vs_exact=abs(tp - exact), sum_abs=scale,
                tol=DOTP_REL_TOL * scale,
-               kernel_ms=cuda_ms(kern, 20),
+               kernel_ms=device_ms(kern), eager_ms=cuda_ms(kern, 20),
                plain_ms=cuda_ms(plain, 5, warmup=1),
                bound_ms=bound_ms, bound_by=bound_by,
-               library_ms=cuda_ms(lambda: torch.mm(
-                   a.view(1, -1), b.view(-1, 1), out_dtype=torch.float32),
-                   20),
+               library_ms=device_ms(lambda: torch.mm(
+                   a.view(1, -1), b.view(-1, 1), out_dtype=torch.float32)),
                library_note="torch.mm([1, n] fp16, [n, 1] fp16, "
                             "out_dtype=float32)",
                shape=dict(n=n, dtype="float16", src="float16"))
@@ -600,8 +767,8 @@ def table3_case(seed: int = 0, n: int = 1024):
                max_abs_err=abs(tk - tp), exact=exact, kernel_sum=tk,
                plain_sum=tp, kernel_bits=bits(tk), plain_bits=bits(tp),
                min_bits=TABLE3_MIN_BITS,
-               kernel_ms=cuda_ms(lambda: dotp_ex_cuda(
-                   a, b, src_dtype=torch.float16), 50),
+               kernel_ms=device_ms(lambda: dotp_ex_cuda(
+                   a, b, src_dtype=torch.float16)),
                bound_ms=bound(_nbytes(a, b), 2.0 * n, F32_FLOP_S)[0],
                shape=dict(n=n, dtype="float16", src="float16"))
     log(json.dumps(rec))
@@ -623,15 +790,28 @@ def op_kernel_phase() -> dict:
     recs = {"tp_matmul": [], "tp_quantize": [], "cast_and_pack": [],
             "dotp_ex": []}
     mm = recs["tp_matmul"]
+    no_snap_lib = "no one torch call fuses the FTZ fp8 grid snap into the " \
+                  "product"
     mm.append(mm_case("mm_bf16_mlp_up", m=256, k=D_MODEL, n=D_FF, dtype=bf16,
-                      out_dtype=bf16, seed=11))
+                      out_dtype=bf16, seed=11, main=True))
     mm.append(mm_case("mm_bf16_decode", m=4, k=D_MODEL, n=D_FF, dtype=bf16,
-                      out_dtype=bf16, seed=12))
+                      out_dtype=bf16, seed=12, main=True))
     mm.append(mm_case("mm_em_fp8_mlp_down", m=256, k=D_FF, n=D_MODEL,
                       dtype=f32, out_dtype=f32, quant="fp8", seed=13,
-                      library=False, iters=10,
-                      library_note="no one torch call fuses the FTZ fp8 "
-                                   "grid snap into the product"))
+                      library=False, iters=10, library_note=no_snap_lib,
+                      main=True))
+    # the narrow-N product that the K split is for
+    mm.append(mm_case("mm_bf16_mlp_down", m=256, k=D_FF, n=D_MODEL,
+                      dtype=bf16, out_dtype=bf16, seed=16))
+    mm.append(mm_case("mm_em_fp8_mlp_up", m=256, k=D_MODEL, n=D_FF,
+                      dtype=f32, out_dtype=f32, quant="fp8", seed=17,
+                      library=False, iters=10, library_note=no_snap_lib))
+    # the FMA variant, held against its plain version (tf32 grid: wider
+    # than 16 bits)
+    mm.append(mm_case("mm_tf32_grid_small", m=96, k=640, n=200, dtype=f32,
+                      out_dtype=f32, quant="tf32", seed=18, library=False,
+                      library_note="no one torch call fuses the tf32 grid "
+                                   "snap into the product"))
     mm.append(mm_case("mm_fp8_native", m=256, k=D_MODEL, n=D_FF,
                       dtype=torch.float8_e5m2, out_dtype=bf16, seed=14,
                       flop_s=FP8_FLOP_S, library=False,
@@ -682,6 +862,7 @@ def op_path_phase(seed: int = 0) -> dict:
     torch.cuda.synchronize()
     for fn in kernels.values():
         fn.launches = 0
+    tp_matmul_cuda.launches_tc = tp_matmul_cuda.launches_fma = 0
     t0 = time.perf_counter()
     w1q = kops.tp_quantize(w1, fmt="fp8")
     w2q = kops.tp_quantize(w2, fmt="fp8")
@@ -693,9 +874,14 @@ def op_path_phase(seed: int = 0) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
+    variants = {"tp_matmul": {"tc": tp_matmul_cuda.launches_tc,
+                              "fma": tp_matmul_cuda.launches_fma}}
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the op path")
+    if variants["tp_matmul"] != {"tc": 2, "fma": 0}:
+        raise AssertionError(f"the em_fp8 products did not both take the "
+                             f"tensor-core variant: {variants}")
     outs = dict(w1q=w1q, w2q=w2q, y1=y1, y2=y2, packed=packed, d=d)
     for name, t in outs.items():
         if not torch.isfinite(t).all():
@@ -714,7 +900,8 @@ def op_path_phase(seed: int = 0) -> dict:
     _, _, exact, scale = _dotp_check(
         "op path dotp", w1q.half().reshape(-1), w2q.half().reshape(-1),
         d.reshape(1, 1), d.reshape(1, 1))
-    res = dict(wall_s=wall, launches=launches, weight_snap_mismatches=w_bad,
+    res = dict(wall_s=wall, launches=launches, variants=variants,
+               weight_snap_mismatches=w_bad,
                matmul_elements_over_tol=y_over, pack_mismatches=p_bad,
                dotp=d.item(), dotp_exact=exact, dotp_sum_abs=scale,
                fp8_share_of_weight_zero=(w1q == 0).float().mean().item())
@@ -732,7 +919,7 @@ def op_path_phase(seed: int = 0) -> dict:
 # ---------------------------------------------------------------------------
 #: device-time classes of the profiled run, by kernel-name fragment
 KERNEL_CLASSES = (("decode_attention", ("decode_kernel",)),
-                  ("flash_attention", ("flash_kernel",)),
+                  ("flash_attention", ("flash_kernel", "flash_tc_kernel")),
                   ("gemm", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
 
 
@@ -805,12 +992,15 @@ def slice_phase(seed: int = 0) -> dict:
                            chunk=256)
     eng.run(reqs)                                    # warm-up
     decode_attention_cuda.launches = flash_attention_cuda.launches = 0
+    flash_attention_cuda.launches_tc = flash_attention_cuda.launches_fma = 0
     t0 = time.perf_counter()
     fin, stats = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"decode_attention": decode_attention_cuda.launches,
                 "flash_attention": flash_attention_cuda.launches}
+    variants = {"flash_attention": {"tc": flash_attention_cuda.launches_tc,
+                                    "fma": flash_attention_cuda.launches_fma}}
     for f in fin:
         if len(f.tokens) != GEN:
             raise AssertionError(f"request {f.rid}: {len(f.tokens)} of "
@@ -820,6 +1010,10 @@ def slice_phase(seed: int = 0) -> dict:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
+    if variants["flash_attention"] != {"tc": launches["flash_attention"],
+                                       "fma": 0}:
+        raise AssertionError(f"flash launches by variant {variants}: the "
+                             f"tensor-core variant must take them all")
     n_tok = sum(len(f.tokens) for f in fin)
     prompt_tok = sum(PROMPTS)
     res = dict(requests=len(fin), prompt_tokens=prompt_tok,
@@ -829,7 +1023,7 @@ def slice_phase(seed: int = 0) -> dict:
                                     / max(1, stats["decode_rounds"])),
                decode_rounds=stats["decode_rounds"],
                tok_s=n_tok / wall, peak_live_pages=stats["peak_live_pages"],
-               launches=launches, max_len=max_len,
+               launches=launches, variants=variants, max_len=max_len,
                crosses_window=max_len > 4096)
     log(json.dumps({"slice": res}))
     window = [dataclasses.replace(r, max_new=min(8, GEN), arrival=0)
@@ -881,15 +1075,20 @@ def main() -> int:
     op_res = op_path_phase()
     res = slice_phase()
     launches = {**res["launches"], **op_res["launches"]}
+    variants = {**res["variants"], **op_res["variants"]}
     line = []
     for name, cases in recs.items():
         main_case = cases[0]
-        line.append(dict(
+        entry = dict(
             name=name, **KERNELS[name], launches=launches[name],
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-            library_ms=main_case["library_ms"]))
+            library_ms=main_case["library_ms"])
+        if name in variants:
+            entry.update(launches_by_variant=variants[name],
+                         fma_ms=main_case.get("fma_ms"))
+        line.append(entry)
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

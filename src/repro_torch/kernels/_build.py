@@ -26,6 +26,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNELS = ("decode_attention", "flash_attention", "tp_matmul", "tp_quant",
            "dotp_ex")
+#: streaming multiprocessors of the target card (H100 SXM), for the
+#: kernels' host-side tile planning
+NUM_SMS = 132
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,9 +42,13 @@ ARGTYPES = {
     "decode_attention": {"decode_attention_launch":
                          [_VOIDP] * 7 + [_INT] * 16
                          + [_FLOAT, _INT, _FLOAT, _VOIDP]},
-    "flash_attention": {"flash_attention_launch":
-                        [_VOIDP] * 6 + [_INT] * 16 + [_FLOAT, _FLOAT, _VOIDP]},
-    "tp_matmul": {"tp_matmul_launch": [_VOIDP] * 3 + [_INT] * 8 + [_VOIDP]},
+    "flash_attention": {"flash_attention_fma_launch":
+                        [_VOIDP] * 6 + [_INT] * 16 + [_FLOAT, _FLOAT, _VOIDP],
+                        "flash_attention_tc_launch":
+                        [_VOIDP] * 6 + [_INT] * 18 + [_FLOAT, _FLOAT, _VOIDP]},
+    "tp_matmul": {"tp_matmul_fma_launch": [_VOIDP] * 3 + [_INT] * 8 + [_VOIDP],
+                  "tp_matmul_tc_launch": [_VOIDP] * 6 + [_INT] * 12
+                  + [_VOIDP]},
     "tp_quant": {"tp_quantize_launch": [_VOIDP] * 3 + [_LL] + [_INT] * 5
                  + [_VOIDP],
                  "cast_and_pack_launch": [_VOIDP] * 4 + [_LL] + [_INT] * 5
@@ -59,7 +66,8 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _target(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where the library of kernel ``name`` is (or will be) built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.iterdir()):
         if src.name == f"{name}.cu" or src.suffix == ".cuh":
@@ -78,7 +86,7 @@ def build_all(names: Sequence[str] = KERNELS) -> Dict[str, dict]:
     logs, procs = {}, {}
     t0 = time.perf_counter()
     for name in names:
-        out = _target(name)
+        out = library_path(name)
         if out.exists():
             logs[name] = {"seconds": 0.0, "log": ""}
             continue
@@ -104,7 +112,7 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = _target(name)
+        path = library_path(name)
         if not path.exists():
             build_all([name])
         lib = ctypes.CDLL(str(path))

@@ -23,6 +23,7 @@ where page ``p`` of head ``hk`` sits at flat slot ``p * Hkv + hk``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -75,8 +76,10 @@ def expand_block_table(table, heads: int):
     return flat.reshape(b * heads, mp)
 
 
-def _src(policy):
-    """(multiply dtype, grid the kernel snaps f32 operands onto or None)."""
+def policy_src(policy):
+    """(multiply dtype, grid the kernel snaps f32 operands onto or None)
+    of a policy (name or object): what the attention kernels route by."""
+    policy = get_policy(policy)
     mp = policy.matmul
     if policy.mode == "native":
         return mp.src_fmt.native_dtype, None
@@ -89,15 +92,18 @@ def flash_attention(q, k, v, *, kv_len=None, policy=None, block_table=None,
                     scale: Optional[float] = None, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None, q_offset: int = 0,
-                    backend: str = "auto"):
+                    backend: str = "auto", block_k: Optional[int] = None):
     """q [B, H, S, D], k/v [B, Hkv, Skv, D] -> [B, H, S, D] f32.
 
     Paged (``block_table`` [B, max_pages]): k/v are the page pools
     [n_pages, Hkv, page, D] of ``models.paged.PagedKVCache``.  ``kv_len``
     is None (= Skv), a scalar, or per-sequence [B]; ``q_offset`` shifts
-    the query positions (a chunk's start in its row)."""
+    the query positions (a chunk's start in its row).  ``block_k`` is the
+    plain version's key block (None: its default;
+    ``flash_attention.kernel_block_k`` gives the CUDA kernel's own tile);
+    the kernels ignore it."""
     policy = get_policy(policy if policy is not None else "tp_bf16")
-    src_dt, src_fmt_name = _src(policy)
+    src_dt, src_fmt_name = policy_src(policy)
     b, h, sq, d = q.shape
     if block_table is not None:
         n_pages, hkv, page, _ = k.shape
@@ -110,9 +116,10 @@ def flash_attention(q, k, v, *, kv_len=None, policy=None, block_table=None,
         kf = k.reshape(b * hkv, skv, d)
         vf = v.reshape(b * hkv, skv, v.shape[-1])
         table = None
-    fn = (flash_attention_cuda
-          if resolve_backend(backend, q.device) == "kernel"
-          else flash_attention_plain)
+    if resolve_backend(backend, q.device) == "kernel":
+        fn = flash_attention_cuda
+    else:
+        fn = functools.partial(flash_attention_plain, block_k=block_k)
     o = fn(q.reshape(b * h, sq, d), kf, vf,
            expand_kv_lens(kv_len, b, h, skv, q.device), table,
            group=h // hkv, scale=d ** -0.5 if scale is None else scale,
@@ -132,7 +139,7 @@ def decode_attention(q, k, v, *, kv_len, policy=None, block_table=None,
     page pools [n_pages, Hkv, page, D] with ``block_table`` [B, max_pages];
     ``kv_len`` scalar or per-sequence [B].  Returns [B, H, 1, D] f32."""
     policy = get_policy(policy if policy is not None else "tp_bf16")
-    src_dt, q_fmt_name = _src(policy)
+    src_dt, q_fmt_name = policy_src(policy)
     kv_fmt_name = (policy.kv_fmt.name if policy.mode != "native"
                    and policy.kv_fmt is not None else None)
     b, h, sq, d = q.shape

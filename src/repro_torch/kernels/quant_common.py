@@ -82,3 +82,17 @@ def widen(x: torch.Tensor, fmt, src_dtype: torch.dtype) -> torch.Tensor:
     if fmt is not None and x.dtype == torch.float32:
         x = quantize_rne_bits(x, fmt)
     return x.to(src_dtype)
+
+
+def exact_tile_dtype(fmt):
+    """The 16-bit type that holds every RNE-snapped value of ``fmt``'s grid
+    exactly (FTZ: normals only, plus zeros, Inf and NaN), or None: a grid
+    with e <= 5 and m <= 10 lies inside fp16, one with e <= 8 and m <= 7
+    inside bf16.  The tensor-core kernel variants multiply such operands
+    in that type."""
+    f = get_format(fmt)
+    if f.e_bits <= 5 and f.m_bits <= 10:
+        return torch.float16
+    if f.e_bits <= 8 and f.m_bits <= 7:
+        return torch.bfloat16
+    return None

@@ -224,13 +224,22 @@ def decode_attention_paged_ref(q, k_pool, v_pool, block_table, *, kv_len,
 
 
 def flash_attention_paged_ref(q, k_pool, v_pool, block_table, *, bq,
-                              kv_len=None, **kw):
-    """Paged prefill: gather pages, then the blocked walk with ``bk``
-    pinned to the page size.  block_table [BKV, nk] per-KV-row page ids."""
+                              bk: Optional[int] = None, kv_len=None, **kw):
+    """Paged prefill: gather pages, then the blocked walk over the gathered
+    keys in blocks of ``bk`` (None: the page size; the gathered keys are
+    zero-padded to a whole number of blocks, past every ``kv_len``).
+    block_table [BKV, nk] per-KV-row page ids."""
     page = k_pool.shape[1]
-    return flash_attention_ref(q, paged_gather(k_pool, block_table),
-                               paged_gather(v_pool, block_table),
-                               kv_len=kv_len, bq=bq, bk=page, **kw)
+    bk = page if bk is None else bk
+    kg = paged_gather(k_pool, block_table)
+    vg = paged_gather(v_pool, block_table)
+    pad = (-kg.shape[1]) % bk
+    if pad:
+        kg = torch.nn.functional.pad(kg, (0, 0, 0, pad))
+        vg = torch.nn.functional.pad(vg, (0, 0, 0, pad))
+    if kv_len is None:
+        kv_len = block_table.shape[1] * page
+    return flash_attention_ref(q, kg, vg, kv_len=kv_len, bq=bq, bk=bk, **kw)
 
 
 # ---------------------------------------------------------------------------

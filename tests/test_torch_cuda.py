@@ -7,7 +7,11 @@ machine with a card but without JAX it runs without the suite's conftest:
 
 Tolerance: kernel and plain version both multiply in the src dtype, sum in
 f32 and round p to the src dtype before p.V; a summation-order difference
-can flip one such rounding, worth up to 2^-8 of a unit-scale output.
+can flip one such rounding, worth up to 2^-8 of a unit-scale output.  The
+plain flash version walks the kernel's own key tiles
+(``flash_attention.kernel_block_k``), so both round p against the same
+running max.  Flash attention and tp_matmul each have a tensor-core and an
+FMA variant: every case checks which one launched (per-variant counters).
 
 The op-path kernels: quantize and cast-and-pack must equal their plain
 versions BITWISE (NaN-aware, sign of zero included); tp_matmul within
@@ -24,9 +28,12 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.dotp_ex import dotp_ex_cuda, dotp_ex_plain  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda, flash_attention_fma, flash_attention_plain,
+    flash_attention_tc, kernel_block_k)
 from repro_torch.kernels.tp_matmul import (  # noqa: E402
-    agreement_tol, tp_matmul_cuda, tp_matmul_plain)
+    agreement_tol, plan_tc, tc_operand_dtype, tp_matmul_cuda, tp_matmul_fma,
+    tp_matmul_plain, tp_matmul_tc)
 from repro_torch.kernels.tp_quant import (  # noqa: E402
     cast_and_pack_cuda, cast_and_pack_plain, tp_quantize_cuda,
     tp_quantize_plain)
@@ -94,13 +101,15 @@ def test_flash_kernel_matches_plain(gen, dtype, d, page, q_offset, window,
         torch.bfloat16)
     table = _table(gen, b, mp, n_pages)
     lens = torch.tensor([q_offset + sq, q_offset + 13], device="cuda")
+    bk = kernel_block_k(torch.bfloat16, None, d)
     call = lambda backend: kops.flash_attention(
         q, k, v, kv_len=lens, block_table=table, policy=POLICY[dtype],
         causal=True, window=window, softcap=softcap, q_offset=q_offset,
-        backend=backend)
-    before = flash_attention_cuda.launches
+        backend=backend, block_k=bk)
+    before = _flash_counts()
     got = call("kernel")
-    assert flash_attention_cuda.launches == before + 1
+    tc = d in (64, 128, 256)
+    assert _flash_counts() == _plus(before, 1, tc)
     want = call("plain")
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
@@ -112,8 +121,8 @@ def test_kernels_in_the_softcap_region(gen, dtype):
     """q scaled by 24 puts the scores near +-80, where the softcap 50 bends
     them: the cap changes each kernel's output by far more than ``TOL``,
     and each kernel still matches its plain version.  Prefill runs without
-    a window over pages of 32 keys, so the flash kernel's 32-key tiles and
-    the plain version's page blocks see the same running max and round p
+    a window over pages of 32 keys; the plain version walks the flash
+    kernel's own 64-key tiles, so both see the same running max and round p
     alike: what is left of the difference is the cap's own arithmetic."""
     b, hkv, h, d, page, mp, sq, q_offset = 2, 2, 4, 256, 32, 4, 40, 64
     n_pages = b * mp + 1
@@ -132,7 +141,8 @@ def test_kernels_in_the_softcap_region(gen, dtype):
             call = lambda backend, cap: kops.flash_attention(
                 q, k, v, kv_len=lens, block_table=table,
                 policy=POLICY[dtype], causal=True, window=None, softcap=cap,
-                q_offset=q_offset, backend=backend)
+                q_offset=q_offset, backend=backend,
+                block_k=kernel_block_k(torch.bfloat16, None, d))
         got = call("kernel", 50.0)
         want = call("plain", 50.0)
         uncapped = call("kernel", None)
@@ -141,10 +151,24 @@ def test_kernels_in_the_softcap_region(gen, dtype):
         assert (got - uncapped).abs().max().item() >= 64 * TOL
 
 
+def _flash_counts():
+    c = flash_attention_cuda
+    return c.launches, c.launches_tc, c.launches_fma
+
+
+def _mm_counts():
+    c = tp_matmul_cuda
+    return c.launches, c.launches_tc, c.launches_fma
+
+
+def _plus(before, n, tc):
+    return (before[0] + n, before[1] + (n if tc else 0),
+            before[2] + (0 if tc else n))
+
+
 def test_flash_kernel_contiguous_f32_snap(gen):
     """Emulated storage: f32 containers snapped onto the src grid in the
-    kernel, no page table."""
-    from repro_torch.kernels.flash_attention import flash_attention_plain
+    kernel, no page table (D 32: the FMA variant)."""
     bh, group, sq, d = 4, 2, 48, 32
     q = torch.randn((bh, sq, d), generator=gen, device="cuda")
     k = torch.randn((bh // group, sq, d), generator=gen, device="cuda")
@@ -152,8 +176,101 @@ def test_flash_kernel_contiguous_f32_snap(gen):
     kw = dict(group=group, scale=d ** -0.5, causal=True, window=None,
               softcap=None, src_fmt_name="fp16alt", src_dtype=torch.float32)
     lens = torch.tensor([48, 48, 30, 30], device="cuda")
+    before = _flash_counts()
     got = flash_attention_cuda(q, k, v, lens, **kw)
+    assert _flash_counts() == _plus(before, 1, False)
     want = flash_attention_plain(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= TOL
+
+
+def _flash_inputs(gen, *, d, page, group, dtype, src, rows, q_offset, sq):
+    """Flattened kernel inputs: q [BH, sq, D] (f32 for an f32 src, else
+    bf16), k/v contiguous [BKV, q_offset + sq, D] (``page`` 0) or a
+    shuffled flat pool with a [BKV, nk] table, per-row lengths [BH]."""
+    bkv = len(rows)
+    skv = q_offset + sq
+    q = torch.randn((bkv * group, sq, d), generator=gen, device="cuda").to(
+        torch.float32 if src == torch.float32 else torch.bfloat16)
+    if page:
+        nk = -(-skv // page)
+        n_rows = bkv * nk + 3
+        k, v = (torch.randn((n_rows, page, d), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        table = torch.randperm(n_rows, generator=gen, device="cuda")[
+            :bkv * nk].reshape(bkv, nk).to(torch.int32)
+        table[-1, 0] = table[0, 0]                   # an aliased page
+    else:
+        k, v = (torch.randn((bkv, skv, d), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        table = None
+    lens = torch.tensor([q_offset + r for r in rows], device="cuda")
+    return q, k, v, lens.repeat_interleave(group), table
+
+
+@pytest.mark.parametrize("variant", ["tc", "fma"])
+@pytest.mark.parametrize("d,page,group,dtype,window,softcap", [
+    (256, 64, 2, torch.bfloat16, 100, 50.0),
+    (256, 16, 2, torch.float8_e5m2, None, 50.0),
+    (256, 0, 2, torch.bfloat16, None, None),
+    (128, 16, 1, torch.bfloat16, 40, None),
+    (128, 0, 1, torch.float8_e5m2, 70, 30.0),
+    (64, 32, 2, torch.bfloat16, None, 30.0),
+    (64, 0, 1, torch.bfloat16, 33, None),
+])
+def test_flash_variants_match_plain(gen, variant, d, page, group, dtype,
+                                    window, softcap):
+    """Both variants, called directly, against the plain version at their
+    own key tiles: paged (pages of 16, 32 and 64) and contiguous, bf16 and
+    fp8 pools, GQA group 1 and 2, D 64 / 128 / 256, a ragged row."""
+    q, k, v, lens, table = _flash_inputs(
+        gen, d=d, page=page, group=group, dtype=dtype, src=torch.bfloat16,
+        rows=[150, 37], q_offset=70, sq=150)
+    kw = dict(group=group, scale=d ** -0.5, causal=True, window=window,
+              softcap=softcap, q_offset=70, src_dtype=torch.bfloat16)
+    fn = flash_attention_tc if variant == "tc" else flash_attention_fma
+    before = _flash_counts()
+    got = fn(q, k, v, lens, table, **kw)
+    assert _flash_counts() == _plus(before, 1, variant == "tc")
+    want = flash_attention_plain(q, k, v, lens, table,
+                                 block_k=64 if variant == "tc" else 32, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("group,q_rows", [(1, 128), (2, 128), (4, 64),
+                                          (8, 128)])
+def test_flash_tc_query_tiles(gen, group, q_rows):
+    """The tensor-core variant's query tile over the group's heads: 64 or
+    128 rows (one or two consumer warpgroups), groups up to 8."""
+    q, k, v, lens, table = _flash_inputs(
+        gen, d=128, page=16, group=group, dtype=torch.bfloat16,
+        src=torch.bfloat16, rows=[100, 9], q_offset=30, sq=100)
+    kw = dict(group=group, scale=128 ** -0.5, causal=True, window=64,
+              softcap=50.0, q_offset=30, src_dtype=torch.bfloat16)
+    before = _flash_counts()
+    got = flash_attention_tc(q, k, v, lens, table, q_rows=q_rows, **kw)
+    assert _flash_counts() == _plus(before, 1, True)
+    want = flash_attention_plain(q, k, v, lens, table, block_k=64, **kw)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("fmt", ["fp16alt", "fp8", "fp16"])
+def test_flash_tc_f32_snap(gen, fmt):
+    """Emulated storage on the tensor-core variant: f32 q and K/V snapped
+    onto a grid that fits bf16 / fp16, converted by the producer."""
+    q, k, v, lens, table = _flash_inputs(
+        gen, d=256, page=64, group=2, dtype=torch.float32,
+        src=torch.float32, rows=[96, 50], q_offset=32, sq=96)
+    kw = dict(group=2, scale=256 ** -0.5, causal=True, window=None,
+              softcap=50.0, q_offset=32, src_fmt_name=fmt,
+              src_dtype=torch.float32)
+    before = _flash_counts()
+    got = flash_attention_cuda(q, k, v, lens, table, **kw)
+    assert _flash_counts() == _plus(before, 1, True)
+    want = flash_attention_plain(q, k, v, lens, table, block_k=64, **kw)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= TOL
 
@@ -224,9 +341,10 @@ def test_tp_matmul_kernel_matches_plain(gen, m, k, n, dtype, out_dtype,
                                         quant):
     a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
     b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
-    before = tp_matmul_cuda.launches
+    before = _mm_counts()
     got = tp_matmul_cuda(a, b, out_dtype=out_dtype, quant_fmt_name=quant)
-    assert tp_matmul_cuda.launches == before + 1
+    assert _mm_counts() == _plus(before, 1, tc_operand_dtype(dtype, quant)
+                                 is not None)
     want = tp_matmul_plain(a, b, out_dtype=out_dtype, quant_fmt_name=quant)
     torch.cuda.synchronize()
     assert got.dtype == out_dtype and got.shape == (m, n)
@@ -243,6 +361,40 @@ def test_tp_matmul_kernel_matches_plain(gen, m, k, n, dtype, out_dtype,
         sb = tp_matmul_cuda(torch.eye(k, device="cuda"), b,
                             quant_fmt_name=quant)
         assert torch.equal(sa, snap(a)) and torch.equal(sb, snap(b))
+
+
+@pytest.mark.parametrize("variant", ["tc", "fma"])
+@pytest.mark.parametrize("m,k,n", [
+    (4, 3584, 1024),        # the decode batch: TMA pads M = 4 to the tile
+    (50, 100, 70),          # ragged M, N and K (unaligned rows)
+    (300, 520, 136),        # ragged, rows 16-byte aligned (TMA)
+    (256, 14336, 384),      # split K (3 column tiles)
+    (256, 1024, 14336),     # unsplit K, BM 256
+])
+@pytest.mark.parametrize("dtype,out_dtype,quant", [
+    (torch.bfloat16, torch.bfloat16, None),
+    (torch.float32, torch.float32, "fp8"),
+    (torch.float8_e5m2, torch.float16, None),
+])
+def test_tp_matmul_variants_match_plain(gen, variant, m, k, n, dtype,
+                                        out_dtype, quant):
+    a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    b = (torch.randn((k, n), generator=gen, device="cuda")
+         * k ** -0.5).to(dtype)
+    fn = tp_matmul_tc if variant == "tc" else tp_matmul_fma
+    before = _mm_counts()
+    got = fn(a, b, out_dtype=out_dtype, quant_fmt_name=quant)
+    assert _mm_counts() == _plus(before, 1, variant == "tc")
+    want = tp_matmul_plain(a, b, out_dtype=out_dtype, quant_fmt_name=quant)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    tol = agreement_tol(a, b, got, want, quant)
+    assert ((got.float() - want.float()).abs() <= tol).all()
+    if variant == "tc" and (m, k, n) == (256, 14336, 384):
+        assert plan_tc(m, k, n).splits > 1
+        # the split's second pass adds the partials in a fixed order
+        assert torch.equal(got, fn(a, b, out_dtype=out_dtype,
+                                   quant_fmt_name=quant))
 
 
 @pytest.mark.parametrize("fmt", ["fp8", "fp16", "fp16alt", "fp8_e4m3",

@@ -193,3 +193,69 @@ def test_ops_wrapper_matches_jax_wrapper_paged():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
     assert flash_attention_cuda.launches == 0
+
+
+@pytest.mark.parametrize("storage,page,q_offset,window", [
+    ("bf16", 16, 64, 50), ("fp8", 16, 32, 20), ("bf16", 64, 64, 50),
+    ("f32snap", 64, 96, 70)])
+def test_plain_at_the_kernel_tile_matches_pallas(storage, page, q_offset,
+                                                 window):
+    """The plain version at ``block_k`` = 64 (the tensor-core kernel's key
+    tile) over a paged pool, against the Pallas kernel at ``bk`` = 64: a
+    page of 64 directly, pages of 16 over the gathered keys (the Pallas
+    kernel's paged form is bit-exact to its contiguous form).  The window
+    starts off the 64-key grid, so the first key tile is partly masked."""
+    bkv, group, d, nk = 2, 2, 32, 128 // page
+    sq = 128 - q_offset
+    n_pages = bkv * nk + 1
+    np_dt, jsrc, tsrc, sfmt = STORAGE[storage]
+    q_dt = np.float32 if storage == "f32snap" else ml_dtypes.bfloat16
+    rs = np.random.RandomState(21)
+    qj, qt = _both(rs.randn(bkv * group, sq, d), q_dt)
+    kj, kt = _both(rs.randn(n_pages, page, d), np_dt)
+    vj, vt = _both(rs.randn(n_pages, page, d), np_dt)
+    table = rs.permutation(n_pages)[:bkv * nk].reshape(bkv, nk)
+    table = table.astype(np.int32)
+    kvl = np.repeat(q_offset + np.asarray([sq, 29]), group).astype(np.int32)
+    assert (q_offset - window + 1) % 64
+    kw = dict(group=group, scale=d ** -0.5, causal=True, window=window,
+              softcap=50.0, q_offset=q_offset, src_fmt_name=sfmt)
+    if page == 64:
+        want = flash_attention_pallas(qj, kj, vj, jnp.asarray(kvl),
+                                      jnp.asarray(table), bq=PLAIN_BLOCK,
+                                      bk=64, src_dtype=jsrc, interpret=True,
+                                      **kw)
+    else:
+        kg = jnp.asarray(np.asarray(kj)[table].reshape(bkv, nk * page, d))
+        vg = jnp.asarray(np.asarray(vj)[table].reshape(bkv, nk * page, d))
+        want = flash_attention_pallas(qj, kg, vg, jnp.asarray(kvl),
+                                      bq=PLAIN_BLOCK, bk=64, src_dtype=jsrc,
+                                      interpret=True, **kw)
+    got = flash_attention_plain(qt, kt, vt, torch.from_numpy(kvl),
+                                torch.from_numpy(table), src_dtype=tsrc,
+                                block_k=64, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_plain_block_k_on_contiguous_keys_matches_pallas():
+    """Contiguous K/V whose length is not a multiple of the 64-key block:
+    the plain version pads the keys (past every ``kv_len``) and walks the
+    Pallas kernel's blocks."""
+    bh, group, d, skv, q_offset = 4, 2, 32, 160, 32
+    sq = skv - q_offset
+    rs = np.random.RandomState(22)
+    qj, qt = _both(rs.randn(bh, sq, d), ml_dtypes.bfloat16)
+    kj, kt = _both(rs.randn(bh // group, skv, d), ml_dtypes.bfloat16)
+    vj, vt = _both(rs.randn(bh // group, skv, d), ml_dtypes.bfloat16)
+    kvl = np.asarray([160, 160, 100, 100], np.int32)
+    kw = dict(group=group, scale=d ** -0.5, causal=True, window=90,
+              softcap=None, q_offset=q_offset, src_fmt_name=None)
+    pad = ((0, 0), (0, 32), (0, 0))
+    want = flash_attention_pallas(
+        qj, jnp.pad(kj, pad), jnp.pad(vj, pad), jnp.asarray(kvl),
+        bq=PLAIN_BLOCK, bk=64, src_dtype=jnp.bfloat16, interpret=True, **kw)
+    got = flash_attention_plain(qt, kt, vt, torch.from_numpy(kvl),
+                                src_dtype=torch.bfloat16, block_k=64, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
