@@ -13,14 +13,17 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    the card, in the working dtype, at the serving path's shapes (head_dim 256, GQA
    group 2, pages of 64 and 16 tokens; bf16 and fp8-e5m2 pools; ragged
    ``kv_len`` with an idle row; window, softcap, aliased pages; a prefill
-   chunk at ``q_offset > 0``), the plain flash version walking the
-   kernel's own key tiles.  One JSON line per case: error and tolerance,
-   the variant that ran, kernel / plain / library time, and the card's
-   least time for the same work (``bound_ms``).  Kernel and library times
-   are device times per call from a replayed CUDA graph (``device_ms``);
-   ``eager_ms`` is the same call launched from Python, host overhead
-   included; ``plain_ms`` is eager.  The main flash cases also
-   time the kept FMA variant (``fma_ms``) and the tensor-core variant with
+   chunk at ``q_offset > 0``; one stream at 8191 keys; 16 slots), the
+   plain flash version walking the kernel's own key tiles.  One JSON line
+   per case: error and tolerance, the variant (and for decode the cluster
+   size its launch counted, which must be the one ``cluster_size`` names)
+   that ran, kernel / plain / library time, and the card's least time for
+   the same work (``bound_ms``).  Kernel and library times are device
+   times per call from a replayed CUDA graph (``device_ms``); ``eager_ms``
+   is the same call launched from Python, host overhead included;
+   ``plain_ms`` is eager; decode's ``kernel_only_ms`` times the kernel's
+   own launch without the wrapper's index expansion.  The main flash cases
+   also time the kept FMA variant (``fma_ms``) and the tensor-core variant with
    the query tile (64 or 128 rows) that ``plan_q_rows`` did not pick; a small
    policy-``fp32`` case holds the FMA variant against its plain version.
 3. Op-path phase: the transprecision op path at gemma2-9b's MLP widths
@@ -44,10 +47,13 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    in that run, every flash launch on the tensor-core variant.  A short
    window (the first four requests, 8 tokens each) under
    ``torch.profiler`` gives device time by kernel class and the device's
-   idle share.  Then one request is served again with the plain versions
-   and its first-token logits and greedy tokens are compared.
-5. The kernels line (all six kernels; flash attention and tp_matmul with
-   their launches by variant and the FMA variant's time), the card line,
+   idle share.  Every decode launch must take the mma route, at the
+   cluster size ``cluster_size`` names for its layer.  Then one request
+   is served again with the plain versions and its first-token logits
+   and greedy tokens are compared.
+5. The kernels line (all six kernels; flash attention, tp_matmul and decode
+   attention with their launches by variant, the FMA variant's time,
+   decode's slice launches by cluster size), the card line,
    and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -278,11 +284,16 @@ def _sdpa_decode(q, k_pool, v_pool, table, kv_len, window):
 
 
 def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
-                seed, q_scale=1.0):
+                seed, q_scale=1.0, sweep=False):
     """``q_scale`` > 1 puts the scores into the softcap's bend; the case
-    then also checks that the cap changes the output (``CAP_EFFECT_MIN``)."""
+    then also checks that the cap changes the output (``CAP_EFFECT_MIN``).
+    The launch must count under the cluster size ``cluster_size`` names.
+    ``sweep`` also times the kernel alone at 4, 8 and 16 CTAs a row
+    (``cluster_ms``)."""
     import torch
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.decode_attention import (
+        cluster_size, decode_attention_cuda, decode_route)
     b, hkv, g, d = len(kv_lens), 8, 2, 256
     gen = torch.Generator(device="cuda").manual_seed(seed)
     max_len = max(kv_lens) + 1
@@ -296,8 +307,24 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
     call = lambda backend, cap=softcap: kops.decode_attention(
         q, k, v, kv_len=kvl, block_table=table, policy=policy,
         window=window, softcap=cap, backend=backend)
-    got, want = call("kernel"), call("plain")
+    src_dt, _ = kops.policy_src(policy)
+    variant = decode_route(src_dt, d)
+    by_cluster = decode_attention_cuda.launches_by_cluster
+    before = (decode_attention_cuda.launches_mma,
+              decode_attention_cuda.launches_fma, dict(by_cluster))
+    got = call("kernel")
+    routed = (decode_attention_cuda.launches_mma - before[0],
+              decode_attention_cuda.launches_fma - before[1])
+    ran = [c for c, n in by_cluster.items() if n != before[2].get(c, 0)]
+    want = call("plain")
     torch.cuda.synchronize()
+    if routed != ((1, 0) if variant == "mma" else (0, 1)):
+        raise AssertionError(f"{name}: launches (mma, fma) {routed}, "
+                             f"expected the {variant} route")
+    rule = cluster_size(b * hkv, max_pages, page, window)
+    if ran != [rule]:
+        raise AssertionError(f"{name}: launch counted under cluster sizes "
+                             f"{ran}, the rule names {rule}")
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel output is not finite")
     err = (got - want).abs().max().item()
@@ -315,15 +342,28 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
     lib = None
     if softcap is None and min(kv_lens) > 0:
         lib = device_ms(_sdpa_decode(q, k, v, table, kvl, window))
-    rec = dict(case=name, kernel="decode_attention", max_abs_err=err,
+    flat = lambda x: x.reshape(-1, page, d)
+    lens = kops.expand_kv_lens(kvl, b, hkv, max_pages * page, q.device)
+    flat_tab = kops.expand_block_table(table, hkv)
+    alone = lambda c=None: decode_attention_cuda(
+        q.reshape(b * hkv, g, d), flat(k), flat(v), lens, flat_tab,
+        scale=d ** -0.5, window=window, softcap=softcap, src_dtype=src_dt,
+        _cluster=c)
+    kernel_only = device_ms(alone)
+    rec = dict(case=name, kernel="decode_attention", variant=variant,
+               cluster=ran[0], ctas=b * hkv * ran[0], max_abs_err=err,
                tol=KERNEL_TOL, q_scale=q_scale, cap_effect=cap,
                kernel_ms=device_ms(lambda: call("kernel")),
+               kernel_only_ms=kernel_only,
                eager_ms=cuda_ms(lambda: call("kernel"), 20),
                plain_ms=cuda_ms(lambda: call("plain"), 5),
                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
                shape=dict(slots=b, hkv=hkv, group=g, d=d, page=page,
                           kv_len=kv_lens, window=window, softcap=softcap,
                           pool=str(dtype).replace("torch.", "")))
+    if sweep:
+        rec["cluster_ms"] = {c: device_ms(lambda c=c: alone(c))
+                             for c in (4, 8, 16)}
     log(json.dumps(rec))
     if not err <= KERNEL_TOL:
         raise AssertionError(f"{name}: max_abs_err {err} > {KERNEL_TOL}")
@@ -476,25 +516,47 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
     return rec
 
 
+def decode_phase(sweep: bool = False) -> list:
+    """The decode cases; the first is at the serving path's shapes.
+    ``sweep``, a diagnostic that ``main`` does not run, times each case's
+    kernel at 4, 8 and 16 CTAs a row, the sizes ``cluster_size`` chooses
+    among: ``python3 -c "import chip_smoke as c; c.decode_phase(True)"``."""
+    import torch
+    bf16, fp8 = torch.bfloat16, torch.float8_e5m2
+    d = []
+    # the slice's decode: 4 slots, a local layer (window 4096, softcap 50),
+    # one idle slot, one row past the window, aliased prefix pages
+    d.append(decode_case("decode_bf16_p64_local", dtype=bf16, page=64,
+                         kv_lens=[1056, 540, 0, 4111], window=4096,
+                         softcap=50.0, alias=4, seed=1, sweep=sweep))
+    # q x 24: scores near +-80, in the softcap's bend
+    d.append(decode_case("decode_fp8_p16_window", dtype=fp8, page=16,
+                         kv_lens=[300, 17, 0, 1000], window=64,
+                         softcap=50.0, alias=2, seed=2, q_scale=24.0,
+                         sweep=sweep))
+    d.append(decode_case("decode_bf16_p64_global_nocap", dtype=bf16, page=64,
+                         kv_lens=[1056, 540, 128, 4111], window=None,
+                         softcap=None, alias=0, seed=3, sweep=sweep))
+    # gemma2-9b's single-stream decode on a global layer at full context:
+    # 8 rows, the latency case a one-CTA-per-row grid leaves 124 SMs idle
+    d.append(decode_case("decode_bf16_p64_b1_global", dtype=bf16, page=64,
+                         kv_lens=[8191], window=None, softcap=50.0, alias=0,
+                         seed=8, sweep=sweep))
+    # 16 slots on a local layer near the window: 128 rows, where
+    # ``cluster_size`` drops to 4 CTAs a row
+    d.append(decode_case("decode_bf16_p64_b16_local", dtype=bf16, page=64,
+                         kv_lens=[4111 - 97 * i for i in range(16)],
+                         window=4096, softcap=50.0, alias=4, seed=9,
+                         sweep=sweep))
+    return d
+
+
 def kernel_phase() -> dict:
     """Every case; returns {kernel name: [records]} (the first record of
     each kernel is the one at the serving path's shapes)."""
     import torch
     bf16, fp8 = torch.bfloat16, torch.float8_e5m2
-    recs = {"decode_attention": [], "flash_attention": []}
-    d = recs["decode_attention"]
-    # the slice's decode: 4 slots, a local layer (window 4096, softcap 50),
-    # one idle slot, one row past the window, aliased prefix pages
-    d.append(decode_case("decode_bf16_p64_local", dtype=bf16, page=64,
-                         kv_lens=[1056, 540, 0, 4111], window=4096,
-                         softcap=50.0, alias=4, seed=1))
-    # q x 24: scores near +-80, in the softcap's bend
-    d.append(decode_case("decode_fp8_p16_window", dtype=fp8, page=16,
-                         kv_lens=[300, 17, 0, 1000], window=64,
-                         softcap=50.0, alias=2, seed=2, q_scale=24.0))
-    d.append(decode_case("decode_bf16_p64_global_nocap", dtype=bf16, page=64,
-                         kv_lens=[1056, 540, 128, 4111], window=None,
-                         softcap=None, alias=0, seed=3))
+    recs = {"decode_attention": decode_phase(), "flash_attention": []}
     f = recs["flash_attention"]
     # the slice's prefill: a 256-token chunk continuing two prompts
     f.append(flash_case("flash_bf16_p64_chunk", dtype=bf16, page=64,
@@ -918,7 +980,7 @@ def op_path_phase(seed: int = 0) -> dict:
 # phase 4: the slice, end to end
 # ---------------------------------------------------------------------------
 #: device-time classes of the profiled run, by kernel-name fragment
-KERNEL_CLASSES = (("decode_attention", ("decode_kernel",)),
+KERNEL_CLASSES = (("decode_attention", ("decode_cluster_kernel",)),
                   ("flash_attention", ("flash_kernel", "flash_tc_kernel")),
                   ("gemm", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
 
@@ -968,7 +1030,8 @@ GEN = 32
 def slice_phase(seed: int = 0) -> dict:
     import numpy as np
     import torch
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.decode_attention import (
+        cluster_size, decode_attention_cuda)
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.launch.engine import ContinuousEngine, Request
     from repro_torch.models.registry import build_model
@@ -992,6 +1055,8 @@ def slice_phase(seed: int = 0) -> dict:
                            chunk=256)
     eng.run(reqs)                                    # warm-up
     decode_attention_cuda.launches = flash_attention_cuda.launches = 0
+    decode_attention_cuda.launches_mma = decode_attention_cuda.launches_fma = 0
+    decode_attention_cuda.launches_by_cluster.clear()
     flash_attention_cuda.launches_tc = flash_attention_cuda.launches_fma = 0
     t0 = time.perf_counter()
     fin, stats = eng.run(reqs)
@@ -1000,7 +1065,11 @@ def slice_phase(seed: int = 0) -> dict:
     launches = {"decode_attention": decode_attention_cuda.launches,
                 "flash_attention": flash_attention_cuda.launches}
     variants = {"flash_attention": {"tc": flash_attention_cuda.launches_tc,
-                                    "fma": flash_attention_cuda.launches_fma}}
+                                    "fma": flash_attention_cuda.launches_fma},
+                "decode_attention": {
+                    "mma": decode_attention_cuda.launches_mma,
+                    "fma": decode_attention_cuda.launches_fma}}
+    by_cluster = dict(decode_attention_cuda.launches_by_cluster)
     for f in fin:
         if len(f.tokens) != GEN:
             raise AssertionError(f"request {f.rid}: {len(f.tokens)} of "
@@ -1014,6 +1083,18 @@ def slice_phase(seed: int = 0) -> dict:
                                        "fma": 0}:
         raise AssertionError(f"flash launches by variant {variants}: the "
                              f"tensor-core variant must take them all")
+    if variants["decode_attention"] != {"mma": launches["decode_attention"],
+                                        "fma": 0}:
+        raise AssertionError(f"decode launches by route {variants}: the "
+                             f"mma route must take them all")
+    # the sizes ``cluster_size`` names for the engine's rows and table
+    rule = {cluster_size(eng.slots * model.cfg.n_kv_heads, eng.max_pages,
+                         eng.page, spec.window)
+            for spec in model.cfg.layer_list()}
+    if (sum(by_cluster.values()) != launches["decode_attention"]
+            or not set(by_cluster) <= rule):
+        raise AssertionError(f"decode launches by cluster size {by_cluster}:"
+                             f" the rule names {sorted(rule)}")
     n_tok = sum(len(f.tokens) for f in fin)
     prompt_tok = sum(PROMPTS)
     res = dict(requests=len(fin), prompt_tokens=prompt_tok,
@@ -1023,7 +1104,8 @@ def slice_phase(seed: int = 0) -> dict:
                                     / max(1, stats["decode_rounds"])),
                decode_rounds=stats["decode_rounds"],
                tok_s=n_tok / wall, peak_live_pages=stats["peak_live_pages"],
-               launches=launches, variants=variants, max_len=max_len,
+               launches=launches, variants=variants,
+               decode_launches_by_cluster=by_cluster, max_len=max_len,
                crosses_window=max_len > 4096)
     log(json.dumps({"slice": res}))
     window = [dataclasses.replace(r, max_new=min(8, GEN), arrival=0)
@@ -1086,8 +1168,11 @@ def main() -> int:
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"])
         if name in variants:
-            entry.update(launches_by_variant=variants[name],
-                         fma_ms=main_case.get("fma_ms"))
+            entry.update(launches_by_variant=variants[name])
+            if "fma_ms" in main_case:
+                entry["fma_ms"] = main_case["fma_ms"]
+        if name == "decode_attention":
+            entry["launches_by_cluster"] = res["decode_launches_by_cluster"]
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(card)

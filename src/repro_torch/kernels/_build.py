@@ -40,7 +40,7 @@ _LL = ctypes.c_longlong
 #: ``c_void_p``, and every entry point returns an int (a cudaError_t)
 ARGTYPES = {
     "decode_attention": {"decode_attention_launch":
-                         [_VOIDP] * 7 + [_INT] * 16
+                         [_VOIDP] * 7 + [_INT] * 18
                          + [_FLOAT, _INT, _FLOAT, _VOIDP]},
     "flash_attention": {"flash_attention_fma_launch":
                         [_VOIDP] * 6 + [_INT] * 16 + [_FLOAT, _FLOAT, _VOIDP],

@@ -44,7 +44,7 @@ import torch.nn.functional as F
 
 from . import _build
 from . import ref
-from .quant_common import exact_tile_dtype
+from .quant_common import operand_tile_dtype
 
 #: query block of the plain version's walk, and its key block unless
 #: ``block_k`` is given (paged: the page)
@@ -71,14 +71,11 @@ def tc_tile_dtype(src_dtype, src_fmt_name: Optional[str], d: int):
     """The 16-bit tile type of the tensor-core variant, or None (the FMA
     variant).  Operands are multiplied in ``src_dtype`` (bf16 / fp16 as
     they are) or, for f32 containers, on ``src_fmt_name``'s grid
-    (``quant_common.exact_tile_dtype``).  D must be 64, 128 or 256."""
+    (``quant_common.operand_tile_dtype``; p is snapped onto the same
+    grid).  D must be 64, 128 or 256."""
     if d not in TC_HEAD_DIMS:
         return None
-    if src_dtype in (torch.bfloat16, torch.float16):
-        return src_dtype
-    if src_dtype == torch.float32 and src_fmt_name:
-        return exact_tile_dtype(src_fmt_name)
-    return None
+    return operand_tile_dtype(src_dtype, src_fmt_name)
 
 
 def kernel_block_k(src_dtype, src_fmt_name: Optional[str], d: int) -> int:

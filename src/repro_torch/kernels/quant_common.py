@@ -96,3 +96,16 @@ def exact_tile_dtype(fmt):
     if f.e_bits <= 8 and f.m_bits <= 7:
         return torch.bfloat16
     return None
+
+
+def operand_tile_dtype(src_dtype, grid=None):
+    """The 16-bit type that holds every operand multiplied in
+    ``src_dtype`` exactly, or None: bf16 and fp16 as they are; f32
+    containers only when they are snapped onto ``grid`` and that grid lies
+    inside a 16-bit type (``exact_tile_dtype``).  The attention kernels'
+    tensor-core routes are chosen by this rule."""
+    if src_dtype in (torch.bfloat16, torch.float16):
+        return src_dtype
+    if src_dtype == torch.float32 and grid:
+        return exact_tile_dtype(grid)
+    return None

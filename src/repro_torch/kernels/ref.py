@@ -57,7 +57,7 @@ def decode_attention_ref(q, k, v, *, kv_len, scale: float = 1.0,
                          kv_fmt_name: Optional[str] = None,
                          q_fmt_name: Optional[str] = None,
                          src_dtype=torch.float32, out_dtype=torch.float32,
-                         bk: Optional[int] = None):
+                         bk: Optional[int] = None, bounds=None):
     """Single-query decode attention with the decode kernel's contract:
     in-container RNE snap of KV (and optionally q) onto the storage grid,
     src-format multiplies with f32 accumulation, an EXACT global softmax
@@ -67,7 +67,12 @@ def decode_attention_ref(q, k, v, *, kv_len, scale: float = 1.0,
 
     q [BHkv, G, D]; k, v [BHkv, Smax, D]; ``kv_len`` scalar or per-row
     [BHkv]; a key ``j`` is live iff ``j < kv_len`` and (with ``window``)
-    ``j > kv_len - 1 - window``."""
+    ``j > kv_len - 1 - window``.
+
+    ``bounds`` [BHkv, C, 2] (a split-KV partition, as
+    ``decode_attention.plan_splits`` gives it): the second pass runs over
+    each part ``[lo, hi)`` alone, and the parts' f32 sums of ``p`` and
+    ``p @ V`` are added in part order (0, 1, ..., C - 1)."""
     bh, g, d = q.shape
     smax = k.shape[1]
     bk = smax if bk is None else bk
@@ -85,15 +90,21 @@ def decode_attention_ref(q, k, v, *, kv_len, scale: float = 1.0,
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(m <= NEG_INF / 2, 0.0, m)
-    acc = torch.zeros((bh, g, d), dtype=torch.float32, device=q.device)
-    l = torch.zeros((bh, g, 1), dtype=torch.float32, device=q.device)
     vs = torch.where(mask[:, 0, :, None], vs, 0.0)   # dead slots never read
-    for kk in range(0, smax, bk):
-        blk = slice(kk, kk + bk)
-        p = torch.where(mask[..., blk], torch.exp(s[..., blk] - m), 0.0)
-        l = l + p.sum(dim=-1, keepdim=True)
-        acc = acc + torch.einsum("hgk,hkd->hgd", p.to(src_dtype).float(),
-                                 vs[:, blk])
+    parts = [mask] if bounds is None else [
+        mask & (k_idx >= bounds[:, r, 0, None, None].to(q.device))
+        & (k_idx < bounds[:, r, 1, None, None].to(q.device))
+        for r in range(bounds.shape[1])]
+    for r, live in enumerate(parts):
+        acc_r = torch.zeros((bh, g, d), dtype=torch.float32, device=q.device)
+        l_r = torch.zeros((bh, g, 1), dtype=torch.float32, device=q.device)
+        for kk in range(0, smax, bk):
+            blk = slice(kk, kk + bk)
+            p = torch.where(live[..., blk], torch.exp(s[..., blk] - m), 0.0)
+            l_r = l_r + p.sum(dim=-1, keepdim=True)
+            acc_r = acc_r + torch.einsum("hgk,hkd->hgd",
+                                         p.to(src_dtype).float(), vs[:, blk])
+        acc, l = (acc_r, l_r) if r == 0 else (acc + acc_r, l + l_r)
     return (acc / torch.where(l == 0.0, 1.0, l)).to(out_dtype)
 
 

@@ -12,6 +12,9 @@ plain flash version walks the kernel's own key tiles
 (``flash_attention.kernel_block_k``), so both round p against the same
 running max.  Flash attention and tp_matmul each have a tensor-core and an
 FMA variant: every case checks which one launched (per-variant counters).
+The decode kernel splits each row over a cluster of CTAs and has an mma and
+an FMA route; its cases compare with the plain version walking the same
+partition (``plan_splits``) and check the per-route counters.
 
 The op-path kernels: quantize and cast-and-pack must equal their plain
 versions BITWISE (NaN-aware, sign of zero included); tp_matmul within
@@ -26,7 +29,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    cluster_size, decode_attention_cuda, decode_attention_plain, decode_route,
+    plan_splits)
 from repro_torch.kernels.dotp_ex import dotp_ex_cuda, dotp_ex_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_fma, flash_attention_plain,
@@ -87,6 +92,165 @@ def test_decode_kernel_matches_plain(gen, dtype, d, page, window, softcap):
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= TOL
     assert not got[1].any()                         # the idle row stores 0
+
+
+def _decode_counts():
+    c = decode_attention_cuda
+    return c.launches, c.launches_mma, c.launches_fma
+
+
+def _decode_flat(gen, *, rows, g, d, page, nk, dtype, q_dtype=torch.bfloat16):
+    """Flat decode inputs: q [rows, G, D], pools [n, page, D] with a
+    shuffled [rows, nk] table (rows 0 and 1 share their first page)."""
+    n = rows * nk + 3
+    q = torch.randn((rows, g, d), generator=gen, device="cuda").to(q_dtype)
+    k, v = (torch.randn((n, page, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    table = torch.randperm(n, generator=gen, device="cuda")[:rows * nk]
+    table = table.reshape(rows, nk).to(torch.int32)
+    table[1, 0] = table[0, 0]
+    return q, k, v, table
+
+
+DECODE_CASES = [  # (pool, src, kv grid, q grid, D, G, page, window, softcap)
+    (torch.bfloat16, torch.bfloat16, None, None, 256, 2, 64, None, 50.0),
+    (torch.bfloat16, torch.bfloat16, None, None, 256, 8, 16, 100, None),
+    (torch.bfloat16, torch.bfloat16, None, None, 64, 1, 16, 37, 30.0),
+    (torch.bfloat16, torch.bfloat16, None, None, 20, 2, 64, None, 50.0),
+    (torch.float8_e5m2, torch.bfloat16, None, None, 256, 2, 16, 41, 50.0),
+    (torch.float8_e5m2, torch.bfloat16, None, None, 64, 8, 64, None, None),
+    (torch.float8_e5m2, torch.bfloat16, None, None, 20, 1, 16, 9, 30.0),
+    (torch.float16, torch.float16, None, None, 64, 2, 16, 50, 50.0),
+    (torch.float32, torch.float32, "fp8", "fp16alt", 256, 2, 64, 70, 50.0),
+    (torch.float32, torch.float32, "fp8", "fp16alt", 64, 8, 16, None, None),
+    (torch.float32, torch.float32, "fp16", "fp16", 20, 2, 16, 33, 30.0),
+    (torch.float32, torch.bfloat16, "fp8", None, 64, 2, 64, None, 50.0),
+]
+
+
+@pytest.mark.parametrize("pool,src,kv_fmt,q_fmt,d,g,page,window,softcap",
+                         DECODE_CASES)
+def test_decode_cluster_kernel_matches_split_plain(gen, pool, src, kv_fmt,
+                                                   q_fmt, d, g, page, window,
+                                                   softcap):
+    """The cluster kernel, called directly, against the plain version over
+    the same partition: bf16 / fp8 / fp16 pools and f32 containers snapped
+    onto a grid, pages 16 / 64, D 20 / 64 / 256, G 1 / 2 / 8, windows that
+    start inside a page, softcaps; an idle row stores 0, a row shorter than
+    its cluster leaves ranks idle, and each call adds one launch of the
+    route ``decode_route`` names."""
+    rows, nk = 5, 12
+    q_dt = torch.float32 if src == torch.float32 else torch.bfloat16
+    q, k, v, table = _decode_flat(gen, rows=rows, g=g, d=d, page=page, nk=nk,
+                                  dtype=pool, q_dtype=q_dt)
+    lens = torch.tensor([nk * page, 0, page + 3, 2, nk * page - 5],
+                        device="cuda")
+    kw = dict(scale=d ** -0.5, window=window, softcap=softcap,
+              kv_fmt_name=kv_fmt, q_fmt_name=q_fmt, src_dtype=src)
+    before = _decode_counts()
+    got = decode_attention_cuda(q, k, v, lens, table, **kw)
+    mma = decode_route(src, d) == "mma"
+    assert _decode_counts() == (before[0] + 1, before[1] + int(mma),
+                                before[2] + int(not mma))
+    plan = plan_splits(lens, page, units=nk, window=window)
+    assert plan.size == cluster_size(rows, nk, page, window) > 1
+    want = decode_attention_plain(q, k, v, lens, table, splits=plan, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+    assert not got[1].any()                         # the idle row stores 0
+
+
+def test_decode_cluster_kernel_contiguous(gen):
+    """Contiguous strips (no table) split on 64-key units."""
+    bh, g, smax, d = 6, 2, 300, 64
+    q = torch.randn((bh, g, d), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((bh, smax, d), generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    lens = torch.tensor([300, 0, 65, 1, 299, 128], device="cuda")
+    kw = dict(scale=d ** -0.5, window=200, softcap=50.0)
+    got = decode_attention_cuda(q, k, v, lens, **kw)
+    want = decode_attention_plain(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= TOL
+    assert not got[1].any()
+
+
+@pytest.mark.parametrize("rows,size", [(128, 4), (200, 2), (300, 1)])
+def test_decode_cluster_kernel_at_larger_batches(gen, rows, size):
+    """Batches past the slice's shrink the cluster (``cluster_size``: 4, 2,
+    then one CTA a row, a plain launch with no partner): within ``TOL`` of
+    the split plain version, idle rows store 0, and the launch counts once
+    under the size the rule names."""
+    g, d, page, nk = 2, 256, 64, 16
+    q, k, v, table = _decode_flat(gen, rows=rows, g=g, d=d, page=page, nk=nk,
+                                  dtype=torch.bfloat16)
+    lens = torch.randint(0, nk * page + 1, (rows,), generator=gen,
+                         device="cuda")
+    lens[::7] = 0
+    kw = dict(scale=d ** -0.5, window=None, softcap=50.0,
+              src_dtype=torch.bfloat16)
+    assert cluster_size(rows, nk, page) == size
+    by = decode_attention_cuda.launches_by_cluster
+    before = by.get(size, 0), sum(by.values())
+    got = decode_attention_cuda(q, k, v, lens, table, **kw)
+    assert (by.get(size, 0), sum(by.values())) == (before[0] + 1,
+                                                    before[1] + 1)
+    want = decode_attention_plain(q, k, v, lens, table,
+                                  splits=plan_splits(lens, page, units=nk),
+                                  **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+    assert not got[::7].any()
+
+
+def test_decode_cluster_kernel_long_row_is_deterministic(gen):
+    """One stream of 8 KV heads at 8191 keys (the 16-CTA cluster): within
+    ``TOL`` of the split plain version, and bit for bit the same on a
+    second call (rank 0 adds the parts in rank order, no atomics)."""
+    rows, g, d, page = 8, 2, 256, 64
+    nk = 8192 // page
+    q, k, v, table = _decode_flat(gen, rows=rows, g=g, d=d, page=page, nk=nk,
+                                  dtype=torch.bfloat16)
+    lens = torch.full((rows,), 8191, device="cuda")
+    kw = dict(scale=d ** -0.5, window=None, softcap=50.0,
+              src_dtype=torch.bfloat16)
+    plan = plan_splits(lens, page, units=nk)
+    assert plan.size == 16
+    got = decode_attention_cuda(q, k, v, lens, table, **kw)
+    again = decode_attention_cuda(q, k, v, lens, table, **kw)
+    want = decode_attention_plain(q, k, v, lens, table, splits=plan, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got - want).abs().max().item() <= TOL
+
+
+def test_decode_kernel_traps_on_a_page_outside_the_pool(gen):
+    """A page id past the pool stops the kernel on the device (a child
+    process: the trap ends the CUDA context)."""
+    import os
+    import subprocess
+    import sys
+    code = (
+        "import torch\n"
+        "from repro_torch.kernels.decode_attention import "
+        "decode_attention_cuda\n"
+        "q = torch.randn(2, 2, 64, device='cuda').bfloat16()\n"
+        "k = torch.randn(4, 16, 64, device='cuda').bfloat16()\n"
+        "t = torch.tensor([[0, 1], [2, 4]], device='cuda')\n"
+        "o = decode_attention_cuda(q, k, k, torch.tensor([20, 20], "
+        "device='cuda'), t)\n"
+        "print('LAUNCHED', flush=True)\n"
+        "torch.cuda.synchronize()\n"
+        "print('NO TRAP')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(os.path.dirname(__file__), "..", "src"),
+         os.environ.get("PYTHONPATH", "")]))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=env)
+    assert r.returncode != 0 and "LAUNCHED" in r.stdout, (r.stdout, r.stderr)
+    assert "NO TRAP" not in r.stdout and "CUDA error" in r.stderr, r.stderr
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e5m2])

@@ -8,6 +8,13 @@ f32 and round p to the src dtype before p.V; they differ only in f32
 summation order, so the f32 outputs agree to ``ATOL``/``RTOL`` = 1e-5.
 The CUDA kernel itself is compared with this plain version on the card
 (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
+
+The kernel splits each row over a cluster of CTAs (``plan_splits``); the
+plain version with ``splits=`` walks the same partition and adds the parts'
+f32 sums in rank order.  Every part rounds p against the same exact row
+max, so a split changes only f32 summation order: it is held to the same
+``ATOL``/``RTOL`` against the Pallas kernel, the JAX oracle and the unsplit
+plain version.
 """
 import pytest
 
@@ -23,7 +30,8 @@ from repro.kernels.decode_attention import decode_attention_pallas  # noqa: E402
 from repro_torch.kernels import ops as tkops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention_cuda, decode_attention_plain)
+    GRID_CTAS, STRIP_UNIT, cluster_size, decode_attention_cuda,
+    decode_attention_plain, decode_route, plan_splits)
 from repro_torch.models.convert import _to_torch  # noqa: E402
 
 torch.set_num_threads(1)
@@ -181,3 +189,134 @@ def test_ops_wrapper_matches_jax_wrapper_paged(policy):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
     assert decode_attention_cuda.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the split-KV partition of the cluster kernel
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("size", [1, 2, 8, 16])
+@pytest.mark.parametrize("unit,window", [(16, None), (16, 37), (64, 100),
+                                         (64, 4096), (1, 5)])
+def test_plan_splits_is_a_page_aligned_partition(size, unit, window):
+    """Parts are in order, disjoint, cover the live range ``[start,
+    kv_len)`` exactly, and every inner boundary is a multiple of the unit;
+    rows shorter than ``size`` units leave parts empty."""
+    units = 70
+    lens = [0, 1, unit, unit + 1, 3 * unit - 1, 5 * unit + 7, units * unit,
+            units * unit + 9, 17]
+    plan = plan_splits(lens, unit, units=units, window=window, size=size)
+    assert plan.size == size
+    assert plan.bounds.shape == (len(lens), size, 2)
+    for kvl, parts in zip(lens, plan.bounds.tolist()):
+        kvl = min(kvl, units * unit)
+        start = 0 if window is None else max(0, kvl - window)
+        live = [(lo, hi) for lo, hi in parts if hi > lo]
+        assert all(lo == hi for lo, hi in parts if hi <= lo)
+        assert sum(hi - lo for lo, hi in live) == max(0, kvl - start)
+        if live:
+            assert live[0][0] == start and live[-1][1] == kvl
+        for (lo0, hi0), (lo1, hi1) in zip(live, live[1:]):
+            assert hi0 == lo1 and hi0 % unit == 0
+        # a rank with keys holds whole units, except at the range's ends
+        n_units = -(-kvl // unit) - start // unit if kvl > start else 0
+        assert len(live) == min(size, n_units)
+
+
+def test_cluster_size():
+    # the slice: 4 slots x 8 KV heads, 65 pages -> 16 CTAs a row
+    assert cluster_size(32, 65) == 16
+    # one stream of 8 KV heads at 8191 keys -> the non-portable 16
+    assert cluster_size(8, 128) == 16
+    # never more parts than the row's units
+    assert cluster_size(2, 5) == 4 and cluster_size(2, 1) == 1
+    # the grid stays within two waves of two CTAs per SM
+    assert cluster_size(128, 512) == 4 and cluster_size(265, 512) == 1
+    for rows in (1, 8, 31, 32, 100, 264, 600):
+        c = cluster_size(rows, 1000)
+        assert rows * c <= GRID_CTAS or c == 1
+        assert c == 16 or rows * 2 * c > GRID_CTAS
+    assert plan_splits([100] * 32, 64, units=65).size == 16
+    # a window bounds the units a row's live keys span: 64 keys over pages
+    # of 16 touch at most 5 pages -> 4 CTAs a row
+    assert cluster_size(32, 63, 16, window=64) == 4
+    assert plan_splits([300] * 32, 16, units=63, window=64).size == 4
+    assert cluster_size(32, 65, 64, window=4096) == 16
+
+
+def test_decode_route():
+    assert decode_route(torch.bfloat16, 256) == "mma"
+    assert decode_route(torch.float16, 64) == "mma"
+    assert decode_route(torch.bfloat16, 20) == "fma"
+    assert decode_route(torch.float32, 256) == "fma"
+    # one rule with flash attention's: the same 16-bit operands, but decode
+    # keeps p in f32 under an f32 container, so no grid makes it exact
+    from repro_torch.kernels.flash_attention import tc_tile_dtype
+    from repro_torch.kernels.quant_common import operand_tile_dtype
+    for src in (torch.bfloat16, torch.float16, torch.float32):
+        assert (decode_route(src, 64) == "mma") == (
+            operand_tile_dtype(src) is not None)
+        assert (decode_route(src, 64) == "mma") == (
+            tc_tile_dtype(src, None, 64) is not None)
+    assert tc_tile_dtype(torch.float32, "fp8", 64) == torch.float16
+
+
+SPLIT_CASES = [  # (storage, kv_len per row, window, softcap)
+    ("bf16", [128, 70, 0, 5], None, 50.0),
+    ("fp8", [90, 128, 0, 3], 41, 50.0),
+    ("f32snap", [127, 17, 128, 0], 50, 30.0),
+]
+
+
+@pytest.mark.parametrize("size", [1, 2, 8, 16])
+@pytest.mark.parametrize("storage,kv_len,window,softcap", SPLIT_CASES)
+def test_split_plain_matches_pallas_paged(size, storage, kv_len, window,
+                                          softcap):
+    """The plain version over ``plan_splits``'s partition (pages of 16;
+    aliased pages; an idle row; rows of fewer keys than ``size`` pages; a
+    window start inside a page) against the Pallas kernel in interpret
+    mode, the JAX oracle and the unsplit plain version."""
+    rows, g, d, page, nk = 4, 2, 32, 16, 8
+    n_pages = rows * nk + 3
+    (qj, qt), (kj, kt), (vj, vt) = _inputs((rows, g, d), (n_pages, page, d),
+                                           storage, seed=13)
+    table = _paged_table(rows, nk, n_pages, seed=17, alias=3)
+    _, jsrc, tsrc, kv_fmt, q_fmt = STORAGE[storage]
+    kw = dict(scale=d ** -0.5, window=window, softcap=softcap,
+              kv_fmt_name=kv_fmt, q_fmt_name=q_fmt)
+    kvl = np.asarray(kv_len, np.int32)
+    plan = plan_splits(kvl, page, units=nk, window=window, size=size)
+    got = decode_attention_plain(qt, kt, vt, torch.from_numpy(kvl),
+                                 torch.from_numpy(table), src_dtype=tsrc,
+                                 splits=plan, **kw).numpy()
+    pallas = decode_attention_pallas(qj, kj, vj, jnp.asarray(kvl)[:, None],
+                                     jnp.asarray(table), bk=page,
+                                     src_dtype=jsrc, interpret=True, **kw)
+    oracle = jref.decode_attention_paged_ref(qj, kj, vj, jnp.asarray(table),
+                                             kv_len=kvl, src_dtype=jsrc, **kw)
+    unsplit = decode_attention_plain(qt, kt, vt, torch.from_numpy(kvl),
+                                     torch.from_numpy(table), src_dtype=tsrc,
+                                     **kw).numpy()
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, np.asarray(oracle), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, unsplit, rtol=RTOL, atol=ATOL)
+    assert not got[kvl == 0].any()
+    if size == 1:   # one part is the unsplit walk, bit for bit
+        np.testing.assert_array_equal(got, unsplit)
+
+
+@pytest.mark.parametrize("size", [2, 8])
+def test_split_plain_matches_ref_contiguous(size):
+    """Contiguous strips split on ``STRIP_UNIT``-key units."""
+    bh, g, smax, d = 4, 4, 200, 16
+    (qj, qt), (kj, kt), (vj, vt) = _inputs((bh, g, d), (bh, smax, d),
+                                           "bf16", seed=21)
+    kvl = np.asarray([200, 65, 0, 130], np.int32)
+    kw = dict(scale=d ** -0.5, window=150, softcap=50.0)
+    plan = plan_splits(kvl, STRIP_UNIT, units=-(-smax // STRIP_UNIT),
+                       window=150, size=size)
+    got = decode_attention_plain(qt, kt, vt, torch.from_numpy(kvl),
+                                 src_dtype=torch.bfloat16, splits=plan, **kw)
+    want = jref.decode_attention_ref(qj, kj, vj, kv_len=kvl,
+                                     src_dtype=jnp.bfloat16, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)

@@ -86,6 +86,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     """The wrappers of ``kernels.ops`` take the plain version on CPU
     tensors; the kernels' launch functions refuse them and count nothing."""
     decode_attention_cuda.launches = flash_attention_cuda.launches = 0
+    decode_attention_cuda.launches_by_cluster.clear()
     q = torch.randn(1, 4, 1, 16).to(torch.bfloat16)
     k = torch.randn(1, 2, 32, 16).to(torch.bfloat16)
     out = kops.decode_attention(q, k, k, kv_len=torch.tensor([5]))
@@ -100,6 +101,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
         flash_attention_cuda(torch.randn(4, 8, 16).to(torch.bfloat16), k[0],
                              k[0], torch.tensor([8, 8, 5, 5]), group=2)
     assert decode_attention_cuda.launches == 0
+    assert decode_attention_cuda.launches_by_cluster == {}
     assert flash_attention_cuda.launches == 0
     # the op path: the same rule for its four wrappers and their launchers
     op_kernels = (tp_matmul_cuda, tp_quantize_cuda, cast_and_pack_cuda,
@@ -134,3 +136,34 @@ def test_backend_resolution():
     k = torch.randn(1, 2, 32, 16)
     with pytest.raises(ValueError, match="CUDA"):
         kops.decode_attention(q, k, k, kv_len=8, backend="kernel")
+
+
+def _c_params(src: str, entry: str):
+    """The parameter types of ``extern "C" int entry(...)`` in a CUDA
+    source, in order ("ptr" for pointers, else the type's last word)."""
+    import re
+    m = re.search(r'extern "C" int ' + entry + r'\((.*?)\)\s*\{', src,
+                  re.S)
+    assert m, entry
+    kinds = []
+    for p in m.group(1).split(","):
+        p = p.strip()
+        if not p:
+            continue
+        kinds.append("ptr" if "*" in p else p.split()[-2])
+    return kinds
+
+
+def test_ctypes_argtypes_match_the_c_entry_points():
+    """Every entry point's ``ARGTYPES`` list has the C function's arity and
+    types (a mismatch passes wrong values without any error from ctypes
+    when the list is longer, and raises only on the card when shorter)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    names = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
+             ctypes.c_float: "float", ctypes.c_longlong: "long"}
+    for lib, entries in _build.ARGTYPES.items():
+        src = (_build.CSRC / f"{lib}.cu").read_text()
+        for entry, argtypes in entries.items():
+            assert [names[a] for a in argtypes] == _c_params(src, entry), \
+                (lib, entry)
