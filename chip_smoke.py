@@ -13,7 +13,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    the card, in the working dtype, at the serving path's shapes (head_dim 256, GQA
    group 2, pages of 64 and 16 tokens; bf16 and fp8-e5m2 pools; ragged
    ``kv_len`` with an idle row; window, softcap, aliased pages; a prefill
-   chunk at ``q_offset > 0``; one stream at 8191 keys; 16 slots), the
+   chunk at ``q_offset > 0``; one stream at 8191 keys; 16 slots; the
+   generate phase's ragged prefill chunk and last decode step), the
    plain flash version walking the kernel's own key tiles.  One JSON line
    per case: error and tolerance, the variant (and for decode the cluster
    size its launch counted, which must be the one ``cluster_size`` names)
@@ -51,11 +52,27 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    cluster size ``cluster_size`` names for its layer.  Then one request
    is served again with the plain versions and its first-token logits
    and greedy tokens are compared.
-5. The kernels line (all six kernels; flash attention, tp_matmul and decode
+5. Generate phase (``generate_phase``), on the slice's model and weights:
+   ``Model.generate`` on a ragged batch of four prompts, greedy with
+   penalties and the guard; the while form's tokens must equal the scan
+   form's, a one-row stop-token run must exit early in the while form,
+   the guard counts must be 0, and prefix sharing must change no token
+   and no logit.  Then the prefill and first token again through the
+   plain versions: first-token logits within ``LOGITS_TOL``, each row's
+   first token equal but at a near tie.  Decode ms per step and tok/s.
+6. Overload phase (``overload_phase``): the overload-safe engine on a
+   short pool with swap preemption, fp8 degrade, sampling with penalties
+   and a fault plan.  Every request must get its whole budget, every
+   overload counter must fire, each injected SDC must be detected, a
+   second run must repeat every token, and the schedule must equal a CPU
+   run of the same queue at the reduced config.  tok/s, decode ms per
+   round, swap bytes, time and GB/s, and the sampling step's device time
+   at [4, 256000].
+7. The kernels line (all six kernels; flash attention, tp_matmul and decode
    attention with their launches by variant, the FMA variant's time,
-   decode's slice launches by cluster size), the card line,
-   and as the last line
-   ``{"ok": true, "device": {...}}``.
+   decode's launches by cluster size; the attention launches summed over
+   the slice, generate and overload phases), the card line, and as the
+   last line ``{"ok": true, "device": {...}}``.
 
 Imports no JAX.  Needs one CUDA device and ``nvcc`` (``CUDA_HOME``, PATH
 or ``/usr/local/cuda``).
@@ -397,9 +414,10 @@ def _flat_flash(q, k, v, kvl, table, policy):
 
 def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
                softcap, alias, seed, q_scale=1.0, policy=None, heads=(8, 2),
-               d=256, main=False):
+               d=256, main=False, pages=None):
     """A prefill chunk of width ``chunk`` at ``q_offset`` for ``rows``
-    live chunk lengths, through the paged pool (``page`` > 0) or, with
+    live chunk lengths, through the paged pool (``page`` > 0, tables of
+    ``pages`` columns, by default just enough for the chunk) or, with
     ``page == 0``, over contiguous K/V (fresh prompt, q_offset 0).
     ``q_scale`` as in :func:`decode_case`.  The plain version walks the
     kernel's own key tiles.  ``main`` cases also time the FMA variant
@@ -424,7 +442,7 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
          * q_scale).to(q_dt)
     kvl = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
     if page:
-        max_pages = -(-(q_offset + chunk) // page)
+        max_pages = pages or -(-(q_offset + chunk) // page)
         k, v, table = _pool_and_table(gen, b, hkv, max_pages, page, d, dtype,
                                       alias)
     else:
@@ -548,6 +566,12 @@ def decode_phase(sweep: bool = False) -> list:
                          kv_lens=[4111 - 97 * i for i in range(16)],
                          window=4096, softcap=50.0, alias=4, seed=9,
                          sweep=sweep))
+    # generate_phase's last decode step: its four ragged rows over the
+    # 17-page tables of a 1024-token width plus 32 tokens
+    d.append(decode_case("decode_bf16_p64_generate", dtype=bf16, page=64,
+                         kv_lens=[p + GEN_LEN - 1 for p in GEN_PROMPTS],
+                         window=4096, softcap=50.0, alias=0, seed=10,
+                         sweep=sweep))
     return d
 
 
@@ -576,6 +600,13 @@ def kernel_phase() -> dict:
                         rows=[96, 40], q_offset=32, chunk=96, window=48,
                         softcap=50.0, alias=2, seed=7, policy="fp32",
                         heads=(2, 2), d=128))
+    # generate_phase's prefill: the right-padded ragged batch in one
+    # 1024-query chunk from position 0, rows far shorter than the chunk
+    f.append(flash_case("flash_bf16_p64_generate", dtype=bf16, page=64,
+                        rows=list(GEN_PROMPTS), q_offset=0,
+                        chunk=max(GEN_PROMPTS), window=4096, softcap=50.0,
+                        alias=0, seed=11,
+                        pages=-(-(max(GEN_PROMPTS) + GEN_LEN) // 64)))
     return recs
 
 
@@ -985,21 +1016,16 @@ KERNEL_CLASSES = (("decode_attention", ("decode_cluster_kernel",)),
                   ("gemm", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
 
 
-def profile_run(eng, reqs) -> dict:
-    """Where the device time goes in a short window of the slice: ``reqs``
-    served once timed, then once under ``torch.profiler`` (CUDA activity
-    only, so the host is barely slowed and the trace stays small).  Device
-    time is summed over kernel events by class; the idle share is one
-    minus that over the unprofiled wall time of the same window."""
+def device_profile(run, wall: float):
+    """Device time by kernel class of ``run()`` under ``torch.profiler``
+    (CUDA activity only, so the host is barely slowed and the trace stays
+    small), against ``wall``, the host-clock time of an unprofiled run of
+    the same work: the idle share is one minus busy over ``wall``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    t0 = time.perf_counter()
-    eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        eng.run(reqs)
+        run()
         torch.cuda.synchronize()
     by_name = {}
     for ev in prof.key_averages():
@@ -1015,11 +1041,21 @@ def profile_run(eng, reqs) -> dict:
                     if any(f in low for f in frags)), "other")
         classes[cls] += sec
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return dict(requests=len(reqs), max_new=reqs[0].max_new, wall_s=wall,
-                device_busy_s=busy,
+    return dict(wall_s=wall, device_busy_s=busy,
                 device_idle_share=(1.0 - busy / wall) if busy else None,
                 device_s_by_class=classes,
                 top_kernels=[[k[:90], sec] for k, sec in top])
+
+
+def profile_run(eng, reqs) -> dict:
+    """Where the device time goes in a short window of the slice: ``reqs``
+    served once timed, then once under the profiler."""
+    import torch
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    prof = device_profile(lambda: eng.run(reqs), time.perf_counter() - t0)
+    return dict(requests=len(reqs), max_new=reqs[0].max_new, **prof)
 
 
 PROMPTS = (1024, 128, 512, 4080, 768, 256, 896, 384)
@@ -1027,15 +1063,12 @@ ARRIVALS = (0, 0, 0, 0, 2, 4, 6, 8)
 GEN = 32
 
 
-def slice_phase(seed: int = 0) -> dict:
-    import numpy as np
+def full_model(seed: int = 0):
+    """gemma2-9b at full width under ``tp_bf16``, paged in 64-token pages,
+    with random weights from ``seed`` (17.2 GiB): built once, shared by the
+    serving phases."""
     import torch
-    from repro_torch.kernels.decode_attention import (
-        cluster_size, decode_attention_cuda)
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.launch.engine import ContinuousEngine, Request
     from repro_torch.models.registry import build_model
-
     model = build_model("gemma2-9b", policy="tp_bf16", device="cuda",
                         paged_kv=True, page_size=64)
     t0 = time.perf_counter()
@@ -1045,6 +1078,68 @@ def slice_phase(seed: int = 0) -> dict:
         f"{model.cfg.d_model}, weights "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init "
         f"{time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def reset_attention_counters() -> None:
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    decode_attention_cuda.launches = flash_attention_cuda.launches = 0
+    decode_attention_cuda.launches_mma = decode_attention_cuda.launches_fma = 0
+    decode_attention_cuda.launches_by_cluster.clear()
+    flash_attention_cuda.launches_tc = flash_attention_cuda.launches_fma = 0
+
+
+def attention_counters(where: str, rule: set) -> dict:
+    """The attention launch counters since the last reset, gated: both
+    kernels launched, every flash launch on ``flash_tc``, every decode
+    launch on the mma route at a cluster size in ``rule``."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    launches = {"decode_attention": decode_attention_cuda.launches,
+                "flash_attention": flash_attention_cuda.launches}
+    variants = {"flash_attention": {"tc": flash_attention_cuda.launches_tc,
+                                    "fma": flash_attention_cuda.launches_fma},
+                "decode_attention": {
+                    "mma": decode_attention_cuda.launches_mma,
+                    "fma": decode_attention_cuda.launches_fma}}
+    by_cluster = dict(decode_attention_cuda.launches_by_cluster)
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{where}: {name} was not launched")
+    if variants["flash_attention"] != {"tc": launches["flash_attention"],
+                                       "fma": 0}:
+        raise AssertionError(f"{where}: flash launches by variant "
+                             f"{variants}: the tensor-core variant must "
+                             f"take them all")
+    if variants["decode_attention"] != {"mma": launches["decode_attention"],
+                                        "fma": 0}:
+        raise AssertionError(f"{where}: decode launches by route "
+                             f"{variants}: the mma route must take them all")
+    if (sum(by_cluster.values()) != launches["decode_attention"]
+            or not set(by_cluster) <= rule):
+        raise AssertionError(f"{where}: decode launches by cluster size "
+                             f"{by_cluster}: the rule names {sorted(rule)}")
+    return dict(launches=launches, variants=variants,
+                decode_launches_by_cluster=by_cluster)
+
+
+def cluster_rule(model, rows: int, max_pages: int) -> set:
+    """The cluster sizes ``cluster_size`` names for ``rows`` batch rows
+    over ``max_pages``-page tables, one per layer kind."""
+    from repro_torch.kernels.decode_attention import cluster_size
+    return {cluster_size(rows * model.cfg.n_kv_heads, max_pages,
+                         model.cfg.page_size, spec.window)
+            for spec in model.cfg.layer_list()}
+
+
+def slice_phase(model=None, params=None, seed: int = 0) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.launch.engine import ContinuousEngine, Request
+
+    if model is None:
+        model, params = full_model(seed)
     rng = np.random.RandomState(seed)
     reqs = [Request(rid=i, tokens=rng.randint(0, model.cfg.vocab,
                                               size=p).tolist(),
@@ -1054,47 +1149,19 @@ def slice_phase(seed: int = 0) -> dict:
     eng = ContinuousEngine(model, params, slots=4, max_len=max_len,
                            chunk=256)
     eng.run(reqs)                                    # warm-up
-    decode_attention_cuda.launches = flash_attention_cuda.launches = 0
-    decode_attention_cuda.launches_mma = decode_attention_cuda.launches_fma = 0
-    decode_attention_cuda.launches_by_cluster.clear()
-    flash_attention_cuda.launches_tc = flash_attention_cuda.launches_fma = 0
+    reset_attention_counters()
     t0 = time.perf_counter()
     fin, stats = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"decode_attention": decode_attention_cuda.launches,
-                "flash_attention": flash_attention_cuda.launches}
-    variants = {"flash_attention": {"tc": flash_attention_cuda.launches_tc,
-                                    "fma": flash_attention_cuda.launches_fma},
-                "decode_attention": {
-                    "mma": decode_attention_cuda.launches_mma,
-                    "fma": decode_attention_cuda.launches_fma}}
-    by_cluster = dict(decode_attention_cuda.launches_by_cluster)
+    counted = attention_counters(
+        "slice", cluster_rule(model, eng.slots, eng.max_pages))
     for f in fin:
         if len(f.tokens) != GEN:
             raise AssertionError(f"request {f.rid}: {len(f.tokens)} of "
                                  f"{GEN} tokens")
     if stats["pages_live_end"] != 0:
         raise AssertionError(f"pool did not drain: {stats}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-    if variants["flash_attention"] != {"tc": launches["flash_attention"],
-                                       "fma": 0}:
-        raise AssertionError(f"flash launches by variant {variants}: the "
-                             f"tensor-core variant must take them all")
-    if variants["decode_attention"] != {"mma": launches["decode_attention"],
-                                        "fma": 0}:
-        raise AssertionError(f"decode launches by route {variants}: the "
-                             f"mma route must take them all")
-    # the sizes ``cluster_size`` names for the engine's rows and table
-    rule = {cluster_size(eng.slots * model.cfg.n_kv_heads, eng.max_pages,
-                         eng.page, spec.window)
-            for spec in model.cfg.layer_list()}
-    if (sum(by_cluster.values()) != launches["decode_attention"]
-            or not set(by_cluster) <= rule):
-        raise AssertionError(f"decode launches by cluster size {by_cluster}:"
-                             f" the rule names {sorted(rule)}")
     n_tok = sum(len(f.tokens) for f in fin)
     prompt_tok = sum(PROMPTS)
     res = dict(requests=len(fin), prompt_tokens=prompt_tok,
@@ -1104,9 +1171,7 @@ def slice_phase(seed: int = 0) -> dict:
                                     / max(1, stats["decode_rounds"])),
                decode_rounds=stats["decode_rounds"],
                tok_s=n_tok / wall, peak_live_pages=stats["peak_live_pages"],
-               launches=launches, variants=variants,
-               decode_launches_by_cluster=by_cluster, max_len=max_len,
-               crosses_window=max_len > 4096)
+               max_len=max_len, crosses_window=max_len > 4096, **counted)
     log(json.dumps({"slice": res}))
     window = [dataclasses.replace(r, max_new=min(8, GEN), arrival=0)
               for r in reqs[:4]]
@@ -1141,6 +1206,347 @@ def slice_phase(seed: int = 0) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 5: Model.generate, both loop forms
+# ---------------------------------------------------------------------------
+GEN_PROMPTS = (1024, 512, 256, 64)
+GEN_LEN = 32
+GEN_PENALTIES = dict(repetition_penalty=1.1, presence_penalty=0.5)
+GEN_STOP_SAMPLING = dict(temperature=0.7, top_k=64, top_p=0.9)
+
+
+def generate_phase(model, params, seed: int = 0) -> dict:
+    """``Model.generate`` at full width: a ragged batch of four prompts
+    (1024/512/256/64, right-padded), 32 tokens each, greedy with
+    repetition 1.1 and presence 0.5 penalties and the non-finite guard.
+    Gates: the while form's tokens equal the scan form's; with a stop
+    token that a one-row run emits first at step >= 4 (sampled at
+    ``GEN_STOP_SAMPLING`` from a seeded generator: greedy streams at
+    random weights repeat their first tokens), the while form exits early
+    (the scan form runs every step) with the scan form's tokens; guard
+    counts 0; the prefix-sharing parity (shared against
+    identity page tables) gives 0 token mismatches and 0.0 logit
+    difference; both attention kernels launched on their gated routes;
+    the prefill and first token against the plain versions
+    (``_generate_vs_plain``)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import prefix_sharing_parity
+    from repro_torch.models.paged import num_pages
+
+    rng = np.random.RandomState(seed + 5)
+    width = max(GEN_PROMPTS)
+    toks = torch.zeros((len(GEN_PROMPTS), width), dtype=torch.int64)
+    for r, n in enumerate(GEN_PROMPTS):
+        toks[r, :n] = torch.from_numpy(rng.randint(0, model.cfg.vocab,
+                                                   size=n))
+    toks = toks.to(model.device)
+    lens = torch.tensor(GEN_PROMPTS, device=model.device)
+    kw = dict(gen_len=GEN_LEN, prompt_lens=lens, guard_nonfinite=True,
+              return_trips=True, **GEN_PENALTIES)
+    sync = torch.cuda.synchronize if model.device.type == "cuda" else (
+        lambda: None)
+    model.generate(params, toks, **kw)                   # warm-up
+    sync()
+    reset_attention_counters()
+    t0 = time.perf_counter()
+    first = model.generate(params, toks, **{**kw, "gen_len": 1},
+                           return_logits=True)         # prefill + token 0
+    sync()
+    t1 = time.perf_counter()
+    scan, _, trips_scan, bad_scan = model.generate(params, toks, loop="scan",
+                                                   **kw)
+    sync()
+    t2 = time.perf_counter()
+    whl, _, trips_while, bad_while = model.generate(params, toks,
+                                                    loop="while", **kw)
+    sync()
+    max_pages = num_pages(width + GEN_LEN, model.cfg.page_size)
+    counted = attention_counters(
+        "generate", cluster_rule(model, len(GEN_PROMPTS), max_pages))
+    where = device_profile(
+        lambda: model.generate(params, toks, loop="scan", **kw), t2 - t1)
+    if not torch.equal(scan, whl) or trips_scan != trips_while:
+        raise AssertionError("generate: the while form's tokens differ from "
+                             "the scan form's")
+    if int(bad_scan.sum()) or int(bad_while.sum()):
+        raise AssertionError(f"generate: guard counts {bad_scan.tolist()}")
+    plain = _generate_vs_plain(model, params, toks, kw, first)
+
+    # early exit: one row, the stop token it first emits at step >= 4.
+    # Greedy streams at random weights repeat a few tokens from the first
+    # steps on, so this check samples (both forms from identically seeded
+    # generators, hence the same draws)
+    one = toks[:1, :GEN_PROMPTS[0]]
+    kw1 = dict(gen_len=GEN_LEN, return_trips=True, **GEN_STOP_SAMPLING,
+               **GEN_PENALTIES)
+    seeded = lambda: torch.Generator(device=model.device).manual_seed(seed)
+    base = model.generate(params, one, generator=seeded(),
+                          **kw1)[0][0].tolist()
+    new = [s for s in range(4, GEN_LEN) if base[s] not in base[:s]]
+    if not new:
+        raise AssertionError(f"generate: the sampled row emits no new token "
+                             f"at step >= 4 to stop on: {base}")
+    step, stop = new[0], base[new[0]]
+    stop_runs = {loop: model.generate(params, one, loop=loop,
+                                      stop_token=stop, generator=seeded(),
+                                      **kw1)
+                 for loop in ("scan", "while")}
+    (g_s, _, t_s), (g_w, _, t_w) = stop_runs["scan"], stop_runs["while"]
+    if not (torch.equal(g_s, g_w) and t_w == step < GEN_LEN - 1
+            and t_s == GEN_LEN - 1):
+        raise AssertionError(f"generate: stop token {stop} first emitted at "
+                             f"step {step}: while trips {t_w}, scan trips "
+                             f"{t_s}, tokens equal {torch.equal(g_s, g_w)}")
+
+    # prefix sharing on the card: a uniform batch of 4 x 512
+    d_tok, d_lg, _, _, n_pages, live = prefix_sharing_parity(
+        model, params, toks[:, :512].clone(), gen=8, max_len=512 + 8)
+    if d_tok != 0 or d_lg != 0.0:
+        raise AssertionError(f"prefix sharing changed outputs: {d_tok} "
+                             f"tokens, max |dlogits| {d_lg}")
+    n_tok = len(GEN_PROMPTS) * GEN_LEN
+    res = dict(prompts=list(GEN_PROMPTS), gen_len=GEN_LEN, **GEN_PENALTIES,
+               prefill_s=t1 - t0, scan_s=t2 - t1,
+               decode_ms_per_step=(t2 - t1 - (t1 - t0)) * 1e3
+               / (GEN_LEN - 1), tok_s=n_tok / (t2 - t1), trips=trips_scan,
+               greedy_heads=scan[:, :8].tolist(), stop_check_sampling=dict(
+                   GEN_STOP_SAMPLING, seed=seed),
+               stop_token=stop, stop_step=step, while_trips_with_stop=t_w,
+               scan_trips_with_stop=t_s, guard_counts=bad_scan.tolist(),
+               prefix_sharing=dict(token_mismatches=d_tok,
+                                   max_abs_logit_diff=d_lg,
+                                   live_pages=live, n_pages=n_pages),
+               plain_vs_kernel=plain, card=card_line(),
+               where_the_time_goes=where, **counted)
+    log(json.dumps({"generate": res}))
+    return res
+
+
+def _generate_vs_plain(model, params, toks, kw, first) -> dict:
+    """``generate``'s prefill and first token through the plain versions
+    of both attention kernels, against ``first`` (the kernel path's).
+    Gates: first-token logits within ``LOGITS_TOL``, and each row's first
+    token equal unless the plain path's top-2 margin of the penalized
+    logits is at most twice the logit difference (a near tie that bf16
+    rounding may flip)."""
+    from repro_torch.models.transformer import apply_penalties, token_counts
+    plain = model.with_cfg(decode_backend="plain", prefill_backend="plain")
+    got = plain.generate(params, toks, **{**kw, "gen_len": 1},
+                         return_logits=True)
+    (tok_k, lg_k), (tok_p, lg_p) = first[:2], got[:2]
+    lg_k, lg_p = lg_k[:, 0], lg_p[:, 0]
+    if not (lg_k.isfinite().all() and lg_p.isfinite().all()):
+        raise AssertionError("generate: first-token logits are not finite")
+    lerr = (lg_k - lg_p).abs().max().item()
+    cnt = token_counts(toks, model.vocab_out, kw["prompt_lens"])
+    pen = apply_penalties(lg_p, cnt, **GEN_PENALTIES)
+    top2 = pen.topk(2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    agree = (tok_k[:, 0] == tok_p[:, 0]).tolist()
+    res = dict(logits_max_abs_err=lerr, logits_tol=LOGITS_TOL,
+               first_tokens_agree=agree, plain_top2_margins=margins)
+    if not lerr <= LOGITS_TOL:
+        raise AssertionError(f"generate: first-token logits differ from the "
+                             f"plain path's by {lerr}")
+    for r, (ok, m) in enumerate(zip(agree, margins)):
+        if not ok and m > 2 * lerr:
+            raise AssertionError(f"generate: row {r}'s first token differs "
+                                 f"from the plain path's at a top-2 margin "
+                                 f"{m} > 2 x {lerr}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the overload-safe engine
+# ---------------------------------------------------------------------------
+#: the overload queue: (arrival, prompt, budget, priority, no_degrade);
+#: two bursts, priority 2 (with deadlines) only in the second
+OVERLOAD = ((0, 1536, 40, 0, False), (0, 896, 24, 1, False),
+            (0, 2048, 48, 0, True), (0, 640, 32, 0, False),
+            (0, 384, 16, 1, False), (0, 1152, 28, 0, False),
+            (8, 1792, 36, 2, False), (8, 256, 20, 2, False),
+            (8, 1280, 44, 1, True), (8, 128, 16, 2, False),
+            (8, 768, 24, 0, False), (8, 512, 32, 1, False))
+OVERLOAD_SAMPLING = dict(temperature=0.7, top_k=64, top_p=0.9,
+                         repetition_penalty=1.1, presence_penalty=0.3)
+OVERLOAD_COUNTERS = ("preemptions", "preempt_swap", "degraded",
+                     "shed_events", "poisoned_rounds", "faults_exhaust",
+                     "faults_slow")
+SCHEDULE = ("rid", "admit_round", "finish_round", "preemptions", "sheds",
+            "degraded", "deadline_miss")
+
+
+def overload_queue(vocab: int, seed: int = 0):
+    """The overload phase's requests, prompt tokens from ``seed`` taken
+    mod ``vocab``; priority-2 requests carry a deadline."""
+    import numpy as np
+    from repro_torch.launch.engine import Request
+    rng = np.random.RandomState(seed + 7)
+    return [Request(rid=i,
+                    tokens=(rng.randint(0, 256000, size=p) % vocab).tolist(),
+                    max_new=b, arrival=a, priority=pri,
+                    deadline=(a + 2 * b + 24 if pri == 2 else None),
+                    no_degrade=nd)
+            for i, (a, p, b, pri, nd) in enumerate(OVERLOAD)]
+
+
+def overload_engine(model, params, **kw):
+    """4 slots, chunk 256, a pool of 1.5x the largest request's worst
+    case (+1 scratch), swap preemption with fp8 degrade, the sampling
+    above, and a fault plan with one exhaustion episode, one masked
+    poison round, the first swap-out corrupted and one slow burst."""
+    from repro_torch.launch.engine import ContinuousEngine
+    from repro_torch.models.paged import num_pages
+    from repro_torch.train.fault import ServeFaultPlan
+    page = model.cfg.page_size
+    worst = max(num_pages(p + b, page) for _, p, b, _, _ in OVERLOAD)
+    max_len = max(p + b for _, p, b, _, _ in OVERLOAD)
+    plan = ServeFaultPlan(exhaust_at=(2,), exhaust_for=3, poison_at=(14,),
+                          corrupt_swap_at=(0,), slow_at=(20,), slow_s=0.05)
+    args = dict(slots=4, max_len=max_len, chunk=256,
+                n_pages=worst * 3 // 2 + 1, preempt="swap",
+                degrade_fmt="fp8", fault_plan=plan, seed=11,
+                **OVERLOAD_SAMPLING)
+    args.update(kw)
+    return ContinuousEngine(model, params, **args)
+
+
+def overload_gates(fin, stats, reqs, where: str) -> None:
+    for r, f in zip(reqs, fin):
+        if f.rid != r.rid or len(f.tokens) != r.max_new:
+            raise AssertionError(f"{where}: request {r.rid} got "
+                                 f"{len(f.tokens)} of {r.max_new} tokens")
+    if stats["pages_live_end"] != 0:
+        raise AssertionError(f"{where}: pool did not drain: {stats}")
+    low = {k: stats[k] for k in OVERLOAD_COUNTERS if stats[k] < 1}
+    if low:
+        raise AssertionError(f"{where}: counters that never fired: {low}")
+    if not stats["sdc_detected"] == stats["sdc_injected"] >= 1:
+        raise AssertionError(f"{where}: SDC injected "
+                             f"{stats['sdc_injected']}, detected "
+                             f"{stats['sdc_detected']}")
+
+
+def _sampling_step_ms(model, eng) -> dict:
+    """Device time of one round's sampling step at [slots, vocab]: guard,
+    penalties, top-k, top-p and the draw (``_pick`` as the engine calls
+    it), summed over its kernels under ``torch.profiler``, and the same
+    step's time between CUDA events (host launch gaps included)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.transformer import _pick, token_counts
+    g = torch.Generator(device="cuda").manual_seed(3)
+    v = model.vocab_out
+    lg = 8.0 * torch.randn((eng.slots, v), generator=g, device="cuda")
+    hist = torch.randint(0, model.cfg.vocab, (eng.slots, 2048), generator=g,
+                         device="cuda")
+    cnt = token_counts(hist, v)
+    pen = dict(repetition_penalty=eng.repetition_penalty,
+               presence_penalty=eng.presence_penalty)
+    step = lambda: _pick(lg, counts=cnt, penalties=pen, generator=g,
+                         temperature=eng.temperature, top_k=eng.top_k,
+                         top_p=eng.top_p, guard=True)
+    iters = 50
+    events_ms = cuda_ms(step, iters)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA)
+    return dict(shape=[eng.slots, v], device_ms=busy / 1e3 / iters,
+                events_ms=events_ms)
+
+
+def overload_phase(model, params, seed: int = 0) -> dict:
+    """The overload-safe engine at full width: 12 requests (prompts
+    128-2048, budgets 16-48) in two bursts (rounds 0 and 8), priorities
+    {0, 1, 2}, deadlines on priority 2, two ``no_degrade``, on a pool of
+    1.5x the largest request's worst case, with swap preemption, fp8
+    degrade, sampling with penalties and a fault plan (see
+    ``overload_engine``).  Gates (``overload_gates``): every request gets
+    its whole budget, the pool drains, every overload counter fires, SDC
+    detected == injected >= 1; a second run with the same seed repeats
+    every token; the per-request schedule equals the same queue's through
+    the port on the CPU at the reduced config; the attention launches
+    take their gated routes.  Reported, not gated: the greedy token
+    agreement of a swap run without degrade against an unpressured run."""
+    import torch
+    from repro_torch.models.registry import build_model
+
+    reqs = overload_queue(model.cfg.vocab, seed)
+    eng = overload_engine(model, params)
+    reset_attention_counters()
+    t0 = time.perf_counter()
+    fin, stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = attention_counters(
+        "overload", cluster_rule(model, eng.slots, eng.max_pages))
+    overload_gates(fin, stats, reqs, "overload")
+    again, _ = eng.run(reqs)
+    if [f.tokens for f in again] != [f.tokens for f in fin]:
+        raise AssertionError("overload: a second run with the same seed "
+                             "gave other tokens")
+    sched = lambda fs: [tuple(getattr(f, k) for k in SCHEDULE) for f in fs]
+    small = build_model("gemma2-9b", policy="tp_bf16", reduced=True,
+                        device="cpu", paged_kv=True,
+                        page_size=model.cfg.page_size)
+    cpu_reqs = overload_queue(small.cfg.vocab, seed)
+    cpu_fin, cpu_stats = overload_engine(small, small.init(0)).run(cpu_reqs)
+    overload_gates(cpu_fin, cpu_stats, cpu_reqs, "overload on the CPU")
+    if sched(cpu_fin) != sched(fin):
+        raise AssertionError(f"overload: the schedule differs from the "
+                             f"CPU's:\n{sched(fin)}\n{sched(cpu_fin)}")
+
+    # reported: greedy swap without degrade against an unpressured run (a
+    # slot for every request and an ample pool: nothing preempted or shed)
+    greedy = dict(temperature=0.0, repetition_penalty=None,
+                  presence_penalty=None, fault_plan=None)
+    streams = {}
+    for name, kw in (("pressured", dict(degrade_fmt=None)),
+                     ("unpressured", dict(n_pages=None, slots=len(reqs)))):
+        f2, s2 = overload_engine(model, params, **greedy, **kw).run(reqs)
+        streams[name] = ([f.tokens for f in f2], s2["preemptions"])
+    pairs = [(a, b) for x, y in zip(streams["pressured"][0],
+                                    streams["unpressured"][0])
+             for a, b in zip(x, y)]
+    agree = sum(a == b for a, b in pairs)
+
+    n_tok = sum(len(f.tokens) for f in fin)
+    gb = lambda nbytes, s: nbytes / s / 1e9 if s else None
+    res = dict(
+        requests=len(fin), generated_tokens=n_tok, wall_s=wall,
+        tok_s=n_tok / wall, n_pages=stats["n_pages"],
+        decode_rounds=stats["decode_rounds"],
+        decode_ms_per_round=(stats["decode_s"] * 1e3
+                             / max(1, stats["decode_rounds"])),
+        prefill_s=stats["prefill_s"],
+        counters={k: stats[k] for k in (
+            "preemptions", "preempt_swap", "preempt_reingest",
+            "preempt_restart", "resumed", "degraded", "shed_events",
+            "poisoned_rounds", "nonfinite_prefill", "stragglers",
+            "faults_exhaust", "faults_slow", "sdc_injected", "sdc_detected",
+            "sdc_reingest", "deadline_total", "deadline_misses")},
+        swap_out_bytes=stats["swap_out_bytes"],
+        swap_out_s=stats["swap_out_s"],
+        swap_out_gb_s=gb(stats["swap_out_bytes"], stats["swap_out_s"]),
+        swap_in_bytes=stats["swap_in_bytes"], swap_in_s=stats["swap_in_s"],
+        swap_in_gb_s=gb(stats["swap_in_bytes"], stats["swap_in_s"]),
+        swap_crc_s=stats["swap_crc_s"],
+        sampling_step=_sampling_step_ms(model, eng),
+        schedule_equals_cpu=True, repeat_tokens_equal=True,
+        greedy_swap_vs_unpressured=dict(
+            tokens_agree=agree, of=len(pairs),
+            preemptions=[streams["pressured"][1],
+                         streams["unpressured"][1]]),
+        schedule=sched(fin), card=card_line(), **counted)
+    log(json.dumps({"overload": res}))
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1155,9 +1561,19 @@ def main() -> int:
     recs = kernel_phase()
     recs.update(op_kernel_phase())
     op_res = op_path_phase()
-    res = slice_phase()
-    launches = {**res["launches"], **op_res["launches"]}
-    variants = {**res["variants"], **op_res["variants"]}
+    model, params = full_model()
+    serving = [slice_phase(model, params), generate_phase(model, params),
+               overload_phase(model, params)]
+    launches, variants, by_cluster = dict(op_res["launches"]), {}, {}
+    variants.update(op_res["variants"])
+    for res in serving:
+        for name, n in res["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+            variants.setdefault(name, {})
+            for v, k in res["variants"][name].items():
+                variants[name][v] = variants[name].get(v, 0) + k
+        for c, n in res["decode_launches_by_cluster"].items():
+            by_cluster[c] = by_cluster.get(c, 0) + n
     line = []
     for name, cases in recs.items():
         main_case = cases[0]
@@ -1172,7 +1588,7 @@ def main() -> int:
             if "fma_ms" in main_case:
                 entry["fma_ms"] = main_case["fma_ms"]
         if name == "decode_attention":
-            entry["launches_by_cluster"] = res["decode_launches_by_cluster"]
+            entry["launches_by_cluster"] = by_cluster
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(card)

@@ -1,53 +1,118 @@
 """Continuous-batching serving engine: admission, chunked prefill, decode
-bursts and page recycling (the base path of the JAX package's
-``repro.launch.engine``).
+bursts, page recycling, and overload handling (the port of the JAX
+package's ``repro.launch.engine``).
 
-  * **Admission** — host-side, over a request queue in (priority, arrival,
-    rid) order with head-of-line semantics: an entry that does not
-    fit waits, and admission goes on with the entries behind it.  A
-    finished row's pages go back to the ``PageAllocator`` the round it
-    finishes and its slot is refilled from the queue mid-generation.
+  * **Admission** — host-side, over a request queue in (effective
+    priority, deadline, arrival, rid) order.  A finished row's pages go
+    back to the ``PageAllocator`` the round it finishes and its slot is
+    refilled from the queue mid-generation.
   * **Chunked prefill** — an admitted prompt is consumed in fixed-width
     chunks through the paged flash read path (``Model.prefill_chunk``), one
     chunk per round, same-offset slots batched into one call, interleaved
-    with short decode bursts so ongoing streams are not stalled.
+    with short decode bursts so ongoing streams are not stalled.  The
+    final chunk's logits go through the same sampling site as a decode
+    round: non-finite guard, penalties, then greedy or a draw.
   * **Page accounting** — prompt pages at admission, one page per row as
     its length crosses a page boundary; admission reserves each request's
-    worst case (``num_pages(prompt + budget)``) against the pool, so
-    ``peak_live`` tracks the sum of live lengths.
+    worst case (``num_pages(prompt + budget)``) against the pool.
+  * **Sampling** — ``temperature`` / ``top_k`` / ``top_p`` draw from ONE
+    ``torch.Generator`` on the model's device, seeded at every ``start``
+    and consumed at the JAX key's sites in the same order (each prefill
+    wave, each decode round), so the same queue gives the same tokens.
+    ``repetition_penalty`` / ``presence_penalty`` keep a host histogram
+    per slot, re-seeded at admission and resume (prompt + emitted) and
+    re-synced after every burst.
+
+Overload is handled, not assumed away:
+
+  * **Priorities and deadlines** — ``Request.priority`` orders admission
+    and picks preemption victims; a request that can no longer make its
+    ``deadline`` (a round number) gains one effective level, and misses
+    are counted on ``Finished``.
+  * **Preemption** — when a higher-priority request cannot fit or a lazy
+    page allocation fails, the weakest resident row is evicted and
+    re-queued.  ``preempt="free"`` re-ingests prompt + emitted tokens
+    through chunked prefill on resume; ``preempt="swap"`` copies the row's
+    live K/V pages to pinned host memory (``index_select`` on the device,
+    then asynchronous copies, one synchronise per swap-out) and writes
+    them back into its new pages on resume.  Every swapped payload
+    carries per-layer CRC32s; a mismatch at swap-in (``corrupt_swap_at``
+    injects one bit flip) falls back to re-ingest.
+  * **Degradation** — ``degrade_fmt`` (``fp8``) casts a swapped victim's
+    pages to that format ON THE DEVICE before the copy, so half the bytes
+    cross PCIe; tracked per request, refused by ``Request.no_degrade``.
+  * **Shedding** — with ``shed=True`` (the default) an entry that cannot
+    be placed while a slot sits free is deferred with jittered exponential
+    backoff, deterministic in (seed, rid, attempt).
+  * **Faults and watchdog** — a ``ServeFaultPlan`` injects pool
+    exhaustion, slow bursts and NaN-poisoned rounds (masked and counted,
+    or ``PoisonedLogitsError``); a ``ServeWatchdog`` turns a livelocked
+    loop into ``EngineStuckError``, as does a burst that advances nothing.
 
 Dead-slot discipline: idle slots are parked at ``max_len - 1`` on a
 reserved scratch page; every other garbage write lands on a slot that a
 real write overwrites before any mask lets it be read.
 
-Greedy only.  Not ported yet, and refused when asked for: sampling,
-penalties, deadlines, preemption / swap / degradation, shedding with
-backoff, fault injection and the watchdog, precision escalation,
-speculative decoding, replicas and the request journal.  Without
-preemption a higher-priority request only jumps the queue; it never
-evicts a resident row.
+Not ported, and refused when asked for: precision escalation, speculative
+decoding, replicas, the request journal and meshes.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import zlib
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..models.paged import PageAllocator, num_pages
-from ..models.transformer import caches_with_table
+from ..models.attention import kv_store_dtype, kv_swap_dtype
+from ..models.paged import (PageAllocator, SwapBlobTag, check_blob_tag,
+                            dtype_name, num_pages)
+from ..models.transformer import _penalized, _pick, caches_with_table
+from ..train.fault import (EngineStuckError, PoisonedLogitsError,
+                           ServeFaultPlan, ServeWatchdog, StragglerMonitor)
+
+
+def _crc_blobs(blobs: list) -> list:
+    """Per-layer (crc32(k), crc32(v)) of host swap payloads: CRC32 of each
+    tensor's bytes in C order, as the JAX package computes over numpy."""
+    crc = lambda t: zlib.crc32(t.contiguous().view(torch.uint8).numpy())
+    return [(crc(k), crc(v)) for k, v in blobs]
+
+
+#: integer dtype of each element size, for copying pool pages as raw bits
+_RAW = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+
+
+def _to_host(ts: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Host copies of ``ts``: views into ONE pinned buffer (each pinned
+    allocation has a fixed cost, paid once per swap, not per layer),
+    filled asynchronously from the card; the caller synchronises once."""
+    if not ts or ts[0].device.type == "cpu":
+        return list(ts)
+    sizes = [t.numel() * t.element_size() for t in ts]
+    buf = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=True)
+    out, off = [], 0
+    for t, n in zip(ts, sizes):
+        h = buf[off:off + n].view(t.dtype).view(t.shape)
+        out.append(h.copy_(t, non_blocking=True))
+        off += n
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
 class Request:
-    """One queued generation request (``arrival`` in decode rounds)."""
+    """One queued generation request.  ``arrival`` and ``deadline`` are in
+    decode rounds (the engine's clock); higher ``priority`` admits first
+    and preempts lower; ``no_degrade`` refuses the fp8 swap store."""
     rid: int
     tokens: Sequence[int]          # prompt token ids (>= 1)
     max_new: int                   # generation budget incl. the first token
     arrival: int = 0
     priority: int = 0
+    deadline: Optional[int] = None
+    no_degrade: bool = False
 
     @property
     def prompt_len(self) -> int:
@@ -57,29 +122,83 @@ class Request:
 @dataclasses.dataclass
 class Finished:
     """A served request: ``tokens`` holds the generated ids (first token
-    included; a ``stop_token`` hit keeps the stop as the last element)."""
+    included; a ``stop_token`` hit keeps the stop as the last element),
+    with its robustness trail."""
     rid: int
     prompt_len: int
     tokens: List[int]
     admit_round: int
     finish_round: int
     slot: int
+    preemptions: int = 0
+    sheds: int = 0
+    degraded: bool = False
+    deadline: Optional[int] = None
+    deadline_miss: bool = False
+
+
+@dataclasses.dataclass
+class _Resume:
+    """A preempted request's continuation.  ``blobs`` present: the swap
+    path (per-layer (k, v) host page payloads covering ``written`` tokens,
+    maybe in the degrade format, with their CRC32s and pool tag).
+    ``blobs`` absent: re-ingest prompt + all but the last emitted token,
+    then re-feed the last one through the decode round."""
+    emitted: List[int]
+    blobs: Optional[list]
+    written: int
+    degraded: bool
+    checksums: Optional[list] = None
+    tag: Optional[SwapBlobTag] = None
+
+
+@dataclasses.dataclass
+class _QEntry:
+    """Queue bookkeeping around a Request: backoff gate, shed/preempt
+    counters and (after a preemption) the resume state."""
+    req: Request
+    not_before: int
+    sheds: int = 0
+    preemptions: int = 0
+    degraded: bool = False
+    resume: Optional[_Resume] = None
 
 
 def synthetic_trace(n_req: int, slots: int, prompt_len: int, gen: int,
                     vocab: int, seed: int = 2,
                     flavor: str = "chat") -> List[Request]:
-    """The JAX package's deterministic ``chat`` workload: every 8th
-    request in the first 3/4 of the queue is LONG (budget ``gen``), the
-    rest cycle ``gen/16``, ``gen/8``, ``gen/4``; prompt lengths cycle 1/4
-    .. 4/4 of ``prompt_len``; the first ``slots`` requests arrive at round
-    0, then clumps of four every ``gen/16`` rounds."""
-    if flavor != "chat":
-        raise NotImplementedError(f"trace flavor {flavor!r} is not ported")
+    """The JAX package's deterministic workloads.
+
+    ``chat``: every 8th request in the first 3/4 of the queue is LONG
+    (budget ``gen``), the rest cycle ``gen/16``, ``gen/8``, ``gen/4``;
+    prompt lengths cycle 1/4 .. 4/4 of ``prompt_len``; the first ``slots``
+    requests arrive at round 0, then clumps of four every ``gen/16``
+    rounds.
+
+    ``soak`` (the overload trace): arrivals in bursts of eight, every 5th
+    request a full-length prompt, every 4th a long budget, priorities over
+    {0, 1, 2}, deadlines on the priority-2 tier, every 11th request
+    ``no_degrade``."""
     rng = np.random.RandomState(seed)
     fr_len = (0.25, 0.5, 0.75, 1.0)
     shorts = (gen // 16, gen // 8, gen // 4)
     reqs = []
+    if flavor == "soak":
+        for i in range(n_req):
+            plen = (prompt_len if i % 5 == 0
+                    else max(1, int(prompt_len * fr_len[i % 4])))
+            budget = gen if i % 4 == 0 else max(2, shorts[i % 3])
+            arrival = (i // 8) * max(2, gen // 8)
+            pri = 2 if i % 7 == 3 else (1 if i % 3 == 0 else 0)
+            deadline = (arrival + 4 * budget + 2 * max(2, gen // 8)
+                        if pri == 2 else None)
+            reqs.append(Request(
+                rid=i, tokens=rng.randint(0, vocab, size=plen).tolist(),
+                max_new=budget, arrival=arrival, priority=pri,
+                deadline=deadline, no_degrade=(i % 11 == 7)))
+        return reqs
+    if flavor != "chat":
+        raise ValueError(f"flavor must be chat|soak, got {flavor!r}")
     for i in range(n_req):
         is_long = (i % 8 == 0) and i < (3 * n_req) // 4
         budget = gen if is_long else max(2, shorts[i % 3])
@@ -92,27 +211,60 @@ def synthetic_trace(n_req: int, slots: int, prompt_len: int, gen: int,
     return reqs
 
 
+_FAR = 1 << 30          # "no deadline" sort key
+
+#: backoff of a shed entry: ``SHED_BASE * 2**sheds`` rounds, capped at
+#: ``SHED_CAP``, plus as much jitter; a row resident for fewer than
+#: ``MIN_RESIDENT`` rounds is never preempted (the JAX engine's defaults)
+SHED_BASE, SHED_CAP, MIN_RESIDENT = 2, 64, 2
+
+#: the robustness counters of ``stats`` (the JAX package's, less those of
+#: the unported escalation, speculation, replica and journal paths)
+COUNTERS = ("preemptions", "preempt_swap", "preempt_reingest",
+            "preempt_restart", "resumed", "degraded", "swap_out_bytes",
+            "shed_events", "poisoned_rounds", "nonfinite_prefill",
+            "stragglers", "faults_exhaust", "faults_slow",
+            "sdc_injected", "sdc_detected", "sdc_reingest")
+
+
 class ContinuousEngine:
     """Continuous-batching scheduler over ``slots`` paged batch rows on
     the model's device.  The model must be paged (``cfg.paged_kv``).
     Requests must satisfy ``prompt_len + max_new <= max_len``.  The page
-    pools are updated in place across bursts."""
+    pools are updated in place across bursts.
+
+    ``preempt`` picks the eviction mechanism (``"free"`` re-ingests,
+    ``"swap"`` round-trips live pages through host memory);
+    ``degrade_fmt`` stores swapped pages in a narrow format unless the
+    request opted out; ``shed=False`` restores blocking admission (no
+    backoff deferrals); ``fault_plan`` injects deterministic faults; the
+    watchdog aborts after ``watchdog_patience`` iterations without
+    progress."""
 
     def __init__(self, model, params, *, slots: int, max_len: int,
                  chunk: int = 32, n_pages: Optional[int] = None,
-                 stop_token: Optional[int] = None, burst_cap: int = 64,
+                 stop_token: Optional[int] = None, temperature: float = 0.0,
+                 top_k: Optional[int] = None, top_p: Optional[float] = None,
+                 seed: int = 0, burst_cap: int = 64,
                  prefill_rounds: int = 2, admit_wave: int = 2,
-                 shed: bool = False, temperature: float = 0.0, **unported):
+                 repetition_penalty: Optional[float] = None,
+                 presence_penalty: Optional[float] = None,
+                 preempt: str = "free", degrade_fmt: Optional[str] = None,
+                 shed: bool = True,
+                 fault_plan: Optional[ServeFaultPlan] = None,
+                 watchdog_patience: int = 200, **unported):
         cfg = model.cfg
         if not cfg.paged_kv:
             raise ValueError("ContinuousEngine requires cfg.paged_kv "
                              "(admission allocates pages, not batch rows)")
-        if shed or temperature > 0.0 or any(
-                v not in (None, False, 0, 0.0) for v in unported.values()):
+        asked = sorted(k for k, v in unported.items()
+                       if v not in (None, False, 0, 0.0))
+        if asked:
             raise NotImplementedError(
-                "only the base engine path is ported (greedy, shed=False); "
-                f"not ported: shed={shed}, temperature={temperature}, "
-                f"{sorted(k for k, v in unported.items() if v)}")
+                f"not ported: {asked} (escalation, speculative decoding, "
+                f"replicas, the journal and meshes)")
+        if preempt not in ("free", "swap"):
+            raise ValueError(f"preempt must be free|swap, got {preempt!r}")
         assert slots >= 1 and chunk >= 1 and burst_cap >= 1
         self.model, self.params, self.device = model, params, model.device
         self.slots, self.max_len, self.chunk = slots, max_len, chunk
@@ -121,9 +273,21 @@ class ContinuousEngine:
         self.n_pages = (slots * self.max_pages + 1 if n_pages is None
                         else n_pages)
         self.stop_token = stop_token
-        self.burst_cap = burst_cap
+        self.temperature, self.top_k, self.top_p = temperature, top_k, top_p
+        self.seed, self.burst_cap = seed, burst_cap
         self.prefill_rounds = prefill_rounds
         self.admit_wave = max(1, admit_wave)
+        self.repetition_penalty = repetition_penalty
+        self.presence_penalty = presence_penalty
+        self._use_pen = _penalized(repetition_penalty, presence_penalty)
+        self.preempt_mode = preempt
+        self.degrade_fmt = degrade_fmt
+        self._swap_dtype = (kv_swap_dtype(degrade_fmt)
+                            if degrade_fmt is not None else None)
+        self._pool_dtype = dtype_name(kv_store_dtype(model.policy))
+        self.shed = shed
+        self.fault_plan = fault_plan
+        self.watchdog_patience = watchdog_patience
 
         self.alloc = PageAllocator(self.n_pages)
         self.scratch = self.alloc.alloc(1)[0]      # dead-write sink, forever
@@ -139,31 +303,52 @@ class ContinuousEngine:
         self.limit = np.zeros((slots,), np.int32)
         self.tok = np.zeros((slots, 1), np.int32)
         self._req: List[Optional[Request]] = [None] * slots
+        self._entry: List[Optional[_QEntry]] = [None] * slots
         self._owned: List[List[int]] = [[] for _ in range(slots)]
         self._prog = np.zeros((slots,), np.int32)   # prefill progress
         self._emitted: List[List[int]] = [[] for _ in range(slots)]
+        # tokens chunked prefill consumes: the prompt, or on a reingest
+        # resume the prompt + previously emitted tokens (minus the last)
+        self._ingest: List[List[int]] = [[] for _ in range(slots)]
+        self._resume_tok: List[Optional[int]] = [None] * slots
         self._admit_round = np.zeros((slots,), np.int32)
-        self._pending: List[Request] = []
+        self._cnt = (np.zeros((slots, model.vocab_out), np.int32)
+                     if self._use_pen else None)
+        self._pending: List[_QEntry] = []
+        self._held: List[int] = []      # fault-plan page grab
+        self._release_at: Optional[int] = None
         self._results: Dict[int, Finished] = {}
+        self._counters: Dict[str, int] = {}
+        self._gen: Optional[torch.Generator] = None
         self._round_no = self._decode_rounds = 0
         self._occ_accum = self._bursts = 0
-        self._prefill_s = self._decode_s = 0.0
+        self._clock = {}
+        self.reset_monitors()
 
     # -- helpers ----------------------------------------------------------
+    def reset_monitors(self) -> None:
+        """Fresh watchdog + straggler-monitor state (at every ``start``)."""
+        self.watchdog = ServeWatchdog(self.watchdog_patience)
+        self.monitor = StragglerMonitor()
+
     def _reserved_pages(self) -> int:
         """Worst-case pages of every admitted-but-unfinished request."""
         return sum(num_pages(r.prompt_len + r.max_new, self.page)
                    for r in self._req if r is not None)
 
-    def _ensure_pages(self, b: int, last_idx: int) -> None:
+    def _ensure_pages(self, b: int, last_idx: int) -> bool:
         """Lazily allocate slot ``b``'s pages covering token slots up to
-        ``last_idx`` (the reservation at admission guarantees they exist)."""
+        ``last_idx``; False when the pool cannot supply them (the caller
+        preempts a victim or slot ``b`` itself and retries)."""
         want = min(last_idx, self.max_len - 1) // self.page + 1
         while len(self._owned[b]) < want:
-            got = self.alloc.alloc(1)[0]
-            self._table[b, len(self._owned[b])] = got
-            self._owned[b].append(got)
+            got = self.alloc.try_alloc(1)
+            if got is None:
+                return False
+            self._table[b, len(self._owned[b])] = got[0]
+            self._owned[b].append(got[0])
             self._table_dev = None
+        return True
 
     def _table_device(self):
         """Device copy of the block table, re-uploaded only after the host
@@ -175,53 +360,311 @@ class ContinuousEngine:
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a), device=self.device)
 
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _prompt_hist(self, b: int) -> None:
+        """Seed slot ``b``'s penalty histogram: prompt + already-emitted
+        tokens (resume) — the count state an un-preempted run holds."""
+        if not self._use_pen:
+            return
+        v = self._cnt.shape[1]
+        seen = list(self._req[b].tokens) + list(self._emitted[b])
+        self._cnt[b] = np.bincount(np.asarray(seen, np.int64) % v,
+                                   minlength=v).astype(np.int32)
+
+    def _sampling(self) -> dict:
+        return dict(generator=self._gen, temperature=self.temperature,
+                    top_k=self.top_k, top_p=self.top_p)
+
+    # -- priorities, deadlines, victims -----------------------------------
+    def _pending_need(self, e: _QEntry) -> int:
+        """Pages an entry needs AT ADMISSION (its resume/prompt length)."""
+        if e.resume is not None:
+            if e.resume.blobs is not None:
+                return num_pages(e.resume.written, self.page)
+            n = e.req.prompt_len + len(e.resume.emitted) - 1
+            return num_pages(max(1, n), self.page)
+        return num_pages(e.req.prompt_len, self.page)
+
+    def _eff_pending(self, e: _QEntry, round_no: int) -> int:
+        """Effective priority of a queued entry: its class, +1 when its
+        deadline can no longer absorb any further waiting."""
+        p = e.req.priority
+        if e.req.deadline is not None:
+            emitted = len(e.resume.emitted) if e.resume is not None else 0
+            chunks = -(-e.req.prompt_len // self.chunk)
+            need = (e.req.max_new - emitted) + chunks
+            if round_no + need >= e.req.deadline:
+                p += 1
+        return p
+
+    def _eff_resident(self, b: int, round_no: int) -> int:
+        """Effective priority of a resident row (the same +1 boost)."""
+        r = self._req[b]
+        p = r.priority
+        if r.deadline is not None:
+            if self.done[b]:        # still prefilling
+                rem = len(self._ingest[b]) - int(self._prog[b])
+                need = r.max_new + -(-max(0, rem) // self.chunk)
+            else:
+                need = int(self.limit[b]) - int(self.pos[b]) + 1
+            if round_no + need >= r.deadline:
+                p += 1
+        return p
+
+    def _victims_for(self, eff: int, round_no: int, exclude=()):
+        """Resident rows preemptible by effective priority ``eff``,
+        weakest first; rows resident under ``MIN_RESIDENT`` rounds are
+        protected (anti-thrash).  Ties prefer the row donating the most pages, then the
+        lowest slot."""
+        cands = [b for b in range(self.slots)
+                 if self._req[b] is not None and b not in exclude
+                 and round_no - int(self._admit_round[b]) >= MIN_RESIDENT
+                 and self._eff_resident(b, round_no) < eff]
+        return sorted(cands, key=lambda b: (self._eff_resident(b, round_no),
+                                            -len(self._owned[b]), b))
+
+    def _backoff(self, e: _QEntry, round_no: int) -> None:
+        """Shed: defer the entry with jittered exponential backoff —
+        deterministic in (seed, rid, attempt), so replays are exact."""
+        delay = min(SHED_CAP, SHED_BASE * (2 ** min(e.sheds, 16)))
+        rng = np.random.RandomState(
+            (self.seed * 1000003 + e.req.rid * 9973 + e.sheds * 97)
+            & 0x7FFFFFFF)
+        e.not_before = round_no + delay + int(rng.randint(0, max(1, delay)))
+        e.sheds += 1
+        self._counters["shed_events"] += 1
+        if self.fault_plan is not None:
+            self.fault_plan.note("shed", round=round_no, rid=e.req.rid,
+                                 until=e.not_before)
+
+    # -- preemption / swap ------------------------------------------------
+    def _swap_out(self, ids: List[int], degrade: bool):
+        """Copy pages ``ids`` of every layer to host memory — cast to the
+        degrade format on the device first when allowed.  Returns
+        ``(blobs, nbytes, checksums)``; the CRC32s are taken here, so a
+        later bit flip in host memory is caught at swap-in."""
+        t0 = time.perf_counter()
+        idx = torch.as_tensor(ids, dtype=torch.int64, device=self.device)
+        pages = []
+        for c in self.caches:
+            for pool in (c.k_pool, c.v_pool):
+                x = pool.index_select(0, idx)
+                pages.append(x.to(self._swap_dtype) if degrade else x)
+        host = _to_host(pages)
+        blobs = list(zip(host[0::2], host[1::2]))
+        self._sync()
+        t1 = time.perf_counter()
+        sums = _crc_blobs(blobs)
+        self._clock["swap_out_s"] += t1 - t0
+        self._clock["swap_crc_s"] += time.perf_counter() - t1
+        return blobs, sum(x.numel() * x.element_size() for x in host), sums
+
+    @staticmethod
+    def _flip_bit(blobs: list, rid: int) -> None:
+        """Deterministic single-bit corruption of a swap payload (SDC
+        injection): byte and bit derive from the rid alone."""
+        k, v = blobs[0]
+        flat = k.clone().view(torch.uint8).reshape(-1)
+        flat.numpy()[(rid * 2654435761) % flat.numel()] ^= np.uint8(
+            1 << (rid % 8))
+        blobs[0] = (flat.view(k.dtype).reshape(k.shape), v)
+
+    def _swap_in(self, blobs: list, ids: List[int]) -> None:
+        """Write swapped payloads back into every layer's pools at the
+        victim's NEW page ids, widened to the pool dtype on the device."""
+        t0 = time.perf_counter()
+        idx = torch.as_tensor(ids, dtype=torch.int64, device=self.device)
+        for c, pair in zip(self.caches, blobs):
+            for pool, x in zip((c.k_pool, c.v_pool), pair):
+                # copied as raw bits: index_copy_ has no fp8 kernel
+                raw = _RAW[pool.element_size()]
+                # the host payload's bytes: what crosses PCIe
+                self._clock["swap_in_bytes"] += x.numel() * x.element_size()
+                x = x.to(self.device, non_blocking=True).to(pool.dtype)
+                pool.view(raw).index_copy_(0, idx, x.view(raw))
+        self._sync()
+        self._clock["swap_in_s"] += time.perf_counter() - t0
+
+    def _preempt(self, b: int, round_no: int, reason: str) -> None:
+        """Evict resident row ``b``: capture its continuation (swap-out or
+        reingest state), free its pages and slot, and re-queue it."""
+        e, req = self._entry[b], self._req[b]
+        counters, plan = self._counters, self.fault_plan
+        e.preemptions += 1
+        counters["preemptions"] += 1
+        if not self.done[b] and self.preempt_mode == "swap":
+            written = int(self.lens[b])
+            keep = self._owned[b][:num_pages(written, self.page)]
+            degrade = self.degrade_fmt is not None and not req.no_degrade
+            blobs, nbytes, sums = self._swap_out(keep, degrade)
+            if plan is not None and plan.take_corrupt():
+                self._flip_bit(blobs, req.rid)
+                counters["sdc_injected"] += 1
+                plan.note("sdc_inject", round=round_no, rid=req.rid, slot=b)
+            e.resume = _Resume(emitted=list(self._emitted[b]), blobs=blobs,
+                               written=written, degraded=degrade,
+                               checksums=sums,
+                               tag=SwapBlobTag(replica=0,
+                                               dtype=self._pool_dtype,
+                                               page=self.page))
+            if degrade:
+                e.degraded = True
+                counters["degraded"] += 1
+            counters["preempt_swap"] += 1
+            counters["swap_out_bytes"] += nbytes
+        elif self._emitted[b]:
+            e.resume = _Resume(emitted=list(self._emitted[b]), blobs=None,
+                               written=0, degraded=False)
+            counters["preempt_reingest"] += 1
+        else:
+            e.resume = None         # mid-prefill: restart from the prompt
+            counters["preempt_restart"] += 1
+        if plan is not None:
+            mode = ("swap" if e.resume is not None
+                    and e.resume.blobs is not None else "reingest")
+            plan.note("preempt", round=round_no, rid=req.rid, slot=b,
+                      reason=reason, mode=mode)
+        self._release(b)
+        e.not_before = max(e.not_before, round_no)
+        self._pending.append(e)
+
+    def _release(self, b: int) -> None:
+        """Slot ``b``'s pages back to the allocator, its table row to
+        scratch, its state to idle."""
+        self.alloc.free(self._owned[b])
+        self._owned[b] = []
+        self._table[b, :] = self.scratch
+        self._table_dev = None
+        self._req[b], self._entry[b] = None, None
+        self._emitted[b], self._ingest[b] = [], []
+        self._prog[b], self._resume_tok[b] = 0, None
+        self.pos[b], self.lens[b] = self.max_len - 1, 0
+        self.done[b], self.limit[b] = True, 0
+        if self._use_pen:
+            self._cnt[b] = 0
+
     # -- admission --------------------------------------------------------
-    def _admission(self, round_no: int) -> int:
-        admitted = 0
-        vis = [r for r in self._pending if r.arrival <= round_no]
-        vis.sort(key=lambda r: (-r.priority, r.arrival, r.rid))
-        for req in vis:
-            worst = num_pages(req.prompt_len + req.max_new, self.page)
-            need = num_pages(req.prompt_len, self.page)
-            free_slots = [b for b in range(self.slots) if self._req[b] is None]
-            if not (free_slots
-                    and self._reserved_pages() + worst <= self.n_pages - 1
-                    and self.alloc.n_free >= need):
-                continue
-            b = free_slots[0]
-            pages = self.alloc.alloc(need)
-            self._pending.remove(req)
-            self._table[b, :len(pages)] = pages
-            self._table_dev = None
-            self._owned[b] = pages
-            self._req[b] = req
-            self._admit_round[b] = round_no
+    def _admit_one(self, e: _QEntry, b: int, pages: List[int],
+                   round_no: int) -> None:
+        """Install entry ``e`` into free slot ``b`` with its admission
+        pages, restoring resume state.  Swap-in is CRC-checked first; a
+        mismatch falls back to re-ingest, which needs exactly the pages
+        already allocated (``lens == prompt + emitted - 1``)."""
+        req, counters = e.req, self._counters
+        self._table[b, :len(pages)] = pages
+        self._table_dev = None
+        self._owned[b] = pages
+        self._req[b], self._entry[b] = req, e
+        self._admit_round[b] = round_no
+        self._resume_tok[b] = None
+        rs, e.resume = e.resume, None
+        if rs is not None and rs.blobs is not None:
+            check_blob_tag(rs.tag, dtype=self._pool_dtype, page=self.page)
+            t0 = time.perf_counter()
+            intact = (rs.checksums is None
+                      or _crc_blobs(rs.blobs) == rs.checksums)
+            self._clock["swap_crc_s"] += time.perf_counter() - t0
+            if not intact:
+                counters["sdc_detected"] += 1
+                counters["sdc_reingest"] += 1
+                if self.fault_plan is not None:
+                    self.fault_plan.note("sdc_detect", round=round_no,
+                                         rid=req.rid, slot=b)
+                rs.blobs, rs.checksums = None, None
+        if rs is None:
+            self._ingest[b] = list(req.tokens)
             self._prog[b] = 0
             self._emitted[b] = []
+        elif rs.blobs is not None:
+            self._swap_in(rs.blobs, pages)
+            self._emitted[b] = list(rs.emitted)
+            self._ingest[b] = []
+            self._prog[b] = req.prompt_len
+            self.tok[b, 0] = rs.emitted[-1]
+            self.pos[b] = self.lens[b] = rs.written
+            self.limit[b] = req.prompt_len + req.max_new - 1
+            self.done[b] = False
+            counters["resumed"] += 1
+        else:
+            self._ingest[b] = list(req.tokens) + list(rs.emitted[:-1])
+            self._prog[b] = 0
+            self._emitted[b] = list(rs.emitted)
+            self._resume_tok[b] = rs.emitted[-1]
+            counters["resumed"] += 1
+        self._prompt_hist(b)
+
+    def _admission(self, round_no: int) -> int:
+        """One admission pass: visible entries in (effective priority,
+        deadline, arrival, rid) order; a candidate that does not fit may
+        preempt strictly weaker residents, else — with ``shed`` and a free
+        slot — it is deferred with backoff.  It never blocks the entries
+        behind it."""
+        admitted = 0
+        vis = [e for e in self._pending if e.not_before <= round_no]
+        vis.sort(key=lambda e: (
+            -self._eff_pending(e, round_no),
+            e.req.deadline if e.req.deadline is not None else _FAR,
+            e.req.arrival, e.req.rid))
+        for e in vis:
+            req = e.req
+            worst = num_pages(req.prompt_len + req.max_new, self.page)
+            need = self._pending_need(e)
+
+            def fits():
+                free_slots = [b for b in range(self.slots)
+                              if self._req[b] is None]
+                ok = (bool(free_slots)
+                      and self._reserved_pages() + worst <= self.n_pages - 1
+                      and self.alloc.n_free >= need)
+                return free_slots[0] if ok else None
+
+            b = fits()
+            if b is None:
+                eff = self._eff_pending(e, round_no)
+                for v in self._victims_for(eff, round_no):
+                    self._preempt(v, round_no, reason="pressure")
+                    b = fits()
+                    if b is not None:
+                        break
+                if b is None:
+                    # shed only under page pressure (a slot sits free);
+                    # all-slots-busy just waits for a finish
+                    if self.shed and any(self._req[s] is None
+                                         for s in range(self.slots)):
+                        self._backoff(e, round_no)
+                    continue
+            pages = self.alloc.try_alloc(need)
+            if pages is None:       # raced an injected hold: treat as shed
+                if self.shed:
+                    self._backoff(e, round_no)
+                continue
+            self._pending.remove(e)
+            self._admit_one(e, b, pages, round_no)
             admitted += 1
         return admitted
 
     # -- finish -----------------------------------------------------------
     def _finish(self, b: int, round_no: int) -> None:
-        """Page recycling: the slot's pages go back to the allocator the
-        round its request finishes; the table row falls back to scratch."""
-        req = self._req[b]
+        """Page recycling the round the request finishes, with deadline
+        accounting and the robustness trail on its ``Finished``."""
+        req, e = self._req[b], self._entry[b]
         self._results[req.rid] = Finished(
             rid=req.rid, prompt_len=req.prompt_len,
             tokens=list(self._emitted[b]),
             admit_round=int(self._admit_round[b]), finish_round=round_no,
-            slot=b)
-        self.alloc.free(self._owned[b])
-        self._owned[b] = []
-        self._table[b, :] = self.scratch
-        self._table_dev = None
-        self._req[b] = None
-        self._emitted[b] = []
-        self.pos[b], self.lens[b] = self.max_len - 1, 0
-        self.done[b], self.limit[b] = True, 0
+            slot=b, preemptions=e.preemptions, sheds=e.sheds,
+            degraded=e.degraded, deadline=req.deadline,
+            deadline_miss=(req.deadline is not None
+                           and round_no > req.deadline))
+        self._release(b)
 
     # -- the serving state machine ----------------------------------------
     def start(self, requests: Sequence[Request]) -> None:
+        """Validate and enqueue ``requests``; arm the run state (fault
+        plan, monitors, counters, the sampling generator)."""
         for r in requests:
             if r.prompt_len < 1 or r.max_new < 1:
                 raise ValueError(f"request {r.rid}: empty prompt or budget")
@@ -237,18 +680,61 @@ class ContinuousEngine:
                     f"(+1 scratch)")
         self._results = {}
         self.alloc.reset_peak()
+        if self.fault_plan is not None:
+            self.fault_plan.reset()
+        self._held, self._release_at = [], None
+        self.reset_monitors()
+        self._counters = {k: 0 for k in COUNTERS}
+        self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self._round_no = self._decode_rounds = 0
         self._occ_accum = self._bursts = 0
-        self._prefill_s = self._decode_s = 0.0
-        self._pending = sorted(requests, key=lambda r: (r.arrival, r.rid))
+        self._clock = {k: 0 for k in ("prefill_s", "decode_s", "swap_out_s",
+                                      "swap_in_s", "swap_in_bytes",
+                                      "swap_crc_s")}
+        self._pending = [_QEntry(req=r, not_before=r.arrival)
+                         for r in sorted(requests,
+                                         key=lambda r: (r.arrival, r.rid))]
 
     def has_work(self) -> bool:
         return bool(self._pending or any(r is not None for r in self._req))
 
-    def _prefill_waves(self) -> None:
+    def _diag(self) -> dict:
+        return {"round": self._round_no,
+                "pending": [(e.req.rid, e.not_before, e.sheds)
+                            for e in self._pending],
+                "resident": [r.rid for r in self._req if r is not None],
+                "pool": self.alloc.stats(),
+                "held_pages": len(self._held),
+                "counters": dict(self._counters)}
+
+    def _fault_holds(self) -> None:
+        """Release an expired exhaustion hold; start a due one (grab the
+        whole free list)."""
+        plan = self.fault_plan
+        if self._held and self._round_no >= self._release_at:
+            self.alloc.free(self._held)
+            if plan is not None:
+                plan.note("exhaust_release", round=self._round_no,
+                          pages=len(self._held))
+            self._held, self._release_at = [], None
+        if plan is not None and not self._held:
+            dur = plan.take_exhaustion(self._round_no)
+            if dur is not None:
+                grab = self.alloc.n_free
+                self._held = self.alloc.alloc(grab) if grab else []
+                self._release_at = self._round_no + max(1, dur)
+                self._counters["faults_exhaust"] += 1
+                plan.note("exhaust", round=self._round_no, pages=grab,
+                          until=self._release_at)
+
+    def _prefill_waves(self) -> int:
         """One prefill chunk per admitting slot, same-offset slots batched
-        into one call; a row whose last chunk ran emits its first token."""
+        into one call; a row whose last chunk ran samples its first token
+        (or, on a reingest resume, goes back to decoding from its last
+        emitted token).  Returns the progress made."""
         model, params = self.model, self.params
+        plan, counters = self.fault_plan, self._counters
+        progress = 0
         prefilling = [b for b in range(self.slots)
                       if self._req[b] is not None and self.done[b]]
         waves: Dict[int, List[int]] = {}
@@ -259,98 +745,211 @@ class ContinuousEngine:
             buf = np.zeros((m, self.chunk), np.int32)
             lens = np.zeros((m,), np.int32)
             for i, b in enumerate(rows):
-                piece = list(self._req[b].tokens)[off:off + self.chunk]
+                piece = self._ingest[b][off:off + self.chunk]
                 buf[i, :len(piece)] = piece
                 lens[i] = len(piece)
             caches = caches_with_table(self.caches, self._table_device())
             lg, _ = model.prefill_chunk(
                 params, self._tensor(buf), caches, q_offset=off,
                 row=self._tensor(rows), chunk_lens=self._tensor(lens))
-            tok0 = torch.argmax(lg[:, -1], dim=-1).cpu().numpy()
+            cnts = self._tensor(self._cnt[rows]) if self._use_pen else None
+            tok0, badp = _pick(
+                lg[:, -1], counts=cnts, guard=True,
+                penalties=dict(repetition_penalty=self.repetition_penalty,
+                               presence_penalty=self.presence_penalty),
+                **self._sampling())
+            tok0, badp = tok0.cpu().numpy(), badp.cpu().numpy()
+            progress += 1
             for i, b in enumerate(rows):
                 req = self._req[b]
                 self._prog[b] += int(lens[i])
-                if int(self._prog[b]) != req.prompt_len:
+                if int(self._prog[b]) != len(self._ingest[b]):
+                    continue
+                if badp[i]:
+                    if plan is not None and plan.mask_poison:
+                        counters["nonfinite_prefill"] += 1
+                    else:
+                        raise PoisonedLogitsError(
+                            f"non-finite prefill logits for request "
+                            f"{req.rid} (slot {b}, round {self._round_no})")
+                if self._resume_tok[b] is not None:
+                    # reingest resume: the re-fed tokens only rebuild K/V
+                    self.tok[b, 0] = self._resume_tok[b]
+                    self._resume_tok[b] = None
+                    self.pos[b] = self.lens[b] = len(self._ingest[b])
+                    self.limit[b] = req.prompt_len + req.max_new - 1
+                    self.done[b] = False
                     continue
                 t0 = int(tok0[i])
                 self._emitted[b] = [t0]
+                if self._use_pen:
+                    self._cnt[b, t0 % self._cnt.shape[1]] += 1
                 hit_stop = (self.stop_token is not None
                             and t0 == self.stop_token)
                 if hit_stop or req.max_new == 1:
                     self._finish(b, self._round_no)
+                    progress += 1
                 else:
                     self.tok[b, 0] = t0
                     self.pos[b] = self.lens[b] = req.prompt_len
                     self.limit[b] = req.prompt_len + req.max_new - 1
                     self.done[b] = False
+        return progress
+
+    def _burst_len(self, active: List[int], still_prefilling: bool):
+        """``(n_max, wave)`` of the next burst: short while a prompt is
+        prefilling, else up to ``burst_cap`` rounds, cut at the next queue
+        event and near the wave-th soonest budget finish."""
+        wave = (min(self.admit_wave, len(self._pending))
+                if self._pending else 0)
+        if still_prefilling:
+            return self.prefill_rounds, wave
+        n_max = self.burst_cap
+        if self._pending:
+            till = (min(e.not_before for e in self._pending)
+                    - self._round_no)
+            if till > 0:
+                n_max = max(1, min(n_max, till))
+            rem = sorted(int(self.limit[b]) - int(self.pos[b]) + 1
+                         for b in active)
+            k = min(wave, len(rem)) - 1
+            n_max = max(1, min(n_max, rem[k] + 1))
+        return n_max, wave
+
+    def _grow_pages(self, active: List[int], n_max: int) -> None:
+        """Lazy page growth for the burst; a failed allocation preempts a
+        weaker resident, or the row itself when none exists."""
+        for b in list(active):
+            if b not in active:
+                continue
+            tgt = min(int(self.pos[b]) + n_max - 1, int(self.limit[b]) - 1)
+            while not self._ensure_pages(b, tgt):
+                vs = self._victims_for(self._eff_resident(b, self._round_no),
+                                       self._round_no, exclude=(b,))
+                if not vs:
+                    self._preempt(b, self._round_no, reason="pages")
+                    active.remove(b)
+                    break
+                self._preempt(vs[0], self._round_no, reason="pages")
+                if vs[0] in active:
+                    active.remove(vs[0])
+
+    def _burst(self, active: List[int], n_max: int, wave: int) -> int:
+        """One decode burst over every slot, with the fault plan's stall
+        and poison; returns the progress made."""
+        plan, counters = self.fault_plan, self._counters
+        poison_rel = -1
+        if plan is not None:
+            p = plan.next_poison(self._round_no, self._round_no + int(n_max))
+            if p is not None:
+                poison_rel = p - self._round_no
+        t_start = time.perf_counter()
+        if plan is not None:
+            stall = plan.take_slow(self._round_no)
+            if stall > 0.0:
+                counters["faults_slow"] += 1
+                plan.note("slow", round=self._round_no, seconds=stall)
+                time.sleep(stall)
+        t0 = time.perf_counter()
+        caches = caches_with_table(self.caches, self._table_device())
+        dev = self._tensor
+        cnts = dev(self._cnt) if self._use_pen else None
+        r = self.model.decode_burst(
+            self.params, dev(self.tok), caches, dev(self.pos),
+            dev(self.lens), dev(self.done), dev(self.limit),
+            max_len=self.max_len, out_width=self.burst_cap, n_max=n_max,
+            exit_on_finish=wave, stop_token=self.stop_token, counts=cnts,
+            repetition_penalty=self.repetition_penalty,
+            presence_penalty=self.presence_penalty, poison_at=poison_rel,
+            guard=True, **self._sampling())
+        out, n, tok, _, pos, lens, done, _, bad = r[:9]
+        outs = out[:, :n].cpu().numpy()
+        bad = bad.cpu().numpy()
+        new_tok = tok.cpu().numpy().astype(np.int32)
+        new_pos = pos.cpu().numpy().astype(np.int32)
+        new_lens = lens.cpu().numpy().astype(np.int32)
+        new_done = done.cpu().numpy().astype(bool)
+        now = time.perf_counter()
+        self._clock["decode_s"] += now - t0
+        if self.monitor.record(self._bursts, now - t_start):
+            counters["stragglers"] += 1
+        if bad.sum():
+            if plan is not None and plan.mask_poison:
+                counters["poisoned_rounds"] += int(bad.max())
+                plan.note("poison", round=self._round_no,
+                          rows=np.nonzero(bad)[0].tolist())
+            else:
+                raise PoisonedLogitsError(
+                    f"non-finite decode logits at round {self._round_no} "
+                    f"(rows {np.nonzero(bad)[0].tolist()}); no masking "
+                    f"fault harness is active")
+        self.tok, self.pos = new_tok, new_pos
+        total_ran = 0
+        for b in active:
+            # rounds this row ran = its live-length growth
+            ran = int(new_lens[b]) - int(self.lens[b])
+            emitted = [int(t) for t in outs[b, :ran]]
+            self._emitted[b].extend(emitted)
+            if self._use_pen and emitted:
+                v = self._cnt.shape[1]
+                np.add.at(self._cnt[b], np.asarray(emitted, np.int64) % v, 1)
+            self._occ_accum += ran
+            total_ran += ran
+        if n > 0 and total_ran == 0:
+            raise EngineStuckError(
+                f"decode burst executed {n} rounds without advancing any "
+                f"of {len(active)} live rows", self._diag())
+        self.lens, self.done = new_lens, new_done
+        self._round_no += n
+        self._decode_rounds += n
+        self._bursts += 1
+        progress = n
+        for b in active:
+            if self.done[b]:
+                self._finish(b, self._round_no)
+                progress += 1
+        return progress
 
     def step(self) -> bool:
-        """ONE scheduler iteration: admission -> prefill chunks -> at most
-        one decode burst -> finish accounting.  Returns ``has_work()``."""
+        """ONE scheduler iteration: fault holds -> admission -> prefill
+        chunks -> at most one decode burst -> finish accounting -> the
+        watchdog's tick.  Returns ``has_work()``."""
         if not self.has_work():
             return False
-        self._admission(self._round_no)
+        self._fault_holds()
+        progress = self._admission(self._round_no)
         t0 = time.perf_counter()
-        self._prefill_waves()
-        self._prefill_s += time.perf_counter() - t0
+        progress += self._prefill_waves()
+        self._clock["prefill_s"] += time.perf_counter() - t0
 
         active = [b for b in range(self.slots) if not self.done[b]]
         still_prefilling = any(self._req[b] is not None and self.done[b]
                                for b in range(self.slots))
+        n_max = wave = 0
         if active:
-            wave = (min(self.admit_wave, len(self._pending))
-                    if self._pending else 0)
-            if still_prefilling:
-                n_max = self.prefill_rounds
-            else:
-                n_max = self.burst_cap
-                if self._pending:
-                    till = (min(r.arrival for r in self._pending)
-                            - self._round_no)
-                    if till > 0:
-                        n_max = max(1, min(n_max, till))
-                    rem = sorted(int(self.limit[b]) - int(self.pos[b]) + 1
-                                 for b in active)
-                    k = min(wave, len(rem)) - 1
-                    n_max = max(1, min(n_max, rem[k] + 1))
-            for b in active:
-                self._ensure_pages(b, min(int(self.pos[b]) + n_max - 1,
-                                          int(self.limit[b]) - 1))
-            t0 = time.perf_counter()
-            caches = caches_with_table(self.caches, self._table_device())
-            dev = lambda a: self._tensor(a)
-            out, n, tok, _, pos, lens, done = self.model.decode_burst(
-                self.params, dev(self.tok), caches, dev(self.pos),
-                dev(self.lens), dev(self.done), dev(self.limit),
-                max_len=self.max_len, out_width=self.burst_cap, n_max=n_max,
-                exit_on_finish=wave, stop_token=self.stop_token)
-            outs = out[:, :n].cpu().numpy()
-            self.tok = tok.cpu().numpy().astype(np.int32)
-            self.pos = pos.cpu().numpy().astype(np.int32)
-            new_lens = lens.cpu().numpy().astype(np.int32)
-            for b in active:
-                ran = int(new_lens[b]) - int(self.lens[b])
-                self._emitted[b].extend(int(t) for t in outs[b, :ran])
-                self._occ_accum += ran
-            self.lens = new_lens
-            self.done = done.cpu().numpy().astype(bool)
-            self._decode_s += time.perf_counter() - t0
-            self._round_no += n
-            self._decode_rounds += n
-            self._bursts += 1
-            for b in active:
-                if self.done[b]:
-                    self._finish(b, self._round_no)
+            n_max, wave = self._burst_len(active, still_prefilling)
+            self._grow_pages(active, n_max)
+        if active:
+            progress += self._burst(active, n_max, wave)
         elif still_prefilling:
             self._round_no += 1    # prefill-only round (no decoders yet)
         elif self._pending:
-            # idle: jump to the next arrival
-            self._round_no = max(self._round_no + 1,
-                                 min(r.arrival for r in self._pending))
+            # idle: jump to the next event (an arrival, a backoff window
+            # expiring, or an exhaustion hold releasing)
+            nxt = [e.not_before for e in self._pending]
+            if self._held:
+                nxt.append(self._release_at)
+            self._round_no = max(self._round_no + 1, min(nxt))
+        self.watchdog.tick(progress > 0, self._diag)
         return self.has_work()
 
     def finalize(self):
-        """Returns ``(results_by_rid, stats)``."""
+        """Release fault-plan holds; returns ``(results_by_rid, stats)``."""
+        if self._held:              # plan outlived the queue: tidy up
+            self.alloc.free(self._held)
+            self._held, self._release_at = [], None
+        dl = [f for f in self._results.values() if f.deadline is not None]
+        misses = sum(1 for f in dl if f.deadline_miss)
         stats = {
             "rounds": self._round_no,
             "decode_rounds": self._decode_rounds,
@@ -363,10 +962,15 @@ class ContinuousEngine:
             "n_pages": self.n_pages,
             "fixed_equiv_pages": self.slots * self.max_pages,
             "pages_live_end": self.alloc.n_live - 1,
-            # host clock around prefill waves / decode bursts; each ends in
-            # a device-to-host copy of its result, so the device work is in
-            "prefill_s": self._prefill_s,
-            "decode_s": self._decode_s,
+            "deadline_total": len(dl),
+            "deadline_misses": misses,
+            "deadline_miss_rate": (misses / len(dl)) if dl else 0.0,
+            "straggler_ewma_s": self.monitor.ewma,
+            **self._counters,
+            # host clock around prefill waves / decode bursts (each ends
+            # in a device-to-host copy of its result), around swaps (each
+            # ends in a synchronise) and around the swap payloads' CRC32s
+            **self._clock,
         }
         return dict(self._results), stats
 

@@ -1,92 +1,355 @@
-"""Serving launcher of the port: a request queue served by the
-continuous-batching engine.
+"""Serving launcher of the port: one fixed batch through ``Model.generate``,
+or a request queue through the continuous-batching engine.
 
-``--continuous`` serves the deterministic ``chat`` queue of
-``engine.synthetic_trace`` (``--requests`` requests over ``--slots`` batch
-slots, prompts up to ``--prompt-len``, budgets up to ``--gen``) through
-``ContinuousEngine``: paged KV in ``--page-size``-token pages, prompts
-consumed in ``--chunk``-token chunks, greedy decode.  The model is the
-reduced config unless ``--full``; weights are random from seed 0.  It runs
-once to warm up, then once timed, and prints per-request admit / finish
-rounds, occupancy, peak live pages and tok/s.
+Fixed batch (the default): ``--batch`` prompts of ``--prompt-len`` tokens,
+``--gen`` tokens each.  ``--loop scan`` runs ``Model.generate`` (the
+guard on: non-finite logits raise ``PoisonedLogitsError``); ``--loop
+python`` is the per-step prefill + ``decode_step`` loop.  ``--ragged``
+packs prompts of 1/4 .. 4/4 of ``--prompt-len`` into one right-padded
+batch, ``--stop-token`` freezes a row at that token, ``--paged`` serves
+from a page pool of ``--page-size``-token pages; a uniform paged batch
+also runs the prefix-sharing gate (every row shares the first half of
+its prompt, stored once: tokens and logits must equal the unshared
+layout's exactly).
 
-Runs on the GPU unless ``--device cpu`` is given; without a card and
-without ``--device`` it raises.  The fixed-batch ``generate`` paths of the
-JAX package's launcher (scan / python loops, sampling, penalties,
-speculation, meshes, replicas, fault injection) are not ported.
+``--continuous`` serves a queue through ``ContinuousEngine`` (implied by
+``--arrival-trace``, ``arrival:prompt_len:max_new[:priority[:deadline]]``
+tuples in decode rounds; default: the ``chat`` trace of
+``engine.synthetic_trace``, or its ``soak`` trace with ``--soak``).
+Overload controls: ``--priority`` / ``--deadline-ms`` (converted to
+rounds by ``--round-ms``) annotate the default trace, ``--pool-pages``
+shrinks the page pool, ``--preempt free|swap``, ``--degrade-fmt fp8``
+(implies swap), ``--shed/--no-shed``, and the fault plan
+``--fault-exhaust/--fault-poison/--fault-slow/--fault-corrupt-swap``
+(rounds, or swap-out events for the last; ``--soak`` alone exhausts the
+pool at round ``--gen``).  It runs once to warm up, then once timed.
 
-    python -m repro_torch.launch.serve --continuous --full
-    python -m repro_torch.launch.serve --continuous --device cpu \\
-        --slots 4 --requests 10 --prompt-len 16 --gen 24
+Sampling everywhere: ``--temperature --top-k --top-p --seed
+--repetition-penalty --presence-penalty``.  The model is the reduced
+config unless ``--full``; weights are random from seed 0.  Runs on the GPU
+unless ``--device cpu``; without a card and without ``--device`` it
+raises.  Speculation, escalation, meshes, replicas and the journal are
+not ported.
+
+    python -m repro_torch.launch.serve --full --batch 4 --gen 32
+    python -m repro_torch.launch.serve --device cpu --paged --page-size 16
+    python -m repro_torch.launch.serve --continuous --soak --device cpu \\
+        --slots 3 --requests 10 --prompt-len 16 --gen 24 --pool-pages 5 \\
+        --preempt swap --degrade-fmt fp8 --policy tp_bf16_kv8 \\
+        --fault-exhaust 2 --fault-poison 6 --fault-slow 4
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
+import numpy as np
 import torch
 
+from ..models.paged import (PageAllocator, build_tables, identity_block_table,
+                            num_pages)
 from ..models.registry import build_model
-from .engine import ContinuousEngine, synthetic_trace
+from ..models.transformer import sample_token
+from ..train.fault import PoisonedLogitsError, ServeFaultPlan
+from .engine import ContinuousEngine, Request, synthetic_trace
 
 
-def main(argv=None):
+def ragged_lengths(batch: int, prompt_len: int):
+    """The mixed-length pack of ``--ragged``: rows cycle over 1/4, 1/2,
+    3/4, 4/4 of ``prompt_len`` (at least 1)."""
+    fracs = (0.25, 0.5, 0.75, 1.0)
+    return [max(1, int(prompt_len * fracs[i % len(fracs)]))
+            for i in range(batch)]
+
+
+def prefix_sharing_parity(model, params, prompts, *, gen: int, max_len: int):
+    """Give every row of ``prompts`` [B, S] the first row's first half,
+    store the pages that half covers ONCE (aliased into every row's block
+    table), and generate greedily from the shared and from the identity
+    layout.  Returns ``(token_mismatches, max_abs_logit_diff, prompts,
+    shared_table, n_pages, live_pages)``: the first two must be 0."""
+    b, s = prompts.shape
+    page = model.cfg.page_size
+    common = s // 2
+    prompts = torch.cat([prompts[:1, :common].expand(b, common),
+                         prompts[:, common:]], 1)
+    mp = num_pages(max_len, page)
+    n_pages = b * mp
+    alloc = PageAllocator(n_pages)
+    shared = build_tables(alloc, b, mp, shared_pages=common // page)
+    shared = torch.as_tensor(shared, device=model.device)
+    runs = [model.generate(params, prompts, gen_len=gen, max_len=max_len,
+                           page_table=t, n_pages=n_pages, return_logits=True)
+            for t in (shared, torch.as_tensor(identity_block_table(b, mp),
+                                              device=model.device))]
+    (g_s, lg_s), (g_u, lg_u) = runs
+    return (int((g_s != g_u).sum()), float((lg_s - lg_u).abs().max()),
+            prompts, shared, n_pages, alloc.n_live)
+
+
+def _arg_parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="gemma2-9b")
     ap.add_argument("--policy", default="tp_bf16")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--loop", choices=("scan", "python"), default="scan")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="> 0 enables sampling (0 = greedy, the default)")
+    ap.add_argument("--top-k", type=int, default=None)
+    ap.add_argument("--top-p", type=float, default=None)
+    ap.add_argument("--repetition-penalty", type=float, default=None)
+    ap.add_argument("--presence-penalty", type=float, default=None)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="sampling generator seed")
+    ap.add_argument("--ragged", action="store_true")
+    ap.add_argument("--stop-token", type=int, default=None)
+    ap.add_argument("--paged", action="store_true")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page")
     ap.add_argument("--continuous", action="store_true",
-                    help="continuous-batching engine (the only ported path)")
+                    help="continuous-batching engine (implies --paged)")
+    ap.add_argument("--arrival-trace", default=None,
+                    help="arrival:prompt_len:max_new[:priority[:deadline]],"
+                         "... (rounds)")
+    ap.add_argument("--priority", type=int, default=0)
+    ap.add_argument("--deadline-ms", type=float, default=None)
+    ap.add_argument("--round-ms", type=float, default=1.0)
+    ap.add_argument("--shed", dest="shed", action="store_true", default=True)
+    ap.add_argument("--no-shed", dest="shed", action="store_false")
+    ap.add_argument("--preempt", choices=("free", "swap"), default="free")
+    ap.add_argument("--degrade-fmt", default=None)
+    ap.add_argument("--pool-pages", type=int, default=None)
+    ap.add_argument("--soak", action="store_true")
+    ap.add_argument("--fault-exhaust", default=None)
+    ap.add_argument("--fault-poison", default=None)
+    ap.add_argument("--fault-slow", default=None)
+    ap.add_argument("--fault-corrupt-swap", default=None)
+    ap.add_argument("--burst-cap", type=int, default=64)
     ap.add_argument("--slots", type=int, default=4,
                     help="batch slots of the continuous engine")
     ap.add_argument("--requests", type=int, default=16,
                     help="requests in the synthetic queue")
-    ap.add_argument("--prompt-len", type=int, default=64)
-    ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--chunk", type=int, default=16,
                     help="prefill chunk width of the continuous engine")
-    ap.add_argument("--page-size", type=int, default=16,
-                    help="tokens per KV page")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false",
                     help="the arch at full width")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
-    args = ap.parse_args(argv)
-    if not args.continuous:
-        ap.error("only --continuous is ported (the fixed-batch generate "
-                 "paths are not)")
+    return ap
 
+
+def main(argv=None):
+    ap = _arg_parser()
+    args = ap.parse_args(argv)
+    if ((args.ragged or args.paged or args.stop_token is not None
+         or args.continuous) and args.loop != "scan"):
+        ap.error("--ragged / --paged / --stop-token / --continuous require "
+                 "--loop scan")
+    if args.arrival_trace and not args.continuous:
+        args.continuous = True          # a request queue implies the engine
+    if args.continuous and args.ragged:
+        ap.error("--continuous subsumes --ragged (per-request lengths)")
+    pen = (args.repetition_penalty is not None
+           or args.presence_penalty is not None)
+    if pen and args.loop != "scan":
+        ap.error("--repetition-penalty / --presence-penalty apply to the "
+                 "generate() and continuous-engine paths only")
+
+    paged = args.paged or args.continuous
     model = build_model(args.arch, policy=args.policy, reduced=args.reduced,
-                        device=args.device, paged_kv=True,
+                        device=args.device, paged_kv=paged,
                         page_size=args.page_size)
     params = model.init(0)
-    reqs = synthetic_trace(args.requests, args.slots, args.prompt_len,
-                           args.gen, model.cfg.vocab)
+    if args.continuous:
+        return _continuous(args, model, params)
+    return _fixed_batch(args, model, params)
+
+
+def _where(model) -> str:
+    return (torch.cuda.get_device_name(model.device)
+            if model.device.type == "cuda" else str(model.device))
+
+
+def _sync(model) -> None:
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+
+
+def _fixed_batch(args, model, params):
+    dev = model.device
+    max_len = args.prompt_len + args.gen
+    rng = np.random.RandomState(1)
+    prompts = torch.as_tensor(rng.randint(
+        0, model.cfg.vocab, size=(args.batch, args.prompt_len)), device=dev)
+    prompt_lens = None
+    if args.ragged:
+        lens = ragged_lengths(args.batch, args.prompt_len)
+        prompt_lens = torch.as_tensor(lens, device=dev)
+        live = (torch.arange(args.prompt_len, device=dev)[None, :]
+                < prompt_lens[:, None])
+        prompts = torch.where(live, prompts, 0)
+        print(f"ragged pack: lengths {lens} padded to {args.prompt_len}")
+    page_table = n_pages = None
+    if args.paged and not args.ragged:
+        d_tok, d_lg, prompts, page_table, n_pages, live = \
+            prefix_sharing_parity(model, params, prompts, gen=args.gen,
+                                  max_len=max_len)
+        print(f"paged pool: page={args.page_size}, {live}/{n_pages} pages "
+              f"live with the shared prefix ({args.prompt_len // 2} common "
+              f"prompt tokens) vs {n_pages} unshared")
+        print(f"prefix-sharing parity: max |dlogits| = {d_lg:.1e}, "
+              f"token mismatches = {d_tok} (both must be 0)")
+        assert d_tok == 0 and d_lg == 0.0, "prefix sharing changed outputs"
+    elif args.paged:
+        print(f"paged pool: page={args.page_size}, identity table "
+              f"(ragged rows keep private page runs)")
+
+    sampling = dict(temperature=args.temperature, top_k=args.top_k,
+                    top_p=args.top_p)
+    if args.loop == "scan":
+        def run():
+            g = torch.Generator(device=dev).manual_seed(args.seed)
+            return model.generate(
+                params, prompts, gen_len=args.gen, max_len=max_len,
+                generator=g, prompt_lens=prompt_lens,
+                stop_token=args.stop_token, page_table=page_table,
+                n_pages=n_pages, repetition_penalty=args.repetition_penalty,
+                presence_penalty=args.presence_penalty,
+                guard_nonfinite=True, **sampling)
+        run()                               # warm-up (kernel build)
+        _sync(model)
+        t0 = time.perf_counter()
+        gen, _, bad = run()
+        _sync(model)
+        dt = time.perf_counter() - t0
+        if int(bad.sum()) > 0:
+            raise PoisonedLogitsError(
+                f"non-finite logits at {int(bad.sum())} sampling steps "
+                f"(rows {torch.nonzero(bad).flatten().tolist()})")
+        n_tok = args.batch * args.gen
+        if args.stop_token is not None:
+            live_tok = int((gen != args.stop_token).sum()
+                           + (gen == args.stop_token).any(1).sum())
+            print(f"stop-token {args.stop_token}: {live_tok}/{n_tok} "
+                  f"tokens live (rest frozen post-EOS)")
+    else:
+        g = torch.Generator(device=dev).manual_seed(args.seed)
+        lg, caches = model.prefill(params, prompts, max_len=max_len)
+        tok = sample_token(lg[:, -1], g, **sampling)[:, None]
+        _sync(model)
+        t0 = time.perf_counter()
+        for i in range(args.gen - 1):
+            lg, caches = model.decode_step(params, tok, caches,
+                                           args.prompt_len + i)
+            tok = sample_token(lg[:, -1], g, **sampling)[:, None]
+        _sync(model)
+        dt = time.perf_counter() - t0
+        gen = None
+        n_tok = args.batch * (args.gen - 1)
+    tag = args.loop + (f"/paged{args.page_size}" if args.paged else "")
+    print(f"{args.arch} [{tag}] on {_where(model)}: {n_tok} tokens in "
+          f"{dt:.3f} s ({n_tok / dt:.1f} tok/s)")
+    return gen
+
+
+def _continuous(args, model, params):
+    dl_rounds = (None if args.deadline_ms is None
+                 else max(1, int(args.deadline_ms / args.round_ms)))
+    if args.arrival_trace:
+        reqs = []
+        for i, tup in enumerate(args.arrival_trace.split(",")):
+            parts = [int(x) for x in tup.split(":")]
+            arr, plen, budget = parts[:3]
+            pri = parts[3] if len(parts) > 3 else args.priority
+            dl = (parts[4] if len(parts) > 4
+                  else (arr + dl_rounds if dl_rounds else None))
+            toks = np.random.RandomState(100 + i).randint(
+                0, model.cfg.vocab, size=plen)
+            reqs.append(Request(rid=i, tokens=toks.tolist(), max_new=budget,
+                                arrival=arr, priority=pri, deadline=dl))
+    else:
+        reqs = synthetic_trace(args.requests, args.slots, args.prompt_len,
+                               args.gen, model.cfg.vocab,
+                               flavor="soak" if args.soak else "chat")
+        if args.priority or dl_rounds is not None:
+            reqs = [dataclasses.replace(
+                r, priority=r.priority or args.priority,
+                deadline=(r.arrival + dl_rounds if dl_rounds
+                          else r.deadline)) for r in reqs]
+    rounds = lambda s: tuple(int(x) for x in s.split(",")) if s else ()
+    plan = None
+    if (args.fault_exhaust or args.fault_poison or args.fault_slow
+            or args.fault_corrupt_swap or args.soak):
+        plan = ServeFaultPlan(
+            exhaust_at=rounds(args.fault_exhaust) or
+            ((args.gen,) if args.soak else ()),
+            slow_at=rounds(args.fault_slow),
+            poison_at=rounds(args.fault_poison), mask_poison=True,
+            corrupt_swap_at=rounds(args.fault_corrupt_swap))
+    if args.degrade_fmt is not None:
+        args.preempt = "swap"           # degradation rides the swap store
     max_len = max(r.prompt_len + r.max_new for r in reqs)
-    eng = ContinuousEngine(model, params, slots=args.slots, max_len=max_len,
-                           chunk=args.chunk)
+    eng = ContinuousEngine(
+        model, params, slots=args.slots, max_len=max_len, chunk=args.chunk,
+        n_pages=args.pool_pages, stop_token=args.stop_token,
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        seed=args.seed, burst_cap=args.burst_cap,
+        repetition_penalty=args.repetition_penalty,
+        presence_penalty=args.presence_penalty, preempt=args.preempt,
+        degrade_fmt=args.degrade_fmt, shed=args.shed, fault_plan=plan)
     eng.run(reqs)                       # warm-up (kernel build, allocator)
     t0 = time.perf_counter()
     fin, stats = eng.run(reqs)
-    if model.device.type == "cuda":
-        torch.cuda.synchronize()
+    _sync(model)
     dt = time.perf_counter() - t0
-    where = (torch.cuda.get_device_name(model.device)
-             if model.device.type == "cuda" else str(model.device))
-    print(f"continuous engine on {where}: {model.cfg.name}, "
+    print(f"continuous engine on {_where(model)}: {model.cfg.name}, "
           f"{args.slots} slots, page={args.page_size}, chunk={args.chunk}, "
-          f"{len(reqs)} requests, pool {stats['n_pages']} pages")
+          f"{len(reqs)} requests, pool {stats['n_pages']} pages, "
+          f"preempt={args.preempt}"
+          + (f", degrade={args.degrade_fmt}" if args.degrade_fmt else ""))
     for f in fin:
+        trail = ""
+        if f.preemptions:
+            trail += f" preempted x{f.preemptions}"
+        if f.sheds:
+            trail += f" shed x{f.sheds}"
+        if f.degraded:
+            trail += " degraded"
+        if f.deadline is not None:
+            trail += (" DEADLINE MISS" if f.deadline_miss
+                      else f" met r{f.deadline}")
         print(f"  req {f.rid:3d}: prompt {f.prompt_len:3d} -> "
               f"{len(f.tokens):3d} tokens  (slot {f.slot}, admitted "
-              f"r{f.admit_round}, finished r{f.finish_round})")
+              f"r{f.admit_round}, finished r{f.finish_round}){trail}")
     n_tok = sum(len(f.tokens) for f in fin)
     print(f"occupancy {stats['occupancy']:.2f} over "
           f"{stats['decode_rounds']} rounds / {stats['bursts']} bursts; "
           f"peak live pages {stats['peak_live_pages']} vs "
           f"{stats['fixed_equiv_pages']} fixed-batch equivalent "
           f"(pool {stats['n_pages']}, {stats['pages_live_end']} live at end)")
+    print(f"robustness: {stats['preemptions']} preemptions "
+          f"({stats['preempt_swap']} swap / "
+          f"{stats['preempt_reingest']} reingest), "
+          f"{stats['shed_events']} sheds, {stats['degraded']} degraded, "
+          f"{stats['deadline_misses']}/{stats['deadline_total']} deadline "
+          f"misses, {stats['poisoned_rounds']} poisoned rounds masked, "
+          f"{stats['stragglers']} stragglers, "
+          f"{stats['faults_exhaust']} exhaustion episodes")
+    if plan is not None:
+        print(f"swap integrity: {stats['sdc_injected']} SDC injected / "
+              f"{stats['sdc_detected']} detected / "
+              f"{stats['sdc_reingest']} recovered by reingest")
+        if plan.events:
+            kinds = {}
+            for k, _ in plan.events:
+                kinds[k] = kinds.get(k, 0) + 1
+            print("fault log: " + ", ".join(
+                f"{v}x {k}" for k, v in sorted(kinds.items())))
     print(f"{n_tok} tokens in {dt:.3f} s = {n_tok / dt:.1f} tok/s "
           f"(prefill {stats['prefill_s']:.3f} s, decode "
           f"{stats['decode_s']:.3f} s)")

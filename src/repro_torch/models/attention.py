@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core import ops as tp
+from ..core.formats import get_format
 from ..kernels import ops as kops
 from .layers import apply_rope, dense_init, rmsnorm, softcap
 from .paged import PagedKVCache, gather_paged_kv, paged_update_rows
@@ -31,6 +32,21 @@ def kv_store_dtype(policy) -> torch.dtype:
     if policy.kv_fmt is not None and policy.mode == "native":
         return policy.kv_fmt.native_dtype
     return tp.storage_dtype(policy.param_fmt, policy.mode)
+
+
+def kv_swap_dtype(fmt) -> torch.dtype:
+    """Host-side dtype of KV pages swapped out of the pool under a degrade
+    format (serving-loop preemption): the format's native container
+    (``fp8`` -> ``torch.float8_e5m2``, never ``float8_e4m3fn``, a
+    different format).  Swap-in widens back to the pool dtype; on a pool
+    that already stores ``fmt`` (policy ``tp_bf16_kv8``) the round trip
+    is value-exact."""
+    f = get_format(fmt)
+    if f.native_dtype is None:
+        raise ValueError(
+            f"degrade format {f.name!r} has no native container dtype to "
+            f"swap KV pages into (use fp8/bf16/fp16)")
+    return f.native_dtype
 
 
 class KVCache(NamedTuple):

@@ -49,8 +49,10 @@ def init_paged_kv_cache(batch: int, n_kv_heads: int, max_len: int, page: int,
     mp = num_pages(max_len, page)
     if block_table is None:
         block_table = identity_block_table(batch, mp)
-    block_table = torch.as_tensor(np.asarray(block_table, np.int32),
-                                  device=device)
+    block_table = (block_table.to(device=device, dtype=torch.int32)
+                   if isinstance(block_table, torch.Tensor) else
+                   torch.as_tensor(np.asarray(block_table, np.int32),
+                                   device=device))
     assert tuple(block_table.shape) == (batch, mp), (block_table.shape,
                                                       batch, mp)
     n_pages = batch * mp if n_pages is None else n_pages
@@ -162,6 +164,38 @@ class PageAllocator:
                 self._free.append(i)
                 released += 1
         return released
+
+
+def dtype_name(dtype) -> str:
+    """The name the JAX package writes for a container dtype
+    (``"bfloat16"``, ``"float8_e5m2"``, ``"float32"``) from a torch dtype
+    or such a name."""
+    return str(dtype).replace("torch.", "")
+
+
+class SwapBlobTag(NamedTuple):
+    """Provenance tag on a swapped-out page payload: which replica's pool
+    it came from, the pool's container dtype (as ``dtype_name`` spells it,
+    byte-compatible with the JAX package's tags) and the page size."""
+    replica: int
+    dtype: str
+    page: int
+
+
+def check_blob_tag(tag: Optional[SwapBlobTag], *, dtype, page: int) -> None:
+    """Refuse a swap-in whose payload tag mismatches the receiving pool's
+    (dtype, page): installing it would reinterpret page bytes.  ``None``
+    (an untagged payload) is accepted; a replica mismatch alone is fine."""
+    if tag is None:
+        return
+    want_dt, want_pg = dtype_name(dtype), int(page)
+    got_dt, got_pg = dtype_name(tag.dtype), int(tag.page)
+    if got_dt != want_dt or got_pg != want_pg:
+        raise ValueError(
+            f"foreign swap blob refused: payload from replica "
+            f"{tag.replica} is ({got_dt}, page={got_pg}) but the receiving "
+            f"pool is ({want_dt}, page={want_pg}) — migrating it would "
+            f"reinterpret page bytes; re-ingest the request instead")
 
 
 def build_tables(alloc: PageAllocator, batch: int, max_pages: int,

@@ -3,22 +3,32 @@ norm -> tied unembedding, with the entry points the serving engine drives:
 
   ``prefill``        [B, S] tokens -> (last-live-token logits, caches)
   ``decode_step``    one token per row + caches -> (logits, caches)
+  ``generate``       prefill + ``gen_len`` decode steps in one call, as a
+                     fixed-trip loop (``loop="scan"``) or one that exits
+                     the step every row is done (``loop="while"``)
   ``prefill_chunk``  one prompt chunk into existing paged caches
-  ``decode_round``   one greedy decode round over every batch slot
+  ``decode_round``   one decode round over every batch slot
   ``decode_burst``   a Python loop of rounds with the JAX package's exit
                      rules (all rows done, ``n_max`` rounds, or the
                      ``exit_on_finish``-th finish since entry)
 
+Every sampling site goes the same way: optional non-finite guard
+(``sanitize_logits``), repetition / presence penalties from a per-row
+token histogram (``apply_penalties``), then greedy argmax or a
+temperature / top-k / top-p draw (``sample_token``) from an explicit
+``torch.Generator``.
+
 Parameters are a plain dict of tensors in the JAX layout (``[d_in,
 d_out]``) with the layers UNSTACKED: ``params["layers"][i]`` is layer
 ``i`` of ``cfg.layer_list()``.  Caches are a list with one entry per
-layer, updated IN PLACE.  Attention-only (gqa + swiglu) archs, greedy
-decoding; sampling, penalties, non-finite guards and speculative decoding
-are not ported yet and raise ``NotImplementedError``.
+layer, updated IN PLACE.  Attention-only (gqa + swiglu) archs;
+speculative decoding and the escalation write path are not ported yet
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional
 
 import numpy as np
@@ -42,12 +52,117 @@ def padded_vocab(vocab: int) -> int:
     return -(-vocab // VOCAB_PAD) * VOCAB_PAD
 
 
-def sample_token(lg, *, temperature: float = 0.0, top_k=None, top_p=None):
-    """Greedy argmax over logits [B, V] -> [B] int32 (first maximum on
-    ties).  Sampling (``temperature > 0``) is not ported yet."""
-    if (temperature is not None and temperature > 0.0) or top_k or top_p:
-        raise NotImplementedError("sampling is not ported yet (greedy only)")
-    return torch.argmax(lg.to(F32), dim=-1).to(torch.int32)
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    """``x`` as a 0-d f32 tensor on ``like``'s device, made by a fill (no
+    host-to-device copy, so no stream sync).  Arithmetic with a device
+    tensor rounds as the JAX package's f32 ops do; a Python scalar divisor
+    would let CUDA multiply by its reciprocal instead."""
+    return torch.full((), x, dtype=F32, device=like.device)
+
+
+def sample_token(lg, generator: Optional[torch.Generator] = None, *,
+                 temperature: float = 0.0, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None):
+    """One sampling step: logits [B, V] -> token ids [B] (int32).
+
+    ``temperature <= 0`` is greedy argmax (first maximum on ties) and
+    touches no generator.  Otherwise: temperature scaling, optional top-k
+    truncation, optional nucleus (top-p) truncation, then a categorical
+    draw.  The rules are the JAX package's: top-k masks logits strictly
+    below the k-th largest; top-p sorts descending, takes the f32 softmax
+    and its exclusive cumulative mass, keeps ``mass < top_p`` (the first
+    token always) and masks logits strictly below the smallest kept one,
+    so tokens tied with a threshold survive.  Truncated logits go to
+    -1e30 (the vocab pad tail's floor) and are never drawn.
+
+    The draw is Gumbel-max, ``argmax(lg + G)`` with ``G = -log(-log(U))``
+    and ``U`` from ``torch.rand(generator=)`` on the logits' device (a
+    draw needs the caller's generator).  It follows ``softmax(lg)``; the
+    JAX package's threefry stream cannot be matched."""
+    lg = lg.to(F32)
+    if temperature is None or temperature <= 0.0:
+        return torch.argmax(lg, dim=-1).to(torch.int32)
+    lg = lg / _f32(temperature, lg)
+    if top_k is not None and top_k > 0:
+        kth = torch.topk(lg, min(top_k, lg.shape[-1]), dim=-1).values[..., -1:]
+        lg = torch.where(lg < kth, -1e30, lg)
+    if top_p is not None and top_p < 1.0:
+        srt = torch.sort(lg, dim=-1, descending=True).values
+        prob = torch.softmax(srt, dim=-1)
+        excl = torch.cumsum(prob, dim=-1) - prob
+        kth = torch.where(excl < top_p, srt, torch.inf).amin(-1, keepdim=True)
+        lg = torch.where(lg < kth, -1e30, lg)
+    if generator is None:
+        raise ValueError("sampling (temperature > 0) needs a generator")
+    u = torch.rand(lg.shape, generator=generator, dtype=F32, device=lg.device)
+    gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(F32).tiny)))
+    return torch.argmax(lg + gumbel, dim=-1).to(torch.int32)
+
+
+def apply_penalties(lg, counts, *, repetition_penalty: Optional[float] = None,
+                    presence_penalty: Optional[float] = None):
+    """Repetition (HF: seen logits divided by the penalty when positive,
+    multiplied when negative) and presence (OpenAI: a flat subtraction)
+    penalties on logits [B, V] from per-row token counts [B, V], applied
+    to the raw logits before temperature / top-k / top-p.  Both key off
+    presence (count > 0); unseen tokens are untouched, neutral knobs are
+    the identity."""
+    lg = lg.to(F32)
+    seen = counts > 0
+    if repetition_penalty is not None and repetition_penalty != 1.0:
+        rp = _f32(repetition_penalty, lg)
+        lg = torch.where(seen, torch.where(lg > 0, lg / rp, lg * rp), lg)
+    if presence_penalty is not None and presence_penalty != 0.0:
+        lg = lg - _f32(presence_penalty, lg) * seen.to(F32)
+    return lg
+
+
+def token_counts(tokens, vocab: int, prompt_lens=None):
+    """Per-row token histogram [B, vocab] int32 of a right-padded prompt
+    [B, S]; ``prompt_lens`` keeps each row's pad tail out of it."""
+    b, s = tokens.shape
+    live = torch.ones((b, s), dtype=torch.int32, device=tokens.device)
+    if prompt_lens is not None:
+        lens = torch.as_tensor(prompt_lens, device=tokens.device).reshape(-1, 1)
+        live = (torch.arange(s, device=tokens.device)[None, :] < lens).to(
+            torch.int32)
+    cnt = torch.zeros((b, vocab), dtype=torch.int32, device=tokens.device)
+    return cnt.scatter_add_(1, tokens.to(torch.int64), live)
+
+
+def _bump_counts(cnt, tok):
+    """counts [B, V] + 1 at each row's emitted token [B, 1] (a new tensor)."""
+    return cnt.scatter_add(1, tok.to(torch.int64),
+                           torch.ones_like(tok, dtype=cnt.dtype))
+
+
+def sanitize_logits(lg):
+    """Non-finite logits guard: NaN/Inf entries go to -1e30 (the pad
+    tail's floor) and each row holding one is flagged.  Returns ``(clean
+    [..., V], bad [...])``.  Finite logits pass unchanged; an all-NaN row
+    collapses to the floor and greedy argmax picks token 0."""
+    lg = lg.to(F32)
+    finite = torch.isfinite(lg)
+    return torch.where(finite, lg, -1e30), ~finite.all(dim=-1)
+
+
+def _pick(lgv, *, counts, penalties: dict, generator, temperature, top_k,
+          top_p, guard: bool):
+    """One sampling site: guard, penalties, sample.  Returns ``(tok [B],
+    bad [B] or None)``."""
+    bad = None
+    if guard:
+        lgv, bad = sanitize_logits(lgv)
+    if counts is not None:
+        lgv = apply_penalties(lgv, counts, **penalties)
+    tok = sample_token(lgv, generator, temperature=temperature, top_k=top_k,
+                       top_p=top_p)
+    return tok, bad
+
+
+def _penalized(repetition_penalty, presence_penalty) -> bool:
+    return ((repetition_penalty is not None and repetition_penalty != 1.0)
+            or (presence_penalty is not None and presence_penalty != 0.0))
 
 
 def _check_supported(cfg: ModelConfig):
@@ -290,31 +405,75 @@ class Model:
         return self.logits(params, xl).to(F32), caches
 
     def decode_round(self, params, tok, caches, pos, *, lens, done,
-                     stop_token: Optional[int] = None):
-        """ONE greedy decode round over every batch slot: rows attend
-        ``lens`` when done/idle, ``pos + 1`` when running.  Returns
-        ``(next_tok [B, 1], logits, caches)``."""
+                     stop_token: Optional[int] = None,
+                     temperature: float = 0.0, top_k: Optional[int] = None,
+                     top_p: Optional[float] = None,
+                     generator: Optional[torch.Generator] = None,
+                     counts=None, repetition_penalty: Optional[float] = None,
+                     presence_penalty: Optional[float] = None,
+                     poison: bool = False, guard: bool = False):
+        """ONE decode round over every batch slot: rows attend ``lens``
+        when done/idle, ``pos + 1`` when running, then sample.  ``counts``
+        [B, V] applies the penalties (the caller owns its upkeep);
+        ``poison`` (a bool) overwrites the round's logits with NaN;
+        ``guard`` sanitizes before sampling and appends the per-row
+        ``bad`` flag.  A draw without ``generator`` uses one seeded 0.
+        Returns ``(next_tok [B, 1], logits, caches,
+        generator[, bad])``."""
+        if (temperature is not None and temperature > 0.0
+                and generator is None):
+            generator = torch.Generator(device=tok.device).manual_seed(0)
         attend = torch.where(done, lens, pos + 1)
         lg, caches = self.decode_step(params, tok, caches, pos,
                                       kv_len=attend)
-        nxt = sample_token(lg[:, -1])[:, None]
+        lgv = lg[:, -1]
+        if poison:
+            lgv = torch.full_like(lgv, torch.nan)
+        nxt, bad = _pick(lgv, counts=counts,
+                         penalties=dict(repetition_penalty=repetition_penalty,
+                                        presence_penalty=presence_penalty),
+                         generator=generator, temperature=temperature,
+                         top_k=top_k, top_p=top_p, guard=guard)
+        nxt = nxt[:, None]
         if stop_token is not None:
             nxt = torch.where(done[:, None], stop_token, nxt)
-        return nxt, lg, caches
+        ret = (nxt, lg, caches, generator)
+        return ret + (bad,) if guard else ret
 
     def decode_burst(self, params, tok, caches, pos, lens, done, limit, *,
                      max_len: int, out_width: int, n_max: int,
-                     exit_on_finish: int, stop_token: Optional[int] = None):
+                     exit_on_finish: int, stop_token: Optional[int] = None,
+                     temperature: float = 0.0, top_k: Optional[int] = None,
+                     top_p: Optional[float] = None,
+                     generator: Optional[torch.Generator] = None,
+                     counts=None, repetition_penalty: Optional[float] = None,
+                     presence_penalty: Optional[float] = None,
+                     poison_at: Optional[int] = None, guard: bool = False):
         """Up to ``n_max`` decode rounds.  Per-row state: write index
         ``pos``, live length ``lens``, ``done``, and ``limit`` (the pos at
         which a row has emitted its whole budget).  Exits when every row is
         done, after ``n_max`` rounds, or — ``exit_on_finish = k > 0`` — the
-        round the k-th running row finishes since entry.  Returns
-        ``(out [B, out_width], n_rounds, tok, caches, pos, lens, done)``."""
+        round the k-th running row finishes since entry.
+
+        ``counts`` [B, V] rides the loop and applies the penalties every
+        round (bumped by each round's tokens); ``poison_at`` (a relative
+        round, -1 or None for never) NaN-poisons that round's logits;
+        ``guard`` counts, per row, the rounds whose logits went non-finite
+        while the row was live entering the round.  Both stay on the
+        device: the only host sync per round is the ``done`` read the exit
+        rule needs.  Returns ``(out [B, out_width], n_rounds, tok, caches,
+        pos, lens, done, generator[, bad][, counts])``."""
         b = tok.shape[0]
+        use_pen = counts is not None and _penalized(repetition_penalty,
+                                                    presence_penalty)
+        if (temperature is not None and temperature > 0.0
+                and generator is None):
+            generator = torch.Generator(device=tok.device).manual_seed(0)
         pad = stop_token if stop_token is not None else -1
         out = torch.full((b, out_width), pad, dtype=torch.int32,
                          device=tok.device)
+        badc = (torch.zeros((b,), dtype=torch.int32, device=tok.device)
+                if guard else None)
         done0 = done.cpu()
         i = 0
         while i < n_max:
@@ -324,21 +483,151 @@ class Model:
             newly = int((d_host & ~done0).sum())
             if exit_on_finish and newly >= exit_on_finish:
                 break
-            nxt, _, caches = self.decode_round(params, tok, caches, pos,
-                                               lens=lens, done=done,
-                                               stop_token=stop_token)
+            r = self.decode_round(
+                params, tok, caches, pos, lens=lens, done=done,
+                stop_token=stop_token, temperature=temperature, top_k=top_k,
+                top_p=top_p, generator=generator,
+                counts=counts if use_pen else None,
+                repetition_penalty=repetition_penalty,
+                presence_penalty=presence_penalty,
+                poison=i == poison_at,
+                guard=guard)
+            nxt, caches = r[0], r[2]
             out[:, i] = nxt[:, 0]
             fin = done | (pos + 1 >= limit)
             if stop_token is not None:
                 fin = fin | (nxt[:, 0] == stop_token)
+            if use_pen:
+                counts = _bump_counts(counts, nxt)
+            if guard:
+                badc = badc + (r[4] & ~done).to(torch.int32)
             new_pos = torch.where(done, pos,
                                   torch.clamp(pos + 1, max=max_len - 1))
             lens = torch.where(done, lens, pos + 1)
             tok, pos, done = nxt, new_pos, fin
             i += 1
-        return out, i, tok, caches, pos, lens, done
+        ret = (out, i, tok, caches, pos, lens, done, generator)
+        if guard:
+            ret += (badc,)
+        if use_pen:
+            ret += (counts,)
+        return ret
 
-    def generate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "generate() (scan/while loops, sampling, penalties) is not "
-            "ported yet; serve through launch.engine.ContinuousEngine")
+    def generate(self, params, tokens, *, gen_len: int,
+                 max_len: Optional[int] = None, return_logits: bool = False,
+                 temperature: float = 0.0, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None,
+                 generator: Optional[torch.Generator] = None,
+                 prompt_lens=None, stop_token: Optional[int] = None,
+                 page_table=None, n_pages: Optional[int] = None,
+                 repetition_penalty: Optional[float] = None,
+                 presence_penalty: Optional[float] = None,
+                 loop: str = "scan", return_trips: bool = False,
+                 guard_nonfinite: bool = False, **unported):
+        """Prefill + ``gen_len`` generated tokens (the first from the
+        prefill logits, then ``gen_len - 1`` decode steps).
+
+        ``loop="scan"`` always runs ``gen_len - 1`` steps (the JAX
+        package's ``lax.scan``); ``loop="while"`` runs the SAME step body
+        and exits the step every row is done (with ``stop_token``), the
+        token buffer's tail pre-frozen to ``stop_token`` — so both forms
+        emit the same tokens by construction.  ``prompt_lens`` [B] serves a
+        right-padded ragged batch (per-row write index); ``stop_token``
+        freezes a row's outputs and live length the step it emits it;
+        ``page_table`` / ``n_pages`` pass to ``prefill`` (paged models).
+
+        Sampling: ``temperature > 0`` draws with ``generator`` (default: a
+        generator seeded 0 on the model's device); greedy touches none.
+        ``repetition_penalty`` / ``presence_penalty`` discount tokens seen
+        so far (prompt, pad excluded, plus emitted) at every step.
+        ``guard_nonfinite`` sanitizes every sampling site and counts, per
+        row, the steps whose logits were non-finite while the row was live.
+
+        Returns ``(gen_tokens [B, gen_len], logits)``, ``logits`` [B,
+        gen_len, V] (prefill's then each step's; zeros after a while-form
+        exit) when ``return_logits`` else None; ``return_trips`` appends
+        the decode steps run, ``guard_nonfinite`` the per-row guard counts
+        [B] int32, in that order."""
+        asked = sorted(k for k, v in unported.items() if v is not None)
+        if asked:
+            raise NotImplementedError(
+                f"generate(): not ported: {asked} (meshes and frontends)")
+        if loop not in ("scan", "while"):
+            raise ValueError(f"loop must be scan|while, got {loop!r}")
+        dev = self.device
+        tokens = torch.as_tensor(tokens, device=dev)
+        b, prompt_len = tokens.shape
+        max_len = max_len if max_len is not None else prompt_len + gen_len
+        do_sample = temperature is not None and temperature > 0.0
+        if do_sample and generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        use_stop = stop_token is not None
+        use_pen = _penalized(repetition_penalty, presence_penalty)
+        pick = functools.partial(
+            _pick, penalties=dict(repetition_penalty=repetition_penalty,
+                                  presence_penalty=presence_penalty),
+            generator=generator, temperature=temperature, top_k=top_k,
+            top_p=top_p, guard=guard_nonfinite)
+        lens_t = (None if prompt_lens is None else
+                  torch.as_tensor(prompt_lens, device=dev).to(torch.int64))
+        lg0, caches = self.prefill(params, tokens, max_len=max_len,
+                                   prompt_lens=lens_t, page_table=page_table,
+                                   n_pages=n_pages)
+        cnt = (token_counts(tokens, self.vocab_out, lens_t) if use_pen
+               else None)
+        tok0, bad0 = pick(lg0[:, -1], counts=cnt)
+        tok = tok0[:, None]
+        # per-row write index when ragged, the shared int otherwise
+        pos = lens_t if lens_t is not None else prompt_len
+        lens = done = None
+        if use_stop:
+            done = tok[:, 0] == stop_token
+            tok = torch.where(done[:, None], stop_token, tok)
+            # live length entering the first step: the prompt only
+            lens = (lens_t if lens_t is not None else
+                    torch.full((b,), prompt_len, dtype=torch.int64,
+                               device=dev))
+        if use_pen:
+            cnt = _bump_counts(cnt, tok)
+        bad_acc = bad0.to(torch.int32) if guard_nonfinite else None
+
+        pad = stop_token if use_stop else 0
+        gen = torch.full((b, gen_len), pad, dtype=torch.int32, device=dev)
+        gen[:, 0] = tok[:, 0]
+        lgs = None
+        if return_logits:
+            lgs = torch.zeros((b, gen_len, lg0.shape[-1]), dtype=F32,
+                              device=dev)
+            lgs[:, 0] = lg0[:, -1]
+        trips = 0
+        while trips < gen_len - 1:
+            if loop == "while" and use_stop and bool(done.all()):
+                break
+            # one step body for both loop forms
+            attend = torch.where(done, lens, pos + 1) if use_stop else None
+            lg, caches = self.decode_step(params, tok, caches, pos,
+                                          kv_len=attend)
+            nxt, bad = pick(lg[:, -1], counts=cnt)
+            nxt = nxt[:, None]
+            if use_stop:
+                nxt = torch.where(done[:, None], stop_token, nxt)
+                lens = torch.where(done, lens, pos + 1)
+                live_bad = bad & ~done if guard_nonfinite else None
+                done = done | (nxt[:, 0] == stop_token)
+            else:
+                live_bad = bad
+            if use_pen:
+                cnt = _bump_counts(cnt, nxt)
+            if guard_nonfinite:
+                bad_acc = bad_acc + live_bad.to(torch.int32)
+            tok, pos = nxt, pos + 1
+            trips += 1
+            gen[:, trips] = tok[:, 0]
+            if return_logits:
+                lgs[:, trips] = lg[:, 0]
+        out = (gen, lgs)
+        if return_trips:
+            out += (trips,)
+        if guard_nonfinite:
+            out += (bad_acc,)
+        return out

@@ -1,0 +1,184 @@
+"""Serving-side fault tolerance (the port of the JAX package's
+``train/fault.py``, serving half):
+
+  * :class:`StragglerMonitor` — per-burst wall-clock EWMA + deviation
+    flagging,
+  * :class:`ServeFaultPlan` — deterministic injection of page-pool
+    exhaustion episodes, slow-burst stragglers, NaN-poisoned logits and
+    swap-payload bit flips at chosen rounds (one plan + one queue -> one
+    trajectory),
+  * :class:`ServeWatchdog` — consecutive no-progress detector that turns
+    a livelocked scheduler loop into a clean :class:`EngineStuckError`,
+  * :class:`PoisonedLogitsError` — non-finite logits reached a sampler
+    outside a masking fault harness.
+
+``ServeFaultPlan.overflow_at`` is kept as a field; without the escalation
+write path (not ported) it injects nothing, as in the JAX package without
+an escalation policy.  Replica and training-restart machinery is not
+ported.  Plain Python: no torch.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+class StragglerMonitor:
+    """EWMA of step wall-clock; flags steps slower than ``threshold`` x the
+    running mean (after a warmup)."""
+
+    def __init__(self, alpha: float = 0.1, threshold: float = 2.0,
+                 warmup: int = 5):
+        self.alpha = alpha
+        self.threshold = threshold
+        self.warmup = warmup
+        self.ewma: Optional[float] = None
+        self.n = 0
+        self.flagged: list = []
+
+    def record(self, step: int, dt: float) -> bool:
+        self.n += 1
+        straggler = False
+        if self.ewma is None:
+            self.ewma = dt
+        else:
+            if self.n > self.warmup and dt > self.threshold * self.ewma:
+                straggler = True
+                self.flagged.append((step, dt, self.ewma))
+            # EWMA update excludes flagged outliers (keeps baseline honest)
+            if not straggler:
+                self.ewma = (1 - self.alpha) * self.ewma + self.alpha * dt
+        return straggler
+
+
+class PoisonedLogitsError(RuntimeError):
+    """Non-finite logits reached a sampling site with no fault harness
+    masking them — the serving loop fails fast instead of silently
+    emitting argmax-of-garbage token 0."""
+
+
+class EngineStuckError(RuntimeError):
+    """The serving watchdog tripped: the scheduler kept iterating without
+    admitting, prefilling, decoding or finishing anything.  ``diag``
+    carries the engine's slot/queue/pool snapshot at abort time."""
+
+    def __init__(self, msg: str, diag: Optional[dict] = None):
+        super().__init__(msg)
+        self.diag = diag or {}
+
+
+@dataclasses.dataclass
+class ServeFaultPlan:
+    """Deterministic serving-path fault injection, keyed to the engine's
+    decode-round clock (the logical time admission/preemption already run
+    on, so a plan + a queue replays to the same trajectory bit for bit).
+
+    ``exhaust_at``: rounds at which the engine grabs the allocator's
+    entire free list and holds it for ``exhaust_for`` rounds — admission
+    and lazy page growth must survive ``try_alloc`` returning ``None``.
+    ``slow_at``: rounds before whose burst the engine sleeps ``slow_s``
+    seconds — a slow-burst straggler the :class:`StragglerMonitor` must
+    flag.  ``poison_at``: decode rounds whose logits are overwritten with
+    NaN inside the decode burst; ``mask_poison=True`` lets the guard
+    mask-and-count them, ``False`` makes the engine raise
+    :class:`PoisonedLogitsError` (fail-fast mode).
+
+    Numerical-health injections: ``overflow_at`` lists decode
+    rounds whose K/V writes are scaled by ``overflow_scale`` before
+    write-time quantization — values that overflow the narrow KV rung and
+    drive the escalation path (the write-side twin of ``poison_at``).
+    ``corrupt_swap_at`` lists swap-out EVENTS (0-based, in the order the
+    engine swaps victims out) whose host page payloads get one
+    deterministic bit flipped — a silent-data-corruption the checksum
+    verification at swap-in must catch and recover from via reingest.
+
+    The plan is reusable: the engine calls :meth:`reset` at run start, so
+    replaying the same plan object is deterministic.  ``events`` logs
+    every injection actually fired (round, kind, payload)."""
+    exhaust_at: tuple = ()
+    exhaust_for: int = 4
+    slow_at: tuple = ()
+    slow_s: float = 0.05
+    poison_at: tuple = ()
+    mask_poison: bool = True
+    overflow_at: tuple = ()
+    overflow_scale: float = 65536.0
+    corrupt_swap_at: tuple = ()
+
+    def __post_init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self._fired_exhaust: set = set()
+        self._fired_slow: set = set()
+        self._swap_seen: int = 0
+        self.events: list = []
+
+    def note(self, kind: str, **kw) -> None:
+        self.events.append((kind, kw))
+
+    def take_exhaustion(self, round_no: int) -> Optional[int]:
+        """Duration of an exhaustion episode starting by ``round_no``
+        (each listed round fires once; catch-up included — the engine's
+        round clock can jump over idle stretches), else None."""
+        due = [r for r in self.exhaust_at
+               if r <= round_no and r not in self._fired_exhaust]
+        if not due:
+            return None
+        self._fired_exhaust.update(due)
+        return self.exhaust_for
+
+    def take_slow(self, round_no: int) -> float:
+        """Seconds of straggler stall due at ``round_no`` (0.0 if none)."""
+        due = [r for r in self.slow_at
+               if r <= round_no and r not in self._fired_slow]
+        self._fired_slow.update(due)
+        return self.slow_s * len(due)
+
+    def next_poison(self, lo: int, hi: int) -> Optional[int]:
+        """First poisoned round in ``[lo, hi)`` — the engine converts it
+        to a burst-relative index.  Stateless: the round window advances
+        monotonically, and a burst that exits before reaching the round
+        re-schedules it in the next window."""
+        hits = [r for r in self.poison_at if lo <= r < hi]
+        return min(hits) if hits else None
+
+    def next_overflow(self, lo: int, hi: int) -> Optional[int]:
+        """First overflow-injection round in ``[lo, hi)`` (stateless
+        window scan, same contract as :meth:`next_poison`)."""
+        hits = [r for r in self.overflow_at if lo <= r < hi]
+        return min(hits) if hits else None
+
+    def take_corrupt(self) -> bool:
+        """True when the CURRENT swap-out event (0-based, counted per
+        call) is listed in ``corrupt_swap_at`` — the engine flips one bit
+        in that victim's host payload.  Stateful: each call consumes one
+        swap-event index, so the plan replays exactly."""
+        idx = self._swap_seen
+        self._swap_seen += 1
+        return idx in self.corrupt_swap_at
+
+
+class ServeWatchdog:
+    """Turns scheduler livelock into a clean abort: ``tick(False)`` for
+    ``patience`` consecutive loop iterations (no admission, no prefill
+    progress, no decode rounds, no finishes) raises
+    :class:`EngineStuckError` with the caller's diagnostics snapshot.
+    Any real progress resets the counter — waiting out backoff windows or
+    a bounded exhaustion episode is fine; waiting forever is not."""
+
+    def __init__(self, patience: int = 200):
+        assert patience >= 1
+        self.patience = patience
+        self.stalled = 0
+
+    def tick(self, progressed: bool, diag=None) -> None:
+        if progressed:
+            self.stalled = 0
+            return
+        self.stalled += 1
+        if self.stalled >= self.patience:
+            d = diag() if callable(diag) else (diag or {})
+            raise EngineStuckError(
+                f"serving loop made no progress for {self.stalled} "
+                f"consecutive iterations: {d}", d)

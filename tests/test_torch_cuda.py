@@ -626,3 +626,125 @@ def test_op_path_entry_points_launch_their_kernels(gen):
     assert y.dtype == torch.float32 and packed.shape == (64, 160)
     assert torch.isfinite(y).all() and torch.isfinite(packed).all()
     assert torch.isfinite(d)
+
+
+# ---------------------------------------------------------------------------
+# sampling, penalties, the guard and swap on the card
+# ---------------------------------------------------------------------------
+VOCAB = 256000
+
+
+def _logits_card(gen, rows=4):
+    lg = 6.0 * torch.randn((rows, VOCAB), generator=gen, device="cuda")
+    lg[:, VOCAB - 96:] = -1e30                  # a masked pad tail
+    return lg
+
+
+@pytest.mark.parametrize("top_k,top_p", [(64, None), (None, 0.9),
+                                         (64, 0.9)])
+def test_sampling_on_the_card_at_full_vocab(gen, top_k, top_p):
+    """Draws at [4, 256000]: every token inside the top-k set and the
+    nucleus of JAX's rule (exclusive f32 mass < top_p, ties kept), never
+    in the pad tail, and a seed repeats its draws."""
+    from repro_torch.models.transformer import sample_token
+    lg = _logits_card(gen)
+    t = 0.7
+    z = lg / torch.tensor(t, device="cuda")
+    floor = torch.full((4, 1), -torch.inf, device="cuda")
+    if top_k:
+        floor = torch.maximum(floor, z.topk(top_k, -1).values[:, -1:])
+    if top_p:
+        srt = z.sort(-1, descending=True).values
+        p = srt.softmax(-1)
+        excl = p.cumsum(-1) - p
+        floor = torch.maximum(floor, torch.where(
+            excl < top_p, srt, torch.inf).amin(-1, keepdim=True))
+    draws = []
+    for seed in (1, 1, 2):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        draws.append(torch.stack([sample_token(lg, g, temperature=t,
+                                               top_k=top_k, top_p=top_p)
+                                  for _ in range(16)]))
+    torch.cuda.synchronize()
+    assert torch.equal(draws[0], draws[1])
+    assert not torch.equal(draws[0], draws[2])
+    for d in draws:
+        assert int(d.max()) < VOCAB - 96
+        picked = z.gather(1, d.t().long())
+        assert bool((picked >= floor).all())
+
+
+def test_penalties_and_guard_on_the_card_equal_the_cpu(gen):
+    from repro_torch.models.transformer import (
+        _bump_counts, apply_penalties, sample_token, sanitize_logits,
+        token_counts)
+    lg = _logits_card(gen)
+    lg[1, 17] = float("nan")
+    lg[2, 99], lg[2, 100] = float("inf"), -float("inf")
+    lg[3] = float("nan")
+    toks = torch.randint(0, VOCAB, (4, 512), generator=gen, device="cuda")
+    lens = torch.tensor([512, 100, 7, 300], device="cuda")
+    cnt = token_counts(toks, VOCAB, lens)
+    cnt = _bump_counts(cnt, toks[:, :1])
+    cnt_cpu = _bump_counts(token_counts(toks.cpu(), VOCAB, lens.cpu()),
+                           toks[:, :1].cpu())
+    assert torch.equal(cnt.cpu(), cnt_cpu)
+    clean, bad = sanitize_logits(lg)
+    clean_cpu, bad_cpu = sanitize_logits(lg.cpu())
+    assert torch.equal(clean.cpu().view(torch.int32),
+                       clean_cpu.view(torch.int32))
+    assert bad.cpu().tolist() == bad_cpu.tolist() == [False, True, True,
+                                                      True]
+    for rp, pp in ((1.1, 0.5), (3.0, None), (None, 0.3)):
+        got = apply_penalties(clean, cnt, repetition_penalty=rp,
+                              presence_penalty=pp)
+        want = apply_penalties(clean_cpu, cnt_cpu, repetition_penalty=rp,
+                               presence_penalty=pp)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+    assert torch.equal(sample_token(clean).cpu(), sample_token(clean_cpu))
+    assert int(sample_token(clean)[3]) == 0
+
+
+@pytest.mark.parametrize("policy,degrade", [("tp_bf16", None),
+                                            ("tp_bf16", "fp8"),
+                                            ("tp_bf16_kv8", "fp8")])
+def test_swap_round_trip_on_the_card(gen, policy, degrade):
+    """Swap-out of three pages of every layer (cast to fp8 on the card
+    when degrading) into pinned host memory: the bytes equal the CPU
+    cast's of the same pages, the CRC32s equal those of the CPU bytes,
+    and swap-in into other pages restores the (widened) values."""
+    from repro_torch.launch.engine import ContinuousEngine, _crc_blobs
+    from repro_torch.models.registry import build_model
+    m = build_model("gemma2-9b", policy=policy, reduced=True, device="cuda",
+                    paged_kv=True, page_size=16)
+    eng = ContinuousEngine(m, m.init(0), slots=2, max_len=64,
+                           degrade_fmt=degrade)
+    eng.start([])
+    for c in eng.caches:
+        for pool in (c.k_pool, c.v_pool):
+            pool.copy_(torch.randn(pool.shape, generator=gen,
+                                   device="cuda").to(pool.dtype))
+    ids, dest = [1, 4, 6], [7, 2, 5]
+    blobs, nbytes, sums = eng._swap_out(ids, degrade is not None)
+    idx = torch.tensor(ids)
+    want = []
+    for c in eng.caches:
+        pair = []
+        for pool in (c.k_pool, c.v_pool):
+            x = pool.cpu().index_select(0, idx)
+            pair.append(x.to(torch.float8_e5m2) if degrade else x)
+        want.append(tuple(pair))
+    for (k, v), (wk, wv) in zip(blobs, want):
+        assert k.device.type == "cpu" and k.is_pinned()
+        assert k.dtype == wk.dtype
+        assert torch.equal(k.view(torch.uint8), wk.view(torch.uint8))
+        assert torch.equal(v.view(torch.uint8), wv.view(torch.uint8))
+    assert sums == _crc_blobs(want)
+    assert nbytes == sum(k.numel() * k.element_size() * 2 for k, _ in want)
+    eng._swap_in(blobs, dest)
+    for c, (wk, wv) in zip(eng.caches, want):
+        for pool, w in ((c.k_pool, wk), (c.v_pool, wv)):
+            got = pool.index_select(0, torch.tensor(dest, device="cuda"))
+            assert torch.equal(got.cpu().view(torch.uint8),
+                               w.to(pool.dtype).view(torch.uint8))

@@ -3,8 +3,8 @@ house engine model (reduced gemma2, paged in 16-token pages, 3 slots,
 ``max_len`` 48, chunk 16) and the 8-request queue of
 ``tests/test_engine.py``: per-request greedy token streams, admit and
 finish rounds and ``peak_live_pages`` must be IDENTICAL, and the pool must
-drain.  The JAX engine runs with ``shed=False``, the head-of-line admission
-the port implements."""
+drain.  Both engines run with their default ``shed=True`` (the pool is
+ample, so no request is ever deferred)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -39,7 +39,7 @@ def _requests(cls, vocab, seed=0):
 def runs():
     jm, jp = cached_model("gemma2-9b", paged_kv=True, page_size=16)
     kw = dict(slots=3, max_len=48, chunk=16)
-    jfin, jstats = JaxEngine(jm, jp, shed=False, **kw).run(
+    jfin, jstats = JaxEngine(jm, jp, **kw).run(
         _requests(JaxRequest, jm.cfg.vocab))
     tm = build_model("gemma2-9b", reduced=True, device="cpu", paged_kv=True,
                      page_size=16)
@@ -92,10 +92,17 @@ def test_engine_refuses_unported_options():
     tm = build_model("gemma2-9b", reduced=True, device="cpu", paged_kv=True,
                      page_size=16)
     params = tm.init(0)
-    for bad in (dict(shed=True), dict(temperature=0.5),
-                dict(preempt="swap"), dict(spec_k=2)):
+    for bad in (dict(escalate=object()), dict(spec_k=2),
+                dict(draft_repeats=1), dict(journal=object()),
+                dict(replica_fault=object()), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             ContinuousEngine(tm, params, slots=2, max_len=32, **bad)
+    # the overload and sampling options of this slice are accepted
+    ContinuousEngine(tm, params, slots=2, max_len=32, shed=True,
+                     temperature=0.5, top_k=8, top_p=0.9, preempt="swap",
+                     degrade_fmt="fp8", repetition_penalty=1.1)
+    with pytest.raises(ValueError, match="preempt"):
+        ContinuousEngine(tm, params, slots=2, max_len=32, preempt="drop")
     with pytest.raises(ValueError, match="paged"):
         ContinuousEngine(tm.with_cfg(paged_kv=False), params, slots=2,
                          max_len=32)

@@ -143,8 +143,15 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         build_model("qwen3-moe-30b-a3b", reduced=True, device="cpu")
     tm = build_model("gemma2-9b", reduced=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.generate()
+    params = tm.init(0)
+    toks = torch.zeros((1, 4), dtype=torch.int64)
+    for bad in (dict(mesh=object()), dict(frontend_embeds=toks)):
+        with pytest.raises(NotImplementedError):
+            tm.generate(params, toks, gen_len=2, **bad)
+    with pytest.raises(ValueError, match="loop"):
+        tm.generate(params, toks, gen_len=2, loop="python")
+    # sampling is ported: a draw from a seeded generator
     from repro_torch.models.transformer import sample_token
-    with pytest.raises(NotImplementedError):
-        sample_token(torch.zeros(1, 8), temperature=0.7)
+    tok = sample_token(torch.zeros(1, 8), torch.Generator().manual_seed(0),
+                       temperature=0.7)
+    assert tok.dtype == torch.int32 and 0 <= int(tok) < 8
