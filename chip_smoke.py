@@ -27,6 +27,17 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    also time the kept FMA variant (``fma_ms``) and the tensor-core variant with
    the query tile (64 or 128 rows) that ``plan_q_rows`` did not pick; a small
    policy-``fp32`` case holds the FMA variant against its plain version.
+   Every case also runs the kernel's telemetry instantiation
+   (``debug_visits`` / ``debug_flags``): its output must be bitwise the
+   flags-off output, its visits and flag counts exactly the plain
+   version's, on the route named (``flags_ms``).  The f32-pool cases
+   ``decode_f32_p64_local`` (route fma) and ``flash_f32_p64_chunk``
+   (``flash_fma``) hold the escalation phase's routes at the slice's
+   shapes within ``F32_TOL``.  ``telemetry_phase`` then plants +-Inf and
+   NaN in live, dead and window-left slots of a bf16 pool (decode mma,
+   ``flash_tc`` by TMA) and fills an ``em_fp8`` f32 pool with values
+   beyond fp8's range (decode fma, ``flash_tc`` converting), with the
+   same gates.
 3. Op-path phase: the transprecision op path at gemma2-9b's MLP widths
    (d_model 3584, d_ff 14336).  Each of its kernels (tp_matmul,
    tp_quantize, cast_and_pack, dotp_ex) against its plain version on the
@@ -68,11 +79,22 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    run of the same queue at the reduced config.  tok/s, decode ms per
    round, swap bytes, time and GB/s, and the sampling step's device time
    at [4, 256000].
-7. The kernels line (all six kernels; flash attention, tp_matmul and decode
+7. Escalation phase (``escalation_phase``): the bf16 model is freed and
+   gemma2-9b is built again under policy ``fp32`` (f32 weights, an f32 KV
+   pool: 34.4 GiB), then served by the escalation engine (4 slots, chunk
+   256, 69 pages of 64; ladder fp8 -> fp16 -> fp16alt at 8 overflow
+   flags; overflow injected at rounds 3 and 8) on ``ESCALATION``.  Every
+   request gets its budget, escalations >= 1, the ``no_escalate``
+   request refuses and stays at rung 0, no non-finite logits, a repeat
+   run repeats tokens and events, the schedule equals the reduced
+   config's on the CPU, and every launch is on the fma route /
+   ``flash_fma``.  tok/s, decode ms per round, prefill s, the events.
+8. The kernels line (all six kernels; flash attention, tp_matmul and decode
    attention with their launches by variant, the FMA variant's time,
-   decode's launches by cluster size; the attention launches summed over
-   the slice, generate and overload phases), the card line, and as the
-   last line ``{"ok": true, "device": {...}}``.
+   decode's launches by cluster size, the flags-on time of the main case
+   and of the telemetry cases, the f32-pool case; the attention launches
+   summed over the slice, generate, overload and escalation phases), the
+   card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Imports no JAX.  Needs one CUDA device and ``nvcc`` (``CUDA_HOME``, PATH
 or ``/usr/local/cuda``).
@@ -101,6 +123,12 @@ F32_FLOP_S = 67e12
 #: p.V; a summation-order difference can flip one such rounding, worth up
 #: to 2^-8 of a unit-scale output
 KERNEL_TOL = 2.0 ** -8
+
+#: kernel-vs-plain tolerance on an f32 pool (policy ``fp32``: no rounding
+#: of p, only f32 sums in another order; each of up to ~4096 terms is
+#: off by at most 2^-24 of the running sum, so 2^-12 of a unit-scale
+#: output bounds the worst case; about 1e-5 is expected)
+F32_TOL = 2.0 ** -12
 
 #: the softcap's effect in the cap-region cases (q scaled by ``q_scale``):
 #: the kernel's capped and uncapped outputs must differ by at least this,
@@ -231,10 +259,20 @@ def build_phase() -> dict:
     logs = _build.build_all()
     secs = time.perf_counter() - t0
     for name, entry in logs.items():
-        ptxas = [ln.strip() for ln in entry["log"].splitlines()
+        lines = entry["log"].splitlines()
+        ptxas = [ln.strip() for ln in lines
                  if "registers" in ln or "spill" in ln]
+        # entry functions whose build spills registers to local memory
+        spills, fn = [], None
+        for ln in lines:
+            if "Compiling entry function" in ln:
+                fn = ln.split("'")[1] if "'" in ln else ln
+            elif "spill" in ln and not ln.strip().startswith(
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                    "spill loads"):
+                spills.append([fn, ln.strip()])
         log(json.dumps({"build": name, "seconds": round(entry["seconds"], 2),
-                        "ptxas": ptxas[:16]}))
+                        "ptxas": ptxas[:16], "spilling": spills[:24]}))
     log(f"kernels built in {secs:.1f} s")
     hgmma = {name: hgmma_count(_build.library_path(name))
              for name in _build.KERNELS}
@@ -248,6 +286,90 @@ def build_phase() -> dict:
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
+def pool_policy(dtype) -> str:
+    """The serving policy whose KV pool stores ``dtype``."""
+    import torch
+    return {torch.bfloat16: "tp_bf16", torch.float8_e5m2: "tp_bf16_kv8",
+            torch.float32: "fp32"}[dtype]
+
+
+def _bits_equal(a, b) -> bool:
+    """Bitwise equality of two f32 tensors, NaN payloads included."""
+    import torch
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def decode_telemetry(name, args, kw, variant) -> dict:
+    """The decode kernel's telemetry instantiation on the flat arguments
+    ``args`` / ``kw`` of ``decode_attention_cuda``: its output must be
+    bitwise the flags-off output, its visits and flags exactly the plain
+    version's, and the launch must count on route ``variant``.  Returns
+    the flags-on device ms and the counts."""
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_plain)
+    cu = decode_attention_cuda
+    off = cu(*args, **kw)
+    before = (cu.launches_telemetry, cu.launches_mma, cu.launches_fma)
+    on, visits, flags = cu(*args, debug_visits=True, debug_flags=True, **kw)
+    routed = (cu.launches_telemetry - before[0], cu.launches_mma - before[1],
+              cu.launches_fma - before[2])
+    _, pv, pf = decode_attention_plain(*args, debug_visits=True,
+                                       debug_flags=True, **kw)
+    torch.cuda.synchronize()
+    if routed != ((1, 1, 0) if variant == "mma" else (1, 0, 1)):
+        raise AssertionError(f"{name}: telemetry launches (flags, mma, fma) "
+                             f"{routed}, expected the {variant} route")
+    same = _bits_equal(on, off)
+    rec = dict(flags_ms=device_ms(lambda: cu(*args, debug_visits=True,
+                                             debug_flags=True, **kw)),
+               flags_bitwise_output=same,
+               visits_equal=torch.equal(visits, pv),
+               flags_equal=torch.equal(flags, pf),
+               flag_totals=flags.sum((0, 1)).tolist(),
+               visited_cells=int(visits.sum()))
+    if not (same and rec["visits_equal"] and rec["flags_equal"]):
+        raise AssertionError(f"{name}: telemetry {rec}")
+    return rec
+
+
+def flash_telemetry(name, args, kw, variant) -> dict:
+    """``decode_telemetry`` for ``flash_attention_cuda``: the plain
+    version walks the variant's own tiles (``kernel_tiles``)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain, kernel_tiles)
+    cu = flash_attention_cuda
+    q, k = args[0], args[1]
+    bq, bk = kernel_tiles(kw["src_dtype"], kw.get("src_fmt_name"),
+                          q.shape[1], q.shape[0] // kw["group"],
+                          kw["group"], q.shape[2])
+    off = cu(*args, **kw)
+    before = (cu.launches_telemetry, cu.launches_tc, cu.launches_fma)
+    on, visits, flags = cu(*args, debug_visits=True, debug_flags=True, **kw)
+    routed = (cu.launches_telemetry - before[0], cu.launches_tc - before[1],
+              cu.launches_fma - before[2])
+    _, pv, pf = flash_attention_plain(*args, block_k=bk, block_q=bq,
+                                      debug_visits=True, debug_flags=True,
+                                      **kw)
+    torch.cuda.synchronize()
+    if routed != ((1, 1, 0) if variant == "tc" else (1, 0, 1)):
+        raise AssertionError(f"{name}: telemetry launches (flags, tc, fma) "
+                             f"{routed}, expected the {variant} variant")
+    same = _bits_equal(on, off)
+    rec = dict(flags_ms=device_ms(lambda: cu(*args, debug_visits=True,
+                                             debug_flags=True, **kw)),
+               flags_bitwise_output=same,
+               visits_equal=torch.equal(visits, pv),
+               flags_equal=torch.equal(flags, pf),
+               flag_totals=flags.sum((0, 1)).tolist(),
+               visited_cells=int(visits.sum()), tiles=[bq, bk])
+    if not (same and rec["visits_equal"] and rec["flags_equal"]):
+        raise AssertionError(f"{name}: telemetry {rec}")
+    return rec
+
+
 def _pool_and_table(gen, b, hkv, max_pages, page, d, dtype, alias: int):
     """A shuffled page pool [n_pages, Hkv, page, D] (pool dtype ``dtype``)
     and a [b, max_pages] table; rows 0 and 1 share their first ``alias``
@@ -317,10 +439,10 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
     max_pages = -(-max_len // page)
     k, v, table = _pool_and_table(gen, b, hkv, max_pages, page, d, dtype,
                                   alias)
+    policy = pool_policy(dtype)
     q = (torch.randn((b, hkv * g, 1, d), generator=gen, device="cuda")
-         * q_scale).to(torch.bfloat16)
+         * q_scale).to(torch.float32 if policy == "fp32" else torch.bfloat16)
     kvl = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
-    policy = "tp_bf16" if dtype == torch.bfloat16 else "tp_bf16_kv8"
     call = lambda backend, cap=softcap: kops.decode_attention(
         q, k, v, kv_len=kvl, block_table=table, policy=policy,
         window=window, softcap=cap, backend=backend)
@@ -355,23 +477,26 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
               + got.numel() * 4 + kvl.numel() * 4
               + b * max_pages * 4)
     flops = 4.0 * g * d * hkv * sum(live)
-    bound_ms, bound_by = bound(nbytes, flops)
+    bound_ms, bound_by = bound(nbytes, flops,
+                               BF16_FLOP_S if variant == "mma" else F32_FLOP_S)
+    tol = F32_TOL if policy == "fp32" else KERNEL_TOL
     lib = None
     if softcap is None and min(kv_lens) > 0:
         lib = device_ms(_sdpa_decode(q, k, v, table, kvl, window))
     flat = lambda x: x.reshape(-1, page, d)
     lens = kops.expand_kv_lens(kvl, b, hkv, max_pages * page, q.device)
     flat_tab = kops.expand_block_table(table, hkv)
-    alone = lambda c=None: decode_attention_cuda(
-        q.reshape(b * hkv, g, d), flat(k), flat(v), lens, flat_tab,
-        scale=d ** -0.5, window=window, softcap=softcap, src_dtype=src_dt,
-        _cluster=c)
+    args = (q.reshape(b * hkv, g, d), flat(k), flat(v), lens, flat_tab)
+    kw = dict(scale=d ** -0.5, window=window, softcap=softcap,
+              src_dtype=src_dt)
+    alone = lambda c=None: decode_attention_cuda(*args, _cluster=c, **kw)
     kernel_only = device_ms(alone)
+    tele = decode_telemetry(name, args, kw, variant)
     rec = dict(case=name, kernel="decode_attention", variant=variant,
                cluster=ran[0], ctas=b * hkv * ran[0], max_abs_err=err,
-               tol=KERNEL_TOL, q_scale=q_scale, cap_effect=cap,
+               tol=tol, q_scale=q_scale, cap_effect=cap,
                kernel_ms=device_ms(lambda: call("kernel")),
-               kernel_only_ms=kernel_only,
+               kernel_only_ms=kernel_only, **tele,
                eager_ms=cuda_ms(lambda: call("kernel"), 20),
                plain_ms=cuda_ms(lambda: call("plain"), 5),
                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
@@ -382,8 +507,8 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
         rec["cluster_ms"] = {c: device_ms(lambda c=c: alone(c))
                              for c in (4, 8, 16)}
     log(json.dumps(rec))
-    if not err <= KERNEL_TOL:
-        raise AssertionError(f"{name}: max_abs_err {err} > {KERNEL_TOL}")
+    if not err <= tol:
+        raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
     if cap is not None and not cap >= CAP_EFFECT_MIN:
         raise AssertionError(f"{name}: the softcap changes the output by "
                              f"{cap} < {CAP_EFFECT_MIN}")
@@ -435,7 +560,7 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
     gen = torch.Generator(device="cuda").manual_seed(seed)
     kv_lens = [q_offset + r for r in rows]
     if policy is None:
-        policy = "tp_bf16" if dtype == torch.bfloat16 else "tp_bf16_kv8"
+        policy = pool_policy(dtype)
     src_dt, src_fmt = kops.policy_src(policy)
     q_dt = torch.float32 if src_dt == torch.float32 else torch.bfloat16
     q = (torch.randn((b, h, chunk, d), generator=gen, device="cuda")
@@ -486,20 +611,20 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
     flops = 4.0 * d * pairs
     bound_ms, bound_by = bound(nbytes, flops,
                                BF16_FLOP_S if variant == "tc" else F32_FLOP_S)
+    tol = F32_TOL if src_dt == torch.float32 and not src_fmt else KERNEL_TOL
     lib = None
     if (softcap is None and window is None and table is None
             and q_offset == 0 and min(rows) == chunk
             and q_dt != torch.float32):
         lib = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True))
-    extra = {}
+    args, kw = _flat_flash(q, k, v, kvl, table, policy)
+    kw.update(causal=True, window=window, softcap=softcap, q_offset=q_offset)
+    extra = flash_telemetry(name, args, kw, variant)
     if main:
-        args, kw = _flat_flash(q, k, v, kvl, table, policy)
-        kw.update(causal=True, window=window, softcap=softcap,
-                  q_offset=q_offset)
         rows_planned = plan_q_rows(chunk, b * hkv, g)
         alt = 64 if rows_planned == 128 else 128
-        extra = dict(
+        extra.update(
             fma_ms=device_ms(lambda: flash_attention_fma(*args, **kw), 3, 1),
             q_rows=rows_planned, other_q_rows=alt,
             other_q_rows_ms=device_ms(lambda: flash_attention_tc(
@@ -509,7 +634,7 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
                                              - want).abs().max().item()
     rec = dict(case=name, kernel="flash_attention", variant=variant,
                block_k=bk, max_abs_err=err,
-               tol=KERNEL_TOL, q_scale=q_scale, cap_effect=cap,
+               tol=tol, q_scale=q_scale, cap_effect=cap,
                kernel_ms=device_ms(lambda: call("kernel")),
                eager_ms=cuda_ms(lambda: call("kernel"), 10), **extra,
                plain_ms=cuda_ms(lambda: call("plain"), 2, warmup=1),
@@ -521,8 +646,8 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
     if main:
         rec["speedup_vs_fma"] = rec["fma_ms"] / rec["kernel_ms"]
     log(json.dumps(rec))
-    if not err <= KERNEL_TOL:
-        raise AssertionError(f"{name}: max_abs_err {err} > {KERNEL_TOL}")
+    if not err <= tol:
+        raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
     if main and not extra["other_q_rows_max_abs_err"] <= KERNEL_TOL:
         raise AssertionError(f"{name}: {extra['other_q_rows']}-row tiles, "
                              f"max_abs_err "
@@ -572,6 +697,11 @@ def decode_phase(sweep: bool = False) -> list:
                          kv_lens=[p + GEN_LEN - 1 for p in GEN_PROMPTS],
                          window=4096, softcap=50.0, alias=0, seed=10,
                          sweep=sweep))
+    # the slice's local layer on the escalation phase's f32 pool (policy
+    # fp32): the fma route
+    d.append(decode_case("decode_f32_p64_local", dtype=torch.float32,
+                         page=64, kv_lens=[1056, 540, 0, 4111], window=4096,
+                         softcap=50.0, alias=4, seed=12, sweep=sweep))
     return d
 
 
@@ -607,7 +737,105 @@ def kernel_phase() -> dict:
                         chunk=max(GEN_PROMPTS), window=4096, softcap=50.0,
                         alias=0, seed=11,
                         pages=-(-(max(GEN_PROMPTS) + GEN_LEN) // 64)))
+    # the slice's chunk on the escalation phase's f32 pool: flash_fma
+    f.append(flash_case("flash_f32_p64_chunk", dtype=torch.float32, page=64,
+                        rows=[256, 200], q_offset=768, chunk=256,
+                        window=4096, softcap=50.0, alias=4, seed=13))
     return recs
+
+
+def _plant(pool, table, row, pos, value):
+    """Write ``value`` into every KV head's element 0 of token ``pos`` of
+    batch row ``row`` (through ``table``) of a pool [n_pages, Hkv, page, D]."""
+    page = pool.shape[2]
+    pool[int(table[row, pos // page]), :, pos % page, 0] = value
+
+
+def telemetry_phase() -> list:
+    """The telemetry instantiations on damaged pools, one case per
+    variant: decode ``mma`` and ``flash_tc`` (TMA) on a native bf16 pool
+    with +-Inf and NaN in live keys, in dead slots of a live page, in a
+    row of length 0 and left of the window; decode ``fma`` and
+    ``flash_tc`` (converting f32 containers) on an ``em_fp8`` pool with
+    ``kv_fmt`` fp8 holding values beyond fp8's max and below its min
+    normal, with a window.  (``flash_fma`` is held on the f32-pool case
+    of the kernel phase.)  Each: the output bitwise the flags-off one,
+    visits and flags exactly the plain version's, the route named."""
+    import torch
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.decode_attention import decode_route
+    from repro_torch.kernels.flash_attention import tc_tile_dtype
+    bf16, f32 = torch.bfloat16, torch.float32
+    hkv, g, d = 8, 2, 256
+    out = []
+    em = get_policy("em_fp8").replace(kv_fmt=get_format("fp8"))
+    for name, dtype, policy, page, lens, window in (
+            ("telemetry_bf16_p64_damaged", bf16, get_policy("tp_bf16"), 64,
+             [1056, 540, 0, 4111], 4096),
+            ("telemetry_em_fp8_p16_window", f32, em, 16, [300, 17, 0, 1000],
+             64)):
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        b = len(lens)
+        max_pages = -(-(max(lens) + 1) // page)
+        k, v, table = _pool_and_table(gen, b, hkv, max_pages, page, d,
+                                      f32, 2)
+        if dtype == f32:      # magnitudes from 10^-7 to 10^6
+            mag = lambda x: x * 10.0 ** (13 * torch.rand(
+                x.shape, generator=gen, device="cuda") - 7)
+            k, v = mag(k), mag(v)
+        k, v = k.to(dtype), v.to(dtype)
+        for r, n in enumerate(lens):
+            if n:
+                _plant(k, table, r, n // 2, float("inf"))       # live
+                _plant(v, table, r, n - 1, float("nan"))
+                if n + 1 < max_pages * page:
+                    _plant(k, table, r, n + 1, float("-inf"))      # dead
+        _plant(v, table, 2, 3, float("nan"))        # the row of length 0
+        _plant(k, table, 3, 5, float("inf"))        # left of the window
+        kvl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        src_dt, grid = kops.policy_src(policy)
+        kv_fmt = (policy.kv_fmt.name if policy.mode != "native"
+                  and policy.kv_fmt is not None else None)
+        q = torch.randn((b, hkv * g, 1, d), generator=gen, device="cuda")
+        q = q.to(f32 if src_dt == f32 else bf16)
+        flat = lambda x: x.reshape(-1, page, d)
+        args = (q.reshape(b * hkv, g, d), flat(k), flat(v),
+                kops.expand_kv_lens(kvl, b, hkv, max_pages * page, "cuda"),
+                kops.expand_block_table(table, hkv))
+        kw = dict(scale=d ** -0.5, window=window, softcap=50.0,
+                  kv_fmt_name=kv_fmt, q_fmt_name=grid, src_dtype=src_dt)
+        variant = decode_route(src_dt, d)
+        rec = dict(case=name.replace("telemetry", "decode"),
+                   kernel="decode_attention", variant=variant,
+                   **decode_telemetry(name, args, kw, variant))
+        log(json.dumps(rec))
+        out.append(rec)
+        # a 256-token prefill chunk at q_offset 256 through the same pool
+        chunk, off = 256, 256
+        rows = [min(chunk, max(0, n - off)) for n in lens]
+        qf = torch.randn((b * hkv * g, chunk, d), generator=gen,
+                         device="cuda").to(q.dtype)
+        fargs = (qf, flat(k), flat(v),
+                 kops.expand_kv_lens(torch.tensor(
+                     [off + r for r in rows], dtype=torch.int32,
+                     device="cuda"), b, hkv * g, max_pages * page, "cuda"),
+                 kops.expand_block_table(table, hkv))
+        fkw = dict(group=g, scale=d ** -0.5, causal=True, window=window,
+                   softcap=50.0, q_offset=off, src_fmt_name=grid,
+                   src_dtype=src_dt)
+        fvar = "tc" if tc_tile_dtype(src_dt, grid, d) is not None else "fma"
+        rec = dict(case=name.replace("telemetry", "flash"),
+                   kernel="flash_attention", variant=fvar,
+                   **flash_telemetry(name, fargs, fkw, fvar))
+        log(json.dumps(rec))
+        out.append(rec)
+    if sorted((r["kernel"], r["variant"]) for r in out) != [
+            ("decode_attention", "fma"), ("decode_attention", "mma"),
+            ("flash_attention", "tc"), ("flash_attention", "tc")]:
+        raise AssertionError(f"telemetry cases ran on {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1090,10 +1318,11 @@ def reset_attention_counters() -> None:
     flash_attention_cuda.launches_tc = flash_attention_cuda.launches_fma = 0
 
 
-def attention_counters(where: str, rule: set) -> dict:
+def attention_counters(where: str, rule: set, flash: str = "tc",
+                       decode: str = "mma") -> dict:
     """The attention launch counters since the last reset, gated: both
-    kernels launched, every flash launch on ``flash_tc``, every decode
-    launch on the mma route at a cluster size in ``rule``."""
+    kernels launched, every flash launch on variant ``flash``, every
+    decode launch on route ``decode`` at a cluster size in ``rule``."""
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     launches = {"decode_attention": decode_attention_cuda.launches,
@@ -1107,15 +1336,14 @@ def attention_counters(where: str, rule: set) -> dict:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{where}: {name} was not launched")
-    if variants["flash_attention"] != {"tc": launches["flash_attention"],
-                                       "fma": 0}:
-        raise AssertionError(f"{where}: flash launches by variant "
-                             f"{variants}: the tensor-core variant must "
-                             f"take them all")
-    if variants["decode_attention"] != {"mma": launches["decode_attention"],
-                                        "fma": 0}:
-        raise AssertionError(f"{where}: decode launches by route "
-                             f"{variants}: the mma route must take them all")
+    want = {"flash_attention": {"tc": 0, "fma": 0},
+            "decode_attention": {"mma": 0, "fma": 0}}
+    want["flash_attention"][flash] = launches["flash_attention"]
+    want["decode_attention"][decode] = launches["decode_attention"]
+    if variants != want:
+        raise AssertionError(f"{where}: attention launches by variant "
+                             f"{variants}: flash must all be {flash}, "
+                             f"decode all {decode}")
     if (sum(by_cluster.values()) != launches["decode_attention"]
             or not set(by_cluster) <= rule):
         raise AssertionError(f"{where}: decode launches by cluster size "
@@ -1547,6 +1775,151 @@ def overload_phase(model, params, seed: int = 0) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 7: flag-driven KV-precision escalation on the f32 pool
+# ---------------------------------------------------------------------------
+#: the escalation queue: (arrival, prompt) with a budget of 24 each;
+#: request 3 refuses escalation
+ESCALATION = ((0, 1024), (0, 512), (0, 256), (0, 768), (2, 384), (2, 128))
+ESC_BUDGET, ESC_REFUSER = 24, 3
+#: the fault plan's overflow rounds and scale, the ladder and its trigger
+ESC_OVERFLOW_AT, ESC_OVERFLOW_SCALE = (3, 8), 65536.0
+ESC_LADDER, ESC_OF_THRESHOLD = ("fp8", "fp16", "fp16alt"), 8
+
+
+def escalation_queue(vocab: int, seed: int = 0):
+    import numpy as np
+    from repro_torch.launch.engine import Request
+    rng = np.random.RandomState(seed + 13)
+    return [Request(rid=i,
+                    tokens=(rng.randint(0, 256000, size=p) % vocab).tolist(),
+                    max_new=ESC_BUDGET, arrival=a,
+                    no_escalate=i == ESC_REFUSER)
+            for i, (a, p) in enumerate(ESCALATION)]
+
+
+def escalation_engine(model, params):
+    """4 slots, chunk 256, ``max_len`` 1088 (17 pages of 64), 69 pages
+    (every slot's worst case plus the scratch page), the escalation
+    ladder fp8 -> fp16 -> fp16alt at 8 overflow flags, and a fault plan
+    scaling the K/V writes of decode rounds 3 and 8 by 65536."""
+    from repro_torch.core.policy import EscalationPolicy
+    from repro_torch.launch.engine import ContinuousEngine
+    from repro_torch.train.fault import ServeFaultPlan
+    plan = ServeFaultPlan(overflow_at=ESC_OVERFLOW_AT,
+                          overflow_scale=ESC_OVERFLOW_SCALE)
+    eng = ContinuousEngine(
+        model, params, slots=4, max_len=1088, chunk=256, n_pages=69,
+        burst_cap=8,
+        fault_plan=plan, escalate=EscalationPolicy(
+            ladder=ESC_LADDER, of_threshold=ESC_OF_THRESHOLD))
+    return eng, plan
+
+
+def escalation_schedule(fin, plan) -> dict:
+    """Admit, finish and escalate rounds by rid, and each request's rung."""
+    return dict(
+        requests=[[f.rid, f.admit_round, f.finish_round, f.preemptions,
+                   f.escalated] for f in fin],
+        escalate=[[kw["round"], kw["rid"], kw["level"]]
+                  for k, kw in plan.events if k == "escalate"])
+
+
+def escalation_gates(fin, stats, plan, reqs, where: str) -> None:
+    for r, f in zip(reqs, fin):
+        if f.rid != r.rid or len(f.tokens) != r.max_new:
+            raise AssertionError(f"{where}: request {r.rid} got "
+                                 f"{len(f.tokens)} of {r.max_new} tokens")
+    if stats["pages_live_end"] != 0:
+        raise AssertionError(f"{where}: pool did not drain: {stats}")
+    if stats["escalations"] < 1 or stats["esc_refused"] < 1:
+        raise AssertionError(f"{where}: escalations {stats['escalations']}, "
+                             f"refused {stats['esc_refused']}")
+    if fin[ESC_REFUSER].escalated != 0:
+        raise AssertionError(f"{where}: the refusing request escalated")
+    if stats["poisoned_rounds"] or stats["nonfinite_prefill"]:
+        raise AssertionError(f"{where}: non-finite logits: {stats}")
+    kinds = {k for k, _ in plan.events}
+    if not {"overflow", "escalate"} <= kinds:
+        raise AssertionError(f"{where}: fault log {plan.events}")
+
+
+def escalation_phase(seed: int = 0) -> dict:
+    """Full-width gemma2-9b under policy ``fp32`` (f32 weights and an f32
+    KV pool, 34.4 GiB of weights), served by the escalation engine
+    (``escalation_engine``) on ``ESCALATION``: greedy, budgets of 24.
+    Gates (``escalation_gates``): every request gets its budget and the
+    pool drains, escalations >= 1, the refusing request refused (and ends
+    at rung 0), no non-finite logits; a second run, the timed one,
+    repeats the tokens and the fault plan's events; the schedule (admit /
+    finish / escalate rounds by rid) equals the same queue's on the CPU at
+    the reduced config; every decode launch on the fma route and every
+    flash launch on ``flash_fma``.  The caller frees the bf16 model
+    first."""
+    import torch
+    from repro_torch.models.registry import build_model
+    model = build_model("gemma2-9b", policy="fp32", device="cuda",
+                        paged_kv=True, page_size=64)
+    t0 = time.perf_counter()
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    log(f"gemma2-9b full width under fp32: weights "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = escalation_queue(model.cfg.vocab, seed)
+    eng, plan = escalation_engine(model, params)
+    reset_attention_counters()
+    fin, stats = eng.run(reqs)
+    counted = attention_counters(
+        "escalation", cluster_rule(model, eng.slots, eng.max_pages),
+        flash="fma", decode="fma")
+    escalation_gates(fin, stats, plan, reqs, "escalation")
+    events = list(plan.events)
+    sched = escalation_schedule(fin, plan)
+    # the repeat run, warm (the first one also loaded the f32 paths'
+    # kernels), is the timed one
+    t0 = time.perf_counter()
+    again, stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if [f.tokens for f in again] != [f.tokens for f in fin]:
+        raise AssertionError("escalation: a second run gave other tokens")
+    if plan.events != events:
+        raise AssertionError("escalation: a second run gave other events")
+    small = build_model("gemma2-9b", policy="fp32", reduced=True,
+                        device="cpu", paged_kv=True,
+                        page_size=model.cfg.page_size)
+    cpu_reqs = escalation_queue(small.cfg.vocab, seed)
+    cpu_eng, cpu_plan = escalation_engine(small, small.init(0))
+    cpu_fin, cpu_stats = cpu_eng.run(cpu_reqs)
+    escalation_gates(cpu_fin, cpu_stats, cpu_plan, cpu_reqs,
+                     "escalation on the CPU")
+    if escalation_schedule(cpu_fin, cpu_plan) != sched:
+        raise AssertionError(f"escalation: the schedule differs from the "
+                             f"CPU's:\n{sched}\n"
+                             f"{escalation_schedule(cpu_fin, cpu_plan)}")
+    # where the time goes: the first four requests, 8 tokens each
+    window = [dataclasses.replace(r, max_new=8, arrival=0) for r in reqs[:4]]
+    prof = profile_run(eng, window)
+    n_tok = sum(len(f.tokens) for f in fin)
+    res = dict(
+        requests=len(fin), generated_tokens=n_tok, wall_s=wall,
+        tok_s=n_tok / wall, decode_rounds=stats["decode_rounds"],
+        decode_ms_per_round=(stats["decode_s"] * 1e3
+                             / max(1, stats["decode_rounds"])),
+        prefill_s=stats["prefill_s"],
+        counters={k: stats.get(k, 0) for k in (
+            "escalations", "esc_refused", "esc_deferred", "preemptions",
+            "preempt_reingest", "resumed", "faults_overflow",
+            "poisoned_rounds", "nonfinite_prefill")},
+        events=[[k, kw] for k, kw in events if k in ("overflow", "escalate")],
+        schedule=sched, schedule_equals_cpu=True, repeat_equal=True,
+        card=card_line(), **counted)
+    log(json.dumps({"escalation": res}))
+    log(json.dumps({"where_the_time_goes_escalation": prof}))
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1557,13 +1930,34 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    clock = [time.perf_counter()]
+    phase_s = {}
+
+    def lap(name):
+        clock.append(time.perf_counter())
+        phase_s[name] = round(clock[-1] - clock[-2], 1)
+
     build_phase()
+    lap("build")
     recs = kernel_phase()
     recs.update(op_kernel_phase())
     op_res = op_path_phase()
+    tele = telemetry_phase()
+    lap("kernels")
     model, params = full_model()
-    serving = [slice_phase(model, params), generate_phase(model, params),
-               overload_phase(model, params)]
+    serving = [slice_phase(model, params)]
+    lap("slice")
+    serving.append(generate_phase(model, params))
+    lap("generate")
+    serving.append(overload_phase(model, params))
+    lap("overload")
+    del model, params
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving.append(escalation_phase())
+    lap("escalation")
+    log(json.dumps({"phase_s": phase_s}))
     launches, variants, by_cluster = dict(op_res["launches"]), {}, {}
     variants.update(op_res["variants"])
     for res in serving:
@@ -1587,6 +1981,15 @@ def main() -> int:
             entry.update(launches_by_variant=variants[name])
             if "fma_ms" in main_case:
                 entry["fma_ms"] = main_case["fma_ms"]
+        if "flags_ms" in main_case:
+            f32 = [c for c in cases if c["case"] in (
+                "decode_f32_p64_local", "flash_f32_p64_chunk")][0]
+            entry.update(flags_ms=main_case["flags_ms"],
+                         f32_pool_case=f32["case"], f32_pool_ms=f32["kernel_ms"],
+                         f32_pool_bound_ms=f32["bound_ms"],
+                         telemetry_cases=[[t["case"], t["variant"],
+                                           t["flags_ms"]] for t in tele
+                                          if t["kernel"] == name])
         if name == "decode_attention":
             entry["launches_by_cluster"] = by_cluster
         line.append(entry)

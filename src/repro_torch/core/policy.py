@@ -7,9 +7,10 @@ package.
   COMP    -> comparisons, masking, argmax        -> ``comp_fmt``
   CONV    -> dtype conversions, quantization     -> ``rounding`` mode
 
-``native`` mode carries real narrow torch dtypes; ``emulate`` mode (f32
-containers snapped onto the target grid) is not ported yet, and the ops
-raise ``NotImplementedError`` for it.
+``native`` mode carries real narrow torch dtypes; ``emulate`` mode keeps
+f32 containers snapped onto the target grid (``core.softfloat``).
+``EscalationPolicy`` steers the serving engine's flag-driven KV-precision
+escalation.
 """
 from __future__ import annotations
 
@@ -80,8 +81,18 @@ class PrecisionPolicy:
 
 @dataclasses.dataclass(frozen=True)
 class EscalationPolicy:
-    """Flag-driven KV-precision escalation ladder (data only in the port:
-    the engine that acts on it is not ported yet)."""
+    """Flag-driven KV-precision escalation — the inverse of graceful
+    degradation, steered by the IEEE flags of the write-side CONV stage.
+
+    A serving row starts at ``ladder[0]`` (narrowest).  Its accumulated
+    write-time OF / UF counts are its pressure; when either crosses its
+    threshold and the row is not at the top rung (``top()``),
+    ``launch.engine.ContinuousEngine`` moves it one rung up by a forced
+    free-and-reingest, recomputing its K/V at the wider format
+    (``formats``).  Refusable per request (``Request.no_escalate``) and
+    deferred while fewer than ``min_free_pages`` pages are free.  Every
+    rung fits the engine's f32 pool container; ``uf_threshold`` defaults
+    effectively off."""
     ladder: tuple = ("fp8", "fp16", "fp16alt")
     of_threshold: int = 8
     uf_threshold: int = 1 << 30

@@ -40,12 +40,12 @@ _LL = ctypes.c_longlong
 #: ``c_void_p``, and every entry point returns an int (a cudaError_t)
 ARGTYPES = {
     "decode_attention": {"decode_attention_launch":
-                         [_VOIDP] * 7 + [_INT] * 18
+                         [_VOIDP] * 9 + [_INT] * 18
                          + [_FLOAT, _INT, _FLOAT, _VOIDP]},
     "flash_attention": {"flash_attention_fma_launch":
-                        [_VOIDP] * 6 + [_INT] * 16 + [_FLOAT, _FLOAT, _VOIDP],
+                        [_VOIDP] * 8 + [_INT] * 17 + [_FLOAT, _FLOAT, _VOIDP],
                         "flash_attention_tc_launch":
-                        [_VOIDP] * 6 + [_INT] * 18 + [_FLOAT, _FLOAT, _VOIDP]},
+                        [_VOIDP] * 8 + [_INT] * 19 + [_FLOAT, _FLOAT, _VOIDP]},
     "tp_matmul": {"tp_matmul_fma_launch": [_VOIDP] * 3 + [_INT] * 8 + [_VOIDP],
                   "tp_matmul_tc_launch": [_VOIDP] * 6 + [_INT] * 12
                   + [_VOIDP]},

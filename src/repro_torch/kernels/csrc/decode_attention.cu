@@ -74,9 +74,19 @@
 // the rank's range in a loaded tile has p = 0 and its V fragment is masked
 // to 0, so 0 x stale data never makes a NaN.  The kernel parameters are
 // __grid_constant__: a by-value parameter read through a reference is
-// copied to local memory, which cost every access a local load.  Room for
-// the per-(row, page) debug flag cells of the TPU kernel: ``Split`` names
-// each rank's pages.
+// copied to local memory, which cost every access a local load.
+//
+// Telemetry (the TPU kernel's ``debug_visits`` / ``debug_flags``) is a
+// compile-time instantiation (``kFlags``) of the same kernel: the flags-off
+// instantiation keeps its instruction stream, and the passes above run
+// unchanged in the flags-on one, so the output is bitwise the same.  After
+// the last cluster barrier each rank marks the units it worked (cells of a
+// page, or of 64 keys for a strip) and counts OF / UF / NX / NV over whole
+// units of the row's live keys, units r, r + C, ... for rank r, by a
+// count-only read (the keys left of a window included: the TPU kernel
+// counts every live key, this kernel reads only the window's); each warp
+// adds its counts into the cell with one atomic per nonzero channel, q's
+// flags go to cell 0.  The read is an extra pass over the row's K and V.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -113,6 +123,8 @@ struct DecodeParams {
   const int* block_table;  // [BH, nk] flat page ids, or null (contiguous)
   float* out;              // [BH, G, D]
   float* scores;           // [BH, G, smax] scratch
+  int* visits;             // [BH, nk] telemetry (zeroed), or null
+  int* flags;              // [BH, nk, 4] telemetry (zeroed), or null
   int g, d, nk, unit, pool_rows, smax, q_dtype, src_kind;
   int cluster;             // CTAs per row
   int max_units;           // page-id slots per CTA
@@ -347,7 +359,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename KT, int kRoute>
+template <typename KT, int kRoute, bool kFlags>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_cluster_kernel(const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
@@ -806,14 +818,47 @@ decode_cluster_kernel(const __grid_constant__ CUtensorMap kmap,
     }
   }
   cluster.sync();  // no rank leaves while others read its shared memory
+
+  if constexpr (kFlags) {
+    // ---- telemetry (the TPU kernel's debug_visits / debug_flags) ---------
+    // visits: the units this rank worked (a window's whole units left of
+    // it are never read, so they stay 0)
+    for (int u = sp.u0 + tid; u < sp.u1; u += kThreads)
+      p.visits[(long long)row * p.nk + u] = 1;
+    // flags: a count-only read of every live key [0, kvl) of the row, K and
+    // V, once per row, unit by unit (the units spread over the ranks), q
+    // once in cell 0.  It covers the keys left of the window, which the
+    // TPU kernel counts and this kernel never reads, and it leaves the
+    // passes above untouched, so the output is the flags-off output.
+    const int nun = kvl > 0 ? (kvl - 1) / p.unit + 1 : 0;
+    for (int u = rank; u < nun; u += p.cluster) {
+      const int j0 = u * p.unit, j1 = min(kvl, j0 + p.unit);
+      long long base;
+      if (p.block_table) {
+        const int id = p.block_table[(long long)row * p.nk + u];
+        if (id < 0 || id >= p.pool_rows) __trap();  // page id outside the pool
+        base = (long long)id * p.unit * D;
+      } else {
+        base = ((long long)row * p.smax + j0) * D;
+      }
+      const long long n = (long long)(j1 - j0) * D;
+      int c[4] = {0, 0, 0, 0};
+      count_flags(k + base, n, p.kv_snap, tid, kThreads, c);
+      count_flags(v + base, n, p.kv_snap, tid, kThreads, c);
+      if (u == 0)
+        count_flags_any(p.q, p.q_dtype, (long long)row * G * D, (long long)G * D,
+                        p.q_snap, tid, kThreads, c);
+      flush_flags(p.flags + ((long long)row * p.nk + u) * 4, c);
+    }
+  }
 }
 
-template <typename KT, int kRoute>
+template <typename KT, int kRoute, bool kFlags>
 cudaError_t launch_typed(const CUtensorMap& kmap, const CUtensorMap& vmap,
                          const void* k, const void* v, int rows,
                          const DecodeParams& p, size_t smem,
                          cudaStream_t stream) {
-  auto kern = decode_cluster_kernel<KT, kRoute>;
+  auto kern = decode_cluster_kernel<KT, kRoute, kFlags>;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(rows * p.cluster));
   cfg.blockDim = dim3(kThreads);
@@ -854,20 +899,30 @@ cudaError_t launch_typed(const CUtensorMap& kmap, const CUtensorMap& vmap,
   return cudaGetLastError();
 }
 
-template <typename KT>
+template <typename KT, bool kFlags>
 cudaError_t launch_route(const CUtensorMap& kmap, const CUtensorMap& vmap,
                          const void* k, const void* v, int rows, int route,
                          const DecodeParams& p, size_t smem,
                          cudaStream_t stream) {
   switch (route) {
     case ROUTE_FMA:
-      return launch_typed<KT, ROUTE_FMA>(kmap, vmap, k, v, rows, p, smem, stream);
+      return launch_typed<KT, ROUTE_FMA, kFlags>(kmap, vmap, k, v, rows, p, smem, stream);
     case ROUTE_MMA_BF16:
-      return launch_typed<KT, ROUTE_MMA_BF16>(kmap, vmap, k, v, rows, p, smem, stream);
+      return launch_typed<KT, ROUTE_MMA_BF16, kFlags>(kmap, vmap, k, v, rows, p, smem, stream);
     case ROUTE_MMA_F16:
-      return launch_typed<KT, ROUTE_MMA_F16>(kmap, vmap, k, v, rows, p, smem, stream);
+      return launch_typed<KT, ROUTE_MMA_F16, kFlags>(kmap, vmap, k, v, rows, p, smem, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+// The telemetry instantiation (``kFlags``) when the caller asked for it.
+template <typename KT>
+cudaError_t launch_flags(const CUtensorMap& kmap, const CUtensorMap& vmap,
+                         const void* k, const void* v, int rows, int route,
+                         const DecodeParams& p, size_t smem,
+                         cudaStream_t stream) {
+  return p.flags ? launch_route<KT, true>(kmap, vmap, k, v, rows, route, p, smem, stream)
+                 : launch_route<KT, false>(kmap, vmap, k, v, rows, route, p, smem, stream);
 }
 
 int elem_bytes(int dtype) {
@@ -926,10 +981,13 @@ bool make_pool_map(CUtensorMap* map, const void* base, int row_bytes,
 }  // namespace
 
 // ``unit``: keys per split unit (the page; 64 for contiguous strips, whose
-// ``smax`` is the strip length and ``nk`` its unit count).
+// ``smax`` is the strip length and ``nk`` its unit count).  ``visits`` /
+// ``flags``: the zeroed telemetry outputs [rows, nk] / [rows, nk, 4] (both
+// or neither; null launches the flags-off kernel).
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* kv_len,
-    const void* block_table, void* out, void* scores, int rows, int g, int d,
+    const void* block_table, void* out, void* scores, void* visits,
+    void* flags, int rows, int g, int d,
     int nk, int unit, int pool_rows, int smax, int cluster, int q_dtype,
     int kv_dtype, int src_kind, int route, int kv_m, int kv_emax, int kv_emin,
     int q_m, int q_emax, int q_emin, float scale, int window, float softcap,
@@ -941,12 +999,15 @@ extern "C" int decode_attention_launch(
   if (route != ROUTE_FMA &&
       (d % 16 != 0 || src_kind != (route == ROUTE_MMA_BF16 ? SRC_BF16 : SRC_F16)))
     return cudaErrorInvalidValue;
+  if ((visits == nullptr) != (flags == nullptr)) return cudaErrorInvalidValue;
   DecodeParams p;
   p.q = q;
   p.kv_len = static_cast<const int*>(kv_len);
   p.block_table = static_cast<const int*>(block_table);
   p.out = static_cast<float*>(out);
   p.scores = static_cast<float*>(scores);
+  p.visits = static_cast<int*>(visits);
+  p.flags = static_cast<int*>(flags);
   p.g = g; p.d = d; p.nk = nk; p.unit = unit; p.pool_rows = pool_rows;
   p.smax = smax; p.q_dtype = q_dtype; p.src_kind = src_kind;
   p.cluster = cluster;
@@ -982,13 +1043,13 @@ extern "C" int decode_attention_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kv_dtype) {
     case DT_F32:
-      return launch_route<float>(kmap, vmap, k, v, rows, route, p, smem, s);
+      return launch_flags<float>(kmap, vmap, k, v, rows, route, p, smem, s);
     case DT_BF16:
-      return launch_route<__nv_bfloat16>(kmap, vmap, k, v, rows, route, p, smem, s);
+      return launch_flags<__nv_bfloat16>(kmap, vmap, k, v, rows, route, p, smem, s);
     case DT_F16:
-      return launch_route<__half>(kmap, vmap, k, v, rows, route, p, smem, s);
+      return launch_flags<__half>(kmap, vmap, k, v, rows, route, p, smem, s);
     case DT_FP8E5M2:
-      return launch_route<__nv_fp8_e5m2>(kmap, vmap, k, v, rows, route, p, smem, s);
+      return launch_flags<__nv_fp8_e5m2>(kmap, vmap, k, v, rows, route, p, smem, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -42,6 +42,20 @@
 // keys (also starting at multiples of 32) are read through the block table
 // into shared memory as f32 with 16-byte loads (``load_rows``), and all
 // products are f32 FMAs.
+//
+// Telemetry (the TPU kernel's ``debug_visits`` / ``debug_flags``, per
+// scheduled step of ``block_schedule`` at the variant's own tiles) is a
+// compile-time instantiation (``kFlags``) of each variant; the attention
+// code is the same in both, so the output is bitwise the flags-off output.
+// A visited tile's cell counts OF / UF / NX / NV of every key of the tile
+// below the head row's kv_len, K and V, and the q tile at the query block's
+// first step, as the TPU kernel does.  The counts come from a count-only
+// read of those keys: the attention walk loads only keys below the tile's
+// causal reach, while the TPU kernel counts every live key of a visited
+// tile.  ``flash_fma``'s CTA counts after its walk; in ``flash_tc`` the
+// producer warpgroup's warps that do not issue TMA loads (all four when
+// they convert) count beside the consumers, one warp per tile and head
+// row, and store each cell once.
 #include <cuda_runtime.h>
 
 #include <cstring>
@@ -62,6 +76,9 @@ struct FlashParams {
   const int* kv_len;       // [BH]
   const int* block_table;  // [BKV, nk] flat page ids, or null (contiguous)
   float* out;              // [BH, Sq, D]
+  int* visits;             // [BH, n_steps] telemetry (zeroed), or null
+  int* flags;              // [BH, n_steps, 4] telemetry (zeroed), or null
+  int n_steps;             // steps of block_schedule at this variant's tiles
   int group, sq, d, nk, page, pool_rows, q_offset;
   int causal, window;      // window < 0: none
   int src_kind;
@@ -80,13 +97,33 @@ __device__ __forceinline__ long long key_offset(const FlashParams& p,
   return (phys * p.page + (j % p.page)) * (long long)p.d;
 }
 
+// The query block ``iq``'s first step in ``block_schedule``'s flat order
+// (query blocks of ``bq``, key blocks of ``bk``, ``nkb`` key blocks): the
+// runs of the blocks before it, summed.
+__device__ __forceinline__ int schedule_base(int iq, int bq, int bk, int nkb,
+                                             int q_offset, int causal,
+                                             int window) {
+  int base = 0;
+  for (int i = 0; i < iq; ++i) {
+    int hi = nkb - 1;
+    if (causal) hi = min(hi, (q_offset + (i + 1) * bq - 1) / bk);
+    int lo = 0;
+    if (window >= 0) {
+      const int first = q_offset + i * bq - window + 1;
+      lo = first > 0 ? first / bk : 0;
+    }
+    base += hi - min(lo, hi) + 1;
+  }
+  return base;
+}
+
 // Zero rows [n, rows) of a [rows][ld] shared tile (the ragged edge).
 __device__ __forceinline__ void zero_rows(float* t, int ld, int n, int rows) {
   for (int i = threadIdx.x; i < (rows - n) * ld; i += kThreads)
     t[n * ld + i] = 0.f;
 }
 
-template <typename QT, typename KT>
+template <typename QT, typename KT, bool kFlags>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
              const KT* __restrict__ v, FlashParams p) {
@@ -210,15 +247,37 @@ flash_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
       }
     }
   }
+
+  if constexpr (kFlags) {
+    // ---- telemetry: one cell per visited key tile of the walk above ------
+    const int nkb = (p.nk * p.page + kBK - 1) / kBK;
+    const int klo = k_start / kBK;
+    const int step0 = schedule_base(blockIdx.x, kBQ, kBK, nkb, p.q_offset,
+                                    p.causal, p.window);
+    for (int k0 = klo * kBK; k0 < k_end; k0 += kBK) {
+      const long long cell = (long long)bh * p.n_steps + step0 + k0 / kBK - klo;
+      if (tid == 0) p.visits[cell] = 1;
+      int c[4] = {0, 0, 0, 0};
+      for (int key = k0 + warp; key < min(k0 + kBK, kvl); key += kThreads / 32) {
+        const long long off = key_offset(p, kvrow, key);
+        count_flags(k + off, D, p.snap, lane, 32, c);
+        count_flags(v + off, D, p.snap, lane, 32, c);
+      }
+      if (k0 == klo * kBK)  // the q tile, at the query block's first step
+        count_flags(q + ((long long)bh * p.sq + q0) * D, (long long)nrows * D,
+                    p.snap, tid, kThreads, c);
+      flush_flags(p.flags + cell * 4, c);
+    }
+  }
 }
 
-template <typename QT, typename KT>
+template <typename QT, typename KT, bool kFlags>
 cudaError_t launch_typed(const void* q, const void* k, const void* v, int bh,
                          const FlashParams& p, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * kBK + kBQ * (p.d + 1) +
                                        kBK * (p.d + 1) + kBK * p.d +
                                        kBQ * (kBK + 1) + 3 * kBQ);
-  auto kern = flash_kernel<QT, KT>;
+  auto kern = flash_kernel<QT, KT, kFlags>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -229,33 +288,48 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, int bh,
   return cudaGetLastError();
 }
 
-template <typename QT>
+template <typename QT, bool kFlags>
 cudaError_t launch_kv(const void* q, const void* k, const void* v, int bh,
                       int kv_dtype, const FlashParams& p,
                       cudaStream_t stream) {
   switch (kv_dtype) {
-    case DT_F32: return launch_typed<QT, float>(q, k, v, bh, p, stream);
-    case DT_BF16: return launch_typed<QT, __nv_bfloat16>(q, k, v, bh, p, stream);
-    case DT_F16: return launch_typed<QT, __half>(q, k, v, bh, p, stream);
-    case DT_FP8E5M2: return launch_typed<QT, __nv_fp8_e5m2>(q, k, v, bh, p, stream);
+    case DT_F32: return launch_typed<QT, float, kFlags>(q, k, v, bh, p, stream);
+    case DT_BF16: return launch_typed<QT, __nv_bfloat16, kFlags>(q, k, v, bh, p, stream);
+    case DT_F16: return launch_typed<QT, __half, kFlags>(q, k, v, bh, p, stream);
+    case DT_FP8E5M2: return launch_typed<QT, __nv_fp8_e5m2, kFlags>(q, k, v, bh, p, stream);
   }
   return cudaErrorInvalidValue;
 }
 
+template <typename QT>
+cudaError_t launch_flags(const void* q, const void* k, const void* v, int bh,
+                         int kv_dtype, const FlashParams& p,
+                         cudaStream_t stream) {
+  return p.flags ? launch_kv<QT, true>(q, k, v, bh, kv_dtype, p, stream)
+                 : launch_kv<QT, false>(q, k, v, bh, kv_dtype, p, stream);
+}
+
 }  // namespace
 
+// ``visits`` / ``flags``: the zeroed telemetry outputs [bh, n_steps] /
+// [bh, n_steps, 4] (both or neither; null launches the flags-off kernel).
 extern "C" int flash_attention_fma_launch(
     const void* q, const void* k, const void* v, const void* kv_len,
-    const void* block_table, void* out, int bh, int group, int sq, int d,
+    const void* block_table, void* out, void* visits, void* flags,
+    int n_steps, int bh, int group, int sq, int d,
     int nk, int page, int pool_rows, int q_offset, int causal, int window,
     int q_dtype,
     int kv_dtype, int src_kind, int snap_m, int snap_emax, int snap_emin,
     float scale, float softcap, void* stream) {
   if (d < 1 || d > kThreads || group < 1 || sq < 1) return cudaErrorInvalidValue;
+  if ((visits == nullptr) != (flags == nullptr)) return cudaErrorInvalidValue;
   FlashParams p;
   p.kv_len = static_cast<const int*>(kv_len);
   p.block_table = static_cast<const int*>(block_table);
   p.out = static_cast<float*>(out);
+  p.visits = static_cast<int*>(visits);
+  p.flags = static_cast<int*>(flags);
+  p.n_steps = n_steps;
   p.group = group; p.sq = sq; p.d = d; p.nk = nk; p.page = page;
   p.pool_rows = pool_rows;
   p.q_offset = q_offset; p.causal = causal; p.window = window;
@@ -266,9 +340,9 @@ extern "C" int flash_attention_fma_launch(
   p.two_over_cap = softcap > 0.f ? 2.f / softcap : 0.f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (q_dtype) {
-    case DT_F32: return launch_kv<float>(q, k, v, bh, kv_dtype, p, s);
-    case DT_BF16: return launch_kv<__nv_bfloat16>(q, k, v, bh, kv_dtype, p, s);
-    case DT_F16: return launch_kv<__half>(q, k, v, bh, kv_dtype, p, s);
+    case DT_F32: return launch_flags<float>(q, k, v, bh, kv_dtype, p, s);
+    case DT_BF16: return launch_flags<__nv_bfloat16>(q, k, v, bh, kv_dtype, p, s);
+    case DT_F16: return launch_flags<__half>(q, k, v, bh, kv_dtype, p, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -296,6 +370,9 @@ struct TcFlashParams {
   const int* kv_len;       // [BH]
   const int* block_table;  // [BKV, nk] flat page ids, or null (contiguous)
   float* out;              // [BH, Sq, D]
+  int* visits;             // [BH, n_steps] telemetry (zeroed), or null
+  int* flags;              // [BH, n_steps, 4] telemetry (zeroed), or null
+  int n_steps;             // steps of block_schedule at (bq, 64)
   int group, bq, sq, nk, page, pool_rows, q_offset;
   int causal, window;      // window < 0: none
   int q_dtype, kv_dtype, src_kind;
@@ -600,12 +677,85 @@ __device__ __forceinline__ void softmax_tile(
   }
 }
 
+// Telemetry of one CTA (query tile q0 of KV row kvrow, key tiles t0 .. of
+// its walk), by warp ``w`` of ``nw`` producer warps: tile j goes to warp
+// j mod nw, which counts, for each head row of the group that the tile is
+// visited for (a key below its kv_len and the tile's causal reach), the
+// flags of the tile's keys below that kv_len (K and V; counted once per
+// distinct kv_len) plus, at the first step, the head's q rows, and stores
+// the cell and its visit.
+// Adds the flags of keys [kt, e) of KV row ``kvrow``, K and V (D elements
+// each, through the block table): the warp's lanes take 16-byte vectors
+// across the rows, decoded by the pool's dtype code.
+template <int D>
+__device__ __forceinline__ void tc_count_kv(const TcFlashParams& p, int kvrow,
+                                           int kt, int e, int lane,
+                                           int (&c)[4]) {
+  const int esz = dtype_bytes(p.kv_dtype), per_row = D * esz / 16;
+  for (int which = 0; which < 2; ++which) {
+    const void* src = which ? p.v : p.k;
+    if (reinterpret_cast<uintptr_t>(src) & 15) {  // a pool not 16-byte aligned
+      for (int key = kt; key < e; ++key)
+        count_flags_any(src, p.kv_dtype,
+                        (tc_phys(p, kvrow, key) * p.page + key % p.page) * D,
+                        D, p.snap, lane, 32, c);
+      continue;
+    }
+    const unsigned char* base = static_cast<const unsigned char*>(src);
+    for (int i = lane; i < (e - kt) * per_row; i += 32) {
+      const int key = kt + i / per_row;
+      const long long row = tc_phys(p, kvrow, key) * p.page + key % p.page;
+      add_flags16(c, __ldg(reinterpret_cast<const uint4*>(base + row * D * esz) +
+                           i % per_row),
+                  p.kv_dtype, p.snap);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void tc_telemetry(const TcFlashParams& p, int kvrow,
+                                          int q0, int nrows, int qlo, int t0,
+                                          int ntiles, int w, int nw) {
+  const int lane = threadIdx.x & 31;
+  const int nkb = (p.nk * p.page + kTcBK - 1) / kTcBK;
+  const int step0 = schedule_base(q0 / p.bq, p.bq, kTcBK, nkb, p.q_offset,
+                                  p.causal, p.window);
+  for (int j = w; j < ntiles; j += nw) {
+    const int kt = t0 + j * kTcBK;
+    int kv[4] = {0, 0, 0, 0}, counted_to = -1;
+    for (int h = 0; h < p.group; ++h) {
+      const int hrow = kvrow * p.group + h;
+      const int kvl = min(p.kv_len[hrow], p.nk * p.page);
+      if (kt >= (p.causal ? min(kvl, qlo + nrows) : kvl)) continue;
+      const int e = min(kt + kTcBK, kvl);
+      if (e != counted_to) {
+        kv[0] = kv[1] = kv[2] = kv[3] = 0;
+        tc_count_kv<D>(p, kvrow, kt, e, lane, kv);
+        warp_total(kv);
+        counted_to = e;
+      }
+      int c[4] = {0, 0, 0, 0};
+      if (j == 0) {  // the q tile, at the query block's first step
+        count_flags_any(p.q, p.q_dtype, ((long long)hrow * p.sq + q0) * D,
+                        (long long)nrows * D, p.snap, lane, 32, c);
+        warp_total(c);
+      }
+      if (lane == 0) {
+        const long long cell = (long long)hrow * p.n_steps + step0 + j;
+        p.visits[cell] = 1;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) p.flags[cell * 4 + k] = kv[k] + c[k];
+      }
+    }
+  }
+}
+
 // Shared memory: Q [D/64 chunks][MT rows], then K slots 0, 1 and V slots
 // 0, 1 (each [D/64 chunks][64 keys]), then the barriers fullK[2],
 // fullV[2], emptyK[2], emptyV[2].  K and V have rings of their own: K(j) is
 // free once S(j) = Q K(j)^T is done, V(j) only after P(j) V(j), which runs
 // one tile later.
-template <typename TT, int D, int NC>
+template <typename TT, int D, int NC, bool kFlags>
 __global__ void __launch_bounds__(128 * (NC + 1), 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
@@ -654,7 +804,11 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
   if (wg == 0) {
     // ---- producer warpgroup: K(j), V(j), K(j + 1), ... into the rings ----
     tc::regs_dec<kTcProducerRegs>();
-    if (p.kv_tma && t >= 32) return;  // one warp issues the TMA loads
+    if (p.kv_tma && t >= 32) {  // one warp issues the TMA loads
+      if constexpr (kFlags)
+        tc_telemetry<D>(p, kvrow, q0, nrows, qlo, t0, ntiles, t / 32 - 1, 3);
+      return;
+    }
     for (int j = 0; j < ntiles; ++j) {
       const int s = j % kTcStages, kt = t0 + j * kTcBK;
       const uint32_t parity = ((j / kTcStages) & 1) ^ 1;
@@ -672,6 +826,10 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
           tc::mbar_arrive(full);
         }
       }
+    }
+    if constexpr (kFlags) {
+      if (!p.kv_tma)
+        tc_telemetry<D>(p, kvrow, q0, nrows, qlo, t0, ntiles, t / 32, 4);
     }
     return;
   }
@@ -753,7 +911,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
   }
 }
 
-template <typename TT, int D, int NC>
+template <typename TT, int D, int NC, bool kFlags>
 cudaError_t launch_tc_typed(const TcFlashParams& p, int bkv,
                             cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<TT, __nv_bfloat16>::value;
@@ -771,7 +929,7 @@ cudaError_t launch_tc_typed(const TcFlashParams& p, int bkv,
   constexpr int MT = 64 * NC, threads = 128 * (NC + 1);
   constexpr int smem = MT * D * 2 + 2 * kTcStages * kTcBK * D * 2 +
                        4 * kTcStages * 8 + 1024;
-  auto kern = flash_tc_kernel<TT, D, NC>;
+  auto kern = flash_tc_kernel<TT, D, NC, kFlags>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -788,11 +946,19 @@ cudaError_t launch_tc_typed(const TcFlashParams& p, int bkv,
   return cudaGetLastError();
 }
 
-template <typename TT, int D>
+template <typename TT, int D, bool kFlags>
 cudaError_t launch_tc_nc(const TcFlashParams& p, int bkv, int nc,
                          cudaStream_t stream) {
-  return nc == 1 ? launch_tc_typed<TT, D, 1>(p, bkv, stream)
-                 : launch_tc_typed<TT, D, 2>(p, bkv, stream);
+  return nc == 1 ? launch_tc_typed<TT, D, 1, kFlags>(p, bkv, stream)
+                 : launch_tc_typed<TT, D, 2, kFlags>(p, bkv, stream);
+}
+
+// The telemetry instantiation when the caller asked for it.
+template <typename TT, int D>
+cudaError_t launch_tc_flags(const TcFlashParams& p, int bkv, int nc,
+                            cudaStream_t stream) {
+  return p.flags ? launch_tc_nc<TT, D, true>(p, bkv, nc, stream)
+                 : launch_tc_nc<TT, D, false>(p, bkv, nc, stream);
 }
 
 int gcd_int(int a, int b) { return b ? gcd_int(b, a % b) : a; }
@@ -801,23 +967,28 @@ int gcd_int(int a, int b) { return b ? gcd_int(b, a % b) : a; }
 
 // q_rows: rows of a CTA's query tile over all heads of the group (64 or
 // 128; the tile holds q_rows / group queries of each head); tile_bf16: 1 ->
-// bf16 tiles, 0 -> fp16.
+// bf16 tiles, 0 -> fp16; ``visits`` / ``flags`` as for flash_fma.
 extern "C" int flash_attention_tc_launch(
     const void* q, const void* k, const void* v, const void* kv_len,
-    const void* block_table, void* out, int bh, int group, int sq, int d,
+    const void* block_table, void* out, void* visits, void* flags,
+    int n_steps, int bh, int group, int sq, int d,
     int nk, int page, int pool_rows, int q_offset, int causal, int window,
     int q_dtype, int kv_dtype, int src_kind, int snap_m, int snap_emax,
     int snap_emin, int tile_bf16, int q_rows, float scale, float softcap,
     void* stream) {
   if ((d != 64 && d != 128 && d != 256) || (q_rows != 64 && q_rows != 128) ||
       group < 1 || group > q_rows || sq < 1 || bh % group || page < 1 ||
-      nk < 1 || (q_dtype != DT_F32 && q_dtype != DT_BF16 && q_dtype != DT_F16))
+      nk < 1 || (q_dtype != DT_F32 && q_dtype != DT_BF16 && q_dtype != DT_F16) ||
+      (visits == nullptr) != (flags == nullptr))
     return cudaErrorInvalidValue;
   TcFlashParams p;
   p.q = q; p.k = k; p.v = v;
   p.kv_len = static_cast<const int*>(kv_len);
   p.block_table = static_cast<const int*>(block_table);
   p.out = static_cast<float*>(out);
+  p.visits = static_cast<int*>(visits);
+  p.flags = static_cast<int*>(flags);
+  p.n_steps = n_steps;
   p.group = group; p.bq = q_rows / group; p.sq = sq; p.nk = nk;
   p.page = page; p.pool_rows = pool_rows; p.q_offset = q_offset;
   p.causal = causal; p.window = window;
@@ -835,14 +1006,14 @@ extern "C" int flash_attention_tc_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile_bf16) {
     switch (d) {
-      case 64: return launch_tc_nc<__nv_bfloat16, 64>(p, bkv, nc, s);
-      case 128: return launch_tc_nc<__nv_bfloat16, 128>(p, bkv, nc, s);
-      default: return launch_tc_nc<__nv_bfloat16, 256>(p, bkv, nc, s);
+      case 64: return launch_tc_flags<__nv_bfloat16, 64>(p, bkv, nc, s);
+      case 128: return launch_tc_flags<__nv_bfloat16, 128>(p, bkv, nc, s);
+      default: return launch_tc_flags<__nv_bfloat16, 256>(p, bkv, nc, s);
     }
   }
   switch (d) {
-    case 64: return launch_tc_nc<__half, 64>(p, bkv, nc, s);
-    case 128: return launch_tc_nc<__half, 128>(p, bkv, nc, s);
-    default: return launch_tc_nc<__half, 256>(p, bkv, nc, s);
+    case 64: return launch_tc_flags<__half, 64>(p, bkv, nc, s);
+    case 128: return launch_tc_flags<__half, 128>(p, bkv, nc, s);
+    default: return launch_tc_flags<__half, 256>(p, bkv, nc, s);
   }
 }

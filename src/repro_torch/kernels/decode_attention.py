@@ -16,7 +16,11 @@ The kernel has two routes, chosen by ``decode_route`` alone:
   ``fma``  f32 FMAs, for f32 src and other D.
 
 Both count their launches (``launches_mma`` / ``launches_fma``), and every
-launch counts under its cluster size (``launches_by_cluster``).
+launch counts under its cluster size (``launches_by_cluster``).  With
+``debug_visits`` / ``debug_flags`` the kernel's telemetry instantiation
+runs (``launches_telemetry``): the TPU kernel's side outputs, the units
+each row worked and the IEEE flag counts of its CONV stage, with the
+attention output bitwise the flags-off one.
 
 ``decode_attention_plain`` is its plain-torch version (with ``splits=``, it
 walks the kernel's partition and adds the parts in rank order).  The choice
@@ -35,8 +39,8 @@ tensors take the plain version; CUDA tensors launch the kernel or raise.
 Layout: q [BHkv, G, D]; k/v either contiguous strips [BHkv, Smax, D] or
 flat page pools [n_pages * Hkv, page, D] with ``block_table`` [BHkv, nk]
 flat per-head page ids; ``kv_len`` [BHkv] per-row live lengths.  Output
-[BHkv, G, D] in ``out_dtype`` (f32).  Not ported yet: the
-``debug_visits`` / ``debug_flags`` side outputs.
+[BHkv, G, D] in ``out_dtype`` (f32); telemetry cells are pages, or 64-key
+units of a contiguous strip (``ref.decode_telemetry_ref``).
 """
 from __future__ import annotations
 
@@ -134,18 +138,33 @@ def decode_attention_plain(q, k, v, kv_len, block_table=None, *,
                            q_fmt_name: Optional[str] = None,
                            src_dtype=torch.bfloat16,
                            out_dtype=torch.float32,
-                           splits: Optional[SplitPlan] = None):
+                           splits: Optional[SplitPlan] = None,
+                           debug_visits: bool = False,
+                           debug_flags: bool = False):
     """The kernel's function in plain torch (``ref.decode_attention_ref``
     blocked at the page size, or at 64 keys for contiguous strips).  With
     ``splits`` (``plan_splits``'s partition of these rows) the sums run
-    part by part and are added in part order, as the kernel's ranks do."""
+    part by part and are added in part order, as the kernel's ranks do.
+    ``debug_visits`` / ``debug_flags`` append the kernel's telemetry
+    (``ref.decode_telemetry_ref``), in that order."""
     kw = dict(kv_len=kv_len, scale=scale, window=window, softcap=softcap,
               kv_fmt_name=kv_fmt_name, q_fmt_name=q_fmt_name,
               src_dtype=src_dtype, out_dtype=out_dtype,
               bounds=None if splits is None else splits.bounds)
     if block_table is not None:
-        return ref.decode_attention_paged_ref(q, k, v, block_table, **kw)
-    return ref.decode_attention_ref(q, k, v, bk=64, **kw)
+        out = ref.decode_attention_paged_ref(q, k, v, block_table, **kw)
+    else:
+        out = ref.decode_attention_ref(q, k, v, bk=STRIP_UNIT, **kw)
+    if not (debug_visits or debug_flags):
+        return out
+    if block_table is not None:
+        k, v = ref.paged_gather(k, block_table), ref.paged_gather(v, block_table)
+    visits, flags = ref.decode_telemetry_ref(
+        q, k, v, kv_len=kv_len, window=window, kv_fmt_name=kv_fmt_name,
+        q_fmt_name=q_fmt_name,
+        unit=k.shape[1] // block_table.shape[1] if block_table is not None
+        else STRIP_UNIT)
+    return ref.with_telemetry(out, visits, flags, debug_visits, debug_flags)
 
 
 def decode_attention_cuda(q, k, v, kv_len, block_table=None, *,
@@ -155,14 +174,19 @@ def decode_attention_cuda(q, k, v, kv_len, block_table=None, *,
                           q_fmt_name: Optional[str] = None,
                           src_dtype=torch.bfloat16,
                           out_dtype=torch.float32,
+                          debug_visits: bool = False,
+                          debug_flags: bool = False,
                           _cluster: Optional[int] = None):
     """q [BHkv, G, D]; k/v [BHkv, Smax, D] or pools [n_pages, page, D]
     with ``block_table`` [BHkv, nk]; ``kv_len`` scalar or [BHkv].
     Launches the kernel (one launch per call, ``cluster_size`` CTAs per
     row, on the route ``decode_route`` names); raises on tensors that do
-    not lie on a CUDA device, and when the launch fails.  ``_cluster``
-    overrides ``cluster_size`` for a diagnostic sweep (``chip_smoke.py``'s
-    ``decode_phase(sweep=True)``); the serving path never passes it."""
+    not lie on a CUDA device, and when the launch fails.
+    ``debug_visits`` / ``debug_flags`` launch the telemetry instantiation
+    and append visits [BHkv, nk] / flags [BHkv, nk, 4] int32, in that
+    order.  ``_cluster`` overrides ``cluster_size`` for a diagnostic sweep
+    (``chip_smoke.py``'s ``decode_phase(sweep=True)``); the serving path
+    never passes it."""
     if q.device.type != "cuda":
         raise ValueError(f"the decode kernel needs CUDA tensors, got "
                          f"{q.device}")
@@ -205,10 +229,17 @@ def decode_attention_cuda(q, k, v, kv_len, block_table=None, *,
                else _cluster)
     out = torch.empty((bh, g, d), dtype=torch.float32, device=q.device)
     scores = torch.empty((bh, g, smax), dtype=torch.float32, device=q.device)
+    tele = debug_visits or debug_flags
+    visits = flags = None
+    if tele:
+        visits = torch.zeros((bh, nk), dtype=torch.int32, device=q.device)
+        flags = torch.zeros((bh, nk, 4), dtype=torch.int32, device=q.device)
     fn = _build.load("decode_attention").decode_attention_launch
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kvl.data_ptr(),
              table.data_ptr() if table is not None else None,
-             out.data_ptr(), scores.data_ptr(), bh, g, d, nk, unit, rows,
+             out.data_ptr(), scores.data_ptr(),
+             visits.data_ptr() if tele else None,
+             flags.data_ptr() if tele else None, bh, g, d, nk, unit, rows,
              smax, cluster, _build.dtype_code(q.dtype),
              _build.dtype_code(k.dtype), _build.src_kind(src_dtype), code,
              *_build.snap_args(kv_fmt_name), *_build.snap_args(q_fmt_name),
@@ -223,12 +254,18 @@ def decode_attention_cuda(q, k, v, kv_len, block_table=None, *,
         decode_attention_cuda.launches_fma += 1
     by_cluster = decode_attention_cuda.launches_by_cluster
     by_cluster[cluster] = by_cluster.get(cluster, 0) + 1
-    return out if out_dtype == torch.float32 else out.to(out_dtype)
+    if tele:
+        decode_attention_cuda.launches_telemetry += 1
+    out = out if out_dtype == torch.float32 else out.to(out_dtype)
+    if not tele:
+        return out
+    return ref.with_telemetry(out, visits, flags, debug_visits, debug_flags)
 
 
-#: launches of the CUDA kernel, in all, by route and by cluster size (CPU
-#: calls and plain-version calls add none)
+#: launches of the CUDA kernel, in all, by route, by cluster size and of
+#: the telemetry instantiation (CPU calls and plain-version calls add none)
 decode_attention_cuda.launches = 0
 decode_attention_cuda.launches_mma = 0
 decode_attention_cuda.launches_fma = 0
 decode_attention_cuda.launches_by_cluster = {}
+decode_attention_cuda.launches_telemetry = 0

@@ -31,8 +31,13 @@ the src dtype against the running max of that walk.
 
 Layout: q [BH, Sq, D]; k/v contiguous [BKV, Skv, D] or flat page pools
 [n_pages * Hkv, page, D] with ``block_table`` [BKV, nk]; BH = BKV * group.
-Output [BH, Sq, D] f32.  Not ported yet: ``Dv != D`` (MLA) in the CUDA
-kernels and the ``debug_visits`` / ``debug_flags`` side outputs.
+Output [BH, Sq, D] f32.  With ``debug_visits`` / ``debug_flags`` the
+variant's telemetry instantiation runs (``launches_telemetry``) and also
+returns the TPU kernel's side outputs, per step of ``block_schedule`` at
+the variant's own tiles (``kernel_tiles``; ``ref.flash_telemetry_ref``):
+which steps did work and the IEEE flag counts of the CONV stage, the
+attention output bitwise the flags-off one.  Not ported yet: ``Dv != D``
+(MLA) in the CUDA kernels.
 """
 from __future__ import annotations
 
@@ -49,8 +54,8 @@ from .quant_common import operand_tile_dtype
 #: query block of the plain version's walk, and its key block unless
 #: ``block_k`` is given (paged: the page)
 PLAIN_BLOCK = 32
-#: key tile of each CUDA variant
-TC_BLOCK_K, FMA_BLOCK_K = 64, 32
+#: key tile of each CUDA variant, and the FMA variant's query tile
+TC_BLOCK_K, FMA_BLOCK_K, FMA_BLOCK_Q = 64, 32, 32
 #: head dims the tensor-core variant takes
 TC_HEAD_DIMS = (64, 128, 256)
 
@@ -82,6 +87,17 @@ def kernel_block_k(src_dtype, src_fmt_name: Optional[str], d: int) -> int:
     """The key tile of the CUDA variant these arguments route to."""
     return (TC_BLOCK_K if tc_tile_dtype(src_dtype, src_fmt_name, d)
             is not None else FMA_BLOCK_K)
+
+
+def kernel_tiles(src_dtype, src_fmt_name: Optional[str], sq: int, bkv: int,
+                 group: int, d: int) -> Tuple[int, int]:
+    """``(bq, bk)``: queries per head and keys of the tile the CUDA
+    variant these arguments route to walks — its telemetry's block
+    schedule (``flash_tc``: ``plan_q_rows // group`` by 64; ``flash_fma``:
+    32 by 32)."""
+    if tc_tile_dtype(src_dtype, src_fmt_name, d) is not None:
+        return plan_q_rows(sq, bkv, group) // group, TC_BLOCK_K
+    return FMA_BLOCK_Q, FMA_BLOCK_K
 
 
 def block_schedule(sq: int, skv: int, bq: int, bk: int, *, causal: bool,
@@ -127,12 +143,18 @@ def flash_attention_plain(q, k, v, kv_len=None, block_table=None, *,
                           softcap: Optional[float] = None, q_offset: int = 0,
                           src_fmt_name: Optional[str] = None,
                           src_dtype=torch.bfloat16, out_dtype=torch.float32,
-                          block_k: Optional[int] = None):
+                          block_k: Optional[int] = None,
+                          block_q: Optional[int] = None,
+                          debug_visits: bool = False,
+                          debug_flags: bool = False):
     """The kernel's function in plain torch: the blocked online-softmax
     walk of ``ref.flash_attention_ref`` over the pruned schedule, keys in
     blocks of ``block_k`` (None: 32, or the page when paged; a CUDA
     variant's own tile is ``kernel_block_k``).  Paged, the walk runs over
-    the gathered pages."""
+    the gathered pages.  ``debug_visits`` / ``debug_flags`` append the
+    telemetry of ``ref.flash_telemetry_ref`` over query blocks of
+    ``block_q`` (None: 32) and those key blocks, in that order (a CUDA
+    variant's tiles: ``kernel_tiles``)."""
     sq = q.shape[1]
     kw = dict(group=group, scale=scale, causal=causal, window=window,
               softcap=softcap, q_offset=q_offset, src_fmt_name=src_fmt_name,
@@ -140,16 +162,48 @@ def flash_attention_plain(q, k, v, kv_len=None, block_table=None, *,
     qp = _pad_rows(q, PLAIN_BLOCK)
     if block_table is not None:
         skv = block_table.shape[1] * k.shape[1]
+        bk = k.shape[1] if block_k is None else block_k
         kvl = ref.per_row_lens(kv_len, q.shape[0], skv, q.device)
         o = ref.flash_attention_paged_ref(qp, k, v, block_table,
-                                          bq=PLAIN_BLOCK, bk=block_k,
+                                          bq=PLAIN_BLOCK, bk=bk,
                                           kv_len=kvl, **kw)
     else:
         bk = PLAIN_BLOCK if block_k is None else block_k
         kvl = ref.per_row_lens(kv_len, q.shape[0], k.shape[1], q.device)
         o = ref.flash_attention_ref(qp, _pad_rows(k, bk), _pad_rows(v, bk),
                                     kv_len=kvl, bq=PLAIN_BLOCK, bk=bk, **kw)
-    return o[:, :sq]
+    o = o[:, :sq]
+    if not (debug_visits or debug_flags):
+        return o
+    if block_table is not None:
+        k, v = ref.paged_gather(k, block_table), ref.paged_gather(v, block_table)
+    visits, flags = ref.flash_telemetry_ref(
+        q, k, v, group=group, kv_len=kvl, causal=causal, window=window,
+        q_offset=q_offset, src_fmt_name=src_fmt_name,
+        bq=PLAIN_BLOCK if block_q is None else block_q, bk=bk)
+    return ref.with_telemetry(o, visits, flags, debug_visits, debug_flags)
+
+
+def _telemetry(tele: bool, bh: int, sq: int, skv: int, bq: int, bk: int,
+               causal: bool, window, q_offset: int, device):
+    """``(n_steps, visits, flags)``: the zeroed telemetry outputs over
+    ``block_schedule``'s steps at the tiles (bq, bk), or (0, None, None)."""
+    if not tele:
+        return 0, None, None
+    n = len(block_schedule(-(-sq // bq) * bq, -(-skv // bk) * bk, bq, bk,
+                           causal=causal, window=window,
+                           q_offset=q_offset)[0])
+    return (n, torch.zeros((bh, n), dtype=torch.int32, device=device),
+            torch.zeros((bh, n, 4), dtype=torch.int32, device=device))
+
+
+def _finish(out, out_dtype, visits, flags, debug_visits, debug_flags):
+    """A variant's return: the output, then the telemetry asked for."""
+    out = out if out_dtype == torch.float32 else out.to(out_dtype)
+    if not (debug_visits or debug_flags):
+        return out
+    flash_attention_cuda.launches_telemetry += 1
+    return ref.with_telemetry(out, visits, flags, debug_visits, debug_flags)
 
 
 def _launch_args(q, k, v, kv_len, block_table, group):
@@ -192,10 +246,12 @@ def flash_attention_tc(q, k, v, kv_len=None, block_table=None, *,
                        softcap: Optional[float] = None, q_offset: int = 0,
                        src_fmt_name: Optional[str] = None,
                        src_dtype=torch.bfloat16, out_dtype=torch.float32,
-                       q_rows: Optional[int] = None):
+                       q_rows: Optional[int] = None,
+                       debug_visits: bool = False, debug_flags: bool = False):
     """The tensor-core variant (the arguments must route to a 16-bit
     tile); ``q_rows`` (64 or 128) is the CTA's query tile over the group's
-    heads (None: ``plan_q_rows``)."""
+    heads (None: ``plan_q_rows``); telemetry steps are at
+    ``(q_rows // group, 64)``."""
     tile = tc_tile_dtype(src_dtype, src_fmt_name, q.shape[-1])
     if tile is None:
         raise ValueError(f"src {src_dtype} / grid {src_fmt_name} at D "
@@ -207,10 +263,16 @@ def flash_attention_tc(q, k, v, kv_len=None, block_table=None, *,
         q_rows = plan_q_rows(sq, bh // group, group)
     if not 1 <= group <= q_rows:
         raise ValueError(f"group {group} does not fit a {q_rows}-row tile")
+    tele = debug_visits or debug_flags
+    n_steps, visits, flags = _telemetry(tele, bh, sq, nk * page,
+                                        q_rows // group, TC_BLOCK_K, causal,
+                                        window, int(q_offset), q.device)
     fn = _build.load("flash_attention").flash_attention_tc_launch
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kvl.data_ptr(),
              table.data_ptr() if table is not None else None,
-             out.data_ptr(), bh, group, sq, d, nk, page, rows, int(q_offset),
+             out.data_ptr(), visits.data_ptr() if tele else None,
+             flags.data_ptr() if tele else None, n_steps,
+             bh, group, sq, d, nk, page, rows, int(q_offset),
              int(bool(causal)), -1 if window is None else int(window),
              _build.dtype_code(q.dtype), _build.dtype_code(k.dtype),
              _build.src_kind(src_dtype), *_build.snap_args(src_fmt_name),
@@ -220,7 +282,7 @@ def flash_attention_tc(q, k, v, kv_len=None, block_table=None, *,
     _build.check(err, "flash_attention_tc")
     flash_attention_cuda.launches_tc += 1
     flash_attention_cuda.launches += 1
-    return out if out_dtype == torch.float32 else out.to(out_dtype)
+    return _finish(out, out_dtype, visits, flags, debug_visits, debug_flags)
 
 
 def flash_attention_fma(q, k, v, kv_len=None, block_table=None, *,
@@ -228,17 +290,26 @@ def flash_attention_fma(q, k, v, kv_len=None, block_table=None, *,
                         causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None, q_offset: int = 0,
                         src_fmt_name: Optional[str] = None,
-                        src_dtype=torch.bfloat16, out_dtype=torch.float32):
-    """The f32-FMA variant (D <= 256, any src)."""
+                        src_dtype=torch.bfloat16, out_dtype=torch.float32,
+                        debug_visits: bool = False,
+                        debug_flags: bool = False):
+    """The f32-FMA variant (D <= 256, any src); telemetry steps are at
+    (32, 32)."""
     if q.shape[-1] > 256:
         raise ValueError(f"flash kernel takes D <= 256, got {q.shape[-1]}")
     q, k, v, kvl, table, out, nk, page, rows = _launch_args(
         q, k, v, kv_len, block_table, group)
     bh, sq, d = q.shape
+    tele = debug_visits or debug_flags
+    n_steps, visits, flags = _telemetry(tele, bh, sq, nk * page, FMA_BLOCK_Q,
+                                        FMA_BLOCK_K, causal, window,
+                                        int(q_offset), q.device)
     fn = _build.load("flash_attention").flash_attention_fma_launch
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kvl.data_ptr(),
              table.data_ptr() if table is not None else None,
-             out.data_ptr(), bh, group, sq, d, nk, page, rows, int(q_offset),
+             out.data_ptr(), visits.data_ptr() if tele else None,
+             flags.data_ptr() if tele else None, n_steps,
+             bh, group, sq, d, nk, page, rows, int(q_offset),
              int(bool(causal)), -1 if window is None else int(window),
              _build.dtype_code(q.dtype), _build.dtype_code(k.dtype),
              _build.src_kind(src_dtype), *_build.snap_args(src_fmt_name),
@@ -247,7 +318,7 @@ def flash_attention_fma(q, k, v, kv_len=None, block_table=None, *,
     _build.check(err, "flash_attention_fma")
     flash_attention_cuda.launches_fma += 1
     flash_attention_cuda.launches += 1
-    return out if out_dtype == torch.float32 else out.to(out_dtype)
+    return _finish(out, out_dtype, visits, flags, debug_visits, debug_flags)
 
 
 def flash_attention_cuda(q, k, v, kv_len=None, block_table=None, *,
@@ -255,22 +326,28 @@ def flash_attention_cuda(q, k, v, kv_len=None, block_table=None, *,
                          causal: bool = True, window: Optional[int] = None,
                          softcap: Optional[float] = None, q_offset: int = 0,
                          src_fmt_name: Optional[str] = None,
-                         src_dtype=torch.bfloat16, out_dtype=torch.float32):
+                         src_dtype=torch.bfloat16, out_dtype=torch.float32,
+                         debug_visits: bool = False,
+                         debug_flags: bool = False):
     """q [BH, Sq, D]; k/v [BKV, Skv, D] or pools [n_pages, page, D] with
     ``block_table`` [BKV, nk]; ``kv_len`` None (= Skv), scalar or [BH].
     One launch per call, of the variant ``tc_tile_dtype`` picks; raises on
-    tensors that do not lie on a CUDA device."""
+    tensors that do not lie on a CUDA device.  ``debug_visits`` /
+    ``debug_flags`` append the telemetry at the variant's tiles
+    (``kernel_tiles``)."""
     fn = (flash_attention_tc
           if tc_tile_dtype(src_dtype, src_fmt_name, q.shape[-1]) is not None
           else flash_attention_fma)
     return fn(q, k, v, kv_len, block_table, group=group, scale=scale,
               causal=causal, window=window, softcap=softcap,
               q_offset=q_offset, src_fmt_name=src_fmt_name,
-              src_dtype=src_dtype, out_dtype=out_dtype)
+              src_dtype=src_dtype, out_dtype=out_dtype,
+              debug_visits=debug_visits, debug_flags=debug_flags)
 
 
-#: launches of the CUDA kernels, in all and by variant (CPU calls and
-#: plain-version calls add none)
+#: launches of the CUDA kernels, in all, by variant and of the telemetry
+#: instantiations (CPU calls and plain-version calls add none)
 flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_tc = 0
 flash_attention_cuda.launches_fma = 0
+flash_attention_cuda.launches_telemetry = 0

@@ -88,20 +88,34 @@ def policy_src(policy):
                            else None)
 
 
+def _reduce_flag_cells(cells, b: int, h: int):
+    """A kernel's per-(head row, cell) flag counters [B*H, n, 4] summed
+    to per-sequence counts [B, 4] int32 (the kernels already zeroed dead
+    and padded slots)."""
+    return cells.reshape(b, h, -1, cells.shape[-1]).sum(dim=(1, 2)).to(
+        torch.int32)
+
+
 def flash_attention(q, k, v, *, kv_len=None, policy=None, block_table=None,
                     scale: Optional[float] = None, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None, q_offset: int = 0,
-                    backend: str = "auto", block_k: Optional[int] = None):
+                    backend: str = "auto", block_k: Optional[int] = None,
+                    block_q: Optional[int] = None,
+                    return_flags: bool = False):
     """q [B, H, S, D], k/v [B, Hkv, Skv, D] -> [B, H, S, D] f32.
 
     Paged (``block_table`` [B, max_pages]): k/v are the page pools
     [n_pages, Hkv, page, D] of ``models.paged.PagedKVCache``.  ``kv_len``
     is None (= Skv), a scalar, or per-sequence [B]; ``q_offset`` shifts
-    the query positions (a chunk's start in its row).  ``block_k`` is the
-    plain version's key block (None: its default;
-    ``flash_attention.kernel_block_k`` gives the CUDA kernel's own tile);
-    the kernels ignore it."""
+    the query positions (a chunk's start in its row).  ``block_k`` /
+    ``block_q`` are the plain version's key block and telemetry query
+    block (None: its defaults; ``flash_attention.kernel_tiles`` gives a
+    CUDA variant's own tiles); the kernels ignore them.
+
+    ``return_flags=True`` also returns per-sequence int32 [B, 4] IEEE flag
+    counts (OF, UF, NX, NV summed over heads and scheduled steps, per
+    visit), from the telemetry instantiation on the card."""
     policy = get_policy(policy if policy is not None else "tp_bf16")
     src_dt, src_fmt_name = policy_src(policy)
     b, h, sq, d = q.shape
@@ -119,25 +133,32 @@ def flash_attention(q, k, v, *, kv_len=None, policy=None, block_table=None,
     if resolve_backend(backend, q.device) == "kernel":
         fn = flash_attention_cuda
     else:
-        fn = functools.partial(flash_attention_plain, block_k=block_k)
+        fn = functools.partial(flash_attention_plain, block_k=block_k,
+                               block_q=block_q)
     o = fn(q.reshape(b * h, sq, d), kf, vf,
            expand_kv_lens(kv_len, b, h, skv, q.device), table,
            group=h // hkv, scale=d ** -0.5 if scale is None else scale,
            causal=causal, window=window, softcap=softcap, q_offset=q_offset,
            src_fmt_name=src_fmt_name, src_dtype=src_dt,
-           out_dtype=torch.float32)
+           out_dtype=torch.float32, debug_flags=return_flags)
+    if return_flags:
+        o, cells = o
+        return o.reshape(b, h, sq, -1), _reduce_flag_cells(cells, b, h)
     return o.reshape(b, h, sq, -1)
 
 
 def decode_attention(q, k, v, *, kv_len, policy=None, block_table=None,
                      scale: Optional[float] = None,
                      window: Optional[int] = None,
-                     softcap: Optional[float] = None, backend: str = "auto"):
+                     softcap: Optional[float] = None, backend: str = "auto",
+                     return_flags: bool = False):
     """Fused single-query decode attention over the (quantized) KV cache.
 
     q [B, H, 1, D]; k/v [B, Hkv, Smax, D] in their storage dtype, or the
     page pools [n_pages, Hkv, page, D] with ``block_table`` [B, max_pages];
-    ``kv_len`` scalar or per-sequence [B].  Returns [B, H, 1, D] f32."""
+    ``kv_len`` scalar or per-sequence [B].  Returns [B, H, 1, D] f32, and
+    with ``return_flags=True`` per-sequence int32 [B, 4] IEEE flag counts
+    (each live K / V element once, q once per head row: schedule-free)."""
     policy = get_policy(policy if policy is not None else "tp_bf16")
     src_dt, q_fmt_name = policy_src(policy)
     kv_fmt_name = (policy.kv_fmt.name if policy.mode != "native"
@@ -163,7 +184,11 @@ def decode_attention(q, k, v, *, kv_len, policy=None, block_table=None,
            expand_kv_lens(kv_len, b, hkv, smax, q.device), table,
            scale=d ** -0.5 if scale is None else scale, window=window,
            softcap=softcap, kv_fmt_name=kv_fmt_name, q_fmt_name=q_fmt_name,
-           src_dtype=src_dt, out_dtype=torch.float32)
+           src_dtype=src_dt, out_dtype=torch.float32,
+           debug_flags=return_flags)
+    if return_flags:
+        o, cells = o
+        return o.reshape(b, h, 1, d), _reduce_flag_cells(cells, b, hkv)
     return o.reshape(b, h, 1, d)
 
 

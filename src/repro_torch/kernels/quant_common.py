@@ -13,7 +13,9 @@ round to nearest even (or up by a random s-bit addend); below min normal the
 value flushes to zero, except the RNE boundary band
 ``[min_normal * (1 - 2^-(m+1)), min_normal)`` which rounds up to min normal;
 overflow goes to ±Inf (±max normal with ``saturate=True``); Inf and NaN pass
-through.
+through.  ``quantize_flag_masks`` / ``widen_with_flags`` add the IEEE status
+flags (OF, UF, NX, NV) of that snap, the telemetry the attention kernels
+count (``flag_bits`` in ``csrc/quant_common.cuh``).
 """
 from __future__ import annotations
 
@@ -75,6 +77,54 @@ def quantize_rne_bits(x: torch.Tensor, fmt: FPFormat,
     return quantize_bits(x, None, fmt, stochastic=False, saturate=saturate)
 
 
+def quantize_flag_masks(x: torch.Tensor, fmt, saturate: bool = False):
+    """RNE grid snap plus the IEEE status flags it raises (FPnew's fflags,
+    FTZ flavor): ``(y, of, uf, nx, nv)`` with per-element bool masks, bit
+    for bit as the JAX package's ``quantize_flag_masks``.
+
+    OF: |x| rounded beyond max normal (raised in both overflow modes;
+    ``saturate`` changes the value written, not the flag).  UF: nonzero
+    |x| below min normal and inexact.  NX: y != x.  NV: x is NaN.  Inf
+    and NaN pass through and raise only NV (NaN)."""
+    fmt = get_format(fmt)
+    assert 1 <= fmt.m_bits < 23 and fmt.e_bits <= 8, fmt
+    return quantize_flag_masks_grid(x, fmt.m_bits, fmt.emax, fmt.emin,
+                                    saturate)
+
+
+def quantize_flag_masks_grid(x: torch.Tensor, m, emax, emin,
+                             saturate: bool = False):
+    """``quantize_flag_masks`` onto the grid (m mantissa bits, exponents
+    [emin, emax]) given as ints or as int32 tensors that broadcast against
+    ``x`` — one grid per row, say, as ``models.attention.quantize_kv_rows``
+    snaps each row onto its own rung in one pass."""
+    assert x.dtype == torch.float32, x.dtype
+    m, emax, emin = (torch.as_tensor(v, dtype=torch.int32, device=x.device)
+                     for v in (m, emax, emin))
+    one = torch.ones_like(m)
+    s = 23 - m
+    bits = x.contiguous().view(torch.int32)
+    sign = bits & _SIGN
+    mag = bits & _MAG
+    special = mag >= _INF
+    nv = mag > _INF
+    mag_c = torch.where(special, 0, mag)
+    rmag = ((mag_c + ((one << (s - 1)) - 1) + ((mag_c >> s) & 1)) >> s) << s
+    frac = ((one << m) - 1) << s
+    max_bits = ((emax + 127) << 23) | frac
+    over = rmag > max_bits
+    rmag = torch.where(over, max_bits if saturate else _INF, rmag)
+    min_bits = (emin + 127) << 23
+    boundary = ((emin - 1 + 127) << 23) | frac
+    low = torch.where(mag_c >= boundary, min_bits, 0).to(torch.int32)
+    rmag = torch.where(rmag < min_bits, low, rmag)
+    of = over & ~special
+    nx = (rmag != mag) & ~special
+    uf = (mag != 0) & (mag < min_bits) & nx
+    rmag = torch.where(special, mag, rmag)
+    return (sign | rmag).view(torch.float32), of, uf, nx, nv
+
+
 def widen(x: torch.Tensor, fmt, src_dtype: torch.dtype) -> torch.Tensor:
     """CONV stage: storage format -> compute format at the FMA input.
     Native narrow dtypes widen exactly; f32 containers RNE-snap onto the
@@ -82,6 +132,20 @@ def widen(x: torch.Tensor, fmt, src_dtype: torch.dtype) -> torch.Tensor:
     if fmt is not None and x.dtype == torch.float32:
         x = quantize_rne_bits(x, fmt)
     return x.to(src_dtype)
+
+
+def widen_with_flags(x: torch.Tensor, fmt, src_dtype: torch.dtype):
+    """``widen`` plus the flag masks the CONV stage raises: ``(y, of, uf,
+    nx, nv)``.  An f32 container with a grid reports the full set of its
+    snap; native storage (or no grid) widens exactly, so what remains
+    observable is the damage already stored: OF := stored +-Inf, NV :=
+    stored NaN, UF = NX = False."""
+    if fmt is not None and x.dtype == torch.float32:
+        y, of, uf, nx, nv = quantize_flag_masks(x, fmt)
+        return y.to(src_dtype), of, uf, nx, nv
+    none = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    xf = x.to(torch.float32)          # exact: isinf / isnan of any storage
+    return x.to(src_dtype), torch.isinf(xf), none, none, torch.isnan(xf)
 
 
 def exact_tile_dtype(fmt):

@@ -24,9 +24,11 @@ import torch
 
 from ..core import softfloat
 from ..core.formats import get_format
-from .quant_common import widen
+from .quant_common import widen, widen_with_flags
 
 NEG_INF = -1e30
+#: flag-counter channels, in order: OF, UF, NX, NV
+N_FLAG_CH = 4
 
 
 def softcap_scores(s: torch.Tensor, cap: float) -> torch.Tensor:
@@ -251,6 +253,223 @@ def flash_attention_paged_ref(q, k_pool, v_pool, block_table, *, bq,
     if kv_len is None:
         kv_len = block_table.shape[1] * page
     return flash_attention_ref(q, kg, vg, kv_len=kv_len, bq=bq, bk=bk, **kw)
+
+
+# ---------------------------------------------------------------------------
+# IEEE flag telemetry (the attention kernels' debug_visits / debug_flags)
+# ---------------------------------------------------------------------------
+def _flag_masks_ref(x, fmt):
+    """Oracle twin of ``quant_common.widen_with_flags``'s masks, derived
+    from the softfloat oracle as the JAX package's is: the non-saturating
+    snap's Inf marks OF, the FTZ'd snap's value change NX, tininess below
+    min normal plus NX UF, a NaN input NV.  Native storage (no grid, or
+    not f32): OF := stored +-Inf, NV := stored NaN, UF = NX = False.
+    (Its float compares meet subnormal inputs as the host's float unit
+    does; the integer-space ``quantize_flag_masks`` is the kernels'
+    contract.)"""
+    if fmt is not None and x.dtype == torch.float32:
+        y_ieee = softfloat.quantize(x, fmt)          # overflow -> +-Inf
+        y = _ftz(y_ieee, fmt)
+        nv = torch.isnan(x)
+        of = torch.isinf(y_ieee) & ~torch.isinf(x) & ~nv
+        nx = (y != x) & ~nv
+        uf = (x != 0) & (x.abs() < fmt.min_normal) & nx
+        return of, uf, nx, nv
+    xf = x.to(torch.float32)
+    z = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    return torch.isinf(xf), z, z, torch.isnan(xf)
+
+
+def _mask_counts(masks, live):
+    """int32 [rows, 4]: each mask's live elements summed per leading row."""
+    return torch.stack([(f & live).to(torch.int32).sum(
+        dim=tuple(range(1, f.dim()))) for f in masks], dim=-1)
+
+
+def decode_flag_counts_ref(q, k, v, *, kv_len,
+                           kv_fmt_name: Optional[str] = None,
+                           q_fmt_name: Optional[str] = None):
+    """Per-row flag counts of the decode kernel summed over its cells:
+    int32 [BHkv, 4] (OF, UF, NX, NV).  Each live K and V element (position
+    < the row's kv_len) counts once; q counts once per row with kv_len >
+    0; dead and padded slots count nothing.  Layouts as in
+    ``decode_attention_ref``."""
+    bh, g, d = q.shape
+    smax = k.shape[1]
+    kvl = per_row_lens(kv_len, bh, smax, q.device)
+    live = (torch.arange(smax, device=q.device)[None, :, None]
+            < kvl[:, None, None])
+    cnt = (_mask_counts(_flag_masks_ref(k, _fmt(kv_fmt_name)), live)
+           + _mask_counts(_flag_masks_ref(v, _fmt(kv_fmt_name)), live))
+    qc = _mask_counts(_flag_masks_ref(q, _fmt(q_fmt_name)),
+                      torch.ones((bh, 1, 1), dtype=torch.bool,
+                                 device=q.device))
+    return cnt + torch.where((kvl > 0)[:, None], qc, 0)
+
+
+def decode_flag_counts_paged_ref(q, k_pool, v_pool, block_table, *, kv_len,
+                                 **kw):
+    """Paged twin: the count is schedule-free, so gather first."""
+    return decode_flag_counts_ref(q, paged_gather(k_pool, block_table),
+                                  paged_gather(v_pool, block_table),
+                                  kv_len=kv_len, **kw)
+
+
+def flash_flag_counts_ref(q, k, v, *, group: int = 1, kv_len=None,
+                          causal: bool = True, window: Optional[int] = None,
+                          q_offset: int = 0,
+                          src_fmt_name: Optional[str] = None,
+                          bq: int = 128, bk: int = 128):
+    """Per-row flag counts of the flash kernel summed over its steps:
+    int32 [BH, 4].  Walks ``block_schedule`` with per-VISIT semantics: a
+    key block seen by several query blocks counts at each visit (its keys
+    below the row's kv_len), the q tile once per query block at its first
+    step; steps whose block starts at or past kv_len count nothing.
+    Sq % bq == 0 and Skv % bk == 0."""
+    from .flash_attention import block_schedule
+
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    kvl = per_row_lens(kv_len, bh, skv, q.device)
+    fmt = _fmt(src_fmt_name)
+    qi, ki, ff, _ = block_schedule(sq, skv, bq, bk, causal=causal,
+                                   window=window, q_offset=q_offset)
+    kmask, vmask = _flag_masks_ref(k, fmt), _flag_masks_ref(v, fmt)
+    qmask = _flag_masks_ref(q, fmt)
+    pos = torch.arange(skv, device=q.device)[:, None]
+    one = torch.ones((1, 1, 1), dtype=torch.bool, device=q.device)
+    out = []
+    for h in range(bh):
+        hk, kl = h // group, int(kvl[h])
+        cnt = torch.zeros((N_FLAG_CH,), dtype=torch.int32, device=q.device)
+        for step in range(len(qi)):
+            iq, ik = int(qi[step]), int(ki[step])
+            if ik * bk >= kl:
+                continue
+            blk = slice(ik * bk, (ik + 1) * bk)
+            live = (pos[blk] < kl)[None]
+            for m in (kmask, vmask):
+                cnt = cnt + _mask_counts([f[hk, blk][None] for f in m],
+                                         live)[0]
+            if ff[step]:
+                cnt = cnt + _mask_counts(
+                    [f[h, iq * bq:(iq + 1) * bq][None] for f in qmask],
+                    one)[0]
+        out.append(cnt)
+    return torch.stack(out)
+
+
+def flash_flag_counts_paged_ref(q, k_pool, v_pool, block_table, *, bq,
+                                kv_len=None, **kw):
+    """Paged twin of ``flash_flag_counts_ref`` (bk pinned to the page)."""
+    page = k_pool.shape[1]
+    return flash_flag_counts_ref(q, paged_gather(k_pool, block_table),
+                                 paged_gather(v_pool, block_table),
+                                 kv_len=kv_len, bq=bq, bk=page, **kw)
+
+
+def with_telemetry(out, visits, flags, debug_visits: bool,
+                   debug_flags: bool):
+    """A kernel's return with telemetry: ``out``, then visits and flags as
+    asked for, in that order (the TPU kernels' order)."""
+    return ((out,) + ((visits,) if debug_visits else ())
+            + ((flags,) if debug_flags else ()))
+
+
+def _position_counts(x, fmt):
+    """int32 [rows, S, 4]: the CONV flags of x [rows, S, D] (the kernels'
+    integer-space ``widen_with_flags``) summed over D."""
+    return torch.stack([f.to(torch.int32).sum(-1) for f in
+                        widen_with_flags(x, fmt, torch.float32)[1:]], dim=-1)
+
+
+def decode_telemetry_ref(q, k, v, *, kv_len, unit: int,
+                         window: Optional[int] = None,
+                         kv_fmt_name: Optional[str] = None,
+                         q_fmt_name: Optional[str] = None):
+    """The decode kernel's telemetry in its own cell layout: ``(visits
+    [BH, nk], flags [BH, nk, 4])`` over cells of ``unit`` keys (the page;
+    ``decode_attention.STRIP_UNIT`` for contiguous strips), nk =
+    ceil(Smax / unit).  k, v [BH, Smax, D] (a paged row gathered).
+
+    flags: every live key (position < kv_len, left of a window too) of K
+    and V in its cell, q in cell 0 when kv_len > 0 — the TPU kernel's
+    cells at ``bk = unit``.  visits: the cells holding keys of the live
+    window ``[max(0, kv_len - window), kv_len)`` — the TPU kernel's map
+    with the cells wholly left of the window set to 0."""
+    bh, g, d = q.shape
+    smax = k.shape[1]
+    nk = -(-smax // unit)
+    dev = q.device
+    kvl = per_row_lens(kv_len, bh, smax, dev).clamp(max=smax)
+    live = torch.arange(smax, device=dev)[None, :] < kvl[:, None]
+    kfmt = _fmt(kv_fmt_name)
+    per = ((_position_counts(k, kfmt) + _position_counts(v, kfmt))
+           * live[..., None])
+    per = torch.nn.functional.pad(per, (0, 0, 0, nk * unit - smax))
+    flags = per.reshape(bh, nk, unit, N_FLAG_CH).sum(2).to(torch.int32)
+    qc = _position_counts(q, _fmt(q_fmt_name)).sum(1).to(torch.int32)
+    flags[:, 0] += torch.where((kvl > 0)[:, None], qc, 0)
+    start = (kvl - window).clamp(min=0) if window is not None \
+        else torch.zeros_like(kvl)
+    u = torch.arange(nk, device=dev)[None, :]
+    visits = ((u >= (start // unit)[:, None]) & (u <= ((kvl - 1) // unit)
+                                                  [:, None])
+              & (kvl > start)[:, None])
+    return visits.to(torch.int32), flags
+
+
+def flash_telemetry_ref(q, k, v, *, group: int = 1, kv_len=None,
+                        causal: bool = True, window: Optional[int] = None,
+                        q_offset: int = 0,
+                        src_fmt_name: Optional[str] = None,
+                        bq: int, bk: int):
+    """The flash kernels' telemetry in their own cell layout: ``(visits
+    [BH, n_steps], flags [BH, n_steps, 4])`` over the steps of
+    ``block_schedule(Sq', Skv', bq, bk)`` (Sq and Skv rounded up to whole
+    blocks).  q [BH, Sq, D]; k, v [BKV, Skv, D] (paged: gathered).
+
+    A step (iq, ik) is visited for head row h when its key block starts
+    below the row's kv_len and, causal, below the reach of the block's
+    real queries (``q_offset + iq bq + min(bq, Sq - iq bq)``; a padded last
+    query block never walks further).  Its cell counts the CONV flags of
+    the block's keys below kv_len, K and V, per visit, plus the q block
+    at the query block's first step — the TPU kernel's per-visit cells,
+    equal to them where Sq is a whole number of blocks."""
+    from .flash_attention import block_schedule
+
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    dev = q.device
+    kvl = per_row_lens(kv_len, bh, skv, dev).clamp(max=skv)
+    nq, nkb = -(-sq // bq), -(-skv // bk)
+    qi, ki, ff, _ = block_schedule(nq * bq, nkb * bk, bq, bk, causal=causal,
+                                   window=window, q_offset=q_offset)
+    fmt = _fmt(src_fmt_name)
+    kc = _position_counts(k, fmt) + _position_counts(v, fmt)   # [BKV, S, 4]
+    kcum = torch.zeros((kc.shape[0], skv + 1, N_FLAG_CH), dtype=torch.int64,
+                       device=dev)
+    kcum[:, 1:] = kc.cumsum(1)
+    qc = _position_counts(q, fmt)                              # [BH, Sq, 4]
+    hk = torch.arange(bh, device=dev) // group
+    n = len(qi)
+    visits = torch.zeros((bh, n), dtype=torch.int32, device=dev)
+    flags = torch.zeros((bh, n, N_FLAG_CH), dtype=torch.int32, device=dev)
+    for step in range(n):
+        iq, ik = int(qi[step]), int(ki[step])
+        reach = kvl
+        if causal:
+            reach = reach.clamp(max=q_offset + iq * bq + min(bq, sq - iq * bq))
+        act = ik * bk < reach
+        lo = min(ik * bk, skv)
+        hi = torch.minimum(kvl, torch.full_like(kvl, (ik + 1) * bk)).clamp(
+            min=lo)
+        cnt = kcum[hk, hi] - kcum[hk, lo]
+        if ff[step]:
+            cnt = cnt + qc[:, iq * bq:(iq + 1) * bq].sum(1)
+        visits[:, step] = act.to(torch.int32)
+        flags[:, step] = torch.where(act[:, None], cnt, 0).to(torch.int32)
+    return visits, flags
 
 
 # ---------------------------------------------------------------------------

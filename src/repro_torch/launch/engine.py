@@ -45,16 +45,24 @@ Overload is handled, not assumed away:
     be placed while a slot sits free is deferred with jittered exponential
     backoff, deterministic in (seed, rid, attempt).
   * **Faults and watchdog** — a ``ServeFaultPlan`` injects pool
-    exhaustion, slow bursts and NaN-poisoned rounds (masked and counted,
-    or ``PoisonedLogitsError``); a ``ServeWatchdog`` turns a livelocked
-    loop into ``EngineStuckError``, as does a burst that advances nothing.
+    exhaustion, slow bursts, NaN-poisoned rounds (masked and counted,
+    or ``PoisonedLogitsError``) and, under escalation, overflowing K/V
+    writes; a ``ServeWatchdog`` turns a livelocked loop into
+    ``EngineStuckError``, as does a burst that advances nothing.
+  * **Flag-driven precision escalation** — with an ``EscalationPolicy``
+    (on an f32 pool with no ``kv_fmt``) every cache write is snapped onto
+    its row's ladder rung with the saturating cast and reports per-row
+    OF / UF counts; a row whose pressure crosses the threshold moves one
+    rung up (fp8 -> fp16 -> ...) by a forced free-and-reingest, never a
+    swap (the saturated bytes are what the flags condemned).  Refusable
+    per request (``Request.no_escalate``), deferred under page pressure.
 
 Dead-slot discipline: idle slots are parked at ``max_len - 1`` on a
 reserved scratch page; every other garbage write lands on a slot that a
 real write overwrites before any mask lets it be read.
 
-Not ported, and refused when asked for: precision escalation, speculative
-decoding, replicas, the request journal and meshes.
+Not ported, and refused when asked for: speculative decoding, replicas,
+the request journal and meshes.
 """
 from __future__ import annotations
 
@@ -66,6 +74,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.policy import EscalationPolicy
 from ..models.attention import kv_store_dtype, kv_swap_dtype
 from ..models.paged import (PageAllocator, SwapBlobTag, check_blob_tag,
                             dtype_name, num_pages)
@@ -105,7 +114,9 @@ def _to_host(ts: List[torch.Tensor]) -> List[torch.Tensor]:
 class Request:
     """One queued generation request.  ``arrival`` and ``deadline`` are in
     decode rounds (the engine's clock); higher ``priority`` admits first
-    and preempts lower; ``no_degrade`` refuses the fp8 swap store."""
+    and preempts lower; ``no_degrade`` refuses the fp8 swap store;
+    ``no_escalate`` refuses KV-precision escalation (the row keeps its
+    rung, saturated but cheap)."""
     rid: int
     tokens: Sequence[int]          # prompt token ids (>= 1)
     max_new: int                   # generation budget incl. the first token
@@ -113,6 +124,7 @@ class Request:
     priority: int = 0
     deadline: Optional[int] = None
     no_degrade: bool = False
+    no_escalate: bool = False
 
     @property
     def prompt_len(self) -> int:
@@ -123,7 +135,7 @@ class Request:
 class Finished:
     """A served request: ``tokens`` holds the generated ids (first token
     included; a ``stop_token`` hit keeps the stop as the last element),
-    with its robustness trail."""
+    with its robustness trail (``escalated``: its final ladder rung)."""
     rid: int
     prompt_len: int
     tokens: List[int]
@@ -135,6 +147,7 @@ class Finished:
     degraded: bool = False
     deadline: Optional[int] = None
     deadline_miss: bool = False
+    escalated: int = 0
 
 
 @dataclasses.dataclass
@@ -155,13 +168,18 @@ class _Resume:
 @dataclasses.dataclass
 class _QEntry:
     """Queue bookkeeping around a Request: backoff gate, shed/preempt
-    counters and (after a preemption) the resume state."""
+    counters and (after a preemption) the resume state.  ``esc_level`` /
+    ``esc_pressure`` carry the request's ladder rung and OF / UF pressure
+    across preemptions (the rung belongs to the request, not its slot)."""
     req: Request
     not_before: int
     sheds: int = 0
     preemptions: int = 0
     degraded: bool = False
     resume: Optional[_Resume] = None
+    esc_level: int = 0
+    esc_pressure: tuple = (0, 0)
+    esc_refused: bool = False
 
 
 def synthetic_trace(n_req: int, slots: int, prompt_len: int, gen: int,
@@ -219,11 +237,13 @@ _FAR = 1 << 30          # "no deadline" sort key
 SHED_BASE, SHED_CAP, MIN_RESIDENT = 2, 64, 2
 
 #: the robustness counters of ``stats`` (the JAX package's, less those of
-#: the unported escalation, speculation, replica and journal paths)
+#: the unported speculation, replica and journal paths; ``faults_overflow``
+#: appears once an injected overflow fired, as in the JAX engine)
 COUNTERS = ("preemptions", "preempt_swap", "preempt_reingest",
             "preempt_restart", "resumed", "degraded", "swap_out_bytes",
             "shed_events", "poisoned_rounds", "nonfinite_prefill",
             "stragglers", "faults_exhaust", "faults_slow",
+            "escalations", "esc_deferred", "esc_refused",
             "sdc_injected", "sdc_detected", "sdc_reingest")
 
 
@@ -239,7 +259,8 @@ class ContinuousEngine:
     request opted out; ``shed=False`` restores blocking admission (no
     backoff deferrals); ``fault_plan`` injects deterministic faults; the
     watchdog aborts after ``watchdog_patience`` iterations without
-    progress."""
+    progress.  ``escalate`` (an ``EscalationPolicy``) turns on flag-driven
+    KV-precision escalation; it needs an f32 pool with no ``kv_fmt``."""
 
     def __init__(self, model, params, *, slots: int, max_len: int,
                  chunk: int = 32, n_pages: Optional[int] = None,
@@ -252,7 +273,8 @@ class ContinuousEngine:
                  preempt: str = "free", degrade_fmt: Optional[str] = None,
                  shed: bool = True,
                  fault_plan: Optional[ServeFaultPlan] = None,
-                 watchdog_patience: int = 200, **unported):
+                 watchdog_patience: int = 200,
+                 escalate: Optional[EscalationPolicy] = None, **unported):
         cfg = model.cfg
         if not cfg.paged_kv:
             raise ValueError("ContinuousEngine requires cfg.paged_kv "
@@ -261,8 +283,8 @@ class ContinuousEngine:
                        if v not in (None, False, 0, 0.0))
         if asked:
             raise NotImplementedError(
-                f"not ported: {asked} (escalation, speculative decoding, "
-                f"replicas, the journal and meshes)")
+                f"not ported: {asked} (speculative decoding, replicas, the "
+                f"journal and meshes)")
         if preempt not in ("free", "swap"):
             raise ValueError(f"preempt must be free|swap, got {preempt!r}")
         assert slots >= 1 and chunk >= 1 and burst_cap >= 1
@@ -288,6 +310,20 @@ class ContinuousEngine:
         self.shed = shed
         self.fault_plan = fault_plan
         self.watchdog_patience = watchdog_patience
+        self.escalate = escalate
+        self._esc_fmts = None
+        if escalate is not None:
+            if not isinstance(escalate, EscalationPolicy):
+                raise TypeError(f"escalate must be an EscalationPolicy, "
+                                f"got {type(escalate).__name__}")
+            pool_dt = kv_store_dtype(model.policy)
+            if model.policy.kv_fmt is not None or pool_dt != torch.float32:
+                raise ValueError(
+                    f"escalation needs an f32 KV pool with no kv_fmt (the "
+                    f"write path snaps each row to its own ladder rung "
+                    f"inside a shared wide container); policy "
+                    f"{model.policy.name!r} stores KV as {pool_dt}")
+            self._esc_fmts = escalate.formats
 
         self.alloc = PageAllocator(self.n_pages)
         self.scratch = self.alloc.alloc(1)[0]      # dead-write sink, forever
@@ -314,6 +350,10 @@ class ContinuousEngine:
         self._admit_round = np.zeros((slots,), np.int32)
         self._cnt = (np.zeros((slots, model.vocab_out), np.int32)
                      if self._use_pen else None)
+        # numerical health: each slot's ladder rung and its accumulated
+        # OF / UF write pressure (host mirror of what the bursts return)
+        self.kv_levels = np.zeros((slots,), np.int32)
+        self.flag_pressure = np.zeros((slots, 2), np.int64)
         self._pending: List[_QEntry] = []
         self._held: List[int] = []      # fault-plan page grab
         self._release_at: Optional[int] = None
@@ -488,14 +528,22 @@ class ContinuousEngine:
         self._sync()
         self._clock["swap_in_s"] += time.perf_counter() - t0
 
-    def _preempt(self, b: int, round_no: int, reason: str) -> None:
+    def _preempt(self, b: int, round_no: int, reason: str,
+                 force_reingest: bool = False) -> None:
         """Evict resident row ``b``: capture its continuation (swap-out or
-        reingest state), free its pages and slot, and re-queue it."""
+        reingest state), free its pages and slot, and re-queue it.
+        ``force_reingest`` bypasses the swap path even in swap mode: an
+        escalating row recomputes its K/V at the wider rung, never restores
+        the saturated bytes its flags condemned."""
         e, req = self._entry[b], self._req[b]
         counters, plan = self._counters, self.fault_plan
         e.preemptions += 1
         counters["preemptions"] += 1
-        if not self.done[b] and self.preempt_mode == "swap":
+        e.esc_level = int(self.kv_levels[b])
+        e.esc_pressure = (int(self.flag_pressure[b, 0]),
+                          int(self.flag_pressure[b, 1]))
+        if (not self.done[b] and self.preempt_mode == "swap"
+                and not force_reingest):
             written = int(self.lens[b])
             keep = self._owned[b][:num_pages(written, self.page)]
             degrade = self.degrade_fmt is not None and not req.no_degrade
@@ -543,6 +591,7 @@ class ContinuousEngine:
         self._prog[b], self._resume_tok[b] = 0, None
         self.pos[b], self.lens[b] = self.max_len - 1, 0
         self.done[b], self.limit[b] = True, 0
+        self.kv_levels[b], self.flag_pressure[b] = 0, 0
         if self._use_pen:
             self._cnt[b] = 0
 
@@ -560,6 +609,8 @@ class ContinuousEngine:
         self._req[b], self._entry[b] = req, e
         self._admit_round[b] = round_no
         self._resume_tok[b] = None
+        self.kv_levels[b] = e.esc_level
+        self.flag_pressure[b] = np.asarray(e.esc_pressure, np.int64)
         rs, e.resume = e.resume, None
         if rs is not None and rs.blobs is not None:
             check_blob_tag(rs.tag, dtype=self._pool_dtype, page=self.page)
@@ -658,8 +709,46 @@ class ContinuousEngine:
             slot=b, preemptions=e.preemptions, sheds=e.sheds,
             degraded=e.degraded, deadline=req.deadline,
             deadline_miss=(req.deadline is not None
-                           and round_no > req.deadline))
+                           and round_no > req.deadline),
+            escalated=int(self.kv_levels[b]))
         self._release(b)
+
+    # -- escalation -------------------------------------------------------
+    def _maybe_escalate(self, active: List[int], round_no: int) -> None:
+        """Flag-pressure check after a burst: a live row whose OF or UF
+        pressure crossed its threshold moves one rung up the ladder by a
+        forced free-and-reingest.  Refusable per request (counted once);
+        deferred while the free list is shorter than the policy's
+        ``min_free_pages`` (an escalating row re-prefills its whole
+        history)."""
+        esc, plan, counters = self.escalate, self.fault_plan, self._counters
+        for b in active:
+            if self._req[b] is None or self.done[b]:
+                continue                    # finished or evicted this round
+            lvl = int(self.kv_levels[b])
+            of, uf = (int(self.flag_pressure[b, 0]),
+                      int(self.flag_pressure[b, 1]))
+            if of < esc.of_threshold and uf < esc.uf_threshold:
+                continue
+            if lvl >= esc.top():
+                continue                    # already at the widest rung
+            e = self._entry[b]
+            if self._req[b].no_escalate:
+                if not e.esc_refused:
+                    e.esc_refused = True
+                    counters["esc_refused"] += 1
+                continue
+            if self.alloc.n_free < esc.min_free_pages:
+                counters["esc_deferred"] += 1
+                continue
+            rid = self._req[b].rid
+            self._preempt(b, round_no, reason="escalate", force_reingest=True)
+            e.esc_level = lvl + 1
+            e.esc_pressure = (0, 0)
+            counters["escalations"] += 1
+            if plan is not None:
+                plan.note("escalate", round=round_no, rid=rid, slot=b,
+                          level=lvl + 1, of=of, uf=uf)
 
     # -- the serving state machine ----------------------------------------
     def start(self, requests: Sequence[Request]) -> None:
@@ -749,9 +838,18 @@ class ContinuousEngine:
                 buf[i, :len(piece)] = piece
                 lens[i] = len(piece)
             caches = caches_with_table(self.caches, self._table_device())
-            lg, _ = model.prefill_chunk(
+            esc_kw = ({} if self._esc_fmts is None else
+                      dict(esc_fmts=self._esc_fmts,
+                           kv_levels=self._tensor(self.kv_levels[rows])))
+            r = model.prefill_chunk(
                 params, self._tensor(buf), caches, q_offset=off,
-                row=self._tensor(rows), chunk_lens=self._tensor(lens))
+                row=self._tensor(rows), chunk_lens=self._tensor(lens),
+                **esc_kw)
+            lg = r[0]
+            if self._esc_fmts is not None:
+                # prefill write flags feed the same per-slot pressure
+                self.flag_pressure[rows] += r[2].cpu().numpy().astype(
+                    np.int64)
             cnts = self._tensor(self._cnt[rows]) if self._use_pen else None
             tok0, badp = _pick(
                 lg[:, -1], counts=cnts, guard=True,
@@ -838,11 +936,14 @@ class ContinuousEngine:
         """One decode burst over every slot, with the fault plan's stall
         and poison; returns the progress made."""
         plan, counters = self.fault_plan, self._counters
-        poison_rel = -1
+        poison_rel = ovf_rel = -1
         if plan is not None:
             p = plan.next_poison(self._round_no, self._round_no + int(n_max))
             if p is not None:
                 poison_rel = p - self._round_no
+            o = plan.next_overflow(self._round_no, self._round_no + int(n_max))
+            if o is not None:
+                ovf_rel = o - self._round_no
         t_start = time.perf_counter()
         if plan is not None:
             stall = plan.take_slow(self._round_no)
@@ -854,6 +955,11 @@ class ContinuousEngine:
         caches = caches_with_table(self.caches, self._table_device())
         dev = self._tensor
         cnts = dev(self._cnt) if self._use_pen else None
+        esc_kw = ({} if self._esc_fmts is None else
+                  dict(esc_fmts=self._esc_fmts, kv_levels=dev(self.kv_levels),
+                       ovf_at=ovf_rel,
+                       ovf_scale=(plan.overflow_scale if plan is not None
+                                  else 1.0)))
         r = self.model.decode_burst(
             self.params, dev(self.tok), caches, dev(self.pos),
             dev(self.lens), dev(self.done), dev(self.limit),
@@ -861,7 +967,7 @@ class ContinuousEngine:
             exit_on_finish=wave, stop_token=self.stop_token, counts=cnts,
             repetition_penalty=self.repetition_penalty,
             presence_penalty=self.presence_penalty, poison_at=poison_rel,
-            guard=True, **self._sampling())
+            guard=True, **esc_kw, **self._sampling())
         out, n, tok, _, pos, lens, done, _, bad = r[:9]
         outs = out[:, :n].cpu().numpy()
         bad = bad.cpu().numpy()
@@ -899,6 +1005,13 @@ class ContinuousEngine:
             raise EngineStuckError(
                 f"decode burst executed {n} rounds without advancing any "
                 f"of {len(active)} live rows", self._diag())
+        if self._esc_fmts is not None:
+            self.flag_pressure += r[-1].cpu().numpy().astype(np.int64)
+            if plan is not None and 0 <= ovf_rel < n:
+                counters["faults_overflow"] = counters.get(
+                    "faults_overflow", 0) + 1
+                plan.note("overflow", round=self._round_no + ovf_rel,
+                          scale=plan.overflow_scale)
         self.lens, self.done = new_lens, new_done
         self._round_no += n
         self._decode_rounds += n
@@ -912,8 +1025,8 @@ class ContinuousEngine:
 
     def step(self) -> bool:
         """ONE scheduler iteration: fault holds -> admission -> prefill
-        chunks -> at most one decode burst -> finish accounting -> the
-        watchdog's tick.  Returns ``has_work()``."""
+        chunks -> at most one decode burst -> finish and escalation
+        accounting -> the watchdog's tick.  Returns ``has_work()``."""
         if not self.has_work():
             return False
         self._fault_holds()
@@ -931,6 +1044,8 @@ class ContinuousEngine:
             self._grow_pages(active, n_max)
         if active:
             progress += self._burst(active, n_max, wave)
+            if self.escalate is not None:
+                self._maybe_escalate(active, self._round_no)
         elif still_prefilling:
             self._round_no += 1    # prefill-only round (no decoders yet)
         elif self._pending:

@@ -24,12 +24,18 @@ shrinks the page pool, ``--preempt free|swap``, ``--degrade-fmt fp8``
 (rounds, or swap-out events for the last; ``--soak`` alone exhausts the
 pool at round ``--gen``).  It runs once to warm up, then once timed.
 
+Numerical health (needs ``--policy fp32``, the f32 pool):
+``--escalate fp8,fp16,fp16alt`` turns on flag-driven KV-precision
+escalation at ``--escalate-of-threshold`` overflow flags a row, and
+``--fault-overflow`` scales the K/V writes of the listed decode rounds by
+``--overflow-scale``; each request's trail shows ``escalated L<n>`` and a
+``numerical health`` line counts escalations and swap SDC checks.
+
 Sampling everywhere: ``--temperature --top-k --top-p --seed
 --repetition-penalty --presence-penalty``.  The model is the reduced
 config unless ``--full``; weights are random from seed 0.  Runs on the GPU
 unless ``--device cpu``; without a card and without ``--device`` it
-raises.  Speculation, escalation, meshes, replicas and the journal are
-not ported.
+raises.  Speculation, meshes, replicas and the journal are not ported.
 
     python -m repro_torch.launch.serve --full --batch 4 --gen 32
     python -m repro_torch.launch.serve --device cpu --paged --page-size 16
@@ -37,6 +43,8 @@ not ported.
         --slots 3 --requests 10 --prompt-len 16 --gen 24 --pool-pages 5 \\
         --preempt swap --degrade-fmt fp8 --policy tp_bf16_kv8 \\
         --fault-exhaust 2 --fault-poison 6 --fault-slow 4
+    python -m repro_torch.launch.serve --continuous --policy fp32 \
+        --escalate fp8,fp16,fp16alt --fault-overflow 2 --device cpu
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import time
 import numpy as np
 import torch
 
+from ..core.policy import EscalationPolicy
 from ..models.paged import (PageAllocator, build_tables, identity_block_table,
                             num_pages)
 from ..models.registry import build_model
@@ -127,6 +136,18 @@ def _arg_parser():
     ap.add_argument("--fault-poison", default=None)
     ap.add_argument("--fault-slow", default=None)
     ap.add_argument("--fault-corrupt-swap", default=None)
+    ap.add_argument("--escalate", default=None,
+                    help="comma-separated KV-format ladder (e.g. "
+                         "fp8,fp16,fp16alt): flag-driven precision "
+                         "escalation on an f32 pool (--policy fp32)")
+    ap.add_argument("--escalate-of-threshold", type=int, default=8,
+                    help="overflow flags of a request that move it one "
+                         "rung up the ladder")
+    ap.add_argument("--fault-overflow", default=None,
+                    help="comma-separated decode rounds whose K/V writes "
+                         "are scaled by --overflow-scale before the "
+                         "write-time snap")
+    ap.add_argument("--overflow-scale", type=float, default=65536.0)
     ap.add_argument("--burst-cap", type=int, default=64)
     ap.add_argument("--slots", type=int, default=4,
                     help="batch slots of the continuous engine")
@@ -284,15 +305,20 @@ def _continuous(args, model, params):
     rounds = lambda s: tuple(int(x) for x in s.split(",")) if s else ()
     plan = None
     if (args.fault_exhaust or args.fault_poison or args.fault_slow
-            or args.fault_corrupt_swap or args.soak):
+            or args.fault_overflow or args.fault_corrupt_swap or args.soak):
         plan = ServeFaultPlan(
             exhaust_at=rounds(args.fault_exhaust) or
             ((args.gen,) if args.soak else ()),
             slow_at=rounds(args.fault_slow),
             poison_at=rounds(args.fault_poison), mask_poison=True,
+            overflow_at=rounds(args.fault_overflow),
+            overflow_scale=args.overflow_scale,
             corrupt_swap_at=rounds(args.fault_corrupt_swap))
     if args.degrade_fmt is not None:
         args.preempt = "swap"           # degradation rides the swap store
+    esc = (EscalationPolicy(ladder=tuple(args.escalate.split(",")),
+                            of_threshold=args.escalate_of_threshold)
+           if args.escalate is not None else None)
     max_len = max(r.prompt_len + r.max_new for r in reqs)
     eng = ContinuousEngine(
         model, params, slots=args.slots, max_len=max_len, chunk=args.chunk,
@@ -301,7 +327,8 @@ def _continuous(args, model, params):
         seed=args.seed, burst_cap=args.burst_cap,
         repetition_penalty=args.repetition_penalty,
         presence_penalty=args.presence_penalty, preempt=args.preempt,
-        degrade_fmt=args.degrade_fmt, shed=args.shed, fault_plan=plan)
+        degrade_fmt=args.degrade_fmt, shed=args.shed, fault_plan=plan,
+        escalate=esc)
     eng.run(reqs)                       # warm-up (kernel build, allocator)
     t0 = time.perf_counter()
     fin, stats = eng.run(reqs)
@@ -320,6 +347,8 @@ def _continuous(args, model, params):
             trail += f" shed x{f.sheds}"
         if f.degraded:
             trail += " degraded"
+        if f.escalated:
+            trail += f" escalated L{f.escalated}"
         if f.deadline is not None:
             trail += (" DEADLINE MISS" if f.deadline_miss
                       else f" met r{f.deadline}")
@@ -340,10 +369,13 @@ def _continuous(args, model, params):
           f"misses, {stats['poisoned_rounds']} poisoned rounds masked, "
           f"{stats['stragglers']} stragglers, "
           f"{stats['faults_exhaust']} exhaustion episodes")
-    if plan is not None:
-        print(f"swap integrity: {stats['sdc_injected']} SDC injected / "
+    if esc is not None or plan is not None:
+        print(f"numerical health: {stats['escalations']} escalations "
+              f"({stats['esc_deferred']} deferred, {stats['esc_refused']} "
+              f"refused), {stats['sdc_injected']} SDC injected / "
               f"{stats['sdc_detected']} detected / "
               f"{stats['sdc_reingest']} recovered by reingest")
+    if plan is not None:
         if plan.events:
             kinds = {}
             for k, _ in plan.events:

@@ -8,10 +8,13 @@ versions on the CPU — unless the config asks for the ``"dense"`` masked-
 softmax path (``_masked_softmax_attend`` / the dense ``_decode_attend``).
 
 Caches are updated IN PLACE: ``gqa_attention`` writes the step's K/V into
-the cache tensors it is given and returns the same cache object.
+the cache tensors it is given and returns the same cache object.  With an
+escalation ladder (``esc_fmts``) every cache write goes through
+``quantize_kv_rows``: each row's K/V snapped onto its own rung with the
+saturating cast, its OF / UF write counts returned.
 
-Not ported yet: MLA, cross-attention, tensor-parallel head sharding,
-escalation writes and the speculative ``verify`` read.
+Not ported yet: MLA, cross-attention, tensor-parallel head sharding and
+the speculative ``verify`` read.
 """
 from __future__ import annotations
 
@@ -22,8 +25,10 @@ import torch
 from ..core import ops as tp
 from ..core.formats import get_format
 from ..kernels import ops as kops
+from ..kernels.quant_common import quantize_flag_masks_grid
 from .layers import apply_rope, dense_init, rmsnorm, softcap
-from .paged import PagedKVCache, gather_paged_kv, paged_update_rows
+from .paged import (PagedKVCache, gather_paged_kv, paged_update_rows,
+                    write_slots)
 
 NEG_INF = -1e30
 
@@ -47,6 +52,35 @@ def kv_swap_dtype(fmt) -> torch.dtype:
             f"degrade format {f.name!r} has no native container dtype to "
             f"swap KV pages into (use fp8/bf16/fp16)")
     return f.native_dtype
+
+
+def quantize_kv_rows(x, esc_fmts, levels):
+    """Write-time per-row KV quantization for precision escalation.
+
+    ``x`` [B, ...] is a fresh K or V tensor about to land in an f32 pool;
+    ``levels`` [B] int picks each row's rung of the ``esc_fmts`` ladder
+    (narrow -> wide).  Every rung is snapped with the SATURATING cast
+    (overflow clamps to +-max normal, so the stored value stays finite and
+    attention never poisons, while OF still fires).  Returns ``(y,
+    counts)``, ``counts`` [B, 2] int32 the per-row OF / UF totals of this
+    write — bit for bit as the JAX package's ``quantize_kv_rows``."""
+    x = x.to(torch.float32)
+    top = len(esc_fmts) - 1
+    lvl = levels.to(x.device)
+    lvl = torch.where((lvl >= 0) & (lvl < top), lvl, top)  # else: the widest
+    # each row's grid (m, emax, emin), for one snap pass over every row
+    grid = []
+    for attr in ("m_bits", "emax", "emin"):
+        g = torch.full_like(lvl, getattr(esc_fmts[top], attr),
+                            dtype=torch.int32)
+        for i in range(top):
+            g = torch.where(lvl == i, getattr(esc_fmts[i], attr), g)
+        grid.append(g.reshape((-1,) + (1,) * (x.dim() - 1)))
+    y, of, uf, _, _ = quantize_flag_masks_grid(x, *grid, saturate=True)
+    red = tuple(range(1, x.dim()))
+    counts = torch.stack([of.to(torch.int32).sum(dim=red),
+                          uf.to(torch.int32).sum(dim=red)], dim=-1)
+    return y, counts.to(torch.int32)
 
 
 class KVCache(NamedTuple):
@@ -203,8 +237,10 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
                   rope_theta=1e4, qk_norm=False, norm_eps=1e-6,
                   cache=None, cache_pos=None, use_rope=True, chunk: int = 512,
                   decode_backend: str = "auto",
-                  prefill_backend: str = "auto", kv_len=None):
-    """Returns ``(out [B,S,D], cache)``.
+                  prefill_backend: str = "auto", kv_len=None, esc_fmts=None,
+                  kv_levels=None, kv_scale: Optional[float] = None):
+    """Returns ``(out [B,S,D], cache)``, or ``(out, cache, kv_flags)``
+    when ``esc_fmts`` is given.
 
     No cache: training-style prefill over the fresh K/V.  With a cache, the
     step's K/V are written first (in place) at ``cache_pos`` (scalar or
@@ -216,7 +252,14 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
       * contiguous prefill attends the fresh K/V (``kv_len`` = per-row
         prompt lengths);
       * decode (S == 1) attends the cache up to ``kv_len`` (default
-        ``cache_pos + 1``), paged or contiguous."""
+        ``cache_pos + 1``), paged or contiguous.
+
+    Escalation write path: ``esc_fmts`` (a tuple of FPFormat rungs, narrow
+    -> wide) and ``kv_levels`` ([B] per-row rung) send every cache write
+    through ``quantize_kv_rows``; ``kv_flags`` [B, 2] are the rows' OF /
+    UF write counts (zeros without a cache).  ``kv_scale`` multiplies K/V
+    before the snap: the fault-injection hook that forces a narrow rung
+    to overflow."""
     b, s, d = x.shape
     q = tp.tp_matmul(x, params["wq"], policy).reshape(b, s, n_heads, head_dim)
     k = tp.tp_matmul(x, params["wk"], policy).reshape(b, s, n_kv_heads,
@@ -231,6 +274,7 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
 
+    kv_flags = torch.zeros((b, 2), dtype=torch.int32, device=x.device)
     if cache is None:
         if prefill_backend == "dense":
             out = _masked_softmax_attend(q, k, v, policy, causal=causal,
@@ -243,9 +287,22 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
                                 backend=prefill_backend)
     else:
         paged = isinstance(cache, PagedKVCache)
+        if esc_fmts is not None:
+            if kv_scale is not None:
+                k, v = k * kv_scale, v * kv_scale
+            k, kf = quantize_kv_rows(k, esc_fmts, kv_levels)
+            v, vf = quantize_kv_rows(v, esc_fmts, kv_levels)
+            kv_flags = kf + vf
         if paged:
-            paged_update_rows(cache.k_pool, cache.block_table, k, cache_pos)
-            paged_update_rows(cache.v_pool, cache.block_table, v, cache_pos)
+            # a per-row write index: one slot computation for K and V
+            slots = (write_slots(cache.block_table, cache_pos, s,
+                                 cache.page_size)
+                     if isinstance(cache_pos, torch.Tensor)
+                     and cache_pos.dim() >= 1 else None)
+            paged_update_rows(cache.k_pool, cache.block_table, k, cache_pos,
+                              slots)
+            paged_update_rows(cache.v_pool, cache.block_table, v, cache_pos,
+                              slots)
         else:
             update_cache_rows(cache.k, k, cache_pos)
             update_cache_rows(cache.v, v, cache_pos)
@@ -288,4 +345,7 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
                                      backend=decode_backend)
 
     out = out.transpose(1, 2).reshape(b, s, n_heads * head_dim)
-    return tp.tp_matmul(out, params["wo"], policy), cache
+    proj = tp.tp_matmul(out, params["wo"], policy)
+    if esc_fmts is not None:
+        return proj, cache, kv_flags
+    return proj, cache

@@ -62,26 +62,61 @@ def init_paged_kv_cache(batch: int, n_kv_heads: int, max_len: int, page: int,
                         block_table)
 
 
-def paged_update_rows(pool, table, new, pos):
+def paged_update_rows(pool, table, new, pos, slots=None):
     """Write ``new`` [B, Hkv, S, Dh] into ``pool`` [n_pages, Hkv, page, Dh]
     at token positions ``pos .. pos + S`` per row, through ``table``
     [B, max_pages], IN PLACE; returns ``pool``.  ``pos`` is a scalar or a
-    per-row [B] vector.  With a scalar ``pos``, positions past the table's
-    ``max_pages * page`` capacity (the padded tail of a prompt's last
-    chunk) are dropped, as the JAX package's scatter drops them."""
+    per-row [B] vector.  Positions past the table's ``max_pages * page``
+    capacity (the padded tail of a prompt's last chunk, a row's write
+    beyond its pages) are dropped, as the JAX package's scatter drops
+    them.  The table is never indexed out of range: a per-row ``pos``
+    clamps the page index before the gather and turns each dropped write
+    into a copy of the call's first kept write (same slot, same value),
+    so the scatter needs no host sync and no bounds trap.  ``slots``
+    (``write_slots``'s result) lets a layer's K and V writes share one
+    index computation."""
     n, hkv, page, dh = pool.shape
-    if not (isinstance(pos, torch.Tensor) and pos.dim() >= 1):
-        fit = max(0, table.shape[1] * page - int(pos))
-        new = new[:, :, :fit]
+    if not _is_vec(pos):
+        new = new[:, :, :max(0, table.shape[1] * page - int(pos))]
     b, _, s, _ = new.shape
-    pos = torch.as_tensor(pos, device=pool.device).reshape(-1).to(
-        torch.int64).expand(b)
-    t_idx = pos[:, None] + torch.arange(s, device=pool.device)[None, :]
-    blk = torch.gather(table.to(torch.int64), 1, t_idx // page)    # [B, S]
-    off = t_idx % page
+    if b * s == 0:
+        return pool
+    blk, off, src, any_kept = (write_slots(table, pos, s, page)
+                               if slots is None else slots)
     vals = new.transpose(1, 2).reshape(b * s, hkv, dh).to(pool.dtype)
-    pool[blk.reshape(-1), :, off.reshape(-1)] = vals
+    if src is not None:
+        vals = torch.where(any_kept, vals[src], pool[blk, :, off])
+    pool[blk, :, off] = vals
     return pool
+
+
+def _is_vec(pos) -> bool:
+    return isinstance(pos, torch.Tensor) and pos.dim() >= 1
+
+
+def write_slots(table, pos, s: int, page: int):
+    """Where ``paged_update_rows`` puts a write of ``s`` tokens at ``pos``:
+    ``(blk, off, src, any_kept)``, the flat [B*S] page ids and in-page
+    offsets, and — for a per-row ``pos`` — the entry each write copies
+    (itself if kept, else the call's first kept write) and whether any
+    write is kept (else every write rewrites its slot's own value).  A
+    scalar ``pos`` (already cut to the capacity) gives ``src = None``.
+    One computation serves a layer's K and V pools."""
+    b = table.shape[0]
+    cap = table.shape[1] * page
+    vec = _is_vec(pos)
+    pos = torch.as_tensor(pos, device=table.device).reshape(-1).to(
+        torch.int64).expand(b)
+    t_idx = pos[:, None] + torch.arange(s, device=table.device)[None, :]
+    blk = torch.gather(table.to(torch.int64), 1,
+                       (t_idx // page).clamp(max=table.shape[1] - 1))
+    blk, off = blk.reshape(-1), (t_idx % page).reshape(-1)
+    if not vec:
+        return blk, off, None, None
+    keep = (t_idx < cap).reshape(-1)
+    src = torch.where(keep, torch.arange(b * s, device=table.device),
+                      keep.to(torch.int8).argmax())
+    return blk[src], off[src], src, keep.any()
 
 
 def gather_paged_kv(pool, table):

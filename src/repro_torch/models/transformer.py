@@ -21,9 +21,11 @@ temperature / top-k / top-p draw (``sample_token``) from an explicit
 Parameters are a plain dict of tensors in the JAX layout (``[d_in,
 d_out]``) with the layers UNSTACKED: ``params["layers"][i]`` is layer
 ``i`` of ``cfg.layer_list()``.  Caches are a list with one entry per
-layer, updated IN PLACE.  Attention-only (gqa + swiglu) archs;
-speculative decoding and the escalation write path are not ported yet
-and raise ``NotImplementedError``.
+layer, updated IN PLACE.  Attention-only (gqa + swiglu) archs.  The
+escalation write path (``esc_fmts`` / ``kv_levels``, and overflow
+injection ``ovf_at`` / ``ovf_scale`` in ``decode_burst``) snaps every cache
+write onto its row's rung and returns the rows' OF / UF write counts
+``kv_flags`` [B, 2] last.  Speculative decoding is not ported yet.
 """
 from __future__ import annotations
 
@@ -290,11 +292,18 @@ class Model:
 
     # -- the stack -------------------------------------------------------
     def apply_layer(self, x, p, spec: LayerSpec, *, positions, cache=None,
-                    cache_pos=None, kv_len=None):
+                    cache_pos=None, kv_len=None, esc_fmts=None,
+                    kv_levels=None, kv_scale=None):
+        """One block: ``(x, cache)``, or ``(x, cache, kv_flags [B, 2])``
+        when ``esc_fmts`` is given (the escalation write path of
+        ``attention.gqa_attention``)."""
         cfg = self.cfg
         rs = cfg.residual_scale
         h = _norm(x, p["norm1"], cfg)
-        mix, cache = attn.gqa_attention(
+        esc_kw = ({} if esc_fmts is None else
+                  dict(esc_fmts=esc_fmts, kv_levels=kv_levels,
+                       kv_scale=kv_scale))
+        r = attn.gqa_attention(
             h, p["attn"], self.policy, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
             positions=positions, causal=True, window=spec.window,
@@ -302,7 +311,8 @@ class Model:
             qk_norm=spec.qk_norm, norm_eps=cfg.norm_eps, cache=cache,
             cache_pos=cache_pos, use_rope=spec.use_rope,
             chunk=cfg.attn_chunk, decode_backend=cfg.decode_backend,
-            prefill_backend=cfg.prefill_backend, kv_len=kv_len)
+            prefill_backend=cfg.prefill_backend, kv_len=kv_len, **esc_kw)
+        mix, cache = r[0], r[1]
         if spec.post_norms:
             mix = _norm(mix, p["post1"], cfg)
         x = x + rs * mix
@@ -311,20 +321,32 @@ class Model:
                    self.policy)
         if spec.post_norms:
             f = _norm(f, p["post2"], cfg)
-        return x + rs * f, cache
+        return (x + rs * f, cache) + tuple(r[2:])
 
     def _run_stack(self, params, x, *, positions, caches=None,
-                   cache_pos=None, kv_len=None):
+                   cache_pos=None, kv_len=None, esc_fmts=None,
+                   kv_levels=None, kv_scale=None):
+        """``(x, caches)``, with the layers' summed ``kv_flags`` [B, 2]
+        appended when ``esc_fmts`` is given."""
         if self.cfg.windowed_slice:
             raise NotImplementedError("windowed_slice is not ported")
+        esc = esc_fmts is not None
+        flags = (torch.zeros((x.shape[0], 2), dtype=torch.int32,
+                             device=x.device) if esc else None)
         new = []
         for i, spec in enumerate(self.cfg.layer_list()):
             c = caches[i] if caches is not None else None
-            x, c = self.apply_layer(x, params["layers"][i], spec,
-                                    positions=positions, cache=c,
-                                    cache_pos=cache_pos, kv_len=kv_len)
+            r = self.apply_layer(x, params["layers"][i], spec,
+                                 positions=positions, cache=c,
+                                 cache_pos=cache_pos, kv_len=kv_len,
+                                 esc_fmts=esc_fmts, kv_levels=kv_levels,
+                                 kv_scale=kv_scale)
+            x, c = r[0], r[1]
+            if esc:
+                flags = flags + r[2]
             new.append(c)
-        return x, (new if caches is not None else None)
+        ret = (x, (new if caches is not None else None))
+        return ret + (flags,) if esc else ret
 
     def _final(self, params, x):
         return _norm(x, params["norm_f"], self.cfg)
@@ -363,29 +385,38 @@ class Model:
             xl = x[torch.arange(b, device=self.device), lens - 1][:, None]
         return self.logits(params, xl).to(F32), caches
 
-    def decode_step(self, params, token, caches, pos, *, kv_len=None):
+    def decode_step(self, params, token, caches, pos, *, kv_len=None,
+                    esc_fmts=None, kv_levels=None, kv_scale=None):
         """One decode step: token [B, 1] at write index ``pos`` (int, or a
         per-row [B] tensor) -> (logits [B, 1, V], caches).  ``kv_len``
-        overrides the attended live length (default ``pos + 1``)."""
+        overrides the attended live length (default ``pos + 1``).
+        ``esc_fmts`` / ``kv_levels`` / ``kv_scale`` (the escalation write
+        path, ``attention.quantize_kv_rows``) append the per-row OF / UF
+        write counts ``kv_flags`` [B, 2]."""
         x = self.embed(params, token)
         if isinstance(pos, torch.Tensor) and pos.dim() >= 1:
             positions = pos[:, None, None]
         else:
             positions = torch.arange(1, device=self.device) + int(pos)
-        x, caches = self._run_stack(params, x, positions=positions,
-                                    caches=caches, cache_pos=pos,
-                                    kv_len=kv_len)
-        x = self._final(params, x)
-        return self.logits(params, x).to(F32), caches
+        r = self._run_stack(params, x, positions=positions, caches=caches,
+                            cache_pos=pos, kv_len=kv_len, esc_fmts=esc_fmts,
+                            kv_levels=kv_levels, kv_scale=kv_scale)
+        x = self._final(params, r[0])
+        return (self.logits(params, x).to(F32), r[1]) + tuple(r[2:])
 
     def prefill_chunk(self, params, tokens, caches, *, q_offset: int,
-                      row=None, chunk_lens=None):
+                      row=None, chunk_lens=None, esc_fmts=None,
+                      kv_levels=None):
         """Consume ONE prompt chunk [b, C] (right-padded) into EXISTING
         paged caches at query offset ``q_offset`` (an int); ``chunk_lens``
         [b] are the live tokens of the chunk.  ``row`` ([m] batch-slot
         indices) serves a subset of a wider serving batch: writes go into
         the shared pools through those rows' tables.  Returns each row's
-        logits at its last live chunk position [b, 1, V] and the caches."""
+        logits at its last live chunk position [b, 1, V] and the caches.
+        ``esc_fmts`` + ``kv_levels`` ([b] rungs aligned to ``tokens``) write
+        the chunk through the escalation quantizer and append the rows' OF
+        / UF write counts [b, 2]: a re-ingested row re-prefills at its
+        escalated rung."""
         cfg = self.cfg
         if not cfg.paged_kv:
             raise ValueError(
@@ -397,12 +428,13 @@ class Model:
         positions = q_offset + torch.arange(s, device=self.device)
         live = torch.as_tensor(s if chunk_lens is None else chunk_lens,
                                device=self.device).reshape(-1).to(torch.int64)
-        x, _ = self._run_stack(params, x, positions=positions, caches=run,
-                               cache_pos=int(q_offset), kv_len=q_offset + live)
-        x = self._final(params, x)
+        r = self._run_stack(params, x, positions=positions, caches=run,
+                            cache_pos=int(q_offset), kv_len=q_offset + live,
+                            esc_fmts=esc_fmts, kv_levels=kv_levels)
+        x = self._final(params, r[0])
         last = torch.clamp(live.expand(b), min=1) - 1
         xl = x[torch.arange(b, device=self.device), last][:, None]
-        return self.logits(params, xl).to(F32), caches
+        return (self.logits(params, xl).to(F32), caches) + tuple(r[2:])
 
     def decode_round(self, params, tok, caches, pos, *, lens, done,
                      stop_token: Optional[int] = None,
@@ -411,21 +443,26 @@ class Model:
                      generator: Optional[torch.Generator] = None,
                      counts=None, repetition_penalty: Optional[float] = None,
                      presence_penalty: Optional[float] = None,
-                     poison: bool = False, guard: bool = False):
+                     poison: bool = False, guard: bool = False,
+                     esc_fmts=None, kv_levels=None, kv_scale=None):
         """ONE decode round over every batch slot: rows attend ``lens``
         when done/idle, ``pos + 1`` when running, then sample.  ``counts``
         [B, V] applies the penalties (the caller owns its upkeep);
         ``poison`` (a bool) overwrites the round's logits with NaN;
         ``guard`` sanitizes before sampling and appends the per-row
-        ``bad`` flag.  A draw without ``generator`` uses one seeded 0.
+        ``bad`` flag; ``esc_fmts`` / ``kv_levels`` / ``kv_scale`` (the
+        escalation write path) append the per-row OF / UF write counts
+        [B, 2].  A draw without ``generator`` uses one seeded 0.
         Returns ``(next_tok [B, 1], logits, caches,
-        generator[, bad])``."""
+        generator[, bad][, kv_flags])``."""
         if (temperature is not None and temperature > 0.0
                 and generator is None):
             generator = torch.Generator(device=tok.device).manual_seed(0)
         attend = torch.where(done, lens, pos + 1)
-        lg, caches = self.decode_step(params, tok, caches, pos,
-                                      kv_len=attend)
+        r = self.decode_step(params, tok, caches, pos, kv_len=attend,
+                             esc_fmts=esc_fmts, kv_levels=kv_levels,
+                             kv_scale=kv_scale)
+        lg, caches = r[0], r[1]
         lgv = lg[:, -1]
         if poison:
             lgv = torch.full_like(lgv, torch.nan)
@@ -438,7 +475,9 @@ class Model:
         if stop_token is not None:
             nxt = torch.where(done[:, None], stop_token, nxt)
         ret = (nxt, lg, caches, generator)
-        return ret + (bad,) if guard else ret
+        if guard:
+            ret += (bad,)
+        return ret + tuple(r[2:])
 
     def decode_burst(self, params, tok, caches, pos, lens, done, limit, *,
                      max_len: int, out_width: int, n_max: int,
@@ -448,7 +487,9 @@ class Model:
                      generator: Optional[torch.Generator] = None,
                      counts=None, repetition_penalty: Optional[float] = None,
                      presence_penalty: Optional[float] = None,
-                     poison_at: Optional[int] = None, guard: bool = False):
+                     poison_at: Optional[int] = None, guard: bool = False,
+                     esc_fmts=None, kv_levels=None,
+                     ovf_at: Optional[int] = None, ovf_scale: float = 1.0):
         """Up to ``n_max`` decode rounds.  Per-row state: write index
         ``pos``, live length ``lens``, ``done``, and ``limit`` (the pos at
         which a row has emitted its whole budget).  Exits when every row is
@@ -461,8 +502,17 @@ class Model:
         ``guard`` counts, per row, the rounds whose logits went non-finite
         while the row was live entering the round.  Both stay on the
         device: the only host sync per round is the ``done`` read the exit
-        rule needs.  Returns ``(out [B, out_width], n_rounds, tok, caches,
-        pos, lens, done, generator[, bad][, counts])``."""
+        rule needs.
+
+        Numerical health: ``esc_fmts`` + ``kv_levels`` ([B] rungs, fixed
+        within a burst) write every round's K/V through the escalation
+        quantizer; the rows' OF / UF write counts add up over the rounds
+        (a round a row enters done adds nothing) and ride back as
+        ``kv_flags`` [B, 2]; ``ovf_at`` (a relative round, -1 or None for
+        never) multiplies that round's K/V by ``ovf_scale`` before the
+        snap — deterministic overflow injection.  Returns ``(out [B,
+        out_width], n_rounds, tok, caches, pos, lens, done, generator[,
+        bad][, counts][, kv_flags])``."""
         b = tok.shape[0]
         use_pen = counts is not None and _penalized(repetition_penalty,
                                                     presence_penalty)
@@ -474,6 +524,9 @@ class Model:
                          device=tok.device)
         badc = (torch.zeros((b,), dtype=torch.int32, device=tok.device)
                 if guard else None)
+        esc = esc_fmts is not None
+        flacc = (torch.zeros((b, 2), dtype=torch.int32, device=tok.device)
+                 if esc else None)
         done0 = done.cpu()
         i = 0
         while i < n_max:
@@ -491,7 +544,8 @@ class Model:
                 repetition_penalty=repetition_penalty,
                 presence_penalty=presence_penalty,
                 poison=i == poison_at,
-                guard=guard)
+                guard=guard, esc_fmts=esc_fmts, kv_levels=kv_levels,
+                kv_scale=ovf_scale if esc and i == ovf_at else None)
             nxt, caches = r[0], r[2]
             out[:, i] = nxt[:, 0]
             fin = done | (pos + 1 >= limit)
@@ -501,6 +555,8 @@ class Model:
                 counts = _bump_counts(counts, nxt)
             if guard:
                 badc = badc + (r[4] & ~done).to(torch.int32)
+            if esc:
+                flacc = flacc + r[-1] * (~done).to(torch.int32)[:, None]
             new_pos = torch.where(done, pos,
                                   torch.clamp(pos + 1, max=max_len - 1))
             lens = torch.where(done, lens, pos + 1)
@@ -511,6 +567,8 @@ class Model:
             ret += (badc,)
         if use_pen:
             ret += (counts,)
+        if esc:
+            ret += (flacc,)
         return ret
 
     def generate(self, params, tokens, *, gen_len: int,

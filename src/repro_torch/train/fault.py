@@ -12,10 +12,11 @@
   * :class:`PoisonedLogitsError` — non-finite logits reached a sampler
     outside a masking fault harness.
 
-``ServeFaultPlan.overflow_at`` is kept as a field; without the escalation
-write path (not ported) it injects nothing, as in the JAX package without
-an escalation policy.  Replica and training-restart machinery is not
-ported.  Plain Python: no torch.
+``ServeFaultPlan.overflow_at`` / ``overflow_scale`` scale the K/V writes
+of the listed decode rounds before the escalation quantizer, when the
+engine runs an ``EscalationPolicy`` (without one they inject nothing, as
+in the JAX package); the engine notes each ``overflow`` event.  Replica
+and training-restart machinery is not ported.  Plain Python: no torch.
 """
 from __future__ import annotations
 

@@ -748,3 +748,164 @@ def test_swap_round_trip_on_the_card(gen, policy, degrade):
             got = pool.index_select(0, torch.tensor(dest, device="cuda"))
             assert torch.equal(got.cpu().view(torch.uint8),
                                w.to(pool.dtype).view(torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# telemetry instantiations (debug_visits / debug_flags) and escalation
+# ---------------------------------------------------------------------------
+def _damage(k, v, gen):
+    """Magnitudes from 10^-7 to 10^6, and +-Inf / NaN at a few places."""
+    mag = lambda x: x * 10.0 ** (13 * torch.rand(x.shape, generator=gen,
+                                                 device="cuda") - 7)
+    k, v = mag(k.float()), mag(v.float())
+    flat_k, flat_v = k.view(-1), v.view(-1)
+    flat_k[::977] = float("inf")
+    flat_v[5::1301] = float("nan")
+    flat_k[7::2003] = float("-inf")
+    return k, v
+
+
+@pytest.mark.parametrize("case", ["mma_bf16_p64", "mma_bf16_strip",
+                                  "fma_em_fp8_p16_window", "fma_f32_p16",
+                                  "fma_d20_bf16"])
+def test_decode_telemetry_matches_plain(gen, case):
+    """The telemetry instantiation: output bitwise the flags-off one,
+    visits and flags exactly the plain version's, on the route named."""
+    route, rest = case.split("_", 1)
+    d = 20 if "d20" in case else 64
+    page = 64 if "p64" in case else 16
+    window = 40 if "window" in case else None
+    b, hkv, g, mp = 4, 2, 2, 6
+    kv_fmt = q_fmt = None
+    src = torch.bfloat16
+    k, v = _pools(gen, b * mp + 1, hkv, page, d, torch.float32)
+    k, v = _damage(k, v, gen)
+    if "em_fp8" in case:
+        src, kv_fmt, q_fmt = torch.float32, "fp8", "fp8"
+    elif "f32" in case:
+        src = torch.float32
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    q = torch.randn((b * hkv, g, d), generator=gen, device="cuda").to(
+        torch.float32 if src == torch.float32 else torch.bfloat16)
+    lens = torch.tensor([0, 1, page * mp // 2 + 3, page * mp],
+                        dtype=torch.int32, device="cuda").repeat_interleave(
+                            hkv)
+    table = kops.expand_block_table(_table(gen, b, mp, b * mp + 1), hkv)
+    if "strip" in case:
+        k = ref.paged_gather(k.reshape(-1, page, d), table)
+        v = ref.paged_gather(v.reshape(-1, page, d), table)
+        table = None
+    else:
+        k, v = k.reshape(-1, page, d), v.reshape(-1, page, d)
+    kw = dict(scale=d ** -0.5, window=window, softcap=50.0,
+              kv_fmt_name=kv_fmt, q_fmt_name=q_fmt, src_dtype=src)
+    assert decode_route(src, d) == route
+    off = decode_attention_cuda(q, k, v, lens, table, **kw)
+    n = decode_attention_cuda.launches_telemetry
+    on, visits, flags = decode_attention_cuda(
+        q, k, v, lens, table, debug_visits=True, debug_flags=True, **kw)
+    _, pv, pf = decode_attention_plain(q, k, v, lens, table,
+                                       debug_visits=True, debug_flags=True,
+                                       **kw)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches_telemetry == n + 1
+    assert torch.equal(on.view(torch.int32), off.view(torch.int32))
+    assert torch.equal(visits, pv) and torch.equal(flags, pf)
+    assert int(flags.sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["tc_bf16_p64", "tc_em_fp8_p16_window",
+                                  "tc_bf16_strip_offset", "fma_f32_p16",
+                                  "fma_em_fp16_d96_window"])
+def test_flash_telemetry_matches_plain(gen, case):
+    from repro_torch.kernels.flash_attention import kernel_tiles
+    variant = case.split("_")[0]
+    d = 96 if "d96" in case else 128
+    page = 64 if "p64" in case else 16
+    window = 40 if "window" in case else None
+    q_offset = 64 if "offset" in case else 32
+    bkv, group, sq, mp = 2, 2, 96, 8
+    fmt, src = None, torch.bfloat16
+    k, v = _pools(gen, bkv * mp + 1, 1, page, d, torch.float32)
+    k, v = _damage(k, v, gen)
+    if "em_fp8" in case:
+        fmt, src = "fp8", torch.float32
+    elif "em_fp16" in case:
+        fmt, src = "fp16", torch.float32
+    elif "f32" in case:
+        src = torch.float32
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    q = torch.randn((bkv * group, sq, d), generator=gen, device="cuda").to(
+        torch.float32 if src == torch.float32 else torch.bfloat16)
+    table = _table(gen, bkv, mp, bkv * mp + 1)
+    lens = torch.tensor([q_offset + 50] * group + [q_offset + sq] * group,
+                        dtype=torch.int32, device="cuda")
+    k, v = k.reshape(-1, page, d), v.reshape(-1, page, d)
+    if "strip" in case:
+        k, v = ref.paged_gather(k, table), ref.paged_gather(v, table)
+        table = None
+    kw = dict(group=group, scale=d ** -0.5, causal=True, window=window,
+              softcap=50.0, q_offset=q_offset, src_fmt_name=fmt,
+              src_dtype=src)
+    bq, bk = kernel_tiles(src, fmt, sq, bkv, group, d)
+    off = flash_attention_cuda(q, k, v, lens, table, **kw)
+    before = (flash_attention_cuda.launches_tc,
+              flash_attention_cuda.launches_fma)
+    on, visits, flags = flash_attention_cuda(
+        q, k, v, lens, table, debug_visits=True, debug_flags=True, **kw)
+    _, pv, pf = flash_attention_plain(q, k, v, lens, table, block_k=bk,
+                                      block_q=bq, debug_visits=True,
+                                      debug_flags=True, **kw)
+    torch.cuda.synchronize()
+    ran = (flash_attention_cuda.launches_tc - before[0],
+           flash_attention_cuda.launches_fma - before[1])
+    assert ran == ((1, 0) if variant == "tc" else (0, 1))
+    assert torch.equal(on.view(torch.int32), off.view(torch.int32))
+    assert torch.equal(visits, pv) and torch.equal(flags, pf)
+    assert int(flags.sum()) > 0
+
+
+def test_escalation_engine_on_the_card_equals_the_cpu(gen):
+    """The reduced escalation scenario of ``tests/test_torch_escalation.py``
+    on the card (decode on the fma route, prefill on ``flash_fma``): the
+    same counters, records and fault-plan events as on the CPU."""
+    from repro_torch.core.policy import EscalationPolicy
+    from repro_torch.launch.engine import ContinuousEngine, Request
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.fault import ServeFaultPlan
+    out = []
+    for dev in ("cpu", "cuda"):
+        model = build_model("gemma2-9b", policy="fp32", reduced=True,
+                            device=dev, paged_kv=True, page_size=16)
+        # the card runs the CPU's weights
+        params = (model.init(0) if dev == "cpu"
+                  else _to_device(out[0][3], "cuda"))
+        rng = torch.Generator().manual_seed(0)
+        reqs = [Request(rid=i, tokens=torch.randint(
+            0, model.cfg.vocab, (12,), generator=rng).tolist(), max_new=16)
+            for i in range(2)]
+        plan = ServeFaultPlan(overflow_at=(2,), overflow_scale=65536.0)
+        eng = ContinuousEngine(model, params, slots=2, max_len=64, chunk=16,
+                               n_pages=10, burst_cap=4, fault_plan=plan,
+                               escalate=EscalationPolicy(of_threshold=4))
+        fin, stats = eng.run(reqs)
+        out.append((fin, stats, plan.events, params))
+    (cf, cs, ce, _), (gf, gs, ge, _) = out
+    assert gs["escalations"] >= 1 and gs["poisoned_rounds"] == 0
+    for k in ("escalations", "esc_refused", "esc_deferred", "preemptions",
+              "rounds"):
+        assert gs[k] == cs[k], k
+    assert ge == ce
+    assert [(f.rid, f.admit_round, f.finish_round, f.escalated, len(f.tokens))
+            for f in gf] == [(f.rid, f.admit_round, f.finish_round,
+                              f.escalated, len(f.tokens)) for f in cf]
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)

@@ -92,11 +92,15 @@ def test_engine_refuses_unported_options():
     tm = build_model("gemma2-9b", reduced=True, device="cpu", paged_kv=True,
                      page_size=16)
     params = tm.init(0)
-    for bad in (dict(escalate=object()), dict(spec_k=2),
+    for bad in (dict(spec_k=2),
                 dict(draft_repeats=1), dict(journal=object()),
                 dict(replica_fault=object()), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             ContinuousEngine(tm, params, slots=2, max_len=32, **bad)
+    # escalation is ported: a policy object is required, and a narrow pool
+    # refuses it (tests/test_torch_escalation.py drives it)
+    with pytest.raises(TypeError, match="EscalationPolicy"):
+        ContinuousEngine(tm, params, slots=2, max_len=32, escalate=object())
     # the overload and sampling options of this slice are accepted
     ContinuousEngine(tm, params, slots=2, max_len=32, shed=True,
                      temperature=0.5, top_k=8, top_p=0.9, preempt="swap",

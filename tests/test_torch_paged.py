@@ -129,3 +129,27 @@ def test_paged_update_rows_and_gather_bitwise(dtype, pos):
     gw = jpaged.gather_paged_kv(want, jnp.asarray(table))
     gt = tpaged.gather_paged_kv(got, torch.from_numpy(table))
     np.testing.assert_array_equal(bits(gt), np.asarray(gw).view(raw))
+
+
+@pytest.mark.parametrize("pos", [[2, 6], [17, 9], [9, 4]])
+def test_paged_update_rows_per_row_pos_past_capacity(pos):
+    """A per-row ``pos`` whose write runs past the table's capacity drops
+    the positions beyond it, as the JAX scatter does, and never indexes
+    the table out of range: pool [6, 1, 4, 2], table [[1, 2], [3, 4]], a
+    3-token write.  [2, 6] drops position 8 of row 1 ([7, 8] and [9, 10]
+    land in page 4); [17, 9] drops all of both rows; [9, 4] drops all of
+    row 0 and keeps all of row 1."""
+    pool = np.zeros((6, 1, 4, 2), np.float32)
+    table = np.asarray([[1, 2], [3, 4]], np.int32)
+    new = np.arange(1, 13, dtype=np.float32).reshape(2, 1, 3, 2)
+    p = np.asarray(pos, np.int32)
+    want = np.asarray(jpaged.paged_update_rows(
+        jnp.asarray(pool), jnp.asarray(table), jnp.asarray(new),
+        jnp.asarray(p)))
+    got = tpaged.paged_update_rows(torch.from_numpy(pool),
+                                   torch.from_numpy(table),
+                                   torch.from_numpy(new),
+                                   torch.from_numpy(p)).numpy()
+    np.testing.assert_array_equal(got, want)
+    if pos == [2, 6]:
+        np.testing.assert_array_equal(got[4, 0, 2:], [[7, 8], [9, 10]])
