@@ -14,8 +14,9 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    group 2, pages of 64 and 16 tokens; bf16 and fp8-e5m2 pools; ragged
    ``kv_len`` with an idle row; window, softcap, aliased pages; a prefill
    chunk at ``q_offset > 0``; one stream at 8191 keys; 16 slots; the
-   generate phase's ragged prefill chunk and last decode step), the
-   plain flash version walking the kernel's own key tiles.  One JSON line
+   generate phase's ragged prefill chunk and last decode step; the MLA
+   phase's prefill read, V's head dim 64 against QK's 96, ragged and
+   uniform), the plain flash version walking the kernel's own key tiles.  One JSON line
    per case: error and tolerance, the variant (and for decode the cluster
    size its launch counted, which must be the one ``cluster_size`` names)
    that ran, kernel / plain / library time, and the card's least time for
@@ -89,12 +90,23 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    run repeats tokens and events, the schedule equals the reduced
    config's on the CPU, and every launch is on the fma route /
    ``flash_fma``.  tok/s, decode ms per round, prefill s, the events.
-8. The kernels line (all six kernels; flash attention, tp_matmul and decode
+8. MLA phase (``mla_phase``): the fp32 model is freed and minicpm3-4b is
+   built at full width under ``tp_bf16`` (62 layers, MLA with QK head dim
+   96 and V head dim 64), then served by ``Model.generate`` from its
+   contiguous latent cache on four ragged prompts (1024/768/512/256), 32
+   greedy tokens.  Gates: scan == while tokens, every flash launch on
+   ``flash_tc`` at (96, 64) and no decode-kernel launch (decode is the
+   absorbed form on ``tp_einsum``), first-token logits against the plain
+   versions, and the rope check: one 64-token prompt's prefill logits
+   against the same prompt fed token by token through ``decode_step``.
+   Prefill s, decode ms per step, tok/s.
+9. The kernels line (all six kernels; flash attention, tp_matmul and decode
    attention with their launches by variant, the FMA variant's time,
-   decode's launches by cluster size, the flags-on time of the main case
-   and of the telemetry cases, the f32-pool case; the attention launches
-   summed over the slice, generate, overload and escalation phases), the
-   card line, and as the last line ``{"ok": true, "device": {...}}``.
+   decode's launches by cluster size, flash's by head dims, the flags-on
+   time of the main case and of the telemetry cases, the f32-pool case,
+   the MLA cases; the attention launches summed over the slice, generate,
+   overload, escalation and MLA phases), the card line, and as the last
+   line ``{"ok": true, "device": {...}}``.
 
 Imports no JAX.  Needs one CUDA device and ``nvcc`` (``CUDA_HOME``, PATH
 or ``/usr/local/cuda``).
@@ -341,10 +353,10 @@ def flash_telemetry(name, args, kw, variant) -> dict:
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_attention_plain, kernel_tiles)
     cu = flash_attention_cuda
-    q, k = args[0], args[1]
+    q, v = args[0], args[2]
     bq, bk = kernel_tiles(kw["src_dtype"], kw.get("src_fmt_name"),
                           q.shape[1], q.shape[0] // kw["group"],
-                          kw["group"], q.shape[2])
+                          kw["group"], q.shape[2], v.shape[-1])
     off = cu(*args, **kw)
     before = (cu.launches_telemetry, cu.launches_tc, cu.launches_fma)
     on, visits, flags = cu(*args, debug_visits=True, debug_flags=True, **kw)
@@ -523,11 +535,11 @@ def _flat_flash(q, k, v, kvl, table, policy):
     b, h, sq, d = q.shape
     if table is not None:
         n_pages, hkv, page, _ = k.shape
-        kf, vf = (x.reshape(n_pages * hkv, page, d) for x in (k, v))
+        kf, vf = (x.reshape(n_pages * hkv, page, x.shape[-1]) for x in (k, v))
         tab, skv = kops.expand_block_table(table, hkv), table.shape[1] * page
     else:
         _, hkv, skv, _ = k.shape
-        kf, vf = (x.reshape(b * hkv, skv, d) for x in (k, v))
+        kf, vf = (x.reshape(b * hkv, skv, x.shape[-1]) for x in (k, v))
         tab = None
     src_dt, src_fmt = kops.policy_src(policy)
     args = (q.reshape(b * h, sq, d), kf, vf,
@@ -539,11 +551,12 @@ def _flat_flash(q, k, v, kvl, table, policy):
 
 def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
                softcap, alias, seed, q_scale=1.0, policy=None, heads=(8, 2),
-               d=256, main=False, pages=None):
+               d=256, dv=None, main=False, pages=None):
     """A prefill chunk of width ``chunk`` at ``q_offset`` for ``rows``
     live chunk lengths, through the paged pool (``page`` > 0, tables of
     ``pages`` columns, by default just enough for the chunk) or, with
-    ``page == 0``, over contiguous K/V (fresh prompt, q_offset 0).
+    ``page == 0``, over contiguous K/V (fresh prompt, q_offset 0; V of
+    head dim ``dv``, None: ``d``).
     ``q_scale`` as in :func:`decode_case`.  The plain version walks the
     kernel's own key tiles.  ``main`` cases also time the FMA variant
     (``fma_ms``) and the tensor-core variant with the query tile that
@@ -557,6 +570,9 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
         kernel_block_k, plan_q_rows, tc_tile_dtype)
     b, (hkv, g) = len(rows), heads
     h = hkv * g
+    dv = d if dv is None else dv
+    if page and dv != d:
+        raise ValueError(f"{name}: a paged case has one head dim")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     kv_lens = [q_offset + r for r in rows]
     if policy is None:
@@ -573,11 +589,12 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
     else:
         k = torch.randn((b, hkv, chunk, d), generator=gen,
                         device="cuda").to(dtype)
-        v = torch.randn((b, hkv, chunk, d), generator=gen,
+        v = torch.randn((b, hkv, chunk, dv), generator=gen,
                         device="cuda").to(dtype)
         table = None
-    bk = kernel_block_k(src_dt, src_fmt, d)
-    variant = "tc" if tc_tile_dtype(src_dt, src_fmt, d) is not None else "fma"
+    bk = kernel_block_k(src_dt, src_fmt, d, dv)
+    variant = ("tc" if tc_tile_dtype(src_dt, src_fmt, d, dv) is not None
+               else "fma")
     call = lambda backend, cap=softcap: kops.flash_attention(
         q, k, v, kv_len=kvl, block_table=table, policy=policy,
         causal=True, window=window, softcap=cap, q_offset=q_offset,
@@ -606,9 +623,9 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
     skv = table.shape[1] * page if page else k.shape[2]
     keys = _keys_read(table, page, skv, lo[:, 0].expand(b), kvl)
     esz = k.element_size()
-    nbytes = (q.numel() * q.element_size() + keys * hkv * d * 2 * esz
+    nbytes = (q.numel() * q.element_size() + keys * hkv * (d + dv) * esz
               + got.numel() * 4 + kvl.numel() * 4)
-    flops = 4.0 * d * pairs
+    flops = 2.0 * (d + dv) * pairs
     bound_ms, bound_by = bound(nbytes, flops,
                                BF16_FLOP_S if variant == "tc" else F32_FLOP_S)
     tol = F32_TOL if src_dt == torch.float32 and not src_fmt else KERNEL_TOL
@@ -639,7 +656,7 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
                eager_ms=cuda_ms(lambda: call("kernel"), 10), **extra,
                plain_ms=cuda_ms(lambda: call("plain"), 2, warmup=1),
                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
-               shape=dict(rows=b, heads=h, hkv=hkv, d=d, chunk=chunk,
+               shape=dict(rows=b, heads=h, hkv=hkv, d=d, dv=dv, chunk=chunk,
                           q_offset=q_offset, page=page, kv_len=kv_lens,
                           window=window, softcap=softcap, policy=policy,
                           pool=str(dtype).replace("torch.", "")))
@@ -741,7 +758,22 @@ def kernel_phase() -> dict:
     f.append(flash_case("flash_f32_p64_chunk", dtype=torch.float32, page=64,
                         rows=[256, 200], q_offset=768, chunk=256,
                         window=4096, softcap=50.0, alias=4, seed=13))
+    f.extend(mla_kernel_cases())
     return recs
+
+
+def mla_kernel_cases() -> list:
+    """The MLA phase's prefill read (minicpm3-4b's expanded form: 4 rows x
+    40 heads, QK head dim 96, V head dim 64, no softcap, contiguous): its
+    ragged batch, and a uniform one at 1024, which SDPA also computes."""
+    import torch
+    mla = dict(dtype=torch.bfloat16, page=0, q_offset=0, chunk=1024,
+               window=None, softcap=None, alias=0, heads=(40, 1), d=96,
+               dv=64)
+    return [flash_case("flash_mla_bf16_ragged", rows=list(MLA_PROMPTS),
+                       seed=14, **mla),
+            flash_case("flash_mla_bf16_uniform", rows=[1024] * 4, seed=15,
+                       main=True, **mla)]
 
 
 def _plant(pool, table, row, pos, value):
@@ -1316,6 +1348,7 @@ def reset_attention_counters() -> None:
     decode_attention_cuda.launches_mma = decode_attention_cuda.launches_fma = 0
     decode_attention_cuda.launches_by_cluster.clear()
     flash_attention_cuda.launches_tc = flash_attention_cuda.launches_fma = 0
+    flash_attention_cuda.launches_by_dims.clear()
 
 
 def attention_counters(where: str, rule: set, flash: str = "tc",
@@ -1349,7 +1382,15 @@ def attention_counters(where: str, rule: set, flash: str = "tc",
         raise AssertionError(f"{where}: decode launches by cluster size "
                              f"{by_cluster}: the rule names {sorted(rule)}")
     return dict(launches=launches, variants=variants,
-                decode_launches_by_cluster=by_cluster)
+                decode_launches_by_cluster=by_cluster,
+                flash_launches_by_dims=flash_dims())
+
+
+def flash_dims() -> dict:
+    """The flash launches since the last reset by head dims, "DxDv"."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    return {f"{d}x{dv}": n
+            for (d, dv), n in flash_attention_cuda.launches_by_dims.items()}
 
 
 def cluster_rule(model, rows: int, max_pages: int) -> set:
@@ -1551,12 +1592,13 @@ def generate_phase(model, params, seed: int = 0) -> dict:
     return res
 
 
-def _generate_vs_plain(model, params, toks, kw, first) -> dict:
+def _generate_vs_plain(model, params, toks, kw, first,
+                       penalties=GEN_PENALTIES) -> dict:
     """``generate``'s prefill and first token through the plain versions
     of both attention kernels, against ``first`` (the kernel path's).
     Gates: first-token logits within ``LOGITS_TOL``, and each row's first
-    token equal unless the plain path's top-2 margin of the penalized
-    logits is at most twice the logit difference (a near tie that bf16
+    token equal unless the plain path's top-2 margin of the logits
+    penalized by ``penalties`` is at most twice the logit difference (a near tie that bf16
     rounding may flip)."""
     from repro_torch.models.transformer import apply_penalties, token_counts
     plain = model.with_cfg(decode_backend="plain", prefill_backend="plain")
@@ -1568,7 +1610,7 @@ def _generate_vs_plain(model, params, toks, kw, first) -> dict:
         raise AssertionError("generate: first-token logits are not finite")
     lerr = (lg_k - lg_p).abs().max().item()
     cnt = token_counts(toks, model.vocab_out, kw["prompt_lens"])
-    pen = apply_penalties(lg_p, cnt, **GEN_PENALTIES)
+    pen = apply_penalties(lg_p, cnt, **penalties)
     top2 = pen.topk(2, dim=-1).values
     margins = (top2[:, 0] - top2[:, 1]).tolist()
     agree = (tok_k[:, 0] == tok_p[:, 0]).tolist()
@@ -1920,6 +1962,134 @@ def escalation_phase(seed: int = 0) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 8: MLA serving of minicpm3-4b through generate
+# ---------------------------------------------------------------------------
+MLA_PROMPTS = (1024, 768, 512, 256)
+MLA_GEN = 32
+MLA_ROPE_PROMPT = 64
+
+
+def mla_counters(where: str) -> dict:
+    """The attention launch counters since the last reset, gated for an
+    MLA path: flash launched, every launch on ``flash_tc`` at (96, 64),
+    and no decode-kernel launch (MLA decodes in the absorbed form)."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    fa = flash_attention_cuda
+    dims = flash_dims()
+    if fa.launches <= 0:
+        raise AssertionError(f"{where}: flash_attention was not launched")
+    if fa.launches_tc != fa.launches or dims != {"96x64": fa.launches}:
+        raise AssertionError(f"{where}: flash launches tc {fa.launches_tc}, "
+                             f"fma {fa.launches_fma}, by dims {dims}: all "
+                             f"must be flash_tc at 96x64")
+    if decode_attention_cuda.launches:
+        raise AssertionError(f"{where}: the decode kernel launched "
+                             f"{decode_attention_cuda.launches} times")
+    return dict(launches={"decode_attention": 0,
+                          "flash_attention": fa.launches},
+                variants={"flash_attention": {"tc": fa.launches_tc,
+                                              "fma": 0},
+                          "decode_attention": {"mma": 0, "fma": 0}},
+                decode_launches_by_cluster={}, flash_launches_by_dims=dims)
+
+
+def _mla_rope_check(model, params, prompt) -> dict:
+    """One prompt [n] through ``prefill`` (expanded form, the flash kernel)
+    and token by token through ``decode_step`` (absorbed form, every key
+    rotated at its own position as it is written): the last-position
+    logits within ``LOGITS_TOL`` and the same greedy token unless at a
+    near tie.  A prefill whose prompt keys missed their rotation (the JAX
+    package's) would fail it."""
+    toks = prompt[None]
+    n = toks.shape[1]
+    lg_p, _ = model.prefill(params, toks, max_len=n)
+    caches = model.init_caches(1, n)
+    for i in range(n):
+        lg_d, caches = model.decode_step(params, toks[:, i:i + 1], caches, i)
+    if not (lg_p.isfinite().all() and lg_d.isfinite().all()):
+        raise AssertionError("mla rope check: logits are not finite")
+    err = (lg_p - lg_d).abs().max().item()
+    top2 = lg_d[0, -1].topk(2).values
+    margin = (top2[0] - top2[1]).item()
+    same = int(lg_p[0, -1].argmax()) == int(lg_d[0, -1].argmax())
+    res = dict(prompt=n, logits_max_abs_err=err, logits_tol=LOGITS_TOL,
+               logits_absmax=lg_d[..., :model.cfg.vocab].abs().max().item(),
+               same_token=same,
+               decode_top2_margin=margin)
+    if not err <= LOGITS_TOL:
+        raise AssertionError(f"mla rope check: prefill and token-by-token "
+                             f"decode logits differ by {err}")
+    if not same and margin > 2 * err:
+        raise AssertionError(f"mla rope check: greedy tokens differ at a "
+                             f"top-2 margin {margin} > 2 x {err}")
+    return res
+
+
+def mla_phase(seed: int = 0) -> dict:
+    """minicpm3-4b at full width under ``tp_bf16`` (random weights from
+    ``seed``), served by ``Model.generate`` from its contiguous latent
+    cache: 4 right-padded ragged prompts (``MLA_PROMPTS``), ``MLA_GEN``
+    greedy tokens.  Gates: the while form's tokens equal the scan form's;
+    every flash launch (the expanded prefill) on ``flash_tc`` at (96, 64)
+    and no decode-kernel launch (``mla_counters``); the prefill and first
+    token against the plain versions (``_generate_vs_plain``); the rope
+    check (``_mla_rope_check``).  Prefill s, decode ms per step, tok/s and
+    the device's busy share over one scan call."""
+    import numpy as np
+    import torch
+    from repro_torch.models.registry import build_model
+    model = build_model("minicpm3-4b", policy="tp_bf16", device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    log(f"minicpm3-4b full width: {model.cfg.n_layers} layers, d_model "
+        f"{model.cfg.d_model}, weights "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(seed + 7)
+    width = max(MLA_PROMPTS)
+    toks = torch.zeros((len(MLA_PROMPTS), width), dtype=torch.int64)
+    for r, n in enumerate(MLA_PROMPTS):
+        toks[r, :n] = torch.from_numpy(rng.randint(0, model.cfg.vocab,
+                                                   size=n))
+    toks = toks.to(model.device)
+    lens = torch.tensor(MLA_PROMPTS, device=model.device)
+    kw = dict(gen_len=MLA_GEN, prompt_lens=lens, return_trips=True)
+    model.generate(params, toks, **kw)                   # warm-up
+    torch.cuda.synchronize()
+    reset_attention_counters()
+    t0 = time.perf_counter()
+    first = model.generate(params, toks, **{**kw, "gen_len": 1},
+                           return_logits=True)         # prefill + token 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    scan, _, trips_scan = model.generate(params, toks, loop="scan", **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    whl, _, trips_while = model.generate(params, toks, loop="while", **kw)
+    torch.cuda.synchronize()
+    counted = mla_counters("mla")
+    if not torch.equal(scan, whl) or trips_scan != trips_while:
+        raise AssertionError("mla: the while form's tokens differ from the "
+                             "scan form's")
+    where = device_profile(
+        lambda: model.generate(params, toks, loop="scan", **kw), t2 - t1)
+    plain = _generate_vs_plain(model, params, toks, kw, first, penalties={})
+    rope = _mla_rope_check(model, params, toks[0, :MLA_ROPE_PROMPT])
+    n_tok = len(MLA_PROMPTS) * MLA_GEN
+    res = dict(arch="minicpm3-4b", prompts=list(MLA_PROMPTS),
+               gen_len=MLA_GEN, prefill_s=t1 - t0, scan_s=t2 - t1,
+               decode_ms_per_step=(t2 - t1 - (t1 - t0)) * 1e3
+               / (MLA_GEN - 1), tok_s=n_tok / (t2 - t1), trips=trips_scan,
+               greedy_heads=scan[:, :8].tolist(), plain_vs_kernel=plain,
+               rope_check=rope, card=card_line(), where_the_time_goes=where,
+               **counted)
+    log(json.dumps({"mla": res}))
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1957,10 +2127,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving.append(escalation_phase())
     lap("escalation")
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving.append(mla_phase())
+    lap("mla")
     log(json.dumps({"phase_s": phase_s}))
     launches, variants, by_cluster = dict(op_res["launches"]), {}, {}
+    by_dims = {}
     variants.update(op_res["variants"])
     for res in serving:
+        for dims, n in res["flash_launches_by_dims"].items():
+            by_dims[dims] = by_dims.get(dims, 0) + n
         for name, n in res["launches"].items():
             launches[name] = launches.get(name, 0) + n
             variants.setdefault(name, {})
@@ -1992,6 +2169,13 @@ def main() -> int:
                                           if t["kernel"] == name])
         if name == "decode_attention":
             entry["launches_by_cluster"] = by_cluster
+        if name == "flash_attention":
+            entry["launches_by_dims"] = by_dims
+            entry["mla_cases"] = [
+                {k: c[k] for k in ("case", "variant", "kernel_ms", "flags_ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "max_abs_err")}
+                for c in cases if c["case"].startswith("flash_mla")]
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(card)

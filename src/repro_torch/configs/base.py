@@ -2,10 +2,11 @@
 ``repro.configs.base``.
 
 The family sub-configs (``moe``, ``mamba``, ``mlstm``, ``slstm``,
-``encoder``) keep their fields but stay ``None`` in this port: only the
-attention-only dense path (gemma2) is ported.  Defaults differ in one
-place: ``decode_backend`` / ``prefill_backend`` are ``"auto"`` (the CUDA
-kernels for CUDA tensors, their plain versions on the CPU).
+``encoder``) keep their fields but stay ``None`` in this port: the dense
+attention stacks are ported, GQA (gemma2) and MLA (minicpm3, with the
+MLA dims below).  Defaults differ in one place: ``decode_backend`` /
+``prefill_backend`` are ``"auto"`` (the CUDA kernels for CUDA tensors,
+their plain versions on the CPU).
 """
 from __future__ import annotations
 
@@ -59,7 +60,7 @@ class ModelConfig:
     emb_scale: Optional[float] = None
     residual_scale: float = 1.0
     mlp_bias: bool = False
-    # MLA dims (not ported)
+    # MLA dims (deepseek / minicpm3)
     q_lora: Optional[int] = None
     kv_lora: int = 0
     nope_dim: int = 0
@@ -116,4 +117,7 @@ class ModelConfig:
     def validate(self):
         assert self.n_heads % max(self.n_kv_heads, 1) == 0, self.name
         assert self.repeats >= 1
+        for spec in self.layer_list():
+            if spec.mixer == "mla":
+                assert self.kv_lora and self.nope_dim and self.rope_dim
         return self

@@ -6,7 +6,9 @@
 // ``block_schedule``).
 //
 // Contract (same as the TPU kernel): q [BH, Sq, D] at positions
-// q_offset + i attends keys of KV row bh / group that are < kv_len[bh],
+// q_offset + i attends keys of KV row bh / group that are < kv_len[bh]
+// (k [.., D], v [.., Dv]: V's head dim may differ, as MLA's expanded
+// prefill has it, D 96 and Dv 64; the output is [BH, Sq, Dv]),
 // causal (key <= query) and inside the window (query - key < window);
 // scores are src-dtype products summed in f32, scaled and exp-form
 // soft-capped; the online softmax keeps the running max, denominator and
@@ -22,23 +24,28 @@
 // ``tc_tile_dtype`` (kernels/flash_attention.py) alone:
 //
 // ``flash_tc`` (tensor cores; src bf16 / fp16, or f32 on a grid exact in a
-// 16-bit type; D in {64, 128, 256}).  One CTA per (KV row, query tile)
-// carries the tile's queries of every head of the GQA group (rows = heads x
-// queries, 64 or 128 of them, one consumer warpgroup per 64), so each K/V
-// tile is read once per group.  A producer warpgroup fills two rings of
-// 64-key K and V tiles (128-byte swizzle): by TMA, one 3-D load per page
-// segment and 64-column chunk, its warp reading the block table itself, or,
-// for fp8 pools, f32 containers and a src other than the storage type,
-// by loading, widening / snapping (``widen``) and writing the tiles itself.
+// 16-bit type; (D, Dv) in {(64, 64), (128, 128), (256, 256), (96, 64)}).
+// One CTA per (KV row, query tile) carries the tile's queries of every head
+// of the GQA group (rows = heads x queries, 64 or 128 of them, one consumer
+// warpgroup per 64), so each K/V tile is read once per group.  A producer
+// warpgroup fills two rings of 64-key K and V tiles (128-byte swizzle): by
+// TMA, one 3-D load per page segment and 64-column chunk, its warp reading
+// the block table itself, or, for fp8 pools, f32 containers and a src other
+// than the storage type, by loading, widening / snapping (``widen``) and
+// writing the tiles itself.
 // The consumers run S = Q K^T as an SS wgmma from the swizzled Q tile (loaded
 // once), the online softmax in the accumulator layout (row max and sum by
 // quad shuffles), and O += P V as an RS wgmma with P in registers; S of tile
 // j and P V of tile j - 1 are issued together.  Key tiles start at multiples
 // of 64 (``floor(k_start / 64) * 64``), so the plain version walks the same
-// blocks and rounds p against the same running max.
+// blocks and rounds p against the same running max.  A D that is not a
+// multiple of 64 (96) rounds Q's and K's tiles up to whole chunks (two):
+// TMA zero-fills the columns past D (the tensor map's inner extent is D),
+// and Q K^T issues only the D / 16 k-steps that hold data, so no step
+// reads them.  V's tile is Dv / 64 chunks and P V has N = Dv.
 //
 // ``flash_fma`` (the first version, kept for policy fp32, wider grids and
-// other D <= 256): one CTA per (head row, 32-query tile); K/V tiles of 32
+// other D, Dv <= 256): one CTA per (head row, 32-query tile); K/V tiles of 32
 // keys (also starting at multiples of 32) are read through the block table
 // into shared memory as f32 with 16-byte loads (``load_rows``), and all
 // products are f32 FMAs.
@@ -75,26 +82,27 @@ constexpr float kNegInf = -1e30f;
 struct FlashParams {
   const int* kv_len;       // [BH]
   const int* block_table;  // [BKV, nk] flat page ids, or null (contiguous)
-  float* out;              // [BH, Sq, D]
+  float* out;              // [BH, Sq, Dv]
   int* visits;             // [BH, n_steps] telemetry (zeroed), or null
   int* flags;              // [BH, n_steps, 4] telemetry (zeroed), or null
   int n_steps;             // steps of block_schedule at this variant's tiles
-  int group, sq, d, nk, page, pool_rows, q_offset;
+  int group, sq, d, dv, nk, page, pool_rows, q_offset;
   int causal, window;      // window < 0: none
   int src_kind;
   Snap snap;
   float scale, softcap, two_over_cap;
 };
 
-// Element offset of key j of KV row ``kvrow`` in the (flat) pool.
-__device__ __forceinline__ long long key_offset(const FlashParams& p,
-                                                int kvrow, int j) {
+// Row of key j of KV row ``kvrow`` in the (flat) pool: its K elements start
+// at row * D, its V elements at row * Dv.
+__device__ __forceinline__ long long key_row(const FlashParams& p, int kvrow,
+                                             int j) {
   const int blk = j / p.page;
   const long long phys =
       p.block_table ? (long long)p.block_table[(long long)kvrow * p.nk + blk]
                     : (long long)kvrow * p.nk + blk;
   if (phys < 0 || phys >= p.pool_rows) __trap();  // page id outside the pool
-  return (phys * p.page + (j % p.page)) * (long long)p.d;
+  return phys * p.page + (j % p.page);
 }
 
 // The query block ``iq``'s first step in ``block_schedule``'s flat order
@@ -128,12 +136,13 @@ __global__ void __launch_bounds__(kThreads)
 flash_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
              const KT* __restrict__ v, FlashParams p) {
   extern __shared__ float smem[];
-  const int D = p.d, DP = p.d + 1;
-  long long* roff = reinterpret_cast<long long*>(smem);  // [kBK] row offsets
-  float* Qs = smem + 2 * kBK;       // [kBQ][D+1]
+  const int D = p.d, DP = p.d + 1, DV = p.dv;
+  long long* roff = reinterpret_cast<long long*>(smem);  // [kBK] q / K offsets
+  long long* voff = roff + kBK;     // [kBK] V offsets
+  float* Qs = smem + 4 * kBK;       // [kBQ][D+1]
   float* Ks = Qs + kBQ * DP;        // [kBK][D+1]
-  float* Vs = Ks + kBK * DP;        // [kBK][D]
-  float* S = Vs + kBK * D;          // [kBQ][kBK+1] scores, then src-rounded p
+  float* Vs = Ks + kBK * DP;        // [kBK][Dv]
+  float* S = Vs + kBK * DV;         // [kBQ][kBK+1] scores, then src-rounded p
   float* m_s = S + kBQ * (kBK + 1);  // [kBQ] running max
   float* l_s = m_s + kBQ;           // [kBQ] running denominator
   float* a_s = l_s + kBQ;           // [kBQ] this tile's rescale factor
@@ -168,12 +177,16 @@ flash_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   // same blocks (keys left of the window are masked)
   for (int k0 = k_start / kBK * kBK; k0 < k_end; k0 += kBK) {
     const int n = min(kBK, k_end - k0);
-    if (tid < n) roff[tid] = key_offset(p, kvrow, k0 + tid);
+    if (tid < n) {
+      const long long row = key_row(p, kvrow, k0 + tid);
+      roff[tid] = row * D;
+      voff[tid] = row * DV;
+    }
     __syncthreads();
     load_rows<kThreads>(Ks, DP, k, roff, n, D, p.snap, p.src_kind);
-    load_rows<kThreads>(Vs, D, v, roff, n, D, p.snap, p.src_kind);
+    load_rows<kThreads>(Vs, DV, v, voff, n, DV, p.snap, p.src_kind);
     zero_rows(Ks, DP, n, kBK);
-    zero_rows(Vs, D, n, kBK);
+    zero_rows(Vs, DV, n, kBK);
     __syncthreads();
 
     // S = Q K^T for rows {ty, ty+16} x keys {tx, tx+16}
@@ -226,23 +239,23 @@ flash_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
     __syncthreads();
 
     // O = O * alpha + P V; thread tid owns output column tid
-    if (tid < D) {
+    if (tid < DV) {
 #pragma unroll
       for (int r = 0; r < kBQ; ++r) acc[r] *= a_s[r];
       for (int j = 0; j < n; ++j) {
-        const float vv = Vs[j * D + tid];
+        const float vv = Vs[j * DV + tid];
 #pragma unroll
         for (int r = 0; r < kBQ; ++r) acc[r] += S[r * (kBK + 1) + j] * vv;
       }
     }
     __syncthreads();
   }
-  if (tid < D) {
+  if (tid < DV) {
 #pragma unroll
     for (int r = 0; r < kBQ; ++r) {
       if (r < nrows) {
         const float l = l_s[r];
-        p.out[((long)bh * p.sq + q0 + r) * D + tid] =
+        p.out[((long)bh * p.sq + q0 + r) * DV + tid] =
             acc[r] / (l == 0.f ? 1.f : l);
       }
     }
@@ -259,9 +272,9 @@ flash_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
       if (tid == 0) p.visits[cell] = 1;
       int c[4] = {0, 0, 0, 0};
       for (int key = k0 + warp; key < min(k0 + kBK, kvl); key += kThreads / 32) {
-        const long long off = key_offset(p, kvrow, key);
-        count_flags(k + off, D, p.snap, lane, 32, c);
-        count_flags(v + off, D, p.snap, lane, 32, c);
+        const long long row = key_row(p, kvrow, key);
+        count_flags(k + row * D, D, p.snap, lane, 32, c);
+        count_flags(v + row * DV, DV, p.snap, lane, 32, c);
       }
       if (k0 == klo * kBK)  // the q tile, at the query block's first step
         count_flags(q + ((long long)bh * p.sq + q0) * D, (long long)nrows * D,
@@ -274,8 +287,8 @@ flash_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
 template <typename QT, typename KT, bool kFlags>
 cudaError_t launch_typed(const void* q, const void* k, const void* v, int bh,
                          const FlashParams& p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * kBK + kBQ * (p.d + 1) +
-                                       kBK * (p.d + 1) + kBK * p.d +
+  const size_t smem = sizeof(float) * (4 * kBK + kBQ * (p.d + 1) +
+                                       kBK * (p.d + 1) + kBK * p.dv +
                                        kBQ * (kBK + 1) + 3 * kBQ);
   auto kern = flash_kernel<QT, KT, kFlags>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -316,12 +329,13 @@ cudaError_t launch_flags(const void* q, const void* k, const void* v, int bh,
 extern "C" int flash_attention_fma_launch(
     const void* q, const void* k, const void* v, const void* kv_len,
     const void* block_table, void* out, void* visits, void* flags,
-    int n_steps, int bh, int group, int sq, int d,
+    int n_steps, int bh, int group, int sq, int d, int dv,
     int nk, int page, int pool_rows, int q_offset, int causal, int window,
     int q_dtype,
     int kv_dtype, int src_kind, int snap_m, int snap_emax, int snap_emin,
     float scale, float softcap, void* stream) {
-  if (d < 1 || d > kThreads || group < 1 || sq < 1) return cudaErrorInvalidValue;
+  if (d < 1 || d > kThreads || dv < 1 || dv > kThreads || group < 1 || sq < 1)
+    return cudaErrorInvalidValue;
   if ((visits == nullptr) != (flags == nullptr)) return cudaErrorInvalidValue;
   FlashParams p;
   p.kv_len = static_cast<const int*>(kv_len);
@@ -330,7 +344,7 @@ extern "C" int flash_attention_fma_launch(
   p.visits = static_cast<int*>(visits);
   p.flags = static_cast<int*>(flags);
   p.n_steps = n_steps;
-  p.group = group; p.sq = sq; p.d = d; p.nk = nk; p.page = page;
+  p.group = group; p.sq = sq; p.d = d; p.dv = dv; p.nk = nk; p.page = page;
   p.pool_rows = pool_rows;
   p.q_offset = q_offset; p.causal = causal; p.window = window;
   p.src_kind = src_kind;
@@ -369,7 +383,7 @@ struct TcFlashParams {
   const void* v;
   const int* kv_len;       // [BH]
   const int* block_table;  // [BKV, nk] flat page ids, or null (contiguous)
-  float* out;              // [BH, Sq, D]
+  float* out;              // [BH, Sq, Dv]
   int* visits;             // [BH, n_steps] telemetry (zeroed), or null
   int* flags;              // [BH, n_steps, 4] telemetry (zeroed), or null
   int n_steps;             // steps of block_schedule at (bq, 64)
@@ -443,8 +457,10 @@ __device__ __forceinline__ long long tc_phys(const TcFlashParams& p,
   return phys;
 }
 
-// The producer warpgroup's convert step for one K or V tile: rows of keys
-// kt .. kt + 63 (zeros from k_end on) widened into the swizzled tile.
+// The producer warpgroup's convert step for one K or V tile of row width
+// D: rows of keys kt .. kt + 63 (zeros from k_end on) widened into the
+// swizzled tile (columns past D of a last, partial chunk are left as they
+// are: no k-step reads them).
 template <typename KT, typename TT, int D>
 __device__ __forceinline__ void convert_tile(const TcFlashParams& p,
                                              const void* src, uint8_t* dst,
@@ -490,11 +506,12 @@ __device__ __forceinline__ void convert_any(const TcFlashParams& p,
   }
 }
 
-// One K or V tile by TMA, issued by lane 0 of the producer warp: a load per
-// page segment of seg_rows keys and 64-column chunk; a segment from k_end
-// on is read at a pool row past the end (zero fill).  The lanes look up the
-// segments' pages together, so the page-table reads overlap.
-template <int D>
+// One K or V tile of ``NCH`` 64-column chunks by TMA, issued by lane 0 of
+// the producer warp: a load per page segment of seg_rows keys and chunk; a
+// segment from k_end on is read at a pool row past the end (zero fill), as
+// are the columns of a last chunk past the tensor's width.  The lanes look
+// up the segments' pages together, so the page-table reads overlap.
+template <int NCH>
 __device__ __forceinline__ void tma_tile(const TcFlashParams& p,
                                          const CUtensorMap* map, uint8_t* dst,
                                          uint64_t* bar, int kvrow, int kt,
@@ -512,7 +529,7 @@ __device__ __forceinline__ void tma_tile(const TcFlashParams& p,
       const int z = phys >= 0 ? (int)phys : p.pool_rows;
       if (lane == 0) {
 #pragma unroll
-        for (int c = 0; c < D / 64; ++c)
+        for (int c = 0; c < NCH; ++c)
           tc::tma_load_3d(dst + c * (kTcBK * 128) + seg * 128, map, bar,
                           c * 64, y, z);
       }
@@ -526,7 +543,8 @@ __device__ __forceinline__ void load_q(const TcFlashParams& p, uint8_t* qs,
   const QT* q = static_cast<const QT*>(p.q);
   constexpr int MT = 64 * NC;
   constexpr int kGroups = 64 * D / 8;  // this warpgroup's 64 rows
-  constexpr int kBatch = 4;            // loads in flight per thread
+  // loads in flight per thread (2 at D 96: 768 groups)
+  constexpr int kBatch = kGroups % (4 * 128) == 0 ? 4 : 2;
   static_assert(kGroups % (kBatch * 128) == 0, "whole batches");
   for (int g0 = t; g0 < kGroups; g0 += kBatch * 128) {
     float x[kBatch][8];
@@ -565,8 +583,8 @@ __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q_base,
   tc::wgmma_commit();
 }
 
-// O += P V (A = P from registers, B = the V tile, N-major), committed as
-// one asynchronous wgmma group.
+// O += P V (A = P from registers, B = the V tile, N-major; N = Dv),
+// committed as one asynchronous wgmma group.
 template <typename TT, int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
                                          const uint32_t (&pr)[16],
@@ -684,35 +702,36 @@ __device__ __forceinline__ void softmax_tile(
 // flags of the tile's keys below that kv_len (K and V; counted once per
 // distinct kv_len) plus, at the first step, the head's q rows, and stores
 // the cell and its visit.
-// Adds the flags of keys [kt, e) of KV row ``kvrow``, K and V (D elements
-// each, through the block table): the warp's lanes take 16-byte vectors
-// across the rows, decoded by the pool's dtype code.
-template <int D>
+// Adds the flags of keys [kt, e) of KV row ``kvrow``, K and V (D and Dv
+// elements each, through the block table): the warp's lanes take 16-byte
+// vectors across the rows, decoded by the pool's dtype code.
+template <int D, int DV>
 __device__ __forceinline__ void tc_count_kv(const TcFlashParams& p, int kvrow,
                                            int kt, int e, int lane,
                                            int (&c)[4]) {
-  const int esz = dtype_bytes(p.kv_dtype), per_row = D * esz / 16;
+  const int esz = dtype_bytes(p.kv_dtype);
   for (int which = 0; which < 2; ++which) {
     const void* src = which ? p.v : p.k;
+    const int w = which ? DV : D, per_row = w * esz / 16;
     if (reinterpret_cast<uintptr_t>(src) & 15) {  // a pool not 16-byte aligned
       for (int key = kt; key < e; ++key)
         count_flags_any(src, p.kv_dtype,
-                        (tc_phys(p, kvrow, key) * p.page + key % p.page) * D,
-                        D, p.snap, lane, 32, c);
+                        (tc_phys(p, kvrow, key) * p.page + key % p.page) * w,
+                        w, p.snap, lane, 32, c);
       continue;
     }
     const unsigned char* base = static_cast<const unsigned char*>(src);
     for (int i = lane; i < (e - kt) * per_row; i += 32) {
       const int key = kt + i / per_row;
       const long long row = tc_phys(p, kvrow, key) * p.page + key % p.page;
-      add_flags16(c, __ldg(reinterpret_cast<const uint4*>(base + row * D * esz) +
+      add_flags16(c, __ldg(reinterpret_cast<const uint4*>(base + row * w * esz) +
                            i % per_row),
                   p.kv_dtype, p.snap);
     }
   }
 }
 
-template <int D>
+template <int D, int DV>
 __device__ __forceinline__ void tc_telemetry(const TcFlashParams& p, int kvrow,
                                           int q0, int nrows, int qlo, int t0,
                                           int ntiles, int w, int nw) {
@@ -730,7 +749,7 @@ __device__ __forceinline__ void tc_telemetry(const TcFlashParams& p, int kvrow,
       const int e = min(kt + kTcBK, kvl);
       if (e != counted_to) {
         kv[0] = kv[1] = kv[2] = kv[3] = 0;
-        tc_count_kv<D>(p, kvrow, kt, e, lane, kv);
+        tc_count_kv<D, DV>(p, kvrow, kt, e, lane, kv);
         warp_total(kv);
         counted_to = e;
       }
@@ -750,24 +769,33 @@ __device__ __forceinline__ void tc_telemetry(const TcFlashParams& p, int kvrow,
   }
 }
 
-// Shared memory: Q [D/64 chunks][MT rows], then K slots 0, 1 and V slots
-// 0, 1 (each [D/64 chunks][64 keys]), then the barriers fullK[2],
-// fullV[2], emptyK[2], emptyV[2].  K and V have rings of their own: K(j) is
-// free once S(j) = Q K(j)^T is done, V(j) only after P(j) V(j), which runs
-// one tile later.
-template <typename TT, int D, int NC, bool kFlags>
+// 64-column chunks of a tile of row width D (a partial last chunk counts).
+template <int D>
+__host__ __device__ constexpr int tc_chunks() {
+  return (D + 63) / 64;
+}
+
+// Shared memory: Q [D/64 chunks, rounded up][MT rows], then K slots 0, 1
+// (each [D/64 chunks, rounded up][64 keys]) and V slots 0, 1 (each [Dv/64
+// chunks][64 keys]), then the barriers fullK[2], fullV[2], emptyK[2],
+// emptyV[2].  K and V have rings of their own: K(j) is free once S(j) = Q
+// K(j)^T is done, V(j) only after P(j) V(j), which runs one tile later.
+template <typename TT, int D, int DV, int NC, bool kFlags>
 __global__ void __launch_bounds__(128 * (NC + 1), 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
                     TcFlashParams p) {
   constexpr int MT = 64 * NC;
-  constexpr uint32_t kQBytes = MT * D * 2, kTile = kTcBK * D * 2;
+  constexpr uint32_t kQBytes = MT * tc_chunks<D>() * 128,
+                     kKTile = kTcBK * tc_chunks<D>() * 128,
+                     kVTile = kTcBK * DV * 2;
+  static_assert(DV % 64 == 0, "V tiles are whole chunks");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* Qs = smem;
-  uint8_t* Ks = smem + kQBytes;          // slot s at Ks + s * kTile
-  uint8_t* Vs = Ks + kTcStages * kTile;  // slot s at Vs + s * kTile
-  uint64_t* full_k = reinterpret_cast<uint64_t*>(Vs + kTcStages * kTile);
+  uint8_t* Ks = smem + kQBytes;           // slot s at Ks + s * kKTile
+  uint8_t* Vs = Ks + kTcStages * kKTile;  // slot s at Vs + s * kVTile
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(Vs + kTcStages * kVTile);
   uint64_t* full_v = full_k + kTcStages;
   uint64_t* empty_k = full_v + kTcStages;
   uint64_t* empty_v = empty_k + kTcStages;
@@ -806,7 +834,8 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
     tc::regs_dec<kTcProducerRegs>();
     if (p.kv_tma && t >= 32) {  // one warp issues the TMA loads
       if constexpr (kFlags)
-        tc_telemetry<D>(p, kvrow, q0, nrows, qlo, t0, ntiles, t / 32 - 1, 3);
+        tc_telemetry<D, DV>(p, kvrow, q0, nrows, qlo, t0, ntiles, t / 32 - 1,
+                            3);
       return;
     }
     for (int j = 0; j < ntiles; ++j) {
@@ -814,14 +843,20 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
       const uint32_t parity = ((j / kTcStages) & 1) ^ 1;
       for (int which = 0; which < 2; ++which) {
         uint64_t* full = which ? &full_v[s] : &full_k[s];
-        uint8_t* dst = (which ? Vs : Ks) + s * kTile;
+        uint8_t* dst = which ? Vs + s * kVTile : Ks + s * kKTile;
         tc::mbar_wait(which ? &empty_v[s] : &empty_k[s], parity);
         if (p.kv_tma) {
-          if (t == 0) tc::mbar_arrive_expect_tx(full, kTile);
-          tma_tile<D>(p, which ? &map_v : &map_k, dst, full, kvrow, kt,
-                      k_end, t);
+          if (t == 0) tc::mbar_arrive_expect_tx(full, which ? kVTile : kKTile);
+          if (which)
+            tma_tile<DV / 64>(p, &map_v, dst, full, kvrow, kt, k_end, t);
+          else
+            tma_tile<tc_chunks<D>()>(p, &map_k, dst, full, kvrow, kt, k_end,
+                                     t);
         } else {
-          convert_any<TT, D>(p, which ? p.v : p.k, dst, kvrow, kt, k_end, t);
+          if (which)
+            convert_any<TT, DV>(p, p.v, dst, kvrow, kt, k_end, t);
+          else
+            convert_any<TT, D>(p, p.k, dst, kvrow, kt, k_end, t);
           tc::fence_proxy_async();
           tc::mbar_arrive(full);
         }
@@ -829,7 +864,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
     }
     if constexpr (kFlags) {
       if (!p.kv_tma)
-        tc_telemetry<D>(p, kvrow, q0, nrows, qlo, t0, ntiles, t / 32, 4);
+        tc_telemetry<D, DV>(p, kvrow, q0, nrows, qlo, t0, ntiles, t / 32, 4);
     }
     return;
   }
@@ -858,9 +893,9 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
     orow[r] = valid[r] ? (kvrow * p.group + h) * p.sq + q0 + i : 0;
   }
   float m_run[2] = {kTcNegInf, kTcNegInf}, l_run[2] = {0.f, 0.f};
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float sc[32];
   uint32_t pa[16];
   const uint32_t q_base = tc::smem_u32(Qs) + cw * 64 * 128;
@@ -876,8 +911,8 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
     tc::mbar_wait(&full_k[s], (j / kTcStages) & 1);
     if (j > 0) tc::mbar_wait(&full_v[sp], ((j - 1) / kTcStages) & 1);
     tc::wgmma_fence();
-    issue_qk<TT, D, MT>(sc, q_base, k_base + s * kTile);
-    if (j > 0) issue_pv<TT, D>(o, pa, v_base + sp * kTile);
+    issue_qk<TT, D, MT>(sc, q_base, k_base + s * kKTile);
+    if (j > 0) issue_pv<TT, DV>(o, pa, v_base + sp * kVTile);
     tc::wgmma_wait<0>();
     tc::fence_regs(sc);
     tc::fence_regs(o);
@@ -887,14 +922,14 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
                      alpha);
     if (alpha[0] != 1.f || alpha[1] != 1.f) {  // the running max moved
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+      for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i / 2) % 2];
     }
   }
   if (ntiles > 0) {
     const int sp = (ntiles - 1) % kTcStages;
     tc::mbar_wait(&full_v[sp], ((ntiles - 1) / kTcStages) & 1);
     tc::wgmma_fence();
-    issue_pv<TT, D>(o, pa, v_base + sp * kTile);
+    issue_pv<TT, DV>(o, pa, v_base + sp * kVTile);
     tc::wgmma_wait<0>();
     tc::fence_regs(o);
   }
@@ -903,15 +938,15 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
   for (int r = 0; r < 2; ++r) {
     if (!valid[r]) continue;
     const float l = l_run[r] == 0.f ? 1.f : l_run[r];
-    float* dst = p.out + (long long)orow[r] * D + 2 * (lane % 4);
+    float* dst = p.out + (long long)orow[r] * DV + 2 * (lane % 4);
 #pragma unroll
-    for (int jb = 0; jb < D / 8; ++jb)
+    for (int jb = 0; jb < DV / 8; ++jb)
       *reinterpret_cast<float2*>(dst + 8 * jb) =
           make_float2(o[4 * jb + 2 * r] / l, o[4 * jb + 2 * r + 1] / l);
   }
 }
 
-template <typename TT, int D, int NC, bool kFlags>
+template <typename TT, int D, int DV, int NC, bool kFlags>
 cudaError_t launch_tc_typed(const TcFlashParams& p, int bkv,
                             cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<TT, __nv_bfloat16>::value;
@@ -919,17 +954,21 @@ cudaError_t launch_tc_typed(const TcFlashParams& p, int bkv,
   memset(&mk, 0, sizeof(mk));
   memset(&mv, 0, sizeof(mv));
   if (p.kv_tma) {
-    const uint64_t dims[3] = {(uint64_t)D, (uint64_t)p.page,
-                              (uint64_t)p.pool_rows};
+    // inner extents D and Dv: a box column past D reads as zero
+    const uint64_t dk[3] = {(uint64_t)D, (uint64_t)p.page,
+                            (uint64_t)p.pool_rows};
+    const uint64_t dv[3] = {(uint64_t)DV, (uint64_t)p.page,
+                            (uint64_t)p.pool_rows};
     const uint32_t box[3] = {64u, (uint32_t)p.seg_rows, 1u};
-    if (!tc_host::make_map(&mk, p.k, kBf16, 3, dims, box) ||
-        !tc_host::make_map(&mv, p.v, kBf16, 3, dims, box))
+    if (!tc_host::make_map(&mk, p.k, kBf16, 3, dk, box) ||
+        !tc_host::make_map(&mv, p.v, kBf16, 3, dv, box))
       return cudaErrorInvalidValue;
   }
   constexpr int MT = 64 * NC, threads = 128 * (NC + 1);
-  constexpr int smem = MT * D * 2 + 2 * kTcStages * kTcBK * D * 2 +
+  constexpr int smem = MT * tc_chunks<D>() * 128 +
+                       kTcStages * kTcBK * (tc_chunks<D>() * 128 + DV * 2) +
                        4 * kTcStages * 8 + 1024;
-  auto kern = flash_tc_kernel<TT, D, NC, kFlags>;
+  auto kern = flash_tc_kernel<TT, D, DV, NC, kFlags>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -946,19 +985,33 @@ cudaError_t launch_tc_typed(const TcFlashParams& p, int bkv,
   return cudaGetLastError();
 }
 
-template <typename TT, int D, bool kFlags>
+template <typename TT, int D, int DV, bool kFlags>
 cudaError_t launch_tc_nc(const TcFlashParams& p, int bkv, int nc,
                          cudaStream_t stream) {
-  return nc == 1 ? launch_tc_typed<TT, D, 1, kFlags>(p, bkv, stream)
-                 : launch_tc_typed<TT, D, 2, kFlags>(p, bkv, stream);
+  return nc == 1 ? launch_tc_typed<TT, D, DV, 1, kFlags>(p, bkv, stream)
+                 : launch_tc_typed<TT, D, DV, 2, kFlags>(p, bkv, stream);
 }
 
 // The telemetry instantiation when the caller asked for it.
-template <typename TT, int D>
+template <typename TT, int D, int DV>
 cudaError_t launch_tc_flags(const TcFlashParams& p, int bkv, int nc,
                             cudaStream_t stream) {
-  return p.flags ? launch_tc_nc<TT, D, true>(p, bkv, nc, stream)
-                 : launch_tc_nc<TT, D, false>(p, bkv, nc, stream);
+  return p.flags ? launch_tc_nc<TT, D, DV, true>(p, bkv, nc, stream)
+                 : launch_tc_nc<TT, D, DV, false>(p, bkv, nc, stream);
+}
+
+// The (D, Dv) instantiation of a pair the entry point admitted (the
+// head-dim pairs of TC_HEAD_PAIRS, kernels/flash_attention.py): Dv follows
+// from D.
+template <typename TT>
+cudaError_t launch_tc_dims(const TcFlashParams& p, int bkv, int nc, int d,
+                           cudaStream_t stream) {
+  if (d == 96) return launch_tc_flags<TT, 96, 64>(p, bkv, nc, stream);
+  switch (d) {
+    case 64: return launch_tc_flags<TT, 64, 64>(p, bkv, nc, stream);
+    case 128: return launch_tc_flags<TT, 128, 128>(p, bkv, nc, stream);
+    default: return launch_tc_flags<TT, 256, 256>(p, bkv, nc, stream);
+  }
 }
 
 int gcd_int(int a, int b) { return b ? gcd_int(b, a % b) : a; }
@@ -967,16 +1020,19 @@ int gcd_int(int a, int b) { return b ? gcd_int(b, a % b) : a; }
 
 // q_rows: rows of a CTA's query tile over all heads of the group (64 or
 // 128; the tile holds q_rows / group queries of each head); tile_bf16: 1 ->
-// bf16 tiles, 0 -> fp16; ``visits`` / ``flags`` as for flash_fma.
+// bf16 tiles, 0 -> fp16; ``visits`` / ``flags`` as for flash_fma; (d, dv)
+// one of (64, 64), (128, 128), (256, 256), (96, 64).
 extern "C" int flash_attention_tc_launch(
     const void* q, const void* k, const void* v, const void* kv_len,
     const void* block_table, void* out, void* visits, void* flags,
-    int n_steps, int bh, int group, int sq, int d,
+    int n_steps, int bh, int group, int sq, int d, int dv,
     int nk, int page, int pool_rows, int q_offset, int causal, int window,
     int q_dtype, int kv_dtype, int src_kind, int snap_m, int snap_emax,
     int snap_emin, int tile_bf16, int q_rows, float scale, float softcap,
     void* stream) {
-  if ((d != 64 && d != 128 && d != 256) || (q_rows != 64 && q_rows != 128) ||
+  const bool pair = (d == dv && (d == 64 || d == 128 || d == 256)) ||
+                    (d == 96 && dv == 64);
+  if (!pair || (q_rows != 64 && q_rows != 128) ||
       group < 1 || group > q_rows || sq < 1 || bh % group || page < 1 ||
       nk < 1 || (q_dtype != DT_F32 && q_dtype != DT_BF16 && q_dtype != DT_F16) ||
       (visits == nullptr) != (flags == nullptr))
@@ -1004,16 +1060,6 @@ extern "C" int flash_attention_tc_launch(
   p.seg_rows = block_table ? gcd_int(page, kTcBK) : kTcBK;
   const int bkv = bh / group, nc = q_rows / 64;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile_bf16) {
-    switch (d) {
-      case 64: return launch_tc_flags<__nv_bfloat16, 64>(p, bkv, nc, s);
-      case 128: return launch_tc_flags<__nv_bfloat16, 128>(p, bkv, nc, s);
-      default: return launch_tc_flags<__nv_bfloat16, 256>(p, bkv, nc, s);
-    }
-  }
-  switch (d) {
-    case 64: return launch_tc_flags<__half, 64>(p, bkv, nc, s);
-    case 128: return launch_tc_flags<__half, 128>(p, bkv, nc, s);
-    default: return launch_tc_flags<__half, 256>(p, bkv, nc, s);
-  }
+  return tile_bf16 ? launch_tc_dims<__nv_bfloat16>(p, bkv, nc, d, s)
+                   : launch_tc_dims<__half>(p, bkv, nc, d, s);
 }

@@ -9,10 +9,11 @@ two variants chosen by ``tc_tile_dtype`` alone:
                  registers), K/V fed by TMA or converted by a producer
                  warpgroup, one CTA per (KV row, query tile) carrying all
                  heads of the GQA group; 64-key tiles; for src bf16 / fp16
-                 or f32 on a grid exact in 16 bits, D in {64, 128, 256};
+                 or f32 on a grid exact in 16 bits, (D, Dv) in
+                 ``TC_HEAD_PAIRS``;
   ``flash_fma``  the first, f32-FMA version (32 x 32 tiles), for policy
-                 ``fp32``, grids wider than 16 bits and D not in
-                 {64, 128, 256}.
+                 ``fp32``, grids wider than 16 bits and every other
+                 D, Dv <= 256.
 
 ``flash_attention_plain`` is the plain-torch version.  The choice between
 kernel and plain version is made in one place, ``kernels.ops.resolve_backend``:
@@ -29,15 +30,16 @@ the tile size (``kernel_block_k``), so the plain version walks the kernel's
 own key blocks when given ``block_k=kernel_block_k(...)``: p is rounded to
 the src dtype against the running max of that walk.
 
-Layout: q [BH, Sq, D]; k/v contiguous [BKV, Skv, D] or flat page pools
-[n_pages * Hkv, page, D] with ``block_table`` [BKV, nk]; BH = BKV * group.
-Output [BH, Sq, D] f32.  With ``debug_visits`` / ``debug_flags`` the
+Layout: q [BH, Sq, D]; k contiguous [BKV, Skv, D] or a flat page pool
+[n_pages * Hkv, page, D] with ``block_table`` [BKV, nk], v the same with
+its own head dim Dv (MLA's expanded prefill: D 96, Dv 64); BH = BKV *
+group.  Output [BH, Sq, Dv] f32.  With ``debug_visits`` / ``debug_flags`` the
 variant's telemetry instantiation runs (``launches_telemetry``) and also
 returns the TPU kernel's side outputs, per step of ``block_schedule`` at
 the variant's own tiles (``kernel_tiles``; ``ref.flash_telemetry_ref``):
 which steps did work and the IEEE flag counts of the CONV stage, the
-attention output bitwise the flags-off one.  Not ported yet: ``Dv != D``
-(MLA) in the CUDA kernels.
+attention output bitwise the flags-off one (V's flags counted at its
+own width).
 """
 from __future__ import annotations
 
@@ -56,8 +58,8 @@ from .quant_common import operand_tile_dtype
 PLAIN_BLOCK = 32
 #: key tile of each CUDA variant, and the FMA variant's query tile
 TC_BLOCK_K, FMA_BLOCK_K, FMA_BLOCK_Q = 64, 32, 32
-#: head dims the tensor-core variant takes
-TC_HEAD_DIMS = (64, 128, 256)
+#: (QK head dim, V head dim) pairs the tensor-core variant takes
+TC_HEAD_PAIRS = ((64, 64), (128, 128), (256, 256), (96, 64))
 
 
 def plan_q_rows(sq: int, bkv: int, group: int) -> int:
@@ -72,30 +74,33 @@ def plan_q_rows(sq: int, bkv: int, group: int) -> int:
     return 128 if ctas >= _build.NUM_SMS else 64
 
 
-def tc_tile_dtype(src_dtype, src_fmt_name: Optional[str], d: int):
+def tc_tile_dtype(src_dtype, src_fmt_name: Optional[str], d: int,
+                  dv: Optional[int] = None):
     """The 16-bit tile type of the tensor-core variant, or None (the FMA
     variant).  Operands are multiplied in ``src_dtype`` (bf16 / fp16 as
     they are) or, for f32 containers, on ``src_fmt_name``'s grid
     (``quant_common.operand_tile_dtype``; p is snapped onto the same
-    grid).  D must be 64, 128 or 256."""
-    if d not in TC_HEAD_DIMS:
+    grid).  ``(d, dv)`` (dv None: d) must be one of ``TC_HEAD_PAIRS``."""
+    if (d, d if dv is None else dv) not in TC_HEAD_PAIRS:
         return None
     return operand_tile_dtype(src_dtype, src_fmt_name)
 
 
-def kernel_block_k(src_dtype, src_fmt_name: Optional[str], d: int) -> int:
+def kernel_block_k(src_dtype, src_fmt_name: Optional[str], d: int,
+                   dv: Optional[int] = None) -> int:
     """The key tile of the CUDA variant these arguments route to."""
-    return (TC_BLOCK_K if tc_tile_dtype(src_dtype, src_fmt_name, d)
+    return (TC_BLOCK_K if tc_tile_dtype(src_dtype, src_fmt_name, d, dv)
             is not None else FMA_BLOCK_K)
 
 
 def kernel_tiles(src_dtype, src_fmt_name: Optional[str], sq: int, bkv: int,
-                 group: int, d: int) -> Tuple[int, int]:
+                 group: int, d: int, dv: Optional[int] = None
+                 ) -> Tuple[int, int]:
     """``(bq, bk)``: queries per head and keys of the tile the CUDA
     variant these arguments route to walks — its telemetry's block
     schedule (``flash_tc``: ``plan_q_rows // group`` by 64; ``flash_fma``:
     32 by 32)."""
-    if tc_tile_dtype(src_dtype, src_fmt_name, d) is not None:
+    if tc_tile_dtype(src_dtype, src_fmt_name, d, dv) is not None:
         return plan_q_rows(sq, bkv, group) // group, TC_BLOCK_K
     return FMA_BLOCK_Q, FMA_BLOCK_K
 
@@ -197,6 +202,14 @@ def _telemetry(tele: bool, bh: int, sq: int, skv: int, bq: int, bk: int,
             torch.zeros((bh, n, 4), dtype=torch.int32, device=device))
 
 
+def _counted(variant: str, d: int, dv: int) -> None:
+    """One launch of ``variant`` ("tc" / "fma") at head dims (d, dv)."""
+    fn = flash_attention_cuda
+    fn.launches += 1
+    setattr(fn, f"launches_{variant}", getattr(fn, f"launches_{variant}") + 1)
+    fn.launches_by_dims[(d, dv)] = fn.launches_by_dims.get((d, dv), 0) + 1
+
+
 def _finish(out, out_dtype, visits, flags, debug_visits, debug_flags):
     """A variant's return: the output, then the telemetry asked for."""
     out = out if out_dtype == torch.float32 else out.to(out_dtype)
@@ -208,14 +221,13 @@ def _finish(out, out_dtype, visits, flags, debug_visits, debug_flags):
 
 def _launch_args(q, k, v, kv_len, block_table, group):
     """Checks shared by both variants; returns (q, k, v, kv_len int32,
-    table or None, out, nk, page, rows)."""
+    table or None, out [BH, Sq, Dv], nk, page, rows)."""
     if q.device.type != "cuda":
         raise ValueError(f"the flash kernel needs CUDA tensors, got "
                          f"{q.device}")
     bh, sq, d = q.shape
-    if v.shape[-1] != d:
-        raise NotImplementedError("the CUDA flash kernels take Dv == D only")
     rows, page, dk = k.shape
+    dv = v.shape[-1]
     if block_table is not None:
         nk = block_table.shape[1]
         if block_table.shape[0] * group != bh:
@@ -228,14 +240,14 @@ def _launch_args(q, k, v, kv_len, block_table, group):
             raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and "
                              f"group {group} disagree on rows")
         nk, table = 1, None
-    if d != dk or k.shape != v.shape or k.dtype != v.dtype:
+    if d != dk or k.shape[:2] != v.shape[:2] or k.dtype != v.dtype:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} {k.dtype}, "
                          f"v {tuple(v.shape)} {v.dtype} do not fit together")
     if not (k.device == v.device == q.device):
         raise ValueError("q, k and v must lie on one CUDA device")
     kvl = ref.per_row_lens(kv_len, bh, nk * page, q.device).to(
         torch.int32).contiguous()
-    out = torch.empty((bh, sq, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((bh, sq, dv), dtype=torch.float32, device=q.device)
     return (q.contiguous(), k.contiguous(), v.contiguous(), kvl, table, out,
             nk, page, rows)
 
@@ -252,10 +264,11 @@ def flash_attention_tc(q, k, v, kv_len=None, block_table=None, *,
     tile); ``q_rows`` (64 or 128) is the CTA's query tile over the group's
     heads (None: ``plan_q_rows``); telemetry steps are at
     ``(q_rows // group, 64)``."""
-    tile = tc_tile_dtype(src_dtype, src_fmt_name, q.shape[-1])
+    tile = tc_tile_dtype(src_dtype, src_fmt_name, q.shape[-1], v.shape[-1])
     if tile is None:
-        raise ValueError(f"src {src_dtype} / grid {src_fmt_name} at D "
-                         f"{q.shape[-1]} does not route to a 16-bit tile")
+        raise ValueError(f"src {src_dtype} / grid {src_fmt_name} at (D, Dv) "
+                         f"{(q.shape[-1], v.shape[-1])} does not route to a "
+                         f"16-bit tile")
     q, k, v, kvl, table, out, nk, page, rows = _launch_args(
         q, k, v, kv_len, block_table, group)
     bh, sq, d = q.shape
@@ -272,7 +285,7 @@ def flash_attention_tc(q, k, v, kv_len=None, block_table=None, *,
              table.data_ptr() if table is not None else None,
              out.data_ptr(), visits.data_ptr() if tele else None,
              flags.data_ptr() if tele else None, n_steps,
-             bh, group, sq, d, nk, page, rows, int(q_offset),
+             bh, group, sq, d, out.shape[-1], nk, page, rows, int(q_offset),
              int(bool(causal)), -1 if window is None else int(window),
              _build.dtype_code(q.dtype), _build.dtype_code(k.dtype),
              _build.src_kind(src_dtype), *_build.snap_args(src_fmt_name),
@@ -280,8 +293,7 @@ def flash_attention_tc(q, k, v, kv_len=None, block_table=None, *,
              float(scale), 0.0 if softcap is None else float(softcap),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_tc")
-    flash_attention_cuda.launches_tc += 1
-    flash_attention_cuda.launches += 1
+    _counted("tc", d, out.shape[-1])
     return _finish(out, out_dtype, visits, flags, debug_visits, debug_flags)
 
 
@@ -293,10 +305,11 @@ def flash_attention_fma(q, k, v, kv_len=None, block_table=None, *,
                         src_dtype=torch.bfloat16, out_dtype=torch.float32,
                         debug_visits: bool = False,
                         debug_flags: bool = False):
-    """The f32-FMA variant (D <= 256, any src); telemetry steps are at
-    (32, 32)."""
-    if q.shape[-1] > 256:
-        raise ValueError(f"flash kernel takes D <= 256, got {q.shape[-1]}")
+    """The f32-FMA variant (D, Dv <= 256, any src); telemetry steps are
+    at (32, 32)."""
+    if max(q.shape[-1], v.shape[-1]) > 256:
+        raise ValueError(f"flash kernel takes D, Dv <= 256, got "
+                         f"{(q.shape[-1], v.shape[-1])}")
     q, k, v, kvl, table, out, nk, page, rows = _launch_args(
         q, k, v, kv_len, block_table, group)
     bh, sq, d = q.shape
@@ -309,15 +322,14 @@ def flash_attention_fma(q, k, v, kv_len=None, block_table=None, *,
              table.data_ptr() if table is not None else None,
              out.data_ptr(), visits.data_ptr() if tele else None,
              flags.data_ptr() if tele else None, n_steps,
-             bh, group, sq, d, nk, page, rows, int(q_offset),
+             bh, group, sq, d, out.shape[-1], nk, page, rows, int(q_offset),
              int(bool(causal)), -1 if window is None else int(window),
              _build.dtype_code(q.dtype), _build.dtype_code(k.dtype),
              _build.src_kind(src_dtype), *_build.snap_args(src_fmt_name),
              float(scale), 0.0 if softcap is None else float(softcap),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_fma")
-    flash_attention_cuda.launches_fma += 1
-    flash_attention_cuda.launches += 1
+    _counted("fma", d, out.shape[-1])
     return _finish(out, out_dtype, visits, flags, debug_visits, debug_flags)
 
 
@@ -329,14 +341,16 @@ def flash_attention_cuda(q, k, v, kv_len=None, block_table=None, *,
                          src_dtype=torch.bfloat16, out_dtype=torch.float32,
                          debug_visits: bool = False,
                          debug_flags: bool = False):
-    """q [BH, Sq, D]; k/v [BKV, Skv, D] or pools [n_pages, page, D] with
-    ``block_table`` [BKV, nk]; ``kv_len`` None (= Skv), scalar or [BH].
-    One launch per call, of the variant ``tc_tile_dtype`` picks; raises on
+    """q [BH, Sq, D]; k [BKV, Skv, D] or a pool [n_pages, page, D] with
+    ``block_table`` [BKV, nk], v likewise at width Dv; ``kv_len`` None (=
+    Skv), scalar or [BH].  Returns [BH, Sq, Dv].  One launch per call, of
+    the variant ``tc_tile_dtype`` picks (from D and Dv); raises on
     tensors that do not lie on a CUDA device.  ``debug_visits`` /
     ``debug_flags`` append the telemetry at the variant's tiles
     (``kernel_tiles``)."""
     fn = (flash_attention_tc
-          if tc_tile_dtype(src_dtype, src_fmt_name, q.shape[-1]) is not None
+          if tc_tile_dtype(src_dtype, src_fmt_name, q.shape[-1],
+                           v.shape[-1]) is not None
           else flash_attention_fma)
     return fn(q, k, v, kv_len, block_table, group=group, scale=scale,
               causal=causal, window=window, softcap=softcap,
@@ -345,9 +359,11 @@ def flash_attention_cuda(q, k, v, kv_len=None, block_table=None, *,
               debug_visits=debug_visits, debug_flags=debug_flags)
 
 
-#: launches of the CUDA kernels, in all, by variant and of the telemetry
-#: instantiations (CPU calls and plain-version calls add none)
+#: launches of the CUDA kernels, in all, by variant, by head dims (D, Dv)
+#: and of the telemetry instantiations (CPU calls and plain-version calls
+#: add none)
 flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_tc = 0
 flash_attention_cuda.launches_fma = 0
+flash_attention_cuda.launches_by_dims = {}
 flash_attention_cuda.launches_telemetry = 0

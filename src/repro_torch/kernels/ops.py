@@ -103,12 +103,13 @@ def flash_attention(q, k, v, *, kv_len=None, policy=None, block_table=None,
                     backend: str = "auto", block_k: Optional[int] = None,
                     block_q: Optional[int] = None,
                     return_flags: bool = False):
-    """q [B, H, S, D], k/v [B, Hkv, Skv, D] -> [B, H, S, D] f32.
+    """q [B, H, S, D], k [B, Hkv, Skv, D], v [B, Hkv, Skv, Dv] -> [B, H,
+    S, Dv] f32 (Dv != D: MLA's expanded prefill).
 
     Paged (``block_table`` [B, max_pages]): k/v are the page pools
-    [n_pages, Hkv, page, D] of ``models.paged.PagedKVCache``.  ``kv_len``
-    is None (= Skv), a scalar, or per-sequence [B]; ``q_offset`` shifts
-    the query positions (a chunk's start in its row).  ``block_k`` /
+    [n_pages, Hkv, page, D / Dv] of ``models.paged.PagedKVCache``.
+    ``kv_len`` is None (= Skv), a scalar, or per-sequence [B];
+    ``q_offset`` shifts the query positions (a chunk's start in its row).  ``block_k`` /
     ``block_q`` are the plain version's key block and telemetry query
     block (None: its defaults; ``flash_attention.kernel_tiles`` gives a
     CUDA variant's own tiles); the kernels ignore them.

@@ -2,9 +2,12 @@
 or a request queue through the continuous-batching engine.
 
 Fixed batch (the default): ``--batch`` prompts of ``--prompt-len`` tokens,
-``--gen`` tokens each.  ``--loop scan`` runs ``Model.generate`` (the
-guard on: non-finite logits raise ``PoisonedLogitsError``); ``--loop
-python`` is the per-step prefill + ``decode_step`` loop.  ``--ragged``
+``--gen`` tokens each.  ``--loop scan`` / ``--loop while`` run
+``Model.generate`` in that loop form (the guard on: non-finite logits
+raise ``PoisonedLogitsError``); ``--loop python`` is the per-step prefill
++ ``decode_step`` loop.  ``--arch minicpm3-4b`` (MLA) serves from a
+contiguous latent cache: ``--paged`` and ``--continuous`` are refused
+with ``ModelConfig.paged_unsupported_reason``.  ``--ragged``
 packs prompts of 1/4 .. 4/4 of ``--prompt-len`` into one right-padded
 batch, ``--stop-token`` freezes a row at that token, ``--paged`` serves
 from a page pool of ``--page-size``-token pages; a uniform paged batch
@@ -38,6 +41,7 @@ unless ``--device cpu``; without a card and without ``--device`` it
 raises.  Speculation, meshes, replicas and the journal are not ported.
 
     python -m repro_torch.launch.serve --full --batch 4 --gen 32
+    python -m repro_torch.launch.serve --arch minicpm3-4b --full --ragged
     python -m repro_torch.launch.serve --device cpu --paged --page-size 16
     python -m repro_torch.launch.serve --continuous --soak --device cpu \\
         --slots 3 --requests 10 --prompt-len 16 --gen 24 --pool-pages 5 \\
@@ -58,7 +62,7 @@ import torch
 from ..core.policy import EscalationPolicy
 from ..models.paged import (PageAllocator, build_tables, identity_block_table,
                             num_pages)
-from ..models.registry import build_model
+from ..models.registry import build_model, get_config
 from ..models.transformer import sample_token
 from ..train.fault import PoisonedLogitsError, ServeFaultPlan
 from .engine import ContinuousEngine, Request, synthetic_trace
@@ -104,7 +108,8 @@ def _arg_parser():
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
-    ap.add_argument("--loop", choices=("scan", "python"), default="scan")
+    ap.add_argument("--loop", choices=("scan", "while", "python"),
+                    default="scan")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="> 0 enables sampling (0 = greedy, the default)")
     ap.add_argument("--top-k", type=int, default=None)
@@ -168,20 +173,25 @@ def main(argv=None):
     ap = _arg_parser()
     args = ap.parse_args(argv)
     if ((args.ragged or args.paged or args.stop_token is not None
-         or args.continuous) and args.loop != "scan"):
+         or args.continuous) and args.loop == "python"):
         ap.error("--ragged / --paged / --stop-token / --continuous require "
-                 "--loop scan")
+                 "--loop scan or while")
     if args.arrival_trace and not args.continuous:
         args.continuous = True          # a request queue implies the engine
     if args.continuous and args.ragged:
         ap.error("--continuous subsumes --ragged (per-request lengths)")
     pen = (args.repetition_penalty is not None
            or args.presence_penalty is not None)
-    if pen and args.loop != "scan":
+    if pen and args.loop == "python":
         ap.error("--repetition-penalty / --presence-penalty apply to the "
                  "generate() and continuous-engine paths only")
 
     paged = args.paged or args.continuous
+    cfg = get_config(args.arch, reduced=args.reduced)
+    why = cfg.paged_unsupported_reason()
+    if paged and why is not None:
+        ap.error(f"--paged / --continuous: paged_kv is unsupported for "
+                 f"{cfg.name}: {why} cannot page a contiguous-state cache")
     model = build_model(args.arch, policy=args.policy, reduced=args.reduced,
                         device=args.device, paged_kv=paged,
                         page_size=args.page_size)
@@ -232,11 +242,12 @@ def _fixed_batch(args, model, params):
 
     sampling = dict(temperature=args.temperature, top_k=args.top_k,
                     top_p=args.top_p)
-    if args.loop == "scan":
+    if args.loop != "python":
         def run():
             g = torch.Generator(device=dev).manual_seed(args.seed)
             return model.generate(
                 params, prompts, gen_len=args.gen, max_len=max_len,
+                loop=args.loop,
                 generator=g, prompt_lens=prompt_lens,
                 stop_token=args.stop_token, page_table=page_table,
                 n_pages=n_pages, repetition_penalty=args.repetition_penalty,

@@ -1,5 +1,6 @@
 """GQA attention (local windows, softcap, qk-norm) in prefill and decode
-forms, over contiguous or paged KV caches.
+forms, over contiguous or paged KV caches, and MLA (multi-head latent
+attention, DeepSeek-V2 / MiniCPM3) over a contiguous latent cache.
 
 Every projection runs through ``core.ops`` under the FPnew multi-format FMA
 contract; softmax statistics stay f32.  The attention reads go through
@@ -13,8 +14,8 @@ escalation ladder (``esc_fmts``) every cache write goes through
 ``quantize_kv_rows``: each row's K/V snapped onto its own rung with the
 saturating cast, its OF / UF write counts returned.
 
-Not ported yet: MLA, cross-attention, tensor-parallel head sharding and
-the speculative ``verify`` read.
+Not ported yet: cross-attention, tensor-parallel head sharding and the
+speculative ``verify`` read.
 """
 from __future__ import annotations
 
@@ -349,3 +350,139 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
     if esc_fmts is not None:
         return proj, cache, kv_flags
     return proj, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek-V2 / MiniCPM3)
+# ---------------------------------------------------------------------------
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor   # [B, Smax, kv_lora]
+    k_pe: torch.Tensor   # [B, Smax, rope_dim]
+
+
+def init_mla_cache(batch, max_len, kv_lora, rope_dim, dtype, device):
+    return MLACache(
+        torch.zeros((batch, max_len, kv_lora), dtype=dtype, device=device),
+        torch.zeros((batch, max_len, rope_dim), dtype=dtype, device=device))
+
+
+def update_latent_rows(buf, new, pos):
+    """Write ``new`` [B, S, R] into the latent cache ``buf`` [B, Smax, R]
+    along axis 1 at slot ``pos`` (scalar, or per-row [B]) IN PLACE;
+    returns ``buf``.  As the JAX package's ``dynamic_update_slice`` write,
+    a start past ``Smax - S`` is clamped to it."""
+    new = new.to(buf.dtype)
+    s, smax = new.shape[1], buf.shape[1]
+    if not _is_vec(pos):
+        start = min(max(int(pos), 0), smax - s)
+        buf[:, start:start + s] = new
+        return buf
+    start = pos.to(torch.int64).clamp(0, smax - s)
+    t = start[:, None] + torch.arange(s, device=buf.device)
+    buf[torch.arange(buf.shape[0], device=buf.device)[:, None], t] = new
+    return buf
+
+
+def mla_params(gen, d_model, n_heads, *, q_lora, kv_lora, nope_dim, rope_dim,
+               v_head_dim, dtype, device):
+    p = {
+        "w_dkv": dense_init(gen, d_model, kv_lora, dtype, device),
+        "w_kr": dense_init(gen, d_model, rope_dim, dtype, device),
+        "kv_norm": torch.zeros((kv_lora,), dtype=dtype, device=device),
+        "w_uk": dense_init(gen, kv_lora, n_heads * nope_dim, dtype, device),
+        "w_uv": dense_init(gen, kv_lora, n_heads * v_head_dim, dtype, device),
+        "wo": dense_init(gen, n_heads * v_head_dim, d_model, dtype, device),
+    }
+    qd = nope_dim + rope_dim
+    if q_lora:
+        p["w_dq"] = dense_init(gen, d_model, q_lora, dtype, device)
+        p["q_norm"] = torch.zeros((q_lora,), dtype=dtype, device=device)
+        p["w_uq"] = dense_init(gen, q_lora, n_heads * qd, dtype, device)
+    else:
+        p["w_q"] = dense_init(gen, d_model, n_heads * qd, dtype, device)
+    return p
+
+
+def mla_attention(x, params, policy, *, n_heads, nope_dim, rope_dim,
+                  v_head_dim, positions, rope_theta=1e4, norm_eps=1e-6,
+                  cache: Optional[MLACache] = None, cache_pos=None,
+                  chunk: int = 512, prefill_backend: str = "auto",
+                  kv_len=None):
+    """MLA with decoupled rope: ``(out [B, S, D], cache)``.
+
+    With a cache, the step's latent ``c_kv`` and rope key ``k_pe`` are
+    written first (in place) at ``cache_pos`` (scalar or per-row [B]).
+    Decode (S == 1 with a cache) runs the absorbed form against the latent
+    cache up to ``kv_len`` (default ``cache_pos + 1``; a row of length 0
+    gives zeros); prefill and training expand K [B, H, S, nope + rope] and
+    V [B, H, S, v_head] and read them through the flash kernel (``Dv !=
+    D``, scale ``(nope + rope)^-0.5``) or, with ``prefill_backend="dense"``,
+    the masked-softmax path.
+
+    Rope: every key is rotated at its own position, in prefill as in
+    decode, as MiniCPM3 and DeepSeek-V2 define it.  (The JAX package's
+    prefill broadcasts its ``[B, S, 1, rope]`` keys against ``[S]``
+    positions and keeps position 0, so it attends and caches prompt keys
+    unrotated; its decode rotates them.  This port's prefill equals the
+    JAX package's token-by-token decode.)"""
+    b, s, _ = x.shape
+    qd = nope_dim + rope_dim
+    if "w_dq" in params:
+        cq = rmsnorm(tp.tp_matmul(x, params["w_dq"], policy),
+                     params["q_norm"], norm_eps)
+        q = tp.tp_matmul(cq, params["w_uq"], policy)
+    else:
+        q = tp.tp_matmul(x, params["w_q"], policy)
+    q = q.reshape(b, s, n_heads, qd).transpose(1, 2)         # [B, H, S, qd]
+    q_nope = q[..., :nope_dim]
+    q_pe = apply_rope(q[..., nope_dim:], positions, rope_theta)
+    c_kv = rmsnorm(tp.tp_matmul(x, params["w_dkv"], policy),
+                   params["kv_norm"], norm_eps)             # [B, S, kv_lora]
+    # [B, 1, S, rope]: the keys take the positions as one head's rows do
+    k_pe = apply_rope(tp.tp_matmul(x, params["w_kr"], policy)[:, None],
+                      positions, rope_theta)[:, 0]          # [B, S, rope]
+    scale = qd ** -0.5
+
+    if cache is not None:
+        update_latent_rows(cache.c_kv, c_kv, cache_pos)
+        update_latent_rows(cache.k_pe, k_pe, cache_pos)
+    if cache is not None and s == 1:
+        if kv_len is None:
+            kv_len = cache_pos + s
+        cc, cp = cache
+        kv_lora, smax = cc.shape[-1], cc.shape[1]
+        # absorbed decode: q_nope into the latent space through W_uk
+        w_uk = params["w_uk"].reshape(kv_lora, n_heads, nope_dim)
+        q_lat = tp.tp_einsum("bhsn,rhn->bhsr", q_nope, w_uk, policy)
+        scores = (tp.tp_einsum("bhsr,btr->bhst", q_lat, cc, policy,
+                               out_fmt="fp32")
+                  + tp.tp_einsum("bhsr,btr->bhst", q_pe, cp, policy,
+                                 out_fmt="fp32")) * scale
+        mask = (torch.arange(smax, device=x.device)[None, :]
+                < _len_rows(kv_len, x.device)[:, None])
+        scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+        p = torch.softmax(scores.to(torch.float32), dim=-1)
+        # kv_len == 0 rows: zeros, not uniform weights over dead slots
+        p = p * mask.any(dim=-1).to(p.dtype)[:, None, None, None]
+        o_lat = tp.tp_einsum("bhst,btr->bhsr", p, cc, policy, out_fmt="fp32")
+        w_uv = params["w_uv"].reshape(kv_lora, n_heads, v_head_dim)
+        out = tp.tp_einsum("bhsr,rhv->bhsv", o_lat, w_uv, policy)
+    else:
+        k_nope = tp.tp_matmul(c_kv, params["w_uk"], policy).reshape(
+            b, s, n_heads, nope_dim)
+        v = tp.tp_matmul(c_kv, params["w_uv"], policy).reshape(
+            b, s, n_heads, v_head_dim)
+        k_pe_b = k_pe[:, :, None].expand(b, s, n_heads, rope_dim)
+        qq = torch.cat([q_nope, q_pe], dim=-1)
+        kk = torch.cat([k_nope, k_pe_b], dim=-1).transpose(1, 2)
+        vv = v.transpose(1, 2)
+        if prefill_backend == "dense":
+            out = _masked_softmax_attend(qq, kk, vv, policy, causal=True,
+                                         window=None, cap=None, q_offset=0,
+                                         kv_len=kv_len, chunk=chunk)
+        else:
+            out = _flash_attend(qq, kk, vv, policy, causal=True, window=None,
+                                cap=None, kv_len=kv_len,
+                                backend=prefill_backend)
+    out = out.transpose(1, 2).reshape(b, s, n_heads * v_head_dim)
+    return tp.tp_matmul(out, params["wo"], policy), cache

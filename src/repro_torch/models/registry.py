@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> (ModelConfig, Model).
 
-Only gemma2-9b (full width and ``reduced()``) is ported; any other arch id
-raises ``NotImplementedError``."""
+Ported: gemma2-9b (GQA) and minicpm3-4b (MLA), each at full width and as
+``reduced()``; any other arch id raises ``NotImplementedError``."""
 from __future__ import annotations
 
 import importlib
@@ -10,9 +10,9 @@ from ..core.device import DeviceLike, resolve_device
 from ..core.policy import get_policy
 from .transformer import Model
 
-ARCHS = ("gemma2_9b",)
+ARCHS = ("gemma2_9b", "minicpm3_4b")
 
-ALIASES = {"gemma2-9b": "gemma2_9b"}
+ALIASES = {"gemma2-9b": "gemma2_9b", "minicpm3-4b": "minicpm3_4b"}
 
 
 def canonical(arch: str) -> str:

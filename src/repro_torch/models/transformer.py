@@ -21,7 +21,9 @@ temperature / top-k / top-p draw (``sample_token``) from an explicit
 Parameters are a plain dict of tensors in the JAX layout (``[d_in,
 d_out]``) with the layers UNSTACKED: ``params["layers"][i]`` is layer
 ``i`` of ``cfg.layer_list()``.  Caches are a list with one entry per
-layer, updated IN PLACE.  Attention-only (gqa + swiglu) archs.  The
+layer, updated IN PLACE.  Attention-only archs: GQA (gemma2: contiguous
+or paged KV) or MLA (minicpm3: a contiguous latent cache,
+``attention.MLACache``; no page axis), each with a SwiGLU MLP.  The
 escalation write path (``esc_fmts`` / ``kv_levels``, and overflow
 injection ``ovf_at`` / ``ovf_scale`` in ``decode_burst``) snaps every cache
 write onto its row's rung and returns the rows' OF / UF write counts
@@ -169,10 +171,11 @@ def _penalized(repetition_penalty, presence_penalty) -> bool:
 
 def _check_supported(cfg: ModelConfig):
     bad = sorted({f"{s.mixer}/{s.ffn}" for s in cfg.layer_list()
-                  if s.mixer != "gqa" or s.ffn != "swiglu" or s.cross_attn})
+                  if s.mixer not in ("gqa", "mla") or s.ffn != "swiglu"
+                  or s.cross_attn})
     if bad or cfg.encoder is not None or cfg.max_seq or cfg.norm != "rmsnorm":
         raise NotImplementedError(
-            f"{cfg.name}: only gqa + swiglu rmsnorm stacks are ported "
+            f"{cfg.name}: only gqa / mla + swiglu rmsnorm stacks are ported "
             f"(got {bad or 'an encoder / learned positions / layernorm'})")
 
 
@@ -182,10 +185,17 @@ def _norm(x, p, cfg: ModelConfig):
 
 def init_layer(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device):
     z = lambda: {"g": torch.zeros((cfg.d_model,), dtype=dtype, device=device)}
-    p = {"norm1": z(),
-         "attn": attn.gqa_params(gen, cfg.d_model, cfg.n_heads,
-                                 cfg.n_kv_heads, cfg.head_dim, dtype, device,
-                                 qk_norm=spec.qk_norm),
+    if spec.mixer == "mla":
+        mixer = attn.mla_params(
+            gen, cfg.d_model, cfg.n_heads, q_lora=cfg.q_lora,
+            kv_lora=cfg.kv_lora, nope_dim=cfg.nope_dim,
+            rope_dim=cfg.rope_dim, v_head_dim=cfg.v_head_dim, dtype=dtype,
+            device=device)
+    else:
+        mixer = attn.gqa_params(gen, cfg.d_model, cfg.n_heads,
+                                cfg.n_kv_heads, cfg.head_dim, dtype, device,
+                                qk_norm=spec.qk_norm)
+    p = {"norm1": z(), "attn": mixer,
          "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, dtype, device),
          "norm2": z()}
     if spec.post_norms:
@@ -197,11 +207,22 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 policy: PrecisionPolicy, device, page_table=None,
                 n_pages: Optional[int] = None) -> List:
     """One cache per layer.  Paged (``cfg.paged_kv``): every layer's pool
-    adopts the SAME [B, max_pages] table (default: the identity table)."""
+    adopts the SAME [B, max_pages] table (default: the identity table);
+    an arch whose cache has no page axis (MLA) raises, as the JAX
+    package's ``Model.prefill`` does."""
+    if cfg.paged_kv:
+        why = cfg.paged_unsupported_reason()
+        if why is not None:
+            raise ValueError(
+                f"paged_kv is unsupported for {cfg.name}: {why} cannot "
+                f"page a contiguous-state cache (attention archs only)")
     kv_dtype = attn.kv_store_dtype(policy)
     out = []
-    for _ in cfg.layer_list():
-        if cfg.paged_kv:
+    for spec in cfg.layer_list():
+        if spec.mixer == "mla":
+            out.append(attn.init_mla_cache(batch, max_len, cfg.kv_lora,
+                                           cfg.rope_dim, kv_dtype, device))
+        elif cfg.paged_kv:
             out.append(paged.init_paged_kv_cache(
                 batch, cfg.n_kv_heads, max_len, cfg.page_size, cfg.head_dim,
                 kv_dtype, device=device, block_table=page_table,
@@ -296,22 +317,35 @@ class Model:
                     kv_levels=None, kv_scale=None):
         """One block: ``(x, cache)``, or ``(x, cache, kv_flags [B, 2])``
         when ``esc_fmts`` is given (the escalation write path of
-        ``attention.gqa_attention``)."""
+        ``attention.gqa_attention``; an MLA layer, as in the JAX package,
+        writes its latent cache as it is and contributes zero flags)."""
         cfg = self.cfg
         rs = cfg.residual_scale
         h = _norm(x, p["norm1"], cfg)
-        esc_kw = ({} if esc_fmts is None else
-                  dict(esc_fmts=esc_fmts, kv_levels=kv_levels,
-                       kv_scale=kv_scale))
-        r = attn.gqa_attention(
-            h, p["attn"], self.policy, n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            positions=positions, causal=True, window=spec.window,
-            attn_softcap=spec.attn_softcap, rope_theta=cfg.rope_theta,
-            qk_norm=spec.qk_norm, norm_eps=cfg.norm_eps, cache=cache,
-            cache_pos=cache_pos, use_rope=spec.use_rope,
-            chunk=cfg.attn_chunk, decode_backend=cfg.decode_backend,
-            prefill_backend=cfg.prefill_backend, kv_len=kv_len, **esc_kw)
+        if spec.mixer == "mla":
+            r = attn.mla_attention(
+                h, p["attn"], self.policy, n_heads=cfg.n_heads,
+                nope_dim=cfg.nope_dim, rope_dim=cfg.rope_dim,
+                v_head_dim=cfg.v_head_dim, positions=positions,
+                rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
+                cache=cache, cache_pos=cache_pos, chunk=cfg.attn_chunk,
+                prefill_backend=cfg.prefill_backend, kv_len=kv_len)
+            if esc_fmts is not None:
+                r += (torch.zeros((x.shape[0], 2), dtype=torch.int32,
+                                  device=x.device),)
+        else:
+            esc_kw = ({} if esc_fmts is None else
+                      dict(esc_fmts=esc_fmts, kv_levels=kv_levels,
+                           kv_scale=kv_scale))
+            r = attn.gqa_attention(
+                h, p["attn"], self.policy, n_heads=cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                positions=positions, causal=True, window=spec.window,
+                attn_softcap=spec.attn_softcap, rope_theta=cfg.rope_theta,
+                qk_norm=spec.qk_norm, norm_eps=cfg.norm_eps, cache=cache,
+                cache_pos=cache_pos, use_rope=spec.use_rope,
+                chunk=cfg.attn_chunk, decode_backend=cfg.decode_backend,
+                prefill_backend=cfg.prefill_backend, kv_len=kv_len, **esc_kw)
         mix, cache = r[0], r[1]
         if spec.post_norms:
             mix = _norm(mix, p["post1"], cfg)

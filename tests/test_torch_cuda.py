@@ -348,25 +348,28 @@ def test_flash_kernel_contiguous_f32_snap(gen):
     assert (got - want).abs().max().item() <= TOL
 
 
-def _flash_inputs(gen, *, d, page, group, dtype, src, rows, q_offset, sq):
+def _flash_inputs(gen, *, d, page, group, dtype, src, rows, q_offset, sq,
+                  dv=None):
     """Flattened kernel inputs: q [BH, sq, D] (f32 for an f32 src, else
-    bf16), k/v contiguous [BKV, q_offset + sq, D] (``page`` 0) or a
-    shuffled flat pool with a [BKV, nk] table, per-row lengths [BH]."""
+    bf16), k contiguous [BKV, q_offset + sq, D] (``page`` 0) or a shuffled
+    flat pool with a [BKV, nk] table, v the same at width ``dv`` (None:
+    D), per-row lengths [BH]."""
     bkv = len(rows)
     skv = q_offset + sq
+    widths = (d, d if dv is None else dv)
     q = torch.randn((bkv * group, sq, d), generator=gen, device="cuda").to(
         torch.float32 if src == torch.float32 else torch.bfloat16)
     if page:
         nk = -(-skv // page)
         n_rows = bkv * nk + 3
-        k, v = (torch.randn((n_rows, page, d), generator=gen,
-                            device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn((n_rows, page, w), generator=gen,
+                            device="cuda").to(dtype) for w in widths)
         table = torch.randperm(n_rows, generator=gen, device="cuda")[
             :bkv * nk].reshape(bkv, nk).to(torch.int32)
         table[-1, 0] = table[0, 0]                   # an aliased page
     else:
-        k, v = (torch.randn((bkv, skv, d), generator=gen,
-                            device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn((bkv, skv, w), generator=gen,
+                            device="cuda").to(dtype) for w in widths)
         table = None
     lens = torch.tensor([q_offset + r for r in rows], device="cuda")
     return q, k, v, lens.repeat_interleave(group), table
@@ -401,6 +404,57 @@ def test_flash_variants_match_plain(gen, variant, d, page, group, dtype,
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("variant,d,dv,page,dtype,fmt", [
+    ("tc", 96, 64, 64, torch.bfloat16, None),        # K/V by TMA
+    ("tc", 96, 64, 0, torch.bfloat16, None),         # contiguous, TMA
+    ("tc", 96, 64, 16, torch.float8_e5m2, None),     # converted by the producer
+    ("tc", 96, 64, 64, torch.float32, "fp16alt"),    # f32 containers snapped
+    ("fma", 96, 64, 16, torch.bfloat16, None),
+    ("fma", 24, 16, 16, torch.bfloat16, None),
+    ("fma", 24, 16, 0, torch.float8_e5m2, None),
+])
+def test_flash_variants_with_dv_match_plain(gen, variant, d, dv, page, dtype,
+                                            fmt):
+    """V's head dim other than QK's (MLA's expanded prefill: 96 / 64):
+    each variant against the plain version at its own tiles, paged and
+    contiguous, output [BH, Sq, Dv]; then its telemetry instantiation,
+    whose output must be bitwise the flags-off output and whose visits and
+    flags (V counted at width Dv) must equal the plain version's.  The
+    router sends (96, 64) to ``flash_tc`` and (24, 16) to ``flash_fma``."""
+    from repro_torch.kernels.flash_attention import (kernel_tiles,
+                                                     tc_tile_dtype)
+    src = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    group, q_offset, sq = 2, 40, 130
+    q, k, v, lens, table = _flash_inputs(
+        gen, d=d, page=page, group=group, dtype=dtype, src=src,
+        rows=[sq, 61], q_offset=q_offset, sq=sq, dv=dv)
+    kw = dict(group=group, scale=d ** -0.5, causal=True, window=None,
+              softcap=None, q_offset=q_offset, src_fmt_name=fmt,
+              src_dtype=src)
+    assert (tc_tile_dtype(src, fmt, d, dv) is not None) == ((d, dv) == (96, 64))
+    fn = flash_attention_tc if variant == "tc" else flash_attention_fma
+    before = _flash_counts()
+    got = fn(q, k, v, lens, table, **kw)
+    assert _flash_counts() == _plus(before, 1, variant == "tc")
+    bq, bk = (kernel_tiles(src, fmt, sq, len(lens) // group, group, d, dv)
+              if variant == "tc" else (32, 32))
+    want = flash_attention_plain(q, k, v, lens, table, block_k=bk, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (q.shape[0], sq, dv) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+    on, visits, flags = fn(q, k, v, lens, table, debug_visits=True,
+                           debug_flags=True, **kw)
+    _, pv, pf = flash_attention_plain(q, k, v, lens, table, block_k=bk,
+                                      block_q=bq, debug_visits=True,
+                                      debug_flags=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(on.view(torch.int32), got.view(torch.int32))
+    assert torch.equal(visits, pv) and torch.equal(flags, pf)
+    before = _flash_counts()
+    flash_attention_cuda(q, k, v, lens, table, **kw)
+    assert _flash_counts() == _plus(before, 1, (d, dv) == (96, 64))
 
 
 @pytest.mark.parametrize("group,q_rows", [(1, 128), (2, 128), (4, 64),

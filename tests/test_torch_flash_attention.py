@@ -259,3 +259,69 @@ def test_plain_block_k_on_contiguous_keys_matches_pallas():
                                 src_dtype=torch.bfloat16, block_k=64, **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
+
+
+#: V head dim other than QK's: (bh, group, sq, q_offset, d, dv, causal,
+#: window, kv_len by KV row (None: all keys), page (0: contiguous), bq,
+#: bk); bq / bk None are the plain version's own blocks
+DV_CASES = {
+    # tests/test_flash_prefill.py's Dv != D boundary case: non-causal,
+    # 512 keys, kv_len 77, blocks of 128
+    "d64_dv32_noncausal": (2, 1, 128, 384, 64, 32, False, None, [77, 77], 0,
+                           128, 128),
+    "d24_dv16_gqa_window": (4, 2, 64, 32, 24, 16, True, 40, [96, 50], 0,
+                            None, None),
+    "d24_dv16_paged": (4, 2, 64, 32, 24, 16, True, None, [96, 41], 16,
+                       None, None),
+    # MLA's pair at the tensor-core kernel's tiles (64 rows over a group
+    # of 1, 64-key tiles), contiguous and paged
+    "d96_dv64_tc_tiles": (2, 1, 64, 64, 96, 64, True, None, [128, 90], 0,
+                          64, 64),
+    "d96_dv64_paged": (2, 1, 64, 64, 96, 64, True, None, [128, 70], 64,
+                       64, 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DV_CASES))
+def test_plain_with_v_head_dim_matches_pallas(case):
+    """V [.., Dv] with Dv != D (MLA's expanded prefill): the plain version
+    against ``flash_attention_pallas`` in interpret mode at the same
+    blocking, contiguous and paged: output [BH, Sq, Dv] within ``ATOL`` /
+    ``RTOL``, and the telemetry (visits, and flags with V counted at its
+    own width) equal."""
+    (bh, group, sq, q_offset, d, dv, causal, window, lens, page, bq,
+     bk) = DV_CASES[case]
+    bkv, skv = bh // group, q_offset + sq
+    rs = np.random.RandomState(31)
+    qj, qt = _both(rs.randn(bh, sq, d), ml_dtypes.bfloat16)
+    kvl = np.repeat(np.asarray(lens, np.int32), group)
+    kw = dict(group=group, scale=d ** -0.5, causal=causal, window=window,
+              softcap=None, q_offset=q_offset, src_fmt_name=None)
+    tele = dict(debug_visits=True, debug_flags=True)
+    jbq = PLAIN_BLOCK if bq is None else bq
+    if page:
+        nk = skv // page
+        n_pages = bkv * nk + 2
+        kj, kt = _both(rs.randn(n_pages, page, d), ml_dtypes.bfloat16)
+        vj, vt = _both(rs.randn(n_pages, page, dv), ml_dtypes.bfloat16)
+        table = rs.permutation(n_pages)[:bkv * nk].reshape(bkv, nk)
+        table = table.astype(np.int32)
+        jtab, ttab = jnp.asarray(table), torch.from_numpy(table)
+        jbk = page
+    else:
+        kj, kt = _both(rs.randn(bkv, skv, d), ml_dtypes.bfloat16)
+        vj, vt = _both(rs.randn(bkv, skv, dv), ml_dtypes.bfloat16)
+        jtab = ttab = None
+        jbk = PLAIN_BLOCK if bk is None else bk
+    want = flash_attention_pallas(qj, kj, vj, jnp.asarray(kvl), jtab,
+                                  bq=jbq, bk=jbk, src_dtype=jnp.bfloat16,
+                                  interpret=True, **kw, **tele)
+    got = flash_attention_plain(qt, kt, vt, torch.from_numpy(kvl), ttab,
+                                src_dtype=torch.bfloat16, block_k=bk,
+                                block_q=bq, **kw, **tele)
+    assert got[0].shape == (bh, sq, dv)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    assert int(got[1].sum()) > 0

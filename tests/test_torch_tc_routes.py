@@ -21,7 +21,8 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels._build import NUM_SMS  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    FMA_BLOCK_K, TC_BLOCK_K, kernel_block_k, tc_tile_dtype)
+    FMA_BLOCK_K, TC_BLOCK_K, kernel_block_k, kernel_tiles, plan_q_rows,
+    tc_tile_dtype)
 from repro_torch.kernels.tp_matmul import (  # noqa: E402
     TC_BK, TC_MIN_STEPS_PER_SPLIT, agreement_tol, plan_tc, tc_operand_dtype,
     tp_matmul_plain)
@@ -106,6 +107,29 @@ def test_flash_route_by_policy_and_head_dim(policy, tile):
         assert tc_tile_dtype(src_dt, src_fmt, d) is None
         assert kernel_block_k(src_dt, src_fmt, d) == FMA_BLOCK_K
 
+
+
+@pytest.mark.parametrize("policy,tile", [
+    ("tp_bf16", torch.bfloat16), ("tp_bf16_kv8", torch.bfloat16),
+    ("tp_fp16", torch.float16), ("em_fp8", torch.float16), ("fp32", None)])
+def test_flash_route_with_v_head_dim(policy, tile):
+    """V's head dim other than QK's: MLA's (96, 64) routes to ``flash_tc``
+    wherever a 16-bit tile does, at its (plan_q_rows // group, 64) tiles;
+    every other pair, (24, 16) and deepseek-v2-lite's (192, 128) among
+    them, to ``flash_fma`` at (32, 32)."""
+    src_dt, src_fmt = kops.policy_src(policy)
+    assert tc_tile_dtype(src_dt, src_fmt, 96, 64) == tile
+    tiles = kernel_tiles(src_dt, src_fmt, 1024, 160, 1, 96, 64)
+    if tile is None:
+        assert tiles == (32, 32)
+    else:
+        assert tiles == (plan_q_rows(1024, 160, 1), TC_BLOCK_K)
+        assert kernel_block_k(src_dt, src_fmt, 96, 64) == TC_BLOCK_K
+    for d, dv in ((24, 16), (192, 128), (64, 32), (96, 96), (128, 64),
+                  (64, 128)):
+        assert tc_tile_dtype(src_dt, src_fmt, d, dv) is None, (d, dv)
+        assert kernel_block_k(src_dt, src_fmt, d, dv) == FMA_BLOCK_K
+        assert kernel_tiles(src_dt, src_fmt, 64, 4, 2, d, dv) == (32, 32)
 
 SHAPES = [(256, 3584, 14336), (256, 14336, 3584), (4, 3584, 14336),
           (4, 14336, 3584), (50, 100, 70), (300, 1000, 300), (1, 1, 1),
