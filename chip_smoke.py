@@ -16,7 +16,12 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    chunk at ``q_offset > 0``; one stream at 8191 keys; 16 slots; the
    generate phase's ragged prefill chunk and last decode step; the MLA
    phase's prefill read, V's head dim 64 against QK's 96, ragged and
-   uniform), the plain flash version walking the kernel's own key tiles.  One JSON line
+   uniform; the speculative phase's verify fold ``decode_bf16_p64_verify``:
+   4 slots x 4 positions folded into 128 rows, read at the step form's
+   16-CTA partition, BITWISE the 4 step-form calls, timed also at the
+   fold's own 4-CTA partition, as the 4 step calls and as SDPA without
+   softcap), the plain flash version walking the kernel's own key tiles.
+   One JSON line
    per case: error and tolerance, the variant (and for decode the cluster
    size its launch counted, which must be the one ``cluster_size`` names)
    that ran, kernel / plain / library time, and the card's least time for
@@ -64,6 +69,21 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    cluster size ``cluster_size`` names for its layer.  Then one request
    is served again with the plain versions and its first-token logits
    and greedy tokens are compared.
+4b. Speculative phase (``speculative_phase``), on the slice's model and
+   weights: ``verify_chunk`` against 4 ``decode_step`` calls at full width
+   (logit difference, cache bytes that differ), then the slice's queue
+   through ``ContinuousEngine(spec_k=3)`` in three runs: (a) a 1-repeat
+   draft (2 of 42 layers) with request 1 ``no_speculate`` and request 2
+   capped at ``spec_k=1``, (b) the same draft under ``tp_bf16_kv8``, (c)
+   the full-depth self-draft.  Gates: every request gets its budget, the
+   pool drains, each stream equals the slice's plain stream up to its
+   first near tie (``near_tie_check``), ``0 < spec_accept_rate <= 1``,
+   every decode launch (draft steps and verify folds) at the slice's
+   cluster size, every flash launch ``flash_tc`` at 256x256; a repeat of
+   run (a) repeats its tokens and ``spec_rounds``, and its
+   ``no_speculate`` row emits one token a round.  tok/s, ms per round,
+   accept rate and the ratio to the plain slice; run (a)'s busy / idle
+   split.
 5. Generate phase (``generate_phase``), on the slice's model and weights:
    ``Model.generate`` on a ragged batch of four prompts, greedy with
    penalties and the guard; the while form's tokens must equal the scan
@@ -104,8 +124,9 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    attention with their launches by variant, the FMA variant's time,
    decode's launches by cluster size, flash's by head dims, the flags-on
    time of the main case and of the telemetry cases, the f32-pool case,
-   the MLA cases; the attention launches summed over the slice, generate,
-   overload, escalation and MLA phases), the card line, and as the last
+   the MLA cases, the verify case; the attention launches summed over the
+   slice, speculative, generate, overload, escalation and MLA phases), the
+   card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Imports no JAX.  Needs one CUDA device and ``nvcc`` (``CUDA_HOME``, PATH
@@ -501,7 +522,7 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
     args = (q.reshape(b * hkv, g, d), flat(k), flat(v), lens, flat_tab)
     kw = dict(scale=d ** -0.5, window=window, softcap=softcap,
               src_dtype=src_dt)
-    alone = lambda c=None: decode_attention_cuda(*args, _cluster=c, **kw)
+    alone = lambda c=None: decode_attention_cuda(*args, cluster=c, **kw)
     kernel_only = device_ms(alone)
     tele = decode_telemetry(name, args, kw, variant)
     rec = dict(case=name, kernel="decode_attention", variant=variant,
@@ -524,6 +545,100 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
     if cap is not None and not cap >= CAP_EFFECT_MIN:
         raise AssertionError(f"{name}: the softcap changes the output by "
                              f"{cap} < {CAP_EFFECT_MIN}")
+    return rec
+
+
+def verify_case(name="decode_bf16_p64_verify", seed: int = 14) -> dict:
+    """The speculative verify read: 4 slots x (SPEC_K + 1) chunk positions
+    x 8 KV heads on a local layer (window 4096, softcap 50) over the
+    speculative phase's 65-page tables, query i of slot b at ``kv_len =
+    pos_b + i + 1`` with ``pos`` the slice's first four prompt lengths.
+    The fold (128 rows) at the step form's partition (``decode_cluster``
+    of the 4 slots: 16 CTAs a row) must be BITWISE the 4 step-form kernel
+    calls (16 each), and within ``KERNEL_TOL`` of the plain version at the
+    same partition.  Times: the fold at the step partition and at its own
+    ``cluster_size`` (4), the 4 step calls, SDPA without softcap over the
+    4 slots' gathered cache with a per-query mask (the library's
+    multi-query read)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.decode_attention import (cluster_size,
+                                                      decode_attention_cuda)
+    from repro_torch.models.paged import gather_paged_kv
+    b, s, hkv, g, d, page, window = 4, SPEC_K + 1, 8, 2, 256, 64, 4096
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pos = torch.tensor(PROMPTS[:b], device="cuda")
+    max_pages = -(-(max(PROMPTS) + GEN + SPEC_K) // page)
+    k, v, table = _pool_and_table(gen, b, hkv, max_pages, page, d,
+                                  torch.bfloat16, alias=0)
+    q = torch.randn((b, s, hkv * g, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    kvl = pos[:, None] + torch.arange(s, device="cuda") + 1      # [b, s]
+    qf = q.reshape(b * s, hkv * g, 1, d)
+    tf, lf = table.repeat_interleave(s, 0), kvl.reshape(-1)
+    step_c = kops.decode_cluster(b, k, table, window)
+    own_c = kops.decode_cluster(b * s, k, tf, window)
+    if (step_c, own_c) != (cluster_size(b * hkv, max_pages, page, window),
+                           cluster_size(b * s * hkv, max_pages, page,
+                                        window)):
+        raise AssertionError(f"{name}: decode_cluster {step_c}/{own_c}")
+    kw = dict(policy="tp_bf16", window=window, softcap=50.0)
+    fold = lambda backend="kernel", c=step_c: kops.decode_attention(
+        qf, k, v, kv_len=lf, block_table=tf, backend=backend, cluster=c,
+        **kw)
+    steps = lambda: [kops.decode_attention(
+        q[:, i, :, None], k, v, kv_len=kvl[:, i], block_table=table,
+        backend="kernel", **kw) for i in range(s)]
+    by_cluster = decode_attention_cuda.launches_by_cluster
+    before = dict(by_cluster)
+    got = fold()
+    ran = {c: n - before.get(c, 0) for c, n in by_cluster.items()
+           if n != before.get(c, 0)}
+    want = torch.stack([o[:, :, 0] for o in steps()], 1)
+    plain = fold("plain")
+    torch.cuda.synchronize()
+    got4 = got.reshape(b, s, hkv * g, d)
+    bitwise = _bits_equal(got4, want)
+    err = (got - plain).abs().max().item()
+    if ran != {step_c: 1}:
+        raise AssertionError(f"{name}: the fold launched at {ran}, not at "
+                             f"the step partition {step_c}")
+    if not bitwise:
+        raise AssertionError(f"{name}: the fold differs from the step-form "
+                             f"reads by {(got4 - want).abs().max().item()}")
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"{name}: max_abs_err {err} > {KERNEL_TOL}")
+    # bytes: q, each live key of each slot once (all KV heads, K and V),
+    # the f32 output, the lengths and the tables the fold reads
+    lo = torch.clamp(kvl[:, 0] - window, min=0)
+    keys = _keys_read(table, page, max_pages * page, lo, kvl[:, -1])
+    nbytes = (q.numel() * 2 + keys * hkv * d * 2 * 2 + got.numel() * 4
+              + lf.numel() * 4 + tf.numel() * 4)
+    live = torch.minimum(kvl, torch.tensor(window, device="cuda"))
+    flops = 4.0 * g * d * hkv * int(live.sum())
+    bound_ms, bound_by = bound(nbytes, flops)
+    kc = gather_paged_kv(k, table)
+    vc = gather_paged_kv(v, table)
+    idx = torch.arange(kc.shape[2], device="cuda")
+    mask = ((idx[None, None, :] < kvl[:, :, None])
+            & (idx[None, None, :] > kvl[:, :, None] - 1 - window))[:, None]
+    qs = q.transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask,
+                                                  enable_gqa=True)
+    rec = dict(case=name, kernel="decode_attention", variant="mma",
+               cluster=step_c, fold_own_cluster=own_c, bitwise_vs_steps=True,
+               max_abs_err=err, tol=KERNEL_TOL,
+               kernel_ms=device_ms(fold),
+               own_cluster_ms=device_ms(lambda: fold(c=own_c)),
+               steps_ms=device_ms(steps), plain_ms=cuda_ms(
+                   lambda: fold("plain"), 3),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               sdpa_nocap_ms=device_ms(sdpa),
+               shape=dict(slots=b, positions=s, hkv=hkv, group=g, d=d,
+                          page=page, pages=max_pages, pos=PROMPTS[:b],
+                          window=window, softcap=50.0))
+    log(json.dumps(rec))
     return rec
 
 
@@ -727,7 +842,8 @@ def kernel_phase() -> dict:
     each kernel is the one at the serving path's shapes)."""
     import torch
     bf16, fp8 = torch.bfloat16, torch.float8_e5m2
-    recs = {"decode_attention": decode_phase(), "flash_attention": []}
+    recs = {"decode_attention": decode_phase() + [verify_case()],
+            "flash_attention": []}
     f = recs["flash_attention"]
     # the slice's prefill: a 256-token chunk continuing two prompts
     f.append(flash_case("flash_bf16_p64_chunk", dtype=bf16, page=64,
@@ -1402,18 +1518,27 @@ def cluster_rule(model, rows: int, max_pages: int) -> set:
             for spec in model.cfg.layer_list()}
 
 
-def slice_phase(model=None, params=None, seed: int = 0) -> dict:
+def slice_requests(model, seed: int = 0) -> list:
+    """The slice's queue: ``PROMPTS`` arriving at ``ARRIVALS``, ``GEN``
+    tokens each, prompt tokens from ``seed``."""
     import numpy as np
+    from repro_torch.launch.engine import Request
+    rng = np.random.RandomState(seed)
+    return [Request(rid=i, tokens=rng.randint(0, model.cfg.vocab,
+                                              size=p).tolist(),
+                    max_new=GEN, arrival=a)
+            for i, (p, a) in enumerate(zip(PROMPTS, ARRIVALS))]
+
+
+def slice_phase(model=None, params=None, seed: int = 0) -> dict:
+    """Returns the phase's record, with the plain engine's streams under
+    ``streams`` (the speculative phase's reference)."""
     import torch
     from repro_torch.launch.engine import ContinuousEngine, Request
 
     if model is None:
         model, params = full_model(seed)
-    rng = np.random.RandomState(seed)
-    reqs = [Request(rid=i, tokens=rng.randint(0, model.cfg.vocab,
-                                              size=p).tolist(),
-                    max_new=GEN, arrival=a)
-            for i, (p, a) in enumerate(zip(PROMPTS, ARRIVALS))]
+    reqs = slice_requests(model, seed)
     max_len = max(p + GEN for p in PROMPTS)
     eng = ContinuousEngine(model, params, slots=4, max_len=max_len,
                            chunk=256)
@@ -1472,6 +1597,238 @@ def slice_phase(model=None, params=None, seed: int = 0) -> dict:
     if not cmp["first_token_agree"]:
         raise AssertionError("the first generated token differs between the "
                              "kernel path and the plain path")
+    return dict(res, streams={f.rid: f.tokens for f in fin})
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: speculative decoding through the engine
+# ---------------------------------------------------------------------------
+#: draft depth of the speculative phase (the JAX package's A/B's)
+SPEC_K = 3
+#: the three speculative runs: engine options, and the requests' own
+#: ``no_speculate`` / ``spec_k`` (run ``a`` only)
+SPEC_RUNS = (("a_1_repeat", dict(draft_repeats=1),
+              {1: dict(no_speculate=True), 2: dict(spec_k=1)}),
+             ("b_1_repeat_kv8", dict(draft_repeats=1,
+                                     draft_policy="tp_bf16_kv8"), {}),
+             ("c_self_draft", {}, {}))
+
+
+def merge_counters(total: dict, part: dict) -> dict:
+    """``attention_counters`` records of several runs, summed."""
+    total = total or dict(launches={}, variants={},
+                          decode_launches_by_cluster={},
+                          flash_launches_by_dims={})
+    for key in ("launches", "decode_launches_by_cluster",
+                "flash_launches_by_dims"):
+        for k, n in part[key].items():
+            total[key][k] = total[key].get(k, 0) + n
+    for name, by in part["variants"].items():
+        for v, n in by.items():
+            total["variants"].setdefault(name, {})
+            total["variants"][name][v] = total["variants"][name].get(v, 0) + n
+    return total
+
+
+def verify_vs_step(model, params, seed: int = 0) -> dict:
+    """``verify_chunk`` against ``SPEC_K + 1`` sequential ``decode_step``
+    calls at full width, from two identical prefills of four ragged rows
+    (the slice's first four prompts, cut to 1024 tokens): the largest
+    logit difference, the cache bytes that differ, and the chunk's top-2
+    margins (the step form's)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed + 7)
+    lens = [min(p, 1024) for p in PROMPTS[:4]]
+    toks = torch.zeros((4, max(lens)), dtype=torch.int64)
+    for r, n in enumerate(lens):
+        toks[r, :n] = torch.from_numpy(rng.randint(0, model.cfg.vocab,
+                                                   size=n))
+    dev = model.device
+    toks, lens = toks.to(dev), torch.tensor(lens, device=dev)
+    k1 = SPEC_K + 1
+    max_len = toks.shape[1] + k1
+    pre = lambda: model.prefill(params, toks, max_len=max_len,
+                                prompt_lens=lens)
+    lg0, c_seq = pre()
+    _, c_chk = pre()
+    tok = lg0[:, -1].argmax(-1).to(torch.int32)[:, None]
+    chunk, seq = [tok], []
+    for i in range(k1):
+        lg, c_seq = model.decode_step(params, chunk[-1], c_seq, lens + i,
+                                      kv_len=lens + i + 1)
+        seq.append(lg[:, -1])
+        chunk.append(lg[:, -1].argmax(-1).to(torch.int32)[:, None])
+    seq = torch.stack(seq, 1)
+    offs = lens[:, None] + torch.arange(k1, device=dev)
+    v_lg, c_chk = model.verify_chunk(params, torch.cat(chunk[:k1], 1),
+                                     c_chk, lens, kv_len=offs + 1)
+    if not (torch.isfinite(seq).all() and torch.isfinite(v_lg).all()):
+        raise AssertionError("verify_vs_step: logits are not finite")
+    diff = (seq - v_lg).abs().max().item()
+    differ = sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+                 for ca, cb in zip(c_seq, c_chk)
+                 for a, b in ((ca.k_pool, cb.k_pool), (ca.v_pool, cb.v_pool)))
+    top2 = seq.topk(2, dim=-1).values
+    return dict(rows=4, prompts=lens.tolist(), positions=k1,
+                logits_max_abs_diff=diff, bitwise=diff == 0.0,
+                cache_bytes_differ=differ,
+                min_top2_margin=(top2[..., 0] - top2[..., 1]).min().item(),
+                argmax_agree=bool(torch.equal(seq.argmax(-1),
+                                              v_lg.argmax(-1))))
+
+
+def near_tie_check(model, params, req, plain, got, vdiff: float) -> dict:
+    """Where ``got`` first parts from ``plain`` (the plain engine's stream
+    of ``req``), the plain stream's logits there, replayed by one prefill
+    of the prompt and the plain tokens before it; the two candidate
+    tokens' logits must lie within ``2 (vdiff + LOGITS_TOL)`` of each
+    other (``vdiff``: verify against step at full width; ``LOGITS_TOL``:
+    what a prefill replay may differ by from the engine's decode reads).
+    Returns the record, or None when the streams are equal."""
+    import torch
+    s = next((i for i, (a, b) in enumerate(zip(plain, got)) if a != b),
+             None)
+    if s is None:
+        return None
+    ctx = torch.tensor([list(req.tokens) + list(plain[:s])],
+                       device=model.device)
+    lg, _ = model.prefill(params, ctx, max_len=ctx.shape[1] + 1)
+    gap = abs(lg[0, -1, plain[s]].item() - lg[0, -1, got[s]].item())
+    rec = dict(rid=req.rid, step=s, plain_token=plain[s], token=got[s],
+               replay_gap=gap, bound=2 * (vdiff + LOGITS_TOL))
+    if not gap <= rec["bound"]:
+        raise AssertionError(f"speculative: request {req.rid} parts from the "
+                             f"plain stream at step {s} where the two "
+                             f"tokens' logits differ by {gap}: {rec}")
+    return rec
+
+
+class BurstWatch:
+    """A model proxy that records each ``speculate_burst``'s per-row draft
+    caps, entry state and live-length growth (the no_speculate gate)."""
+
+    def __init__(self, model):
+        self._model, self.bursts = model, []
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def speculate_burst(self, params, tok, caches, pos, lens, done, limit,
+                        **kw):
+        r = self._model.speculate_burst(params, tok, caches, pos, lens, done,
+                                        limit, **kw)
+        self.bursts.append(dict(k_rows=kw["k_rows"].tolist(),
+                                done_in=done.tolist(), done_out=r[6].tolist(),
+                                grew=(r[5] - lens).tolist(), rounds=r[1]))
+        return r
+
+
+def one_token_a_round(watch: BurstWatch) -> int:
+    """Gate: a row with draft cap 0 grows by one token a round it is live
+    (exactly its burst's rounds while it stays live, at most that when it
+    finishes inside the burst).  Returns the row-bursts checked."""
+    seen = 0
+    for bu in watch.bursts:
+        for cap, d0, d1, grew in zip(bu["k_rows"], bu["done_in"],
+                                     bu["done_out"], bu["grew"]):
+            if cap != 0 or d0:
+                continue
+            seen += 1
+            if grew > bu["rounds"] or (not d1 and grew != bu["rounds"]):
+                raise AssertionError(f"speculative: a no_speculate row grew "
+                                     f"{grew} tokens in {bu['rounds']} "
+                                     f"rounds")
+    if not seen:
+        raise AssertionError("speculative: the no_speculate row never ran")
+    return seen
+
+
+def speculative_phase(model, params, plain: dict, seed: int = 0) -> dict:
+    """Self-speculative greedy serving of the slice's queue through
+    ``ContinuousEngine(spec_k=SPEC_K)`` (4 slots, chunk 256, pages of 64,
+    ``max_len`` the slice's + ``SPEC_K``), in the three ``SPEC_RUNS``,
+    each after a warm-up on its first four requests.  ``plain`` is the
+    slice phase's record (its streams and tok/s).  Gates: every request gets its ``GEN`` tokens and
+    the pool drains; each run's streams equal the plain engine's up to a
+    row's first near tie (``near_tie_check``, against the verify-vs-step
+    difference ``verify_vs_step`` measures); ``0 < spec_accept_rate <=
+    1``; every decode launch (draft steps and verify folds) at the size
+    ``cluster_rule`` names for the slots, every flash launch ``flash_tc``
+    at 256x256; a repeat of run ``a`` repeats its tokens and
+    ``spec_rounds``, and in it the ``no_speculate`` row emits one token a
+    round."""
+    import dataclasses as dc
+    from repro_torch.launch.engine import ContinuousEngine
+
+    vs = verify_vs_step(model, params, seed)
+    log(json.dumps({"verify_vs_step": vs}))
+    base = slice_requests(model, seed)
+    max_len = max(p + GEN for p in PROMPTS) + SPEC_K
+    counted, runs = {}, {}
+    for name, opts, per_req in SPEC_RUNS:
+        reqs = [dc.replace(r, **per_req.get(r.rid, {})) for r in base]
+        # the first four requests, 8 tokens each: every shape of the run
+        window = [dc.replace(r, max_new=min(8, GEN), arrival=0)
+                  for r in reqs[:4]]
+        eng = ContinuousEngine(model, params, slots=4, max_len=max_len,
+                               chunk=256, spec_k=SPEC_K, **opts)
+        eng.run(window)                              # warm-up
+        reset_attention_counters()
+        t0 = time.perf_counter()
+        fin, stats = eng.run(reqs)
+        eng._sync()
+        wall = time.perf_counter() - t0
+        c = attention_counters(f"speculative {name}",
+                               cluster_rule(model, eng.slots, eng.max_pages))
+        if set(c["flash_launches_by_dims"]) != {"256x256"}:
+            raise AssertionError(f"speculative {name}: flash launches by "
+                                 f"dims {c['flash_launches_by_dims']}")
+        counted = merge_counters(counted, c)
+        for f in fin:
+            if len(f.tokens) != GEN:
+                raise AssertionError(f"speculative {name}: request {f.rid} "
+                                     f"got {len(f.tokens)} of {GEN} tokens")
+        if stats["pages_live_end"] != 0:
+            raise AssertionError(f"speculative {name}: pool did not drain")
+        rate = stats["spec_accept_rate"]
+        if not 0.0 < rate <= 1.0:
+            raise AssertionError(f"speculative {name}: accept rate {rate}")
+        ties = [t for t in (near_tie_check(model, params, r,
+                                           plain["streams"][r.rid], f.tokens,
+                                           vs["logits_max_abs_diff"])
+                            for r, f in zip(reqs, fin)) if t is not None]
+        n_tok = sum(len(f.tokens) for f in fin)
+        rec = dict(tok_s=n_tok / wall, wall_s=wall,
+                   ms_per_round=(stats["decode_s"] * 1e3
+                                 / max(1, stats["decode_rounds"])),
+                   decode_rounds=stats["decode_rounds"],
+                   prefill_ms=stats["prefill_s"] * 1e3,
+                   spec_rounds=stats["spec_rounds"],
+                   spec_emitted=stats["spec_emitted"],
+                   spec_accept_rate=rate, plain_tok_s=plain["tok_s"],
+                   vs_plain=(n_tok / wall) / plain["tok_s"],
+                   plain_ms_per_round=plain["decode_ms_per_round"],
+                   near_ties=ties, opts=opts,
+                   requests={str(k): v for k, v in per_req.items()},
+                   decode_launches_by_cluster=c["decode_launches_by_cluster"])
+        if name.startswith("a"):
+            watch = BurstWatch(model)
+            eng.model = watch
+            fin2, stats2 = eng.run(reqs)
+            eng.model = model
+            if ([f.tokens for f in fin2] != [f.tokens for f in fin]
+                    or stats2["spec_rounds"] != stats["spec_rounds"]):
+                raise AssertionError(f"speculative {name}: a repeat run "
+                                     f"changed tokens or spec_rounds")
+            rec["repeat_spec_rounds"] = stats2["spec_rounds"]
+            rec["no_speculate_row_bursts"] = one_token_a_round(watch)
+            rec["where_the_time_goes"] = profile_run(eng, window)
+        runs[name] = rec
+        del eng
+    res = dict(spec_k=SPEC_K, max_len=max_len, card=card_line(),
+               verify_vs_step=vs, runs=runs, **counted)
+    log(json.dumps({"speculative": res}))
     return res
 
 
@@ -2117,6 +2474,8 @@ def main() -> int:
     model, params = full_model()
     serving = [slice_phase(model, params)]
     lap("slice")
+    serving.append(speculative_phase(model, params, serving[0]))
+    lap("speculative")
     serving.append(generate_phase(model, params))
     lap("generate")
     serving.append(overload_phase(model, params))
@@ -2169,6 +2528,11 @@ def main() -> int:
                                           if t["kernel"] == name])
         if name == "decode_attention":
             entry["launches_by_cluster"] = by_cluster
+            entry["verify_case"] = {
+                k: c[k] for c in cases if c["case"] == "decode_bf16_p64_verify"
+                for k in ("cluster", "fold_own_cluster", "bitwise_vs_steps",
+                          "kernel_ms", "own_cluster_ms", "steps_ms",
+                          "bound_ms", "bound_by", "sdpa_nocap_ms")}
         if name == "flash_attention":
             entry["launches_by_dims"] = by_dims
             entry["mla_cases"] = [

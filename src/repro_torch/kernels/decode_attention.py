@@ -176,17 +176,18 @@ def decode_attention_cuda(q, k, v, kv_len, block_table=None, *,
                           out_dtype=torch.float32,
                           debug_visits: bool = False,
                           debug_flags: bool = False,
-                          _cluster: Optional[int] = None):
+                          cluster: Optional[int] = None):
     """q [BHkv, G, D]; k/v [BHkv, Smax, D] or pools [n_pages, page, D]
     with ``block_table`` [BHkv, nk]; ``kv_len`` scalar or [BHkv].
-    Launches the kernel (one launch per call, ``cluster_size`` CTAs per
-    row, on the route ``decode_route`` names); raises on tensors that do
-    not lie on a CUDA device, and when the launch fails.
-    ``debug_visits`` / ``debug_flags`` launch the telemetry instantiation
-    and append visits [BHkv, nk] / flags [BHkv, nk, 4] int32, in that
-    order.  ``_cluster`` overrides ``cluster_size`` for a diagnostic sweep
-    (``chip_smoke.py``'s ``decode_phase(sweep=True)``); the serving path
-    never passes it."""
+    Launches the kernel (one launch per call, ``cluster`` CTAs per row —
+    default ``cluster_size`` of these rows — on the route ``decode_route``
+    names); raises on tensors that do not lie on a CUDA device, and when
+    the launch fails.  ``cluster`` (a power of two up to ``MAX_CLUSTER``)
+    fixes the split partition: the speculative verify read passes the
+    size its step form picks, so each folded query is split as the step
+    reads it.  ``debug_visits`` / ``debug_flags`` launch the telemetry
+    instantiation and append visits [BHkv, nk] / flags [BHkv, nk, 4]
+    int32, in that order."""
     if q.device.type != "cuda":
         raise ValueError(f"the decode kernel needs CUDA tensors, got "
                          f"{q.device}")
@@ -225,8 +226,11 @@ def decode_attention_cuda(q, k, v, kv_len, block_table=None, *,
     route = decode_route(src_dtype, d)
     code = ROUTES[route] + (1 if route == "mma"
                             and src_dtype == torch.float16 else 0)
-    cluster = (cluster_size(bh, nk, unit, window) if _cluster is None
-               else _cluster)
+    if cluster is None:
+        cluster = cluster_size(bh, nk, unit, window)
+    elif cluster not in (1, 2, 4, 8, 16):
+        raise ValueError(f"cluster must be a power of two up to "
+                         f"{MAX_CLUSTER}, got {cluster}")
     out = torch.empty((bh, g, d), dtype=torch.float32, device=q.device)
     scores = torch.empty((bh, g, smax), dtype=torch.float32, device=q.device)
     tele = debug_visits or debug_flags

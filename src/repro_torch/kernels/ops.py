@@ -30,7 +30,8 @@ import torch
 
 from ..core.formats import get_format
 from ..core.policy import get_policy
-from .decode_attention import decode_attention_cuda, decode_attention_plain
+from .decode_attention import (STRIP_UNIT, cluster_size, decode_attention_cuda,
+                               decode_attention_plain, plan_splits)
 from .dotp_ex import dotp_ex_cuda, dotp_ex_plain
 from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .tp_matmul import tp_matmul_cuda, tp_matmul_plain
@@ -148,24 +149,53 @@ def flash_attention(q, k, v, *, kv_len=None, policy=None, block_table=None,
     return o.reshape(b, h, sq, -1)
 
 
+def _split_units(k, block_table):
+    """``(unit, units)``: a decode row's split unit (the page, or
+    ``STRIP_UNIT`` keys of a contiguous strip) and the units it holds."""
+    if block_table is not None:
+        return k.shape[2], block_table.shape[1]
+    return STRIP_UNIT, -(-k.shape[2] // STRIP_UNIT)
+
+
+def decode_cluster(batch: int, k, block_table=None,
+                   window: Optional[int] = None) -> int:
+    """The split partition (CTAs a row, ``cluster_size``) of a decode read
+    of ``batch`` sequences over the cache ``k`` ([B, Hkv, Smax, D], or the
+    page pool [n_pages, Hkv, page, D] with ``block_table`` [B,
+    max_pages]): what ``decode_attention`` picks for them by default."""
+    unit, units = _split_units(k, block_table)
+    return cluster_size(batch * k.shape[1], units, unit, window)
+
+
 def decode_attention(q, k, v, *, kv_len, policy=None, block_table=None,
                      scale: Optional[float] = None,
                      window: Optional[int] = None,
                      softcap: Optional[float] = None, backend: str = "auto",
-                     return_flags: bool = False):
+                     return_flags: bool = False,
+                     cluster: Optional[int] = None):
     """Fused single-query decode attention over the (quantized) KV cache.
 
     q [B, H, 1, D]; k/v [B, Hkv, Smax, D] in their storage dtype, or the
     page pools [n_pages, Hkv, page, D] with ``block_table`` [B, max_pages];
     ``kv_len`` scalar or per-sequence [B].  Returns [B, H, 1, D] f32, and
     with ``return_flags=True`` per-sequence int32 [B, 4] IEEE flag counts
-    (each live K / V element once, q once per head row: schedule-free)."""
+    (each live K / V element once, q once per head row: schedule-free).
+
+    ``cluster`` is the split-KV partition's size (CTAs a row), on both
+    routes: the kernel launches at it, the plain version walks
+    ``plan_splits`` at it and adds the parts in the kernel's order.
+    Default: ``decode_cluster`` of these rows.  A row's output depends on
+    its own inputs and this size alone, so a read that folds several
+    queries a sequence into the batch (speculative verify) is bitwise the
+    step-form reads when it passes the step form's size."""
     policy = get_policy(policy if policy is not None else "tp_bf16")
     src_dt, q_fmt_name = policy_src(policy)
     kv_fmt_name = (policy.kv_fmt.name if policy.mode != "native"
                    and policy.kv_fmt is not None else None)
     b, h, sq, d = q.shape
     assert sq == 1, q.shape
+    if cluster is None:
+        cluster = decode_cluster(b, k, block_table, window)
     if block_table is not None:
         n_pages, hkv, page, _ = k.shape
         smax = block_table.shape[1] * page
@@ -178,11 +208,14 @@ def decode_attention(q, k, v, *, kv_len, policy=None, block_table=None,
         vf = v.reshape(b * hkv, smax, d)
         table = None
     group = h // hkv
-    fn = (decode_attention_cuda
-          if resolve_backend(backend, q.device) == "kernel"
-          else decode_attention_plain)
-    o = fn(q.reshape(b * hkv, group, d), kf, vf,
-           expand_kv_lens(kv_len, b, hkv, smax, q.device), table,
+    lens = expand_kv_lens(kv_len, b, hkv, smax, q.device)
+    if resolve_backend(backend, q.device) == "kernel":
+        fn = functools.partial(decode_attention_cuda, cluster=cluster)
+    else:
+        unit, units = _split_units(k, block_table)
+        fn = functools.partial(decode_attention_plain, splits=plan_splits(
+            lens, unit, units=units, window=window, size=cluster))
+    o = fn(q.reshape(b * hkv, group, d), kf, vf, lens, table,
            scale=d ** -0.5 if scale is None else scale, window=window,
            softcap=softcap, kv_fmt_name=kv_fmt_name, q_fmt_name=q_fmt_name,
            src_dtype=src_dt, out_dtype=torch.float32,

@@ -93,21 +93,25 @@ def decode_attention_ref(q, k, v, *, kv_len, scale: float = 1.0,
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(m <= NEG_INF / 2, 0.0, m)
     vs = torch.where(mask[:, 0, :, None], vs, 0.0)   # dead slots never read
-    parts = [mask] if bounds is None else [
-        mask & (k_idx >= bounds[:, r, 0, None, None].to(q.device))
-        & (k_idx < bounds[:, r, 1, None, None].to(q.device))
-        for r in range(bounds.shape[1])]
-    for r, live in enumerate(parts):
-        acc_r = torch.zeros((bh, g, d), dtype=torch.float32, device=q.device)
-        l_r = torch.zeros((bh, g, 1), dtype=torch.float32, device=q.device)
-        for kk in range(0, smax, bk):
-            blk = slice(kk, kk + bk)
-            p = torch.where(live[..., blk], torch.exp(s[..., blk] - m), 0.0)
-            l_r = l_r + p.sum(dim=-1, keepdim=True)
-            acc_r = acc_r + torch.einsum("hgk,hkd->hgd",
-                                         p.to(src_dtype).float(), vs[:, blk])
-        acc, l = (acc_r, l_r) if r == 0 else (acc + acc_r, l + l_r)
-    return (acc / torch.where(l == 0.0, 1.0, l)).to(out_dtype)
+    # the parts' live keys [C, BHkv, 1, Smax], all parts walked at once
+    live = mask[None]
+    if bounds is not None:
+        lo, hi = (bounds[..., i].t().to(q.device)[:, :, None, None]
+                  for i in (0, 1))
+        live = live & (k_idx >= lo) & (k_idx < hi)
+    c = live.shape[0]
+    acc = torch.zeros((c, bh, g, d), dtype=torch.float32, device=q.device)
+    l = torch.zeros((c, bh, g, 1), dtype=torch.float32, device=q.device)
+    for kk in range(0, smax, bk):
+        blk = slice(kk, kk + bk)
+        p = torch.where(live[..., blk], torch.exp(s[..., blk] - m), 0.0)
+        l = l + p.sum(dim=-1, keepdim=True)
+        acc = acc + torch.einsum("chgk,hkd->chgd", p.to(src_dtype).float(),
+                                 vs[:, blk])
+    acc_t, l_t = acc[0], l[0]
+    for r in range(1, c):
+        acc_t, l_t = acc_t + acc[r], l_t + l[r]
+    return (acc_t / torch.where(l_t == 0.0, 1.0, l_t)).to(out_dtype)
 
 
 def flash_attention_ref(q, k, v, *, group: int = 1, scale: float = 1.0,

@@ -61,8 +61,18 @@ Dead-slot discipline: idle slots are parked at ``max_len - 1`` on a
 reserved scratch page; every other garbage write lands on a slot that a
 real write overwrites before any mask lets it be read.
 
-Not ported, and refused when asked for: speculative decoding, replicas,
-the request journal and meshes.
+Speculative decoding (``spec_k``): every burst round drafts ``spec_k``
+tokens a row with a layer-skip draft (``draft_repeats`` pattern groups,
+optionally under ``draft_policy``), verifies the chunk in one
+``Model.verify_chunk`` call and accepts the longest matching prefix plus
+the verify model's own token (``Model.speculate_burst``).  Greedy only;
+the streams are plain decode's.  Each request reserves ``spec_k`` slots of
+lookahead past its budget; ``Request.spec_k`` caps a request's drafts and
+``Request.no_speculate`` opts it out (one verified token a round, in the
+same batch).  Composes with preemption and escalation.
+
+Not ported, and refused when asked for: replicas, the request journal and
+meshes.
 """
 from __future__ import annotations
 
@@ -74,7 +84,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.policy import EscalationPolicy
+from ..core.policy import EscalationPolicy, get_policy
 from ..models.attention import kv_store_dtype, kv_swap_dtype
 from ..models.paged import (PageAllocator, SwapBlobTag, check_blob_tag,
                             dtype_name, num_pages)
@@ -116,7 +126,10 @@ class Request:
     decode rounds (the engine's clock); higher ``priority`` admits first
     and preempts lower; ``no_degrade`` refuses the fp8 swap store;
     ``no_escalate`` refuses KV-precision escalation (the row keeps its
-    rung, saturated but cheap)."""
+    rung, saturated but cheap).  ``spec_k`` caps this request's
+    speculative drafts below the engine's (None: the engine's) and
+    ``no_speculate`` opts it out of drafting: it still rides the
+    speculative burst, emitting one verified token a round."""
     rid: int
     tokens: Sequence[int]          # prompt token ids (>= 1)
     max_new: int                   # generation budget incl. the first token
@@ -125,6 +138,8 @@ class Request:
     deadline: Optional[int] = None
     no_degrade: bool = False
     no_escalate: bool = False
+    spec_k: Optional[int] = None
+    no_speculate: bool = False
 
     @property
     def prompt_len(self) -> int:
@@ -236,15 +251,16 @@ _FAR = 1 << 30          # "no deadline" sort key
 #: ``MIN_RESIDENT`` rounds is never preempted (the JAX engine's defaults)
 SHED_BASE, SHED_CAP, MIN_RESIDENT = 2, 64, 2
 
-#: the robustness counters of ``stats`` (the JAX package's, less those of
-#: the unported speculation, replica and journal paths; ``faults_overflow``
-#: appears once an injected overflow fired, as in the JAX engine)
+#: the counters of ``stats`` (the JAX package's, less those of the
+#: unported replica and journal paths; ``faults_overflow`` appears once an
+#: injected overflow fired, as in the JAX engine)
 COUNTERS = ("preemptions", "preempt_swap", "preempt_reingest",
             "preempt_restart", "resumed", "degraded", "swap_out_bytes",
             "shed_events", "poisoned_rounds", "nonfinite_prefill",
             "stragglers", "faults_exhaust", "faults_slow",
             "escalations", "esc_deferred", "esc_refused",
-            "sdc_injected", "sdc_detected", "sdc_reingest")
+            "sdc_injected", "sdc_detected", "sdc_reingest",
+            "spec_rounds", "spec_emitted")
 
 
 class ContinuousEngine:
@@ -260,7 +276,11 @@ class ContinuousEngine:
     backoff deferrals); ``fault_plan`` injects deterministic faults; the
     watchdog aborts after ``watchdog_patience`` iterations without
     progress.  ``escalate`` (an ``EscalationPolicy``) turns on flag-driven
-    KV-precision escalation; it needs an f32 pool with no ``kv_fmt``."""
+    KV-precision escalation; it needs an f32 pool with no ``kv_fmt``.
+    ``spec_k`` > 0 turns on greedy speculative decoding with a draft of
+    ``draft_repeats`` pattern groups (None: full depth) under
+    ``draft_policy`` (None: the model's); requests then need
+    ``prompt_len + max_new + spec_k <= max_len``."""
 
     def __init__(self, model, params, *, slots: int, max_len: int,
                  chunk: int = 32, n_pages: Optional[int] = None,
@@ -274,7 +294,9 @@ class ContinuousEngine:
                  shed: bool = True,
                  fault_plan: Optional[ServeFaultPlan] = None,
                  watchdog_patience: int = 200,
-                 escalate: Optional[EscalationPolicy] = None, **unported):
+                 escalate: Optional[EscalationPolicy] = None,
+                 spec_k: int = 0, draft_repeats: Optional[int] = None,
+                 draft_policy=None, **unported):
         cfg = model.cfg
         if not cfg.paged_kv:
             raise ValueError("ContinuousEngine requires cfg.paged_kv "
@@ -283,8 +305,7 @@ class ContinuousEngine:
                        if v not in (None, False, 0, 0.0))
         if asked:
             raise NotImplementedError(
-                f"not ported: {asked} (speculative decoding, replicas, the "
-                f"journal and meshes)")
+                f"not ported: {asked} (replicas, the journal and meshes)")
         if preempt not in ("free", "swap"):
             raise ValueError(f"preempt must be free|swap, got {preempt!r}")
         assert slots >= 1 and chunk >= 1 and burst_cap >= 1
@@ -324,6 +345,25 @@ class ContinuousEngine:
                     f"inside a shared wide container); policy "
                     f"{model.policy.name!r} stores KV as {pool_dt}")
             self._esc_fmts = escalate.formats
+        self.spec_k = int(spec_k)
+        self.draft_repeats = draft_repeats
+        self.draft_policy = (get_policy(draft_policy)
+                             if draft_policy is not None else None)
+        if self.spec_k:
+            if self.spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            model.speculate_check()
+            if temperature > 0.0:
+                raise ValueError(
+                    "speculative decoding is greedy-only (acceptance is "
+                    "defined against the verify argmax); temperature "
+                    f"{temperature} would change the sampled stream")
+            if self._use_pen:
+                raise ValueError(
+                    "speculative decoding does not compose with "
+                    "repetition/presence penalties yet: the verify chunk "
+                    "scores k+1 positions against ONE histogram snapshot, "
+                    "so mid-chunk accepts would see stale counts")
 
         self.alloc = PageAllocator(self.n_pages)
         self.scratch = self.alloc.alloc(1)[0]      # dead-write sink, forever
@@ -354,6 +394,9 @@ class ContinuousEngine:
         # OF / UF write pressure (host mirror of what the bursts return)
         self.kv_levels = np.zeros((slots,), np.int32)
         self.flag_pressure = np.zeros((slots, 2), np.int64)
+        # each slot's speculative draft cap (0: a plain decode row inside
+        # the speculative batch)
+        self._spec_rows = np.zeros((slots,), np.int32)
         self._pending: List[_QEntry] = []
         self._held: List[int] = []      # fault-plan page grab
         self._release_at: Optional[int] = None
@@ -371,10 +414,15 @@ class ContinuousEngine:
         self.watchdog = ServeWatchdog(self.watchdog_patience)
         self.monitor = StragglerMonitor()
 
+    def _worst_pages(self, r: Request) -> int:
+        """A request's worst-case pages: prompt + budget, and with
+        speculation the ``spec_k`` slots a verify chunk writes past the
+        budget (dead until accepted)."""
+        return num_pages(r.prompt_len + r.max_new + self.spec_k, self.page)
+
     def _reserved_pages(self) -> int:
         """Worst-case pages of every admitted-but-unfinished request."""
-        return sum(num_pages(r.prompt_len + r.max_new, self.page)
-                   for r in self._req if r is not None)
+        return sum(self._worst_pages(r) for r in self._req if r is not None)
 
     def _ensure_pages(self, b: int, last_idx: int) -> bool:
         """Lazily allocate slot ``b``'s pages covering token slots up to
@@ -592,6 +640,7 @@ class ContinuousEngine:
         self.pos[b], self.lens[b] = self.max_len - 1, 0
         self.done[b], self.limit[b] = True, 0
         self.kv_levels[b], self.flag_pressure[b] = 0, 0
+        self._spec_rows[b] = 0
         if self._use_pen:
             self._cnt[b] = 0
 
@@ -609,6 +658,11 @@ class ContinuousEngine:
         self._req[b], self._entry[b] = req, e
         self._admit_round[b] = round_no
         self._resume_tok[b] = None
+        k = 0
+        if self.spec_k and not req.no_speculate:
+            k = (self.spec_k if req.spec_k is None
+                 else max(0, min(self.spec_k, req.spec_k)))
+        self._spec_rows[b] = k
         self.kv_levels[b] = e.esc_level
         self.flag_pressure[b] = np.asarray(e.esc_pressure, np.int64)
         rs, e.resume = e.resume, None
@@ -660,8 +714,7 @@ class ContinuousEngine:
             e.req.deadline if e.req.deadline is not None else _FAR,
             e.req.arrival, e.req.rid))
         for e in vis:
-            req = e.req
-            worst = num_pages(req.prompt_len + req.max_new, self.page)
+            worst = self._worst_pages(e.req)
             need = self._pending_need(e)
 
             def fits():
@@ -757,11 +810,14 @@ class ContinuousEngine:
         for r in requests:
             if r.prompt_len < 1 or r.max_new < 1:
                 raise ValueError(f"request {r.rid}: empty prompt or budget")
-            if r.prompt_len + r.max_new > self.max_len:
+            if r.prompt_len + r.max_new + self.spec_k > self.max_len:
+                hint = (f" (+{self.spec_k} speculative lookahead: the "
+                        f"verify chunk writes spec_k slots past the "
+                        f"budget)" if self.spec_k else "")
                 raise ValueError(
                     f"request {r.rid}: prompt {r.prompt_len} + budget "
-                    f"{r.max_new} exceeds max_len {self.max_len}")
-            worst = num_pages(r.prompt_len + r.max_new, self.page)
+                    f"{r.max_new}{hint} exceeds max_len {self.max_len}")
+            worst = self._worst_pages(r)
             if worst > self.n_pages - 1:
                 raise ValueError(
                     f"request {r.rid} can never fit the pool: needs "
@@ -916,11 +972,15 @@ class ContinuousEngine:
 
     def _grow_pages(self, active: List[int], n_max: int) -> None:
         """Lazy page growth for the burst; a failed allocation preempts a
-        weaker resident, or the row itself when none exists."""
+        weaker resident, or the row itself when none exists.  A
+        speculative round advances up to ``spec_k + 1`` tokens and its
+        chunk writes ``spec_k`` slots past the accepted frontier."""
+        look = self.spec_k
         for b in list(active):
             if b not in active:
                 continue
-            tgt = min(int(self.pos[b]) + n_max - 1, int(self.limit[b]) - 1)
+            tgt = min(int(self.pos[b]) + n_max * (look + 1) - 1 + look,
+                      int(self.limit[b]) - 1 + look)
             while not self._ensure_pages(b, tgt):
                 vs = self._victims_for(self._eff_resident(b, self._round_no),
                                        self._round_no, exclude=(b,))
@@ -960,21 +1020,38 @@ class ContinuousEngine:
                        ovf_at=ovf_rel,
                        ovf_scale=(plan.overflow_scale if plan is not None
                                   else 1.0)))
-        r = self.model.decode_burst(
-            self.params, dev(self.tok), caches, dev(self.pos),
-            dev(self.lens), dev(self.done), dev(self.limit),
-            max_len=self.max_len, out_width=self.burst_cap, n_max=n_max,
-            exit_on_finish=wave, stop_token=self.stop_token, counts=cnts,
-            repetition_penalty=self.repetition_penalty,
-            presence_penalty=self.presence_penalty, poison_at=poison_rel,
-            guard=True, **esc_kw, **self._sampling())
+        state = (self.params, dev(self.tok), caches, dev(self.pos),
+                 dev(self.lens), dev(self.done), dev(self.limit))
+        if self.spec_k:
+            r = self.model.speculate_burst(
+                *state, spec_k=self.spec_k, draft_repeats=self.draft_repeats,
+                k_rows=dev(self._spec_rows),
+                out_width=self.burst_cap * (self.spec_k + 1), n_max=n_max,
+                exit_on_finish=wave, stop_token=self.stop_token,
+                poison_at=poison_rel, guard=True,
+                draft_policy=self.draft_policy, **esc_kw)
+            spec = r[-1].cpu().numpy()
+            counters["spec_rounds"] += int(spec[0])
+            counters["spec_emitted"] += int(spec[1])
+            r = r[:-1]
+        else:
+            r = self.model.decode_burst(
+                *state, max_len=self.max_len, out_width=self.burst_cap,
+                n_max=n_max, exit_on_finish=wave, stop_token=self.stop_token,
+                counts=cnts, repetition_penalty=self.repetition_penalty,
+                presence_penalty=self.presence_penalty, poison_at=poison_rel,
+                guard=True, **esc_kw, **self._sampling())
         out, n, tok, _, pos, lens, done, _, bad = r[:9]
-        outs = out[:, :n].cpu().numpy()
         bad = bad.cpu().numpy()
         new_tok = tok.cpu().numpy().astype(np.int32)
         new_pos = pos.cpu().numpy().astype(np.int32)
         new_lens = lens.cpu().numpy().astype(np.int32)
         new_done = done.cpu().numpy().astype(bool)
+        # a speculative burst packs each row's tokens: download up to the
+        # widest row's growth; a plain one writes a column a round
+        w = (max(1, int((new_lens - self.lens).max())) if self.spec_k
+             else n)
+        outs = out[:, :w].cpu().numpy()
         now = time.perf_counter()
         self._clock["decode_s"] += now - t0
         if self.monitor.record(self._bursts, now - t_start):
@@ -1082,12 +1159,26 @@ class ContinuousEngine:
             "deadline_miss_rate": (misses / len(dl)) if dl else 0.0,
             "straggler_ewma_s": self.monitor.ewma,
             **self._counters,
+            **self._spec_stats(),
             # host clock around prefill waves / decode bursts (each ends
             # in a device-to-host copy of its result), around swaps (each
             # ends in a synchronise) and around the swap payloads' CRC32s
             **self._clock,
         }
         return dict(self._results), stats
+
+    def _spec_stats(self) -> dict:
+        """``spec_k`` and ``spec_accept_rate``, emitted tokens over
+        live-row rounds times the chunk width: the bonus token keeps every
+        live row's yield at one or more a round, so the rate lies in (0, 1]
+        once a speculative round ran."""
+        if not self.spec_k:
+            return {}
+        lr = self._counters["spec_rounds"]
+        return {"spec_k": self.spec_k,
+                "spec_accept_rate": (self._counters["spec_emitted"]
+                                     / (lr * (self.spec_k + 1))
+                                     if lr else 0.0)}
 
     def run(self, requests: Sequence[Request]):
         """Serve ``requests`` to completion: ``(finished in input order,

@@ -34,11 +34,18 @@ escalation at ``--escalate-of-threshold`` overflow flags a row, and
 ``--overflow-scale``; each request's trail shows ``escalated L<n>`` and a
 ``numerical health`` line counts escalations and swap SDC checks.
 
+Speculative decoding (needs ``--continuous``, greedy, no penalties):
+``--speculate K`` drafts K tokens a row each burst round and verifies the
+chunk in one call; ``--draft-layers N`` drafts with the first N repeats of
+the layer pattern (default: full depth), ``--draft-fmt POLICY`` under
+another precision policy (e.g. ``tp_bf16_kv8``).  The accepted stream is
+plain decode's; a ``speculative`` line gives the accept rate.
+
 Sampling everywhere: ``--temperature --top-k --top-p --seed
 --repetition-penalty --presence-penalty``.  The model is the reduced
 config unless ``--full``; weights are random from seed 0.  Runs on the GPU
 unless ``--device cpu``; without a card and without ``--device`` it
-raises.  Speculation, meshes, replicas and the journal are not ported.
+raises.  Meshes, replicas and the journal are not ported.
 
     python -m repro_torch.launch.serve --full --batch 4 --gen 32
     python -m repro_torch.launch.serve --arch minicpm3-4b --full --ragged
@@ -49,6 +56,8 @@ raises.  Speculation, meshes, replicas and the journal are not ported.
         --fault-exhaust 2 --fault-poison 6 --fault-slow 4
     python -m repro_torch.launch.serve --continuous --policy fp32 \
         --escalate fp8,fp16,fp16alt --fault-overflow 2 --device cpu
+    python -m repro_torch.launch.serve --continuous --speculate 3 \
+        --draft-layers 1 --device cpu
 """
 from __future__ import annotations
 
@@ -154,6 +163,21 @@ def _arg_parser():
                          "write-time snap")
     ap.add_argument("--overflow-scale", type=float, default=65536.0)
     ap.add_argument("--burst-cap", type=int, default=64)
+    ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                    help="self-speculative decoding: draft K tokens per "
+                         "row with the cheap pass, verify the whole chunk "
+                         "at target precision in ONE call, accept the "
+                         "longest matching prefix (greedy-only; accepted "
+                         "tokens are bit-identical to plain decode)")
+    ap.add_argument("--draft-layers", type=int, default=None, metavar="N",
+                    help="layer-skip draft: run only the first N repeats "
+                         "of the layer pattern in the draft pass "
+                         "(default: full depth — the draft is then the "
+                         "target model and every proposal is accepted)")
+    ap.add_argument("--draft-fmt", default=None, metavar="POLICY",
+                    help="precision-policy preset the DRAFT pass runs "
+                         "under (e.g. tp_bf16_kv8; verify stays at the "
+                         "serving policy)")
     ap.add_argument("--slots", type=int, default=4,
                     help="batch slots of the continuous engine")
     ap.add_argument("--requests", type=int, default=16,
@@ -185,6 +209,13 @@ def main(argv=None):
     if pen and args.loop == "python":
         ap.error("--repetition-penalty / --presence-penalty apply to the "
                  "generate() and continuous-engine paths only")
+    if args.speculate:
+        if not args.continuous:
+            ap.error("--speculate requires --continuous (the draft/verify "
+                     "rounds live in the engine's burst program)")
+        if args.temperature > 0.0 or pen:
+            ap.error("--speculate is greedy-only: temperature and "
+                     "penalties would change the verified stream")
 
     paged = args.paged or args.continuous
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -330,7 +361,10 @@ def _continuous(args, model, params):
     esc = (EscalationPolicy(ladder=tuple(args.escalate.split(",")),
                             of_threshold=args.escalate_of_threshold)
            if args.escalate is not None else None)
-    max_len = max(r.prompt_len + r.max_new for r in reqs)
+    # speculative headroom: the verify chunk writes spec_k slots past the
+    # budget
+    max_len = (max(r.prompt_len + r.max_new for r in reqs)
+               + args.speculate)
     eng = ContinuousEngine(
         model, params, slots=args.slots, max_len=max_len, chunk=args.chunk,
         n_pages=args.pool_pages, stop_token=args.stop_token,
@@ -339,7 +373,8 @@ def _continuous(args, model, params):
         repetition_penalty=args.repetition_penalty,
         presence_penalty=args.presence_penalty, preempt=args.preempt,
         degrade_fmt=args.degrade_fmt, shed=args.shed, fault_plan=plan,
-        escalate=esc)
+        escalate=esc, spec_k=args.speculate, draft_repeats=args.draft_layers,
+        draft_policy=args.draft_fmt)
     eng.run(reqs)                       # warm-up (kernel build, allocator)
     t0 = time.perf_counter()
     fin, stats = eng.run(reqs)
@@ -349,7 +384,12 @@ def _continuous(args, model, params):
           f"{args.slots} slots, page={args.page_size}, chunk={args.chunk}, "
           f"{len(reqs)} requests, pool {stats['n_pages']} pages, "
           f"preempt={args.preempt}"
-          + (f", degrade={args.degrade_fmt}" if args.degrade_fmt else ""))
+          + (f", degrade={args.degrade_fmt}" if args.degrade_fmt else "")
+          + (f", speculate k={args.speculate}"
+             + (f" draft_layers={args.draft_layers}"
+                if args.draft_layers is not None else "")
+             + (f" draft_fmt={args.draft_fmt}" if args.draft_fmt else "")
+             if args.speculate else ""))
     for f in fin:
         trail = ""
         if f.preemptions:
@@ -380,6 +420,12 @@ def _continuous(args, model, params):
           f"misses, {stats['poisoned_rounds']} poisoned rounds masked, "
           f"{stats['stragglers']} stragglers, "
           f"{stats['faults_exhaust']} exhaustion episodes")
+    if args.speculate:
+        print(f"speculative: accept rate "
+              f"{stats['spec_accept_rate']:.2f} over "
+              f"{stats['spec_rounds']} draft/verify row-rounds "
+              f"({stats['spec_emitted']} tokens emitted, chunk "
+              f"k+1={args.speculate + 1})")
     if esc is not None or plan is not None:
         print(f"numerical health: {stats['escalations']} escalations "
               f"({stats['esc_deferred']} deferred, {stats['esc_refused']} "

@@ -14,8 +14,12 @@ escalation ladder (``esc_fmts``) every cache write goes through
 ``quantize_kv_rows``: each row's K/V snapped onto its own rung with the
 saturating cast, its OF / UF write counts returned.
 
-Not ported yet: cross-attention, tensor-parallel head sharding and the
-speculative ``verify`` read.
+Speculative verify (``gqa_attention(verify=True)``): a chunk of S
+positions a row is written first, then its queries fold into the batch
+and take the exact decode read at the step form's split partition, so
+each folded query is bitwise the decode step at its position.
+
+Not ported yet: cross-attention and tensor-parallel head sharding.
 """
 from __future__ import annotations
 
@@ -192,12 +196,13 @@ def _masked_softmax_attend(q, k, v, policy, *, causal, window, cap,
 
 
 def _decode_attend(q, ck, cv, policy, *, kv_len, window, cap,
-                   backend: str = "auto"):
-    """q [B,H,1,Dh] vs cache [B,Hkv,Smax,Dh]; ``kv_len`` scalar or [B]."""
+                   backend: str = "auto", cluster: Optional[int] = None):
+    """q [B,H,1,Dh] vs cache [B,Hkv,Smax,Dh]; ``kv_len`` scalar or [B];
+    ``cluster``: the kernel's split partition (default: these rows')."""
     if backend != "dense":
         return kops.decode_attention(q, ck, cv, kv_len=kv_len, policy=policy,
                                      window=window, softcap=cap,
-                                     backend=backend)
+                                     backend=backend, cluster=cluster)
     b, h, s, dh = q.shape
     _, hkv, smax, _ = ck.shape
     group = h // hkv
@@ -219,18 +224,43 @@ def _decode_attend(q, ck, cv, policy, *, kv_len, window, cap,
 
 
 def _decode_attend_paged(q, cache: PagedKVCache, policy, *, kv_len, window,
-                         cap, backend: str = "auto"):
+                         cap, backend: str = "auto",
+                         cluster: Optional[int] = None):
     """Paged decode: the kernel dereferences the block table itself; the
     dense path gathers the pages back into the contiguous layout first."""
     if backend != "dense":
         return kops.decode_attention(
             q, cache.k_pool, cache.v_pool, kv_len=kv_len,
             block_table=cache.block_table, policy=policy, window=window,
-            softcap=cap, backend=backend)
+            softcap=cap, backend=backend, cluster=cluster)
     return _decode_attend(q, gather_paged_kv(cache.k_pool, cache.block_table),
                           gather_paged_kv(cache.v_pool, cache.block_table),
                           policy, kv_len=kv_len, window=window, cap=cap,
                           backend="dense")
+
+
+def _verify_attend(q, cache, policy, *, kv_len, window, cap, backend):
+    """The verify read: q [B, H, S, Dh] folded to [B*S, H, 1, Dh] through
+    the decode read of the just-written cache, at the partition of a
+    decode step of the B rows; ``kv_len`` [B, S].  Returns [B, H, S, Dh]."""
+    b, h, s, dh = q.shape
+    qf = q.transpose(1, 2).reshape(b * s, h, 1, dh)
+    kvl = torch.as_tensor(kv_len, device=q.device).reshape(b * s)
+    if isinstance(cache, PagedKVCache):
+        cluster = kops.decode_cluster(b, cache.k_pool, cache.block_table,
+                                      window)
+        rep = PagedKVCache(cache.k_pool, cache.v_pool,
+                           cache.block_table.repeat_interleave(s, 0))
+        out = _decode_attend_paged(qf, rep, policy, kv_len=kvl,
+                                   window=window, cap=cap, backend=backend,
+                                   cluster=cluster)
+    else:
+        cluster = kops.decode_cluster(b, cache.k, None, window)
+        out = _decode_attend(qf, cache.k.repeat_interleave(s, 0),
+                             cache.v.repeat_interleave(s, 0), policy,
+                             kv_len=kvl, window=window, cap=cap,
+                             backend=backend, cluster=cluster)
+    return out.reshape(b, s, h, dh).transpose(1, 2)
 
 
 def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
@@ -239,7 +269,8 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
                   cache=None, cache_pos=None, use_rope=True, chunk: int = 512,
                   decode_backend: str = "auto",
                   prefill_backend: str = "auto", kv_len=None, esc_fmts=None,
-                  kv_levels=None, kv_scale: Optional[float] = None):
+                  kv_levels=None, kv_scale: Optional[float] = None,
+                  verify: bool = False):
     """Returns ``(out [B,S,D], cache)``, or ``(out, cache, kv_flags)``
     when ``esc_fmts`` is given.
 
@@ -253,7 +284,15 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
       * contiguous prefill attends the fresh K/V (``kv_len`` = per-row
         prompt lengths);
       * decode (S == 1) attends the cache up to ``kv_len`` (default
-        ``cache_pos + 1``), paged or contiguous.
+        ``cache_pos + 1``), paged or contiguous;
+      * speculative verify (``verify=True``, S > 1, ``cache_pos`` [B]):
+        ``kv_len`` [B, S] gives query i of row b its live length; the S
+        queries fold into the batch (query i of row b is row b*S + i) and
+        take the decode read at the partition a decode step of these B
+        rows picks (``kops.decode_cluster``), the block table repeated per
+        query (a contiguous cache is repeated along the batch, as the JAX
+        package does), so every folded query is bitwise the decode step at
+        its position.
 
     Escalation write path: ``esc_fmts`` (a tuple of FPFormat rungs, narrow
     -> wide) and ``kv_levels`` ([B] per-row rung) send every cache write
@@ -307,7 +346,11 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
         else:
             update_cache_rows(cache.k, k, cache_pos)
             update_cache_rows(cache.v, v, cache_pos)
-        if s > 1 and paged:
+        if verify and s > 1:
+            out = _verify_attend(q, cache, policy, kv_len=kv_len,
+                                 window=window, cap=attn_softcap,
+                                 backend=decode_backend)
+        elif s > 1 and paged:
             live = kv_len if kv_len is not None else cache_pos + s
             if prefill_backend == "dense":
                 out = _masked_softmax_attend(

@@ -11,6 +11,14 @@ norm -> tied unembedding, with the entry points the serving engine drives:
   ``decode_burst``   a Python loop of rounds with the JAX package's exit
                      rules (all rows done, ``n_max`` rounds, or the
                      ``exit_on_finish``-th finish since entry)
+  ``verify_chunk``   a [B, k+1] chunk scored through the decode read, its
+                     queries folded into the batch: bitwise k+1
+                     ``decode_step`` calls
+  ``speculate_step`` / ``speculate_decode`` / ``speculate_burst``
+                     greedy self-speculative decoding: a layer-skip draft
+                     (``draft_view``) proposes k tokens, one
+                     ``verify_chunk`` accepts the longest matching prefix
+                     plus its own next token
 
 Every sampling site goes the same way: optional non-finite guard
 (``sanitize_logits``), repetition / presence penalties from a per-row
@@ -27,7 +35,7 @@ or paged KV) or MLA (minicpm3: a contiguous latent cache,
 escalation write path (``esc_fmts`` / ``kv_levels``, and overflow
 injection ``ovf_at`` / ``ovf_scale`` in ``decode_burst``) snaps every cache
 write onto its row's rung and returns the rows' OF / UF write counts
-``kv_flags`` [B, 2] last.  Speculative decoding is not ported yet.
+``kv_flags`` [B, 2] last.
 """
 from __future__ import annotations
 
@@ -39,7 +47,7 @@ import numpy as np
 import torch
 
 from ..configs.base import LayerSpec, ModelConfig
-from ..core.policy import PrecisionPolicy
+from ..core.policy import PrecisionPolicy, get_policy
 from . import attention as attn
 from . import paged
 from .layers import (embed_init, mlp_params, param_dtype, rmsnorm, softcap,
@@ -314,11 +322,13 @@ class Model:
     # -- the stack -------------------------------------------------------
     def apply_layer(self, x, p, spec: LayerSpec, *, positions, cache=None,
                     cache_pos=None, kv_len=None, esc_fmts=None,
-                    kv_levels=None, kv_scale=None):
+                    kv_levels=None, kv_scale=None, verify: bool = False):
         """One block: ``(x, cache)``, or ``(x, cache, kv_flags [B, 2])``
         when ``esc_fmts`` is given (the escalation write path of
         ``attention.gqa_attention``; an MLA layer, as in the JAX package,
-        writes its latent cache as it is and contributes zero flags)."""
+        writes its latent cache as it is and contributes zero flags).
+        ``verify`` selects the speculative verify read of a GQA layer
+        (``speculate_check`` refuses MLA stacks)."""
         cfg = self.cfg
         rs = cfg.residual_scale
         h = _norm(x, p["norm1"], cfg)
@@ -345,7 +355,8 @@ class Model:
                 qk_norm=spec.qk_norm, norm_eps=cfg.norm_eps, cache=cache,
                 cache_pos=cache_pos, use_rope=spec.use_rope,
                 chunk=cfg.attn_chunk, decode_backend=cfg.decode_backend,
-                prefill_backend=cfg.prefill_backend, kv_len=kv_len, **esc_kw)
+                prefill_backend=cfg.prefill_backend, kv_len=kv_len,
+                verify=verify, **esc_kw)
         mix, cache = r[0], r[1]
         if spec.post_norms:
             mix = _norm(mix, p["post1"], cfg)
@@ -359,7 +370,7 @@ class Model:
 
     def _run_stack(self, params, x, *, positions, caches=None,
                    cache_pos=None, kv_len=None, esc_fmts=None,
-                   kv_levels=None, kv_scale=None):
+                   kv_levels=None, kv_scale=None, verify: bool = False):
         """``(x, caches)``, with the layers' summed ``kv_flags`` [B, 2]
         appended when ``esc_fmts`` is given."""
         if self.cfg.windowed_slice:
@@ -374,7 +385,7 @@ class Model:
                                  positions=positions, cache=c,
                                  cache_pos=cache_pos, kv_len=kv_len,
                                  esc_fmts=esc_fmts, kv_levels=kv_levels,
-                                 kv_scale=kv_scale)
+                                 kv_scale=kv_scale, verify=verify)
             x, c = r[0], r[1]
             if esc:
                 flags = flags + r[2]
@@ -723,3 +734,299 @@ class Model:
         if guard_nonfinite:
             out += (bad_acc,)
         return out
+
+    # -- speculative decoding (draft k cheap, verify once, accept prefix) --
+    def speculate_check(self):
+        """Raise unless this arch can decode speculatively: the verify read
+        folds chunk queries through the GQA decode read, and the MLA latent
+        cache has no multi-query verify read (the JAX package's rule)."""
+        cfg = self.cfg
+        bad = sorted({s.mixer for s in cfg.layer_list() if s.mixer != "gqa"})
+        if bad:
+            raise ValueError(
+                f"speculative decoding is unsupported for {cfg.name}: "
+                f"{'/'.join(bad)} mixers cannot roll back rejected tokens")
+
+    def draft_view(self, params, caches, draft_repeats, draft_policy=None):
+        """Layer-skip draft: the SAME weights cut to the prefix, the first
+        ``draft_repeats`` pattern groups and the suffix (the JAX package's
+        ``[:r]`` of its stacked pattern, in layer order), optionally under
+        ``draft_policy``.  Returns ``(model, params, caches)`` views; the
+        draft's caches are the target's own pools for the layers it runs,
+        so its writes land there — at or past each row's live length,
+        which verify rewrites at every layer before any read.  Writes are
+        cast to the pool's dtype, so a narrower draft policy never changes
+        the pool."""
+        cfg = self.cfg
+        r = cfg.repeats if draft_repeats is None else draft_repeats
+        r = max(0, min(int(r), cfg.repeats))
+        dm, dp, dc = self, params, caches
+        if r < cfg.repeats:
+            head = len(cfg.prefix) + r * len(cfg.pattern)
+            keep = (list(range(head))
+                    + list(range(cfg.n_layers - len(cfg.suffix),
+                                 cfg.n_layers)))
+            dm = self.with_cfg(n_layers=len(keep))
+            dp = dict(params, layers=[params["layers"][i] for i in keep])
+            if caches is not None:
+                dc = [caches[i] for i in keep]
+        if draft_policy is not None:
+            dm = dataclasses.replace(dm, policy=get_policy(draft_policy))
+        return dm, dp, dc
+
+    def verify_chunk(self, params, tokens, caches, pos, *, kv_len,
+                     esc_fmts=None, kv_levels=None, kv_scale=None):
+        """Score a [B, S] candidate chunk at target precision through the
+        DECODE read: the speculative verify call.
+
+        ``pos`` (int or [B]) is each row's write index for the chunk's
+        first token; its K/V land at ``pos .. pos+S-1`` (the bytes S
+        sequential decode steps write), and ``kv_len`` [B, S] gives each
+        query position's live length (running rows ``pos + i + 1``, frozen
+        rows their frozen length).  The queries fold into the batch
+        (``gqa_attention(verify=True)``) at the step form's split
+        partition.  Returns ``(logits [B, S, V] f32, caches[,
+        kv_flags])``."""
+        self.speculate_check()
+        b, s = tokens.shape
+        posv = torch.as_tensor(pos, device=self.device).reshape(-1).expand(b)
+        offs = posv[:, None] + torch.arange(s, device=self.device)
+        kvl = torch.broadcast_to(torch.as_tensor(kv_len, device=self.device),
+                                 (b, s))
+        x = self.embed(params, tokens)
+        r = self._run_stack(params, x, positions=offs[:, None, :],
+                            caches=caches, cache_pos=posv, kv_len=kvl,
+                            esc_fmts=esc_fmts, kv_levels=kv_levels,
+                            kv_scale=kv_scale, verify=True)
+        x = self._final(params, r[0])
+        return (self.logits(params, x).to(F32), r[1]) + tuple(r[2:])
+
+    def speculate_step(self, params, tok, caches, pos, *, lens, done, limit,
+                       spec_k: int, draft_repeats=None, k_rows=None,
+                       stop_token: Optional[int] = None, guard: bool = False,
+                       esc_fmts=None, kv_levels=None, kv_scale=None,
+                       poison: bool = False, draft_policy=None,
+                       _draft_fn=None):
+        """ONE speculative round: draft ``spec_k`` tokens a row with the
+        draft pass (``draft_view``), verify the chunk at target precision
+        in one ``verify_chunk``, accept the longest matching prefix plus
+        the verify model's own next token.  Greedy only: every accepted
+        token is the verify argmax, so the stream is greedy decode's and a
+        wrong draft lowers only the accept count.  Rejected positions lie
+        at or past the row's new ``lens``, dead to every mask, and the next
+        chunk rewrites them before they can go live.
+
+        ``k_rows`` [B] caps each row's accepted drafts (0: plain decode
+        inside the speculative batch); ``stop_token`` clamps acceptance at
+        the first stop, ``limit`` at the row's budget.  ``_draft_fn(tok,
+        pos) -> [B, spec_k]`` replaces the draft pass (the test hook for
+        never-matching drafts); ``poison`` NaN-poisons the chunk's logits.
+
+        Returns ``(g [B, k+1], n [B], tok, pos, lens, done, caches[,
+        bad][, kv_flags])``: ``g[:, :n[b]]`` are row b's emitted tokens
+        (``n == 0`` for rows already done); ``bad`` [B] flags rows whose
+        ACCEPTED logits were non-finite."""
+        b, dev = tok.shape[0], tok.device
+        k1 = spec_k + 1
+        pos = torch.as_tensor(pos, device=dev).reshape(-1).expand(b)
+        if _draft_fn is not None:
+            drafts = torch.as_tensor(_draft_fn(tok, pos), device=dev).to(
+                tok.dtype)
+        elif spec_k == 0:
+            drafts = tok[:, :0]
+        else:
+            dm, dp, dc = self.draft_view(params, caches, draft_repeats,
+                                         draft_policy)
+            dtok, dpos, seq = tok, pos, []
+            for _ in range(spec_k):
+                # each draft step attends its own earlier proposals
+                dlg, _ = dm.decode_step(dp, dtok, dc, dpos,
+                                        kv_len=torch.where(done, lens,
+                                                           dpos + 1))
+                dtok = torch.argmax(dlg[:, -1], dim=-1).to(tok.dtype)[:, None]
+                seq.append(dtok)
+                dpos = dpos + 1
+            drafts = torch.cat(seq, dim=1)                   # [B, k]
+        chunk = torch.cat([tok, drafts], dim=1)              # [B, k+1]
+        ar = torch.arange(k1, device=dev)
+        offs = pos[:, None] + ar
+        r = self.verify_chunk(
+            params, chunk, caches, pos,
+            kv_len=torch.where(done[:, None], lens[:, None], offs + 1),
+            esc_fmts=esc_fmts, kv_levels=kv_levels, kv_scale=kv_scale)
+        lg, caches = r[0], r[1]
+        if poison:
+            lg = torch.full_like(lg, torch.nan)
+        if guard:
+            lg, badm = sanitize_logits(lg)                   # badm [B, k+1]
+        g = torch.argmax(lg, dim=-1).to(torch.int32)
+        m = torch.cumprod((drafts == g[:, :-1]).to(torch.int64),
+                          dim=1).sum(dim=1)
+        if k_rows is not None:
+            m = torch.minimum(m, torch.as_tensor(k_rows, device=dev))
+        n = m + 1
+        if stop_token is not None:
+            is_stop = g == stop_token
+            first = torch.where(is_stop.any(dim=1),
+                                is_stop.to(torch.int32).argmax(dim=1), k1)
+            n = torch.minimum(n, first + 1)
+        n = torch.minimum(n, torch.clamp(limit - pos, min=1))
+        n = torch.where(done, 0, n)
+        last_ix = torch.clamp(n - 1, min=0)[:, None]
+        new_tok = torch.where(done[:, None], tok,
+                              torch.gather(g, 1, last_ix).to(tok.dtype))
+        new_pos = pos + n
+        new_lens = torch.where(done, lens, new_pos)
+        new_done = done | (new_pos >= limit)
+        if stop_token is not None:
+            hit = torch.gather(g == stop_token, 1, last_ix)[:, 0]
+            new_done = new_done | (~done & hit)
+        ret = (g, n, new_tok, new_pos, new_lens, new_done, caches)
+        if guard:
+            # non-finite logits count only where a position was accepted
+            ret += ((badm & (ar[None, :] < n[:, None])).any(dim=1),)
+        return ret + tuple(r[2:])
+
+    def speculate_decode(self, params, tokens, *, gen_len: int, spec_k: int,
+                         draft_repeats=None, max_len: Optional[int] = None,
+                         prompt_lens=None, stop_token: Optional[int] = None,
+                         page_table=None, n_pages: Optional[int] = None,
+                         draft_policy=None, _draft_fn=None,
+                         return_stats: bool = False):
+        """The speculative twin of greedy ``generate``: prefill, then
+        ``speculate_step`` rounds (one host sync each, on ``done``) until
+        every row is done, each emitting 1 to ``spec_k + 1`` tokens a row.
+        The stream is ``generate(temperature=0)``'s — same ``stop_token``
+        freezing, same per-row budgets — however good or bad the draft.
+
+        ``max_len`` must leave ``spec_k`` slots of lookahead past ``prompt
+        + gen_len``: every round writes a whole ``spec_k + 1`` chunk.
+        ``return_stats`` appends ``(rounds, emitted)`` (ints)."""
+        self.speculate_check()
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        dev = self.device
+        tokens = torch.as_tensor(tokens, device=dev)
+        b, prompt_len = tokens.shape
+        k1 = spec_k + 1
+        need = prompt_len + gen_len + spec_k
+        max_len = need if max_len is None else max_len
+        if max_len < need:
+            raise ValueError(
+                f"speculative decoding needs max_len >= prompt + gen_len + "
+                f"spec_k = {need} (draft lookahead headroom; a clamped "
+                f"chunk write would corrupt live slots), got {max_len}")
+        lens_t = (None if prompt_lens is None else
+                  torch.as_tensor(prompt_lens, device=dev).to(torch.int64))
+        lg0, caches = self.prefill(params, tokens, max_len=max_len,
+                                   prompt_lens=lens_t, page_table=page_table,
+                                   n_pages=n_pages)
+        tok = torch.argmax(lg0[:, -1], dim=-1).to(torch.int32)[:, None]
+        pos = (lens_t if lens_t is not None else
+               torch.full((b,), prompt_len, dtype=torch.int64, device=dev))
+        limit = pos + gen_len - 1
+        done = (torch.zeros((b,), dtype=torch.bool, device=dev)
+                if stop_token is None else tok[:, 0] == stop_token)
+        done = done | (pos >= limit)          # gen_len == 1: prefill only
+        pad = stop_token if stop_token is not None else 0
+        out = torch.full((b, gen_len + k1), pad, dtype=torch.int32,
+                         device=dev)
+        out[:, 0] = tok[:, 0]
+        rows = torch.arange(b, device=dev)[:, None]
+        ar = torch.arange(k1, device=dev)
+        ec, lens = torch.ones((b,), dtype=torch.int64, device=dev), pos
+        rounds, emitted = 0, torch.zeros((), dtype=torch.int64, device=dev)
+        while not bool(done.all()):
+            g, n, tok, pos, lens, done, caches = self.speculate_step(
+                params, tok, caches, pos, lens=lens, done=done, limit=limit,
+                spec_k=spec_k, draft_repeats=draft_repeats,
+                stop_token=stop_token, draft_policy=draft_policy,
+                _draft_fn=_draft_fn)
+            valid = ar[None, :] < n[:, None]
+            sidx = torch.where(valid, ec[:, None] + ar, gen_len + ar)
+            out[rows, sidx] = torch.where(valid, g, pad)
+            ec = ec + n
+            rounds += 1
+            emitted = emitted + n.sum()
+        if return_stats:
+            return out[:, :gen_len], rounds, int(emitted)
+        return out[:, :gen_len]
+
+    def speculate_burst(self, params, tok, caches, pos, lens, done, limit, *,
+                        spec_k: int, out_width: int, n_max: int,
+                        exit_on_finish: int, draft_repeats=None,
+                        k_rows=None, stop_token: Optional[int] = None,
+                        generator: Optional[torch.Generator] = None,
+                        poison_at: Optional[int] = None, guard: bool = False,
+                        esc_fmts=None, kv_levels=None,
+                        ovf_at: Optional[int] = None, ovf_scale: float = 1.0,
+                        draft_policy=None, _draft_fn=None):
+        """The speculative twin of ``decode_burst``: up to ``n_max``
+        ``speculate_step`` rounds, with its exit rules (every row done, the
+        ``exit_on_finish``-th finish since entry) and one more: another
+        whole chunk might not fit ``out_width``.  ``out[b]`` holds row b's
+        accepted tokens PACKED, ``new lens - old lens`` of them, so the
+        engine's accounting reads it as it reads a plain burst's.  One host
+        sync a round (``done`` and the emitted counts, together).
+
+        Greedy only; ``generator`` passes through untouched.  ``k_rows``
+        [B] caps each row's accepted drafts (0: ``no_speculate`` rows, one
+        verified token a round).  ``poison_at`` / ``guard`` / ``esc_fmts``
+        / ``kv_levels`` / ``ovf_at`` / ``ovf_scale`` as in
+        ``decode_burst`` (flags attribute the whole chunk to its row).
+        Returns ``(out [B, out_width], n_rounds, tok, caches, pos, lens,
+        done, generator[, bad][, kv_flags], stats [2])``, ``stats`` =
+        (live-row rounds, emitted tokens)."""
+        b, dev = tok.shape[0], tok.device
+        k1 = spec_k + 1
+        pad = stop_token if stop_token is not None else -1
+        out = torch.full((b, out_width + k1), pad, dtype=torch.int32,
+                         device=dev)
+        rows = torch.arange(b, device=dev)[:, None]
+        ar = torch.arange(k1, device=dev)
+        ec = torch.zeros((b,), dtype=torch.int64, device=dev)
+        stats = torch.zeros((2,), dtype=torch.int64, device=dev)
+        badc = (torch.zeros((b,), dtype=torch.int32, device=dev)
+                if guard else None)
+        esc = esc_fmts is not None
+        flacc = (torch.zeros((b, 2), dtype=torch.int32, device=dev)
+                 if esc else None)
+        done0 = done.cpu()
+        i = 0
+        while i < n_max:
+            host = torch.stack([done.to(torch.int64), ec]).cpu()
+            d_host = host[0].bool()
+            if bool(d_host.all()):
+                break
+            if exit_on_finish and int((d_host & ~done0).sum()) >= \
+                    exit_on_finish:
+                break
+            if int(torch.where(d_host, 0, host[1]).max()) + k1 > out_width:
+                break
+            r = self.speculate_step(
+                params, tok, caches, pos, lens=lens, done=done, limit=limit,
+                spec_k=spec_k, draft_repeats=draft_repeats, k_rows=k_rows,
+                stop_token=stop_token, guard=guard, esc_fmts=esc_fmts,
+                kv_levels=kv_levels,
+                kv_scale=ovf_scale if esc and i == ovf_at else None,
+                poison=i == poison_at, draft_policy=draft_policy,
+                _draft_fn=_draft_fn)
+            g, n, tok, pos, new_lens, new_done, caches = r[:7]
+            valid = ar[None, :] < n[:, None]
+            out[rows, torch.where(valid, ec[:, None] + ar, out_width + ar)] = \
+                torch.where(valid, g, pad)
+            live = ~done
+            stats = stats + torch.stack([live.sum(), n.sum()])
+            ec = ec + n
+            if guard:
+                badc = badc + (r[7] & live).to(torch.int32)
+            if esc:
+                flacc = flacc + r[-1] * live.to(torch.int32)[:, None]
+            lens, done = new_lens, new_done
+            i += 1
+        ret = (out[:, :out_width], i, tok, caches, pos, lens, done, generator)
+        if guard:
+            ret += (badc,)
+        if esc:
+            ret += (flacc,)
+        return ret + (stats,)

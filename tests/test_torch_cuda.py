@@ -963,3 +963,78 @@ def _to_device(tree, dev):
     if isinstance(tree, list):
         return [_to_device(v, dev) for v in tree]
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: the verify fold through the decode kernel
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("paged", [False, True], ids=["contig", "paged"])
+def test_folded_kernel_read_is_bitwise_the_step_form(gen, paged):
+    """4 slots x 4 chunk positions x 8 KV heads (D 256, 65-unit rows, a
+    local layer): the fold of 128 rows at the step form's partition (16
+    CTAs a row; its own ``cluster_size`` would be 4) is bitwise the 4
+    step-form kernel calls, and launches at that size."""
+    b, s, hkv, g, d, nk, window = 4, 4, 8, 2, 256, 65, 4096
+    unit = 64
+    pos = torch.tensor([1024, 128, 512, 4080], device="cuda")
+    q = torch.randn((b, s, hkv * g, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    if paged:
+        k, v = _pools(gen, b * nk + 1, hkv, unit, d, torch.bfloat16)
+        table = _table(gen, b, nk, b * nk + 1)
+        fold_kv = (k, v, table.repeat_interleave(s, 0))
+    else:
+        mk = lambda: torch.randn((b, hkv, nk * unit, d), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+        k, v, table = mk(), mk(), None
+        fold_kv = (k.repeat_interleave(s, 0), v.repeat_interleave(s, 0),
+                   None)
+    step_c = kops.decode_cluster(b, k, table, window)
+    assert step_c == cluster_size(b * hkv, nk, unit, window) == 16
+    assert kops.decode_cluster(b * s, fold_kv[0], fold_kv[2], window) == 4
+    kvl = pos[:, None] + torch.arange(s, device="cuda") + 1
+    kw = dict(policy="tp_bf16", window=window, softcap=50.0,
+              backend="kernel")
+    steps = torch.stack([kops.decode_attention(
+        q[:, i, :, None], k, v, kv_len=kvl[:, i], block_table=table,
+        **kw)[:, :, 0] for i in range(s)], 1)
+    by = decode_attention_cuda.launches_by_cluster
+    before = by.get(16, 0)
+    fold = kops.decode_attention(
+        q.reshape(b * s, hkv * g, 1, d), fold_kv[0], fold_kv[1],
+        kv_len=kvl.reshape(-1), block_table=fold_kv[2], cluster=step_c, **kw)
+    torch.cuda.synchronize()
+    assert by[16] == before + 1
+    assert torch.equal(fold.reshape(b, s, hkv * g, d).view(torch.int32),
+                       steps.view(torch.int32))
+
+
+def test_verify_chunk_against_decode_steps_on_the_card(gen):
+    """Reduced gemma2 on the card, paged: ``verify_chunk`` of 4 tokens
+    against 4 ``decode_step`` calls.  The GEMMs run at M = 12 against
+    M = 3, which cuBLAS need not round alike, so this reports the largest
+    logit difference (printed) and holds it within the model-level
+    ``ATOL`` of the CPU parity suites; the attention reads are bitwise
+    (above)."""
+    from repro_torch.models.registry import build_model
+    m = build_model("gemma2-9b", reduced=True, device="cuda", paged_kv=True,
+                    page_size=16)
+    params = m.init(0)
+    toks = torch.randint(0, m.cfg.vocab, (3, 32), generator=gen,
+                         device="cuda")
+    lens = torch.tensor([32, 17, 9], device="cuda")
+    pre = lambda: m.prefill(params, toks, max_len=48, prompt_lens=lens)
+    lg0, c_seq = pre()
+    _, c_chk = pre()
+    chunk, seq = [lg0[:, -1].argmax(-1).to(torch.int32)[:, None]], []
+    for i in range(4):
+        lg, c_seq = m.decode_step(params, chunk[-1], c_seq, lens + i,
+                                  kv_len=lens + i + 1)
+        seq.append(lg[:, -1])
+        chunk.append(lg[:, -1].argmax(-1).to(torch.int32)[:, None])
+    offs = lens[:, None] + torch.arange(4, device="cuda")
+    v_lg, _ = m.verify_chunk(params, torch.cat(chunk[:4], 1), c_chk, lens,
+                             kv_len=offs + 1)
+    diff = (torch.stack(seq, 1) - v_lg).abs().max().item()
+    print(f"verify_chunk vs decode_step on the card: max |dlogits| {diff}")
+    assert torch.isfinite(v_lg).all() and diff <= 1e-1

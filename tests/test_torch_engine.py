@@ -92,11 +92,21 @@ def test_engine_refuses_unported_options():
     tm = build_model("gemma2-9b", reduced=True, device="cpu", paged_kv=True,
                      page_size=16)
     params = tm.init(0)
-    for bad in (dict(spec_k=2),
-                dict(draft_repeats=1), dict(journal=object()),
-                dict(replica_fault=object()), dict(mesh=object())):
+    for bad in (dict(journal=object()), dict(replica_fault=object()),
+                dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             ContinuousEngine(tm, params, slots=2, max_len=32, **bad)
+    # speculation is ported: greedy only, no penalties
+    eng = ContinuousEngine(tm, params, slots=2, max_len=32, spec_k=2,
+                           draft_repeats=1, draft_policy="tp_bf16_kv8")
+    assert (eng.spec_k, eng.draft_repeats, eng.draft_policy.name) == \
+        (2, 1, "tp_bf16_kv8")
+    with pytest.raises(ValueError, match="greedy-only"):
+        ContinuousEngine(tm, params, slots=2, max_len=32, spec_k=2,
+                         temperature=0.5)
+    with pytest.raises(ValueError, match="penalties"):
+        ContinuousEngine(tm, params, slots=2, max_len=32, spec_k=2,
+                         presence_penalty=0.5)
     # escalation is ported: a policy object is required, and a narrow pool
     # refuses it (tests/test_torch_escalation.py drives it)
     with pytest.raises(TypeError, match="EscalationPolicy"):
@@ -121,3 +131,28 @@ def test_serve_launcher_on_cpu(capsys):
     assert len(fin) == 6 and stats["pages_live_end"] == 0
     budgets = [r.max_new for r in synthetic_trace(6, 3, 16, 16, 256)]
     assert [len(f.tokens) for f in fin] == budgets
+
+
+def test_speculate_launcher_on_cpu(capsys):
+    fin, stats = serve.main(["--continuous", "--device", "cpu", "--slots",
+                             "3", "--requests", "6", "--prompt-len", "16",
+                             "--gen", "16", "--speculate", "3",
+                             "--draft-layers", "1"])
+    out = capsys.readouterr().out
+    assert "speculate k=3 draft_layers=1" in out
+    assert "speculative: accept rate" in out and "chunk k+1=4" in out
+    assert len(fin) == 6 and stats["pages_live_end"] == 0
+    assert 0.0 < stats["spec_accept_rate"] <= 1.0
+    plain, _ = serve.main(["--continuous", "--device", "cpu", "--slots",
+                           "3", "--requests", "6", "--prompt-len", "16",
+                           "--gen", "16"])
+    assert [f.tokens for f in fin] == [f.tokens for f in plain]
+    for argv in (["--speculate", "3"],
+                 ["--continuous", "--speculate", "3", "--temperature", "0.7"],
+                 ["--continuous", "--speculate", "3",
+                  "--repetition-penalty", "1.2"]):
+        with pytest.raises(SystemExit):
+            serve.main(["--device", "cpu"] + argv)
+    err = capsys.readouterr().err
+    assert "--speculate requires --continuous" in err
+    assert err.count("--speculate is greedy-only") == 2
