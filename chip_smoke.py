@@ -8,7 +8,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 1. The card's name and power limit (``nvidia-smi``), then the build of
    every CUDA kernel (one ``nvcc`` per source, all started together), and
    the count of ``HGMMA`` (wgmma) instructions in each library's SASS
-   (``cuobjdump -sass``): flash attention and tp_matmul must have some.
+   (``cuobjdump -sass``, in the background during phase 2, gated at its
+   end): flash attention and tp_matmul must have some.
 2. Kernel phase: each attention kernel against its plain PyTorch version on
    the card, in the working dtype, at the serving path's shapes (head_dim 256, GQA
    group 2, pages of 64 and 16 tokens; bf16 and fp8-e5m2 pools; ragged
@@ -20,7 +21,14 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    4 slots x 4 positions folded into 128 rows, read at the step form's
    16-CTA partition, BITWISE the 4 step-form calls, timed also at the
    fold's own 4-CTA partition, as the 4 step calls and as SDPA without
-   softcap), the plain flash version walking the kernel's own key tiles.
+   softcap; the MoE phases' reads: qwen3-moe's decode at group 8, head
+   dim 128 on a bf16 and an fp8-e5m2 pool (``decode_bf16_p64_qwen3``,
+   ``decode_fp8_p64_qwen3``), its 256-token chunk
+   (``flash_bf16_p64_qwen3_chunk``), and deepseek-v2-lite's expanded
+   prefill on ``flash_tc`` at QK head dim 192, V 128
+   (``flash_mla_bf16_192``, ``flash_fma`` timed beside it); none has a
+   softcap, so SDPA computes each), the plain flash version walking the
+   kernel's own key tiles.
    One JSON line
    per case: error and tolerance, the variant (and for decode the cluster
    size its launch counted, which must be the one ``cluster_size`` names)
@@ -75,7 +83,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    through ``ContinuousEngine(spec_k=3)`` in three runs: (a) a 1-repeat
    draft (2 of 42 layers) with request 1 ``no_speculate`` and request 2
    capped at ``spec_k=1``, (b) the same draft under ``tp_bf16_kv8``, (c)
-   the full-depth self-draft.  Gates: every request gets its budget, the
+   the full-depth self-draft on the first four requests, 8 tokens each
+   (cut from the whole queue to keep the smoke within its time).  Gates: every request gets its budget, the
    pool drains, each stream equals the slice's plain stream up to its
    first near tie (``near_tie_check``), ``0 < spec_accept_rate <= 1``,
    every decode launch (draft steps and verify folds) at the slice's
@@ -120,13 +129,41 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    versions, and the rope check: one 64-token prompt's prefill logits
    against the same prompt fed token by token through ``decode_step``.
    Prefill s, decode ms per step, tok/s.
-9. The kernels line (all six kernels; flash attention, tp_matmul and decode
+9. DeepSeek phase (``deepseek_phase``): minicpm3 is freed and
+   deepseek-v2-lite-16b is built at full width under ``tp_bf16`` (27
+   layers: MLA with QK head dim 192 and V 128, layer 0 dense, 26 MoE
+   layers of 64 experts top-6 plus 2 shared; 29.3 GiB), then served by
+   ``Model.generate`` as in the MLA phase.  Gates: scan == while, every
+   flash launch ``flash_tc`` at (192, 128) (none ``flash_fma``), no decode
+   kernel launch, first-token logits within ``LOGITS_TOL`` of the plain
+   versions and the rope check, both with the plain / token-by-token pass
+   routed to the kernel pass's experts (``RouteTape``: bf16 differences
+   flip near-tied router choices, which is not the kernels' doing; the
+   free-routing difference and the flipped choices are reported).
+10. MoE phase (``moe_phase``): deepseek is freed and qwen3-moe-30b-a3b is
+   built at full width under ``tp_bf16`` (48 layers, 32 / 4 heads of 128,
+   128 experts top-8; 56.9 GiB: it needs the whole card), then serves the
+   slice's queue through ``ContinuousEngine`` (4 slots, chunk 256, pages
+   of 64).  Gates: budgets, the pool drains, every decode launch ``mma``
+   at ``cluster_size``'s size, every flash launch ``flash_tc`` at (128,
+   128); request 2 against the plain versions (routing pinned, as above;
+   greedy tokens equal up to a near tie); a window under ``tp_bf16_kv8``
+   (the fp8 pool); one speculative run on that window (``spec_k`` 3, a
+   1-layer draft) whose streams equal the plain run's up to a near tie,
+   with an accept rate in (0, 1].  A profiled window gives device time
+   by class with ``moe_dispatch`` (sort, searchsorted, scatter, gather),
+   and one layer's FFN is timed alone at 4, 16 and 256 rows
+   (``moe_layer_probe``: host and device ms, the bound of the padded
+   slabs and of the routed experts alone).  Each MoE phase logs the
+   card's free memory first and fails below its need.
+11. The kernels line (all six kernels; flash attention, tp_matmul and decode
    attention with their launches by variant, the FMA variant's time,
    decode's launches by cluster size, flash's by head dims, the flags-on
    time of the main case and of the telemetry cases, the f32-pool case,
-   the MLA cases, the verify case; the attention launches summed over the
-   slice, speculative, generate, overload, escalation and MLA phases), the
-   card line, and as the last
+   the MLA cases, the verify case, the qwen3 cases and the (192, 128)
+   case with SDPA's time; the attention launches summed over the slice,
+   speculative, generate, overload, escalation, MLA, DeepSeek and MoE
+   phases), the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Imports no JAX.  Needs one CUDA device and ``nvcc`` (``CUDA_HOME``, PATH
@@ -134,6 +171,7 @@ or ``/usr/local/cuda``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -284,9 +322,14 @@ def hgmma_count(lib) -> int:
     return sum(1 for ln in sass.splitlines() if "HGMMA" in ln)
 
 
-def build_phase() -> dict:
-    """Builds every library; returns {library: HGMMA count}.  The two
-    tensor-core libraries must contain wgmma instructions."""
+def build_phase():
+    """Builds every library, then starts counting each one's ``HGMMA``
+    instructions in the background (``cuobjdump`` takes tens of seconds
+    on the flash library, which the kernel phase need not wait for).
+    Returns the gate: a call that waits for the counts, logs them, fails
+    unless both tensor-core libraries contain wgmma instructions, and
+    returns {library: HGMMA count}."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -307,13 +350,20 @@ def build_phase() -> dict:
         log(json.dumps({"build": name, "seconds": round(entry["seconds"], 2),
                         "ptxas": ptxas[:16], "spilling": spills[:24]}))
     log(f"kernels built in {secs:.1f} s")
-    hgmma = {name: hgmma_count(_build.library_path(name))
-             for name in _build.KERNELS}
-    log(json.dumps({"hgmma_instructions": hgmma}))
-    for name in TC_LIBRARIES:
-        if hgmma[name] <= 0:
-            raise AssertionError(f"{name}: no HGMMA instruction in its build")
-    return hgmma
+    pool = ThreadPoolExecutor(len(_build.KERNELS))
+    counts = {name: pool.submit(hgmma_count, _build.library_path(name))
+              for name in _build.KERNELS}
+    pool.shutdown(wait=False)
+
+    def gate() -> dict:
+        hgmma = {name: f.result() for name, f in counts.items()}
+        log(json.dumps({"hgmma_instructions": hgmma}))
+        for name in TC_LIBRARIES:
+            if hgmma[name] <= 0:
+                raise AssertionError(f"{name}: no HGMMA instruction in its "
+                                     f"build")
+        return hgmma
+    return gate
 
 
 # ---------------------------------------------------------------------------
@@ -456,17 +506,20 @@ def _sdpa_decode(q, k_pool, v_pool, table, kv_len, window):
 
 
 def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
-                seed, q_scale=1.0, sweep=False):
-    """``q_scale`` > 1 puts the scores into the softcap's bend; the case
+                seed, q_scale=1.0, sweep=False, heads=(8, 2), d=256):
+    """Decode over ``heads`` = (KV heads, group) of head dim ``d``.
+    ``q_scale`` > 1 puts the scores into the softcap's bend; the case
     then also checks that the cap changes the output (``CAP_EFFECT_MIN``).
     The launch must count under the cluster size ``cluster_size`` names.
+    Without a softcap SDPA computes the same function (``library_ms``; an
+    idle row, whose output the kernel stores as 0, is NaN there).
     ``sweep`` also times the kernel alone at 4, 8 and 16 CTAs a row
     (``cluster_ms``)."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.decode_attention import (
         cluster_size, decode_attention_cuda, decode_route)
-    b, hkv, g, d = len(kv_lens), 8, 2, 256
+    b, (hkv, g) = len(kv_lens), heads
     gen = torch.Generator(device="cuda").manual_seed(seed)
     max_len = max(kv_lens) + 1
     max_pages = -(-max_len // page)
@@ -514,7 +567,7 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
                                BF16_FLOP_S if variant == "mma" else F32_FLOP_S)
     tol = F32_TOL if policy == "fp32" else KERNEL_TOL
     lib = None
-    if softcap is None and min(kv_lens) > 0:
+    if softcap is None:
         lib = device_ms(_sdpa_decode(q, k, v, table, kvl, window))
     flat = lambda x: x.reshape(-1, page, d)
     lens = kops.expand_kv_lens(kvl, b, hkv, max_pages * page, q.device)
@@ -664,6 +717,24 @@ def _flat_flash(q, k, v, kvl, table, policy):
     return args, kw
 
 
+def _sdpa_chunk(q, k, v, table, kvl, q_offset):
+    """The library yardstick for a prefill chunk without window or
+    softcap: ``scaled_dot_product_attention`` on the gathered contiguous
+    cache (``table`` None: K/V as they are), with the causal and live-key
+    masks as one boolean mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.paged import gather_paged_kv
+    kc, vc = ((x if table is None else gather_paged_kv(x, table)).to(q.dtype)
+              for x in (k, v))
+    key = torch.arange(kc.shape[2], device="cuda")
+    qpos = q_offset + torch.arange(q.shape[2], device="cuda")
+    mask = ((key[None, None, :] < kvl[:, None, None])
+            & (key[None, None, :] <= qpos[None, :, None]))[:, None]
+    return lambda: F.scaled_dot_product_attention(q, kc, vc, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
 def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
                softcap, alias, seed, q_scale=1.0, policy=None, heads=(8, 2),
                d=256, dv=None, main=False, pages=None):
@@ -750,6 +821,8 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
             and q_dt != torch.float32):
         lib = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True))
+    elif softcap is None and window is None and q_dt != torch.float32:
+        lib = device_ms(_sdpa_chunk(q, k, v, table, kvl, q_offset))
     args, kw = _flat_flash(q, k, v, kvl, table, policy)
     kw.update(causal=True, window=window, softcap=softcap, q_offset=q_offset)
     extra = flash_telemetry(name, args, kw, variant)
@@ -875,7 +948,38 @@ def kernel_phase() -> dict:
                         rows=[256, 200], q_offset=768, chunk=256,
                         window=4096, softcap=50.0, alias=4, seed=13))
     f.extend(mla_kernel_cases())
+    dec, fl = moe_kernel_cases()
+    recs["decode_attention"].extend(dec)
+    f.extend(fl)
     return recs
+
+
+def moe_kernel_cases() -> tuple:
+    """The MoE phases' attention reads at their serving shapes, as
+    ``(decode records, flash records)``: qwen3-moe's decode (4 slots, 32
+    query and 4 KV heads of 128, so group 8, the decode kernel's kMaxG;
+    pages of 64, ragged kv_len up to 4112 with an idle row, no window, no
+    softcap) on a bf16 and an fp8-e5m2 pool; its 256-token prefill chunk
+    at q_offset 768; and deepseek-v2-lite's expanded MLA prefill (4 rows x
+    16 heads x 1024 causal, QK head dim 192, V head dim 128) on
+    ``flash_tc``, with ``flash_fma`` timed beside it (``fma_ms``).  None
+    has a softcap, so SDPA computes each (``library_ms``)."""
+    import torch
+    q3 = dict(page=64, kv_lens=[1056, 540, 0, 4112], window=None,
+              softcap=None, alias=4, heads=(4, 8), d=128)
+    dec = [decode_case("decode_bf16_p64_qwen3", dtype=torch.bfloat16,
+                       seed=16, **q3),
+           decode_case("decode_fp8_p64_qwen3", dtype=torch.float8_e5m2,
+                       seed=17, **q3)]
+    fl = [flash_case("flash_bf16_p64_qwen3_chunk", dtype=torch.bfloat16,
+                     page=64, rows=[256, 200], q_offset=768, chunk=256,
+                     window=None, softcap=None, alias=4, seed=18,
+                     heads=(4, 8), d=128, main=True),
+          flash_case("flash_mla_bf16_192", dtype=torch.bfloat16, page=0,
+                     rows=[1024] * 4, q_offset=0, chunk=1024, window=None,
+                     softcap=None, alias=0, seed=19, heads=(16, 1), d=192,
+                     dv=128, main=True)]
+    return dec, fl
 
 
 def mla_kernel_cases() -> list:
@@ -1392,9 +1496,10 @@ KERNEL_CLASSES = (("decode_attention", ("decode_cluster_kernel",)),
                   ("gemm", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
 
 
-def device_profile(run, wall: float):
-    """Device time by kernel class of ``run()`` under ``torch.profiler``
-    (CUDA activity only, so the host is barely slowed and the trace stays
+def device_profile(run, wall: float, classes=None):
+    """Device time by kernel class (``classes``, default
+    ``KERNEL_CLASSES``) of ``run()`` under ``torch.profiler`` (CUDA
+    activity only, so the host is barely slowed and the trace stays
     small), against ``wall``, the host-clock time of an unprofiled run of
     the same work: the idle share is one minus busy over ``wall``."""
     import torch
@@ -1409,17 +1514,18 @@ def device_profile(run, wall: float):
             by_name[ev.key] = (by_name.get(ev.key, 0.0)
                                + ev.self_device_time_total / 1e6)
     busy = sum(by_name.values())
-    classes = {name: 0.0 for name, _ in KERNEL_CLASSES}
-    classes["other"] = 0.0
+    classes = classes or KERNEL_CLASSES
+    by_class = {name: 0.0 for name, _ in classes}
+    by_class["other"] = 0.0
     for key, sec in by_name.items():
         low = key.lower()
-        cls = next((name for name, frags in KERNEL_CLASSES
+        cls = next((name for name, frags in classes
                     if any(f in low for f in frags)), "other")
-        classes[cls] += sec
+        by_class[cls] += sec
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return dict(wall_s=wall, device_busy_s=busy,
                 device_idle_share=(1.0 - busy / wall) if busy else None,
-                device_s_by_class=classes,
+                device_s_by_class=by_class,
                 top_kernels=[[k[:90], sec] for k, sec in top])
 
 
@@ -1605,13 +1711,16 @@ def slice_phase(model=None, params=None, seed: int = 0) -> dict:
 # ---------------------------------------------------------------------------
 #: draft depth of the speculative phase (the JAX package's A/B's)
 SPEC_K = 3
-#: the three speculative runs: engine options, and the requests' own
-#: ``no_speculate`` / ``spec_k`` (run ``a`` only)
+#: the three speculative runs: engine options, the requests' own
+#: ``no_speculate`` / ``spec_k`` (run ``a`` only), and whether the run
+#: serves the whole queue or only its warm-up window (run ``c``, the
+#: full-depth self-draft at ~0.45 s a round, cut to the window so the
+#: smoke stays within its time)
 SPEC_RUNS = (("a_1_repeat", dict(draft_repeats=1),
-              {1: dict(no_speculate=True), 2: dict(spec_k=1)}),
+              {1: dict(no_speculate=True), 2: dict(spec_k=1)}, True),
              ("b_1_repeat_kv8", dict(draft_repeats=1,
-                                     draft_policy="tp_bf16_kv8"), {}),
-             ("c_self_draft", {}, {}))
+                                     draft_policy="tp_bf16_kv8"), {}, True),
+             ("c_self_draft", {}, {}, False))
 
 
 def merge_counters(total: dict, part: dict) -> dict:
@@ -1766,11 +1875,13 @@ def speculative_phase(model, params, plain: dict, seed: int = 0) -> dict:
     base = slice_requests(model, seed)
     max_len = max(p + GEN for p in PROMPTS) + SPEC_K
     counted, runs = {}, {}
-    for name, opts, per_req in SPEC_RUNS:
+    for name, opts, per_req, whole in SPEC_RUNS:
         reqs = [dc.replace(r, **per_req.get(r.rid, {})) for r in base]
         # the first four requests, 8 tokens each: every shape of the run
         window = [dc.replace(r, max_new=min(8, GEN), arrival=0)
                   for r in reqs[:4]]
+        if not whole:
+            reqs = window
         eng = ContinuousEngine(model, params, slots=4, max_len=max_len,
                                chunk=256, spec_k=SPEC_K, **opts)
         eng.run(window)                              # warm-up
@@ -1785,10 +1896,11 @@ def speculative_phase(model, params, plain: dict, seed: int = 0) -> dict:
             raise AssertionError(f"speculative {name}: flash launches by "
                                  f"dims {c['flash_launches_by_dims']}")
         counted = merge_counters(counted, c)
-        for f in fin:
-            if len(f.tokens) != GEN:
+        for f, r in zip(fin, reqs):
+            if len(f.tokens) != r.max_new:
                 raise AssertionError(f"speculative {name}: request {f.rid} "
-                                     f"got {len(f.tokens)} of {GEN} tokens")
+                                     f"got {len(f.tokens)} of {r.max_new} "
+                                     f"tokens")
         if stats["pages_live_end"] != 0:
             raise AssertionError(f"speculative {name}: pool did not drain")
         rate = stats["spec_accept_rate"]
@@ -1807,7 +1919,9 @@ def speculative_phase(model, params, plain: dict, seed: int = 0) -> dict:
                    spec_rounds=stats["spec_rounds"],
                    spec_emitted=stats["spec_emitted"],
                    spec_accept_rate=rate, plain_tok_s=plain["tok_s"],
-                   vs_plain=(n_tok / wall) / plain["tok_s"],
+                   queue="whole" if whole else "window",
+                   vs_plain=((n_tok / wall) / plain["tok_s"] if whole
+                             else None),
                    plain_ms_per_round=plain["decode_ms_per_round"],
                    near_ties=ties, opts=opts,
                    requests={str(k): v for k, v in per_req.items()},
@@ -1949,18 +2063,103 @@ def generate_phase(model, params, seed: int = 0) -> dict:
     return res
 
 
+class RouteTape:
+    """The MoE router's top-k choices of one pass, recorded
+    (``record``) and chosen again by a later pass (``replay``).  The MoE
+    phases' plain-path logit gates hold the attention kernels against
+    their plain versions with the expert choice pinned: a bf16 difference
+    in the router's input flips a near-tied top-k choice (one expert's
+    output in place of another's), which is not the kernels' doing.  The
+    free-routing difference and the count of flipped choices
+    (``flips``) are reported beside it.  A replayed pass takes its own
+    router probabilities at the recorded experts, renormalized as
+    ``moe.route`` does."""
+
+    def __init__(self):
+        self.idx = []
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        from repro_torch.models import moe
+        orig = moe.route
+        moe.route = fn
+        try:
+            yield self
+        finally:
+            moe.route = orig
+
+    def record(self):
+        from repro_torch.models import moe
+        orig = moe.route
+
+        def rec(x, router, cfg):
+            r = orig(x, router, cfg)
+            self.idx.append(r[2])
+            return r
+        return self._patched(rec)
+
+    def replay(self, steps_of: int = 0):
+        """Recorded call i serves replayed call i; with ``steps_of`` = L
+        (the MoE layers of a one-row prefill recorded), replayed call i is
+        token i // L of layer i % L: the same prompt fed token by token."""
+        import torch
+        calls = iter(range(1 << 30))
+
+        def pinned(x, router, cfg):
+            i = next(calls)
+            idx = (self.idx[i] if not steps_of else
+                   self.idx[i % steps_of][i // steps_of:i // steps_of + 1])
+            probs = torch.softmax(x.float() @ router.float(), dim=-1)
+            gates = probs.gather(-1, idx)
+            if cfg.router_norm_topk:
+                gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                            min=1e-9)
+            return probs, gates, idx
+        return self._patched(pinned)
+
+    def flips(self, other: "RouteTape") -> int:
+        """Token-layer pairs whose expert sets differ from ``other``'s."""
+        return sum(int((a.sort(-1).values != b.sort(-1).values).any(-1)
+                       .sum()) for a, b in zip(self.idx, other.idx))
+
+
+def _tape(model):
+    """A ``RouteTape`` for a MoE model, else None."""
+    return RouteTape() if model.cfg.moe is not None else None
+
+
+def _recording(tape):
+    return tape.record() if tape is not None else contextlib.nullcontext()
+
+
 def _generate_vs_plain(model, params, toks, kw, first,
-                       penalties=GEN_PENALTIES) -> dict:
+                       penalties=GEN_PENALTIES, tape=None) -> dict:
     """``generate``'s prefill and first token through the plain versions
     of both attention kernels, against ``first`` (the kernel path's).
     Gates: first-token logits within ``LOGITS_TOL``, and each row's first
     token equal unless the plain path's top-2 margin of the logits
     penalized by ``penalties`` is at most twice the logit difference (a near tie that bf16
-    rounding may flip)."""
+    rounding may flip).  ``tape`` (a MoE model: the kernel pass's
+    ``RouteTape``) pins the plain pass's expert choices; the free pass's
+    difference and flips are reported."""
     from repro_torch.models.transformer import apply_penalties, token_counts
     plain = model.with_cfg(decode_backend="plain", prefill_backend="plain")
-    got = plain.generate(params, toks, **{**kw, "gen_len": 1},
-                         return_logits=True)
+    gen1 = lambda: plain.generate(params, toks, **{**kw, "gen_len": 1},
+                                  return_logits=True)
+    routing = {}
+    if tape is not None:
+        free = RouteTape()
+        with free.record():
+            lg_free = gen1()[1][:, 0]
+        with tape.replay():
+            got = gen1()
+        routing = dict(
+            free_routing_logits_max_abs_err=(
+                first[1][:, 0] - lg_free).abs().max().item(),
+            route_flips=tape.flips(free),
+            route_choices=sum(int(i.shape[0]) for i in tape.idx))
+    else:
+        got = gen1()
     (tok_k, lg_k), (tok_p, lg_p) = first[:2], got[:2]
     lg_k, lg_p = lg_k[:, 0], lg_p[:, 0]
     if not (lg_k.isfinite().all() and lg_p.isfinite().all()):
@@ -1972,7 +2171,8 @@ def _generate_vs_plain(model, params, toks, kw, first,
     margins = (top2[:, 0] - top2[:, 1]).tolist()
     agree = (tok_k[:, 0] == tok_p[:, 0]).tolist()
     res = dict(logits_max_abs_err=lerr, logits_tol=LOGITS_TOL,
-               first_tokens_agree=agree, plain_top2_margins=margins)
+               first_tokens_agree=agree, plain_top2_margins=margins,
+               **routing)
     if not lerr <= LOGITS_TOL:
         raise AssertionError(f"generate: first-token logits differ from the "
                              f"plain path's by {lerr}")
@@ -2327,20 +2527,21 @@ MLA_GEN = 32
 MLA_ROPE_PROMPT = 64
 
 
-def mla_counters(where: str) -> dict:
+def mla_counters(where: str, dims: str = "96x64") -> dict:
     """The attention launch counters since the last reset, gated for an
-    MLA path: flash launched, every launch on ``flash_tc`` at (96, 64),
-    and no decode-kernel launch (MLA decodes in the absorbed form)."""
+    MLA path: flash launched, every launch on ``flash_tc`` at ``dims``
+    ("DxDv"), and no decode-kernel launch (MLA decodes in the absorbed
+    form)."""
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     fa = flash_attention_cuda
-    dims = flash_dims()
     if fa.launches <= 0:
         raise AssertionError(f"{where}: flash_attention was not launched")
-    if fa.launches_tc != fa.launches or dims != {"96x64": fa.launches}:
+    by_dims = flash_dims()
+    if fa.launches_tc != fa.launches or by_dims != {dims: fa.launches}:
         raise AssertionError(f"{where}: flash launches tc {fa.launches_tc}, "
-                             f"fma {fa.launches_fma}, by dims {dims}: all "
-                             f"must be flash_tc at 96x64")
+                             f"fma {fa.launches_fma}, by dims {by_dims}: "
+                             f"all must be flash_tc at {dims}")
     if decode_attention_cuda.launches:
         raise AssertionError(f"{where}: the decode kernel launched "
                              f"{decode_attention_cuda.launches} times")
@@ -2349,7 +2550,8 @@ def mla_counters(where: str) -> dict:
                 variants={"flash_attention": {"tc": fa.launches_tc,
                                               "fma": 0},
                           "decode_attention": {"mma": 0, "fma": 0}},
-                decode_launches_by_cluster={}, flash_launches_by_dims=dims)
+                decode_launches_by_cluster={},
+                flash_launches_by_dims=by_dims)
 
 
 def _mla_rope_check(model, params, prompt) -> dict:
@@ -2358,13 +2560,29 @@ def _mla_rope_check(model, params, prompt) -> dict:
     rotated at its own position as it is written): the last-position
     logits within ``LOGITS_TOL`` and the same greedy token unless at a
     near tie.  A prefill whose prompt keys missed their rotation (the JAX
-    package's) would fail it."""
+    package's) would fail it.  A MoE model's decode pass takes the
+    prefill's expert choices (``RouteTape.replay``); its free-routing
+    difference is reported."""
     toks = prompt[None]
     n = toks.shape[1]
-    lg_p, _ = model.prefill(params, toks, max_len=n)
-    caches = model.init_caches(1, n)
-    for i in range(n):
-        lg_d, caches = model.decode_step(params, toks[:, i:i + 1], caches, i)
+    tape = _tape(model)
+    with _recording(tape):
+        lg_p, _ = model.prefill(params, toks, max_len=n)
+
+    def by_token():
+        caches = model.init_caches(1, n)
+        for i in range(n):
+            lg, caches = model.decode_step(params, toks[:, i:i + 1], caches,
+                                           i)
+        return lg
+    routing = {}
+    if tape is not None:
+        routing["free_routing_logits_max_abs_err"] = (
+            lg_p - by_token()).abs().max().item()
+        with tape.replay(steps_of=len(tape.idx)):
+            lg_d = by_token()
+    else:
+        lg_d = by_token()
     if not (lg_p.isfinite().all() and lg_d.isfinite().all()):
         raise AssertionError("mla rope check: logits are not finite")
     err = (lg_p - lg_d).abs().max().item()
@@ -2374,7 +2592,7 @@ def _mla_rope_check(model, params, prompt) -> dict:
     res = dict(prompt=n, logits_max_abs_err=err, logits_tol=LOGITS_TOL,
                logits_absmax=lg_d[..., :model.cfg.vocab].abs().max().item(),
                same_token=same,
-               decode_top2_margin=margin)
+               decode_top2_margin=margin, **routing)
     if not err <= LOGITS_TOL:
         raise AssertionError(f"mla rope check: prefill and token-by-token "
                              f"decode logits differ by {err}")
@@ -2388,20 +2606,31 @@ def mla_phase(seed: int = 0) -> dict:
     """minicpm3-4b at full width under ``tp_bf16`` (random weights from
     ``seed``), served by ``Model.generate`` from its contiguous latent
     cache: 4 right-padded ragged prompts (``MLA_PROMPTS``), ``MLA_GEN``
-    greedy tokens.  Gates: the while form's tokens equal the scan form's;
-    every flash launch (the expanded prefill) on ``flash_tc`` at (96, 64)
-    and no decode-kernel launch (``mla_counters``); the prefill and first
-    token against the plain versions (``_generate_vs_plain``); the rope
-    check (``_mla_rope_check``).  Prefill s, decode ms per step, tok/s and
-    the device's busy share over one scan call."""
+    greedy tokens (``mla_generate``, flash at (96, 64))."""
+    return mla_generate("minicpm3-4b", "96x64", "mla", seed=seed)
+
+
+def mla_generate(arch: str, dims: str, tag: str, seed: int = 0,
+                 need_gib: float = 0.0, classes=None) -> dict:
+    """``arch`` (an MLA stack) at full width under ``tp_bf16`` (random
+    weights from ``seed``), served by ``Model.generate`` from its
+    contiguous latent cache: 4 right-padded ragged prompts
+    (``MLA_PROMPTS``), ``MLA_GEN`` greedy tokens.  Gates: the while form's
+    tokens equal the scan form's; every flash launch (the expanded
+    prefill) on ``flash_tc`` at ``dims`` and no decode-kernel launch
+    (``mla_counters``); the prefill and first token against the plain
+    versions (``_generate_vs_plain``); the rope check
+    (``_mla_rope_check``).  Prefill s, decode ms per step, tok/s and the
+    device's busy share over one scan call (by ``classes``)."""
     import numpy as np
     import torch
     from repro_torch.models.registry import build_model
-    model = build_model("minicpm3-4b", policy="tp_bf16", device="cuda")
+    free_memory_gate(tag, need_gib)
+    model = build_model(arch, policy="tp_bf16", device="cuda")
     t0 = time.perf_counter()
     params = model.init(seed)
     torch.cuda.synchronize()
-    log(f"minicpm3-4b full width: {model.cfg.n_layers} layers, d_model "
+    log(f"{arch} full width: {model.cfg.n_layers} layers, d_model "
         f"{model.cfg.d_model}, weights "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2414,12 +2643,14 @@ def mla_phase(seed: int = 0) -> dict:
     toks = toks.to(model.device)
     lens = torch.tensor(MLA_PROMPTS, device=model.device)
     kw = dict(gen_len=MLA_GEN, prompt_lens=lens, return_trips=True)
-    model.generate(params, toks, **kw)                   # warm-up
+    model.generate(params, toks, **{**kw, "gen_len": 2})  # warm-up
     torch.cuda.synchronize()
     reset_attention_counters()
+    tape = _tape(model)
     t0 = time.perf_counter()
-    first = model.generate(params, toks, **{**kw, "gen_len": 1},
-                           return_logits=True)         # prefill + token 0
+    with _recording(tape):
+        first = model.generate(params, toks, **{**kw, "gen_len": 1},
+                               return_logits=True)     # prefill + token 0
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     scan, _, trips_scan = model.generate(params, toks, loop="scan", **kw)
@@ -2427,23 +2658,325 @@ def mla_phase(seed: int = 0) -> dict:
     t2 = time.perf_counter()
     whl, _, trips_while = model.generate(params, toks, loop="while", **kw)
     torch.cuda.synchronize()
-    counted = mla_counters("mla")
+    counted = mla_counters(tag, dims)
     if not torch.equal(scan, whl) or trips_scan != trips_while:
-        raise AssertionError("mla: the while form's tokens differ from the "
-                             "scan form's")
+        raise AssertionError(f"{tag}: the while form's tokens differ from "
+                             f"the scan form's")
     where = device_profile(
-        lambda: model.generate(params, toks, loop="scan", **kw), t2 - t1)
-    plain = _generate_vs_plain(model, params, toks, kw, first, penalties={})
+        lambda: model.generate(params, toks, loop="scan", **kw), t2 - t1,
+        classes)
+    plain = _generate_vs_plain(model, params, toks, kw, first, penalties={},
+                               tape=tape)
     rope = _mla_rope_check(model, params, toks[0, :MLA_ROPE_PROMPT])
     n_tok = len(MLA_PROMPTS) * MLA_GEN
-    res = dict(arch="minicpm3-4b", prompts=list(MLA_PROMPTS),
+    res = dict(arch=arch, prompts=list(MLA_PROMPTS),
                gen_len=MLA_GEN, prefill_s=t1 - t0, scan_s=t2 - t1,
                decode_ms_per_step=(t2 - t1 - (t1 - t0)) * 1e3
                / (MLA_GEN - 1), tok_s=n_tok / (t2 - t1), trips=trips_scan,
                greedy_heads=scan[:, :8].tolist(), plain_vs_kernel=plain,
                rope_check=rope, card=card_line(), where_the_time_goes=where,
                **counted)
-    log(json.dumps({"mla": res}))
+    log(json.dumps({tag: res}))
+    return res
+
+
+def free_memory_gate(where: str, need_gib: float) -> None:
+    """Logs the card's free memory before a phase builds its model, and
+    fails the phase (never skips it) when less than ``need_gib`` is
+    free."""
+    import torch
+    free, total = torch.cuda.mem_get_info()
+    log(f"{where}: {free / 2**30:.1f} GiB free of {total / 2**30:.1f} GiB "
+        f"before init")
+    if free < need_gib * 2**30:
+        raise AssertionError(f"{where}: {free / 2**30:.1f} GiB free on the "
+                             f"card, the phase needs {need_gib} GiB")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: Mixture-of-Experts serving
+# ---------------------------------------------------------------------------
+#: device-time classes of the MoE phases: the dispatch's sort /
+#: searchsorted / scatter / gather kernels (the router's top-k gather and
+#: the few index kernels of the attention wrappers and the embedding land
+#: here too) beside the kernel classes of the other phases
+MOE_CLASSES = KERNEL_CLASSES + (
+    ("moe_dispatch", ("sort", "searchsorted", "index", "scatter",
+                      "gather")),)
+#: free device memory the two MoE phases need before their init: weights
+#: (deepseek-v2-lite 29 GiB, qwen3-moe 56.9 GiB in bf16) and room for the
+#: padded [E, C, D] expert slabs of a 4096-token prefill
+DEEPSEEK_NEED_GIB = 36.0
+QWEN3_NEED_GIB = 66.0
+
+
+def deepseek_phase(seed: int = 0) -> dict:
+    """deepseek-v2-lite-16b at full width under ``tp_bf16`` (27 layers: MLA
+    with QK head dim 192 and V head dim 128, layer 0 dense, 26 MoE layers
+    of 64 routed experts top-6 plus 2 shared), served by ``Model.generate``
+    on ``MLA_PROMPTS`` (``mla_generate``): every flash launch ``flash_tc``
+    at (192, 128), none ``flash_fma``."""
+    return mla_generate("deepseek-v2-lite-16b", "192x128", "deepseek",
+                        seed=seed, need_gib=DEEPSEEK_NEED_GIB,
+                        classes=MOE_CLASSES)
+
+
+def moe_model(seed: int = 0):
+    """qwen3-moe-30b-a3b at full width under ``tp_bf16``, paged in 64-token
+    pages, random weights from ``seed`` (56.9 GiB)."""
+    import torch
+    from repro_torch.models.registry import build_model
+    free_memory_gate("moe", QWEN3_NEED_GIB)
+    model = build_model("qwen3-moe-30b-a3b", policy="tp_bf16", device="cuda",
+                        paged_kv=True, page_size=64)
+    t0 = time.perf_counter()
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    log(f"qwen3-moe-30b-a3b full width: {model.cfg.n_layers} layers, "
+        f"d_model {model.cfg.d_model}, {model.cfg.moe.n_experts} experts "
+        f"top-{model.cfg.moe.top_k}, weights "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def moe_run(eng, reqs, where: str, rule: set) -> tuple:
+    """One timed engine run after a counter reset, gated: every request
+    gets its budget, the pool drains, every decode launch on ``mma`` at a
+    size in ``rule``, every flash launch ``flash_tc`` at (128, 128).
+    Returns ``(fin, stats, wall, counters)``."""
+    import torch
+    reset_attention_counters()
+    t0 = time.perf_counter()
+    fin, stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = attention_counters(where, rule)
+    if set(counted["flash_launches_by_dims"]) != {"128x128"}:
+        raise AssertionError(f"{where}: flash launches by dims "
+                             f"{counted['flash_launches_by_dims']}")
+    for f, r in zip(fin, reqs):
+        if len(f.tokens) != r.max_new:
+            raise AssertionError(f"{where}: request {f.rid} got "
+                                 f"{len(f.tokens)} of {r.max_new} tokens")
+    if stats["pages_live_end"] != 0:
+        raise AssertionError(f"{where}: pool did not drain: {stats}")
+    return fin, stats, wall, counted
+
+
+#: rows of the MoE layer probe: a decode round of the 4 slots, a verify
+#: chunk of 4 slots x (SPEC_K + 1) positions, a 256-token prefill chunk
+MOE_PROBE_ROWS = (4, 16, 256)
+
+
+def moe_layer_probe(model, params, rows=MOE_PROBE_ROWS, reps: int = 10,
+                    seed: int = 0) -> list:
+    """One MoE layer's FFN (``moe.moe_block``, layer 0's weights, the aux
+    loss off as in serving) at each of ``rows`` tokens, ``reps`` calls in
+    a row: host-clock ms per call (ending in a synchronise), device ms per
+    call by class under ``torch.profiler``, the experts the tokens route
+    to, and the bound of the work as laid out (every expert's weights read
+    once, the padded [E, C, D] slabs' FLOPs) beside that of the routed
+    experts' weights alone.  Times 48 layers, it says how much of a round
+    the expert GEMMs take."""
+    import torch
+    from repro_torch.models import moe
+    cfg, pol = model.cfg.moe, model.policy
+    p = params["layers"][0]["mlp"]
+    d, e, f = model.cfg.d_model, cfg.n_experts, cfg.d_expert
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for t in rows:
+        x = torch.randn((1, t, d), generator=gen, device="cuda").to(
+            p["w_gate"].dtype)
+
+        def run():
+            for _ in range(reps):
+                moe.moe_block(x, p, cfg, pol, with_aux=False)
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof = device_profile(run, wall, MOE_CLASSES)
+        live = int(moe.route(x[0], p["router"], cfg)[2].unique().numel())
+        cap = moe._capacity(t, cfg)
+        w_bytes = 3 * d * f * p["w_gate"].element_size()
+        flops = 2 * 3 * e * cap * d * f
+        per = lambda sec: sec * 1e3 / reps
+        out.append(dict(
+            rows=t, capacity=cap, experts_live=live,
+            wall_ms=per(wall), device_ms=per(prof["device_busy_s"]),
+            device_ms_by_class={k: per(v) for k, v in
+                                prof["device_s_by_class"].items()},
+            bound_ms=max(e * w_bytes / HBM_BYTES_S,
+                         flops / BF16_FLOP_S) * 1e3,
+            routed_bytes_bound_ms=live * w_bytes / HBM_BYTES_S * 1e3,
+            top_kernels=prof["top_kernels"][:4]))
+    return out
+
+
+def moe_phase(seed: int = 0) -> dict:
+    """qwen3-moe-30b-a3b at full width (``moe_model``) served by
+    ``ContinuousEngine`` (4 slots, chunk 256, pages of 64) on the slice's
+    queue (``PROMPTS`` at ``ARRIVALS``, ``GEN`` tokens).  Gates
+    (``moe_run``): budgets, the pool drains, decode on ``mma`` at the
+    cluster size ``cluster_size`` names, flash on ``flash_tc`` at (128,
+    128).  A profiled window (the first four requests, 8 tokens) gives
+    device time by class with ``moe_dispatch``; ``moe_layer_probe`` times
+    one layer's FFN at a decode round's, a verify chunk's and a prefill
+    chunk's rows.  Request 2 (512 tokens) again on the plain versions:
+    first-token logits within ``LOGITS_TOL`` with the plain pass's expert
+    choices pinned to the kernel pass's (``RouteTape``; the free-routing
+    difference and the flipped choices are reported), the same first
+    token, greedy tokens equal up to a near tie (``near_tie_check`` at
+    the free difference).  A short run under ``tp_bf16_kv8`` (the fp8
+    pool) on that window.  One speculative run on that window (``spec_k``
+    3, a 1-repeat draft: 1 of 48 layers): streams equal the plain run's
+    up to a near tie, ``0 < spec_accept_rate <= 1``, every decode launch
+    (draft steps and verify folds) at its cluster size; its wall time
+    against the plain engine's on the same window (``vs_plain``)."""
+    import torch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.launch.engine import ContinuousEngine, Request
+
+    model, params = moe_model(seed)
+    reqs = slice_requests(model, seed)
+    window = [dataclasses.replace(r, max_new=min(8, GEN), arrival=0)
+              for r in reqs[:4]]
+    # warm-ups: the window's requests cut to 256 prompt tokens, 2 new ones
+    warm = [dataclasses.replace(r, tokens=r.tokens[:256], max_new=2)
+            for r in window]
+    max_len = max(p + GEN for p in PROMPTS)
+    eng = ContinuousEngine(model, params, slots=4, max_len=max_len,
+                           chunk=256)
+    eng.run(warm)
+    rule = cluster_rule(model, eng.slots, eng.max_pages)
+    fin, stats, wall, counted = moe_run(eng, reqs, "moe", rule)
+    n_tok = sum(len(f.tokens) for f in fin)
+    res = dict(arch="qwen3-moe-30b-a3b", requests=len(fin),
+               prompt_tokens=sum(PROMPTS), generated_tokens=n_tok,
+               wall_s=wall, prefill_ms=stats["prefill_s"] * 1e3,
+               decode_ms_per_round=(stats["decode_s"] * 1e3
+                                    / max(1, stats["decode_rounds"])),
+               decode_rounds=stats["decode_rounds"], tok_s=n_tok / wall,
+               peak_live_pages=stats["peak_live_pages"], max_len=max_len)
+    log(json.dumps({"moe_serve": dict(res, **counted)}))
+    t0 = time.perf_counter()
+    eng.run(window)
+    torch.cuda.synchronize()
+    res["where_the_time_goes"] = dict(
+        requests=len(window), max_new=window[0].max_new,
+        **device_profile(lambda: eng.run(window), time.perf_counter() - t0,
+                         MOE_CLASSES))
+    log(json.dumps({"moe_where_the_time_goes": res["where_the_time_goes"]}))
+    del eng
+    res["layer_probe"] = moe_layer_probe(model, params, seed=seed)
+    log(json.dumps({"moe_layer_probe": res["layer_probe"]}))
+
+    # request 2 again through the plain versions
+    pick = PROMPTS.index(512)
+    req = reqs[pick]
+    n = len(req.tokens)
+    plain = model.with_cfg(decode_backend="plain", prefill_backend="plain")
+    toks = torch.tensor([req.tokens], device=model.device)
+    tape, free = RouteTape(), RouteTape()
+    with tape.record():
+        lg_k, _ = model.prefill(params, toks, max_len=n + GEN)
+    with free.record():
+        lg_f, _ = plain.prefill(params, toks, max_len=n + GEN)
+    with tape.replay():
+        lg_p, _ = plain.prefill(params, toks, max_len=n + GEN)
+    if not (torch.isfinite(lg_k).all() and torch.isfinite(lg_p).all()):
+        raise AssertionError("moe: first-token logits are not finite")
+    lerr = (lg_k - lg_p).abs().max().item()
+    free_err = (lg_k - lg_f).abs().max().item()
+    solo = ContinuousEngine(plain, params, slots=1, max_len=n + GEN,
+                            chunk=256)
+    (fin_p,), _ = solo.run([Request(rid=0, tokens=req.tokens, max_new=GEN)])
+    del solo
+    tie = near_tie_check(model, params, req, fin_p.tokens, fin[pick].tokens,
+                         free_err)
+    top2 = lg_p[0, -1].topk(2).values
+    res["plain_vs_kernel"] = dict(
+        request=pick, prompt=n, logits_max_abs_err=lerr,
+        logits_tol=LOGITS_TOL,
+        logits_absmax=lg_k[..., :model.cfg.vocab].abs().max().item(),
+        free_routing_logits_max_abs_err=free_err,
+        route_flips=tape.flips(free),
+        route_choices=sum(int(i.shape[0]) for i in tape.idx),
+        plain_top2_margin=(top2[0] - top2[1]).item(),
+        first_token_agree=fin[pick].tokens[0] == fin_p.tokens[0],
+        greedy_tokens_agree=sum(a == b for a, b in zip(fin[pick].tokens,
+                                                       fin_p.tokens)),
+        of=GEN, near_tie=tie)
+    log(json.dumps({"moe_plain_vs_kernel": res["plain_vs_kernel"]}))
+    if not lerr <= LOGITS_TOL:
+        raise AssertionError(f"moe: first-token logits differ by {lerr}")
+    if not res["plain_vs_kernel"]["first_token_agree"]:
+        raise AssertionError("moe: the first generated token differs "
+                             "between the kernel path and the plain path")
+
+    # the fp8 pool
+    kv8 = dataclasses.replace(model, policy=get_policy("tp_bf16_kv8"))
+    eng8 = ContinuousEngine(kv8, params, slots=4, max_len=max_len,
+                            chunk=256)
+    if eng8.caches[0].k_pool.dtype != torch.float8_e5m2:
+        raise AssertionError(f"moe kv8: pool dtype "
+                             f"{eng8.caches[0].k_pool.dtype}")
+    eng8.run(warm)
+    fin8, st8, wall8, c8 = moe_run(eng8, window, "moe kv8", rule)
+    res["kv8"] = dict(requests=len(window), max_new=window[0].max_new,
+                      wall_s=wall8,
+                      decode_ms_per_round=(st8["decode_s"] * 1e3
+                                           / max(1, st8["decode_rounds"])),
+                      decode_rounds=st8["decode_rounds"],
+                      first_tokens_as_bf16=sum(
+                          f8.tokens[0] == f.tokens[0]
+                          for f8, f in zip(fin8, fin[:4])))
+    log(json.dumps({"moe_kv8": dict(res["kv8"], **c8)}))
+    counted = merge_counters(counted, c8)
+    del eng8
+
+    # speculative: a 1-repeat draft (1 of 48 layers)
+    vs = verify_vs_step(model, params, seed)
+    log(json.dumps({"moe_verify_vs_step": vs}))
+    spec = ContinuousEngine(model, params, slots=4,
+                            max_len=max_len + SPEC_K, chunk=256,
+                            spec_k=SPEC_K, draft_repeats=1)
+    spec.run(warm)
+    srule = cluster_rule(model, spec.slots, spec.max_pages)
+    fin_s, st_s, wall_s, c_s = moe_run(spec, window, "moe speculative",
+                                       srule)
+    rate = st_s["spec_accept_rate"]
+    if not 0.0 < rate <= 1.0:
+        raise AssertionError(f"moe speculative: accept rate {rate}")
+    streams = {f.rid: f.tokens for f in fin}
+    ties = [t for t in (near_tie_check(model, params, r, streams[r.rid],
+                                       f.tokens, vs["logits_max_abs_diff"])
+                        for r, f in zip(window, fin_s)) if t is not None]
+    n_s = sum(len(f.tokens) for f in fin_s)
+    plain_window = res["where_the_time_goes"]["wall_s"]
+    res["speculative"] = dict(
+        spec_k=SPEC_K, draft_repeats=1, requests=len(window),
+        max_new=window[0].max_new, tok_s=n_s / wall_s, wall_s=wall_s,
+        ms_per_round=st_s["decode_s"] * 1e3 / max(1, st_s["decode_rounds"]),
+        decode_rounds=st_s["decode_rounds"], spec_rounds=st_s["spec_rounds"],
+        spec_emitted=st_s["spec_emitted"], spec_accept_rate=rate,
+        plain_window_s=plain_window, vs_plain=plain_window / wall_s,
+        near_ties=ties,
+        verify_vs_step=vs,
+        decode_launches_by_cluster=c_s["decode_launches_by_cluster"])
+    log(json.dumps({"moe_speculative": res["speculative"]}))
+    counted = merge_counters(counted, c_s)
+    del spec
+    res.update(card=card_line(), **counted)
+    log(json.dumps({"moe": {k: v for k, v in res.items()
+                            if k not in ("speculative", "kv8",
+                                         "where_the_time_goes",
+                                         "plain_vs_kernel",
+                                         "layer_probe")}}))
     return res
 
 
@@ -2464,12 +2997,13 @@ def main() -> int:
         clock.append(time.perf_counter())
         phase_s[name] = round(clock[-1] - clock[-2], 1)
 
-    build_phase()
+    hgmma_gate = build_phase()
     lap("build")
     recs = kernel_phase()
     recs.update(op_kernel_phase())
     op_res = op_path_phase()
     tele = telemetry_phase()
+    hgmma_gate()
     lap("kernels")
     model, params = full_model()
     serving = [slice_phase(model, params)]
@@ -2490,6 +3024,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving.append(mla_phase())
     lap("mla")
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving.append(deepseek_phase())
+    lap("deepseek")
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving.append(moe_phase())
+    lap("moe")
     log(json.dumps({"phase_s": phase_s}))
     launches, variants, by_cluster = dict(op_res["launches"]), {}, {}
     by_dims = {}
@@ -2540,6 +3082,17 @@ def main() -> int:
                                    "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "max_abs_err")}
                 for c in cases if c["case"].startswith("flash_mla")]
+            entry["deepseek_192_case"] = {
+                k: c[k] for c in cases if c["case"] == "flash_mla_bf16_192"
+                for k in ("variant", "kernel_ms", "fma_ms", "plain_ms",
+                          "bound_ms", "bound_by", "library_ms")}
+        if name in ("decode_attention", "flash_attention"):
+            entry["qwen3_cases"] = [
+                {k: c.get(k) for k in ("case", "variant", "cluster",
+                                       "kernel_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "max_abs_err")}
+                for c in cases if "qwen3" in c["case"]]
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(card)

@@ -1,10 +1,11 @@
 """Model configuration schema, field for field as the JAX package's
 ``repro.configs.base``.
 
-The family sub-configs (``moe``, ``mamba``, ``mlstm``, ``slstm``,
-``encoder``) keep their fields but stay ``None`` in this port: the dense
-attention stacks are ported, GQA (gemma2) and MLA (minicpm3, with the
-MLA dims below).  Defaults differ in one place: ``decode_backend`` /
+The attention stacks are ported, GQA (gemma2, qwen3-moe) and MLA
+(minicpm3, deepseek-v2-lite, with the MLA dims below), with a SwiGLU or
+a Mixture-of-Experts FFN (``moe``: a ``models.moe.MoEConfig``).  The
+other family sub-configs (``mamba``, ``mlstm``, ``slstm``, ``encoder``)
+keep their fields but stay ``None`` in this port.  Defaults differ in one place: ``decode_backend`` /
 ``prefill_backend`` are ``"auto"`` (the CUDA kernels for CUDA tensors,
 their plain versions on the CPU).
 """
@@ -66,7 +67,7 @@ class ModelConfig:
     nope_dim: int = 0
     rope_dim: int = 0
     v_head_dim: int = 0
-    # family sub-configs (not ported)
+    # family sub-configs (moe ported, the rest not)
     moe: Optional[Any] = None
     mamba: Optional[Any] = None
     mlstm: Optional[Any] = None

@@ -8,7 +8,8 @@
 // Contract (same as the TPU kernel): q [BH, Sq, D] at positions
 // q_offset + i attends keys of KV row bh / group that are < kv_len[bh]
 // (k [.., D], v [.., Dv]: V's head dim may differ, as MLA's expanded
-// prefill has it, D 96 and Dv 64; the output is [BH, Sq, Dv]),
+// prefill has it, D 96 and Dv 64 (minicpm3) or D 192 and Dv 128
+// (deepseek-v2-lite); the output is [BH, Sq, Dv]),
 // causal (key <= query) and inside the window (query - key < window);
 // scores are src-dtype products summed in f32, scaled and exp-form
 // soft-capped; the online softmax keeps the running max, denominator and
@@ -24,7 +25,8 @@
 // ``tc_tile_dtype`` (kernels/flash_attention.py) alone:
 //
 // ``flash_tc`` (tensor cores; src bf16 / fp16, or f32 on a grid exact in a
-// 16-bit type; (D, Dv) in {(64, 64), (128, 128), (256, 256), (96, 64)}).
+// 16-bit type; (D, Dv) in {(64, 64), (128, 128), (256, 256), (96, 64),
+// (192, 128)}).
 // One CTA per (KV row, query tile) carries the tile's queries of every head
 // of the GQA group (rows = heads x queries, 64 or 128 of them, one consumer
 // warpgroup per 64), so each K/V tile is read once per group.  A producer
@@ -39,7 +41,8 @@
 // j and P V of tile j - 1 are issued together.  Key tiles start at multiples
 // of 64 (``floor(k_start / 64) * 64``), so the plain version walks the same
 // blocks and rounds p against the same running max.  A D that is not a
-// multiple of 64 (96) rounds Q's and K's tiles up to whole chunks (two):
+// multiple of 64 (96) rounds Q's and K's tiles up to whole chunks (two; D
+// 192 is three whole chunks):
 // TMA zero-fills the columns past D (the tensor map's inner extent is D),
 // and Q K^T issues only the D / 16 k-steps that hold data, so no step
 // reads them.  V's tile is Dv / 64 chunks and P V has N = Dv.
@@ -1007,6 +1010,7 @@ template <typename TT>
 cudaError_t launch_tc_dims(const TcFlashParams& p, int bkv, int nc, int d,
                            cudaStream_t stream) {
   if (d == 96) return launch_tc_flags<TT, 96, 64>(p, bkv, nc, stream);
+  if (d == 192) return launch_tc_flags<TT, 192, 128>(p, bkv, nc, stream);
   switch (d) {
     case 64: return launch_tc_flags<TT, 64, 64>(p, bkv, nc, stream);
     case 128: return launch_tc_flags<TT, 128, 128>(p, bkv, nc, stream);
@@ -1021,7 +1025,7 @@ int gcd_int(int a, int b) { return b ? gcd_int(b, a % b) : a; }
 // q_rows: rows of a CTA's query tile over all heads of the group (64 or
 // 128; the tile holds q_rows / group queries of each head); tile_bf16: 1 ->
 // bf16 tiles, 0 -> fp16; ``visits`` / ``flags`` as for flash_fma; (d, dv)
-// one of (64, 64), (128, 128), (256, 256), (96, 64).
+// one of (64, 64), (128, 128), (256, 256), (96, 64), (192, 128).
 extern "C" int flash_attention_tc_launch(
     const void* q, const void* k, const void* v, const void* kv_len,
     const void* block_table, void* out, void* visits, void* flags,
@@ -1031,7 +1035,7 @@ extern "C" int flash_attention_tc_launch(
     int snap_emin, int tile_bf16, int q_rows, float scale, float softcap,
     void* stream) {
   const bool pair = (d == dv && (d == 64 || d == 128 || d == 256)) ||
-                    (d == 96 && dv == 64);
+                    (d == 96 && dv == 64) || (d == 192 && dv == 128);
   if (!pair || (q_rows != 64 && q_rows != 128) ||
       group < 1 || group > q_rows || sq < 1 || bh % group || page < 1 ||
       nk < 1 || (q_dtype != DT_F32 && q_dtype != DT_BF16 && q_dtype != DT_F16) ||

@@ -32,7 +32,8 @@ the src dtype against the running max of that walk.
 
 Layout: q [BH, Sq, D]; k contiguous [BKV, Skv, D] or a flat page pool
 [n_pages * Hkv, page, D] with ``block_table`` [BKV, nk], v the same with
-its own head dim Dv (MLA's expanded prefill: D 96, Dv 64); BH = BKV *
+its own head dim Dv (MLA's expanded prefill: D 96, Dv 64 for minicpm3,
+D 192, Dv 128 for deepseek-v2-lite); BH = BKV *
 group.  Output [BH, Sq, Dv] f32.  With ``debug_visits`` / ``debug_flags`` the
 variant's telemetry instantiation runs (``launches_telemetry``) and also
 returns the TPU kernel's side outputs, per step of ``block_schedule`` at
@@ -59,7 +60,7 @@ PLAIN_BLOCK = 32
 #: key tile of each CUDA variant, and the FMA variant's query tile
 TC_BLOCK_K, FMA_BLOCK_K, FMA_BLOCK_Q = 64, 32, 32
 #: (QK head dim, V head dim) pairs the tensor-core variant takes
-TC_HEAD_PAIRS = ((64, 64), (128, 128), (256, 256), (96, 64))
+TC_HEAD_PAIRS = ((64, 64), (128, 128), (256, 256), (96, 64), (192, 128))
 
 
 def plan_q_rows(sq: int, bkv: int, group: int) -> int:

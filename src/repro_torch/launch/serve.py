@@ -5,9 +5,11 @@ Fixed batch (the default): ``--batch`` prompts of ``--prompt-len`` tokens,
 ``--gen`` tokens each.  ``--loop scan`` / ``--loop while`` run
 ``Model.generate`` in that loop form (the guard on: non-finite logits
 raise ``PoisonedLogitsError``); ``--loop python`` is the per-step prefill
-+ ``decode_step`` loop.  ``--arch minicpm3-4b`` (MLA) serves from a
-contiguous latent cache: ``--paged`` and ``--continuous`` are refused
-with ``ModelConfig.paged_unsupported_reason``.  ``--ragged``
++ ``decode_step`` loop.  ``--arch minicpm3-4b`` and ``--arch
+deepseek-v2-lite-16b`` (MLA) serve from a contiguous latent cache:
+``--paged`` and ``--continuous`` are refused with
+``ModelConfig.paged_unsupported_reason``.  ``--arch qwen3-moe-30b-a3b``
+(Mixture-of-Experts) serves either way.  ``--ragged``
 packs prompts of 1/4 .. 4/4 of ``--prompt-len`` into one right-padded
 batch, ``--stop-token`` freezes a row at that token, ``--paged`` serves
 from a page pool of ``--page-size``-token pages; a uniform paged batch
@@ -49,6 +51,9 @@ raises.  Meshes, replicas and the journal are not ported.
 
     python -m repro_torch.launch.serve --full --batch 4 --gen 32
     python -m repro_torch.launch.serve --arch minicpm3-4b --full --ragged
+    python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --full \
+        --continuous --speculate 3 --draft-layers 1
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --full
     python -m repro_torch.launch.serve --device cpu --paged --page-size 16
     python -m repro_torch.launch.serve --continuous --soak --device cpu \\
         --slots 3 --requests 10 --prompt-len 16 --gen 24 --pool-pages 5 \\

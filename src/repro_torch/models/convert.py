@@ -4,7 +4,9 @@
 array (``jax.tree.map(np.asarray, params)`` on the caller's side) and
 returns the port's parameter dict: the stacked ``[R, ...]`` pattern
 params are unstacked into one dict per layer, in ``cfg.layer_list()``
-order (prefix, then ``R`` repeats of the pattern, then suffix).  bf16 and
+order (prefix, then ``R`` repeats of the pattern, then suffix); a MoE
+layer's stacked expert leaves ``[R, E, ...]`` come out ``[E, ...]``, its
+f32 router stays f32, and an untied ``lm_head`` is carried.  bf16 and
 fp8 leaves (ml_dtypes arrays) are reinterpreted bit for bit.  numpy only:
 this module never imports jax.
 """
@@ -46,5 +48,8 @@ def from_jax_params(tree, device: DeviceLike = None) -> dict:
         for p in pattern:
             layers.append(conv(_tree(p, lambda a: a[r])))
     layers += [conv(p) for p in tree.get("suffix", ())]
-    return {"embed": conv(tree["embed"]), "norm_f": conv(tree["norm_f"]),
-            "layers": layers}
+    out = {"embed": conv(tree["embed"]), "norm_f": conv(tree["norm_f"]),
+           "layers": layers}
+    if "lm_head" in tree:                  # untied embeddings
+        out["lm_head"] = conv(tree["lm_head"])
+    return out

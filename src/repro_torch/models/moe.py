@@ -1,0 +1,181 @@
+"""Mixture-of-Experts: the JAX package's ``repro.models.moe``, local
+dispatch only.
+
+Dispatch is the sort-based capacity scheme (no [T, E, C] one-hot tensors):
+
+  1. f32 router, softmax, top-k -> flat (token, slot) -> expert assignments,
+  2. stable argsort by expert, per-expert rank from the run starts
+     (``searchsorted``),
+  3. scatter into an [E * C + 1, D] buffer whose last row is the drop row;
+     with the default drop-free capacity (``capacity_factor=None``, C >=
+     the token count) every assignment fits, so a token's output does not
+     depend on what else is in the batch (chunked verify equals sequential
+     decode); a finite factor restores training-style over-capacity drops,
+  4. the batched expert SwiGLU over the [E, C, D] slabs,
+  5. gather back, unsort, and the f32 gate-weighted combine.
+
+Everything stays on the device: C comes from shapes alone, and nothing
+reads a data-dependent size back to the host.  The expert SwiGLU runs on
+every expert's whole slab, padding included, as the JAX package lays it
+out: a routed-rows grouped GEMM is later work (ROADMAP, Hopper
+follow-ups).  Expert parallelism (``ep_axis`` / ``mesh``, the JAX
+package's ``all_to_all`` path) is not ported (ROADMAP Queue 1 item 8).
+
+Transprecision: the expert products follow the multi-format FMA policy
+(``core.ops.tp_einsum``), the activation the elementwise policy; the router
+runs in f32.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..core import ops as tp
+from .layers import dense_init, swiglu
+
+F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int
+    n_shared: int = 0
+    # None = drop-free dispatch (capacity >= n_tokens: no expert can
+    # overflow, no token is dropped).  Serving needs drop-free: with a
+    # finite factor a token's keep/drop decision depends on the rest of the
+    # batch, and chunked verify would part from sequential decode.
+    capacity_factor: Optional[float] = None
+    router_norm_topk: bool = True   # normalize top-k gates to sum to 1
+
+
+def moe_params(gen: torch.Generator, d_model: int, cfg: MoEConfig, dtype,
+               device) -> dict:
+    """The JAX ``moe_params`` distributions, drawn from ``gen``: the router
+    [D, E] in f32, expert weights [E, D, F] / [E, F, D] in ``dtype``, and
+    the shared experts' SwiGLU (width ``n_shared * d_expert``)."""
+    e, f = cfg.n_experts, cfg.d_expert
+
+    def experts(shape, fan_in):
+        w = torch.randn(shape, generator=gen, dtype=F32, device=device)
+        return (w * fan_in ** -0.5).to(dtype)
+
+    p = {"router": dense_init(gen, d_model, e, F32, device),
+         "w_gate": experts((e, d_model, f), d_model),
+         "w_up": experts((e, d_model, f), d_model),
+         "w_down": experts((e, f, d_model), f)}
+    if cfg.n_shared:
+        fs = cfg.n_shared * f
+        p["shared"] = {"gate": dense_init(gen, d_model, fs, dtype, device),
+                       "up": dense_init(gen, d_model, fs, dtype, device),
+                       "down": dense_init(gen, fs, d_model, dtype, device)}
+    return p
+
+
+def _capacity(n_tokens: int, cfg: MoEConfig) -> int:
+    if cfg.capacity_factor is None:
+        # drop-free: a token assigns an expert at most once, so one expert
+        # receives at most n_tokens rows
+        return max(8, -(-n_tokens // 8) * 8)
+    c = int(n_tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
+    return max(8, -(-c // 8) * 8)
+
+
+def _expert_ffn(buf, w_gate, w_up, w_down, policy):
+    """buf [E, C, D] -> [E, C, D], the batched SwiGLU."""
+    g = tp.tp_einsum("ecd,edf->ecf", buf, w_gate, policy)
+    u = tp.tp_einsum("ecd,edf->ecf", buf, w_up, policy)
+    h = tp.tp_elementwise("silu", g, policy=policy) * u
+    return tp.tp_einsum("ecf,efd->ecd", h, w_down, policy)
+
+
+def route(x_flat, router, cfg: MoEConfig):
+    """The f32 router: ``(probs [T, E], gates [T, k], idx [T, k])``."""
+    logits = x_flat.to(F32) @ router.to(F32)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    if cfg.router_norm_topk:
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return probs, gates, idx
+
+
+def dispatch_slots(idx, cap: int, n_experts: int):
+    """Sort-based dispatch of the flat assignments ``idx`` [T, k]: ``(order
+    [T*k], slot [T*k])``, ``order`` the stable sort of the flat
+    assignments by expert and ``slot[i]`` the buffer row of sorted
+    assignment ``i`` (``n_experts * cap``, the drop row, when its expert
+    is full)."""
+    t, k = idx.shape
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    first = torch.searchsorted(
+        sorted_e, torch.arange(n_experts, device=idx.device,
+                               dtype=sorted_e.dtype), side="left")
+    rank = torch.arange(t * k, device=idx.device) - first[sorted_e]
+    slot = torch.where(rank < cap, sorted_e * cap + rank, n_experts * cap)
+    return order, slot
+
+
+def moe_core(x_flat, params, cfg: MoEConfig, policy, *,
+             ep_axis: Optional[str] = None, ep_size: int = 1,
+             with_aux: bool = True):
+    """x_flat [T, D] -> (y [T, D], aux scalar): routing, dispatch, the
+    expert SwiGLU and the combine, on one device.  ``with_aux=False``
+    (serving) skips the aux loss and returns None in its place, as XLA
+    drops it from the JAX package's serving graphs."""
+    if ep_axis is not None and ep_size > 1:
+        raise NotImplementedError(
+            "expert parallelism (ep_axis, all_to_all) is not ported: ROADMAP "
+            "Queue 1 item 8 (sharding)")
+    t, d = x_flat.shape
+    e_total, k = cfg.n_experts, cfg.top_k
+    cap = _capacity(t, cfg)
+
+    probs, gates, idx = route(x_flat, params["router"], cfg)
+    aux = None
+    if with_aux:
+        # Switch-style load balancing: mean router probability times the
+        # top-1 dispatch fraction, per expert (counted by a scatter: no
+        # host sync)
+        top1 = torch.zeros((e_total,), dtype=F32, device=x_flat.device)
+        top1.scatter_add_(0, idx[:, 0], torch.ones((t,), dtype=F32,
+                                                   device=x_flat.device))
+        aux = e_total * torch.sum(probs.mean(dim=0) * (top1 / t))
+
+    order, slot = dispatch_slots(idx, cap, e_total)
+    buf = torch.zeros((e_total * cap + 1, d), dtype=x_flat.dtype,
+                      device=x_flat.device)
+    # only the drop row can receive two writes, and it is cut off
+    buf[slot] = x_flat[order // k]
+    out = _expert_ffn(buf[:-1].reshape(e_total, cap, d), params["w_gate"],
+                      params["w_up"], params["w_down"], policy)
+    out = torch.cat([out.reshape(e_total * cap, d),
+                     torch.zeros((1, d), dtype=out.dtype, device=out.device)])
+    gathered = torch.empty((t * k, d), dtype=out.dtype, device=out.device)
+    gathered[order] = out[slot]                     # unsort: flat order
+    y = torch.einsum("tkd,tk->td", gathered.reshape(t, k, d).to(F32),
+                     gates.to(F32)).to(x_flat.dtype)
+    return y, aux
+
+
+def moe_block(x, params, cfg: MoEConfig, policy, *, mesh=None,
+              ep_axis: Optional[str] = "model", with_aux: bool = True):
+    """x [B, S, D] -> (y, aux): the routed experts plus the shared experts'
+    SwiGLU.  A ``mesh`` (expert parallelism) raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "moe_block under a mesh (expert parallelism over ep_axis) is not "
+            "ported: ROADMAP Queue 1 item 8 (sharding)")
+    b, s, d = x.shape
+    routed = {n: v for n, v in params.items() if n != "shared"}
+    y, aux = moe_core(x.reshape(b * s, d), routed, cfg, policy,
+                      with_aux=with_aux)
+    y = y.reshape(b, s, d)
+    if cfg.n_shared:
+        sh = params["shared"]
+        y = y + swiglu(x, sh["gate"], sh["up"], sh["down"], policy)
+    return y, aux

@@ -1,6 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> (ModelConfig, Model).
 
-Ported: gemma2-9b (GQA) and minicpm3-4b (MLA), each at full width and as
+Ported: gemma2-9b (GQA), minicpm3-4b (MLA), qwen3-moe-30b-a3b (GQA +
+MoE) and deepseek-v2-lite-16b (MLA + MoE), each at full width and as
 ``reduced()``; any other arch id raises ``NotImplementedError``."""
 from __future__ import annotations
 
@@ -10,9 +11,12 @@ from ..core.device import DeviceLike, resolve_device
 from ..core.policy import get_policy
 from .transformer import Model
 
-ARCHS = ("gemma2_9b", "minicpm3_4b")
+ARCHS = ("gemma2_9b", "minicpm3_4b", "qwen3_moe_30b_a3b",
+         "deepseek_v2_lite_16b")
 
-ALIASES = {"gemma2-9b": "gemma2_9b", "minicpm3-4b": "minicpm3_4b"}
+ALIASES = {"gemma2-9b": "gemma2_9b", "minicpm3-4b": "minicpm3_4b",
+           "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+           "deepseek-v2-lite-16b": "deepseek_v2_lite_16b"}
 
 
 def canonical(arch: str) -> str:

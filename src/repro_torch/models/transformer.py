@@ -1,5 +1,6 @@
-"""The model: embedding -> a stack of attention + SwiGLU layers -> final
-norm -> tied unembedding, with the entry points the serving engine drives:
+"""The model: embedding -> a stack of attention + SwiGLU / MoE layers ->
+final norm -> unembedding (tied, or an ``lm_head``), with the entry points
+the serving engine drives:
 
   ``prefill``        [B, S] tokens -> (last-live-token logits, caches)
   ``decode_step``    one token per row + caches -> (logits, caches)
@@ -29,9 +30,11 @@ temperature / top-k / top-p draw (``sample_token``) from an explicit
 Parameters are a plain dict of tensors in the JAX layout (``[d_in,
 d_out]``) with the layers UNSTACKED: ``params["layers"][i]`` is layer
 ``i`` of ``cfg.layer_list()``.  Caches are a list with one entry per
-layer, updated IN PLACE.  Attention-only archs: GQA (gemma2: contiguous
-or paged KV) or MLA (minicpm3: a contiguous latent cache,
-``attention.MLACache``; no page axis), each with a SwiGLU MLP.  The
+layer, updated IN PLACE.  Attention-only archs: GQA (gemma2, qwen3-moe:
+contiguous or paged KV) or MLA (minicpm3, deepseek-v2-lite: a contiguous
+latent cache, ``attention.MLACache``; no page axis), each layer with a
+SwiGLU MLP or a Mixture-of-Experts FFN (``moe.moe_block``; serving drops
+its aux loss, as the JAX package's serving entry points do).  The
 escalation write path (``esc_fmts`` / ``kv_levels``, and overflow
 injection ``ovf_at`` / ``ovf_scale`` in ``decode_burst``) snaps every cache
 write onto its row's rung and returns the rows' OF / UF write counts
@@ -49,9 +52,10 @@ import torch
 from ..configs.base import LayerSpec, ModelConfig
 from ..core.policy import PrecisionPolicy, get_policy
 from . import attention as attn
+from . import moe as moe_mod
 from . import paged
-from .layers import (embed_init, mlp_params, param_dtype, rmsnorm, softcap,
-                     swiglu)
+from .layers import (dense_init, embed_init, mlp_params, param_dtype, rmsnorm,
+                     softcap, swiglu)
 from ..core import ops as tp
 
 F32 = torch.float32
@@ -179,12 +183,13 @@ def _penalized(repetition_penalty, presence_penalty) -> bool:
 
 def _check_supported(cfg: ModelConfig):
     bad = sorted({f"{s.mixer}/{s.ffn}" for s in cfg.layer_list()
-                  if s.mixer not in ("gqa", "mla") or s.ffn != "swiglu"
-                  or s.cross_attn})
+                  if s.mixer not in ("gqa", "mla")
+                  or s.ffn not in ("swiglu", "moe") or s.cross_attn})
     if bad or cfg.encoder is not None or cfg.max_seq or cfg.norm != "rmsnorm":
         raise NotImplementedError(
-            f"{cfg.name}: only gqa / mla + swiglu rmsnorm stacks are ported "
-            f"(got {bad or 'an encoder / learned positions / layernorm'})")
+            f"{cfg.name}: only gqa / mla + swiglu / moe rmsnorm stacks are "
+            f"ported (got "
+            f"{bad or 'an encoder / learned positions / layernorm'})")
 
 
 def _norm(x, p, cfg: ModelConfig):
@@ -203,9 +208,10 @@ def init_layer(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device):
         mixer = attn.gqa_params(gen, cfg.d_model, cfg.n_heads,
                                 cfg.n_kv_heads, cfg.head_dim, dtype, device,
                                 qk_norm=spec.qk_norm)
-    p = {"norm1": z(), "attn": mixer,
-         "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, dtype, device),
-         "norm2": z()}
+    mlp = (moe_mod.moe_params(gen, cfg.d_model, cfg.moe, dtype, device)
+           if spec.ffn == "moe" else
+           mlp_params(gen, cfg.d_model, cfg.d_ff, dtype, device))
+    p = {"norm1": z(), "attn": mixer, "mlp": mlp, "norm2": z()}
     if spec.post_norms:
         p["post1"], p["post2"] = z(), z()
     return p
@@ -287,14 +293,17 @@ class Model:
         gen = seed if isinstance(seed, torch.Generator) else \
             torch.Generator(device=dev).manual_seed(int(seed))
         dtype = param_dtype(self.policy)
-        return {
-            "embed": embed_init(gen, padded_vocab(cfg.vocab), cfg.d_model,
-                                dtype, dev),
+        vpad = padded_vocab(cfg.vocab)
+        params = {
+            "embed": embed_init(gen, vpad, cfg.d_model, dtype, dev),
             "norm_f": {"g": torch.zeros((cfg.d_model,), dtype=dtype,
                                         device=dev)},
-            "layers": [init_layer(gen, s, cfg, dtype, dev)
-                       for s in cfg.layer_list()],
         }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(gen, cfg.d_model, vpad, dtype, dev)
+        params["layers"] = [init_layer(gen, s, cfg, dtype, dev)
+                            for s in cfg.layer_list()]
+        return params
 
     # -- embedding / unembedding ------------------------------------------
     def embed(self, params, tokens):
@@ -310,8 +319,9 @@ class Model:
     def logits(self, params, x):
         cfg = self.cfg
         out_fmt = "fp16alt" if cfg.ce_dtype == "fp16alt" else "fp32"
-        lg = tp.tp_matmul(x, params["embed"].t(), self.policy,
-                          out_fmt=out_fmt)
+        w = (params["embed"].t() if cfg.tie_embeddings
+             else params["lm_head"])
+        lg = tp.tp_matmul(x, w, self.policy, out_fmt=out_fmt)
         lg = softcap(lg, cfg.logit_softcap)
         vpad = padded_vocab(cfg.vocab)
         if vpad != cfg.vocab:
@@ -362,8 +372,12 @@ class Model:
             mix = _norm(mix, p["post1"], cfg)
         x = x + rs * mix
         h2 = _norm(x, p["norm2"], cfg)
-        f = swiglu(h2, p["mlp"]["gate"], p["mlp"]["up"], p["mlp"]["down"],
-                   self.policy)
+        if spec.ffn == "moe":
+            f, _ = moe_mod.moe_block(h2, p["mlp"], cfg.moe, self.policy,
+                                     with_aux=False)
+        else:
+            f = swiglu(h2, p["mlp"]["gate"], p["mlp"]["up"],
+                       p["mlp"]["down"], self.policy)
         if spec.post_norms:
             f = _norm(f, p["post2"], cfg)
         return (x + rs * f, cache) + tuple(r[2:])

@@ -125,6 +125,9 @@ DECODE_CASES = [  # (pool, src, kv grid, q grid, D, G, page, window, softcap)
     (torch.float32, torch.float32, "fp8", "fp16alt", 64, 8, 16, None, None),
     (torch.float32, torch.float32, "fp16", "fp16", 20, 2, 16, 33, 30.0),
     (torch.float32, torch.bfloat16, "fp8", None, 64, 2, 64, None, 50.0),
+    # qwen3-moe: G 8 (kMaxG), D 128, no window, no softcap
+    (torch.bfloat16, torch.bfloat16, None, None, 128, 8, 64, None, None),
+    (torch.float8_e5m2, torch.bfloat16, None, None, 128, 8, 64, None, None),
 ]
 
 
@@ -135,7 +138,7 @@ def test_decode_cluster_kernel_matches_split_plain(gen, pool, src, kv_fmt,
                                                    softcap):
     """The cluster kernel, called directly, against the plain version over
     the same partition: bf16 / fp8 / fp16 pools and f32 containers snapped
-    onto a grid, pages 16 / 64, D 20 / 64 / 256, G 1 / 2 / 8, windows that
+    onto a grid, pages 16 / 64, D 20 / 64 / 128 / 256, G 1 / 2 / 8, windows that
     start inside a page, softcaps; an idle row stores 0, a row shorter than
     its cluster leaves ranks idle, and each call adds one launch of the
     route ``decode_route`` names."""
@@ -411,18 +414,24 @@ def test_flash_variants_match_plain(gen, variant, d, page, group, dtype,
     ("tc", 96, 64, 0, torch.bfloat16, None),         # contiguous, TMA
     ("tc", 96, 64, 16, torch.float8_e5m2, None),     # converted by the producer
     ("tc", 96, 64, 64, torch.float32, "fp16alt"),    # f32 containers snapped
+    ("tc", 192, 128, 64, torch.bfloat16, None),      # deepseek-v2-lite
+    ("tc", 192, 128, 0, torch.bfloat16, None),
+    ("tc", 192, 128, 16, torch.float8_e5m2, None),
     ("fma", 96, 64, 16, torch.bfloat16, None),
+    ("fma", 192, 128, 0, torch.bfloat16, None),
     ("fma", 24, 16, 16, torch.bfloat16, None),
     ("fma", 24, 16, 0, torch.float8_e5m2, None),
 ])
 def test_flash_variants_with_dv_match_plain(gen, variant, d, dv, page, dtype,
                                             fmt):
-    """V's head dim other than QK's (MLA's expanded prefill: 96 / 64):
+    """V's head dim other than QK's (MLA's expanded prefill: 96 / 64, and
+    deepseek-v2-lite's 192 / 128):
     each variant against the plain version at its own tiles, paged and
     contiguous, output [BH, Sq, Dv]; then its telemetry instantiation,
     whose output must be bitwise the flags-off output and whose visits and
     flags (V counted at width Dv) must equal the plain version's.  The
-    router sends (96, 64) to ``flash_tc`` and (24, 16) to ``flash_fma``."""
+    router sends (96, 64) and (192, 128) to ``flash_tc`` and (24, 16) to
+    ``flash_fma``."""
     from repro_torch.kernels.flash_attention import (kernel_tiles,
                                                      tc_tile_dtype)
     src = torch.float32 if dtype == torch.float32 else torch.bfloat16
@@ -433,7 +442,8 @@ def test_flash_variants_with_dv_match_plain(gen, variant, d, dv, page, dtype,
     kw = dict(group=group, scale=d ** -0.5, causal=True, window=None,
               softcap=None, q_offset=q_offset, src_fmt_name=fmt,
               src_dtype=src)
-    assert (tc_tile_dtype(src, fmt, d, dv) is not None) == ((d, dv) == (96, 64))
+    tc_pair = (d, dv) in ((96, 64), (192, 128))
+    assert (tc_tile_dtype(src, fmt, d, dv) is not None) == tc_pair
     fn = flash_attention_tc if variant == "tc" else flash_attention_fma
     before = _flash_counts()
     got = fn(q, k, v, lens, table, **kw)
@@ -454,7 +464,7 @@ def test_flash_variants_with_dv_match_plain(gen, variant, d, dv, page, dtype,
     assert torch.equal(visits, pv) and torch.equal(flags, pf)
     before = _flash_counts()
     flash_attention_cuda(q, k, v, lens, table, **kw)
-    assert _flash_counts() == _plus(before, 1, (d, dv) == (96, 64))
+    assert _flash_counts() == _plus(before, 1, tc_pair)
 
 
 @pytest.mark.parametrize("group,q_rows", [(1, 128), (2, 128), (4, 64),

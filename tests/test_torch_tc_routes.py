@@ -113,19 +113,20 @@ def test_flash_route_by_policy_and_head_dim(policy, tile):
     ("tp_bf16", torch.bfloat16), ("tp_bf16_kv8", torch.bfloat16),
     ("tp_fp16", torch.float16), ("em_fp8", torch.float16), ("fp32", None)])
 def test_flash_route_with_v_head_dim(policy, tile):
-    """V's head dim other than QK's: MLA's (96, 64) routes to ``flash_tc``
-    wherever a 16-bit tile does, at its (plan_q_rows // group, 64) tiles;
-    every other pair, (24, 16) and deepseek-v2-lite's (192, 128) among
-    them, to ``flash_fma`` at (32, 32)."""
+    """V's head dim other than QK's: MLA's (96, 64) (minicpm3) and (192,
+    128) (deepseek-v2-lite) route to ``flash_tc`` wherever a 16-bit tile
+    does, at its (plan_q_rows // group, 64) tiles; every other pair,
+    (24, 16) among them, to ``flash_fma`` at (32, 32)."""
     src_dt, src_fmt = kops.policy_src(policy)
-    assert tc_tile_dtype(src_dt, src_fmt, 96, 64) == tile
-    tiles = kernel_tiles(src_dt, src_fmt, 1024, 160, 1, 96, 64)
-    if tile is None:
-        assert tiles == (32, 32)
-    else:
-        assert tiles == (plan_q_rows(1024, 160, 1), TC_BLOCK_K)
-        assert kernel_block_k(src_dt, src_fmt, 96, 64) == TC_BLOCK_K
-    for d, dv in ((24, 16), (192, 128), (64, 32), (96, 96), (128, 64),
+    for d, dv, bkv in ((96, 64, 160), (192, 128, 64)):
+        assert tc_tile_dtype(src_dt, src_fmt, d, dv) == tile
+        tiles = kernel_tiles(src_dt, src_fmt, 1024, bkv, 1, d, dv)
+        if tile is None:
+            assert tiles == (32, 32)
+        else:
+            assert tiles == (plan_q_rows(1024, bkv, 1), TC_BLOCK_K)
+            assert kernel_block_k(src_dt, src_fmt, d, dv) == TC_BLOCK_K
+    for d, dv in ((24, 16), (192, 192), (64, 32), (96, 96), (128, 64),
                   (64, 128)):
         assert tc_tile_dtype(src_dt, src_fmt, d, dv) is None, (d, dv)
         assert kernel_block_k(src_dt, src_fmt, d, dv) == FMA_BLOCK_K
