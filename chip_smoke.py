@@ -109,6 +109,21 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    run of the same queue at the reduced config.  tok/s, decode ms per
    round, swap bytes, time and GB/s, and the sampling step's device time
    at [4, 256000].
+6b. HA phase (``ha_phase``), on the slice's model and weights: a
+   meshless ``ReplicatedEngine`` of two replicas (2 slots each, chunk
+   256, burst cap 8, one copy of the weights, a pool each) on the
+   session trace (12 requests, prompts 256-1548, budgets 4-16): (a)
+   unfailed; (b) replica 1 killed at burst 2, reingest migration, an
+   in-memory journal; (c) four 512-token residents, replica 0 hung at
+   burst 2, dead after 3 missed beats, swap-blob migration; (d) one
+   replica with a file journal killed with no survivor and recovered by
+   ``run_with_restarts``, a second recovery from a copy of the crashed
+   journal, an unfailed run.  Gates: budgets, pools drained, launches on
+   their routes, the HA counters and heartbeats, the journal's counts
+   and its reload, the two recoveries bitwise equal, and tokens against
+   each oracle equal up to a near tie.  tok/s, decode ms per round,
+   evacuation ms and migrated bytes, journal bytes and append cost, the
+   restart's wall time.
 7. Escalation phase (``escalation_phase``): the bf16 model is freed and
    gemma2-9b is built again under policy ``fp32`` (f32 weights, an f32 KV
    pool: 34.4 GiB), then served by the escalation engine (4 slots, chunk
@@ -162,7 +177,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    time of the main case and of the telemetry cases, the f32-pool case,
    the MLA cases, the verify case, the qwen3 cases and the (192, 128)
    case with SDPA's time; the attention launches summed over the slice,
-   speculative, generate, overload, escalation, MLA, DeepSeek and MoE
+   speculative, generate, overload, HA, escalation, MLA, DeepSeek and MoE
    phases), the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -1787,7 +1802,8 @@ def verify_vs_step(model, params, seed: int = 0) -> dict:
                                               v_lg.argmax(-1))))
 
 
-def near_tie_check(model, params, req, plain, got, vdiff: float) -> dict:
+def near_tie_check(model, params, req, plain, got, vdiff: float,
+                   where: str = "speculative") -> dict:
     """Where ``got`` first parts from ``plain`` (the plain engine's stream
     of ``req``), the plain stream's logits there, replayed by one prefill
     of the prompt and the plain tokens before it; the two candidate
@@ -1807,7 +1823,7 @@ def near_tie_check(model, params, req, plain, got, vdiff: float) -> dict:
     rec = dict(rid=req.rid, step=s, plain_token=plain[s], token=got[s],
                replay_gap=gap, bound=2 * (vdiff + LOGITS_TOL))
     if not gap <= rec["bound"]:
-        raise AssertionError(f"speculative: request {req.rid} parts from the "
+        raise AssertionError(f"{where}: request {req.rid} parts from the "
                              f"plain stream at step {s} where the two "
                              f"tokens' logits differ by {gap}: {rec}")
     return rec
@@ -2371,6 +2387,280 @@ def overload_phase(model, params, seed: int = 0) -> dict:
                          streams["unpressured"][1]]),
         schedule=sched(fin), card=card_line(), **counted)
     log(json.dumps({"overload": res}))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: replica fault tolerance, a meshless fleet on the one card
+# ---------------------------------------------------------------------------
+#: the HA queue, ``synthetic_trace(*HA_TRACE, vocab, flavor="session")``:
+#: 12 requests in four 3-turn sessions, prompts 256-1548, budgets 4-16
+HA_TRACE = (12, 4, 1024, 64)
+#: each replica's engine (two replicas share the one copy of the weights)
+HA_ENGINE = dict(slots=2, chunk=256, burst_cap=8)
+#: the hang leg's residents: (count, prompt, budget)
+HA_HANG = (4, 512, 24)
+#: the replay leg serves the HA queue's first ``HA_REPLAY`` requests
+HA_REPLAY = 6
+
+
+class TimedJournal:
+    """A ``RequestJournal`` whose appends (JSON, write, flush, fsync) are
+    timed on the host clock."""
+
+    def __init__(self, path=None):
+        from repro_torch.launch.journal import RequestJournal
+        self.inner = RequestJournal(path)
+        self.append_s = 0.0
+
+    def append(self, kind, **payload):
+        t0 = time.perf_counter()
+        self.inner.append(kind, **payload)
+        self.append_s += time.perf_counter() - t0
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def ha_fleet(model, params, reqs, **kw):
+    """A ``ReplicatedEngine`` of ``HA_ENGINE`` replicas (2 unless
+    ``replicas`` says otherwise) sized for ``reqs``."""
+    from repro_torch.launch.engine import ReplicatedEngine
+    args = dict(HA_ENGINE, replicas=2,
+                max_len=max(r.prompt_len + r.max_new for r in reqs))
+    args.update(kw)
+    return ReplicatedEngine(model, params, **args)
+
+
+def ha_leg(name, fleet, reqs, model, counted, run=None) -> tuple:
+    """Serve ``reqs`` on ``fleet`` (or through ``run()``) with the
+    attention counters reset first; gates: every request's budget, every
+    pool drained, the launches on their routes.  Returns ``(finished,
+    stats, record)``."""
+    import torch
+    reset_attention_counters()
+    t0 = time.perf_counter()
+    fin, stats = run() if run is not None else fleet.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted[name] = attention_counters(
+        f"ha {name}", cluster_rule(model, fleet.engines[0].slots,
+                                   fleet.engines[0].max_pages))
+    for r, f in zip(reqs, fin):
+        if f.rid != r.rid or len(f.tokens) != r.max_new:
+            raise AssertionError(f"ha {name}: request {r.rid} got "
+                                 f"{len(f.tokens)} of {r.max_new} tokens")
+    if stats["pages_live_end"] != 0 or any(
+            e.alloc.n_live != 1 for e in fleet.engines):
+        raise AssertionError(f"ha {name}: a pool did not drain: "
+                             f"{stats['pool']}")
+    n_tok = sum(len(f.tokens) for f in fin)
+    rec = dict(requests=len(fin), generated_tokens=n_tok, wall_s=wall,
+               tok_s=n_tok / wall, decode_rounds=stats["decode_rounds"],
+               decode_ms_per_round=(stats["decode_s"] * 1e3
+                                    / max(1, stats["decode_rounds"])),
+               prefill_s=stats["prefill_s"],
+               **{k: stats[k] for k in (
+                   "ha_kills", "ha_hangs", "ha_migrations",
+                   "ha_migrated_swap", "ha_migrated_reingest",
+                   "journal_replayed", "migrated_in", "sdc_detected",
+                   "preemptions")},
+               heartbeats=stats["heartbeats"],
+               launches=counted[name]["launches"])
+    return fin, stats, rec
+
+
+def ha_parity(name, model, params, reqs, oracle, fin, vdiff) -> dict:
+    """Tokens of ``fin`` against the ``oracle`` run's: equal up to each
+    row's first near tie (``near_tie_check``); the agreeing count."""
+    pairs = [(a, b) for o, f in zip(oracle, fin)
+             for a, b in zip(o.tokens, f.tokens)]
+    ties = [t for t in (near_tie_check(model, params, r, o.tokens, f.tokens,
+                                       vdiff, where=f"ha {name}")
+                        for r, o, f in zip(reqs, oracle, fin))
+            if t is not None]
+    return dict(tokens_agree=sum(a == b for a, b in pairs), of=len(pairs),
+                bitwise=all(o.tokens == f.tokens
+                            for o, f in zip(oracle, fin)),
+                near_ties=ties)
+
+
+def ha_phase(model, params, vdiff: float, seed: int = 0) -> dict:
+    """Replica fault tolerance at full width: a meshless
+    ``ReplicatedEngine`` of two replicas on the one card (one copy of the
+    weights, a pool and block tables each, ``HA_ENGINE``) serving the
+    session trace ``HA_TRACE``, in four legs:
+
+    (a) unfailed, the oracle of (b);
+    (b) replica 1 killed at its burst 2, ``migrate="reingest"``, an
+        in-memory journal;
+    (c) ``HA_HANG`` residents, replica 0 hung at its burst 2 and declared
+        dead after 3 missed beats, ``migrate="swap"`` (CRC-carrying
+        blobs), against the same fleet unfailed;
+    (d) one replica with a file journal killed at burst 2 with no
+        survivor, recovered by ``run_with_restarts``; a second recovery
+        from a copy of the crashed journal; an unfailed one-replica run.
+
+    Gates: every request's budget, every pool drained, the launches on
+    their routes (every leg); (b) one kill, a migration, replica 1 dead,
+    a ``finish`` record per request; (c) one hang, a swap migration, no
+    CRC mismatch; (d) one restart, a replayed request, the file loads to
+    the in-memory records, a ``finish`` per request, the two recoveries
+    bitwise equal.  Tokens of (b), (c), (d) against their oracles equal
+    up to a near tie (``near_tie_check`` at ``vdiff``, the verify-vs-step
+    difference: a reingested row's K/V come from a prefill GEMM at other
+    rows than decode's, and cuBLAS rows depend on M)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.launch.engine import Request, synthetic_trace
+    from repro_torch.launch.journal import RequestJournal
+    from repro_torch.train.fault import ReplicaFaultPlan, run_with_restarts
+
+    t_phase = time.perf_counter()
+    reqs = synthetic_trace(*HA_TRACE, model.cfg.vocab, flavor="session")
+    counted, legs, parity = {}, {}, {}
+    fa, _, legs["a_unfailed"] = ha_leg("a_unfailed",
+                                       ha_fleet(model, params, reqs), reqs,
+                                       model, counted)
+
+    jr = TimedJournal()
+    fleet = ha_fleet(model, params, reqs, migrate="reingest", journal=jr,
+                     replica_fault=ReplicaFaultPlan(replica=1, at_burst=2,
+                                                    mode="kill"))
+    fb, sb, legs["b_kill"] = ha_leg("b_kill", fleet, reqs, model, counted)
+    if not (sb["ha_kills"] == 1 and sb["ha_migrations"] >= 1
+            and sb["heartbeats"][1]["status"] == "dead"
+            and jr.counts()["finish"] == len(reqs)):
+        raise AssertionError(f"ha b_kill: {legs['b_kill']}, journal "
+                             f"{jr.counts()}")
+    legs["b_kill"]["journal"] = jr.counts()
+    parity["b_vs_a"] = ha_parity("b_kill", model, params, reqs, fa, fb,
+                                 vdiff)
+    del fleet
+
+    n, plen, budget = HA_HANG
+    rng = np.random.RandomState(seed + 20)
+    hang_reqs = [Request(rid=i, tokens=rng.randint(
+        0, model.cfg.vocab, size=plen).tolist(), max_new=budget)
+        for i in range(n)]
+    fc0, _, legs["c_unfailed"] = ha_leg(
+        "c_unfailed", ha_fleet(model, params, hang_reqs, preempt="swap"),
+        hang_reqs, model, counted)
+    fleet = ha_fleet(model, params, hang_reqs, preempt="swap",
+                     migrate="swap", hang_patience=3,
+                     replica_fault=ReplicaFaultPlan(replica=0, at_burst=2,
+                                                    mode="hang"))
+    evac = []
+    lose = fleet._lose_replica
+
+    def timed_lose(*a, **kw):
+        t0 = time.perf_counter()
+        lose(*a, **kw)
+        evac.append(time.perf_counter() - t0)
+
+    fleet._lose_replica = timed_lose
+    fc, sc, legs["c_hang"] = ha_leg("c_hang", fleet, hang_reqs, model,
+                                    counted)
+    victim = sc["replicas"][0]
+    if not (sc["ha_hangs"] == 1 and sc["ha_migrated_swap"] >= 1
+            and sc["sdc_detected"] == 0 and len(evac) == 1):
+        raise AssertionError(f"ha c_hang: {legs['c_hang']}")
+    legs["c_hang"].update(
+        evacuation_ms=evac[0] * 1e3,
+        migrated_bytes=victim["swap_out_bytes"],
+        swap_out_s=victim["swap_out_s"], swap_crc_s=sc["swap_crc_s"],
+        swap_in_bytes=sc["swap_in_bytes"], swap_in_s=sc["swap_in_s"])
+    parity["c_vs_unfailed"] = ha_parity("c_hang", model, params, hang_reqs,
+                                        fc0, fc, vdiff)
+    del fleet
+
+    part = reqs[:HA_REPLAY]
+    tmp = tempfile.mkdtemp(prefix="ha_journal_")
+    try:
+        path = os.path.join(tmp, "journal.jsonl")
+        crashed = os.path.join(tmp, "crashed.jsonl")
+        jr = TimedJournal(path)
+        fleet = ha_fleet(model, params, part, replicas=1,
+                         migrate="reingest", journal=jr,
+                         replica_fault=ReplicaFaultPlan(replica=0,
+                                                        at_burst=2,
+                                                        mode="kill"))
+        attempts = []
+
+        class Runner:
+            def reset_monitors(self):
+                fleet.reset_monitors()
+
+            def run(self):
+                self.res = fleet.run(part)
+                attempts.append(time.perf_counter())
+
+        def make():
+            if attempts:                # the first attempt crashed
+                shutil.copy(path, crashed)
+                attempts.clear()
+            attempts.append(time.perf_counter())
+            return Runner()
+
+        box = {}
+
+        def supervised():
+            runner, box["restarts"] = run_with_restarts(make,
+                                                        max_restarts=2)
+            return runner.res
+
+        fd, sd, legs["d_restart"] = ha_leg("d_restart", fleet, part, model,
+                                           counted, run=supervised)
+        jr.close()
+        loaded = RequestJournal.load(path)
+        if not (box["restarts"] == 1 and sd["journal_replayed"] >= 1
+                and len(loaded.records) == len(jr.records)
+                and loaded.counts()["finish"] == len(part)):
+            raise AssertionError(f"ha d_restart: restarts "
+                                 f"{box['restarts']}, {legs['d_restart']}, "
+                                 f"journal {loaded.counts()}")
+        loaded.close()
+        legs["d_restart"].update(
+            restarts=box["restarts"], journal_bytes=os.path.getsize(path),
+            crashed_journal_bytes=os.path.getsize(crashed),
+            journal_records=len(jr.records), journal=jr.counts(),
+            append_s=jr.append_s,
+            append_ms_per_record=jr.append_s * 1e3 / len(jr.records),
+            recovery_s=attempts[1] - attempts[0])
+        del fleet
+        jr2 = RequestJournal.load(crashed)
+        fleet = ha_fleet(model, params, part, replicas=1,
+                         migrate="reingest", journal=jr2)
+        fd2, _, legs["d_recovery_2"] = ha_leg("d_recovery_2", fleet, part,
+                                              model, counted)
+        jr2.close()
+        if [f.tokens for f in fd2] != [f.tokens for f in fd]:
+            raise AssertionError("ha d: two recoveries from the same "
+                                 "crashed journal gave other tokens")
+        del fleet
+    finally:
+        shutil.rmtree(tmp)
+    fd0, _, legs["d_unfailed"] = ha_leg(
+        "d_unfailed", ha_fleet(model, params, part, replicas=1), part,
+        model, counted)
+    parity["d_vs_unfailed"] = ha_parity("d_restart", model, params, part,
+                                        fd0, fd, vdiff)
+    parity["d_recoveries_bitwise"] = True
+
+    total = {}
+    for c in counted.values():
+        total = merge_counters(total, c)
+    res = dict(queue=dict(trace=HA_TRACE, flavor="session",
+                          requests=len(reqs),
+                          prompts=[r.prompt_len for r in reqs],
+                          budgets=[r.max_new for r in reqs]),
+               engine=HA_ENGINE, hang=HA_HANG, replay=HA_REPLAY, legs=legs,
+               parity=parity, vdiff=vdiff,
+               phase_s=time.perf_counter() - t_phase, card=card_line(),
+               **total)
+    log(json.dumps({"ha": res}))
     return res
 
 
@@ -3014,6 +3304,9 @@ def main() -> int:
     lap("generate")
     serving.append(overload_phase(model, params))
     lap("overload")
+    serving.append(ha_phase(
+        model, params, serving[1]["verify_vs_step"]["logits_max_abs_diff"]))
+    lap("ha")
     del model, params
     import gc
     gc.collect()

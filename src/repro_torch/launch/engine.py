@@ -71,8 +71,30 @@ lookahead past its budget; ``Request.spec_k`` caps a request's drafts and
 ``Request.no_speculate`` opts it out (one verified token a round, in the
 same batch).  Composes with preemption and escalation.
 
-Not ported, and refused when asked for: replicas, the request journal and
-meshes.
+Replica-level fault tolerance rides the same host boundary.  ``run`` is
+``start()`` + ``step()`` until drained + ``finalize()``, so a fleet host
+(``ReplicatedEngine``) interleaves replicas one scheduler iteration at a
+time and reacts to a replica dying mid-run:
+
+  * **Failure injection** — a ``ReplicaFaultPlan`` kills a replica at a
+    chosen burst (``ReplicaLostError`` at the burst dispatch, after host
+    scheduling and before any launch: device memory gone) or hangs it
+    (the fleet's heartbeat view declares it dead after missed beats,
+    device memory still readable).
+  * **Live-request migration** — a dead replica's residents leave through
+    the preemption capture (``evacuate``): swap payloads (CRC32-checked,
+    tagged with their pool's provenance) that a survivor ``adopt``s into
+    its own pool, or free-and-reingest when the pages are unreachable.
+  * **Crash-consistent journal** — with a ``launch/journal.py``
+    ``RequestJournal`` attached, every admission, per-burst token delta,
+    preempt / migrate / escalation event and completion is recorded after
+    it happened, in the JAX package's bytes; a full restart
+    (``train.fault.run_with_restarts``) replays unfinished requests from
+    their last journaled token through the reingest resume path.
+
+On one card the replicas share one ``params`` (one copy of the weights);
+each has its own pool and block tables.  Not ported, and refused when
+asked for: meshes (tensor-parallel replicas, ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -86,11 +108,13 @@ import torch
 
 from ..core.policy import EscalationPolicy, get_policy
 from ..models.attention import kv_store_dtype, kv_swap_dtype
-from ..models.paged import (PageAllocator, SwapBlobTag, check_blob_tag,
-                            dtype_name, num_pages)
+from ..models.paged import (PageAllocator, SwapBlobTag, aggregate_stats,
+                            check_blob_tag, dtype_name, num_pages)
 from ..models.transformer import _penalized, _pick, caches_with_table
 from ..train.fault import (EngineStuckError, PoisonedLogitsError,
+                           ReplicaFaultPlan, ReplicaLostError,
                            ServeFaultPlan, ServeWatchdog, StragglerMonitor)
+from .mesh import replica_meshes
 
 
 def _crc_blobs(blobs: list) -> list:
@@ -197,6 +221,23 @@ class _QEntry:
     esc_refused: bool = False
 
 
+def _finished_from_record(rec: dict) -> Finished:
+    """Rebuild a ``Finished`` from its journal ``finish`` record — the
+    restart path for a request that completed before the crash."""
+    return Finished(
+        rid=rec["rid"], prompt_len=rec.get("prompt_len", 0),
+        tokens=list(rec["toks"]),
+        admit_round=rec.get("admit_round", 0),
+        finish_round=rec.get("finish_round", 0),
+        slot=rec.get("slot", -1),
+        preemptions=rec.get("preemptions", 0),
+        sheds=rec.get("sheds", 0),
+        degraded=bool(rec.get("degraded", False)),
+        deadline=rec.get("deadline"),
+        deadline_miss=bool(rec.get("deadline_miss", False)),
+        escalated=rec.get("escalated", 0))
+
+
 def synthetic_trace(n_req: int, slots: int, prompt_len: int, gen: int,
                     vocab: int, seed: int = 2,
                     flavor: str = "chat") -> List[Request]:
@@ -211,11 +252,41 @@ def synthetic_trace(n_req: int, slots: int, prompt_len: int, gen: int,
     ``soak`` (the overload trace): arrivals in bursts of eight, every 5th
     request a full-length prompt, every 4th a long budget, priorities over
     {0, 1, 2}, deadlines on the priority-2 tier, every 11th request
+    ``no_degrade``.
+
+    ``session`` (the HA soak's): multi-turn chat, sessions of up to three
+    turns over a growing shared prefix — turn ``t``'s prompt is turn
+    ``t-1``'s prompt + its simulated answer + a fresh user chunk, and it
+    arrives once turn ``t-1``'s budget could have drained.  The longest
+    prompt is ``prompt_len + 2 * (gen // 4 + max(1, prompt_len // 4))``;
+    the third turn has priority 1, every session ``s % 5 == 3`` is
     ``no_degrade``."""
     rng = np.random.RandomState(seed)
     fr_len = (0.25, 0.5, 0.75, 1.0)
     shorts = (gen // 16, gen // 8, gen // 4)
     reqs = []
+    if flavor == "session":
+        step_gap = max(2, gen // 8)
+        rid = s = 0
+        while rid < n_req:
+            base_len = max(1, int(prompt_len * fr_len[s % 4]))
+            hist = rng.randint(0, vocab, size=base_len).tolist()
+            arrival = (s // max(1, slots)) * step_gap
+            for t in range(min(3, n_req - rid)):
+                budget = max(2, shorts[(s + t) % 3])
+                reqs.append(Request(
+                    rid=rid, tokens=list(hist), max_new=budget,
+                    arrival=arrival, priority=(1 if t == 2 else 0),
+                    no_degrade=(s % 5 == 3)))
+                rid += 1
+                # the turn's answer and the next user message extend the
+                # prefix the following turn re-sends
+                hist += rng.randint(0, vocab, size=budget).tolist()
+                hist += rng.randint(0, vocab,
+                                    size=max(1, prompt_len // 4)).tolist()
+                arrival += budget + step_gap
+            s += 1
+        return reqs
     if flavor == "soak":
         for i in range(n_req):
             plen = (prompt_len if i % 5 == 0
@@ -231,7 +302,7 @@ def synthetic_trace(n_req: int, slots: int, prompt_len: int, gen: int,
                 deadline=deadline, no_degrade=(i % 11 == 7)))
         return reqs
     if flavor != "chat":
-        raise ValueError(f"flavor must be chat|soak, got {flavor!r}")
+        raise ValueError(f"flavor must be chat|soak|session, got {flavor!r}")
     for i in range(n_req):
         is_long = (i % 8 == 0) and i < (3 * n_req) // 4
         budget = gen if is_long else max(2, shorts[i % 3])
@@ -246,21 +317,23 @@ def synthetic_trace(n_req: int, slots: int, prompt_len: int, gen: int,
 
 _FAR = 1 << 30          # "no deadline" sort key
 
-#: backoff of a shed entry: ``SHED_BASE * 2**sheds`` rounds, capped at
-#: ``SHED_CAP``, plus as much jitter; a row resident for fewer than
-#: ``MIN_RESIDENT`` rounds is never preempted (the JAX engine's defaults)
-SHED_BASE, SHED_CAP, MIN_RESIDENT = 2, 64, 2
-
-#: the counters of ``stats`` (the JAX package's, less those of the
-#: unported replica and journal paths; ``faults_overflow`` appears once an
-#: injected overflow fired, as in the JAX engine)
+#: the counters of ``stats``, the JAX package's (``faults_overflow``
+#: appears once an injected overflow fired, as in the JAX engine)
 COUNTERS = ("preemptions", "preempt_swap", "preempt_reingest",
             "preempt_restart", "resumed", "degraded", "swap_out_bytes",
             "shed_events", "poisoned_rounds", "nonfinite_prefill",
             "stragglers", "faults_exhaust", "faults_slow",
             "escalations", "esc_deferred", "esc_refused",
             "sdc_injected", "sdc_detected", "sdc_reingest",
-            "spec_rounds", "spec_emitted")
+            "spec_rounds", "spec_emitted",
+            "migrated_in", "journal_replayed")
+
+#: the port's host clocks in ``stats`` (not in the JAX package's): host
+#: time around prefill waves / decode bursts (each ends in a
+#: device-to-host copy of its result), around swaps (each ends in a
+#: synchronise) and around the swap payloads' CRC32s
+CLOCKS = ("prefill_s", "decode_s", "swap_out_s", "swap_in_s",
+          "swap_in_bytes", "swap_crc_s")
 
 
 class ContinuousEngine:
@@ -275,12 +348,21 @@ class ContinuousEngine:
     request opted out; ``shed=False`` restores blocking admission (no
     backoff deferrals); ``fault_plan`` injects deterministic faults; the
     watchdog aborts after ``watchdog_patience`` iterations without
-    progress.  ``escalate`` (an ``EscalationPolicy``) turns on flag-driven
+    progress.  A shed entry backs off ``shed_base * 2**sheds`` rounds,
+    capped at ``shed_cap``, plus as much jitter; a row resident for fewer
+    than ``min_resident`` rounds is never preempted.
+    ``escalate`` (an ``EscalationPolicy``) turns on flag-driven
     KV-precision escalation; it needs an f32 pool with no ``kv_fmt``.
     ``spec_k`` > 0 turns on greedy speculative decoding with a draft of
     ``draft_repeats`` pattern groups (None: full depth) under
     ``draft_policy`` (None: the model's); requests then need
-    ``prompt_len + max_new + spec_k <= max_len``."""
+    ``prompt_len + max_new + spec_k <= max_len``.
+
+    Fleet membership: ``replica_id`` names this engine in its fleet (in
+    journal records and on swap-blob tags), ``replica_fault`` (a
+    ``ReplicaFaultPlan``) is consulted at every burst dispatch, and
+    ``journal`` (a ``RequestJournal``) records the run and, when it
+    already holds records, is replayed by ``start``."""
 
     def __init__(self, model, params, *, slots: int, max_len: int,
                  chunk: int = 32, n_pages: Optional[int] = None,
@@ -291,12 +373,15 @@ class ContinuousEngine:
                  repetition_penalty: Optional[float] = None,
                  presence_penalty: Optional[float] = None,
                  preempt: str = "free", degrade_fmt: Optional[str] = None,
-                 shed: bool = True,
+                 shed: bool = True, shed_base: int = 2, shed_cap: int = 64,
+                 min_resident: int = 2,
                  fault_plan: Optional[ServeFaultPlan] = None,
                  watchdog_patience: int = 200,
                  escalate: Optional[EscalationPolicy] = None,
                  spec_k: int = 0, draft_repeats: Optional[int] = None,
-                 draft_policy=None, **unported):
+                 draft_policy=None, replica_id: int = 0,
+                 replica_fault: Optional[ReplicaFaultPlan] = None,
+                 journal=None, **unported):
         cfg = model.cfg
         if not cfg.paged_kv:
             raise ValueError("ContinuousEngine requires cfg.paged_kv "
@@ -305,7 +390,7 @@ class ContinuousEngine:
                        if v not in (None, False, 0, 0.0))
         if asked:
             raise NotImplementedError(
-                f"not ported: {asked} (replicas, the journal and meshes)")
+                f"not ported: {asked} (meshes: ROADMAP Queue 1 item 8)")
         if preempt not in ("free", "swap"):
             raise ValueError(f"preempt must be free|swap, got {preempt!r}")
         assert slots >= 1 and chunk >= 1 and burst_cap >= 1
@@ -328,9 +413,15 @@ class ContinuousEngine:
         self._swap_dtype = (kv_swap_dtype(degrade_fmt)
                             if degrade_fmt is not None else None)
         self._pool_dtype = dtype_name(kv_store_dtype(model.policy))
-        self.shed = shed
+        self.shed, self.shed_base, self.shed_cap = shed, shed_base, shed_cap
+        self.min_resident = max(0, min_resident)
         self.fault_plan = fault_plan
         self.watchdog_patience = watchdog_patience
+        # fleet membership: identity (journal records, swap-blob tags), the
+        # kill plan consulted at every burst dispatch, the shared journal
+        self.replica_id = int(replica_id)
+        self.replica_fault = replica_fault
+        self.journal = journal
         self.escalate = escalate
         self._esc_fmts = None
         if escalate is not None:
@@ -504,12 +595,12 @@ class ContinuousEngine:
 
     def _victims_for(self, eff: int, round_no: int, exclude=()):
         """Resident rows preemptible by effective priority ``eff``,
-        weakest first; rows resident under ``MIN_RESIDENT`` rounds are
-        protected (anti-thrash).  Ties prefer the row donating the most pages, then the
-        lowest slot."""
+        weakest first; rows resident under ``min_resident`` rounds are
+        protected (anti-thrash).  Ties prefer the row donating the most
+        pages, then the lowest slot."""
         cands = [b for b in range(self.slots)
                  if self._req[b] is not None and b not in exclude
-                 and round_no - int(self._admit_round[b]) >= MIN_RESIDENT
+                 and round_no - int(self._admit_round[b]) >= self.min_resident
                  and self._eff_resident(b, round_no) < eff]
         return sorted(cands, key=lambda b: (self._eff_resident(b, round_no),
                                             -len(self._owned[b]), b))
@@ -517,7 +608,7 @@ class ContinuousEngine:
     def _backoff(self, e: _QEntry, round_no: int) -> None:
         """Shed: defer the entry with jittered exponential backoff —
         deterministic in (seed, rid, attempt), so replays are exact."""
-        delay = min(SHED_CAP, SHED_BASE * (2 ** min(e.sheds, 16)))
+        delay = min(self.shed_cap, self.shed_base * (2 ** min(e.sheds, 16)))
         rng = np.random.RandomState(
             (self.seed * 1000003 + e.req.rid * 9973 + e.sheds * 97)
             & 0x7FFFFFFF)
@@ -603,7 +694,7 @@ class ContinuousEngine:
             e.resume = _Resume(emitted=list(self._emitted[b]), blobs=blobs,
                                written=written, degraded=degrade,
                                checksums=sums,
-                               tag=SwapBlobTag(replica=0,
+                               tag=SwapBlobTag(replica=self.replica_id,
                                                dtype=self._pool_dtype,
                                                page=self.page))
             if degrade:
@@ -618,11 +709,15 @@ class ContinuousEngine:
         else:
             e.resume = None         # mid-prefill: restart from the prompt
             counters["preempt_restart"] += 1
+        mode = ("swap" if e.resume is not None
+                and e.resume.blobs is not None else "reingest")
         if plan is not None:
-            mode = ("swap" if e.resume is not None
-                    and e.resume.blobs is not None else "reingest")
             plan.note("preempt", round=round_no, rid=req.rid, slot=b,
                       reason=reason, mode=mode)
+        if self.journal is not None:
+            self.journal.append("preempt", rid=req.rid,
+                                replica=self.replica_id, round=round_no,
+                                reason=reason, mode=mode)
         self._release(b)
         e.not_before = max(e.not_before, round_no)
         self._pending.append(e)
@@ -700,6 +795,11 @@ class ContinuousEngine:
             self._resume_tok[b] = rs.emitted[-1]
             counters["resumed"] += 1
         self._prompt_hist(b)
+        if self.journal is not None:
+            self.journal.append("admit", rid=req.rid,
+                                replica=self.replica_id, round=round_no,
+                                slot=b, resumed=rs is not None,
+                                emitted=len(self._emitted[b]))
 
     def _admission(self, round_no: int) -> int:
         """One admission pass: visible entries in (effective priority,
@@ -755,7 +855,7 @@ class ContinuousEngine:
         """Page recycling the round the request finishes, with deadline
         accounting and the robustness trail on its ``Finished``."""
         req, e = self._req[b], self._entry[b]
-        self._results[req.rid] = Finished(
+        fin = Finished(
             rid=req.rid, prompt_len=req.prompt_len,
             tokens=list(self._emitted[b]),
             admit_round=int(self._admit_round[b]), finish_round=round_no,
@@ -764,6 +864,15 @@ class ContinuousEngine:
             deadline_miss=(req.deadline is not None
                            and round_no > req.deadline),
             escalated=int(self.kv_levels[b]))
+        self._results[req.rid] = fin
+        if self.journal is not None:
+            self.journal.append(
+                "finish", rid=req.rid, replica=self.replica_id,
+                prompt_len=fin.prompt_len, toks=fin.tokens,
+                admit_round=fin.admit_round, finish_round=fin.finish_round,
+                slot=fin.slot, preemptions=fin.preemptions, sheds=fin.sheds,
+                degraded=fin.degraded, deadline=fin.deadline,
+                deadline_miss=fin.deadline_miss, escalated=fin.escalated)
         self._release(b)
 
     # -- escalation -------------------------------------------------------
@@ -802,11 +911,20 @@ class ContinuousEngine:
             if plan is not None:
                 plan.note("escalate", round=round_no, rid=rid, slot=b,
                           level=lvl + 1, of=of, uf=uf)
+            if self.journal is not None:
+                self.journal.append("escalate", rid=rid,
+                                    replica=self.replica_id, round=round_no,
+                                    level=lvl + 1)
 
     # -- the serving state machine ----------------------------------------
     def start(self, requests: Sequence[Request]) -> None:
         """Validate and enqueue ``requests``; arm the run state (fault
-        plan, monitors, counters, the sampling generator)."""
+        plan, monitors, counters, the sampling generator).  With a
+        journal that already holds records (a restart), a request with a
+        ``finish`` record is answered from it, one whose journaled stream
+        is whole gets its missing ``finish`` (``recovered=True``), and
+        any other with journaled tokens re-enters the queue at round 0 to
+        resume from its last one through the reingest path."""
         for r in requests:
             if r.prompt_len < 1 or r.max_new < 1:
                 raise ValueError(f"request {r.rid}: empty prompt or budget")
@@ -833,24 +951,106 @@ class ContinuousEngine:
         self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self._round_no = self._decode_rounds = 0
         self._occ_accum = self._bursts = 0
-        self._clock = {k: 0 for k in ("prefill_s", "decode_s", "swap_out_s",
-                                      "swap_in_s", "swap_in_bytes",
-                                      "swap_crc_s")}
-        self._pending = [_QEntry(req=r, not_before=r.arrival)
-                         for r in sorted(requests,
-                                         key=lambda r: (r.arrival, r.rid))]
+        self._clock = {k: 0 for k in CLOCKS}
+        jr = self.journal
+        pend: List[_QEntry] = []
+        for r in sorted(requests, key=lambda r: (r.arrival, r.rid)):
+            e = _QEntry(req=r, not_before=r.arrival)
+            if jr is not None and jr.records:
+                fr = jr.finish_record(r.rid)
+                if fr is not None:
+                    self._results[r.rid] = _finished_from_record(fr)
+                    continue
+                em = jr.emitted(r.rid)
+                if em:
+                    if (len(em) >= r.max_new
+                            or (self.stop_token is not None
+                                and em[-1] == self.stop_token)):
+                        # the crash fell between the last tokens record and
+                        # its finish record: recover the completion fact
+                        self._results[r.rid] = Finished(
+                            rid=r.rid, prompt_len=r.prompt_len,
+                            tokens=list(em), admit_round=0,
+                            finish_round=0, slot=-1)
+                        jr.append("finish", rid=r.rid,
+                                  replica=self.replica_id,
+                                  prompt_len=r.prompt_len, toks=list(em),
+                                  recovered=True)
+                        continue
+                    e.resume = _Resume(emitted=list(em), blobs=None,
+                                       written=0, degraded=False)
+                    e.not_before = 0        # arrived before the crash
+                    self._counters["journal_replayed"] += 1
+                    jr.append("replay", rid=r.rid,
+                              replica=self.replica_id, from_tok=len(em))
+            pend.append(e)
+        self._pending = pend
 
     def has_work(self) -> bool:
         return bool(self._pending or any(r is not None for r in self._req))
 
     def _diag(self) -> dict:
         return {"round": self._round_no,
+                "replica": self.replica_id,
                 "pending": [(e.req.rid, e.not_before, e.sheds)
                             for e in self._pending],
                 "resident": [r.rid for r in self._req if r is not None],
                 "pool": self.alloc.stats(),
                 "held_pages": len(self._held),
                 "counters": dict(self._counters)}
+
+    # -- migration (the fleet host's dead-replica API) --------------------
+    def evacuate(self, *, readable: bool = True,
+                 mode: str = "swap") -> List[_QEntry]:
+        """Every in-flight and queued request as portable queue entries.
+        Residents leave through the preemption capture: with the device
+        memory ``readable`` (a hang) and ``mode="swap"`` (and a swap
+        engine) their live pages travel as tagged, CRC-carrying host
+        blobs; otherwise (a kill, or ``mode="reingest"``) the continuation
+        is the emitted-token list and the receiver recomputes the K/V.
+        Queued entries drain as they are."""
+        force = (not readable) or mode != "swap"
+        for b in range(self.slots):
+            if self._req[b] is not None:
+                self._preempt(b, self._round_no, reason="migrate",
+                              force_reingest=force)
+        out, self._pending = self._pending, []
+        return out
+
+    def adopt(self, entries: Sequence[_QEntry]) -> int:
+        """Enqueue another replica's evacuated entries into this engine,
+        admissible at once on its round clock.  A swap payload is checked
+        first: its tag against this pool (``check_blob_tag``: a foreign
+        dtype or page size raises ``ValueError``), then its CRC32s, as at
+        swap-in — a payload damaged in host memory is dropped and the
+        entry re-ingests (``sdc_detected``, ``sdc_reingest``)."""
+        n = 0
+        for e in entries:
+            rs = e.resume
+            if rs is not None and rs.blobs is not None:
+                check_blob_tag(rs.tag, dtype=self._pool_dtype,
+                               page=self.page)
+                if (rs.checksums is not None
+                        and _crc_blobs(rs.blobs) != rs.checksums):
+                    self._counters["sdc_detected"] += 1
+                    self._counters["sdc_reingest"] += 1
+                    if self.fault_plan is not None:
+                        self.fault_plan.note("sdc_detect",
+                                             round=self._round_no,
+                                             rid=e.req.rid, slot=-1)
+                    rs.blobs = rs.checksums = rs.tag = None
+                    rs.written, rs.degraded = 0, False
+            e.not_before = self._round_no
+            self._pending.append(e)
+            self._counters["migrated_in"] += 1
+            if self.journal is not None:
+                self.journal.append(
+                    "migrate", rid=e.req.rid, to=self.replica_id,
+                    mode=("swap" if rs is not None
+                          and rs.blobs is not None else "reingest"),
+                    emitted=len(rs.emitted) if rs is not None else 0)
+            n += 1
+        return n
 
     def _fault_holds(self) -> None:
         """Release an expired exhaustion hold; start a due one (grab the
@@ -936,6 +1136,9 @@ class ContinuousEngine:
                     continue
                 t0 = int(tok0[i])
                 self._emitted[b] = [t0]
+                if self.journal is not None:
+                    self.journal.append("tokens", rid=req.rid,
+                                        replica=self.replica_id, toks=[t0])
                 if self._use_pen:
                     self._cnt[b, t0 % self._cnt.shape[1]] += 1
                 hit_stop = (self.stop_token is not None
@@ -1073,6 +1276,11 @@ class ContinuousEngine:
             ran = int(new_lens[b]) - int(self.lens[b])
             emitted = [int(t) for t in outs[b, :ran]]
             self._emitted[b].extend(emitted)
+            if self.journal is not None and emitted:
+                # the per-burst delta is the crash-consistency quantum: at
+                # most one burst of tokens is lost, and regenerated
+                self.journal.append("tokens", rid=self._req[b].rid,
+                                    replica=self.replica_id, toks=emitted)
             if self._use_pen and emitted:
                 v = self._cnt.shape[1]
                 np.add.at(self._cnt[b], np.asarray(emitted, np.int64) % v, 1)
@@ -1103,7 +1311,10 @@ class ContinuousEngine:
     def step(self) -> bool:
         """ONE scheduler iteration: fault holds -> admission -> prefill
         chunks -> at most one decode burst -> finish and escalation
-        accounting -> the watchdog's tick.  Returns ``has_work()``."""
+        accounting -> the watchdog's tick.  Returns ``has_work()``.
+        Raises ``ReplicaLostError`` at the burst dispatch when this
+        replica's ``replica_fault`` kill is due: after host scheduling,
+        before any launch of the burst."""
         if not self.has_work():
             return False
         self._fault_holds()
@@ -1120,6 +1331,14 @@ class ContinuousEngine:
             n_max, wave = self._burst_len(active, still_prefilling)
             self._grow_pages(active, n_max)
         if active:
+            if (self.replica_fault is not None
+                    and self.replica_fault.take_kill(self.replica_id,
+                                                     self._bursts)):
+                raise ReplicaLostError(
+                    f"replica {self.replica_id} lost at burst "
+                    f"{self._bursts} (round {self._round_no}): simulated "
+                    f"device failure",
+                    replica=self.replica_id, burst=self._bursts)
             progress += self._burst(active, n_max, wave)
             if self.escalate is not None:
                 self._maybe_escalate(active, self._round_no)
@@ -1160,9 +1379,6 @@ class ContinuousEngine:
             "straggler_ewma_s": self.monitor.ewma,
             **self._counters,
             **self._spec_stats(),
-            # host clock around prefill waves / decode bursts (each ends
-            # in a device-to-host copy of its result), around swaps (each
-            # ends in a synchronise) and around the swap payloads' CRC32s
             **self._clock,
         }
         return dict(self._results), stats
@@ -1188,3 +1404,204 @@ class ContinuousEngine:
             pass
         res, stats = self.finalize()
         return [res[r.rid] for r in requests], stats
+
+
+class ReplicatedEngine:
+    """A fleet of data-parallel ``ContinuousEngine`` replicas.  Only the
+    meshless fleet is ported (``mesh=None, replicas=N``): ``N`` replicas
+    time-slicing one device, sharing one ``params`` (one copy of the
+    weights), each with its own ``PageAllocator`` over a disjoint pool and
+    its own block tables.
+
+    The queue is partitioned on the host, round-robin in ``(arrival,
+    rid)`` order.  ``run`` interleaves the replicas one ``step`` at a
+    time, which is what makes a replica's loss survivable mid-run:
+
+      * every completed step is a heartbeat; a ``ReplicaFaultPlan`` hang
+        stops the victim stepping, and after ``hang_patience`` missed
+        beats in a row the host declares it dead with its device memory
+        still readable — its residents evacuate as tagged swap blobs
+        (``migrate="swap"``) or as emitted-token reingest state;
+      * a kill raises ``ReplicaLostError`` at the victim's burst dispatch:
+        device memory is gone, so evacuation always re-ingests;
+      * evacuated entries are ``adopt``ed round-robin by the survivors;
+        if none survives, the loss re-raises for
+        ``train.fault.run_with_restarts`` and the request journal.
+
+    Stats merge as in the JAX package: ``pool`` is ``aggregate_stats``
+    over the allocators, ``replicas`` each replica's own stats,
+    ``heartbeats`` and the ``ha_*`` counters the fleet's fault story,
+    occupancy is weighted by decode rounds, and every other integer
+    field is summed (the port's host clocks too)."""
+
+    def __init__(self, model, params, *, mesh=None, replicas=None,
+                 migrate: str = "swap", hang_patience: int = 3, **kw):
+        if migrate not in ("swap", "reingest"):
+            raise ValueError(f"migrate must be swap|reingest, "
+                             f"got {migrate!r}")
+        subs = replica_meshes(mesh, replicas)
+        self.migrate = migrate
+        self.hang_patience = max(1, hang_patience)
+        self.replica_fault = kw.pop("replica_fault", None)
+        self.journal = kw.pop("journal", None)
+        self.engines = [ContinuousEngine(model, params, replica_id=i,
+                                         replica_fault=self.replica_fault,
+                                         journal=self.journal, **kw)
+                        for i in range(len(subs))]
+        self._bound: Optional[List[Request]] = None
+        self.reset_monitors()
+
+    @property
+    def allocators(self):
+        return [e.alloc for e in self.engines]
+
+    def reset_monitors(self) -> None:
+        """The ``run_with_restarts`` contract, fanned out: every
+        replica's watchdog and straggler monitor are rebuilt, and the
+        heartbeat view starts fresh (a restarted fleet has no dead
+        replica; the fault plan decides whether one dies again)."""
+        for e in self.engines:
+            e.reset_monitors()
+        self.heartbeats = [{"beats": 0, "missed": 0, "status": "live"}
+                           for _ in self.engines]
+        self._ha = {k: 0 for k in (
+            "ha_kills", "ha_hangs", "ha_migrations",
+            "ha_migrated_swap", "ha_migrated_reingest")}
+
+    def bind(self, requests: Sequence[Request]) -> "ReplicatedEngine":
+        """Keep a queue so ``run()`` needs no argument (the runner
+        contract of ``run_with_restarts``).  Returns self."""
+        self._bound = list(requests)
+        return self
+
+    def partition(self, requests: Sequence[Request]) -> List[List[Request]]:
+        """Round-robin split in ``(arrival, rid)`` order: deterministic,
+        and each sub-queue keeps the arrival order admission expects."""
+        parts: List[List[Request]] = [[] for _ in self.engines]
+        for i, r in enumerate(sorted(requests,
+                                     key=lambda r: (r.arrival, r.rid))):
+            parts[i % len(parts)].append(r)
+        return parts
+
+    # -- failure handling -------------------------------------------------
+    def _survivors(self) -> List[int]:
+        return [i for i, h in enumerate(self.heartbeats)
+                if h["status"] == "live"]
+
+    def _lose_replica(self, i: int, *, readable: bool, burst: int,
+                      why: str) -> None:
+        """Declare replica ``i`` dead and migrate its work: ``readable``
+        says whether its pages can still be swapped out (a hang) or are
+        gone (a kill).  Without a survivor the loss re-raises; the journal
+        then holds every token emitted so far."""
+        self.heartbeats[i]["status"] = "dead"
+        entries = self.engines[i].evacuate(readable=readable,
+                                           mode=self.migrate)
+        if self.journal is not None:
+            self.journal.append("replica_lost", replica=i, why=why,
+                                burst=burst, evacuated=len(entries))
+        alive = self._survivors()
+        if not alive:
+            raise ReplicaLostError(
+                f"replica {i} {why} at burst {burst} and no replica "
+                f"survives to adopt its {len(entries)} requests — "
+                f"restart and replay the journal",
+                replica=i, burst=burst)
+        for j, e in enumerate(entries):
+            swap = e.resume is not None and e.resume.blobs is not None
+            self.engines[alive[j % len(alive)]].adopt([e])
+            self._ha["ha_migrations"] += 1
+            self._ha["ha_migrated_swap" if swap
+                     else "ha_migrated_reingest"] += 1
+
+    # -- the fleet loop ---------------------------------------------------
+    def run(self, requests: Optional[Sequence[Request]] = None):
+        """Serve ``requests`` (or the ``bind``-ed queue) across the
+        replicas, one step of each in turn.  Returns ``(finished in input
+        order, stats)``."""
+        if requests is None:
+            if self._bound is None:
+                raise ValueError("run() needs requests (or bind() first)")
+            requests = self._bound
+        self.heartbeats = [{"beats": 0, "missed": 0, "status": "live"}
+                           for _ in self.engines]
+        self._ha = {k: 0 for k in self._ha}
+        plan = self.replica_fault
+        for eng, part in zip(self.engines, self.partition(requests)):
+            eng.start(part)
+        while True:
+            stepped = False
+            for i, eng in enumerate(self.engines):
+                hb = self.heartbeats[i]
+                if hb["status"] == "dead" or not eng.has_work():
+                    continue
+                if plan is not None and plan.hang_due(i, eng._bursts):
+                    # the victim stops responding: a missed beat per sweep,
+                    # then declared dead with its memory still readable
+                    hb["missed"] += 1
+                    if hb["missed"] == 1:
+                        self._ha["ha_hangs"] += 1
+                    if hb["missed"] >= self.hang_patience:
+                        self._lose_replica(i, readable=True,
+                                           burst=eng._bursts, why="hung")
+                    stepped = True
+                    continue
+                try:
+                    eng.step()
+                    hb["beats"] += 1
+                    stepped = True
+                except ReplicaLostError as err:
+                    self._ha["ha_kills"] += 1
+                    self._lose_replica(i, readable=False, burst=err.burst,
+                                       why="killed")
+                    stepped = True
+            work = [i for i in self._survivors()
+                    if self.engines[i].has_work()]
+            if not work:
+                break
+            if not stepped:     # defensive: nothing can advance
+                raise EngineStuckError(
+                    "replicated loop made no progress",
+                    {"heartbeats": self.heartbeats,
+                     "pending": [len(self.engines[i]._pending)
+                                 for i in work]})
+        results: Dict[int, Finished] = {}
+        per = []
+        for i, eng in enumerate(self.engines):
+            res, st = eng.finalize()
+            results.update(res)
+            st["replica_status"] = self.heartbeats[i]["status"]
+            per.append(st)
+        dr = sum(s["decode_rounds"] for s in per)
+        stats = {
+            "replicas_n": len(self.engines),
+            "rounds": max((s["rounds"] for s in per), default=0),
+            "decode_rounds": dr,
+            "bursts": sum(s["bursts"] for s in per),
+            "occupancy": (sum(s["occupancy"] * s["decode_rounds"]
+                              for s in per) / dr if dr else 0.0),
+            "peak_live_pages": sum(s["peak_live_pages"] for s in per),
+            "n_pages": sum(s["n_pages"] for s in per),
+            "fixed_equiv_pages": sum(s["fixed_equiv_pages"] for s in per),
+            "deadline_total": sum(s["deadline_total"] for s in per),
+            "deadline_misses": sum(s["deadline_misses"] for s in per),
+            "pool": aggregate_stats(self.allocators),
+            "replicas": per,
+            "heartbeats": [dict(h) for h in self.heartbeats],
+            **self._ha,
+        }
+        dl = stats["deadline_total"]
+        stats["deadline_miss_rate"] = (stats["deadline_misses"] / dl
+                                       if dl else 0.0)
+        if any("spec_accept_rate" in s for s in per):
+            sr = sum(s.get("spec_rounds", 0) for s in per)
+            se = sum(s.get("spec_emitted", 0) for s in per)
+            k1 = max(s.get("spec_k", 0) for s in per) + 1
+            stats["spec_rounds"], stats["spec_emitted"] = sr, se
+            stats["spec_accept_rate"] = se / (sr * k1) if sr else 0.0
+        for k in CLOCKS:
+            stats[k] = sum(s[k] for s in per)
+        for k in per[0] if per else ():
+            if k not in stats and isinstance(per[0][k], (int, np.integer)):
+                stats[k] = sum(s[k] for s in per)
+        return [results[r.rid] for r in requests], stats

@@ -43,11 +43,26 @@ the layer pattern (default: full depth), ``--draft-fmt POLICY`` under
 another precision policy (e.g. ``tp_bf16_kv8``).  The accepted stream is
 plain decode's; a ``speculative`` line gives the accept rate.
 
+Replica fault tolerance (needs ``--continuous``): ``--replicas N`` serves
+the queue with a meshless fleet of N engine replicas on the one device
+(disjoint page pools, one copy of the weights); ``--fault-replica
+R:BURST[:MODE]`` kills (default) or hangs replica R at its BURST-th
+burst; ``--migrate swap|reingest`` picks how a dead replica's requests
+move to a survivor (swap blobs need ``--preempt swap`` and a hang: a
+killed replica's memory is gone, so a kill always re-ingests); ``--journal
+PATH`` appends the crash-consistent request journal (JSON lines, the JAX
+package's bytes), and the run then goes through ``run_with_restarts``,
+which replays it after a loss no replica survives (``--replicas 1`` is a
+one-replica fleet here, so ``--fault-replica 0:2`` exercises the
+restart).  A run with a fault plan or a journal runs once, without the
+warm-up.  A ``replica HA`` line counts kills, hangs, migrations and each
+replica's heartbeats.
+
 Sampling everywhere: ``--temperature --top-k --top-p --seed
 --repetition-penalty --presence-penalty``.  The model is the reduced
 config unless ``--full``; weights are random from seed 0.  Runs on the GPU
 unless ``--device cpu``; without a card and without ``--device`` it
-raises.  Meshes, replicas and the journal are not ported.
+raises.  Only meshes (``--mesh``) are not ported.
 
     python -m repro_torch.launch.serve --full --batch 4 --gen 32
     python -m repro_torch.launch.serve --arch minicpm3-4b --full --ragged
@@ -63,6 +78,8 @@ raises.  Meshes, replicas and the journal are not ported.
         --escalate fp8,fp16,fp16alt --fault-overflow 2 --device cpu
     python -m repro_torch.launch.serve --continuous --speculate 3 \
         --draft-layers 1 --device cpu
+    python -m repro_torch.launch.serve --full --continuous --replicas 2 \
+        --fault-replica 1:2 --journal /tmp/j.jsonl
 """
 from __future__ import annotations
 
@@ -78,8 +95,11 @@ from ..models.paged import (PageAllocator, build_tables, identity_block_table,
                             num_pages)
 from ..models.registry import build_model, get_config
 from ..models.transformer import sample_token
-from ..train.fault import PoisonedLogitsError, ServeFaultPlan
-from .engine import ContinuousEngine, Request, synthetic_trace
+from ..train.fault import (PoisonedLogitsError, ReplicaFaultPlan,
+                           ServeFaultPlan, run_with_restarts)
+from .engine import (ContinuousEngine, ReplicatedEngine, Request,
+                     synthetic_trace)
+from .journal import RequestJournal
 
 
 def ragged_lengths(batch: int, prompt_len: int):
@@ -192,6 +212,27 @@ def _arg_parser():
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false",
                     help="the arch at full width")
+    ap.add_argument("--mesh", default=None, metavar="DP,TP",
+                    help="serving mesh (not ported: refused)")
+    ap.add_argument("--replicas", type=int, default=None, metavar="N",
+                    help="meshless HA fleet: N engine replicas on the one "
+                         "device over disjoint page pools (requires "
+                         "--continuous)")
+    ap.add_argument("--fault-replica", default=None,
+                    metavar="R:BURST[:MODE]",
+                    help="replica R dies at its BURST-th burst; MODE kill "
+                         "(device memory gone; the default) or hang "
+                         "(declared dead after missed heartbeats, memory "
+                         "still readable)")
+    ap.add_argument("--migrate", choices=("swap", "reingest"),
+                    default="swap",
+                    help="how a lost replica's requests move to a "
+                         "survivor: CRC-checked swap blobs (needs "
+                         "--preempt swap and a hang) or free-and-reingest")
+    ap.add_argument("--journal", default=None, metavar="PATH",
+                    help="append-only crash-consistent request journal "
+                         "(JSON lines); the run goes through "
+                         "run_with_restarts, which replays it")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -221,6 +262,33 @@ def main(argv=None):
         if args.temperature > 0.0 or pen:
             ap.error("--speculate is greedy-only: temperature and "
                      "penalties would change the verified stream")
+    if args.mesh is not None:
+        ap.error("--mesh is not ported (sharding, ROADMAP Queue 1 item "
+                 "8); --replicas N serves a meshless fleet")
+    if args.replicas is not None:
+        if args.replicas < 1:
+            ap.error(f"--replicas must be >= 1, got {args.replicas}")
+        if not args.continuous:
+            ap.error("--replicas requires --continuous (replicas are "
+                     "engine instances over the request queue)")
+    if args.fault_replica is not None:
+        parts = args.fault_replica.split(":")
+        if len(parts) not in (2, 3):
+            ap.error("--fault-replica expects R:BURST[:MODE] "
+                     "(e.g. 0:3 or 1:5:hang)")
+        try:
+            fr, fb = int(parts[0]), int(parts[1])
+        except ValueError:
+            ap.error("--fault-replica R and BURST must be integers")
+        fmode = parts[2] if len(parts) == 3 else "kill"
+        if fmode not in ("kill", "hang"):
+            ap.error(f"--fault-replica MODE must be kill|hang, "
+                     f"got {fmode!r}")
+        if args.replicas is None:
+            ap.error("--fault-replica needs a replicated engine "
+                     "(--replicas N) — a lone replica's loss has no "
+                     "survivor to migrate to")
+        args.fault_replica = (fr, fb, fmode)
 
     paged = args.paged or args.continuous
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -370,8 +438,8 @@ def _continuous(args, model, params):
     # budget
     max_len = (max(r.prompt_len + r.max_new for r in reqs)
                + args.speculate)
-    eng = ContinuousEngine(
-        model, params, slots=args.slots, max_len=max_len, chunk=args.chunk,
+    eng_kw = dict(
+        slots=args.slots, max_len=max_len, chunk=args.chunk,
         n_pages=args.pool_pages, stop_token=args.stop_token,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         seed=args.seed, burst_cap=args.burst_cap,
@@ -380,9 +448,35 @@ def _continuous(args, model, params):
         degrade_fmt=args.degrade_fmt, shed=args.shed, fault_plan=plan,
         escalate=esc, spec_k=args.speculate, draft_repeats=args.draft_layers,
         draft_policy=args.draft_fmt)
-    eng.run(reqs)                       # warm-up (kernel build, allocator)
+    rplan = (ReplicaFaultPlan(*args.fault_replica)
+             if args.fault_replica is not None else None)
+    journal = (RequestJournal(args.journal)
+               if args.journal is not None else None)
+    replicated = args.replicas is not None
+    if replicated:
+        eng = ReplicatedEngine(model, params, replicas=args.replicas,
+                               migrate=args.migrate, replica_fault=rplan,
+                               journal=journal, **eng_kw)
+    else:
+        eng = ContinuousEngine(model, params, journal=journal, **eng_kw)
+    restarts = 0
+    if rplan is None and journal is None:
+        eng.run(reqs)                   # warm-up (kernel build, allocator)
     t0 = time.perf_counter()
-    fin, stats = eng.run(reqs)
+    if journal is not None:
+        # the journal is one run's crash-consistent story: a loss that no
+        # replica survives restarts the run, which replays the journal
+        class _Runner:
+            def reset_monitors(self):
+                eng.reset_monitors()
+
+            def run(self):
+                self.res = eng.run(reqs)
+
+        runner, restarts = run_with_restarts(_Runner, max_restarts=2)
+        fin, stats = runner.res
+    else:
+        fin, stats = eng.run(reqs)
     _sync(model)
     dt = time.perf_counter() - t0
     print(f"continuous engine on {_where(model)}: {model.cfg.name}, "
@@ -394,7 +488,9 @@ def _continuous(args, model, params):
              + (f" draft_layers={args.draft_layers}"
                 if args.draft_layers is not None else "")
              + (f" draft_fmt={args.draft_fmt}" if args.draft_fmt else "")
-             if args.speculate else ""))
+             if args.speculate else "")
+          + (f", replicas={len(eng.engines)} migrate={args.migrate}"
+             if replicated else ""))
     for f in fin:
         trail = ""
         if f.preemptions:
@@ -437,6 +533,20 @@ def _continuous(args, model, params):
               f"refused), {stats['sdc_injected']} SDC injected / "
               f"{stats['sdc_detected']} detected / "
               f"{stats['sdc_reingest']} recovered by reingest")
+    if replicated:
+        print(f"replica HA: {stats['ha_kills']} kills, "
+              f"{stats['ha_hangs']} hangs, {stats['ha_migrations']} "
+              f"migrations ({stats['ha_migrated_swap']} swap-blob / "
+              f"{stats['ha_migrated_reingest']} reingest); heartbeats "
+              + ", ".join(f"r{i}:{h['beats']}b/{h['missed']}m "
+                          f"{h['status']}"
+                          for i, h in enumerate(stats["heartbeats"])))
+    if journal is not None:
+        journal.close()
+        print(f"journal {args.journal}: " + ", ".join(
+            f"{v}x {k}" for k, v in sorted(journal.counts().items()))
+              + f"; {restarts} restarts, {stats['journal_replayed']} "
+                f"requests replayed")
     if plan is not None:
         if plan.events:
             kinds = {}

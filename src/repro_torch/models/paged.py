@@ -233,6 +233,22 @@ def check_blob_tag(tag: Optional[SwapBlobTag], *, dtype, page: int) -> None:
             f"reinterpret page bytes; re-ingest the request instead")
 
 
+def aggregate_stats(allocators: Sequence[PageAllocator]) -> dict:
+    """Fleet-level pool stats across per-replica allocators (data-parallel
+    serving: each engine replica owns a DISJOINT pool, so the totals are
+    plain sums — ``peak_live`` sums because replica peaks are peaks of
+    independent pools, not a max over a shared one)."""
+    agg = {"n_pages": 0, "n_live": 0, "n_free": 0, "peak_live": 0}
+    per = []
+    for a in allocators:
+        s = a.stats()
+        per.append(s)
+        for k in agg:
+            agg[k] += s[k]
+    agg["replicas"] = per
+    return agg
+
+
 def build_tables(alloc: PageAllocator, batch: int, max_pages: int,
                  *, shared_pages: int = 0) -> np.ndarray:
     """Allocate one ``[batch, max_pages]`` table whose first

@@ -1,5 +1,5 @@
-"""Serving-side fault tolerance (the port of the JAX package's
-``train/fault.py``, serving half):
+"""Fault tolerance (the port of the JAX package's ``train/fault.py``,
+less its training plan):
 
   * :class:`StragglerMonitor` — per-burst wall-clock EWMA + deviation
     flagging,
@@ -15,13 +15,28 @@
 ``ServeFaultPlan.overflow_at`` / ``overflow_scale`` scale the K/V writes
 of the listed decode rounds before the escalation quantizer, when the
 engine runs an ``EscalationPolicy`` (without one they inject nothing, as
-in the JAX package); the engine notes each ``overflow`` event.  Replica
-and training-restart machinery is not ported.  Plain Python: no torch.
+in the JAX package); the engine notes each ``overflow`` event.
+
+Replica-level counterparts (the fleet of
+``launch/engine.py::ReplicatedEngine``):
+
+  * :class:`ReplicaFaultPlan` — deterministically KILLS a replica at a
+    chosen burst (:class:`ReplicaLostError` raised at the burst dispatch:
+    device memory unreachable) or HANGS it (the fleet's heartbeat view
+    declares it dead after missed beats, device memory still readable),
+  * :class:`ReplicaLostError` — a :class:`SimulatedFailure`, so a loss
+    with no surviving replica propagates into :func:`run_with_restarts`,
+    whose ``attempt_log`` names the replica behind each attempt,
+  * :func:`run_with_restarts` — the supervisor: run, and on a
+    :class:`SimulatedFailure` rebuild and run again, bounded.
+
+``FailurePlan`` waits for the training port (ROADMAP Queue 1 item 9).
+Plain Python: no torch.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 
 class StragglerMonitor:
@@ -50,6 +65,86 @@ class StragglerMonitor:
             if not straggler:
                 self.ewma = (1 - self.alpha) * self.ewma + self.alpha * dt
         return straggler
+
+
+class SimulatedFailure(RuntimeError):
+    """Injected node failure."""
+
+
+class ReplicaLostError(SimulatedFailure):
+    """A serving replica died (simulated device loss).  Raised through
+    the victim's burst dispatch by a :class:`ReplicaFaultPlan` kill, or
+    by the replicated host loop when a hung replica exhausts its
+    heartbeat patience — and re-raised by ``ReplicatedEngine`` when NO
+    replica survives to absorb the victim's requests (at which point
+    recovery is a full restart: :func:`run_with_restarts` + the request
+    journal).  ``replica`` / ``burst`` locate the failure."""
+
+    def __init__(self, msg: str, *, replica: int, burst: int = -1):
+        super().__init__(msg)
+        self.replica = replica
+        self.burst = burst
+
+
+@dataclasses.dataclass
+class ReplicaFaultPlan:
+    """Deterministic replica-level failure injection for the data-parallel
+    serving fleet, keyed to the VICTIM's burst counter (each replica's
+    burst sequence is deterministic for a given queue partition, so one
+    plan + one queue replays to the identical failure point).
+
+    ``replica`` picks the victim, ``at_burst`` the burst index (0-based:
+    the fault fires when the victim is ABOUT to dispatch that burst).
+    ``mode="kill"`` raises :class:`ReplicaLostError` through the burst
+    dispatch — the device is gone, its pool pages are UNREACHABLE, so
+    in-flight rows can only migrate by free-and-reingest (recompute).
+    ``mode="hang"`` makes the replica unresponsive from that burst on:
+    the host loop's heartbeat view counts missed beats and declares the
+    replica dead after its patience — device memory is still READABLE,
+    so live pages can migrate as swap-out payloads (no recompute).
+
+    A kill fires ONCE per plan (a restarted fleet does not re-die unless
+    :meth:`reset` is called — that is what lets ``run_with_restarts``
+    recover); a hang is sticky for the plan's lifetime.  ``events`` logs
+    what actually fired, like :class:`ServeFaultPlan`."""
+    replica: int = 0
+    at_burst: int = 1
+    mode: str = "kill"
+
+    def __post_init__(self):
+        if self.mode not in ("kill", "hang"):
+            raise ValueError(f"mode must be kill|hang, got {self.mode!r}")
+        self.reset()
+
+    def reset(self) -> None:
+        self._killed = False
+        self._hung = False
+        self.events: list = []
+
+    def note(self, kind: str, **kw) -> None:
+        self.events.append((kind, kw))
+
+    def take_kill(self, replica: int, burst: int) -> bool:
+        """True exactly once: the victim replica reaching (or jumping
+        past) the planned burst in kill mode."""
+        if (self.mode != "kill" or self._killed
+                or replica != self.replica or burst < self.at_burst):
+            return False
+        self._killed = True
+        self.note("kill", replica=replica, burst=burst)
+        return True
+
+    def hang_due(self, replica: int, burst: int) -> bool:
+        """True (sticky) once the victim reaches the planned burst in
+        hang mode — the replica stops responding from here on."""
+        if self.mode != "hang" or replica != self.replica:
+            return False
+        if not self._hung:
+            if burst < self.at_burst:
+                return False
+            self._hung = True
+            self.note("hang", replica=replica, burst=burst)
+        return True
 
 
 class PoisonedLogitsError(RuntimeError):
@@ -183,3 +278,44 @@ class ServeWatchdog:
             raise EngineStuckError(
                 f"serving loop made no progress for {self.stalled} "
                 f"consecutive iterations: {d}", d)
+
+
+def run_with_restarts(make_runner: Callable[[], "object"],
+                      max_restarts: int = 3):
+    """Supervisor: build a runner (which restores from the latest
+    checkpoint), run it; on failure rebuild and continue.  Returns the
+    final runner and the number of restarts consumed.
+
+    A restarted attempt must not inherit the previous attempt's health
+    baselines: a pre-crash straggler EWMA would mis-flag the restart's
+    warm-up steps, and stale watchdog stall counts would trip spuriously.
+    ``make_runner`` usually builds a fresh runner, but factories that
+    (re)use a long-lived runner object are common in restore-from-latest
+    setups — so the supervisor explicitly calls the runner's
+    ``reset_monitors()`` (when it has one) before every attempt.  For a
+    ``ReplicatedEngine`` that call fans out to every replica's watchdog
+    and straggler monitor.
+
+    Each failed attempt is recorded in ``attempt_log`` — a list of
+    ``(attempt_index, error_type_name, replica_or_None, message)``
+    tuples attached to the error that is finally re-raised when the
+    restart budget is exhausted, so the diagnostics name which replica
+    triggered each restart (``ReplicaLostError.replica``; ``None`` for
+    non-replica failures)."""
+    restarts = 0
+    attempt_log: list = []
+    while True:
+        runner = make_runner()
+        reset = getattr(runner, "reset_monitors", None)
+        if callable(reset):
+            reset()
+        try:
+            runner.run()
+            return runner, restarts
+        except SimulatedFailure as err:
+            attempt_log.append((restarts, type(err).__name__,
+                                getattr(err, "replica", None), str(err)))
+            restarts += 1
+            if restarts > max_restarts:
+                err.attempt_log = attempt_log
+                raise

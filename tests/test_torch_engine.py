@@ -92,10 +92,17 @@ def test_engine_refuses_unported_options():
     tm = build_model("gemma2-9b", reduced=True, device="cpu", paged_kv=True,
                      page_size=16)
     params = tm.init(0)
-    for bad in (dict(journal=object()), dict(replica_fault=object()),
-                dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            ContinuousEngine(tm, params, slots=2, max_len=32, **bad)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ContinuousEngine(tm, params, slots=2, max_len=32, mesh=object())
+    # replicas and the journal are ported (tests/test_torch_replica_ha.py)
+    from repro_torch.launch.journal import RequestJournal
+    from repro_torch.train.fault import ReplicaFaultPlan
+    eng = ContinuousEngine(tm, params, slots=2, max_len=32, replica_id=1,
+                           replica_fault=ReplicaFaultPlan(),
+                           journal=RequestJournal(), shed_base=1,
+                           shed_cap=8, min_resident=0)
+    assert (eng.replica_id, eng.shed_base, eng.shed_cap,
+            eng.min_resident) == (1, 1, 8, 0)
     # speculation is ported: greedy only, no penalties
     eng = ContinuousEngine(tm, params, slots=2, max_len=32, spec_k=2,
                            draft_repeats=1, draft_policy="tp_bf16_kv8")

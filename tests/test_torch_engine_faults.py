@@ -412,6 +412,16 @@ def test_swap_blob_tags():
     for dt, page in ((torch.float8_e5m2, 16), (torch.bfloat16, 8)):
         with pytest.raises(ValueError, match="foreign swap blob"):
             check_blob_tag(tag, dtype=dt, page=page)
+    # an engine's swap blobs carry its replica id
+    _, _, tm, tp = _pair()
+    eng = te.ContinuousEngine(tm, tp, replica_id=1, preempt="swap",
+                              n_pages=5, **ENGINE)
+    eng.start(_pressure_queue(te, 256))
+    tags = []
+    while eng.step():
+        tags += [e.resume.tag for e in eng._pending
+                 if e.resume is not None and e.resume.blobs is not None]
+    assert tags and set(tags) == {tag}
 
 
 # ---------------------------------------------------------------------------
