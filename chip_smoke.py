@@ -26,9 +26,13 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    ``decode_fp8_p64_qwen3``), its 256-token chunk
    (``flash_bf16_p64_qwen3_chunk``), and deepseek-v2-lite's expanded
    prefill on ``flash_tc`` at QK head dim 192, V 128
-   (``flash_mla_bf16_192``, ``flash_fma`` timed beside it); none has a
-   softcap, so SDPA computes each), the plain flash version walking the
-   kernel's own key tiles.
+   (``flash_mla_bf16_192``, ``flash_fma`` timed beside it); the granite
+   phase's reads at group 48, head dim 128: decode on a bf16, an
+   fp8-e5m2 and an f32 pool (``decode_bf16_p64_granite`` on ``mma``,
+   ``decode_fp8_p64_granite``, ``decode_f32_p64_granite`` on ``fma``) and
+   its 256-token chunk on ``flash_tc`` (``flash_bf16_p64_granite_chunk``,
+   both query tiles); none has a softcap, so SDPA computes each), the
+   plain flash version walking the kernel's own key tiles.
    One JSON line
    per case: error and tolerance, the variant (and for decode the cluster
    size its launch counted, which must be the one ``cluster_size`` names)
@@ -171,14 +175,28 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    (``moe_layer_probe``: host and device ms, the bound of the padded
    slabs and of the routed experts alone).  Each MoE phase logs the
    card's free memory first and fails below its need.
-11. The kernels line (all six kernels; flash attention, tp_matmul and decode
+11. Granite phase (``granite_phase``): qwen3-moe is freed and
+   granite-20b is built at full width under ``tp_bf16`` (48 query heads
+   on one KV head of 128 (MQA: group 48), a gelu MLP with biases, d_ff
+   24576), its depth cut to 26 of 52 layers (19.2 GiB) to keep the
+   smoke near 1100 s, then serves the slice's queue through
+   ``ContinuousEngine`` (4 slots, chunk 256, pages of 64).  Gates:
+   budgets, the pool drains, every decode launch ``mma`` at group 48
+   and at ``cluster_size``'s size, every flash launch ``flash_tc`` at
+   (128, 128); request 2 against the plain versions (first-token logits
+   within ``LOGITS_TOL``, greedy tokens equal up to a near tie); a window
+   (4 requests x 8 tokens) under ``tp_bf16_kv8`` with the same gates.
+   tok/s, decode ms a round against the weight-read bound, prefill, and
+   device busy / idle from a profiled window.
+12. The kernels line (all six kernels; flash attention, tp_matmul and decode
    attention with their launches by variant, the FMA variant's time,
    decode's launches by cluster size, flash's by head dims, the flags-on
    time of the main case and of the telemetry cases, the f32-pool case,
-   the MLA cases, the verify case, the qwen3 cases and the (192, 128)
-   case with SDPA's time; the attention launches summed over the slice,
-   speculative, generate, overload, HA, escalation, MLA, DeepSeek and MoE
-   phases), the card line, and as the last
+   the MLA cases, the verify case, the qwen3 and granite cases and the
+   (192, 128) case with SDPA's time; decode's launches by group; the
+   attention launches summed over the slice, speculative, generate,
+   overload, HA, escalation, MLA, DeepSeek, MoE and granite phases, and
+   the granite phase's own), the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Imports no JAX.  Needs one CUDA device and ``nvcc`` (``CUDA_HOME``, PATH
@@ -963,9 +981,10 @@ def kernel_phase() -> dict:
                         rows=[256, 200], q_offset=768, chunk=256,
                         window=4096, softcap=50.0, alias=4, seed=13))
     f.extend(mla_kernel_cases())
-    dec, fl = moe_kernel_cases()
-    recs["decode_attention"].extend(dec)
-    f.extend(fl)
+    for cases in (moe_kernel_cases, granite_kernel_cases):
+        dec, fl = cases()
+        recs["decode_attention"].extend(dec)
+        f.extend(fl)
     return recs
 
 
@@ -994,6 +1013,34 @@ def moe_kernel_cases() -> tuple:
                      rows=[1024] * 4, q_offset=0, chunk=1024, window=None,
                      softcap=None, alias=0, seed=19, heads=(16, 1), d=192,
                      dv=128, main=True)]
+    return dec, fl
+
+
+def granite_kernel_cases() -> tuple:
+    """The granite phase's attention reads at its serving shapes, as
+    ``(decode records, flash records)``: granite-20b's decode (4 slots, 48
+    query heads on one KV head of 128, so group 48: six head tiles of the
+    kernel; pages of 64, ragged kv_len up to 4112 with an idle row, no
+    window, no softcap) on a bf16 pool (route ``mma``), an fp8-e5m2 pool
+    (``tp_bf16_kv8``) and an f32 pool (policy ``fp32``: route ``fma``);
+    its 256-token prefill chunk at q_offset 768 on ``flash_tc`` (one KV
+    head, group 48: ``plan_q_rows`` picks 64 rows, one query of each head
+    and 16 masked rows; the 128-row tile is timed and checked beside it).
+    Each runs its telemetry instantiation (bitwise the flags-off output);
+    none has a softcap, so SDPA computes each (``library_ms``)."""
+    import torch
+    gr = dict(page=64, kv_lens=[1056, 540, 0, 4112], window=None,
+              softcap=None, alias=4, heads=(1, 48), d=128)
+    dec = [decode_case("decode_bf16_p64_granite", dtype=torch.bfloat16,
+                       seed=20, **gr),
+           decode_case("decode_fp8_p64_granite", dtype=torch.float8_e5m2,
+                       seed=21, **gr),
+           decode_case("decode_f32_p64_granite", dtype=torch.float32,
+                       seed=22, **gr)]
+    fl = [flash_case("flash_bf16_p64_granite_chunk", dtype=torch.bfloat16,
+                     page=64, rows=[256, 200], q_offset=768, chunk=256,
+                     window=None, softcap=None, alias=4, seed=23,
+                     heads=(1, 48), d=128, main=True)]
     return dec, fl
 
 
@@ -1584,6 +1631,7 @@ def reset_attention_counters() -> None:
     decode_attention_cuda.launches = flash_attention_cuda.launches = 0
     decode_attention_cuda.launches_mma = decode_attention_cuda.launches_fma = 0
     decode_attention_cuda.launches_by_cluster.clear()
+    decode_attention_cuda.launches_by_group.clear()
     flash_attention_cuda.launches_tc = flash_attention_cuda.launches_fma = 0
     flash_attention_cuda.launches_by_dims.clear()
 
@@ -1620,6 +1668,8 @@ def attention_counters(where: str, rule: set, flash: str = "tc",
                              f"{by_cluster}: the rule names {sorted(rule)}")
     return dict(launches=launches, variants=variants,
                 decode_launches_by_cluster=by_cluster,
+                decode_launches_by_group=dict(
+                    decode_attention_cuda.launches_by_group),
                 flash_launches_by_dims=flash_dims())
 
 
@@ -1742,10 +1792,11 @@ def merge_counters(total: dict, part: dict) -> dict:
     """``attention_counters`` records of several runs, summed."""
     total = total or dict(launches={}, variants={},
                           decode_launches_by_cluster={},
+                          decode_launches_by_group={},
                           flash_launches_by_dims={})
     for key in ("launches", "decode_launches_by_cluster",
-                "flash_launches_by_dims"):
-        for k, n in part[key].items():
+                "decode_launches_by_group", "flash_launches_by_dims"):
+        for k, n in part.get(key, {}).items():
             total[key][k] = total[key].get(k, 0) + n
     for name, by in part["variants"].items():
         for v, n in by.items():
@@ -3030,7 +3081,7 @@ def moe_model(seed: int = 0):
     return model, params
 
 
-def moe_run(eng, reqs, where: str, rule: set) -> tuple:
+def engine_run(eng, reqs, where: str, rule: set) -> tuple:
     """One timed engine run after a counter reset, gated: every request
     gets its budget, the pool drains, every decode launch on ``mma`` at a
     size in ``rule``, every flash launch ``flash_tc`` at (128, 128).
@@ -3107,11 +3158,39 @@ def moe_layer_probe(model, params, rows=MOE_PROBE_ROWS, reps: int = 10,
     return out
 
 
+def kv8_window(model, params, warm, window, fin, max_len, rule,
+               where) -> tuple:
+    """``window`` through a fresh engine on the ``tp_bf16_kv8`` pool (fp8
+    K/V) after a warm-up on ``warm``, gated by ``engine_run``; returns its
+    record (first tokens compared with ``fin``'s bf16 run) and
+    counters."""
+    import torch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.launch.engine import ContinuousEngine
+    kv8 = dataclasses.replace(model, policy=get_policy("tp_bf16_kv8"))
+    eng8 = ContinuousEngine(kv8, params, slots=4, max_len=max_len,
+                            chunk=256)
+    if eng8.caches[0].k_pool.dtype != torch.float8_e5m2:
+        raise AssertionError(f"{where} kv8: pool dtype "
+                             f"{eng8.caches[0].k_pool.dtype}")
+    eng8.run(warm)
+    fin8, st8, wall8, c8 = engine_run(eng8, window, f"{where} kv8", rule)
+    rec = dict(requests=len(window), max_new=window[0].max_new,
+               wall_s=wall8,
+               decode_ms_per_round=(st8["decode_s"] * 1e3
+                                    / max(1, st8["decode_rounds"])),
+               decode_rounds=st8["decode_rounds"],
+               first_tokens_as_bf16=sum(f8.tokens[0] == f.tokens[0]
+                                        for f8, f in zip(fin8, fin[:4])))
+    log(json.dumps({f"{where}_kv8": dict(rec, **c8)}))
+    return rec, c8
+
+
 def moe_phase(seed: int = 0) -> dict:
     """qwen3-moe-30b-a3b at full width (``moe_model``) served by
     ``ContinuousEngine`` (4 slots, chunk 256, pages of 64) on the slice's
     queue (``PROMPTS`` at ``ARRIVALS``, ``GEN`` tokens).  Gates
-    (``moe_run``): budgets, the pool drains, decode on ``mma`` at the
+    (``engine_run``): budgets, the pool drains, decode on ``mma`` at the
     cluster size ``cluster_size`` names, flash on ``flash_tc`` at (128,
     128).  A profiled window (the first four requests, 8 tokens) gives
     device time by class with ``moe_dispatch``; ``moe_layer_probe`` times
@@ -3128,7 +3207,6 @@ def moe_phase(seed: int = 0) -> dict:
     (draft steps and verify folds) at its cluster size; its wall time
     against the plain engine's on the same window (``vs_plain``)."""
     import torch
-    from repro_torch.core.policy import get_policy
     from repro_torch.launch.engine import ContinuousEngine, Request
 
     model, params = moe_model(seed)
@@ -3143,7 +3221,7 @@ def moe_phase(seed: int = 0) -> dict:
                            chunk=256)
     eng.run(warm)
     rule = cluster_rule(model, eng.slots, eng.max_pages)
-    fin, stats, wall, counted = moe_run(eng, reqs, "moe", rule)
+    fin, stats, wall, counted = engine_run(eng, reqs, "moe", rule)
     n_tok = sum(len(f.tokens) for f in fin)
     res = dict(arch="qwen3-moe-30b-a3b", requests=len(fin),
                prompt_tokens=sum(PROMPTS), generated_tokens=n_tok,
@@ -3208,26 +3286,9 @@ def moe_phase(seed: int = 0) -> dict:
         raise AssertionError("moe: the first generated token differs "
                              "between the kernel path and the plain path")
 
-    # the fp8 pool
-    kv8 = dataclasses.replace(model, policy=get_policy("tp_bf16_kv8"))
-    eng8 = ContinuousEngine(kv8, params, slots=4, max_len=max_len,
-                            chunk=256)
-    if eng8.caches[0].k_pool.dtype != torch.float8_e5m2:
-        raise AssertionError(f"moe kv8: pool dtype "
-                             f"{eng8.caches[0].k_pool.dtype}")
-    eng8.run(warm)
-    fin8, st8, wall8, c8 = moe_run(eng8, window, "moe kv8", rule)
-    res["kv8"] = dict(requests=len(window), max_new=window[0].max_new,
-                      wall_s=wall8,
-                      decode_ms_per_round=(st8["decode_s"] * 1e3
-                                           / max(1, st8["decode_rounds"])),
-                      decode_rounds=st8["decode_rounds"],
-                      first_tokens_as_bf16=sum(
-                          f8.tokens[0] == f.tokens[0]
-                          for f8, f in zip(fin8, fin[:4])))
-    log(json.dumps({"moe_kv8": dict(res["kv8"], **c8)}))
+    res["kv8"], c8 = kv8_window(model, params, warm, window, fin, max_len,
+                                rule, "moe")
     counted = merge_counters(counted, c8)
-    del eng8
 
     # speculative: a 1-repeat draft (1 of 48 layers)
     vs = verify_vs_step(model, params, seed)
@@ -3237,7 +3298,7 @@ def moe_phase(seed: int = 0) -> dict:
                             spec_k=SPEC_K, draft_repeats=1)
     spec.run(warm)
     srule = cluster_rule(model, spec.slots, spec.max_pages)
-    fin_s, st_s, wall_s, c_s = moe_run(spec, window, "moe speculative",
+    fin_s, st_s, wall_s, c_s = engine_run(spec, window, "moe speculative",
                                        srule)
     rate = st_s["spec_accept_rate"]
     if not 0.0 < rate <= 1.0:
@@ -3268,6 +3329,159 @@ def moe_phase(seed: int = 0) -> dict:
                                          "plain_vs_kernel",
                                          "layer_probe")}}))
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 11: granite-20b (MQA, group 48) through the paged engine
+# ---------------------------------------------------------------------------
+#: layers of the granite phase: depth cut from 52 to 26 (the pattern is
+#: one layer) to keep the whole smoke near 1100 s; at full depth the
+#: phase took 100.9 s of a 1121 s smoke (PERF.md §4), and
+#: ``python -m repro_torch.launch.serve --arch granite-20b --full
+#: --continuous`` serves all 52
+GRANITE_LAYERS = 26
+#: free device memory the granite phase needs before its init: 19.2 GiB
+#: of bf16 weights at 26 layers, the KV pools (one KV head: 512 bytes a
+#: token a layer) and a 256-token chunk's activations at d_ff 24576
+GRANITE_NEED_GIB = 24.0
+#: the granite group every decode launch of the phase must run at
+GRANITE_GROUP = 48
+
+
+def granite_model(seed: int = 0, layers: int = GRANITE_LAYERS):
+    """granite-20b at full width under ``tp_bf16`` cut to ``layers``
+    layers, paged in 64-token pages, random weights from ``seed``."""
+    import torch
+    from repro_torch.models.registry import build_model
+    free_memory_gate("granite", GRANITE_NEED_GIB)
+    model = build_model("granite-20b", policy="tp_bf16", device="cuda",
+                        paged_kv=True, page_size=64, n_layers=layers)
+    t0 = time.perf_counter()
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    log(f"granite-20b full width: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} KV head "
+        f"of {cfg.head_dim}, d_ff {cfg.d_ff}, weights "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def granite_groups(where: str, counted: dict) -> None:
+    """Every decode launch of a granite run at ``GRANITE_GROUP``."""
+    by_group = counted["decode_launches_by_group"]
+    if set(by_group) != {GRANITE_GROUP}:
+        raise AssertionError(f"{where}: decode launches by group "
+                             f"{by_group}, all must be at G "
+                             f"{GRANITE_GROUP}")
+
+
+def granite_phase(seed: int = 0) -> dict:
+    """granite-20b at full width (``granite_model``: 48 query heads on one
+    KV head of 128, a gelu MLP with biases; ``GRANITE_LAYERS`` of its 52
+    layers) served by
+    ``ContinuousEngine`` (4 slots, chunk 256, pages of 64) on the slice's
+    queue (``PROMPTS`` at ``ARRIVALS``, ``GEN`` tokens).  Gates
+    (``engine_run``): budgets, the pool drains, every decode launch on
+    ``mma`` at the cluster size ``cluster_size`` names and at group 48,
+    every flash launch ``flash_tc`` at (128, 128).  A profiled window (the
+    first four requests, 8 tokens) gives device time by class and the
+    idle share.  Request 2 (512 tokens) again on the plain versions:
+    first-token logits within ``LOGITS_TOL``, the same first token,
+    greedy tokens equal up to a near tie.  A short run under
+    ``tp_bf16_kv8`` (the fp8 pool) on that window, with the same gates."""
+    import torch
+    from repro_torch.launch.engine import ContinuousEngine, Request
+
+    model, params = granite_model(seed)
+    reqs = slice_requests(model, seed)
+    window = [dataclasses.replace(r, max_new=min(8, GEN), arrival=0)
+              for r in reqs[:4]]
+    warm = [dataclasses.replace(r, tokens=r.tokens[:256], max_new=2)
+            for r in window]
+    max_len = max(p + GEN for p in PROMPTS)
+    eng = ContinuousEngine(model, params, slots=4, max_len=max_len,
+                           chunk=256)
+    eng.run(warm)
+    rule = cluster_rule(model, eng.slots, eng.max_pages)
+    fin, stats, wall, counted = engine_run(eng, reqs, "granite", rule)
+    granite_groups("granite", counted)
+    n_tok = sum(len(f.tokens) for f in fin)
+    res = dict(arch="granite-20b", layers=model.cfg.n_layers,
+               requests=len(fin),
+               prompt_tokens=sum(PROMPTS), generated_tokens=n_tok,
+               wall_s=wall, prefill_ms=stats["prefill_s"] * 1e3,
+               decode_ms_per_round=(stats["decode_s"] * 1e3
+                                    / max(1, stats["decode_rounds"])),
+               decode_rounds=stats["decode_rounds"], tok_s=n_tok / wall,
+               peak_live_pages=stats["peak_live_pages"], max_len=max_len,
+               weight_read_bound_ms=sum(
+                   t.numel() * t.element_size() for t in _leaves(params))
+               / HBM_BYTES_S * 1e3)
+    log(json.dumps({"granite_serve": dict(res, **counted)}))
+    t0 = time.perf_counter()
+    eng.run(window)
+    torch.cuda.synchronize()
+    res["where_the_time_goes"] = dict(
+        requests=len(window), max_new=window[0].max_new,
+        **device_profile(lambda: eng.run(window), time.perf_counter() - t0))
+    log(json.dumps({"granite_where_the_time_goes":
+                    res["where_the_time_goes"]}))
+    del eng
+
+    # request 2 again through the plain versions
+    pick = PROMPTS.index(512)
+    req = reqs[pick]
+    n = len(req.tokens)
+    plain = model.with_cfg(decode_backend="plain", prefill_backend="plain")
+    toks = torch.tensor([req.tokens], device=model.device)
+    lg_k, _ = model.prefill(params, toks, max_len=n + GEN)
+    lg_p, _ = plain.prefill(params, toks, max_len=n + GEN)
+    if not (torch.isfinite(lg_k).all() and torch.isfinite(lg_p).all()):
+        raise AssertionError("granite: first-token logits are not finite")
+    lerr = (lg_k - lg_p).abs().max().item()
+    solo = ContinuousEngine(plain, params, slots=1, max_len=n + GEN,
+                            chunk=256)
+    (fin_p,), _ = solo.run([Request(rid=0, tokens=req.tokens, max_new=GEN)])
+    del solo
+    tie = near_tie_check(model, params, req, fin_p.tokens, fin[pick].tokens,
+                         lerr, where="granite")
+    top2 = lg_p[0, -1].topk(2).values
+    res["plain_vs_kernel"] = dict(
+        request=pick, prompt=n, logits_max_abs_err=lerr,
+        logits_tol=LOGITS_TOL,
+        logits_absmax=lg_k[..., :model.cfg.vocab].abs().max().item(),
+        plain_top2_margin=(top2[0] - top2[1]).item(),
+        first_token_agree=fin[pick].tokens[0] == fin_p.tokens[0],
+        greedy_tokens_agree=sum(a == b for a, b in zip(fin[pick].tokens,
+                                                       fin_p.tokens)),
+        of=GEN, near_tie=tie)
+    log(json.dumps({"granite_plain_vs_kernel": res["plain_vs_kernel"]}))
+    if not lerr <= LOGITS_TOL:
+        raise AssertionError(f"granite: first-token logits differ by {lerr}")
+    if not res["plain_vs_kernel"]["first_token_agree"]:
+        raise AssertionError("granite: the first generated token differs "
+                             "between the kernel path and the plain path")
+
+    res["kv8"], c8 = kv8_window(model, params, warm, window, fin, max_len,
+                                rule, "granite")
+    granite_groups("granite kv8", c8)
+    counted = merge_counters(counted, c8)
+    res.update(card=card_line(), **counted)
+    log(json.dumps({"granite": {k: v for k, v in res.items()
+                                if k not in ("kv8", "where_the_time_goes",
+                                             "plain_vs_kernel")}}))
+    return res
+
+
+def _leaves(tree):
+    """The tensors of a parameter tree."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
 
 
 def main() -> int:
@@ -3325,9 +3539,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving.append(moe_phase())
     lap("moe")
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving.append(granite_phase())
+    lap("granite")
     log(json.dumps({"phase_s": phase_s}))
     launches, variants, by_cluster = dict(op_res["launches"]), {}, {}
-    by_dims = {}
+    by_dims, by_group = {}, {}
     variants.update(op_res["variants"])
     for res in serving:
         for dims, n in res["flash_launches_by_dims"].items():
@@ -3339,6 +3557,8 @@ def main() -> int:
                 variants[name][v] = variants[name].get(v, 0) + k
         for c, n in res["decode_launches_by_cluster"].items():
             by_cluster[c] = by_cluster.get(c, 0) + n
+        for g, n in res.get("decode_launches_by_group", {}).items():
+            by_group[g] = by_group.get(g, 0) + n
     line = []
     for name, cases in recs.items():
         main_case = cases[0]
@@ -3363,6 +3583,7 @@ def main() -> int:
                                           if t["kernel"] == name])
         if name == "decode_attention":
             entry["launches_by_cluster"] = by_cluster
+            entry["launches_by_group"] = by_group
             entry["verify_case"] = {
                 k: c[k] for c in cases if c["case"] == "decode_bf16_p64_verify"
                 for k in ("cluster", "fold_own_cluster", "bitwise_vs_steps",
@@ -3386,6 +3607,14 @@ def main() -> int:
                                        "bound_by", "library_ms",
                                        "max_abs_err")}
                 for c in cases if "qwen3" in c["case"]]
+            entry["granite_cases"] = [
+                {k: c.get(k) for k in ("case", "variant", "cluster",
+                                       "kernel_ms", "flags_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "max_abs_err", "q_rows",
+                                       "other_q_rows_ms", "fma_ms")}
+                for c in cases if "granite" in c["case"]]
+            entry["granite_launches"] = serving[-1]["launches"][name]
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(card)

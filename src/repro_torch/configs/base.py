@@ -1,10 +1,10 @@
 """Model configuration schema, field for field as the JAX package's
 ``repro.configs.base``.
 
-The attention stacks are ported, GQA (gemma2, qwen3-moe) and MLA
-(minicpm3, deepseek-v2-lite, with the MLA dims below), with a SwiGLU or
-a Mixture-of-Experts FFN (``moe``: a ``models.moe.MoEConfig``).  The
-other family sub-configs (``mamba``, ``mlstm``, ``slstm``, ``encoder``)
+The attention stacks are ported, GQA (gemma2, qwen3-moe, granite) and
+MLA (minicpm3, deepseek-v2-lite, with the MLA dims below), with a SwiGLU
+MLP, a gelu MLP with biases or a Mixture-of-Experts FFN (``moe``: a
+``models.moe.MoEConfig``).  The other family sub-configs (``mamba``, ``mlstm``, ``slstm``, ``encoder``)
 keep their fields but stay ``None`` in this port.  Defaults differ in one place: ``decode_backend`` /
 ``prefill_backend`` are ``"auto"`` (the CUDA kernels for CUDA tensors,
 their plain versions on the CPU).

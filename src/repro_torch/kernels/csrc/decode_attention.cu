@@ -12,7 +12,10 @@
 // unrounded p; rows with kv_len == 0 store zeros.  K/V are widened
 // in-kernel from their storage dtype (bf16 / fp16 / fp8 e5m2 exactly, or an
 // f32 container RNE-snapped onto the kv format's grid); q is f32, bf16 or
-// fp16; D <= 256, G <= 8.  A page id outside the pool traps.
+// fp16; D <= 256 and any G with ceil(G / 8) D <= 1024 (G <= 64 at D 128,
+// G <= 32 at D 256: the 32 f32 accumulators a thread hold the output's
+// head tiles), in the shared memory a block can use.  A page id outside
+// the pool traps.
 //
 // What bounds it: bytes.  A decode step reads each live K and V element
 // once and does 4 G flops per element pair, far below the card's ~295
@@ -56,23 +59,34 @@
 //     CONV) happens in registers at the multiplier input.
 //   * Arithmetic off the critical path.  Route ``MMA`` (src bf16 / fp16, D a
 //     multiple of 16: the operands as multiplied are exact 16-bit values)
-//     runs both products on mma.sync.m16n8k16 with f32 accumulators and the
-//     G <= 8 heads as the 8 columns (wgmma's 64-row minimum would waste 62
-//     of 64 rows at G = 2): S^T = K Q^T with 16 keys as rows, each warp a
-//     quarter of the tile's keys and half of D (its partner warp adds the
-//     other half in a fixed order), and O^T = V^T P^T with 16 d as rows,
-//     each warp a quarter of the keys and half of the d blocks; the four
-//     quarters' sums are added in order at the end.  Fragments of 16-bit
-//     pools come by ldmatrix (transposed for V); other pools widen element
-//     pairs.  Each lane forms the p it multiplies itself (no block barrier
-//     per tile).  Route ``FMA`` (f32 src, other D): f32 FMAs, a key per
-//     thread over a quarter of D, the four partial sums added in a fixed
-//     order through shared memory (no per-key shuffle tree).
+//     runs both products on mma.sync.m16n8k16 with f32 accumulators and
+//     the heads, 8 at a time (a head tile), as the 8 columns (wgmma's
+//     64-row minimum would waste 62 of 64 rows at G = 2): S^T = K Q^T with
+//     16 keys as rows, each warp a quarter of the tile's keys and half of D
+//     (its partner warp adds the other half in a fixed order), head tile
+//     after head tile over the same K tile in shared memory; and O^T = V^T
+//     P^T with 16 d as rows: the (head tile, 16-d block) output tiles are
+//     dealt to the warps, at most 8 a warp in registers, and the keys of
+//     each V tile split into 4, 2 or 1 groups, as many as the tiles allow
+//     (4 for G <= 16 at D 128, 1 at G 48); the groups' sums are added in
+//     order at the end.  G > 8 loops over n8 column tiles rather than
+//     putting Q in the A operand (48 heads as 3 m16 tiles): the K and V
+//     tiles stay the A operand, read once from the ring for all heads, and
+//     G <= 8 keeps its arithmetic (one head tile).  Fragments of
+//     16-bit pools come by ldmatrix (transposed for V); other pools widen
+//     element pairs.  Each lane forms the p it multiplies itself (no block
+//     barrier per tile).  Route ``FMA`` (f32 src, other D): f32 FMAs, a
+//     key per thread over a quarter of D for each head tile, the four
+//     partial sums added in a fixed order through shared memory (no
+//     per-key shuffle tree); p.V a (head tile, column d) unit per thread,
+//     up to 4 units.
 //
 // The G scores of each key wait between the passes in a global scratch
-// strip (8 bytes per key against 1 KB of K/V at D 256, L2-resident).  A key outside
-// the rank's range in a loaded tile has p = 0 and its V fragment is masked
-// to 0, so 0 x stale data never makes a NaN.  The kernel parameters are
+// strip (4 G bytes per key against 512 bytes of K/V at granite's D 128 and
+// G 48: 3.2 MB for 4 rows of 4112 keys, 6.3 MB at 8192 keys, L2-resident
+// within the 50 MB).  A key outside the rank's range in a loaded tile has
+// p = 0 and its V fragment is masked to 0, so 0 x stale data never makes a
+// NaN.  The kernel parameters are
 // __grid_constant__: a by-value parameter read through a reference is
 // copied to local memory, which cost every access a local load.
 //
@@ -105,8 +119,13 @@ using namespace repro;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 8;
+constexpr int kHeadTile = 8;  // heads per mma column tile / FMA head tile
+constexpr int kAccTiles = 8;  // pass 2: f32 accumulator tiles (of 4) a thread
 constexpr int kMaxD = 256;
+// ceil(G / 8) D at most: the output's head tiles x columns spread over the
+// threads' kAccTiles x 4 accumulators (32 x 256 = 8 x 1024)
+constexpr int kMaxTileCols = 1024;
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can use
 constexpr int kTile = 64;    // keys per ring slot
 constexpr int kStages = 3;   // ring slots
 constexpr int kParts = kThreads / kTile;  // FMA route: D split per key
@@ -126,6 +145,9 @@ struct DecodeParams {
   int* visits;             // [BH, nk] telemetry (zeroed), or null
   int* flags;              // [BH, nk, 4] telemetry (zeroed), or null
   int g, d, nk, unit, pool_rows, smax, q_dtype, src_kind;
+  int ngt;                 // head tiles of 8: ceil(G / 8)
+  int mma;                 // 1: route MMA
+  int kq;                  // route MMA: key groups of pass 2 (4, 2 or 1)
   int cluster;             // CTAs per row
   int max_units;           // page-id slots per CTA
   int row_bytes;           // bytes of one key row in the pool
@@ -139,24 +161,30 @@ struct DecodeParams {
 };
 
 // Shared-memory layout (byte offsets), the same on host and device.
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
 struct Layout {
-  int ring, bar, qs, qf, work, pid, wmax, mloc, mall, mrow, wl, total;
+  int ring, bar, qs, qf, work, pid, wmax, mloc, mall, mrow, total;
   __host__ __device__ Layout(const DecodeParams& p) {
     ring = 0;
-    bar = kStages * kTile * 128 * p.nch;
+    // the ring, which also holds the partials at the end: [G][D] p.V and
+    // [G] l, then (MMA) the key groups' [kq][G][D] and [kq][G] that they
+    // are added from
+    const int parts = 4 * (p.mma ? p.kq + 1 : 1) * (p.g * p.d + p.g);
+    const int ring_bytes = kStages * kTile * 128 * p.nch;
+    bar = align16(ring_bytes > parts ? ring_bytes : parts);
     qs = bar + 16 * kStages;  // full [kStages], then empty [kStages]
-    qf = qs + 4 * p.g * p.d;
-    work = qf + 8 * 32 * (kMaxD / 16);
-    // FMA: [kParts][G][kTile] partial scores, then [G][kTile] p; MMA:
-    // [2][4][32][4] pass-1 hand-over sums
-    const int fma_work = 4 * kParts * p.g * kTile, mma_work = 4 * 1024;
-    pid = work + (fma_work > mma_work ? fma_work : mma_work);
+    qf = qs + (p.mma ? 0 : align16(4 * p.g * p.d));
+    work = qf + (p.mma ? 8 * 32 * (p.d / 16) * p.ngt : 0);
+    // FMA: [kParts][8][kTile] partial scores, then [G][kTile] p and
+    // [G][kTile] l slots; MMA: [2][4][32][4] pass-1 hand-over sums
+    const int fma_work = 4 * (kParts * kHeadTile > 2 * p.g
+                                  ? kParts * kHeadTile : 2 * p.g) * kTile;
+    pid = work + (p.mma ? 4 * 1024 : fma_work);
     wmax = pid + 4 * (p.max_units > 0 ? p.max_units : 1);
-    mloc = wmax + 4 * kWarps * kMaxG;
-    mall = mloc + 4 * kMaxG;
-    mrow = mall + 4 * kMaxCluster * kMaxG;
-    wl = mrow + 4 * kMaxG;
-    total = wl + 4 * kWarps * 2;
+    mloc = wmax + 4 * kWarps * p.g;
+    mall = mloc + 4 * p.g;
+    mrow = mall + 4 * kMaxCluster * p.g;
+    total = mrow + 4 * kHeadTile * p.ngt;
   }
 };
 
@@ -359,7 +387,23 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename KT, int kRoute, bool kFlags>
+// Route MMA, pass 1: lane (gid, tig) holds maxima m0, m1 of heads g0 + 2
+// tig and g0 + 2 tig + 1 over its keys; the warp's maxima over all its
+// keys go into its row ``wrow`` of ``wmax`` (max with what is there).
+__device__ __forceinline__ void fold_mma_max(float* wrow, int g0, int G,
+                                             float m0, float m1) {
+  const int tig = threadIdx.x & 3, gid = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  const int g = g0 + 2 * tig;
+  if (gid == 0 && g < G) wrow[g] = fmaxf(wrow[g], m0);
+  if (gid == 0 && g + 1 < G) wrow[g + 1] = fmaxf(wrow[g + 1], m1);
+}
+
+template <typename KT, int kRoute, bool kFlags, bool kOne>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_cluster_kernel(const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
@@ -372,7 +416,8 @@ decode_cluster_kernel(const __grid_constant__ CUtensorMap kmap,
   const Layout L(p);
   unsigned char* ring = smem + L.ring;
   float* qs = reinterpret_cast<float*>(smem + L.qs);     // [G][D] widened q
-  // route MMA: q's B fragments, [k16 step][lane] (head gid, d 2 tig ..)
+  // route MMA: q's B fragments, [head tile][k16 step][lane] (head gid of
+  // the tile, d 2 tig ..)
   uint2* qf = reinterpret_cast<uint2*>(smem + L.qf);
   float* work = reinterpret_cast<float*>(smem + L.work); // p tile / partials
   int* pid = reinterpret_cast<int*>(smem + L.pid);       // the split's pages
@@ -380,18 +425,19 @@ decode_cluster_kernel(const __grid_constant__ CUtensorMap kmap,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar);
   uint64_t* empty = full + kStages;
   constexpr int S = kStages;
-  float* wmax = reinterpret_cast<float*>(smem + L.wmax); // [kWarps][kMaxG]
-  float* mloc = reinterpret_cast<float*>(smem + L.mloc); // [kMaxG] this rank
-  float* mall = reinterpret_cast<float*>(smem + L.mall); // [C][kMaxG] all
-  float* mrow = reinterpret_cast<float*>(smem + L.mrow); // [kMaxG] the row
-  float* wl = reinterpret_cast<float*>(smem + L.wl);     // [kWarps][2]
+  float* wmax = reinterpret_cast<float*>(smem + L.wmax); // [kWarps][G]
+  float* mloc = reinterpret_cast<float*>(smem + L.mloc); // [G] this rank
+  float* mall = reinterpret_cast<float*>(smem + L.mall); // [C][G] all ranks
+  float* mrow = reinterpret_cast<float*>(smem + L.mrow); // [ngt * 8] the row
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int row = blockIdx.x / p.cluster;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int G = p.g, D = p.d;
+  // kOne: one head tile (G <= 8), a separate instantiation in which the
+  // head-tile loops and the multi-tile paths fold away
+  const int G = p.g, D = p.d, ngt = kOne ? 1 : p.ngt;
   const int kvl = min(p.kv_len[row], p.smax);
   const Split sp = split_of(p, kvl, rank);
   // tiles t0 .. t0 + ntiles - 1 of 64 keys hold the rank's keys [lo, hi)
@@ -399,7 +445,7 @@ decode_cluster_kernel(const __grid_constant__ CUtensorMap kmap,
   const int ntiles = sp.hi > sp.lo ? (sp.hi - 1) / kTile - t0 + 1 : 0;
   const int slot_bytes = kTile * 128 * p.nch;
   // The G scores of each of the rank's keys, between the passes, in the
-  // row's global scratch strip (8 bytes per key at G = 2, L2-resident).
+  // row's global scratch strip (4 G bytes per key, L2-resident).
   float* const sbase = p.scores + (long long)row * G * p.smax;
   auto score = [&](int g, int j) -> float& {
     return sbase[(long long)g * p.smax + j];
@@ -414,12 +460,14 @@ decode_cluster_kernel(const __grid_constant__ CUtensorMap kmap,
       pid[i] = id;
     }
   }
+  const int nks = D / 16;  // route MMA: k16 steps over D
   if constexpr (!kMma) {
     for (int i = tid; i < G * D; i += kThreads)
       qs[i] = load_q(p, (long long)row * G * D + i);
   } else {
-    for (int i = tid; i < (D / 16) * 32; i += kThreads) {
-      const int ks = i / 32, g = (i % 32) >> 2, tg = i & 3;
+    for (int i = tid; i < ngt * nks * 32; i += kThreads) {
+      const int nt = i / (nks * 32), ks = (i / 32) % nks;
+      const int g = nt * kHeadTile + ((i % 32) >> 2), tg = i & 3;
       uint2 f = make_uint2(0u, 0u);
       if (g < G) {
         const long long b = ((long long)row * G + g) * D + ks * 16 + 2 * tg;
@@ -429,7 +477,7 @@ decode_cluster_kernel(const __grid_constant__ CUtensorMap kmap,
       qf[i] = f;
     }
   }
-  if (tid < kWarps * kMaxG) wmax[tid] = kNegInf;
+  for (int i = tid; i < kWarps * G; i += kThreads) wmax[i] = kNegInf;
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       tc::mbar_init(full + s, 1);
@@ -470,9 +518,11 @@ decode_cluster_kernel(const __grid_constant__ CUtensorMap kmap,
   };
 
   // ---- pass 1: every key's G scores (stored) and this rank's max --------
-  const int nks = D / 16;  // route MMA: k16 steps over D
   // route MMA on 16-bit pools of the tile type: fragments by ldmatrix
   constexpr bool kLdsm = std::is_same<KT, TT>::value;
+  // With one head tile (kOne) each thread keeps its two running maxima in
+  // registers and folds them into ``wmax`` once, after the pass; with
+  // more, each (tile, head tile) folds its maxima at once.
   float lmax0 = kNegInf, lmax1 = kNegInf;
   prologue(0, false);
   for (int i = 0; i < ntiles; ++i) {
@@ -480,14 +530,15 @@ decode_cluster_kernel(const __grid_constant__ CUtensorMap kmap,
     const int j0 = (t0 + i) * kTile, lo = rlo(i), hi = rhi(i);
     if constexpr (kMma) {
       // S^T [key][head] = K [key][d] Q^T [d][head], mma m16n8k16 with the
-      // keys the rows and the heads the 8 columns.  Warp w takes keys
-      // 16 mq .. 16 mq + 15 (mq = w % 4) over half dh = w / 4 of the k16
-      // steps of D, in two accumulator chains (even and odd steps); warp
-      // w + 4 hands its sums to warp w through shared memory (double
-      // buffered by tile), which adds them in a fixed order.
+      // keys the rows and a head tile's 8 heads the columns, head tile by
+      // head tile on the same K tile.  Warp w takes keys 16 mq .. 16 mq +
+      // 15 (mq = w % 4) over half dh = w / 4 of the k16 steps of D, in two
+      // accumulator chains (even and odd steps); warp w + 4 hands its sums
+      // to warp w through shared memory (double buffered by head tile),
+      // which adds them in a fixed order, stores the scores and folds
+      // their max into its row of ``wmax``.
       const int mq = warp & 3, dh = warp >> 2, half = (nks + 1) / 2;
       const int ks0 = dh * half, ks1 = min(nks, ks0 + half);
-      float c[4] = {0.f, 0.f, 0.f, 0.f}, c2[4] = {0.f, 0.f, 0.f, 0.f};
       const bool any = mq * 16 + 16 > lo && mq * 16 < hi;
       // the A fragment (16 keys x 16 d) of k16 step ks
       auto frag = [&](int ks, uint32_t (&a)[4]) {
@@ -507,116 +558,143 @@ decode_cluster_kernel(const __grid_constant__ CUtensorMap kmap,
           a[3] = pair_contig<KT, TT>(at(r + 8, dd + 8), p);
         }
       };
-      if (any) {
-        // a rolled loop over step pairs: the kernel's code must stay small
-        // enough for the SM's instruction cache
 #pragma unroll 1
-        for (int ks = ks0; ks < ks1; ks += 2) {
-          uint32_t a[4], a2[4];
-          frag(ks, a);
-          const uint2 qb = qf[ks * 32 + lane];
-          mma16816<TT>(c, a[0], a[1], a[2], a[3], qb.x, qb.y);
-          if (ks + 1 < ks1) {
-            frag(ks + 1, a2);
-            const uint2 qb2 = qf[(ks + 1) * 32 + lane];
-            mma16816<TT>(c2, a2[0], a2[1], a2[2], a2[3], qb2.x, qb2.y);
+      for (int nt = 0; nt < ngt; ++nt) {
+        float c[4] = {0.f, 0.f, 0.f, 0.f}, c2[4] = {0.f, 0.f, 0.f, 0.f};
+        const uint2* qt = qf + nt * nks * 32;
+        if (any) {
+          // a rolled loop over step pairs: the kernel's code must stay
+          // small enough for the SM's instruction cache
+#pragma unroll 1
+          for (int ks = ks0; ks < ks1; ks += 2) {
+            uint32_t a[4], a2[4];
+            frag(ks, a);
+            const uint2 qb = qt[ks * 32 + lane];
+            mma16816<TT>(c, a[0], a[1], a[2], a[3], qb.x, qb.y);
+            if (ks + 1 < ks1) {
+              frag(ks + 1, a2);
+              const uint2 qb2 = qt[(ks + 1) * 32 + lane];
+              mma16816<TT>(c2, a2[0], a2[1], a2[2], a2[3], qb2.x, qb2.y);
+            }
           }
         }
-      }
 #pragma unroll
-      for (int x = 0; x < 4; ++x) c[x] += c2[x];
-      float* xs = work + ((i & 1) * 4 + mq) * 128;  // [2][4][32 lanes][4]
-      if (dh == 1) {
+        for (int x = 0; x < 4; ++x) c[x] += c2[x];
+        // [2][4][32 lanes][4], by the parity of the (tile, head tile) step
+        float* xs = work + (((i * ngt + nt) & 1) * 4 + mq) * 128;
+        if (dh == 1) {
 #pragma unroll
-        for (int x = 0; x < 4; ++x) xs[lane * 4 + x] = c[x];
-      }
-      tc::named_sync(1 + mq, 64);
-      if (dh == 0 && any) {
-        // the four caps first (independent, no branches), then the stores
-        float sv[4];
+          for (int x = 0; x < 4; ++x) xs[lane * 4 + x] = c[x];
+        }
+        tc::named_sync(1 + mq, 64);
+        if (dh == 0 && any) {
+          // the four caps first (independent, no branches), then the stores
+          float sv[4], m0 = kNegInf, m1 = kNegInf;
 #pragma unroll
-        for (int x = 0; x < 4; ++x) sv[x] = cap_score(p, c[x] + xs[lane * 4 + x]);
+          for (int x = 0; x < 4; ++x) sv[x] = cap_score(p, c[x] + xs[lane * 4 + x]);
 #pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          const int g = 2 * tig + (x & 1), j = mq * 16 + gid + (x >> 1) * 8;
-          if (g < G && j >= lo && j < hi) {
-            score(g, j0 + j) = sv[x];
-            if (x & 1) lmax1 = fmaxf(lmax1, sv[x]);
-            else lmax0 = fmaxf(lmax0, sv[x]);
+          for (int x = 0; x < 4; ++x) {
+            const int g = nt * kHeadTile + 2 * tig + (x & 1),
+                      j = mq * 16 + gid + (x >> 1) * 8;
+            if (g < G && j >= lo && j < hi) {
+              score(g, j0 + j) = sv[x];
+              if (x & 1) m1 = fmaxf(m1, sv[x]);
+              else m0 = fmaxf(m0, sv[x]);
+            }
+          }
+          if constexpr (kOne) {
+            lmax0 = fmaxf(lmax0, m0);
+            lmax1 = fmaxf(lmax1, m1);
+          } else {
+            fold_mma_max(wmax + warp * G, nt * kHeadTile, G, m0, m1);
           }
         }
       }
     } else {
-      // thread (key jj, quarter part) sums its part of D for all heads;
-      // the four parts are then added in a fixed order
+      // thread (key jj, quarter part) sums its part of D for the 8 heads of
+      // a head tile; the four parts are then added in a fixed order
       const int jj = tid % kTile, part = tid / kTile;
-      float acc[kMaxG];
+#pragma unroll 1
+      for (int nt = 0; nt < ngt; ++nt) {
+        const int gn = min(kHeadTile, G - nt * kHeadTile);
+        const float* qt = qs + nt * kHeadTile * D;
+        float acc[kHeadTile];
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) acc[g] = 0.f;
-      if (jj >= lo && jj < hi) {
-        constexpr int kEpv = 16 / sizeof(KT);
-        const int nvec = (D + kEpv - 1) / kEpv;
-        for (int vv = part; vv < nvec; vv += kParts) {
-          const uint4 raw =
-              *reinterpret_cast<const uint4*>(slot + swz(jj, vv * 16));
-          const KT* e = reinterpret_cast<const KT*>(&raw);
+        for (int g = 0; g < kHeadTile; ++g) acc[g] = 0.f;
+        if (jj >= lo && jj < hi) {
+          constexpr int kEpv = 16 / sizeof(KT);
+          const int nvec = (D + kEpv - 1) / kEpv;
+          for (int vv = part; vv < nvec; vv += kParts) {
+            const uint4 raw =
+                *reinterpret_cast<const uint4*>(slot + swz(jj, vv * 16));
+            const KT* e = reinterpret_cast<const KT*>(&raw);
 #pragma unroll
-          for (int x = 0; x < kEpv; ++x) {
-            const int dd = vv * kEpv + x;
-            if (dd < D) {
-              const float kv = widen(e[x], p.kv_snap, p.src_kind);
+            for (int x = 0; x < kEpv; ++x) {
+              const int dd = vv * kEpv + x;
+              if (dd < D) {
+                const float kv = widen(e[x], p.kv_snap, p.src_kind);
 #pragma unroll
-              for (int g = 0; g < kMaxG; ++g)
-                if (g < G) acc[g] += qs[g * D + dd] * kv;
+                for (int g = 0; g < kHeadTile; ++g)
+                  if (g < gn) acc[g] += qt[g * D + dd] * kv;
+              }
             }
           }
         }
-      }
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        if (g < G) work[(part * G + g) * kTile + jj] = acc[g];
-      __syncthreads();
+        for (int g = 0; g < kHeadTile; ++g)
+          if (g < gn) work[(part * kHeadTile + g) * kTile + jj] = acc[g];
+        __syncthreads();
+        // thread (head g, key j): the warp shares g, so it folds the max of
+        // its 32 keys into its row of ``wmax``
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int idx = tid + h * kThreads, g = idx / kTile, j = idx % kTile;
-        if (g < G && j >= lo && j < hi) {
-          float a = work[g * kTile + j];
-          for (int q = 1; q < kParts; ++q) a += work[(q * G + g) * kTile + j];
-          const float s = cap_score(p, a);
-          score(g, j0 + j) = s;
-          if (h == 0) lmax0 = fmaxf(lmax0, s);
-          else lmax1 = fmaxf(lmax1, s);
+        for (int h = 0; h < 2; ++h) {
+          const int idx = tid + h * kThreads, g = idx / kTile, j = idx % kTile;
+          float s = kNegInf;
+          if (g < gn && j >= lo && j < hi) {
+            float a = work[g * kTile + j];
+            for (int q = 1; q < kParts; ++q)
+              a += work[(q * kHeadTile + g) * kTile + j];
+            s = cap_score(p, a);
+            score(nt * kHeadTile + g, j0 + j) = s;
+          }
+          if constexpr (kOne) {
+            if (h == 0) lmax0 = fmaxf(lmax0, s);
+            else lmax1 = fmaxf(lmax1, s);
+          } else {
+            s = warp_max(s);
+            if (lane == 0 && g < gn) {
+              float* w = wmax + warp * G + nt * kHeadTile + g;
+              *w = fmaxf(*w, s);
+            }
+          }
         }
+        __syncthreads();  // ``work`` is reused by the next head tile
       }
-      __syncthreads();  // ``work`` is reused by the next tile
     }
     release(0, i);
   }
-  if constexpr (kMma) {
-    // lane (gid, tig) holds heads 2 tig and 2 tig + 1
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-      lmax0 = fmaxf(lmax0, __shfl_xor_sync(0xffffffffu, lmax0, off));
-      lmax1 = fmaxf(lmax1, __shfl_xor_sync(0xffffffffu, lmax1, off));
-    }
-    if (gid == 0) {
-      wmax[warp * kMaxG + 2 * tig] = lmax0;
-      wmax[warp * kMaxG + 2 * tig + 1] = lmax1;
-    }
-  } else {
-    // warp w holds head w / 2 (slot 0) and w / 2 + 4 (slot 1)
-    lmax0 = warp_max(lmax0);
-    lmax1 = warp_max(lmax1);
-    if (lane == 0) {
-      wmax[warp * kMaxG + warp / 2] = lmax0;
-      wmax[warp * kMaxG + warp / 2 + 4] = lmax1;
+  if constexpr (kOne) {
+    if constexpr (kMma) {
+      fold_mma_max(wmax + warp * G, 0, G, lmax0, lmax1);
+    } else {
+      // warp w holds head w / 2 (h 0) and w / 2 + 4 (h 1)
+      lmax0 = warp_max(lmax0);
+      lmax1 = warp_max(lmax1);
+      if (lane == 0 && warp / 2 < G) wmax[warp * G + warp / 2] = lmax0;
+      if (lane == 0 && warp / 2 + 4 < G) wmax[warp * G + warp / 2 + 4] = lmax1;
     }
   }
   __syncthreads();
-  if (tid < kMaxG) {
+  for (int g = tid; g < G; g += kThreads) {
     float m = kNegInf;
-    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, wmax[w * kMaxG + tid]);
-    mloc[tid] = m;
+    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, wmax[w * G + g]);
+    mloc[g] = m;
+  }
+  // FMA: the per-(head, key slot) running sums of l, [G][kTile]
+  float* pr = work;                   // FMA: [G][kTile] p, rounded to src
+  float* lacc = work + G * kTile;
+  if constexpr (!kMma) {
+    for (int x = tid; x < G * kTile; x += kThreads) lacc[x] = 0.f;
   }
   __syncthreads();  // the ring is idle: start on V before the exchange
   prologue(ntiles, true);
@@ -624,78 +702,108 @@ decode_cluster_kernel(const __grid_constant__ CUtensorMap kmap,
   // ---- the exact row max: each rank writes its maxima into every rank's
   // table, then reads its own ----------------------------------------------
   cluster_wait();  // every CTA of the cluster has started
-  if (tid < p.cluster * kMaxG) {
-    const int r = tid / kMaxG, g = tid % kMaxG;
-    *cluster.map_shared_rank(mall + rank * kMaxG + g, r) = mloc[g];
+  for (int x = tid; x < p.cluster * G; x += kThreads) {
+    const int r = x / G, g = x % G;
+    *cluster.map_shared_rank(mall + rank * G + g, r) = mloc[g];
   }
   cluster.sync();
-  if (tid < G) {
+  for (int g = tid; g < ngt * kHeadTile; g += kThreads) {
     float m = kNegInf;
-    for (int r = 0; r < p.cluster; ++r) m = fmaxf(m, mall[r * kMaxG + tid]);
-    mrow[tid] = (m <= kNegInf / 2) ? 0.f : m;
+    if (g < G)
+      for (int r = 0; r < p.cluster; ++r) m = fmaxf(m, mall[r * G + g]);
+    mrow[g] = (m <= kNegInf / 2) ? 0.f : m;
   }
   __syncthreads();
 
   // ---- pass 2: l and p.V over this rank's keys ---------------------------
-  float* pr = work;  // FMA route: [G][kTile] p, rounded to the src dtype
-  float lsum0 = 0.f, lsum1 = 0.f;
-  // MMA: acc[t] is m-block mh + 2 t; FMA: the first kMaxG as [head]
-  float acc[8][4];
+  // MMA: acc[t] is the warp's t-th output tile; FMA: acc[2 s + g / 4][g % 4]
+  // is head g of the s-th (head tile, column d) unit
+  float acc[kAccTiles][4];
 #pragma unroll
-  for (int a = 0; a < 8; ++a)
+  for (int a = 0; a < kAccTiles; ++a)
 #pragma unroll
     for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+  float lsum[kAccTiles];
+#pragma unroll
+  for (int a = 0; a < kAccTiles; ++a) lsum[a] = 0.f;
   // Route MMA: O^T [d][head] += V^T [d][keys] P^T [keys][head], mma m16n8k16
-  // with d the rows, the keys the k16 step and the heads the 8 columns.
-  // Warp w takes keys 16 kq .. 16 kq + 15 of each tile (kq = w % 4) and
-  // the m-blocks (16 d) mb = mh, mh + 2, ... (mh = w / 4); lane (gid, tig)
-  // forms p for head gid and keys 16 kq + 2 tig + {0, 1, 8, 9} from the
-  // tile's scores, loaded one tile ahead (a dead key's score is -inf, so
-  // its p is 0); the warps with mh = 0 keep l.
-  const int kq = warp & 3, mh = warp >> 2, nmb = D / 16;
-  const float mg = gid < G ? mrow[gid] : 0.f;
+  // with d the rows, the keys the k16 step and a head tile's 8 heads the
+  // columns.  The output tiles (head tile nt, m-block mb of 16 d), u = nt
+  // nmb + mb, are dealt to the warps: the warps form p.kq key groups (warp
+  // w: keys of group kq = w % kq of each tile, its nks2 = 4 / kq k16 steps)
+  // and each group's warps take runs of upw consecutive tiles (at most
+  // kAccTiles).  For each k16 step, lane (gid, tig) forms p for head gid of
+  // a head tile and keys kb + 2 tig + {0, 1, 8, 9} from the tile's scores
+  // (the first of each tile loaded one tile ahead; a dead key's score is
+  // -inf, so its p is 0) once per head tile it meets, and the warp holding
+  // the tile's m-block 0 keeps its l.  The key groups' sums are added in
+  // group order at the end.
+  const int nmb = D / 16, nunits = ngt * nmb;
+  const int KQ = p.kq, nks2 = 4 / KQ, kq = warp % KQ;
+  const int wpg = kWarps / KQ, upw = (nunits + wpg - 1) / wpg;
+  const int u0 = (warp / KQ) * upw, u1 = min(nunits, u0 + upw);
+  const int kb0 = kq * nks2 * 16, nt0 = u0 / max(nmb, 1),
+            mb0 = u0 - nt0 * nmb;
+  const bool one_nt = kOne || (u1 > u0 && (u1 - 1) / max(nmb, 1) == nt0);
   float sc[4];
-  auto load_scores = [&](int i) {
+  auto load_scores = [&](int i, int kb, int h, float (&o)[4]) {
     const int j0 = (t0 + i) * kTile, lo = rlo(i), hi = rhi(i);
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
-      const int j = kq * 16 + 2 * tig + (x & 1) + (x >> 1) * 8;
-      sc[x] = (gid < G && j >= lo && j < hi)
-                  ? score(gid, j0 + j)
-                  : -INFINITY;
+      const int j = kb + 2 * tig + (x & 1) + (x >> 1) * 8;
+      o[x] = (h < G && j >= lo && j < hi) ? score(h, j0 + j) : -INFINITY;
     }
   };
-  if (kMma && ntiles > 0) load_scores(0);
+  // the row max of the warp's first head tile, held for the pass
+  const float mg0 = kMma && u0 < u1 ? mrow[nt0 * kHeadTile + gid] : 0.f;
+  if (kMma && ntiles > 0 && u0 < u1)
+    load_scores(0, kb0, nt0 * kHeadTile + gid, sc);
   for (int i = 0; i < ntiles; ++i) {
     const unsigned char* slot = next(ntiles, i, true);
     const int j0 = (t0 + i) * kTile, lo = rlo(i), hi = rhi(i);
     if constexpr (kMma) {
-      float e[4];
+      float pre[4];
 #pragma unroll
-      for (int x = 0; x < 4; ++x) e[x] = sc[x];
-      if (i + 1 < ntiles) load_scores(i + 1);
-      if (kq * 16 + 16 > lo && kq * 16 < hi) {
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          e[x] = expf(e[x] - mg);
-          if (mh == 0) lsum0 += e[x];
-        }
-        const uint32_t b0 = tc::pack2<TT>(e[0], e[1]), b1 = tc::pack2<TT>(e[2], e[3]);
-        const int j = kq * 16 + 2 * tig;
+      for (int x = 0; x < 4; ++x) pre[x] = sc[x];
+      if (i + 1 < ntiles && u0 < u1)
+        load_scores(i + 1, kb0, nt0 * kHeadTile + gid, sc);
+#pragma unroll 1
+      for (int s = 0; s < nks2 && u0 < u1; ++s) {
+        const int kb = kb0 + s * 16;
+        if (!(kb + 16 > lo && kb < hi)) continue;
+        const int j = kb + 2 * tig;
         // V of keys outside [lo, hi) (stale rows) is zeroed in the
         // fragments: p = 0 there, and 0 x (Inf or NaN) would be NaN
         auto live = [&](int r) { return r >= lo && r < hi ? 0xffffu : 0u; };
         const uint32_t mask0 = live(j) | (live(j + 1) << 16),
                        mask8 = live(j + 8) | (live(j + 9) << 16);
+        // p for head nt g + gid at this step's keys as the B fragment
+        // (b0, b1); ``keep_l``: add the unrounded p into ``ls``
+        auto form = [&](int nt, bool first, bool keep_l, float& ls,
+                        uint32_t& b0, uint32_t& b1) {
+          float e[4];
+          if (first) {
 #pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int mb = mh + 2 * t;
-          if (mb >= nmb) continue;
+            for (int x = 0; x < 4; ++x) e[x] = pre[x];
+          } else {
+            load_scores(i, kb, nt * kHeadTile + gid, e);
+          }
+          const float mg = nt == nt0 ? mg0 : mrow[nt * kHeadTile + gid];
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            e[x] = expf(e[x] - mg);
+            if (keep_l) ls += e[x];
+          }
+          b0 = tc::pack2<TT>(e[0], e[1]);
+          b1 = tc::pack2<TT>(e[2], e[3]);
+        };
+        // c += V^T (m-block mb, this step's keys) P^T
+        auto pv = [&](float (&c)[4], int mb, uint32_t b0, uint32_t b1) {
           uint32_t a[4];
           if constexpr (kLdsm) {
             // matrices (keys 0-7 | 8-15) x (d 0-7 | 8-15), transposed:
             // lane 8 i + x points at key x + 8 (i / 2), d 8 (i % 2)
-            ldsm_x4_trans(a, slot + swz(kq * 16 + (lane & 7) + 8 * (lane >> 4),
+            ldsm_x4_trans(a, slot + swz(kb + (lane & 7) + 8 * (lane >> 4),
                                         (mb * 16 + 8 * ((lane >> 3) & 1)) * 2));
           } else {
             auto at = [&](int r, int dd) {
@@ -707,33 +815,59 @@ decode_cluster_kernel(const __grid_constant__ CUtensorMap kmap,
             a[2] = pair_rows<KT, TT>(at(j + 8, dd), at(j + 9, dd), p);
             a[3] = pair_rows<KT, TT>(at(j + 8, dd + 8), at(j + 9, dd + 8), p);
           }
-          mma16816<TT>(acc[t], a[0] & mask0, a[1] & mask0, a[2] & mask8,
-                          a[3] & mask8, b0, b1);
+          mma16816<TT>(c, a[0] & mask0, a[1] & mask0, a[2] & mask8,
+                       a[3] & mask8, b0, b1);
+        };
+        uint32_t b0 = 0u, b1 = 0u;
+        if (one_nt) {
+          // every tile of the warp in head tile nt0 (always for G <= 8):
+          // p once, then a straight run of products
+          form(nt0, s == 0, mb0 == 0, lsum[0], b0, b1);
+#pragma unroll
+          for (int t = 0; t < kAccTiles; ++t)
+            if (u0 + t < u1) pv(acc[t], mb0 + t, b0, b1);
+        } else {
+          int cur = -1, nt = nt0, mb = mb0;  // tile t's head tile, m-block
+#pragma unroll
+          for (int t = 0; t < kAccTiles; ++t) {
+            if (t > 0 && ++mb == nmb) {
+              mb = 0;
+              ++nt;
+            }
+            if (u0 + t >= u1) continue;  // (not break: stays unrolled)
+            if (nt != cur) {
+              cur = nt;
+              form(nt, s == 0 && nt == nt0, mb == 0, lsum[t], b0, b1);
+            }
+            pv(acc[t], mb, b0, b1);
+          }
         }
       }
     } else {
-      // thread (head, key) forms p; thread d then sums p.V for column d
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int idx = tid + h * kThreads, g = idx / kTile, j = idx % kTile;
-        if (g < G) {
-          float e = 0.f;
-          if (j >= lo && j < hi)
-            e = expf(score(g, j0 + j) - mrow[g]);
-          if (h == 0) lsum0 += e;
-          else lsum1 += e;
-          pr[g * kTile + j] = round_src(e, p.src_kind);
-        }
+      // thread (head, key) forms p and adds it into its l slot; thread
+      // (head tile, d) then sums p.V for column d of the tile's heads
+      for (int x = tid; x < G * kTile; x += kThreads) {
+        const int g = x / kTile, j = x % kTile;
+        float e = 0.f;
+        if (j >= lo && j < hi) e = expf(score(g, j0 + j) - mrow[g]);
+        lacc[x] += e;
+        pr[x] = round_src(e, p.src_kind);
       }
       __syncthreads();
-      if (tid < D) {
-        for (int j = lo; j < hi; ++j) {
-          const float vv = widen(*reinterpret_cast<const KT*>(
-                                     slot + swz(j, tid * (int)sizeof(KT))),
-                                 p.kv_snap, p.src_kind);
 #pragma unroll
-          for (int g = 0; g < kMaxG; ++g)
-            if (g < G) acc[g / 4][g % 4] += pr[g * kTile + j] * vv;
+      for (int s = 0; s < kAccTiles / 2; ++s) {
+        const int u = tid + s * kThreads, nt = u / D, dc = u - nt * D;
+        if (nt < ngt) {
+          const float* pt = pr + nt * kHeadTile * kTile;
+          const int gn = min(kHeadTile, G - nt * kHeadTile);
+          for (int j = lo; j < hi; ++j) {
+            const float vv = widen(*reinterpret_cast<const KT*>(
+                                       slot + swz(j, dc * (int)sizeof(KT))),
+                                   p.kv_snap, p.src_kind);
+#pragma unroll
+            for (int g = 0; g < kHeadTile; ++g)
+              if (g < gn) acc[2 * s + g / 4][g % 4] += pt[g * kTile + j] * vv;
+          }
         }
       }
       __syncthreads();  // ``pr`` is reused by the next tile
@@ -745,47 +879,59 @@ decode_cluster_kernel(const __grid_constant__ CUtensorMap kmap,
   __syncthreads();
   float* part = reinterpret_cast<float*>(ring);  // [G][D] p.V, then [G] l
   if constexpr (kMma) {
-    // the four key quarters' sums, staged and added in quarter order
-    float* stage = part + G * D + kMaxG;  // [4][G][D], then [4][kMaxG] l
-    float* lst = stage + 4 * G * D;
+    // the key groups' sums, staged and added in group order
+    float* stage = part + G * D + G;  // [kq][G][D], then [kq][G] l
+    float* lst = stage + KQ * G * D;
+    int nt = nt0, mb = mb0;
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int mb = mh + 2 * t;
-      if (mb >= nmb) continue;
+    for (int t = 0; t < kAccTiles; ++t) {
+      if (t > 0 && ++mb == nmb) {
+        mb = 0;
+        ++nt;
+      }
+      if (u0 + t >= u1) continue;
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
-        const int g = 2 * tig + (x & 1), dd = mb * 16 + gid + (x >> 1) * 8;
+        const int g = nt * kHeadTile + 2 * tig + (x & 1),
+                  dd = mb * 16 + gid + (x >> 1) * 8;
         if (g < G) stage[(kq * G + g) * D + dd] = acc[t][x];
       }
+      if (mb == 0) {
+        // l of head gid of the tile over the key group: its four tig
+        // lanes, in a fixed order
+        float l = lsum[t] + __shfl_xor_sync(0xffffffffu, lsum[t], 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const int g = nt * kHeadTile + gid;
+        if (tig == 0 && g < G) lst[kq * G + g] = l;
+      }
     }
-    // l of head gid over the quarter: its four tig lanes, in a fixed order
-    float l = lsum0 + __shfl_xor_sync(0xffffffffu, lsum0, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    if (mh == 0 && tig == 0 && gid < G) lst[kq * kMaxG + gid] = l;
     __syncthreads();
-    for (int x = tid; x < G * D; x += kThreads)
-      part[x] = ((stage[x] + stage[G * D + x]) + stage[2 * G * D + x]) +
-                stage[3 * G * D + x];
-    if (tid < G)
-      part[G * D + tid] = ((lst[tid] + lst[kMaxG + tid]) + lst[2 * kMaxG + tid]) +
-                          lst[3 * kMaxG + tid];
+    for (int x = tid; x < G * D; x += kThreads) {
+      float a = stage[x];
+      for (int q = 1; q < KQ; ++q) a += stage[q * G * D + x];
+      part[x] = a;
+    }
+    for (int g = tid; g < G; g += kThreads) {
+      float a = lst[g];
+      for (int q = 1; q < KQ; ++q) a += lst[q * G + g];
+      part[G * D + g] = a;
+    }
   } else {
-    lsum0 = warp_sum(lsum0);
-    lsum1 = warp_sum(lsum1);
-    if (lane == 0) {
-      wl[warp * 2] = lsum0;
-      wl[warp * 2 + 1] = lsum1;
-    }
-    if (tid < D) {
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        if (g < G) part[g * D + tid] = acc[g / 4][g % 4];
+    for (int s = 0; s < kAccTiles / 2; ++s) {
+      const int u = tid + s * kThreads, nt = u / D, dc = u - nt * D;
+      if (nt < ngt) {
+#pragma unroll
+        for (int g = 0; g < kHeadTile; ++g)
+          if (nt * kHeadTile + g < G)
+            part[(nt * kHeadTile + g) * D + dc] = acc[2 * s + g / 4][g % 4];
+      }
     }
-    __syncthreads();
-    if (tid < G) {
-      // head g: slot g / 4 of warps 2 (g % 4) and 2 (g % 4) + 1, in order
-      const int w = 2 * (tid % 4), s = tid / 4;
-      part[G * D + tid] = wl[w * 2 + s] + wl[(w + 1) * 2 + s];
+    // head g's l: its kTile slots in key order
+    for (int g = tid; g < G; g += kThreads) {
+      float a = 0.f;
+      for (int j = 0; j < kTile; ++j) a += lacc[g * kTile + j];
+      part[G * D + g] = a;
     }
   }
 
@@ -853,12 +999,12 @@ decode_cluster_kernel(const __grid_constant__ CUtensorMap kmap,
   }
 }
 
-template <typename KT, int kRoute, bool kFlags>
+template <typename KT, int kRoute, bool kFlags, bool kOne>
 cudaError_t launch_typed(const CUtensorMap& kmap, const CUtensorMap& vmap,
                          const void* k, const void* v, int rows,
                          const DecodeParams& p, size_t smem,
                          cudaStream_t stream) {
-  auto kern = decode_cluster_kernel<KT, kRoute, kFlags>;
+  auto kern = decode_cluster_kernel<KT, kRoute, kFlags, kOne>;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(rows * p.cluster));
   cfg.blockDim = dim3(kThreads);
@@ -899,20 +1045,31 @@ cudaError_t launch_typed(const CUtensorMap& kmap, const CUtensorMap& vmap,
   return cudaGetLastError();
 }
 
-template <typename KT, bool kFlags>
+template <typename KT, bool kFlags, bool kOne>
 cudaError_t launch_route(const CUtensorMap& kmap, const CUtensorMap& vmap,
                          const void* k, const void* v, int rows, int route,
                          const DecodeParams& p, size_t smem,
                          cudaStream_t stream) {
   switch (route) {
     case ROUTE_FMA:
-      return launch_typed<KT, ROUTE_FMA, kFlags>(kmap, vmap, k, v, rows, p, smem, stream);
+      return launch_typed<KT, ROUTE_FMA, kFlags, kOne>(kmap, vmap, k, v, rows, p, smem, stream);
     case ROUTE_MMA_BF16:
-      return launch_typed<KT, ROUTE_MMA_BF16, kFlags>(kmap, vmap, k, v, rows, p, smem, stream);
+      return launch_typed<KT, ROUTE_MMA_BF16, kFlags, kOne>(kmap, vmap, k, v, rows, p, smem, stream);
     case ROUTE_MMA_F16:
-      return launch_typed<KT, ROUTE_MMA_F16, kFlags>(kmap, vmap, k, v, rows, p, smem, stream);
+      return launch_typed<KT, ROUTE_MMA_F16, kFlags, kOne>(kmap, vmap, k, v, rows, p, smem, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+// The one-head-tile instantiation for G <= 8, the general one above.
+template <typename KT, bool kFlags>
+cudaError_t launch_tiles(const CUtensorMap& kmap, const CUtensorMap& vmap,
+                         const void* k, const void* v, int rows, int route,
+                         const DecodeParams& p, size_t smem,
+                         cudaStream_t stream) {
+  return p.ngt == 1
+             ? launch_route<KT, kFlags, true>(kmap, vmap, k, v, rows, route, p, smem, stream)
+             : launch_route<KT, kFlags, false>(kmap, vmap, k, v, rows, route, p, smem, stream);
 }
 
 // The telemetry instantiation (``kFlags``) when the caller asked for it.
@@ -921,8 +1078,8 @@ cudaError_t launch_flags(const CUtensorMap& kmap, const CUtensorMap& vmap,
                          const void* k, const void* v, int rows, int route,
                          const DecodeParams& p, size_t smem,
                          cudaStream_t stream) {
-  return p.flags ? launch_route<KT, true>(kmap, vmap, k, v, rows, route, p, smem, stream)
-                 : launch_route<KT, false>(kmap, vmap, k, v, rows, route, p, smem, stream);
+  return p.flags ? launch_tiles<KT, true>(kmap, vmap, k, v, rows, route, p, smem, stream)
+                 : launch_tiles<KT, false>(kmap, vmap, k, v, rows, route, p, smem, stream);
 }
 
 int elem_bytes(int dtype) {
@@ -993,7 +1150,9 @@ extern "C" int decode_attention_launch(
     int q_m, int q_emax, int q_emin, float scale, int window, float softcap,
     void* stream) {
   const int esz = elem_bytes(kv_dtype);
-  if (g < 1 || g > kMaxG || d < 1 || d > kMaxD || esz == 0 || unit < 1 ||
+  const int ngt = (g + kHeadTile - 1) / kHeadTile;
+  if (g < 1 || ngt * d > kMaxTileCols || d < 1 || d > kMaxD || esz == 0 ||
+      unit < 1 ||
       cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)))
     return cudaErrorInvalidValue;
   if (route != ROUTE_FMA &&
@@ -1009,6 +1168,12 @@ extern "C" int decode_attention_launch(
   p.visits = static_cast<int*>(visits);
   p.flags = static_cast<int*>(flags);
   p.g = g; p.d = d; p.nk = nk; p.unit = unit; p.pool_rows = pool_rows;
+  p.ngt = ngt;
+  p.mma = route != ROUTE_FMA;
+  // pass 2 of route MMA: ngt * D / 16 output tiles over 8 warps, at most
+  // kAccTiles a warp; the keys split into as many groups as that allows
+  const int units = ngt * (d / 16);
+  p.kq = !p.mma ? 1 : units <= 2 * kAccTiles ? 4 : units <= 4 * kAccTiles ? 2 : 1;
   p.smax = smax; p.q_dtype = q_dtype; p.src_kind = src_kind;
   p.cluster = cluster;
   p.max_units = (nk + cluster - 1) / cluster;
@@ -1040,6 +1205,7 @@ extern "C" int decode_attention_launch(
   p.softcap = softcap;
   p.two_over_cap = softcap > 0.f ? 2.f / softcap : 0.f;
   const size_t smem = (size_t)Layout(p).total;
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kv_dtype) {
     case DT_F32:

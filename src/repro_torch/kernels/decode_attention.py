@@ -15,8 +15,11 @@ The kernel has two routes, chosen by ``decode_route`` alone:
            a multiple of 16;
   ``fma``  f32 FMAs, for f32 src and other D.
 
-Both count their launches (``launches_mma`` / ``launches_fma``), and every
-launch counts under its cluster size (``launches_by_cluster``).  With
+Both take any group G = n_heads / n_kv_heads that ``kernel_takes``
+admits (heads in tiles of 8 over one read of each K/V tile; granite's MQA
+runs G 48).  Both count their launches (``launches_mma`` /
+``launches_fma``), and every launch counts under its cluster size
+(``launches_by_cluster``) and its group (``launches_by_group``).  With
 ``debug_visits`` / ``debug_flags`` the kernel's telemetry instantiation
 runs (``launches_telemetry``): the TPU kernel's side outputs, the units
 each row worked and the IEEE flag counts of its CONV stage, with the
@@ -64,6 +67,18 @@ MAX_CLUSTER = 16
 GRID_CTAS = 4 * _build.NUM_SMS
 #: route codes of the C entry point (mma: + 1 for an fp16 tile)
 ROUTES = {"fma": 0, "mma": 1}
+#: the kernel's shapes: head dim up to ``MAX_D``, and any group G whose
+#: head tiles of 8 times D stay within ``MAX_TILE_COLS`` (the output's
+#: accumulators, 32 f32 a thread: G <= 64 at D 128, G <= 32 at D 256)
+MAX_D = 256
+MAX_TILE_COLS = 1024
+
+
+def kernel_takes(g: int, d: int) -> bool:
+    """Whether the CUDA kernel takes group ``g`` at head dim ``d`` (it
+    also refuses, on launch, a shape whose shared memory exceeds the
+    block's 227 KB: only f32 pools near the tile limit come close)."""
+    return 1 <= d <= MAX_D and g >= 1 and -(-g // 8) * d <= MAX_TILE_COLS
 
 
 def decode_route(src_dtype, d: int) -> str:
@@ -212,9 +227,10 @@ def decode_attention_cuda(q, k, v, kv_len, block_table=None, *,
                          f"v {tuple(v.shape)} {v.dtype} do not fit together")
     if not (k.device == v.device == q.device):
         raise ValueError("q, k and v must lie on one CUDA device")
-    if d > 256 or g > 8:
-        raise ValueError(f"decode kernel takes D <= 256 and G <= 8, got "
-                         f"D={d}, G={g}")
+    if not kernel_takes(g, d):
+        raise ValueError(f"decode kernel takes D <= {MAX_D} and "
+                         f"ceil(G / 8) * D <= {MAX_TILE_COLS}, got D={d}, "
+                         f"G={g}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if (isinstance(kv_len, torch.Tensor) and kv_len.dtype == torch.int32
             and kv_len.shape == (bh,) and kv_len.device == q.device
@@ -258,6 +274,8 @@ def decode_attention_cuda(q, k, v, kv_len, block_table=None, *,
         decode_attention_cuda.launches_fma += 1
     by_cluster = decode_attention_cuda.launches_by_cluster
     by_cluster[cluster] = by_cluster.get(cluster, 0) + 1
+    by_group = decode_attention_cuda.launches_by_group
+    by_group[g] = by_group.get(g, 0) + 1
     if tele:
         decode_attention_cuda.launches_telemetry += 1
     out = out if out_dtype == torch.float32 else out.to(out_dtype)
@@ -266,10 +284,12 @@ def decode_attention_cuda(q, k, v, kv_len, block_table=None, *,
     return ref.with_telemetry(out, visits, flags, debug_visits, debug_flags)
 
 
-#: launches of the CUDA kernel, in all, by route, by cluster size and of
-#: the telemetry instantiation (CPU calls and plain-version calls add none)
+#: launches of the CUDA kernel, in all, by route, by cluster size, by
+#: group G and of the telemetry instantiation (CPU calls and plain-version
+#: calls add none)
 decode_attention_cuda.launches = 0
 decode_attention_cuda.launches_mma = 0
 decode_attention_cuda.launches_fma = 0
 decode_attention_cuda.launches_by_cluster = {}
+decode_attention_cuda.launches_by_group = {}
 decode_attention_cuda.launches_telemetry = 0

@@ -1019,27 +1019,18 @@ class ContinuousEngine:
 
     def adopt(self, entries: Sequence[_QEntry]) -> int:
         """Enqueue another replica's evacuated entries into this engine,
-        admissible at once on its round clock.  A swap payload is checked
-        first: its tag against this pool (``check_blob_tag``: a foreign
-        dtype or page size raises ``ValueError``), then its CRC32s, as at
-        swap-in — a payload damaged in host memory is dropped and the
-        entry re-ingests (``sdc_detected``, ``sdc_reingest``)."""
+        admissible at once on its round clock.  A swap payload's tag is
+        checked against this pool (``check_blob_tag``: a foreign dtype or
+        page size raises ``ValueError``) and the entry is journaled as a
+        ``swap`` migration; its CRC32s are checked once, at admission, as
+        for any swap-in — a payload damaged in host memory is dropped
+        there and the entry re-ingests (``sdc_detect`` with its slot)."""
         n = 0
         for e in entries:
             rs = e.resume
             if rs is not None and rs.blobs is not None:
                 check_blob_tag(rs.tag, dtype=self._pool_dtype,
                                page=self.page)
-                if (rs.checksums is not None
-                        and _crc_blobs(rs.blobs) != rs.checksums):
-                    self._counters["sdc_detected"] += 1
-                    self._counters["sdc_reingest"] += 1
-                    if self.fault_plan is not None:
-                        self.fault_plan.note("sdc_detect",
-                                             round=self._round_no,
-                                             rid=e.req.rid, slot=-1)
-                    rs.blobs = rs.checksums = rs.tag = None
-                    rs.written, rs.degraded = 0, False
             e.not_before = self._round_no
             self._pending.append(e)
             self._counters["migrated_in"] += 1

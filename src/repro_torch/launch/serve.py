@@ -9,7 +9,8 @@ raise ``PoisonedLogitsError``); ``--loop python`` is the per-step prefill
 deepseek-v2-lite-16b`` (MLA) serve from a contiguous latent cache:
 ``--paged`` and ``--continuous`` are refused with
 ``ModelConfig.paged_unsupported_reason``.  ``--arch qwen3-moe-30b-a3b``
-(Mixture-of-Experts) serves either way.  ``--ragged``
+(Mixture-of-Experts) and ``--arch granite-20b`` (MQA: 48 query heads on
+one KV head, a gelu MLP with biases) serve either way.  ``--ragged``
 packs prompts of 1/4 .. 4/4 of ``--prompt-len`` into one right-padded
 batch, ``--stop-token`` freezes a row at that token, ``--paged`` serves
 from a page pool of ``--page-size``-token pages; a uniform paged batch
@@ -69,6 +70,7 @@ raises.  Only meshes (``--mesh``) are not ported.
     python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --full \
         --continuous --speculate 3 --draft-layers 1
     python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --full
+    python -m repro_torch.launch.serve --arch granite-20b --full --continuous
     python -m repro_torch.launch.serve --device cpu --paged --page-size 16
     python -m repro_torch.launch.serve --continuous --soak --device cpu \\
         --slots 3 --requests 10 --prompt-len 16 --gen 24 --pool-pages 5 \\

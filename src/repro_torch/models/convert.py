@@ -6,9 +6,10 @@ returns the port's parameter dict: the stacked ``[R, ...]`` pattern
 params are unstacked into one dict per layer, in ``cfg.layer_list()``
 order (prefix, then ``R`` repeats of the pattern, then suffix); a MoE
 layer's stacked expert leaves ``[R, E, ...]`` come out ``[E, ...]``, its
-f32 router stays f32, and an untied ``lm_head`` is carried.  bf16 and
-fp8 leaves (ml_dtypes arrays) are reinterpreted bit for bit.  numpy only:
-this module never imports jax.
+f32 router stays f32, an untied ``lm_head`` is carried, and a gelu MLP
+keeps its ``up`` / ``b_up`` / ``down`` / ``b_down`` leaves, biases
+included (granite).  bf16 and fp8 leaves (ml_dtypes arrays) are
+reinterpreted bit for bit.  numpy only: this module never imports jax.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
-"""Common policy-aware layers: norms, rotary embeddings, the SwiGLU MLP,
-logit soft-capping and the init helpers.  Every matmul routes through
-``core.ops`` so the active PrecisionPolicy applies uniformly.  Weights keep
-the JAX layout ``[d_in, d_out]`` (``x @ W``)."""
+"""Common policy-aware layers: norms, rotary embeddings, the SwiGLU and
+gelu MLPs, logit soft-capping and the init helpers.  Every matmul routes
+through ``core.ops`` so the active PrecisionPolicy applies uniformly.
+Weights keep the JAX layout ``[d_in, d_out]`` (``x @ W``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -34,10 +34,16 @@ def embed_init(gen: torch.Generator, vocab, d, dtype, device):
     return (w * d ** -0.5).to(dtype)
 
 
-def mlp_params(gen, d, f, dtype, device):
-    return {"gate": dense_init(gen, d, f, dtype, device),
-            "up": dense_init(gen, d, f, dtype, device),
-            "down": dense_init(gen, f, d, dtype, device)}
+def mlp_params(gen, d, f, dtype, device, kind: str = "swiglu"):
+    """``kind`` "swiglu": gate / up / down; "gelu": up, b_up, down,
+    b_down (biases zero, as the JAX package's)."""
+    if kind == "swiglu":
+        return {"gate": dense_init(gen, d, f, dtype, device),
+                "up": dense_init(gen, d, f, dtype, device),
+                "down": dense_init(gen, f, d, dtype, device)}
+    z = lambda n: torch.zeros((n,), dtype=dtype, device=device)
+    return {"up": dense_init(gen, d, f, dtype, device), "b_up": z(f),
+            "down": dense_init(gen, f, d, dtype, device), "b_down": z(d)}
 
 
 # ---------------------------------------------------------------------------
@@ -80,6 +86,15 @@ def swiglu(x, w_gate, w_up, w_down, policy):
     u = tp.tp_matmul(x, w_up, policy)
     h = tp.tp_elementwise("silu", g, policy=policy) * u
     return tp.tp_matmul(h, w_down, policy)
+
+
+def gelu_mlp(x, w_up, b_up, w_down, b_down, policy):
+    """Non-gated gelu MLP with biases (granite): each bias is added to
+    the matmul's output in its output dtype, then gelu (tanh form) under
+    the elementwise policy, as the JAX package's ``gelu_mlp``."""
+    h = tp.tp_matmul(x, w_up, policy) + b_up
+    h = tp.tp_elementwise("gelu", h, policy=policy)
+    return tp.tp_matmul(h, w_down, policy) + b_down
 
 
 def softcap(x, cap: Optional[float]):

@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> (ModelConfig, Model).
 
 Ported: gemma2-9b (GQA), minicpm3-4b (MLA), qwen3-moe-30b-a3b (GQA +
-MoE) and deepseek-v2-lite-16b (MLA + MoE), each at full width and as
+MoE), deepseek-v2-lite-16b (MLA + MoE) and granite-20b (MQA, group 48,
+gelu MLP with biases), each at full width and as
 ``reduced()``; any other arch id raises ``NotImplementedError``."""
 from __future__ import annotations
 
@@ -12,11 +13,12 @@ from ..core.policy import get_policy
 from .transformer import Model
 
 ARCHS = ("gemma2_9b", "minicpm3_4b", "qwen3_moe_30b_a3b",
-         "deepseek_v2_lite_16b")
+         "deepseek_v2_lite_16b", "granite_20b")
 
 ALIASES = {"gemma2-9b": "gemma2_9b", "minicpm3-4b": "minicpm3_4b",
            "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
-           "deepseek-v2-lite-16b": "deepseek_v2_lite_16b"}
+           "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+           "granite-20b": "granite_20b"}
 
 
 def canonical(arch: str) -> str:

@@ -1,6 +1,6 @@
-"""The model: embedding -> a stack of attention + SwiGLU / MoE layers ->
-final norm -> unembedding (tied, or an ``lm_head``), with the entry points
-the serving engine drives:
+"""The model: embedding -> a stack of attention + SwiGLU / gelu / MoE
+layers -> final norm -> unembedding (tied, or an ``lm_head``), with the
+entry points the serving engine drives:
 
   ``prefill``        [B, S] tokens -> (last-live-token logits, caches)
   ``decode_step``    one token per row + caches -> (logits, caches)
@@ -30,10 +30,11 @@ temperature / top-k / top-p draw (``sample_token``) from an explicit
 Parameters are a plain dict of tensors in the JAX layout (``[d_in,
 d_out]``) with the layers UNSTACKED: ``params["layers"][i]`` is layer
 ``i`` of ``cfg.layer_list()``.  Caches are a list with one entry per
-layer, updated IN PLACE.  Attention-only archs: GQA (gemma2, qwen3-moe:
-contiguous or paged KV) or MLA (minicpm3, deepseek-v2-lite: a contiguous
-latent cache, ``attention.MLACache``; no page axis), each layer with a
-SwiGLU MLP or a Mixture-of-Experts FFN (``moe.moe_block``; serving drops
+layer, updated IN PLACE.  Attention-only archs: GQA (gemma2, qwen3-moe,
+granite's MQA: contiguous or paged KV) or MLA (minicpm3,
+deepseek-v2-lite: a contiguous latent cache, ``attention.MLACache``; no
+page axis), each layer with a SwiGLU MLP, a gelu MLP with biases
+(granite) or a Mixture-of-Experts FFN (``moe.moe_block``; serving drops
 its aux loss, as the JAX package's serving entry points do).  The
 escalation write path (``esc_fmts`` / ``kv_levels``, and overflow
 injection ``ovf_at`` / ``ovf_scale`` in ``decode_burst``) snaps every cache
@@ -54,8 +55,8 @@ from ..core.policy import PrecisionPolicy, get_policy
 from . import attention as attn
 from . import moe as moe_mod
 from . import paged
-from .layers import (dense_init, embed_init, mlp_params, param_dtype, rmsnorm,
-                     softcap, swiglu)
+from .layers import (dense_init, embed_init, gelu_mlp, mlp_params,
+                     param_dtype, rmsnorm, softcap, swiglu)
 from ..core import ops as tp
 
 F32 = torch.float32
@@ -184,11 +185,11 @@ def _penalized(repetition_penalty, presence_penalty) -> bool:
 def _check_supported(cfg: ModelConfig):
     bad = sorted({f"{s.mixer}/{s.ffn}" for s in cfg.layer_list()
                   if s.mixer not in ("gqa", "mla")
-                  or s.ffn not in ("swiglu", "moe") or s.cross_attn})
+                  or s.ffn not in ("swiglu", "gelu", "moe") or s.cross_attn})
     if bad or cfg.encoder is not None or cfg.max_seq or cfg.norm != "rmsnorm":
         raise NotImplementedError(
-            f"{cfg.name}: only gqa / mla + swiglu / moe rmsnorm stacks are "
-            f"ported (got "
+            f"{cfg.name}: only gqa / mla + swiglu / gelu / moe rmsnorm stacks "
+            f"are ported (got "
             f"{bad or 'an encoder / learned positions / layernorm'})")
 
 
@@ -210,7 +211,8 @@ def init_layer(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device):
                                 qk_norm=spec.qk_norm)
     mlp = (moe_mod.moe_params(gen, cfg.d_model, cfg.moe, dtype, device)
            if spec.ffn == "moe" else
-           mlp_params(gen, cfg.d_model, cfg.d_ff, dtype, device))
+           mlp_params(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                      kind=spec.ffn))
     p = {"norm1": z(), "attn": mixer, "mlp": mlp, "norm2": z()}
     if spec.post_norms:
         p["post1"], p["post2"] = z(), z()
@@ -375,6 +377,10 @@ class Model:
         if spec.ffn == "moe":
             f, _ = moe_mod.moe_block(h2, p["mlp"], cfg.moe, self.policy,
                                      with_aux=False)
+        elif spec.ffn == "gelu":
+            m = p["mlp"]
+            f = gelu_mlp(h2, m["up"], m["b_up"], m["down"], m["b_down"],
+                         self.policy)
         else:
             f = swiglu(h2, p["mlp"]["gate"], p["mlp"]["up"],
                        p["mlp"]["down"], self.policy)

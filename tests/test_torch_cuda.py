@@ -125,9 +125,20 @@ DECODE_CASES = [  # (pool, src, kv grid, q grid, D, G, page, window, softcap)
     (torch.float32, torch.float32, "fp8", "fp16alt", 64, 8, 16, None, None),
     (torch.float32, torch.float32, "fp16", "fp16", 20, 2, 16, 33, 30.0),
     (torch.float32, torch.bfloat16, "fp8", None, 64, 2, 64, None, 50.0),
-    # qwen3-moe: G 8 (kMaxG), D 128, no window, no softcap
+    # qwen3-moe: G 8 (one head tile), D 128, no window, no softcap
     (torch.bfloat16, torch.bfloat16, None, None, 128, 8, 64, None, None),
     (torch.float8_e5m2, torch.bfloat16, None, None, 128, 8, 64, None, None),
+    # G > 8: head tiles of 8 over one read of each K/V tile; pass 2 in 4
+    # key groups (G 12 at D 128), 2 (G 64 at D 64) or 1 (G 48 at D 128,
+    # granite's MQA)
+    (torch.bfloat16, torch.bfloat16, None, None, 128, 12, 64, None, None),
+    (torch.bfloat16, torch.bfloat16, None, None, 128, 48, 64, None, None),
+    (torch.float8_e5m2, torch.bfloat16, None, None, 128, 48, 16, 100, 50.0),
+    (torch.bfloat16, torch.bfloat16, None, None, 64, 64, 16, 37, None),
+    (torch.float32, torch.float32, "fp8", "fp16alt", 128, 48, 64, None,
+     None),
+    (torch.float32, torch.float32, None, None, 128, 12, 16, 70, 30.0),
+    (torch.bfloat16, torch.bfloat16, None, None, 20, 12, 64, None, 50.0),
 ]
 
 
@@ -138,7 +149,8 @@ def test_decode_cluster_kernel_matches_split_plain(gen, pool, src, kv_fmt,
                                                    softcap):
     """The cluster kernel, called directly, against the plain version over
     the same partition: bf16 / fp8 / fp16 pools and f32 containers snapped
-    onto a grid, pages 16 / 64, D 20 / 64 / 128 / 256, G 1 / 2 / 8, windows that
+    onto a grid, pages 16 / 64, D 20 / 64 / 128 / 256, G 1 / 2 / 8 / 12 /
+    48 / 64, windows that
     start inside a page, softcaps; an idle row stores 0, a row shorter than
     its cluster leaves ranks idle, and each call adds one launch of the
     route ``decode_route`` names."""
@@ -468,10 +480,12 @@ def test_flash_variants_with_dv_match_plain(gen, variant, d, dv, page, dtype,
 
 
 @pytest.mark.parametrize("group,q_rows", [(1, 128), (2, 128), (4, 64),
-                                          (8, 128)])
+                                          (8, 128), (48, 64), (48, 128)])
 def test_flash_tc_query_tiles(gen, group, q_rows):
     """The tensor-core variant's query tile over the group's heads: 64 or
-    128 rows (one or two consumer warpgroups), groups up to 8."""
+    128 rows (one or two consumer warpgroups), groups up to 8 and
+    granite's 48 (a 64-row tile holds one query of each head and masks 16
+    rows)."""
     q, k, v, lens, table = _flash_inputs(
         gen, d=128, page=16, group=group, dtype=torch.bfloat16,
         src=torch.bfloat16, rows=[100, 9], q_offset=30, sq=100)
@@ -877,6 +891,44 @@ def test_decode_telemetry_matches_plain(gen, case):
     assert torch.equal(on.view(torch.int32), off.view(torch.int32))
     assert torch.equal(visits, pv) and torch.equal(flags, pf)
     assert int(flags.sum()) > 0
+
+
+@pytest.mark.parametrize("route,g,pool,page", [
+    ("mma", 12, torch.bfloat16, 64), ("mma", 48, torch.bfloat16, 16),
+    ("mma", 48, torch.float8_e5m2, 64), ("fma", 48, torch.float32, 64)])
+def test_decode_telemetry_at_large_groups(gen, route, g, pool, page):
+    """The telemetry instantiation at G 12 and 48 (D 128, one KV head): its
+    output bitwise the flags-off one and within ``TOL`` of the plain
+    version, visits and flags exactly the plain version's, on the route
+    named."""
+    rows, d, nk = 4, 128, 8
+    src = torch.float32 if pool == torch.float32 else torch.bfloat16
+    q, k, v, table = _decode_flat(gen, rows=rows, g=g, d=d, page=page, nk=nk,
+                                  dtype=pool, q_dtype=src)
+    lens = torch.tensor([0, 1, nk * page // 2 + 3, nk * page],
+                        dtype=torch.int32, device="cuda")
+    kw = dict(scale=d ** -0.5, window=None, softcap=None,
+              kv_fmt_name="fp8" if pool == torch.float32 else None,
+              q_fmt_name=None, src_dtype=src)
+    assert decode_route(src, d) == route
+    off = decode_attention_cuda(q, k, v, lens, table, **kw)
+    before = (decode_attention_cuda.launches_telemetry,
+              decode_attention_cuda.launches_mma,
+              decode_attention_cuda.launches_fma)
+    on, visits, flags = decode_attention_cuda(
+        q, k, v, lens, table, debug_visits=True, debug_flags=True, **kw)
+    want, pv, pf = decode_attention_plain(
+        q, k, v, lens, table, debug_visits=True, debug_flags=True,
+        splits=plan_splits(lens, page, units=nk), **kw)
+    torch.cuda.synchronize()
+    assert (decode_attention_cuda.launches_telemetry - before[0],
+            decode_attention_cuda.launches_mma - before[1],
+            decode_attention_cuda.launches_fma - before[2]) == \
+        (1, int(route == "mma"), int(route == "fma"))
+    assert torch.equal(on.view(torch.int32), off.view(torch.int32))
+    assert torch.equal(visits, pv) and torch.equal(flags, pf)
+    assert (on - want).abs().max().item() <= TOL
+    assert not on[0].any()                          # the idle row stores 0
 
 
 @pytest.mark.parametrize("case", ["tc_bf16_p64", "tc_em_fp8_p16_window",

@@ -267,21 +267,78 @@ def test_adopt_refuses_foreign_blob(setup):
     assert st["migrated_in"] == 1 and st["sdc_detected"] == 0
 
 
-def test_adopt_checks_blob_crc(setup):
-    """A payload damaged in host memory between evacuation and adoption
-    fails its CRC32 at ``adopt``: it is dropped, the request re-ingests
-    and still gets its whole budget."""
-    e1, blob = _evacuated_blob(setup)
-    te.ContinuousEngine._flip_bit(blob.resume.blobs, blob.req.rid)
-    e1.journal = tj.RequestJournal()
+def _damaged_swap_migration(how, mod, fault, journal_mod, model, params,
+                            path):
+    """A swap-blob migration whose payload has one bit flipped in host
+    memory, under framework ``mod``: ``"fleet"``, a hang on replica 0
+    whose evacuation swap-out is the plan's first (``corrupt_swap_at``);
+    ``"adopt"``, one blob evacuated by hand, flipped, and adopted by the
+    other replica.  Returns ``(finished, stats, journal bytes, fault-plan
+    events, queue)``."""
+    reqs = _long_queue(mod, model.cfg.vocab)
+    jr = journal_mod.RequestJournal(str(path))
+    if how == "fleet":
+        plan = fault.ServeFaultPlan(corrupt_swap_at=(0,))
+        fin, st = mod.ReplicatedEngine(
+            model, params, replicas=2, slots=2, chunk=8, burst_cap=4,
+            max_len=20, preempt="swap", migrate="swap", hang_patience=1,
+            replica_fault=fault.ReplicaFaultPlan(replica=0, at_burst=2,
+                                                 mode="hang"),
+            fault_plan=plan, journal=jr).run(reqs)
+        jr.close()
+        return fin, st, path.read_bytes(), plan.events, reqs
+    fleet = mod.ReplicatedEngine(model, params, replicas=2, slots=2,
+                                 chunk=8, burst_cap=4, max_len=20,
+                                 preempt="swap")
+    e0, e1 = fleet.engines
+    for eng, part in zip(fleet.engines, fleet.partition(reqs)):
+        eng.start(part)
+    for _ in range(3):
+        e0.step()
+    blob = next(e for e in e0.evacuate(readable=True, mode="swap")
+                if e.resume is not None and e.resume.blobs is not None)
+    mod.ContinuousEngine._flip_bit(blob.resume.blobs, blob.req.rid)
+    e1.journal, e1.fault_plan = jr, fault.ServeFaultPlan()
     assert e1.adopt([blob]) == 1
-    assert blob.resume.blobs is None and blob.resume.tag is None
-    assert e1.journal.records[-1]["mode"] == "reingest"
     while e1.step():
         pass
     res, st = e1.finalize()
-    assert len(res[blob.req.rid].tokens) == blob.req.max_new
-    assert st["sdc_detected"] == st["sdc_reingest"] == 1
+    jr.close()
+    return (sorted(res.values(), key=lambda f: f.rid), st, path.read_bytes(),
+            e1.fault_plan.events, [blob.req])
+
+
+@pytest.mark.parametrize("how", ["fleet", "adopt"])
+def test_damaged_swap_migration_matches_jax(how, tmp_path):
+    """A swap blob damaged in host memory between evacuation and adoption
+    is journaled as a ``swap`` migration and caught by its CRC32 at
+    admission, where the request re-ingests: under ``fp32`` the port's
+    journal file is byte for byte JAX's, the fault plans' notes are equal
+    (``sdc_detect`` with the slot that admitted it), and every request
+    gets its whole budget with JAX's tokens."""
+    jm, jp, tm, tp = _pair("fp32")
+    runs = {name: _damaged_swap_migration(
+                how, mod, fault, jmod, model, params,
+                tmp_path / f"{name}.jsonl")
+            for name, mod, fault, jmod, model, params in (
+                ("jax", je, jf, jj, jm, jp), ("port", te, tf, tj, tm, tp))}
+    (jfin, jst, jbytes, jev, reqs), (tfin, tst, tbytes, tev, _) = \
+        runs["jax"], runs["port"]
+    assert tbytes == jbytes
+    migrations = [r for r in tj.RequestJournal.load(
+        str(tmp_path / "port.jsonl")).records if r["kind"] == "migrate"]
+    assert migrations and {r["mode"] for r in migrations} == {"swap"}
+    assert tev == jev
+    detects = [kw for kind, kw in tev if kind == "sdc_detect"]
+    assert len(detects) == 1 and detects[0]["slot"] >= 0
+    assert tst["sdc_detected"] == tst["sdc_reingest"] == 1
+    for k in ("sdc_detected", "sdc_reingest", "migrated_in", "resumed"):
+        assert tst[k] == jst[k], k
+    budgets = {r.rid: r.max_new for r in reqs}
+    assert _toks(tfin) == _toks(jfin)
+    for f in tfin:
+        if f.rid in budgets:
+            assert len(f.tokens) == budgets[f.rid]
 
 
 # ---------------------------------------------------------------------------
