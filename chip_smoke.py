@@ -139,8 +139,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    config's on the CPU, and every launch is on the fma route /
    ``flash_fma``.  tok/s, decode ms per round, prefill s, the events.
 8. MLA phase (``mla_phase``): the fp32 model is freed and minicpm3-4b is
-   built at full width under ``tp_bf16`` (62 layers, MLA with QK head dim
-   96 and V head dim 64), then served by ``Model.generate`` from its
+   built at full width under ``tp_bf16`` (MLA with QK head dim 96 and V
+   head dim 64; depth cut to ``MLA_LAYERS`` = 31 of 62), then served by ``Model.generate`` from its
    contiguous latent cache on four ragged prompts (1024/768/512/256), 32
    greedy tokens.  Gates: scan == while tokens, every flash launch on
    ``flash_tc`` at (96, 64) and no decode-kernel launch (decode is the
@@ -149,9 +149,10 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    against the same prompt fed token by token through ``decode_step``.
    Prefill s, decode ms per step, tok/s.
 9. DeepSeek phase (``deepseek_phase``): minicpm3 is freed and
-   deepseek-v2-lite-16b is built at full width under ``tp_bf16`` (27
-   layers: MLA with QK head dim 192 and V 128, layer 0 dense, 26 MoE
-   layers of 64 experts top-6 plus 2 shared; 29.3 GiB), then served by
+   deepseek-v2-lite-16b is built at full width under ``tp_bf16`` (MLA
+   with QK head dim 192 and V 128, layer 0 dense, then MoE layers of 64
+   experts top-6 plus 2 shared; depth cut to ``DEEPSEEK_LAYERS`` = 14 of
+   27, 15.5 GiB), then served by
    ``Model.generate`` as in the MLA phase.  Gates: scan == while, every
    flash launch ``flash_tc`` at (192, 128) (none ``flash_fma``), no decode
    kernel launch, first-token logits within ``LOGITS_TOL`` of the plain
@@ -160,8 +161,9 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    flip near-tied router choices, which is not the kernels' doing; the
    free-routing difference and the flipped choices are reported).
 10. MoE phase (``moe_phase``): deepseek is freed and qwen3-moe-30b-a3b is
-   built at full width under ``tp_bf16`` (48 layers, 32 / 4 heads of 128,
-   128 experts top-8; 56.9 GiB: it needs the whole card), then serves the
+   built at full width under ``tp_bf16`` (32 / 4 heads of 128, 128
+   experts top-8; depth cut to ``MOE_LAYERS`` = 24 of 48, 28.6 GiB; all
+   48 take 56.9 GiB, the whole card), then serves the
    slice's queue through ``ContinuousEngine`` (4 slots, chunk 256, pages
    of 64).  Gates: budgets, the pool drains, every decode launch ``mma``
    at ``cluster_size``'s size, every flash launch ``flash_tc`` at (128,
@@ -188,7 +190,24 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    (4 requests x 8 tokens) under ``tp_bf16_kv8`` with the same gates.
    tok/s, decode ms a round against the weight-read bound, prefill, and
    device busy / idle from a profiled window.
-12. The kernels line (all six kernels; flash attention, tp_matmul and decode
+12. Train phase (``train_phase``): granite is freed and full-width
+   fpnew-case-study (12 layers, d_model 768, 12 heads of 64, d_ff 2048,
+   vocab 32000, tied: 109.6M parameters) trains through ``TrainLoop``
+   from seed-0 port weights on the JAX launcher's defaults (seq 256,
+   batch 16, lr 3e-3, warm-up 10, AdamW): (a) ``tp_bf16`` for 100 steps
+   with checkpoints every 40 in a temporary directory, (b) ``fp32`` and
+   (c) ``em_fp8`` for ``TRAIN_OTHERS`` steps (without remat: the same
+   gradients bit for bit), (d) (a)'s first 60 steps
+   with a failure at step 50 under ``run_with_restarts``; (a) and (d)
+   under ``torch.use_deterministic_algorithms(True)``.  Gates: losses and
+   gradient norms finite, each run's last-5 mean loss 0.5 below its
+   first-5, (d) resumes at step 40 and its state at step 60 equals (a)'s
+   bit for bit, a checkpoint restores bit for bit, and no hand-written
+   kernel launches (training attention is the dense path: the kernels
+   have no backward).  ms a step and tokens/s, a profiled 5-step window
+   (busy / idle; gemm / attention / optimizer / other by launching op),
+   checkpoint GB and save / restore seconds.
+13. The kernels line (all six kernels; flash attention, tp_matmul and decode
    attention with their launches by variant, the FMA variant's time,
    decode's launches by cluster size, flash's by head dims, the flags-on
    time of the main case and of the telemetry cases, the f32-pool case,
@@ -2948,13 +2967,15 @@ def mla_phase(seed: int = 0) -> dict:
     ``seed``), served by ``Model.generate`` from its contiguous latent
     cache: 4 right-padded ragged prompts (``MLA_PROMPTS``), ``MLA_GEN``
     greedy tokens (``mla_generate``, flash at (96, 64))."""
-    return mla_generate("minicpm3-4b", "96x64", "mla", seed=seed)
+    return mla_generate("minicpm3-4b", "96x64", "mla", seed=seed,
+                        layers=MLA_LAYERS)
 
 
-def mla_generate(arch: str, dims: str, tag: str, seed: int = 0,
-                 need_gib: float = 0.0, classes=None) -> dict:
-    """``arch`` (an MLA stack) at full width under ``tp_bf16`` (random
-    weights from ``seed``), served by ``Model.generate`` from its
+def mla_generate(arch: str, dims: str, tag: str, layers: int,
+                 seed: int = 0, need_gib: float = 0.0,
+                 classes=None) -> dict:
+    """``arch`` (an MLA stack) at full width under ``tp_bf16``, ``layers``
+    deep (random weights from ``seed``), served by ``Model.generate`` from its
     contiguous latent cache: 4 right-padded ragged prompts
     (``MLA_PROMPTS``), ``MLA_GEN`` greedy tokens.  Gates: the while form's
     tokens equal the scan form's; every flash launch (the expanded
@@ -2967,7 +2988,8 @@ def mla_generate(arch: str, dims: str, tag: str, seed: int = 0,
     import torch
     from repro_torch.models.registry import build_model
     free_memory_gate(tag, need_gib)
-    model = build_model(arch, policy="tp_bf16", device="cuda")
+    model = build_model(arch, policy="tp_bf16", device="cuda",
+                        n_layers=layers)
     t0 = time.perf_counter()
     params = model.init(seed)
     torch.cuda.synchronize()
@@ -3044,11 +3066,18 @@ def free_memory_gate(where: str, need_gib: float) -> None:
 MOE_CLASSES = KERNEL_CLASSES + (
     ("moe_dispatch", ("sort", "searchsorted", "index", "scatter",
                       "gather")),)
+#: the depths the smoke runs the MLA and MoE models at, half of each
+#: (minicpm3 62, deepseek-v2-lite 27, qwen3-moe 48 layers) to keep the
+#: smoke well inside its limit on the slower hosts (at full depth, with
+#: the train phase, its phases summed to 1199 s on an H100 host); the
+#: launchers serve all
+MLA_LAYERS, DEEPSEEK_LAYERS, MOE_LAYERS = 31, 14, 24
 #: free device memory the two MoE phases need before their init: weights
-#: (deepseek-v2-lite 29 GiB, qwen3-moe 56.9 GiB in bf16) and room for the
-#: padded [E, C, D] expert slabs of a 4096-token prefill
-DEEPSEEK_NEED_GIB = 36.0
-QWEN3_NEED_GIB = 66.0
+#: (deepseek-v2-lite 15.5 GiB, qwen3-moe 28.6 GiB in bf16 at those
+#: depths) and room for the padded [E, C, D] expert slabs of a
+#: 4096-token prefill
+DEEPSEEK_NEED_GIB = 22.0
+QWEN3_NEED_GIB = 38.0
 
 
 def deepseek_phase(seed: int = 0) -> dict:
@@ -3059,17 +3088,18 @@ def deepseek_phase(seed: int = 0) -> dict:
     at (192, 128), none ``flash_fma``."""
     return mla_generate("deepseek-v2-lite-16b", "192x128", "deepseek",
                         seed=seed, need_gib=DEEPSEEK_NEED_GIB,
-                        classes=MOE_CLASSES)
+                        classes=MOE_CLASSES, layers=DEEPSEEK_LAYERS)
 
 
 def moe_model(seed: int = 0):
     """qwen3-moe-30b-a3b at full width under ``tp_bf16``, paged in 64-token
-    pages, random weights from ``seed`` (56.9 GiB)."""
+    pages, random weights from ``seed``, ``MOE_LAYERS`` of its 48 layers
+    (28.6 GiB)."""
     import torch
     from repro_torch.models.registry import build_model
     free_memory_gate("moe", QWEN3_NEED_GIB)
     model = build_model("qwen3-moe-30b-a3b", policy="tp_bf16", device="cuda",
-                        paged_kv=True, page_size=64)
+                        paged_kv=True, page_size=64, n_layers=MOE_LAYERS)
     t0 = time.perf_counter()
     params = model.init(seed)
     torch.cuda.synchronize()
@@ -3118,8 +3148,8 @@ def moe_layer_probe(model, params, rows=MOE_PROBE_ROWS, reps: int = 10,
     call by class under ``torch.profiler``, the experts the tokens route
     to, and the bound of the work as laid out (every expert's weights read
     once, the padded [E, C, D] slabs' FLOPs) beside that of the routed
-    experts' weights alone.  Times 48 layers, it says how much of a round
-    the expert GEMMs take."""
+    experts' weights alone.  Times the layers, it says how much of a
+    round the expert GEMMs take."""
     import torch
     from repro_torch.models import moe
     cfg, pol = model.cfg.moe, model.policy
@@ -3202,7 +3232,7 @@ def moe_phase(seed: int = 0) -> dict:
     token, greedy tokens equal up to a near tie (``near_tie_check`` at
     the free difference).  A short run under ``tp_bf16_kv8`` (the fp8
     pool) on that window.  One speculative run on that window (``spec_k``
-    3, a 1-repeat draft: 1 of 48 layers): streams equal the plain run's
+    3, a 1-repeat draft: 1 of ``MOE_LAYERS`` layers): streams equal the plain run's
     up to a near tie, ``0 < spec_accept_rate <= 1``, every decode launch
     (draft steps and verify folds) at its cluster size; its wall time
     against the plain engine's on the same window (``vs_plain``)."""
@@ -3290,7 +3320,7 @@ def moe_phase(seed: int = 0) -> dict:
                                 rule, "moe")
     counted = merge_counters(counted, c8)
 
-    # speculative: a 1-repeat draft (1 of 48 layers)
+    # speculative: a 1-repeat draft (one layer)
     vs = verify_vs_step(model, params, seed)
     log(json.dumps({"moe_verify_vs_step": vs}))
     spec = ContinuousEngine(model, params, slots=4,
@@ -3475,6 +3505,302 @@ def granite_phase(seed: int = 0) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: transprecision training
+# ---------------------------------------------------------------------------
+#: the JAX training launcher's defaults (``launch/train.py``): seq 256,
+#: global batch 16, lr 3e-3, AdamW; warm-up 10 steps
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR, TRAIN_WARMUP = 256, 16, 3e-3, 10
+#: run (a): ``tp_bf16`` for this many steps, a checkpoint every
+#: ``TRAIN_CKPT_EVERY``; run (d) is its first ``TRAIN_RESTART_STEPS`` with
+#: a failure injected at ``TRAIN_FAIL_AT``
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 100, 40
+TRAIN_RESTART_STEPS, TRAIN_FAIL_AT = 60, 50
+#: runs (b) and (c): policy and steps (each its own schedule), cut to keep
+#: the phase near 100 s; fp32 at 40 steps fell by 0.16 only on an H100
+#: (the loss climbs for some 15 steps after warm-up).  They run without
+#: remat, which gives the same gradients bit for bit
+#: (``tests/test_torch_train.py::test_remat_policies_give_bitwise_equal_grads``)
+#: and skips a forward's worth of host and emulation work a step
+TRAIN_OTHERS = (("fp32", 80), ("em_fp8", 60))
+#: each run's last-5 mean loss must sit this far below its first-5 mean
+#: (the JAX suite's bar, ``tests/test_train.py``)
+TRAIN_DROP = 0.5
+#: steps of the profiled window
+TRAIN_PROFILE_STEPS = 5
+
+
+def train_loop(policy: str, steps: int, total: int, ckpt_dir=None,
+               plan=None, remat: bool = True):
+    """A ``TrainLoop`` over full-width fpnew-case-study (seed-0 port
+    weights) on the card, its optimizer scheduled over ``total`` steps and
+    the loop stopping at ``steps``."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    model = build_model("fpnew-case-study", policy=policy, device="cuda",
+                        prefill_backend="dense")
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                    total_steps=total)
+    data = DataConfig(vocab=model.cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    lc = LoopConfig(total_steps=steps, log_every=0,
+                    ckpt_every=TRAIN_CKPT_EVERY if ckpt_dir else 0,
+                    ckpt_dir=ckpt_dir, keep_ckpts=2, remat=remat)
+    return TrainLoop(model, opt, data, lc, failure_plan=plan)
+
+
+def loss_summary(where: str, log_: list) -> dict:
+    """Gates a run's losses and gradient norms (finite, the last-5 mean
+    ``TRAIN_DROP`` below the first-5) and summarises them."""
+    import statistics
+    loss = [r["loss"] for r in log_]
+    gnorm = [r["grad_norm"] for r in log_]
+    if not all(math.isfinite(x) for x in loss + gnorm):
+        raise AssertionError(f"{where}: a loss or gradient norm is not "
+                             f"finite")
+    first5, last5 = statistics.mean(loss[:5]), statistics.mean(loss[-5:])
+    if not last5 < first5 - TRAIN_DROP:
+        raise AssertionError(f"{where}: last-5 mean loss {last5} is not "
+                             f"{TRAIN_DROP} below the first-5 {first5}")
+    dts = sorted(r["dt"] for r in log_[5:])
+    ms = statistics.median(dts) * 1e3
+    return dict(steps=len(loss), first5=first5, last5=last5,
+                first10=statistics.mean(loss[:10]),
+                last10=statistics.mean(loss[-10:]),
+                final_loss=loss[-1], max_grad_norm=max(gnorm),
+                ms_per_step=ms, tokens_s=TRAIN_SEQ * TRAIN_BATCH / ms * 1e3)
+
+
+def _kernel_launches() -> dict:
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.dotp_ex import dotp_ex_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.tp_matmul import tp_matmul_cuda
+    from repro_torch.kernels.tp_quant import (cast_and_pack_cuda,
+                                              tp_quantize_cuda)
+    return {fn.__name__: fn.launches for fn in (
+        decode_attention_cuda, flash_attention_cuda, tp_matmul_cuda,
+        tp_quantize_cuda, cast_and_pack_cuda, dotp_ex_cuda)}
+
+
+#: device-time classes of the training step: the projections' and the
+#: CE's unbatched GEMMs (``aten::mm``: forward, recompute, backward), the
+#: dense attention's batched einsums (``aten::bmm``), and everything the
+#: optimizer launches (under ``train.optimizer``)
+TRAIN_GEMM_OPS = ("aten::mm", "aten::addmm")
+
+
+def train_profile(run, wall: float) -> dict:
+    """Device busy and idle of ``run()`` under ``torch.profiler`` (CPU and
+    CUDA activity, so each kernel is tied to the op that launched it)
+    against ``wall``, and the busy time split gemm / attention / optimizer
+    / other by the launching op."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    # device activity less the ``record_function`` ranges' GPU spans
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation:
+            by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                                + ev.time_range.elapsed_us() / 1e6)
+    busy = sum(by_name.values())
+    by_class = dict(gemm=0.0, attention=0.0, optimizer=0.0, other=0.0)
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU or not ev.kernels:
+            continue
+        sec = sum(k.duration for k in ev.kernels) / 1e6
+        anc, cls = ev, None
+        while anc is not None and cls is None:
+            if anc.name == "train.optimizer":
+                cls = "optimizer"
+            anc = anc.cpu_parent
+        if cls is None:
+            cls = ("gemm" if ev.name in TRAIN_GEMM_OPS else
+                   "attention" if ev.name == "aten::bmm" else "other")
+        by_class[cls] += sec
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(steps=TRAIN_PROFILE_STEPS, wall_s=wall, device_busy_s=busy,
+                device_idle_share=(1.0 - busy / wall) if busy else None,
+                device_s_by_class=by_class,
+                classified_s=sum(by_class.values()),
+                top_kernels=[[k[:90], sec] for k, sec in top])
+
+
+def train_phase(seed: int = 0) -> dict:
+    """Full-width fpnew-case-study (12 layers, d_model 768, 12 heads of 64,
+    d_ff 2048, vocab 32000, tied: 109.6M parameters) trained through
+    ``TrainLoop`` from seed-0 port weights on the JAX launcher's defaults
+    (seq 256, batch 16, lr 3e-3, warm-up 10, AdamW, remat ``full``):
+
+    (a) ``tp_bf16``, ``TRAIN_STEPS`` steps, checkpoints every 40 into a
+        temporary directory (and at step 60, where the state is kept);
+    (b) / (c) ``fp32`` and ``em_fp8`` (``TRAIN_OTHERS`` steps, no remat);
+    (d) (a)'s first 60 steps with a failure injected at step 50 under
+        ``run_with_restarts``.
+
+    (a) and (d) run under ``torch.use_deterministic_algorithms(True)``.
+    Gates: every loss and gradient norm finite, each run's last-5 mean
+    loss ``TRAIN_DROP`` below its first-5, (d) resumes at step 40 and
+    its state at step 60 equals (a)'s bit for bit, and no hand-written
+    kernel launches (training attention is the dense path).  Logged: ms
+    a step (median after 5) and tokens/s, a profiled 5-step window
+    (busy / idle, gemm / attention / optimizer / other), checkpoint save
+    and restore seconds and GB, each policy's first-10 / last-10 means."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core.tree import leaves
+    from repro_torch.train.fault import FailurePlan, run_with_restarts
+
+    free_memory_gate("train", 8.0)
+    torch.cuda.reset_peak_memory_stats()
+    launches0 = _kernel_launches()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    # bitwise repeats need the deterministic kernels, not NaN-filled
+    # fresh allocations (a fill kernel for every empty tensor)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    res = dict(arch="fpnew-case-study", seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+               lr=TRAIN_LR, warmup=TRAIN_WARMUP)
+    try:
+        # (a), in two legs so the state at step 60 can be kept
+        a = train_loop("tp_bf16", TRAIN_RESTART_STEPS, TRAIN_STEPS,
+                       os.path.join(tmp, "a"))
+        n_params = sum(t.numel() for t in leaves(a.params))
+        log(f"train: fpnew-case-study full width, {n_params / 1e6:.2f}M "
+            f"parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            f"with the optimizer state")
+        t0 = time.perf_counter()
+        a.run()
+        at60 = [t.clone() for t in leaves(a.state_tree())]
+        a.loop_cfg.total_steps = TRAIN_STEPS
+        a.run()
+        torch.cuda.synchronize()
+        res["a_tp_bf16"] = dict(loss_summary("train (a)", a.metrics_log),
+                                wall_s=time.perf_counter() - t0,
+                                deterministic=True)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(json.dumps({"train_a": res["a_tp_bf16"]}))
+
+        # a profiled window of 5 more steps (off the loop's state)
+        batches = [{k: v.to("cuda") for k, v in
+                    a.data.batch_at(TRAIN_STEPS + i).items()}
+                   for i in range(TRAIN_PROFILE_STEPS)]
+
+        def window():
+            p, s = a.params, a.opt_state
+            for b in batches:
+                p, s, _ = a.step_fn(p, s, b)
+
+        window()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        res["where_the_time_goes"] = train_profile(
+            window, time.perf_counter() - t0)
+        log(json.dumps({"train_where_the_time_goes":
+                        res["where_the_time_goes"]}))
+
+        # checkpoint save and restore, timed
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in leaves(a.state_tree()))
+        t0 = time.perf_counter()
+        a.ckpt.save(a.step, a.state_tree(),
+                    extra={"data": a.data.state_dict()}, sync=True)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step, tree, _ = a.ckpt.restore_latest(a.state_tree())
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if step != TRAIN_STEPS or not all(
+                torch.equal(x, y) for x, y in zip(leaves(tree),
+                                                  leaves(a.state_tree()))):
+            raise AssertionError("train: the checkpoint did not restore "
+                                 "the state bit for bit")
+        res["checkpoint"] = dict(gb=nbytes / 1e9, save_s=save_s,
+                                 restore_s=restore_s,
+                                 save_gb_s=nbytes / 1e9 / save_s,
+                                 restore_gb_s=nbytes / 1e9 / restore_s)
+        log(json.dumps({"train_checkpoint": res["checkpoint"]}))
+        del tree, a
+        gc_cuda()
+
+        # (d): (a)'s first 60 steps, a failure at 50, restarted
+        plan = FailurePlan(fail_at=(TRAIN_FAIL_AT,))
+        t0 = time.perf_counter()
+        d, restarts = run_with_restarts(
+            lambda: train_loop("tp_bf16", TRAIN_RESTART_STEPS, TRAIN_STEPS,
+                               os.path.join(tmp, "d"), plan),
+            max_restarts=1)
+        torch.cuda.synchronize()
+        resumed = d.metrics_log[0]["step"]
+        if not all(math.isfinite(r["loss"]) and math.isfinite(
+                r["grad_norm"]) for r in d.metrics_log):
+            raise AssertionError("train (d): a loss or gradient norm is not "
+                                 "finite")
+        same = [torch.equal(x, y) for x, y in
+                zip(leaves(d.state_tree()), at60)]
+        res["d_restart"] = dict(restarts=restarts, resumed_at=resumed,
+                                wall_s=time.perf_counter() - t0,
+                                leaves_bitwise_equal=sum(same),
+                                of=len(same))
+        log(json.dumps({"train_d": res["d_restart"]}))
+        if restarts != 1 or resumed != TRAIN_CKPT_EVERY:
+            raise AssertionError(f"train (d): {restarts} restarts, resumed "
+                                 f"at step {resumed}, not "
+                                 f"{TRAIN_CKPT_EVERY}")
+        if not all(same):
+            raise AssertionError("train (d): the restarted run's state at "
+                                 "step 60 differs from (a)'s")
+        del d, at60
+        gc_cuda()
+        torch.use_deterministic_algorithms(False)
+
+        # (b), (c)
+        for policy, steps in TRAIN_OTHERS:
+            t0 = time.perf_counter()
+            run = train_loop(policy, steps, steps, remat=False)
+            run.run()
+            torch.cuda.synchronize()
+            res[policy] = dict(loss_summary(f"train ({policy})",
+                                            run.metrics_log),
+                               wall_s=time.perf_counter() - t0,
+                               deterministic=False)
+            log(json.dumps({f"train_{policy}": res[policy]}))
+            del run
+            gc_cuda()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        shutil.rmtree(tmp, ignore_errors=True)
+    launched = {k: v - launches0[k] for k, v in _kernel_launches().items()}
+    if any(launched.values()):
+        raise AssertionError(f"train: hand-written kernels launched on the "
+                             f"training path: {launched}")
+    res.update(kernel_launches=launched, card=card_line())
+    log(json.dumps({"train": {k: v for k, v in res.items()
+                              if k != "where_the_time_goes"}}))
+    return res
+
+
+def gc_cuda() -> None:
+    """Frees what the last phase dropped."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     """The tensors of a parameter tree."""
     if isinstance(tree, dict):
@@ -3522,27 +3848,24 @@ def main() -> int:
         model, params, serving[1]["verify_vs_step"]["logits_max_abs_diff"]))
     lap("ha")
     del model, params
-    import gc
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_cuda()
     serving.append(escalation_phase())
     lap("escalation")
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_cuda()
     serving.append(mla_phase())
     lap("mla")
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_cuda()
     serving.append(deepseek_phase())
     lap("deepseek")
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_cuda()
     serving.append(moe_phase())
     lap("moe")
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_cuda()
     serving.append(granite_phase())
     lap("granite")
+    gc_cuda()
+    train_phase()
+    lap("train")
     log(json.dumps({"phase_s": phase_s}))
     launches, variants, by_cluster = dict(op_res["launches"]), {}, {}
     by_dims, by_group = {}, {}

@@ -18,8 +18,9 @@ takes bf16/fp16 operands with f32 accumulation; the reduced-precision
 reduction and TF32 are switched off when this module is imported, so a bf16
 product is one f32 sum rounded once.  An f32-output product uses
 ``torch.mm(..., out_dtype=torch.float32)`` and never widens the weight
-operand.  These plain products stay with torch, as the JAX package leaves
-them to XLA.
+operand; its backward (``_WideMM``) runs both gradients through the same
+16-bit-operand, f32-sum product.  These plain products stay with torch, as
+the JAX package leaves them to XLA.
 
 ``emulate`` mode snaps f32 containers onto the target grid bit-exactly
 (``core.softfloat``).  ``tp_matmul(..., use_kernel=True)`` routes to the
@@ -187,8 +188,33 @@ def tp_matmul(a, b, policy, *, out_fmt=None, use_kernel: bool = False,
     if out == src and acc == torch.float32:
         return torch.matmul(a, b)
     lead = a.shape[:-1]
-    r = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=acc)
+    r = _WideMM.apply(a.reshape(-1, a.shape[-1]), b, acc)
     return r.reshape(*lead, b.shape[-1]).to(out)
+
+
+class _WideMM(torch.autograd.Function):
+    """``torch.mm(a, b, out_dtype=acc)`` (16-bit operands, one f32 sum,
+    output kept wide) with its backward written out: both gradients go
+    through the same product, the f32 cotangent rounded to the operands'
+    dtype, and come back in each operand's dtype.  ``aten::mm.dtype``
+    carries no autograd formula of its own to rely on."""
+
+    @staticmethod
+    def forward(ctx, a, b, acc):
+        ctx.save_for_backward(a, b)
+        ctx.acc = acc
+        return torch.mm(a, b, out_dtype=acc)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.mm(g, b.t(), out_dtype=ctx.acc).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.mm(a.t(), g, out_dtype=ctx.acc).to(b.dtype)
+        return ga, gb, None
 
 
 def cast_and_pack(a, b, fmt, policy=None, *, axis: int = -1):

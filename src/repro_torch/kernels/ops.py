@@ -17,6 +17,10 @@ Backends (``cfg.decode_backend`` / ``cfg.prefill_backend``):
   ``"dense"``  the model's dense masked-softmax path (no kernel contract;
                handled in ``models.attention``).
 
+The kernels have no backward: on the kernel route every wrapper raises
+when grad mode is on and an input requires grad (``_no_grad_into_kernel``),
+never detaching quietly.
+
 The flat pool layout is the JAX package's: the model-level pool
 [n_pages, Hkv, page, D] reshapes (zero-copy) to [n_pages * Hkv, page, D],
 where page ``p`` of head ``hk`` sits at flat slot ``p * Hkv + hk``.
@@ -39,6 +43,19 @@ from .tp_quant import (cast_and_pack_cuda, cast_and_pack_plain,
                        tp_quantize_cuda, tp_quantize_plain)
 
 BACKENDS = ("auto", "kernel", "plain", "dense")
+
+
+def _no_grad_into_kernel(name: str, *tensors) -> None:
+    """The hand-written kernels have no backward: their outputs carry no
+    ``grad_fn``.  Launching one on an input that requires grad under grad
+    mode would cut the graph without a word, so it raises instead (never
+    detaches).  Training takes the dense path (``Model.forward_train``)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"kernels.ops.{name}: the CUDA kernel has no backward, and an "
+            f"input requires grad; run it under torch.no_grad() or take a "
+            f"differentiable path (prefill_backend='dense' for training)")
 
 
 def resolve_backend(backend: str, device) -> str:
@@ -133,6 +150,7 @@ def flash_attention(q, k, v, *, kv_len=None, policy=None, block_table=None,
         vf = v.reshape(b * hkv, skv, v.shape[-1])
         table = None
     if resolve_backend(backend, q.device) == "kernel":
+        _no_grad_into_kernel("flash_attention", q, k, v)
         fn = flash_attention_cuda
     else:
         fn = functools.partial(flash_attention_plain, block_k=block_k,
@@ -210,6 +228,7 @@ def decode_attention(q, k, v, *, kv_len, policy=None, block_table=None,
     group = h // hkv
     lens = expand_kv_lens(kv_len, b, hkv, smax, q.device)
     if resolve_backend(backend, q.device) == "kernel":
+        _no_grad_into_kernel("decode_attention", q, k, v)
         fn = functools.partial(decode_attention_cuda, cluster=cluster)
     else:
         unit, units = _split_units(k, block_table)
@@ -260,6 +279,7 @@ def tp_matmul(a, b, *, policy=None, out_fmt=None, bk: Optional[int] = None):
         qname = mp.src_fmt.name if mp.src_fmt.name != "fp32" else None
         out_dtype = torch.float32
     if _on_card(a2):
+        _no_grad_into_kernel("tp_matmul", a, b)
         r = tp_matmul_cuda(a2, b2, out_dtype=out_dtype, quant_fmt_name=qname)
     else:
         r = tp_matmul_plain(a2, b2, out_dtype=out_dtype,
@@ -284,8 +304,11 @@ def tp_quantize(x, *, fmt, stochastic: bool = False,
     (on x's device), drawn here and handed to the kernel."""
     fmt = get_format(fmt)
     x = x.to(torch.float32)
+    fn = tp_quantize_plain
+    if _on_card(x):
+        _no_grad_into_kernel("tp_quantize", x)
+        fn = tp_quantize_cuda
     rbits = _rbits(x.shape, generator, x.device) if stochastic else None
-    fn = tp_quantize_cuda if _on_card(x) else tp_quantize_plain
     return fn(x, rbits, fmt_name=fmt.name, stochastic=stochastic,
               out_dtype=out_dtype or torch.float32)
 
@@ -298,8 +321,11 @@ def cast_and_pack(a, b, *, fmt, stochastic: bool = False,
     ``core.ops.cast_and_pack``, which keeps gradual underflow."""
     fmt = get_format(fmt)
     a, b = a.to(torch.float32), b.to(torch.float32)
+    fn = cast_and_pack_plain
+    if _on_card(a):
+        _no_grad_into_kernel("cast_and_pack", a, b)
+        fn = cast_and_pack_cuda
     rbits = _rbits(a.shape, generator, a.device) if stochastic else None
-    fn = cast_and_pack_cuda if _on_card(a) else cast_and_pack_plain
     return fn(a, b, rbits, fmt_name=fmt.name, stochastic=stochastic)
 
 
@@ -310,5 +336,8 @@ def dotp_ex(a, b, *, policy=None):
     policy = get_policy(policy if policy is not None else "tp_fp16")
     src_dt = (policy.matmul.src_fmt.native_dtype
               if policy.mode == "native" else torch.float32)
-    fn = dotp_ex_cuda if _on_card(a) else dotp_ex_plain
+    fn = dotp_ex_plain
+    if _on_card(a):
+        _no_grad_into_kernel("dotp_ex", a, b)
+        fn = dotp_ex_cuda
     return fn(a, b, src_dtype=src_dt).sum()

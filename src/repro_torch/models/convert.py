@@ -10,6 +10,12 @@ f32 router stays f32, an untied ``lm_head`` is carried, and a gelu MLP
 keeps its ``up`` / ``b_up`` / ``down`` / ``b_down`` leaves, biases
 included (granite).  bf16 and fp8 leaves (ml_dtypes arrays) are
 reinterpreted bit for bit.  numpy only: this module never imports jax.
+
+The trainer keeps JAX's own stacked tree instead (its optimizer decays and
+factors leaves by their stacked shapes): ``from_jax_state`` carries a JAX
+``TrainLoop`` state across, ``stack_layers`` stacks the port's own init
+into that layout, and ``layer_views`` hands ``Model`` per-layer views of
+the stacks.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import numpy as np
 import torch
 
 from ..core.device import DeviceLike, resolve_device
+from ..core.tree import leaves, unflatten
 
 _BITCAST = {"bfloat16": (np.uint16, torch.bfloat16),
             "float8_e5m2": (np.uint8, torch.float8_e5m2)}
@@ -36,6 +43,70 @@ def _tree(x, fn):
     if isinstance(x, (list, tuple)):
         return [_tree(v, fn) for v in x]
     return fn(x)
+
+
+def from_jax_tree(tree, device: DeviceLike = None):
+    """Any JAX pytree with numpy leaves (dicts, lists, tuples) -> the same
+    nesting of tensors on ``device``, dtypes and bits kept (lists for
+    tuples)."""
+    device = resolve_device(device)
+    return _tree(tree, lambda a: _to_torch(a, device))
+
+
+def from_jax_state(state, device: DeviceLike = None) -> dict:
+    """A JAX ``TrainLoop`` state ``{"params": ..., "opt": ...}`` (numpy
+    leaves) -> the port trainer's: params in JAX's own layout (``embed``,
+    ``norm_f``, ``prefix`` / ``suffix``, ``pattern`` stacked ``[R, ...]``),
+    the optimizer's ``master``, ``m`` / ``v`` (AdamW) or ``v`` of
+    Adafactor ``row`` / ``col`` / ``full`` dicts on ``device``, and
+    ``step`` as a 0-d int32 tensor on the host (the optimizer's schedule
+    reads it there)."""
+    device = resolve_device(device)
+    opt = {k: from_jax_tree(v, device) for k, v in state["opt"].items()
+           if k != "step"}
+    opt["step"] = torch.tensor(int(np.asarray(state["opt"]["step"])),
+                               dtype=torch.int32)
+    return {"params": from_jax_tree(state["params"], device), "opt": opt}
+
+
+def layer_views(tree) -> dict:
+    """The trainer's JAX-layout params -> the port's per-layer dict whose
+    pattern layers are views of the stacks (``unbind`` along ``R``), so
+    autograd delivers one ``[R, ...]`` gradient per stacked leaf."""
+    pattern = tree["pattern"]
+    stacks = [[t.unbind(0) for t in leaves(p)] for p in pattern]
+    layers = list(tree.get("prefix", ()))
+    for r in range(len(stacks[0][0])):
+        layers += [unflatten(p, [u[r] for u in views])
+                   for p, views in zip(pattern, stacks)]
+    layers += list(tree.get("suffix", ()))
+    out = {"embed": tree["embed"], "norm_f": tree["norm_f"],
+           "layers": layers}
+    if "lm_head" in tree:
+        out["lm_head"] = tree["lm_head"]
+    return out
+
+
+def stack_layers(params: dict, cfg) -> dict:
+    """The port's per-layer params -> JAX's layout (the inverse of
+    ``from_jax_params``): ``prefix`` and ``suffix`` lists, and ``pattern``
+    one dict per pattern position with each leaf stacked over the
+    ``cfg.repeats`` repeats."""
+    layers = params["layers"]
+    n_pre, n_pat, n_suf = len(cfg.prefix), len(cfg.pattern), len(cfg.suffix)
+
+    def stack(j):
+        reps = [layers[n_pre + r * n_pat + j] for r in range(cfg.repeats)]
+        return unflatten(reps[0], [torch.stack(ts) for ts in
+                                   zip(*map(leaves, reps))])
+
+    out = {"embed": params["embed"], "norm_f": params["norm_f"],
+           "prefix": list(layers[:n_pre]),
+           "suffix": list(layers[len(layers) - n_suf:]) if n_suf else [],
+           "pattern": [stack(j) for j in range(n_pat)]}
+    if "lm_head" in params:
+        out["lm_head"] = params["lm_head"]
+    return out
 
 
 def from_jax_params(tree, device: DeviceLike = None) -> dict:

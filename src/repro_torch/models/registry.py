@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` -> (ModelConfig, Model).
 
 Ported: gemma2-9b (GQA), minicpm3-4b (MLA), qwen3-moe-30b-a3b (GQA +
-MoE), deepseek-v2-lite-16b (MLA + MoE) and granite-20b (MQA, group 48,
-gelu MLP with biases), each at full width and as
-``reduced()``; any other arch id raises ``NotImplementedError``."""
+MoE), deepseek-v2-lite-16b (MLA + MoE), granite-20b (MQA, group 48,
+gelu MLP with biases) and fpnew-case-study (the 110M dense LM of the
+training launcher), each at full width and as ``reduced()``; any other
+arch id raises ``NotImplementedError``."""
 from __future__ import annotations
 
 import importlib
@@ -13,12 +14,13 @@ from ..core.policy import get_policy
 from .transformer import Model
 
 ARCHS = ("gemma2_9b", "minicpm3_4b", "qwen3_moe_30b_a3b",
-         "deepseek_v2_lite_16b", "granite_20b")
+         "deepseek_v2_lite_16b", "granite_20b", "fpnew_case_study")
 
 ALIASES = {"gemma2-9b": "gemma2_9b", "minicpm3-4b": "minicpm3_4b",
            "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
            "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
-           "granite-20b": "granite_20b"}
+           "granite-20b": "granite_20b",
+           "fpnew-case-study": "fpnew_case_study"}
 
 
 def canonical(arch: str) -> str:

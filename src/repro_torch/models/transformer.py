@@ -20,6 +20,9 @@ entry points the serving engine drives:
                      (``draft_view``) proposes k tokens, one
                      ``verify_chunk`` accepts the longest matching prefix
                      plus its own next token
+  ``forward_train``  [B, S] tokens and labels -> the LM loss (+ MoE aux)
+                     through the dense attention path, ``chunked_ce`` and
+                     per-pattern-repeat remat: the trainer's forward
 
 Every sampling site goes the same way: optional non-finite guard
 (``sanitize_logits``), repetition / presence penalties from a per-row
@@ -182,6 +185,35 @@ def _penalized(repetition_penalty, presence_penalty) -> bool:
             or (presence_penalty is not None and presence_penalty != 0.0))
 
 
+#: the unbatched matmuls ``remat_policy="dots"`` saves (JAX's
+#: ``dots_with_no_batch_dims_saveable``): the projections' ``mm`` (the
+#: 16-bit-operand f32-output product is ``mm.dtype``); attention's batched
+#: einsums (``bmm``) are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.mm.dtype,
+         torch.ops.aten.addmm.default)
+
+
+def _remat(policy: str):
+    """``fn(*args)`` wrapped in a non-reentrant ``torch.utils.checkpoint``
+    under ``policy`` (``full`` / ``dots``), or None for ``none``."""
+    from torch.utils import checkpoint as ckpt
+    if policy == "none":
+        return None
+    if policy == "full":
+        return functools.partial(ckpt.checkpoint, use_reentrant=False)
+    if policy != "dots":
+        raise ValueError(f"remat_policy must be full|dots|none, got {policy!r}")
+
+    def save_dots(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(
+        ckpt.checkpoint, use_reentrant=False,
+        context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                     save_dots))
+
+
 def _check_supported(cfg: ModelConfig):
     bad = sorted({f"{s.mixer}/{s.ffn}" for s in cfg.layer_list()
                   if s.mixer not in ("gqa", "mla")
@@ -334,13 +366,16 @@ class Model:
     # -- the stack -------------------------------------------------------
     def apply_layer(self, x, p, spec: LayerSpec, *, positions, cache=None,
                     cache_pos=None, kv_len=None, esc_fmts=None,
-                    kv_levels=None, kv_scale=None, verify: bool = False):
+                    kv_levels=None, kv_scale=None, verify: bool = False,
+                    with_aux: bool = False):
         """One block: ``(x, cache)``, or ``(x, cache, kv_flags [B, 2])``
         when ``esc_fmts`` is given (the escalation write path of
         ``attention.gqa_attention``; an MLA layer, as in the JAX package,
         writes its latent cache as it is and contributes zero flags).
         ``verify`` selects the speculative verify read of a GQA layer
-        (``speculate_check`` refuses MLA stacks)."""
+        (``speculate_check`` refuses MLA stacks).  ``with_aux`` (training)
+        appends the layer's MoE load-balancing loss (an f32 zero for a
+        dense FFN)."""
         cfg = self.cfg
         rs = cfg.residual_scale
         h = _norm(x, p["norm1"], cfg)
@@ -374,9 +409,10 @@ class Model:
             mix = _norm(mix, p["post1"], cfg)
         x = x + rs * mix
         h2 = _norm(x, p["norm2"], cfg)
+        aux = None
         if spec.ffn == "moe":
-            f, _ = moe_mod.moe_block(h2, p["mlp"], cfg.moe, self.policy,
-                                     with_aux=False)
+            f, aux = moe_mod.moe_block(h2, p["mlp"], cfg.moe, self.policy,
+                                       with_aux=with_aux)
         elif spec.ffn == "gelu":
             m = p["mlp"]
             f = gelu_mlp(h2, m["up"], m["b_up"], m["down"], m["b_down"],
@@ -386,7 +422,11 @@ class Model:
                        p["mlp"]["down"], self.policy)
         if spec.post_norms:
             f = _norm(f, p["post2"], cfg)
-        return (x + rs * f, cache) + tuple(r[2:])
+        out = (x + rs * f, cache) + tuple(r[2:])
+        if with_aux:
+            out += (aux if aux is not None else
+                    torch.zeros((), dtype=F32, device=x.device),)
+        return out
 
     def _run_stack(self, params, x, *, positions, caches=None,
                    cache_pos=None, kv_len=None, esc_fmts=None,
@@ -415,6 +455,80 @@ class Model:
 
     def _final(self, params, x):
         return _norm(x, params["norm_f"], self.cfg)
+
+    # -- training ----------------------------------------------------------
+    def forward_train(self, params, tokens, labels, *, remat: bool = True,
+                      aux_coef: float = 0.01, loss_chunk: int = 1024):
+        """[B, S] tokens and labels -> the scalar LM loss (mean NLL over
+        labels >= 0, f32 statistics) + ``aux_coef`` x the MoE
+        load-balancing loss, as the JAX package's ``forward_train``.
+
+        ``params`` is the port's per-layer dict or the trainer's JAX-layout
+        tree (``pattern`` stacked ``[R, ...]``), which ``layer_views``
+        unbinds so the gradients land on the stacks.  ``remat`` wraps each
+        repeat of the pattern in ``torch.utils.checkpoint`` under
+        ``cfg.remat_policy``: ``full`` recomputes the group, ``dots`` saves
+        the unbatched matmul outputs and recomputes the rest, ``none``
+        saves everything.  Attention takes the dense masked-softmax path,
+        as JAX's training does: the hand-written kernels have no backward,
+        so any other ``prefill_backend`` raises."""
+        cfg = self.cfg
+        if cfg.prefill_backend != "dense":
+            raise ValueError(
+                f"forward_train needs prefill_backend='dense' (got "
+                f"{cfg.prefill_backend!r}): the attention kernels have no "
+                f"backward; build the model with prefill_backend='dense'")
+        if "pattern" in params:
+            from .convert import layer_views
+            params = layer_views(params)
+        tokens = torch.as_tensor(tokens, device=self.device)
+        labels = torch.as_tensor(labels, device=self.device)
+        x = self.embed(params, tokens)
+        positions = torch.arange(tokens.shape[1], device=self.device)
+        layers, specs = params["layers"], cfg.layer_list()
+        wrap = _remat(cfg.remat_policy) if remat else None
+
+        def run(h, acc, lo, hi):
+            for i in range(lo, hi):
+                h, _, a = self.apply_layer(h, layers[i], specs[i],
+                                           positions=positions,
+                                           with_aux=True)
+                acc = acc + a
+            return h, acc
+
+        aux = torch.zeros((), dtype=F32, device=x.device)
+        n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
+        x, aux = run(x, aux, 0, n_pre)
+        for r in range(cfg.repeats):
+            lo = n_pre + r * n_pat
+            if wrap is None:
+                x, aux = run(x, aux, lo, lo + n_pat)
+            else:
+                x, aux = wrap(run, x, aux, lo, lo + n_pat)
+        x, aux = run(x, aux, len(specs) - len(cfg.suffix), len(specs))
+        x = self._final(params, x)
+        loss = self.chunked_ce(params, x, labels, chunk=loss_chunk)
+        return loss + aux_coef * aux
+
+    def chunked_ce(self, params, x, labels, *, chunk: int = 1024):
+        """Cross-entropy over [B, S] positions a chunk of ``chunk`` at a
+        time, so [B, S, V] logits never exist whole: f32 logits,
+        log-sum-exp and gold logit, labels < 0 masked, the sum over the
+        count of live labels."""
+        s = x.shape[1]
+        chunk = min(chunk, s)
+        tot = torch.zeros((), dtype=F32, device=x.device)
+        cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+        for c0 in range(0, s, chunk):
+            lg = self.logits(params, x[:, c0:c0 + chunk]).to(F32)
+            li = labels[:, c0:c0 + chunk]
+            mask = li >= 0
+            gold = torch.gather(lg, -1, li.clamp(min=0).to(torch.int64)[
+                ..., None])[..., 0]
+            nll = torch.where(mask, torch.logsumexp(lg, dim=-1) - gold, 0.0)
+            tot = tot + nll.sum()
+            cnt = cnt + mask.sum()
+        return tot / cnt.clamp(min=1).to(F32)
 
     # -- entry points ----------------------------------------------------
     def init_caches(self, batch: int, max_len: int, page_table=None,

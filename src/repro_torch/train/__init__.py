@@ -1,1 +1,1 @@
-"""Fault tolerance of the port (serving side)."""
+"""Training (step, loop) and fault tolerance of the port."""

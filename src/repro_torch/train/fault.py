@@ -1,8 +1,9 @@
-"""Fault tolerance (the port of the JAX package's ``train/fault.py``,
-less its training plan):
+"""Fault tolerance (the port of the JAX package's ``train/fault.py``):
 
-  * :class:`StragglerMonitor` — per-burst wall-clock EWMA + deviation
-    flagging,
+  * :class:`StragglerMonitor` — per-step (training) or per-burst
+    (serving) wall-clock EWMA + deviation flagging,
+  * :class:`FailurePlan` — deterministic node-failure injection at chosen
+    training steps (:class:`SimulatedFailure`, each raised once),
   * :class:`ServeFaultPlan` — deterministic injection of page-pool
     exhaustion episodes, slow-burst stragglers, NaN-poisoned logits and
     swap-payload bit flips at chosen rounds (one plan + one queue -> one
@@ -30,7 +31,6 @@ Replica-level counterparts (the fleet of
   * :func:`run_with_restarts` — the supervisor: run, and on a
     :class:`SimulatedFailure` rebuild and run again, bounded.
 
-``FailurePlan`` waits for the training port (ROADMAP Queue 1 item 9).
 Plain Python: no torch.
 """
 from __future__ import annotations
@@ -69,6 +69,19 @@ class StragglerMonitor:
 
 class SimulatedFailure(RuntimeError):
     """Injected node failure."""
+
+
+@dataclasses.dataclass
+class FailurePlan:
+    """Deterministic fault injection: raise at the listed step indices
+    (global step count, each raised once)."""
+    fail_at: tuple = ()
+    raised: set = dataclasses.field(default_factory=set)
+
+    def maybe_fail(self, step: int):
+        if step in self.fail_at and step not in self.raised:
+            self.raised.add(step)
+            raise SimulatedFailure(f"injected node failure at step {step}")
 
 
 class ReplicaLostError(SimulatedFailure):

@@ -1100,3 +1100,124 @@ def test_verify_chunk_against_decode_steps_on_the_card(gen):
     diff = (torch.stack(seq, 1) - v_lg).abs().max().item()
     print(f"verify_chunk vs decode_step on the card: max |dlogits| {diff}")
     assert torch.isfinite(v_lg).all() and diff <= 1e-1
+
+
+# ---------------------------------------------------------------------------
+# training on the card: no kernel under autograd, the dense path's grads
+# ---------------------------------------------------------------------------
+def test_kernel_wrappers_refuse_inputs_that_require_grad(gen):
+    """On the card every kernel wrapper refuses an input that requires grad
+    under grad mode (the kernels have no backward) and launches nothing;
+    under ``no_grad`` the same call launches."""
+    x = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    q, k = x(1, 4, 8, 64).to(torch.bfloat16), x(1, 2, 64, 64).to(
+        torch.bfloat16)
+    w = x(64, 64)
+    calls = {
+        "flash_attention": (flash_attention_cuda, lambda t: kops.flash_attention(
+            q * t[0, 0].to(q.dtype), k, k)),
+        "decode_attention": (decode_attention_cuda, lambda t: kops.decode_attention(
+            q[:, :, :1] * t[0, 0].to(q.dtype), k, k, kv_len=64)),
+        "tp_matmul": (tp_matmul_cuda, lambda t: kops.tp_matmul(t, w)),
+        "tp_quantize": (tp_quantize_cuda, lambda t: kops.tp_quantize(
+            t, fmt="fp8")),
+        "cast_and_pack": (cast_and_pack_cuda, lambda t: kops.cast_and_pack(
+            t, w, fmt="fp8")),
+        "dotp_ex": (dotp_ex_cuda, lambda t: kops.dotp_ex(
+            t.reshape(-1), w.reshape(-1))),
+    }
+    for name, (fn, call) in calls.items():
+        t = w.clone().requires_grad_()
+        before = fn.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(t)
+        assert fn.launches == before, name
+        with torch.no_grad():
+            call(t)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, name
+
+
+def _train_case(policy, device, seed=0):
+    from repro_torch.core.tree import leaves, unflatten
+    from repro_torch.models.convert import stack_layers
+    from repro_torch.models.registry import build_model
+    m = build_model("fpnew-case-study", policy=policy, reduced=True,
+                    device=device, prefill_backend="dense")
+    cpu = build_model("fpnew-case-study", policy=policy, reduced=True,
+                      device="cpu")
+    tree = stack_layers(cpu.init(seed), cpu.cfg)
+    tree = unflatten(tree, [t.to(device) for t in leaves(tree)])
+    g = torch.Generator().manual_seed(seed + 1)
+    toks = torch.randint(0, 256, (4, 64), generator=g, dtype=torch.int32)
+    labels = torch.randint(0, 256, (4, 64), generator=g, dtype=torch.int32)
+    labels[0, :5] = -1
+    flat = [t.detach().requires_grad_() for t in leaves(tree)]
+    loss = m.forward_train(unflatten(tree, flat), toks.to(device),
+                           labels.to(device), loss_chunk=32)
+    grads = torch.autograd.grad(loss, flat)
+    return m, tree, (toks, labels), loss.detach(), grads
+
+
+def _rel(a, b):
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+@pytest.mark.parametrize("policy,loss_tol,grad_tol", [
+    ("fp32", 1e-5, 1e-4), ("tp_bf16", 5e-3, 5e-2)])
+def test_train_step_on_the_card_matches_the_cpu(gen, policy, loss_tol,
+                                                 grad_tol):
+    """Reduced fpnew-case-study: ``forward_train`` loss and every gradient
+    on the card against the CPU, then one ``make_train_step`` step.  Under
+    ``fp32`` the sums differ only in order (TF32 is off): loss within 1e-5
+    relative, gradients within 1e-4 relative L2.  Under ``tp_bf16`` the
+    logits and CE run the f32-output bf16 product (``core.ops._WideMM``),
+    whose backward rounds the cotangent to bf16 on the card, where the CPU
+    path keeps it f32: loss within 5e-3, gradients within 5e-2."""
+    from repro_torch.core.tree import leaves, unflatten
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    m, tree, (toks, labels), loss, grads = _train_case(policy, "cuda")
+    mc, tc, _, loss_c, grads_c = _train_case(policy, "cpu")
+    assert torch.isfinite(loss) and abs(loss.item() - loss_c.item()) <= \
+        loss_tol * abs(loss_c.item())
+    for a, b in zip(grads, grads_c):
+        assert a.dtype == b.dtype and torch.isfinite(a).all()
+        assert _rel(a, b) < grad_tol, _rel(a, b)
+    cfg = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    outs = []
+    for model, params in ((m, tree), (mc, tc)):
+        state = init_opt_state(params, cfg, model.policy)
+        batch = {"tokens": toks.to(model.device),
+                 "labels": labels.to(model.device)}
+        outs.append(make_train_step(model, cfg)(params, state, batch))
+    (p1, s1, met1), (p2, s2, met2) = outs
+    assert abs(met1["loss"].item() - met2["loss"].item()) <= \
+        loss_tol * abs(met2["loss"].item())
+    assert _rel(met1["grad_norm"], met2["grad_norm"]) < grad_tol
+    assert int(s1["step"]) == 1 and s1["step"].device.type == "cpu"
+    for a, b in zip(leaves(p1), leaves(p2)):
+        assert a.device.type == "cuda" and torch.isfinite(a).all()
+
+
+def test_wide_mm_backward_on_the_card(gen):
+    """The bf16-operand, f32-output product's backward: both gradients
+    within one bf16 rounding of the f64 products of the bf16-rounded
+    cotangent with the bf16 operands."""
+    from repro_torch.core import ops as tp
+    a = torch.randn((96, 256), generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    b = torch.randn((256, 160), generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    out = tp.tp_matmul(a, b, "tp_bf16", out_fmt="fp32")
+    assert out.dtype == torch.float32
+    g = torch.randn(out.shape, generator=gen, device="cuda")
+    ga, gb = torch.autograd.grad(out, (a, b), g)
+    assert ga.dtype == gb.dtype == torch.bfloat16
+    g16 = g.to(torch.bfloat16).double()
+    want_a = g16 @ b.detach().double().t()
+    want_b = a.detach().double().t() @ g16
+    for got, want in ((ga, want_a), (gb, want_b)):
+        err = (got.double() - want).abs()
+        assert (err <= 2.0 ** -8 * want.abs() + 1e-6).all(), err.max()

@@ -39,7 +39,12 @@ def _imports(path):
 
 def test_no_module_imports_jax_or_the_jax_package():
     assert len(MODULES) > 20
-    assert PKG / "train" / "fault.py" in MODULES
+    for mod in (("train", "fault.py"), ("train", "loop.py"),
+                ("train", "train_step.py"), ("optim", "optimizer.py"),
+                ("ckpt", "checkpoint.py"), ("data", "pipeline.py"),
+                ("launch", "train.py"), ("core", "tree.py"),
+                ("configs", "fpnew_case_study.py")):
+        assert PKG.joinpath(*mod) in MODULES, mod
     for path in MODULES:
         for name, level, depth in _imports(path):
             top = name.split(".")[0]
@@ -57,6 +62,7 @@ def test_package_imports_with_jax_blocked():
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
+            "sys.modules['ml_dtypes'] = None\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
@@ -72,8 +78,8 @@ def test_package_imports_with_jax_blocked():
 def test_entry_points_without_device_refuse_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible: the default device is valid")
-    from repro_torch.launch import serve
-    from repro_torch.models.convert import from_jax_params
+    from repro_torch.launch import serve, train
+    from repro_torch.models.convert import from_jax_params, from_jax_state
     from repro_torch.models.registry import build_model
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model("gemma2-9b", reduced=True)
@@ -81,6 +87,10 @@ def test_entry_points_without_device_refuse_the_cpu():
         from_jax_params({"pattern": [], "embed": None, "norm_f": None})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--continuous"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_jax_state({"params": {}, "opt": {"step": 0}})
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
