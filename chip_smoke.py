@@ -31,8 +31,14 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    fp8-e5m2 and an f32 pool (``decode_bf16_p64_granite`` on ``mma``,
    ``decode_fp8_p64_granite``, ``decode_f32_p64_granite`` on ``fma``) and
    its 256-token chunk on ``flash_tc`` (``flash_bf16_p64_granite_chunk``,
-   both query tiles); none has a softcap, so SDPA computes each), the
-   plain flash version walking the kernel's own key tiles.
+   both query tiles); the last attention archs' reads
+   (``arch_kernel_cases``): gemma3's windowed decode and chunk at group 2
+   without softcap, internvl2's decode and 1024-query prefill at group 6,
+   whisper's non-causal encoder read (4 x 12 heads x 1500 x 1500 at D
+   64) and cross prefill, its decode over the contiguous 1500-frame cross
+   cache and its self cache at group 1; none has a softcap, so SDPA
+   computes each), the plain flash version walking the kernel's own key
+   tiles.
    One JSON line
    per case: error and tolerance, the variant (and for decode the cluster
    size its launch counted, which must be the one ``cluster_size`` names)
@@ -130,7 +136,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    restart's wall time.
 7. Escalation phase (``escalation_phase``): the bf16 model is freed and
    gemma2-9b is built again under policy ``fp32`` (f32 weights, an f32 KV
-   pool: 34.4 GiB), then served by the escalation engine (4 slots, chunk
+   pool; ``ESCALATION_LAYERS`` = 14 of its 42 layers: 14.0 GiB), then
+   served by the escalation engine (4 slots, chunk
    256, 69 pages of 64; ladder fp8 -> fp16 -> fp16alt at 8 overflow
    flags; overflow injected at rounds 3 and 8) on ``ESCALATION``.  Every
    request gets its budget, escalations >= 1, the ``no_escalate``
@@ -162,7 +169,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    free-routing difference and the flipped choices are reported).
 10. MoE phase (``moe_phase``): deepseek is freed and qwen3-moe-30b-a3b is
    built at full width under ``tp_bf16`` (32 / 4 heads of 128, 128
-   experts top-8; depth cut to ``MOE_LAYERS`` = 24 of 48, 28.6 GiB; all
+   experts top-8; depth cut to ``MOE_LAYERS`` = 16 of 48, 20.0 GiB; all
    48 take 56.9 GiB, the whole card), then serves the
    slice's queue through ``ContinuousEngine`` (4 slots, chunk 256, pages
    of 64).  Gates: budgets, the pool drains, every decode launch ``mma``
@@ -180,8 +187,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 11. Granite phase (``granite_phase``): qwen3-moe is freed and
    granite-20b is built at full width under ``tp_bf16`` (48 query heads
    on one KV head of 128 (MQA: group 48), a gelu MLP with biases, d_ff
-   24576), its depth cut to 26 of 52 layers (19.2 GiB) to keep the
-   smoke near 1100 s, then serves the slice's queue through
+   24576), its depth cut to ``GRANITE_LAYERS`` = 13 of 52 layers, then
+   serves the slice's queue through
    ``ContinuousEngine`` (4 slots, chunk 256, pages of 64).  Gates:
    budgets, the pool drains, every decode launch ``mma`` at group 48
    and at ``cluster_size``'s size, every flash launch ``flash_tc`` at
@@ -190,7 +197,38 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    (4 requests x 8 tokens) under ``tp_bf16_kv8`` with the same gates.
    tok/s, decode ms a round against the weight-read bound, prefill, and
    device busy / idle from a profiled window.
-12. Train phase (``train_phase``): granite is freed and full-width
+12. gemma3 phase (``gemma3_phase``): granite is freed and gemma3-12b is
+   built at full width under ``tp_bf16`` (16 query heads on 8 KV heads of
+   256, window 1024 on 5 of every 6 layers, qk-norm, sandwich norms, no
+   softcap, vocab 262144; ``GEMMA3_LAYERS`` = 12 of 48: two repeats of
+   the pattern), paged in 64-token pages, and serves the slice's queue
+   through ``ContinuousEngine`` (``engine_arch_phase``, as granite's):
+   budgets, drained pool, every decode launch ``mma`` at group 2 and at
+   ``cluster_size``'s size, every flash launch ``flash_tc`` at (256,
+   256), a profiled window, request 2 against the plain versions.
+13. internvl2 phase (``internvl2_phase``): internvl2-26b at full width
+   (48 query heads on 8 KV heads of 128: group 6; d_ff 16384, vocab
+   92553, untied; ``INTERNVL2_LAYERS`` = 8 of 48), paged, through
+   ``Model.generate`` on 4 ragged rows (1024 / 768 / 512 / 300) with
+   seeded patch embeddings [4, 256, 6144], 32 greedy tokens
+   (``generate_arch``): every decode launch ``mma`` at group 6, every
+   flash launch ``flash_tc`` at (128, 128), first-token logits within
+   ``LOGITS_TOL`` of the plain versions' and the streams equal up to a
+   near tie (``stream_near_ties``), a profiled scan; other patch
+   embeddings must move the first-token logits by more than
+   ``2 LOGITS_TOL``.
+14. whisper phase (``whisper_phase``): whisper-small at full width and
+   depth (12 encoder and 12 decoder layers, d 768, 12 heads of 64, d_ff
+   3072, vocab 51865, 1500 frames, learned positions, layernorm; gains,
+   shifts and biases drawn by ``_lively_norms``, since the JAX package's
+   init zeroes a layernorm's gain) through ``Model.generate`` on 4 rows
+   of short ragged prompts with seeded frame embeddings [4, 1500, 768],
+   32 greedy tokens (``generate_arch`` at group 1 and (64, 64)); each
+   prefill launches flash without the causal mask once an encoder layer
+   and once a cross-attention layer (``launches_noncausal``); the
+   encoder states and every layer's cross cache within ``ENCODER_TOL``
+   of the plain path's.
+15. Train phase (``train_phase``): whisper is freed and full-width
    fpnew-case-study (12 layers, d_model 768, 12 heads of 64, d_ff 2048,
    vocab 32000, tied: 109.6M parameters) trains through ``TrainLoop``
    from seed-0 port weights on the JAX launcher's defaults (seq 256,
@@ -207,7 +245,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    have no backward).  ms a step and tokens/s, a profiled 5-step window
    (busy / idle; gemm / attention / optimizer / other by launching op),
    checkpoint GB and save / restore seconds.
-13. The kernels line (all six kernels; flash attention, tp_matmul and decode
+16. The kernels line (all six kernels; flash attention, tp_matmul and decode
    attention with their launches by variant, the FMA variant's time,
    decode's launches by cluster size, flash's by head dims, the flags-on
    time of the main case and of the telemetry cases, the f32-pool case,
@@ -215,7 +253,9 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    (192, 128) case with SDPA's time; decode's launches by group; the
    attention launches summed over the slice, speculative, generate,
    overload, HA, escalation, MLA, DeepSeek, MoE and granite phases, and
-   the granite phase's own), the card line, and as the last
+   the granite phase's own; the gemma3, internvl2 and whisper cases
+   (``arch_cases``) and each of those phases' launches; flash launches
+   without the causal mask), the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Imports no JAX.  Needs one CUDA device and ``nvcc`` (``CUDA_HOME``, PATH
@@ -542,12 +582,13 @@ def _cap_effect(call, got):
 
 def _sdpa_decode(q, k_pool, v_pool, table, kv_len, window):
     """The library yardstick for decode: ``scaled_dot_product_attention``
-    on the gathered contiguous cache with a boolean live-key mask."""
+    on the gathered contiguous cache (``table`` None: the contiguous
+    cache as it is) with a boolean live-key mask."""
     import torch
     import torch.nn.functional as F
     from repro_torch.models.paged import gather_paged_kv
-    kc = gather_paged_kv(k_pool, table).to(q.dtype)
-    vc = gather_paged_kv(v_pool, table).to(q.dtype)
+    kc, vc = ((x if table is None else gather_paged_kv(x, table)).to(q.dtype)
+              for x in (k_pool, v_pool))
     idx = torch.arange(kc.shape[2], device="cuda")[None, :]
     mask = idx < kv_len[:, None]
     if window is not None:
@@ -558,8 +599,12 @@ def _sdpa_decode(q, k_pool, v_pool, table, kv_len, window):
 
 
 def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
-                seed, q_scale=1.0, sweep=False, heads=(8, 2), d=256):
-    """Decode over ``heads`` = (KV heads, group) of head dim ``d``.
+                seed, q_scale=1.0, sweep=False, heads=(8, 2), d=256,
+                strip=None):
+    """Decode over ``heads`` = (KV heads, group) of head dim ``d``, through
+    a page pool of ``page``-token pages or, with ``page == 0``, over
+    contiguous strips of ``strip`` keys (None: the longest row + 1; the
+    kernel splits a strip into 64-key units).
     ``q_scale`` > 1 puts the scores into the softcap's bend; the case
     then also checks that the cap changes the output (``CAP_EFFECT_MIN``).
     The launch must count under the cluster size ``cluster_size`` names.
@@ -571,12 +616,20 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.decode_attention import (
         cluster_size, decode_attention_cuda, decode_route)
+    from repro_torch.kernels.decode_attention import STRIP_UNIT
     b, (hkv, g) = len(kv_lens), heads
     gen = torch.Generator(device="cuda").manual_seed(seed)
     max_len = max(kv_lens) + 1
-    max_pages = -(-max_len // page)
-    k, v, table = _pool_and_table(gen, b, hkv, max_pages, page, d, dtype,
-                                  alias)
+    if page:
+        max_pages = -(-max_len // page)
+        k, v, table = _pool_and_table(gen, b, hkv, max_pages, page, d, dtype,
+                                      alias)
+        unit, units, skv = page, max_pages, max_pages * page
+    else:
+        skv = strip or max_len
+        k, v = (torch.randn((b, hkv, skv, d), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        table, unit, units = None, STRIP_UNIT, -(-skv // STRIP_UNIT)
     policy = pool_policy(dtype)
     q = (torch.randn((b, hkv * g, 1, d), generator=gen, device="cuda")
          * q_scale).to(torch.float32 if policy == "fp32" else torch.bfloat16)
@@ -598,7 +651,7 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
     if routed != ((1, 0) if variant == "mma" else (0, 1)):
         raise AssertionError(f"{name}: launches (mma, fma) {routed}, "
                              f"expected the {variant} route")
-    rule = cluster_size(b * hkv, max_pages, page, window)
+    rule = cluster_size(b * hkv, units, unit, window)
     if ran != [rule]:
         raise AssertionError(f"{name}: launch counted under cluster sizes "
                              f"{ran}, the rule names {rule}")
@@ -609,11 +662,11 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
     live = [min(n, n if window is None else window) for n in kv_lens]
     lo = (torch.zeros_like(kvl) if window is None
           else torch.clamp(kvl - window, min=0))
-    keys = _keys_read(table, page, max_pages * page, lo, kvl)
+    keys = _keys_read(table, page, skv, lo, kvl)
     esz = k.element_size()
     nbytes = (q.numel() * q.element_size() + keys * hkv * d * 2 * esz
               + got.numel() * 4 + kvl.numel() * 4
-              + b * max_pages * 4)
+              + (table.numel() * 4 if page else 0))
     flops = 4.0 * g * d * hkv * sum(live)
     bound_ms, bound_by = bound(nbytes, flops,
                                BF16_FLOP_S if variant == "mma" else F32_FLOP_S)
@@ -621,9 +674,9 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
     lib = None
     if softcap is None:
         lib = device_ms(_sdpa_decode(q, k, v, table, kvl, window))
-    flat = lambda x: x.reshape(-1, page, d)
-    lens = kops.expand_kv_lens(kvl, b, hkv, max_pages * page, q.device)
-    flat_tab = kops.expand_block_table(table, hkv)
+    flat = lambda x: x.reshape(-1, page or skv, d)
+    lens = kops.expand_kv_lens(kvl, b, hkv, skv, q.device)
+    flat_tab = kops.expand_block_table(table, hkv) if page else None
     args = (q.reshape(b * hkv, g, d), flat(k), flat(v), lens, flat_tab)
     kw = dict(scale=d ** -0.5, window=window, softcap=softcap,
               src_dtype=src_dt)
@@ -639,6 +692,7 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
                plain_ms=cuda_ms(lambda: call("plain"), 5),
                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
                shape=dict(slots=b, hkv=hkv, group=g, d=d, page=page,
+                          strip=None if page else skv,
                           kv_len=kv_lens, window=window, softcap=softcap,
                           pool=str(dtype).replace("torch.", "")))
     if sweep:
@@ -769,32 +823,38 @@ def _flat_flash(q, k, v, kvl, table, policy):
     return args, kw
 
 
-def _sdpa_chunk(q, k, v, table, kvl, q_offset):
-    """The library yardstick for a prefill chunk without window or
-    softcap: ``scaled_dot_product_attention`` on the gathered contiguous
-    cache (``table`` None: K/V as they are), with the causal and live-key
-    masks as one boolean mask."""
+def _sdpa_chunk(q, k, v, table, kvl, q_offset, window=None, causal=True):
+    """The library yardstick for a prefill chunk without softcap:
+    ``scaled_dot_product_attention`` on the gathered contiguous cache
+    (``table`` None: K/V as they are), with the live-key, causal and
+    window masks as one boolean mask."""
     import torch
     import torch.nn.functional as F
     from repro_torch.models.paged import gather_paged_kv
     kc, vc = ((x if table is None else gather_paged_kv(x, table)).to(q.dtype)
               for x in (k, v))
-    key = torch.arange(kc.shape[2], device="cuda")
-    qpos = q_offset + torch.arange(q.shape[2], device="cuda")
-    mask = ((key[None, None, :] < kvl[:, None, None])
-            & (key[None, None, :] <= qpos[None, :, None]))[:, None]
-    return lambda: F.scaled_dot_product_attention(q, kc, vc, attn_mask=mask,
-                                                  enable_gqa=True)
+    key = torch.arange(kc.shape[2], device="cuda")[None, None, :]
+    qpos = q_offset + torch.arange(q.shape[2], device="cuda")[None, :, None]
+    mask = key < kvl[:, None, None]
+    if causal:
+        mask = mask & (key <= qpos)
+    if window is not None:
+        mask = mask & (qpos - key < window)
+    return lambda: F.scaled_dot_product_attention(
+        q, kc, vc, attn_mask=mask[:, None], enable_gqa=True)
 
 
 def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
                softcap, alias, seed, q_scale=1.0, policy=None, heads=(8, 2),
-               d=256, dv=None, main=False, pages=None):
+               d=256, dv=None, main=False, pages=None, causal=True,
+               keys=None):
     """A prefill chunk of width ``chunk`` at ``q_offset`` for ``rows``
     live chunk lengths, through the paged pool (``page`` > 0, tables of
     ``pages`` columns, by default just enough for the chunk) or, with
     ``page == 0``, over contiguous K/V (fresh prompt, q_offset 0; V of
-    head dim ``dv``, None: ``d``).
+    head dim ``dv``, None: ``d``) of ``keys`` positions (None: ``chunk``).
+    ``causal=False`` (whisper's encoder and cross-attention): every query
+    reads every live key, ``rows`` then the live keys of each row.
     ``q_scale`` as in :func:`decode_case`.  The plain version walks the
     kernel's own key tiles.  ``main`` cases also time the FMA variant
     (``fma_ms``) and the tensor-core variant with the query tile that
@@ -825,9 +885,9 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
         k, v, table = _pool_and_table(gen, b, hkv, max_pages, page, d, dtype,
                                       alias)
     else:
-        k = torch.randn((b, hkv, chunk, d), generator=gen,
+        k = torch.randn((b, hkv, keys or chunk, d), generator=gen,
                         device="cuda").to(dtype)
-        v = torch.randn((b, hkv, chunk, dv), generator=gen,
+        v = torch.randn((b, hkv, keys or chunk, dv), generator=gen,
                         device="cuda").to(dtype)
         table = None
     bk = kernel_block_k(src_dt, src_fmt, d, dv)
@@ -835,13 +895,17 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
                else "fma")
     call = lambda backend, cap=softcap: kops.flash_attention(
         q, k, v, kv_len=kvl, block_table=table, policy=policy,
-        causal=True, window=window, softcap=cap, q_offset=q_offset,
+        causal=causal, window=window, softcap=cap, q_offset=q_offset,
         backend=backend, block_k=bk)
     before = (flash_attention_cuda.launches_tc,
-              flash_attention_cuda.launches_fma)
+              flash_attention_cuda.launches_fma,
+              flash_attention_cuda.launches_noncausal)
     got = call("kernel")
     routed = (flash_attention_cuda.launches_tc - before[0],
               flash_attention_cuda.launches_fma - before[1])
+    if flash_attention_cuda.launches_noncausal - before[2] != int(not causal):
+        raise AssertionError(f"{name}: the non-causal counter did not count "
+                             f"the launch as {'causal' if causal else 'not'}")
     want = call("plain")
     torch.cuda.synchronize()
     if routed != ((1, 0) if variant == "tc" else (0, 1)):
@@ -854,7 +918,8 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
     # live (query, key) pairs and distinct keys read, from this run's masks:
     # the chunk's first query sees the window's first key
     qpos = q_offset + torch.arange(chunk, device="cuda")[None, :]
-    hi = torch.minimum(kvl[:, None].long(), qpos + 1)
+    hi = (torch.minimum(kvl[:, None].long(), qpos + 1) if causal
+          else kvl[:, None].long().expand(b, chunk))
     lo = (torch.zeros_like(qpos) if window is None
           else torch.clamp(qpos - window + 1, min=0))
     pairs = torch.clamp(hi - lo, min=0).sum().item() * h
@@ -869,14 +934,16 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
     tol = F32_TOL if src_dt == torch.float32 and not src_fmt else KERNEL_TOL
     lib = None
     if (softcap is None and window is None and table is None
-            and q_offset == 0 and min(rows) == chunk
+            and q_offset == 0 and min(rows) == k.shape[2]
             and q_dt != torch.float32):
         lib = device_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))
-    elif softcap is None and window is None and q_dt != torch.float32:
-        lib = device_ms(_sdpa_chunk(q, k, v, table, kvl, q_offset))
+            q, k, v, is_causal=causal, enable_gqa=True))
+    elif softcap is None and q_dt != torch.float32:
+        lib = device_ms(_sdpa_chunk(q, k, v, table, kvl, q_offset, window,
+                                    causal))
     args, kw = _flat_flash(q, k, v, kvl, table, policy)
-    kw.update(causal=True, window=window, softcap=softcap, q_offset=q_offset)
+    kw.update(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
     extra = flash_telemetry(name, args, kw, variant)
     if main:
         rows_planned = plan_q_rows(chunk, b * hkv, g)
@@ -897,6 +964,8 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
                plain_ms=cuda_ms(lambda: call("plain"), 2, warmup=1),
                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
                shape=dict(rows=b, heads=h, hkv=hkv, d=d, dv=dv, chunk=chunk,
+                          keys=k.shape[2] if not page else None,
+                          causal=causal,
                           q_offset=q_offset, page=page, kv_len=kv_lens,
                           window=window, softcap=softcap, policy=policy,
                           pool=str(dtype).replace("torch.", "")))
@@ -1000,7 +1069,7 @@ def kernel_phase() -> dict:
                         rows=[256, 200], q_offset=768, chunk=256,
                         window=4096, softcap=50.0, alias=4, seed=13))
     f.extend(mla_kernel_cases())
-    for cases in (moe_kernel_cases, granite_kernel_cases):
+    for cases in (moe_kernel_cases, granite_kernel_cases, arch_kernel_cases):
         dec, fl = cases()
         recs["decode_attention"].extend(dec)
         f.extend(fl)
@@ -1648,6 +1717,7 @@ def reset_attention_counters() -> None:
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     decode_attention_cuda.launches = flash_attention_cuda.launches = 0
+    flash_attention_cuda.launches_noncausal = 0
     decode_attention_cuda.launches_mma = decode_attention_cuda.launches_fma = 0
     decode_attention_cuda.launches_by_cluster.clear()
     decode_attention_cuda.launches_by_group.clear()
@@ -1689,7 +1759,9 @@ def attention_counters(where: str, rule: set, flash: str = "tc",
                 decode_launches_by_cluster=by_cluster,
                 decode_launches_by_group=dict(
                     decode_attention_cuda.launches_by_group),
-                flash_launches_by_dims=flash_dims())
+                flash_launches_by_dims=flash_dims(),
+                flash_launches_noncausal=(
+                    flash_attention_cuda.launches_noncausal))
 
 
 def flash_dims() -> dict:
@@ -1821,6 +1893,9 @@ def merge_counters(total: dict, part: dict) -> dict:
         for v, n in by.items():
             total["variants"].setdefault(name, {})
             total["variants"][name][v] = total["variants"][name].get(v, 0) + n
+    total["flash_launches_noncausal"] = (
+        total.get("flash_launches_noncausal", 0)
+        + part.get("flash_launches_noncausal", 0))
     return total
 
 
@@ -2803,9 +2878,18 @@ def escalation_gates(fin, stats, plan, reqs, where: str) -> None:
         raise AssertionError(f"{where}: fault log {plan.events}")
 
 
+#: the escalation phase's depth: 14 of gemma2-9b's 42 layers (7 repeats
+#: of its local / global pair; 14.0 GiB of f32 weights, 34.4 at 42), cut
+#: to pay for the gemma3, internvl2 and whisper phases (PERF.md §4 has
+#: the phase times).  The schedule gate holds at any depth: an injected
+#: overflow trips the 8-flag threshold in one layer's write (the CPU run
+#: it is held to has 2 layers)
+ESCALATION_LAYERS = 14
+
+
 def escalation_phase(seed: int = 0) -> dict:
     """Full-width gemma2-9b under policy ``fp32`` (f32 weights and an f32
-    KV pool, 34.4 GiB of weights), served by the escalation engine
+    KV pool; ``ESCALATION_LAYERS`` deep), served by the escalation engine
     (``escalation_engine``) on ``ESCALATION``: greedy, budgets of 24.
     Gates (``escalation_gates``): every request gets its budget and the
     pool drains, escalations >= 1, the refusing request refused (and ends
@@ -2818,11 +2902,13 @@ def escalation_phase(seed: int = 0) -> dict:
     import torch
     from repro_torch.models.registry import build_model
     model = build_model("gemma2-9b", policy="fp32", device="cuda",
-                        paged_kv=True, page_size=64)
+                        paged_kv=True, page_size=64,
+                        n_layers=ESCALATION_LAYERS)
     t0 = time.perf_counter()
     params = model.init(seed)
     torch.cuda.synchronize()
-    log(f"gemma2-9b full width under fp32: weights "
+    log(f"gemma2-9b full width under fp32, {model.cfg.n_layers} layers: "
+        f"weights "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init "
         f"{time.perf_counter() - t0:.1f} s")
     reqs = escalation_queue(model.cfg.vocab, seed)
@@ -2984,27 +3070,9 @@ def mla_generate(arch: str, dims: str, tag: str, layers: int,
     versions (``_generate_vs_plain``); the rope check
     (``_mla_rope_check``).  Prefill s, decode ms per step, tok/s and the
     device's busy share over one scan call (by ``classes``)."""
-    import numpy as np
     import torch
-    from repro_torch.models.registry import build_model
-    free_memory_gate(tag, need_gib)
-    model = build_model(arch, policy="tp_bf16", device="cuda",
-                        n_layers=layers)
-    t0 = time.perf_counter()
-    params = model.init(seed)
-    torch.cuda.synchronize()
-    log(f"{arch} full width: {model.cfg.n_layers} layers, d_model "
-        f"{model.cfg.d_model}, weights "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init "
-        f"{time.perf_counter() - t0:.1f} s")
-    rng = np.random.RandomState(seed + 7)
-    width = max(MLA_PROMPTS)
-    toks = torch.zeros((len(MLA_PROMPTS), width), dtype=torch.int64)
-    for r, n in enumerate(MLA_PROMPTS):
-        toks[r, :n] = torch.from_numpy(rng.randint(0, model.cfg.vocab,
-                                                   size=n))
-    toks = toks.to(model.device)
-    lens = torch.tensor(MLA_PROMPTS, device=model.device)
+    model, params = arch_model(arch, layers, need_gib, tag, seed)
+    toks, lens = _ragged(MLA_PROMPTS, model.cfg.vocab, seed + 7)
     kw = dict(gen_len=MLA_GEN, prompt_lens=lens, return_trips=True)
     model.generate(params, toks, **{**kw, "gen_len": 2})  # warm-up
     torch.cuda.synchronize()
@@ -3069,11 +3137,12 @@ MOE_CLASSES = KERNEL_CLASSES + (
 #: the depths the smoke runs the MLA and MoE models at, half of each
 #: (minicpm3 62, deepseek-v2-lite 27, qwen3-moe 48 layers) to keep the
 #: smoke well inside its limit on the slower hosts (at full depth, with
-#: the train phase, its phases summed to 1199 s on an H100 host); the
-#: launchers serve all
-MLA_LAYERS, DEEPSEEK_LAYERS, MOE_LAYERS = 31, 14, 24
+#: the train phase, its phases summed to 1199 s on an H100 80GB HBM3 at
+#: 700 W), and qwen3-moe a third, beside the gemma3, internvl2 and
+#: whisper phases; the launchers serve all
+MLA_LAYERS, DEEPSEEK_LAYERS, MOE_LAYERS = 31, 14, 16
 #: free device memory the two MoE phases need before their init: weights
-#: (deepseek-v2-lite 15.5 GiB, qwen3-moe 28.6 GiB in bf16 at those
+#: (deepseek-v2-lite 15.5 GiB, qwen3-moe 20.0 GiB in bf16 at those
 #: depths) and room for the padded [E, C, D] expert slabs of a
 #: 4096-token prefill
 DEEPSEEK_NEED_GIB = 22.0
@@ -3094,27 +3163,16 @@ def deepseek_phase(seed: int = 0) -> dict:
 def moe_model(seed: int = 0):
     """qwen3-moe-30b-a3b at full width under ``tp_bf16``, paged in 64-token
     pages, random weights from ``seed``, ``MOE_LAYERS`` of its 48 layers
-    (28.6 GiB)."""
-    import torch
-    from repro_torch.models.registry import build_model
-    free_memory_gate("moe", QWEN3_NEED_GIB)
-    model = build_model("qwen3-moe-30b-a3b", policy="tp_bf16", device="cuda",
-                        paged_kv=True, page_size=64, n_layers=MOE_LAYERS)
-    t0 = time.perf_counter()
-    params = model.init(seed)
-    torch.cuda.synchronize()
-    log(f"qwen3-moe-30b-a3b full width: {model.cfg.n_layers} layers, "
-        f"d_model {model.cfg.d_model}, {model.cfg.moe.n_experts} experts "
-        f"top-{model.cfg.moe.top_k}, weights "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init "
-        f"{time.perf_counter() - t0:.1f} s")
-    return model, params
+    (20.0 GiB)."""
+    return arch_model("qwen3-moe-30b-a3b", MOE_LAYERS, QWEN3_NEED_GIB, "moe",
+                      seed, paged_kv=True, page_size=64)
 
 
-def engine_run(eng, reqs, where: str, rule: set) -> tuple:
+def engine_run(eng, reqs, where: str, rule: set,
+               dims: str = "128x128") -> tuple:
     """One timed engine run after a counter reset, gated: every request
     gets its budget, the pool drains, every decode launch on ``mma`` at a
-    size in ``rule``, every flash launch ``flash_tc`` at (128, 128).
+    size in ``rule``, every flash launch ``flash_tc`` at ``dims``.
     Returns ``(fin, stats, wall, counters)``."""
     import torch
     reset_attention_counters()
@@ -3123,7 +3181,7 @@ def engine_run(eng, reqs, where: str, rule: set) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counted = attention_counters(where, rule)
-    if set(counted["flash_launches_by_dims"]) != {"128x128"}:
+    if set(counted["flash_launches_by_dims"]) != {dims}:
         raise AssertionError(f"{where}: flash launches by dims "
                              f"{counted['flash_launches_by_dims']}")
     for f, r in zip(fin, reqs):
@@ -3364,67 +3422,86 @@ def moe_phase(seed: int = 0) -> dict:
 # ---------------------------------------------------------------------------
 # phase 11: granite-20b (MQA, group 48) through the paged engine
 # ---------------------------------------------------------------------------
-#: layers of the granite phase: depth cut from 52 to 26 (the pattern is
-#: one layer) to keep the whole smoke near 1100 s; at full depth the
-#: phase took 100.9 s of a 1121 s smoke (PERF.md §4), and
+#: layers of the granite phase: 13 of 52 (the pattern is one layer), cut
+#: to keep the whole smoke inside its time limit beside the other phases
+#: (PERF.md §4 has the phase times);
 #: ``python -m repro_torch.launch.serve --arch granite-20b --full
 #: --continuous`` serves all 52
-GRANITE_LAYERS = 26
+GRANITE_LAYERS = 13
 #: free device memory the granite phase needs before its init: 19.2 GiB
-#: of bf16 weights at 26 layers, the KV pools (one KV head: 512 bytes a
-#: token a layer) and a 256-token chunk's activations at d_ff 24576
+#: of bf16 weights at 26 layers (10.0 at 13), the KV pools (one KV head:
+#: 512 bytes a token a layer) and a 256-token chunk's activations at d_ff
+#: 24576
 GRANITE_NEED_GIB = 24.0
 #: the granite group every decode launch of the phase must run at
 GRANITE_GROUP = 48
 
 
-def granite_model(seed: int = 0, layers: int = GRANITE_LAYERS):
-    """granite-20b at full width under ``tp_bf16`` cut to ``layers``
-    layers, paged in 64-token pages, random weights from ``seed``."""
+def arch_model(arch: str, layers: int, need_gib: float, tag: str,
+               seed: int = 0, **cfg):
+    """``arch`` at full width under ``tp_bf16`` cut to ``layers`` layers
+    (None: all), random weights from ``seed``, after the free-memory
+    gate; ``cfg`` overrides config fields (``paged_kv``, ``page_size``)."""
     import torch
     from repro_torch.models.registry import build_model
-    free_memory_gate("granite", GRANITE_NEED_GIB)
-    model = build_model("granite-20b", policy="tp_bf16", device="cuda",
-                        paged_kv=True, page_size=64, n_layers=layers)
+    free_memory_gate(tag, need_gib)
+    if layers is not None:
+        cfg["n_layers"] = layers
+    model = build_model(arch, policy="tp_bf16", device="cuda", **cfg)
     t0 = time.perf_counter()
     params = model.init(seed)
     torch.cuda.synchronize()
-    cfg = model.cfg
-    log(f"granite-20b full width: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} KV head "
-        f"of {cfg.head_dim}, d_ff {cfg.d_ff}, weights "
+    c = model.cfg
+    log(f"{arch} full width: {c.n_layers} layers, d_model {c.d_model}, "
+        f"{c.n_heads} heads on {c.n_kv_heads} KV heads of {c.head_dim}, "
+        f"d_ff {c.d_ff}, vocab {c.vocab}, weights "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init "
         f"{time.perf_counter() - t0:.1f} s")
     return model, params
 
 
-def granite_groups(where: str, counted: dict) -> None:
-    """Every decode launch of a granite run at ``GRANITE_GROUP``."""
+def granite_model(seed: int = 0, layers: int = GRANITE_LAYERS):
+    """granite-20b at full width under ``tp_bf16`` cut to ``layers``
+    layers, paged in 64-token pages, random weights from ``seed``."""
+    return arch_model("granite-20b", layers, GRANITE_NEED_GIB, "granite",
+                      seed, paged_kv=True, page_size=64)
+
+
+def groups_gate(where: str, counted: dict, group: int) -> None:
+    """Every decode launch of a run at group ``group``."""
     by_group = counted["decode_launches_by_group"]
-    if set(by_group) != {GRANITE_GROUP}:
+    if set(by_group) != {group}:
         raise AssertionError(f"{where}: decode launches by group "
-                             f"{by_group}, all must be at G "
-                             f"{GRANITE_GROUP}")
+                             f"{by_group}, all must be at G {group}")
 
 
 def granite_phase(seed: int = 0) -> dict:
     """granite-20b at full width (``granite_model``: 48 query heads on one
     KV head of 128, a gelu MLP with biases; ``GRANITE_LAYERS`` of its 52
-    layers) served by
-    ``ContinuousEngine`` (4 slots, chunk 256, pages of 64) on the slice's
-    queue (``PROMPTS`` at ``ARRIVALS``, ``GEN`` tokens).  Gates
-    (``engine_run``): budgets, the pool drains, every decode launch on
-    ``mma`` at the cluster size ``cluster_size`` names and at group 48,
-    every flash launch ``flash_tc`` at (128, 128).  A profiled window (the
-    first four requests, 8 tokens) gives device time by class and the
-    idle share.  Request 2 (512 tokens) again on the plain versions:
-    first-token logits within ``LOGITS_TOL``, the same first token,
-    greedy tokens equal up to a near tie.  A short run under
-    ``tp_bf16_kv8`` (the fp8 pool) on that window, with the same gates."""
+    layers) through ``engine_arch_phase``, with a short run under
+    ``tp_bf16_kv8`` (the fp8 pool) on the profiled window, with the same
+    gates."""
+    model, params = granite_model(seed)
+    return engine_arch_phase(model, params, "granite", GRANITE_GROUP,
+                             "128x128", kv8=True, seed=seed)
+
+
+def engine_arch_phase(model, params, tag: str, group: int, dims: str,
+                      kv8: bool = False, seed: int = 0) -> dict:
+    """``model`` (paged, 64-token pages) served by ``ContinuousEngine`` (4
+    slots, chunk 256) on the slice's queue (``PROMPTS`` at ``ARRIVALS``,
+    ``GEN`` tokens).  Gates (``engine_run``): budgets, the pool drains,
+    every decode launch on ``mma`` at the cluster size ``cluster_size``
+    names and at group ``group``, every flash launch ``flash_tc`` at
+    ``dims``.  A profiled window (the first four requests, 8 tokens)
+    gives device time by class and the idle share.  Request 2 (512
+    tokens) again on the plain versions: first-token logits within
+    ``LOGITS_TOL``, the same first token, greedy tokens equal up to a
+    near tie.  ``kv8``: the window again under ``tp_bf16_kv8``."""
     import torch
     from repro_torch.launch.engine import ContinuousEngine, Request
 
-    model, params = granite_model(seed)
+    arch = model.cfg.name
     reqs = slice_requests(model, seed)
     window = [dataclasses.replace(r, max_new=min(8, GEN), arrival=0)
               for r in reqs[:4]]
@@ -3435,10 +3512,10 @@ def granite_phase(seed: int = 0) -> dict:
                            chunk=256)
     eng.run(warm)
     rule = cluster_rule(model, eng.slots, eng.max_pages)
-    fin, stats, wall, counted = engine_run(eng, reqs, "granite", rule)
-    granite_groups("granite", counted)
+    fin, stats, wall, counted = engine_run(eng, reqs, tag, rule, dims)
+    groups_gate(tag, counted, group)
     n_tok = sum(len(f.tokens) for f in fin)
-    res = dict(arch="granite-20b", layers=model.cfg.n_layers,
+    res = dict(arch=arch, layers=model.cfg.n_layers,
                requests=len(fin),
                prompt_tokens=sum(PROMPTS), generated_tokens=n_tok,
                wall_s=wall, prefill_ms=stats["prefill_s"] * 1e3,
@@ -3449,14 +3526,14 @@ def granite_phase(seed: int = 0) -> dict:
                weight_read_bound_ms=sum(
                    t.numel() * t.element_size() for t in _leaves(params))
                / HBM_BYTES_S * 1e3)
-    log(json.dumps({"granite_serve": dict(res, **counted)}))
+    log(json.dumps({f"{tag}_serve": dict(res, **counted)}))
     t0 = time.perf_counter()
     eng.run(window)
     torch.cuda.synchronize()
     res["where_the_time_goes"] = dict(
         requests=len(window), max_new=window[0].max_new,
         **device_profile(lambda: eng.run(window), time.perf_counter() - t0))
-    log(json.dumps({"granite_where_the_time_goes":
+    log(json.dumps({f"{tag}_where_the_time_goes":
                     res["where_the_time_goes"]}))
     del eng
 
@@ -3469,14 +3546,14 @@ def granite_phase(seed: int = 0) -> dict:
     lg_k, _ = model.prefill(params, toks, max_len=n + GEN)
     lg_p, _ = plain.prefill(params, toks, max_len=n + GEN)
     if not (torch.isfinite(lg_k).all() and torch.isfinite(lg_p).all()):
-        raise AssertionError("granite: first-token logits are not finite")
+        raise AssertionError(f"{tag}: first-token logits are not finite")
     lerr = (lg_k - lg_p).abs().max().item()
     solo = ContinuousEngine(plain, params, slots=1, max_len=n + GEN,
                             chunk=256)
     (fin_p,), _ = solo.run([Request(rid=0, tokens=req.tokens, max_new=GEN)])
     del solo
     tie = near_tie_check(model, params, req, fin_p.tokens, fin[pick].tokens,
-                         lerr, where="granite")
+                         lerr, where=tag)
     top2 = lg_p[0, -1].topk(2).values
     res["plain_vs_kernel"] = dict(
         request=pick, prompt=n, logits_max_abs_err=lerr,
@@ -3487,22 +3564,375 @@ def granite_phase(seed: int = 0) -> dict:
         greedy_tokens_agree=sum(a == b for a, b in zip(fin[pick].tokens,
                                                        fin_p.tokens)),
         of=GEN, near_tie=tie)
-    log(json.dumps({"granite_plain_vs_kernel": res["plain_vs_kernel"]}))
+    log(json.dumps({f"{tag}_plain_vs_kernel": res["plain_vs_kernel"]}))
     if not lerr <= LOGITS_TOL:
-        raise AssertionError(f"granite: first-token logits differ by {lerr}")
+        raise AssertionError(f"{tag}: first-token logits differ by {lerr}")
     if not res["plain_vs_kernel"]["first_token_agree"]:
-        raise AssertionError("granite: the first generated token differs "
-                             "between the kernel path and the plain path")
+        raise AssertionError(f"{tag}: the first generated token differs "
+                             f"between the kernel path and the plain path")
 
-    res["kv8"], c8 = kv8_window(model, params, warm, window, fin, max_len,
-                                rule, "granite")
-    granite_groups("granite kv8", c8)
-    counted = merge_counters(counted, c8)
+    if kv8:
+        res["kv8"], c8 = kv8_window(model, params, warm, window, fin,
+                                    max_len, rule, tag)
+        groups_gate(f"{tag} kv8", c8, group)
+        counted = merge_counters(counted, c8)
     res.update(card=card_line(), **counted)
-    log(json.dumps({"granite": {k: v for k, v in res.items()
-                                if k not in ("kv8", "where_the_time_goes",
-                                             "plain_vs_kernel")}}))
+    log(json.dumps({tag: {k: v for k, v in res.items()
+                          if k not in ("kv8", "where_the_time_goes",
+                                       "plain_vs_kernel")}}))
     return res
+
+
+# ---------------------------------------------------------------------------
+# phases 12-14: the last attention archs (gemma3, internvl2, whisper)
+# ---------------------------------------------------------------------------
+#: gemma3-12b's depth in the smoke: two repeats of its 5-local-1-global
+#: pattern (12 of 48 layers, 7.1 GiB of bf16 weights with the 262144-row
+#: embedding), paid for by the cuts in ``ESCALATION_LAYERS``,
+#: ``GRANITE_LAYERS`` and ``MOE_LAYERS``; the launchers serve all 48
+GEMMA3_LAYERS = 12
+GEMMA3_NEED_GIB = 14.0
+#: internvl2-26b's depth: 8 of 48 layers (4.3B parameters, 8.2 GiB)
+INTERNVL2_LAYERS = 8
+INTERNVL2_NEED_GIB = 14.0
+#: internvl2's ragged rows (each at least its 256 patch positions + text)
+#: and its group (48 query heads on 8 KV heads)
+INTERNVL2_PROMPTS = (1024, 768, 512, 300)
+INTERNVL2_GROUP = 6
+#: whisper-small runs at full depth (12 encoder + 12 decoder layers,
+#: 290M parameters): 4 rows of short ragged decoder prompts, 32 tokens
+WHISPER_PROMPTS = (32, 24, 16, 8)
+WHISPER_NEED_GIB = 4.0
+#: whisper's encoder states and cross caches, kernel path against the
+#: plain path: 12 bidirectional bf16 layers of 1500 frames carry last-bit
+#: differences of the attention's p rounding as the decoder's 12 layers
+#: carry them into the logits (``LOGITS_TOL``); the states are
+#: layer-normed (unit scale), so the same absolute bound applies
+ENCODER_TOL = LOGITS_TOL
+
+
+def arch_kernel_cases() -> tuple:
+    """The gemma3, internvl2 and whisper phases' attention reads at their
+    serving shapes, as ``(decode records, flash records)``; none has a
+    softcap, so SDPA computes each (``library_ms``).
+
+    gemma3-12b (16 / 8 heads of 256, group 2): decode on a local layer
+    (window 1024) over the slice's 4 slots, and a 256-token chunk at
+    q_offset 1792 of two 4080-token prompts, whose window drops the keys
+    left of 769.  internvl2-26b (48 / 8 heads of 128, group 6: 6 live
+    heads of the decode kernel's tile of 8, and 128 // 6 = 21 query
+    positions of a 128-row ``flash_tc`` tile, 10 of a 64-row one): the
+    generate phase's last decode step over its paged ragged rows, and its
+    1024-query prefill from position 0.  whisper-small (12 heads of 64,
+    group 1): the encoder's non-causal read (4 rows x 1500 x 1500), the
+    cross-attention prefill (a 32-token prompt x 1500 frames, non-causal),
+    decode over the contiguous 1500-frame cross cache and over the
+    decoder's contiguous self cache."""
+    import torch
+    bf16 = torch.bfloat16
+    g3 = dict(window=1024, softcap=None, heads=(8, 2), d=256)
+    iv = dict(window=None, softcap=None, heads=(8, INTERNVL2_GROUP), d=128)
+    wh = dict(window=None, softcap=None, heads=(12, 1), d=64)
+    frames = 1500
+    width = max(WHISPER_PROMPTS)
+    dec = [decode_case("decode_bf16_p64_gemma3", dtype=bf16, page=64,
+                       kv_lens=[1056, 540, 0, 4111], alias=4, seed=30, **g3),
+           decode_case("decode_bf16_p64_internvl2", dtype=bf16, page=64,
+                       kv_lens=[p + GEN_LEN - 1 for p in INTERNVL2_PROMPTS],
+                       alias=0, seed=31, **iv),
+           decode_case("decode_bf16_whisper_cross", dtype=bf16, page=0,
+                       kv_lens=[frames] * 4, strip=frames, alias=0, seed=32,
+                       **wh),
+           decode_case("decode_bf16_whisper_self", dtype=bf16, page=0,
+                       kv_lens=[p + GEN_LEN - 1 for p in WHISPER_PROMPTS],
+                       strip=width + GEN_LEN, alias=0, seed=33, **wh)]
+    fl = [flash_case("flash_bf16_p64_gemma3_chunk", dtype=bf16, page=64,
+                     rows=[256, 256], q_offset=1792, chunk=256, alias=4,
+                     seed=34, **g3),
+          flash_case("flash_bf16_p64_internvl2", dtype=bf16, page=64,
+                     rows=list(INTERNVL2_PROMPTS), q_offset=0,
+                     chunk=max(INTERNVL2_PROMPTS), alias=0, seed=35,
+                     pages=-(-(max(INTERNVL2_PROMPTS) + GEN_LEN) // 64),
+                     main=True, **iv),
+          flash_case("flash_bf16_whisper_encoder", dtype=bf16, page=0,
+                     rows=[frames] * 4, q_offset=0, chunk=frames, alias=0,
+                     seed=36, causal=False, main=True, **wh),
+          flash_case("flash_bf16_whisper_cross", dtype=bf16, page=0,
+                     rows=[frames] * 4, q_offset=0, chunk=width,
+                     keys=frames, alias=0, seed=37, causal=False, **wh)]
+    return dec, fl
+
+
+def gemma3_phase(seed: int = 0) -> dict:
+    """gemma3-12b at full width under ``tp_bf16`` (16 query heads on 8 KV
+    heads of 256, window 1024 on 5 of every 6 layers, qk-norm, sandwich
+    norms, no softcap; ``GEMMA3_LAYERS`` of its 48 layers), paged in
+    64-token pages, through ``engine_arch_phase`` on the slice's queue:
+    every decode launch at group 2, every flash launch ``flash_tc`` at
+    (256, 256)."""
+    model, params = arch_model("gemma3-12b", GEMMA3_LAYERS, GEMMA3_NEED_GIB,
+                               "gemma3", seed, paged_kv=True, page_size=64)
+    return engine_arch_phase(model, params, "gemma3", 2, "256x256",
+                             seed=seed)
+
+
+def _ragged(prompts, vocab: int, seed: int):
+    """Right-padded prompt tokens [len(prompts), max] from ``seed`` and
+    their lengths, on the card."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    toks = torch.zeros((len(prompts), max(prompts)), dtype=torch.int64)
+    for r, n in enumerate(prompts):
+        toks[r, :n] = torch.from_numpy(rng.randint(0, vocab, size=n))
+    return toks.cuda(), torch.tensor(prompts, device="cuda")
+
+
+def stream_near_ties(where: str, got, plain, plain_logits) -> list:
+    """Greedy streams ``got`` (kernel path) against ``plain`` [B, T] (the
+    plain path's, with its logits [B, T, V]): where a row first parts, the
+    kernel path saw the plain path's own history, so the two candidates'
+    plain logits must lie within ``2 LOGITS_TOL`` (each path's logits
+    within ``LOGITS_TOL`` of the other's).  Returns one record a row that
+    parts."""
+    ties = []
+    for r in range(got.shape[0]):
+        diff = (got[r] != plain[r]).nonzero()
+        if not len(diff):
+            continue
+        s = int(diff[0])
+        a, b = int(plain[r, s]), int(got[r, s])
+        gap = abs(plain_logits[r, s, a].item() - plain_logits[r, s, b].item())
+        rec = dict(row=r, step=s, plain_token=a, token=b, gap=gap,
+                   bound=2 * LOGITS_TOL)
+        ties.append(rec)
+        if not gap <= rec["bound"]:
+            raise AssertionError(f"{where}: row {r} parts from the plain "
+                                 f"stream at step {s} away from a near tie: "
+                                 f"{rec}")
+    return ties
+
+
+def generate_arch(model, params, toks, lens, tag: str, fe, rule: set,
+                  group: int, dims: str, gen_len: int = GEN_LEN,
+                  classes=None, plain_ctx=None) -> tuple:
+    """``Model.generate`` of ``toks`` (``lens`` live) with frontend
+    embeddings ``fe``, greedy: a warm-up, then the prefill and first
+    token alone and the whole scan, both timed after a counter reset and
+    gated (``attention_counters``: every decode launch ``mma`` at a size
+    in ``rule`` and at group ``group``, every flash launch ``flash_tc`` at
+    ``dims``); one more scan under the profiler.  Then the plain versions'
+    whole scan: first-token logits within ``LOGITS_TOL``, streams equal
+    up to a near tie (``stream_near_ties``), under ``plain_ctx`` (a context
+    manager, e.g. ``EncodeTape.record()``).  Returns ``(record, counters,
+    first-token logits)``."""
+    import torch
+    kw = dict(prompt_lens=lens, frontend_embeds=fe, return_logits=True)
+    model.generate(params, toks, gen_len=2, **kw)         # warm-up
+    torch.cuda.synchronize()
+    reset_attention_counters()
+    t0 = time.perf_counter()
+    first = model.generate(params, toks, gen_len=1, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gen, lgs = model.generate(params, toks, gen_len=gen_len, **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counted = attention_counters(tag, rule)
+    groups_gate(tag, counted, group)
+    if set(counted["flash_launches_by_dims"]) != {dims}:
+        raise AssertionError(f"{tag}: flash launches by dims "
+                             f"{counted['flash_launches_by_dims']}")
+    if not torch.equal(first[0][:, 0], gen[:, 0]):
+        raise AssertionError(f"{tag}: the first token of the scan differs "
+                             f"from the prefill's")
+    where = device_profile(lambda: model.generate(params, toks,
+                                                  gen_len=gen_len, **kw),
+                           t2 - t1, classes)
+    plain = model.with_cfg(decode_backend="plain", prefill_backend="plain")
+    t3 = time.perf_counter()
+    with plain_ctx or contextlib.nullcontext():
+        gen_p, lgs_p = plain.generate(params, toks, gen_len=gen_len, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t3
+    if not (lgs.isfinite().all() and lgs_p.isfinite().all()):
+        raise AssertionError(f"{tag}: logits are not finite")
+    lerr = (lgs[:, 0] - lgs_p[:, 0]).abs().max().item()
+    if not lerr <= LOGITS_TOL:
+        raise AssertionError(f"{tag}: first-token logits differ from the "
+                             f"plain path's by {lerr}")
+    ties = stream_near_ties(tag, gen, gen_p, lgs_p)
+    n_tok = gen.numel()
+    rec = dict(rows=toks.shape[0], prompts=lens.tolist(), gen_len=gen_len,
+               prefill_s=t1 - t0, scan_s=t2 - t1,
+               decode_ms_per_step=(t2 - t1 - (t1 - t0)) * 1e3
+               / (gen_len - 1), tok_s=n_tok / (t2 - t1), plain_s=plain_s,
+               plain_vs_kernel=dict(
+                   logits_max_abs_err=lerr, logits_tol=LOGITS_TOL,
+                   logits_absmax=lgs[..., :model.cfg.vocab].abs().max()
+                   .item(),
+                   tokens_agree=int((gen == gen_p).sum()), of=n_tok,
+                   near_ties=ties),
+               greedy_heads=gen[:, :8].tolist(), where_the_time_goes=where)
+    return rec, counted, lgs[:, 0]
+
+
+def internvl2_phase(seed: int = 0) -> dict:
+    """internvl2-26b at full width under ``tp_bf16`` (48 query heads on 8
+    KV heads of 128: group 6; d_ff 16384, vocab 92553, untied;
+    ``INTERNVL2_LAYERS`` of its 48 layers), paged in 64-token pages,
+    through ``Model.generate``: 4 ragged rows (``INTERNVL2_PROMPTS``),
+    ``GEN_LEN`` greedy tokens, seeded patch embeddings [4, 256, 6144]
+    over the first 256 positions (``generate_arch``'s gates: decode at
+    group 6, flash ``flash_tc`` at (128, 128)).  One more gate: other
+    patch embeddings move the first-token logits by more than
+    ``2 LOGITS_TOL``, so the overwrite is not dropped."""
+    import torch
+    model, params = arch_model("internvl2-26b", INTERNVL2_LAYERS,
+                               INTERNVL2_NEED_GIB, "internvl2", seed,
+                               paged_kv=True, page_size=64)
+    cfg = model.cfg
+    toks, lens = _ragged(INTERNVL2_PROMPTS, cfg.vocab, seed + 9)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    patches = torch.randn((len(INTERNVL2_PROMPTS), cfg.n_frontend_tokens,
+                           cfg.d_model), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+    max_len = max(INTERNVL2_PROMPTS) + GEN_LEN
+    rule = cluster_rule(model, len(INTERNVL2_PROMPTS), -(-max_len // 64))
+    rec, counted, lg0 = generate_arch(model, params, toks, lens,
+                                      "internvl2", patches, rule,
+                                      INTERNVL2_GROUP, "128x128")
+    other = torch.randn(patches.shape, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    lg_other = model.generate(params, toks, gen_len=1, prompt_lens=lens,
+                              frontend_embeds=other,
+                              return_logits=True)[1][:, 0]
+    moved = (lg_other - lg0).abs().max().item()
+    rec.update(arch=cfg.name, layers=cfg.n_layers,
+               patch_positions=cfg.n_frontend_tokens,
+               other_patches_move_logits=moved, card=card_line(), **counted)
+    log(json.dumps({"internvl2": rec}))
+    if not moved > 2 * LOGITS_TOL:
+        raise AssertionError(f"internvl2: other patch embeddings move the "
+                             f"first-token logits by {moved} only")
+    return rec
+
+
+def _lively_norms(params, seed: int) -> None:
+    """Gains ~ 1 + 0.1 N, shifts and MLP biases ~ 0.1 N, in place: the JAX
+    package's init (which the port's follows) zeroes a layernorm's gain,
+    so an untrained whisper's every state, and so its logits, are 0."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def walk(t, key=None):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, k)
+        elif isinstance(t, list):
+            for v in t:
+                walk(v)
+        elif key in ("g", "b", "b_up", "b_down"):
+            n = torch.randn(t.shape, generator=gen, device=t.device) * 0.1
+            t.copy_(n + 1.0 if key == "g" else n)
+    walk(params)
+
+
+class EncodeTape:
+    """The encoder states ``models.transformer.encode`` returns while
+    ``record()`` is active: the plain pass's states, taken from its own
+    prefill rather than from a second walk of the plain encoder."""
+
+    def __init__(self):
+        self.states = []
+
+    @contextlib.contextmanager
+    def record(self):
+        from repro_torch.models import transformer
+        orig = transformer.encode
+
+        def rec(*args, **kw):
+            out = orig(*args, **kw)
+            self.states.append(out)
+            return out
+        transformer.encode = rec
+        try:
+            yield self
+        finally:
+            transformer.encode = orig
+
+
+def whisper_phase(seed: int = 0) -> dict:
+    """whisper-small at full width and depth under ``tp_bf16`` (12
+    encoder and 12 decoder layers, d 768, 12 heads of 64, d_ff 3072, vocab
+    51865, 1500 frames, learned positions, layernorm; norms and biases
+    drawn by ``_lively_norms``) through ``Model.generate``: 4 rows of
+    ``WHISPER_PROMPTS``, ``GEN_LEN`` greedy tokens, seeded frame
+    embeddings [4, 1500, 768] (``generate_arch``'s gates: decode at group
+    1 on the contiguous self and cross caches, flash ``flash_tc`` at (64,
+    64)).  Gates of its own: each prefill launches flash without the
+    causal mask once a layer of the encoder and of the decoder's
+    cross-attention, and causally once a decoder layer; the encoder
+    states and every layer's cross cache within ``ENCODER_TOL`` of the
+    plain path's (the plain states taken from the plain generate's own
+    prefill, ``EncodeTape``; the cache against them projected by the
+    layer's own weights: what the plain prefill writes)."""
+    import torch
+    from repro_torch.core import ops as tp
+    from repro_torch.kernels.decode_attention import STRIP_UNIT, cluster_size
+    model, params = arch_model("whisper-small", None, WHISPER_NEED_GIB,
+                               "whisper", seed)
+    _lively_norms(params, seed + 11)
+    cfg, e = model.cfg, model.cfg.encoder
+    b = len(WHISPER_PROMPTS)
+    toks, lens = _ragged(WHISPER_PROMPTS, cfg.vocab, seed + 12)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    frames = torch.randn((b, e.n_frames, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    max_len = max(WHISPER_PROMPTS) + GEN_LEN
+    rows = b * cfg.n_kv_heads
+    rule = {cluster_size(rows, -(-n // STRIP_UNIT), STRIP_UNIT)
+            for n in (max_len, e.n_frames)}
+    tape = EncodeTape()
+    rec, counted, _ = generate_arch(model, params, toks, lens, "whisper",
+                                    frames, rule, 1, "64x64",
+                                    plain_ctx=tape.record())
+    # the two timed calls hold two prefills: 12 encoder + 12 cross
+    # launches without the causal mask, 12 decoder launches with it, each
+    nc = counted["flash_launches_noncausal"]
+    want = (2 * (e.n_layers + cfg.n_layers), 2 * cfg.n_layers)
+    got = (nc, counted["launches"]["flash_attention"] - nc)
+    if got != want:
+        raise AssertionError(f"whisper: flash launches (non-causal, causal) "
+                             f"{got}, expected {want}")
+    enc_k = model.encode(params, frames)
+    enc_p = tape.states[0]
+    _, caches = model.prefill(params, toks, max_len=max_len,
+                              prompt_lens=lens, frontend_embeds=frames)
+    xerr = 0.0
+    for lp, c in zip(params["layers"], caches):
+        for name, buf in (("wk", c.xkv.k), ("wv", c.xkv.v)):
+            want_kv = tp.tp_matmul(enc_p, lp["xattn"][name], model.policy)
+            want_kv = want_kv.reshape(b, e.n_frames, cfg.n_kv_heads,
+                                      cfg.head_dim).transpose(1, 2)
+            xerr = max(xerr, (buf.float() - want_kv.float()).abs().max()
+                       .item())
+    eerr = (enc_k.float() - enc_p.float()).abs().max().item()
+    rec.update(arch=cfg.name, encoder_layers=e.n_layers,
+               decoder_layers=cfg.n_layers, frames=e.n_frames,
+               flash_noncausal_launches=nc,
+               encoder_max_abs_err=eerr,
+               encoder_absmax=enc_k.float().abs().max().item(),
+               cross_cache_max_abs_err=xerr, encoder_tol=ENCODER_TOL,
+               card=card_line(), **counted)
+    log(json.dumps({"whisper": rec}))
+    if not eerr <= ENCODER_TOL:
+        raise AssertionError(f"whisper: encoder states differ from the "
+                             f"plain path's by {eerr}")
+    if not xerr <= ENCODER_TOL:
+        raise AssertionError(f"whisper: cross caches differ from the plain "
+                             f"path's by {xerr}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -3861,14 +4291,23 @@ def main() -> int:
     serving.append(moe_phase())
     lap("moe")
     gc_cuda()
-    serving.append(granite_phase())
+    granite = granite_phase()
+    serving.append(granite)
     lap("granite")
     gc_cuda()
+    archs = {}
+    for tag, phase in (("gemma3", gemma3_phase),
+                       ("internvl2", internvl2_phase),
+                       ("whisper", whisper_phase)):
+        archs[tag] = phase()
+        serving.append(archs[tag])
+        lap(tag)
+        gc_cuda()
     train_phase()
     lap("train")
     log(json.dumps({"phase_s": phase_s}))
     launches, variants, by_cluster = dict(op_res["launches"]), {}, {}
-    by_dims, by_group = {}, {}
+    by_dims, by_group, noncausal = {}, {}, 0
     variants.update(op_res["variants"])
     for res in serving:
         for dims, n in res["flash_launches_by_dims"].items():
@@ -3882,6 +4321,7 @@ def main() -> int:
             by_cluster[c] = by_cluster.get(c, 0) + n
         for g, n in res.get("decode_launches_by_group", {}).items():
             by_group[g] = by_group.get(g, 0) + n
+        noncausal += res.get("flash_launches_noncausal", 0)
     line = []
     for name, cases in recs.items():
         main_case = cases[0]
@@ -3914,6 +4354,7 @@ def main() -> int:
                           "bound_ms", "bound_by", "sdpa_nocap_ms")}
         if name == "flash_attention":
             entry["launches_by_dims"] = by_dims
+            entry["launches_noncausal"] = noncausal
             entry["mla_cases"] = [
                 {k: c[k] for k in ("case", "variant", "kernel_ms", "flags_ms",
                                    "plain_ms", "bound_ms", "bound_by",
@@ -3937,7 +4378,17 @@ def main() -> int:
                                        "max_abs_err", "q_rows",
                                        "other_q_rows_ms", "fma_ms")}
                 for c in cases if "granite" in c["case"]]
-            entry["granite_launches"] = serving[-1]["launches"][name]
+            entry["granite_launches"] = granite["launches"][name]
+            entry["arch_cases"] = [
+                {k: c.get(k) for k in ("case", "variant", "cluster",
+                                       "kernel_ms", "flags_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "max_abs_err", "q_rows",
+                                       "other_q_rows_ms", "fma_ms")}
+                for c in cases if any(a in c["case"] for a in (
+                    "gemma3", "internvl2", "whisper"))]
+            entry["arch_launches"] = {tag: res["launches"][name]
+                                      for tag, res in archs.items()}
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(card)

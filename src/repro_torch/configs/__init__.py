@@ -1,1 +1,1 @@
-"""Model configurations (gemma2-9b only in this port)."""
+"""Model configurations of the ported archs, one module each."""

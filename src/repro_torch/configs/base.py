@@ -1,10 +1,15 @@
 """Model configuration schema, field for field as the JAX package's
 ``repro.configs.base``.
 
-The attention stacks are ported, GQA (gemma2, qwen3-moe, granite) and
-MLA (minicpm3, deepseek-v2-lite, with the MLA dims below), with a SwiGLU
-MLP, a gelu MLP with biases or a Mixture-of-Experts FFN (``moe``: a
-``models.moe.MoEConfig``).  The other family sub-configs (``mamba``, ``mlstm``, ``slstm``, ``encoder``)
+The attention stacks are ported, GQA (gemma2, gemma3, qwen3-moe,
+granite, internvl2, whisper) and MLA (minicpm3, deepseek-v2-lite, with
+the MLA dims below), with a SwiGLU MLP, a gelu MLP with biases or a
+Mixture-of-Experts FFN (``moe``: a ``models.moe.MoEConfig``), rmsnorm or
+layernorm (``norm``), rope or learned positions (``max_seq``), a patch
+frontend stub (``frontend="patch"``: ``n_frontend_tokens`` precomputed
+embeddings overwrite the first positions) and whisper's encoder
+(``encoder``, with ``cross_attn`` decoder layers over its states).  The
+recurrent sub-configs (``mamba``, ``mlstm``, ``slstm``, ``shared_block``)
 keep their fields but stay ``None`` in this port.  Defaults differ in one place: ``decode_backend`` /
 ``prefill_backend`` are ``"auto"`` (the CUDA kernels for CUDA tensors,
 their plain versions on the CPU).
@@ -32,9 +37,9 @@ class LayerSpec:
 
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
-    """Whisper-style encoder stack (not ported)."""
+    """Whisper-style encoder stack (bidirectional attention, gelu FFN)."""
     n_layers: int
-    n_frames: int
+    n_frames: int            # frontend sequence length (e.g. 1500)
     n_heads: int
     d_ff: int
 
@@ -67,16 +72,16 @@ class ModelConfig:
     nope_dim: int = 0
     rope_dim: int = 0
     v_head_dim: int = 0
-    # family sub-configs (moe ported, the rest not)
+    # family sub-configs (moe and encoder ported, the recurrent ones not)
     moe: Optional[Any] = None
     mamba: Optional[Any] = None
     mlstm: Optional[Any] = None
     slstm: Optional[Any] = None
     shared_block: Optional[LayerSpec] = None
     encoder: Optional[EncoderConfig] = None
-    frontend: Optional[str] = None
+    frontend: Optional[str] = None         # "patch" | "audio" stubs
     n_frontend_tokens: int = 0
-    max_seq: int = 0
+    max_seq: int = 0         # learned positional table size (0 = rope only)
     sub_quadratic: bool = False
     attn_chunk: int = 512    # query-chunk size of the dense attention path
     unroll_scan: bool = False

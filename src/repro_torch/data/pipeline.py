@@ -11,8 +11,10 @@ drops fast but not to zero.
 
 The draws come from ``numpy.random.default_rng([seed, step, host])``;
 JAX's threefry stream cannot be matched, so the tokens differ from the
-JAX package's (the semantics do not).  The patch / audio frontend stubs
-are not ported."""
+JAX package's (the semantics do not).  With a frontend (``"patch"`` for
+internvl2, ``"audio"`` for whisper) a batch also holds
+``frontend_embeds``, standard normal f32 [local_batch,
+n_frontend_tokens, d_model] from the same generator, after the tokens."""
 from __future__ import annotations
 
 import dataclasses
@@ -36,17 +38,16 @@ class DataConfig:
 
 
 class SyntheticLMData:
-    """Iterator over ``{"tokens", "labels"}`` batches of int32 CPU tensors
-    [local_batch, seq_len]; ``host_index`` / ``host_count`` select this
-    host's slice of the global batch."""
+    """Iterator over ``{"tokens", "labels"[, "frontend_embeds"]}`` batches
+    of CPU tensors (int32 [local_batch, seq_len]; the frontend's f32);
+    ``host_index`` / ``host_count`` select this host's slice of the global
+    batch."""
 
     def __init__(self, cfg: DataConfig, host_index: int = 0,
                  host_count: int = 1):
-        if cfg.frontend is not None:
-            raise NotImplementedError(
-                f"frontend {cfg.frontend!r} batches are not ported: ROADMAP "
-                f"Queue 1 item 7 (internvl2's patch and whisper's audio "
-                f"stubs)")
+        if cfg.frontend not in (None, "patch", "audio"):
+            raise ValueError(f"frontend must be patch|audio, got "
+                             f"{cfg.frontend!r}")
         assert cfg.global_batch % host_count == 0
         self.cfg = cfg
         self.host_index = host_index
@@ -67,7 +68,11 @@ class SyntheticLMData:
             rand_tok = rng.integers(0, cfg.vocab, seq.shape)
             seq = np.where(corrupt, rand_tok, seq)
         seq = torch.from_numpy(seq.astype(np.int32))
-        return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+        batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+        if cfg.frontend is not None:
+            batch["frontend_embeds"] = torch.from_numpy(rng.standard_normal(
+                (b, cfg.n_frontend_tokens, cfg.d_model), dtype=np.float32))
+        return batch
 
     def __iter__(self):
         return self

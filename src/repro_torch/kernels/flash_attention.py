@@ -203,12 +203,13 @@ def _telemetry(tele: bool, bh: int, sq: int, skv: int, bq: int, bk: int,
             torch.zeros((bh, n, 4), dtype=torch.int32, device=device))
 
 
-def _counted(variant: str, d: int, dv: int) -> None:
+def _counted(variant: str, d: int, dv: int, causal: bool) -> None:
     """One launch of ``variant`` ("tc" / "fma") at head dims (d, dv)."""
     fn = flash_attention_cuda
     fn.launches += 1
     setattr(fn, f"launches_{variant}", getattr(fn, f"launches_{variant}") + 1)
     fn.launches_by_dims[(d, dv)] = fn.launches_by_dims.get((d, dv), 0) + 1
+    fn.launches_noncausal += 0 if causal else 1
 
 
 def _finish(out, out_dtype, visits, flags, debug_visits, debug_flags):
@@ -294,7 +295,7 @@ def flash_attention_tc(q, k, v, kv_len=None, block_table=None, *,
              float(scale), 0.0 if softcap is None else float(softcap),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_tc")
-    _counted("tc", d, out.shape[-1])
+    _counted("tc", d, out.shape[-1], causal)
     return _finish(out, out_dtype, visits, flags, debug_visits, debug_flags)
 
 
@@ -330,7 +331,7 @@ def flash_attention_fma(q, k, v, kv_len=None, block_table=None, *,
              float(scale), 0.0 if softcap is None else float(softcap),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_fma")
-    _counted("fma", d, out.shape[-1])
+    _counted("fma", d, out.shape[-1], causal)
     return _finish(out, out_dtype, visits, flags, debug_visits, debug_flags)
 
 
@@ -360,10 +361,12 @@ def flash_attention_cuda(q, k, v, kv_len=None, block_table=None, *,
               debug_visits=debug_visits, debug_flags=debug_flags)
 
 
-#: launches of the CUDA kernels, in all, by variant, by head dims (D, Dv)
-#: and of the telemetry instantiations (CPU calls and plain-version calls
-#: add none)
+#: launches of the CUDA kernels, in all, by variant, by head dims (D, Dv),
+#: without the causal mask (whisper's encoder and cross-attention) and of
+#: the telemetry instantiations (CPU calls and plain-version calls add
+#: none)
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_noncausal = 0
 flash_attention_cuda.launches_tc = 0
 flash_attention_cuda.launches_fma = 0
 flash_attention_cuda.launches_by_dims = {}

@@ -10,7 +10,12 @@ deepseek-v2-lite-16b`` (MLA) serve from a contiguous latent cache:
 ``--paged`` and ``--continuous`` are refused with
 ``ModelConfig.paged_unsupported_reason``.  ``--arch qwen3-moe-30b-a3b``
 (Mixture-of-Experts) and ``--arch granite-20b`` (MQA: 48 query heads on
-one KV head, a gelu MLP with biases) serve either way.  ``--ragged``
+one KV head, a gelu MLP with biases), ``--arch gemma3-12b`` and ``--arch
+internvl2-26b`` (text only: the launcher feeds no patch embeddings, as
+the JAX launcher does not) serve either way.  ``--arch whisper-small``
+is refused by ``--paged`` / ``--continuous`` (its cross-attention cache
+is contiguous) and, like the JAX launcher, feeds the encoder no frame
+embeddings: its fixed batch raises in ``encode``.  ``--ragged``
 packs prompts of 1/4 .. 4/4 of ``--prompt-len`` into one right-padded
 batch, ``--stop-token`` freezes a row at that token, ``--paged`` serves
 from a page pool of ``--page-size``-token pages; a uniform paged batch

@@ -6,7 +6,10 @@ raises, never falls back).  ``--reduced`` (the default) trains the arch's
 two-layer cut, ``--full`` the published widths.  Training attention is the
 dense path (the attention kernels have no backward).  ``--mesh
 pod1|pod2`` is not ported (ROADMAP Queue 1 item 8); ``--compress-grads``
-only acts under a mesh, as in JAX, and is ignored here.
+only acts under a mesh, as in JAX, and is ignored here.  As the JAX
+launcher's, the data carry no frontend: ``--arch internvl2-26b`` trains
+on text alone, and ``--arch whisper-small`` raises in ``encode`` at the
+first step (no frame embeddings), where JAX's fails on ``None``.
 """
 from __future__ import annotations
 

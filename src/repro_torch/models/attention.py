@@ -19,7 +19,13 @@ positions a row is written first, then its queries fold into the batch
 and take the exact decode read at the step form's split partition, so
 each folded query is bitwise the decode step at its position.
 
-Not ported yet: cross-attention and tensor-parallel head sharding.
+Cross-attention (whisper's decoder, ``gqa_attention(kv_states=)``): K/V
+come from the encoder states without rope, are written whole into the
+layer's contiguous cross cache at prefill, and every query reads every
+frame (non-causal) on the prefill route; decode reads the cached cross
+K/V over all frames on the decode route (``cross_attend_cached``).
+
+Not ported yet: tensor-parallel head sharding.
 """
 from __future__ import annotations
 
@@ -263,16 +269,38 @@ def _verify_attend(q, cache, policy, *, kv_len, window, cap, backend):
     return out.reshape(b, s, h, dh).transpose(1, 2)
 
 
+def _prefill_attend(q, k, v, policy, *, causal, window, cap, q_offset,
+                    kv_len, chunk, backend):
+    """q [B,H,S,Dh] vs fresh contiguous k/v [B,Hkv,T,Dh] on the prefill
+    route: the dense masked softmax, or the flash kernel (its plain
+    version on the CPU)."""
+    if backend == "dense":
+        return _masked_softmax_attend(q, k, v, policy, causal=causal,
+                                      window=window, cap=cap,
+                                      q_offset=q_offset, kv_len=kv_len,
+                                      chunk=chunk)
+    return _flash_attend(q, k, v, policy, causal=causal, window=window,
+                         cap=cap, q_offset=q_offset, kv_len=kv_len,
+                         backend=backend)
+
+
 def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
                   positions, causal=True, window=None, attn_softcap=None,
                   rope_theta=1e4, qk_norm=False, norm_eps=1e-6,
-                  cache=None, cache_pos=None, use_rope=True, chunk: int = 512,
+                  cache=None, cache_pos=None, kv_states=None,
+                  use_rope=True, chunk: int = 512,
                   decode_backend: str = "auto",
                   prefill_backend: str = "auto", kv_len=None, esc_fmts=None,
                   kv_levels=None, kv_scale: Optional[float] = None,
                   verify: bool = False):
     """Returns ``(out [B,S,D], cache)``, or ``(out, cache, kv_flags)``
     when ``esc_fmts`` is given.
+
+    Cross-attention (``kv_states`` [B, T, D], the encoder's output): K/V
+    are projected from ``kv_states`` (rope, if any, at positions 0..T-1),
+    written whole at slot 0 of the contiguous ``cache`` when one is given,
+    and every query attends every one of the T keys (``causal`` and
+    ``window`` are not applied) on the prefill route.
 
     No cache: training-style prefill over the fresh K/V.  With a cache, the
     step's K/V are written first (in place) at ``cache_pos`` (scalar or
@@ -301,30 +329,34 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
     before the snap: the fault-injection hook that forces a narrow rung
     to overflow."""
     b, s, d = x.shape
+    src = x if kv_states is None else kv_states
+    t = src.shape[1]
     q = tp.tp_matmul(x, params["wq"], policy).reshape(b, s, n_heads, head_dim)
-    k = tp.tp_matmul(x, params["wk"], policy).reshape(b, s, n_kv_heads,
-                                                      head_dim)
-    v = tp.tp_matmul(x, params["wv"], policy).reshape(b, s, n_kv_heads,
-                                                      head_dim)
+    k = tp.tp_matmul(src, params["wk"], policy).reshape(b, t, n_kv_heads,
+                                                        head_dim)
+    v = tp.tp_matmul(src, params["wv"], policy).reshape(b, t, n_kv_heads,
+                                                        head_dim)
     if qk_norm:
         q = rmsnorm(q, params["q_norm"], norm_eps)
         k = rmsnorm(k, params["k_norm"], norm_eps)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+        k = apply_rope(k, positions if kv_states is None
+                       else torch.arange(t, device=x.device), rope_theta)
 
     kv_flags = torch.zeros((b, 2), dtype=torch.int32, device=x.device)
-    if cache is None:
-        if prefill_backend == "dense":
-            out = _masked_softmax_attend(q, k, v, policy, causal=causal,
-                                         window=window, cap=attn_softcap,
-                                         q_offset=0, kv_len=kv_len,
-                                         chunk=chunk)
-        else:
-            out = _flash_attend(q, k, v, policy, causal=causal, window=window,
-                                cap=attn_softcap, kv_len=kv_len,
-                                backend=prefill_backend)
+    if kv_states is not None:
+        if cache is not None:
+            update_cache_rows(cache.k, k, 0)
+            update_cache_rows(cache.v, v, 0)
+        out = _prefill_attend(q, k, v, policy, causal=False, window=None,
+                              cap=attn_softcap, q_offset=0, kv_len=None,
+                              chunk=chunk, backend=prefill_backend)
+    elif cache is None:
+        out = _prefill_attend(q, k, v, policy, causal=causal, window=window,
+                              cap=attn_softcap, q_offset=0, kv_len=kv_len,
+                              chunk=chunk, backend=prefill_backend)
     else:
         paged = isinstance(cache, PagedKVCache)
         if esc_fmts is not None:
@@ -365,16 +397,10 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
                                           kv_len=live,
                                           backend=prefill_backend)
         elif s > 1:
-            if prefill_backend == "dense":
-                out = _masked_softmax_attend(q, k, v, policy, causal=causal,
-                                             window=window, cap=attn_softcap,
-                                             q_offset=int(cache_pos),
-                                             kv_len=kv_len, chunk=chunk)
-            else:
-                out = _flash_attend(q, k, v, policy, causal=causal,
-                                    window=window, cap=attn_softcap,
-                                    q_offset=int(cache_pos), kv_len=kv_len,
-                                    backend=prefill_backend)
+            out = _prefill_attend(q, k, v, policy, causal=causal,
+                                  window=window, cap=attn_softcap,
+                                  q_offset=int(cache_pos), kv_len=kv_len,
+                                  chunk=chunk, backend=prefill_backend)
         else:
             if kv_len is None:
                 kv_len = cache_pos + s
@@ -393,6 +419,21 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
     if esc_fmts is not None:
         return proj, cache, kv_flags
     return proj, cache
+
+
+def cross_attend_cached(x, params, cache: KVCache, policy, *, n_heads,
+                        n_kv_heads, head_dim, backend: str = "auto"):
+    """Decode-time cross-attention: q from ``x`` [B, 1, D] against the
+    whole cached cross K/V [B, Hkv, n_frames, Dh] (the encoder states never
+    change while decoding) on the decode route, no window, no softcap."""
+    b, s, d = x.shape
+    q = tp.tp_matmul(x, params["wq"], policy).reshape(
+        b, s, n_heads, head_dim).transpose(1, 2)
+    out = _decode_attend(q, cache.k, cache.v, policy,
+                         kv_len=cache.k.shape[2], window=None, cap=None,
+                         backend=backend)
+    out = out.transpose(1, 2).reshape(b, s, n_heads * head_dim)
+    return tp.tp_matmul(out, params["wo"], policy)
 
 
 # ---------------------------------------------------------------------------

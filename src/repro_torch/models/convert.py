@@ -8,8 +8,12 @@ order (prefix, then ``R`` repeats of the pattern, then suffix); a MoE
 layer's stacked expert leaves ``[R, E, ...]`` come out ``[E, ...]``, its
 f32 router stays f32, an untied ``lm_head`` is carried, and a gelu MLP
 keeps its ``up`` / ``b_up`` / ``down`` / ``b_down`` leaves, biases
-included (granite).  bf16 and fp8 leaves (ml_dtypes arrays) are
-reinterpreted bit for bit.  numpy only: this module never imports jax.
+included (granite).  Whisper's leaves come along: the learned positions
+``pos_embed``, each decoder layer's ``xattn`` / ``norm_x``, layernorm's
+``b``, and the ``encoder`` tree, whose stacked ``[L, ...]`` layers are
+unstacked into a list as the pattern's are.  bf16 and fp8 leaves
+(ml_dtypes arrays) are reinterpreted bit for bit.  numpy only: this
+module never imports jax.
 
 The trainer keeps JAX's own stacked tree instead (its optimizer decays and
 factors leaves by their stacked shapes): ``from_jax_state`` carries a JAX
@@ -69,22 +73,45 @@ def from_jax_state(state, device: DeviceLike = None) -> dict:
     return {"params": from_jax_tree(state["params"], device), "opt": opt}
 
 
+#: top-level leaves other than the layers, carried as they are
+_TOP = ("embed", "norm_f", "lm_head", "pos_embed")
+
+
+def _unbind(stacked) -> list:
+    """A dict of ``[R, ...]`` stacks -> R dicts of views (``unbind``)."""
+    views = [t.unbind(0) for t in leaves(stacked)]
+    return [unflatten(stacked, [u[r] for u in views])
+            for r in range(len(views[0]))]
+
+
+def _stack(reps: list):
+    """R dicts of equal structure -> one dict of ``[R, ...]`` stacks."""
+    return unflatten(reps[0], [torch.stack(ts) for ts in
+                               zip(*map(leaves, reps))])
+
+
+def _top(tree, encoder_layers) -> dict:
+    """``tree``'s leaves outside the decoder layers, its encoder's layers
+    (if any) replaced by ``encoder_layers``."""
+    out = {k: tree[k] for k in _TOP if k in tree}
+    if "encoder" in tree:
+        out["encoder"] = dict(tree["encoder"], layers=encoder_layers)
+    return out
+
+
 def layer_views(tree) -> dict:
     """The trainer's JAX-layout params -> the port's per-layer dict whose
-    pattern layers are views of the stacks (``unbind`` along ``R``), so
-    autograd delivers one ``[R, ...]`` gradient per stacked leaf."""
-    pattern = tree["pattern"]
-    stacks = [[t.unbind(0) for t in leaves(p)] for p in pattern]
+    pattern (and encoder) layers are views of the stacks (``unbind``
+    along ``R``), so autograd delivers one ``[R, ...]`` gradient per
+    stacked leaf."""
+    per_pos = [_unbind(p) for p in tree["pattern"]]
     layers = list(tree.get("prefix", ()))
-    for r in range(len(stacks[0][0])):
-        layers += [unflatten(p, [u[r] for u in views])
-                   for p, views in zip(pattern, stacks)]
+    for r in range(len(per_pos[0])):
+        layers += [reps[r] for reps in per_pos]
     layers += list(tree.get("suffix", ()))
-    out = {"embed": tree["embed"], "norm_f": tree["norm_f"],
-           "layers": layers}
-    if "lm_head" in tree:
-        out["lm_head"] = tree["lm_head"]
-    return out
+    enc = (_unbind(tree["encoder"]["layers"]) if "encoder" in tree
+           else None)
+    return dict(_top(tree, enc), layers=layers)
 
 
 def stack_layers(params: dict, cfg) -> dict:
@@ -94,19 +121,13 @@ def stack_layers(params: dict, cfg) -> dict:
     ``cfg.repeats`` repeats."""
     layers = params["layers"]
     n_pre, n_pat, n_suf = len(cfg.prefix), len(cfg.pattern), len(cfg.suffix)
-
-    def stack(j):
-        reps = [layers[n_pre + r * n_pat + j] for r in range(cfg.repeats)]
-        return unflatten(reps[0], [torch.stack(ts) for ts in
-                                   zip(*map(leaves, reps))])
-
-    out = {"embed": params["embed"], "norm_f": params["norm_f"],
-           "prefix": list(layers[:n_pre]),
-           "suffix": list(layers[len(layers) - n_suf:]) if n_suf else [],
-           "pattern": [stack(j) for j in range(n_pat)]}
-    if "lm_head" in params:
-        out["lm_head"] = params["lm_head"]
-    return out
+    enc = (_stack(params["encoder"]["layers"]) if "encoder" in params
+           else None)
+    return dict(_top(params, enc), prefix=list(layers[:n_pre]),
+                suffix=list(layers[len(layers) - n_suf:]) if n_suf else [],
+                pattern=[_stack([layers[n_pre + r * n_pat + j]
+                                 for r in range(cfg.repeats)])
+                         for j in range(n_pat)])
 
 
 def from_jax_params(tree, device: DeviceLike = None) -> dict:
@@ -120,8 +141,13 @@ def from_jax_params(tree, device: DeviceLike = None) -> dict:
         for p in pattern:
             layers.append(conv(_tree(p, lambda a: a[r])))
     layers += [conv(p) for p in tree.get("suffix", ())]
-    out = {"embed": conv(tree["embed"]), "norm_f": conv(tree["norm_f"]),
-           "layers": layers}
-    if "lm_head" in tree:                  # untied embeddings
-        out["lm_head"] = conv(tree["lm_head"])
+    out = {k: conv(tree[k]) for k in _TOP if k in tree}
+    out["layers"] = layers
+    if "encoder" in tree:                  # whisper: stacked [L, ...] layers
+        e = tree["encoder"]
+        n = len(np.asarray(e["layers"]["norm1"]["g"]))
+        out["encoder"] = {
+            "layers": [conv(_tree(e["layers"], lambda a, i=i: a[i]))
+                       for i in range(n)],
+            "pos": conv(e["pos"]), "norm_f": conv(e["norm_f"])}
     return out

@@ -1,7 +1,7 @@
-"""Common policy-aware layers: norms, rotary embeddings, the SwiGLU and
-gelu MLPs, logit soft-capping and the init helpers.  Every matmul routes
-through ``core.ops`` so the active PrecisionPolicy applies uniformly.
-Weights keep the JAX layout ``[d_in, d_out]`` (``x @ W``)."""
+"""Common policy-aware layers: rms and layer norms, rotary embeddings,
+the SwiGLU and gelu MLPs, logit soft-capping and the init helpers.  Every
+matmul routes through ``core.ops`` so the active PrecisionPolicy applies
+uniformly.  Weights keep the JAX layout ``[d_in, d_out]`` (``x @ W``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -53,6 +53,17 @@ def rmsnorm(x, gamma, eps: float = 1e-6):
     xf = x.to(F32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * (1.0 + gamma.to(F32))
+    return out.to(x.dtype)
+
+
+def layernorm(x, gamma, beta, eps: float = 1e-5):
+    """f32 mean and variance; ``gamma`` scales as it is (not ``1 +
+    gamma`` as in ``rmsnorm``), then ``beta`` shifts."""
+    xf = x.to(F32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * gamma.to(F32) + beta.to(F32)
     return out.to(x.dtype)
 
 

@@ -33,12 +33,21 @@ temperature / top-k / top-p draw (``sample_token``) from an explicit
 Parameters are a plain dict of tensors in the JAX layout (``[d_in,
 d_out]``) with the layers UNSTACKED: ``params["layers"][i]`` is layer
 ``i`` of ``cfg.layer_list()``.  Caches are a list with one entry per
-layer, updated IN PLACE.  Attention-only archs: GQA (gemma2, qwen3-moe,
-granite's MQA: contiguous or paged KV) or MLA (minicpm3,
-deepseek-v2-lite: a contiguous latent cache, ``attention.MLACache``; no
-page axis), each layer with a SwiGLU MLP, a gelu MLP with biases
-(granite) or a Mixture-of-Experts FFN (``moe.moe_block``; serving drops
-its aux loss, as the JAX package's serving entry points do).  The
+layer, updated IN PLACE.  Attention-only archs: GQA (gemma2, gemma3,
+qwen3-moe, granite's MQA, internvl2: contiguous or paged KV) or MLA
+(minicpm3, deepseek-v2-lite: a contiguous latent cache,
+``attention.MLACache``; no page axis), each layer with a SwiGLU MLP, a
+gelu MLP with biases (granite, whisper) or a Mixture-of-Experts FFN
+(``moe.moe_block``; serving drops its aux loss, as the JAX package's
+serving entry points do), under rmsnorm or layernorm (whisper: ``{g, b}``
+params), with rope or learned positions (``params["pos_embed"]``,
+``cfg.max_seq``).  A patch frontend (internvl2) overwrites the first
+``n_frontend_tokens`` embedded positions with the caller's
+``frontend_embeds``; whisper's encoder (``encode``: bidirectional layers,
+a gelu MLP, learned frame positions) turns the caller's frame embeddings
+into the states every ``cross_attn`` decoder layer reads, whose cache is
+a ``CrossCache`` (the self-attention KV and the cross KV of all
+frames).  The
 escalation write path (``esc_fmts`` / ``kv_levels``, and overflow
 injection ``ovf_at`` / ``ovf_scale`` in ``decode_burst``) snaps every cache
 write onto its row's rung and returns the rows' OF / UF write counts
@@ -48,7 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -58,8 +67,8 @@ from ..core.policy import PrecisionPolicy, get_policy
 from . import attention as attn
 from . import moe as moe_mod
 from . import paged
-from .layers import (dense_init, embed_init, gelu_mlp, mlp_params,
-                     param_dtype, rmsnorm, softcap, swiglu)
+from .layers import (dense_init, embed_init, gelu_mlp, layernorm,
+                     mlp_params, param_dtype, rmsnorm, softcap, swiglu)
 from ..core import ops as tp
 
 F32 = torch.float32
@@ -217,20 +226,38 @@ def _remat(policy: str):
 def _check_supported(cfg: ModelConfig):
     bad = sorted({f"{s.mixer}/{s.ffn}" for s in cfg.layer_list()
                   if s.mixer not in ("gqa", "mla")
-                  or s.ffn not in ("swiglu", "gelu", "moe") or s.cross_attn})
-    if bad or cfg.encoder is not None or cfg.max_seq or cfg.norm != "rmsnorm":
+                  or s.ffn not in ("swiglu", "gelu", "moe")})
+    if bad or cfg.shared_block is not None:
         raise NotImplementedError(
-            f"{cfg.name}: only gqa / mla + swiglu / gelu / moe rmsnorm stacks "
-            f"are ported (got "
-            f"{bad or 'an encoder / learned positions / layernorm'})")
+            f"{cfg.name}: only gqa / mla + swiglu / gelu / moe stacks are "
+            f"ported (got {bad or 'a shared block'}); the recurrent and "
+            f"shared-block mixers are ROADMAP Queue 1 item 7.5")
+    if cfg.norm not in ("rmsnorm", "layernorm"):
+        raise ValueError(f"{cfg.name}: norm must be rmsnorm|layernorm, got "
+                         f"{cfg.norm!r}")
+
+
+class CrossCache(NamedTuple):
+    """A cross-attention layer's cache: its self-attention ``kv`` and the
+    cross K/V ``xkv`` [B, Hkv, n_frames, Dh] written whole at prefill."""
+    kv: attn.KVCache
+    xkv: attn.KVCache
 
 
 def _norm(x, p, cfg: ModelConfig):
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["g"], p["b"], cfg.norm_eps)
     return rmsnorm(x, p["g"], cfg.norm_eps)
 
 
+def _norm_params(cfg: ModelConfig, dtype, device) -> dict:
+    """``{g}`` (rmsnorm) or ``{g, b}`` (layernorm), zeros."""
+    z = lambda: torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    return {"g": z(), "b": z()} if cfg.norm == "layernorm" else {"g": z()}
+
+
 def init_layer(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device):
-    z = lambda: {"g": torch.zeros((cfg.d_model,), dtype=dtype, device=device)}
+    z = lambda: _norm_params(cfg, dtype, device)
     if spec.mixer == "mla":
         mixer = attn.mla_params(
             gen, cfg.d_model, cfg.n_heads, q_lora=cfg.q_lora,
@@ -246,9 +273,63 @@ def init_layer(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device):
            mlp_params(gen, cfg.d_model, cfg.d_ff, dtype, device,
                       kind=spec.ffn))
     p = {"norm1": z(), "attn": mixer, "mlp": mlp, "norm2": z()}
+    if spec.cross_attn:
+        p["xattn"] = attn.gqa_params(gen, cfg.d_model, cfg.n_heads,
+                                     cfg.n_kv_heads, cfg.head_dim, dtype,
+                                     device)
+        p["norm_x"] = z()
     if spec.post_norms:
         p["post1"], p["post2"] = z(), z()
     return p
+
+
+def init_encoder(gen, cfg: ModelConfig, dtype, device) -> dict:
+    """Whisper's encoder: ``layers`` (one dict per layer: norm1, attn with
+    ``n_heads`` heads of ``d_model // n_heads``, norm2, a gelu MLP), the
+    learned frame positions ``pos`` [n_frames, d_model] and ``norm_f``."""
+    e = cfg.encoder
+    head_dim = cfg.d_model // e.n_heads
+    layers = [{"norm1": _norm_params(cfg, dtype, device),
+               "attn": attn.gqa_params(gen, cfg.d_model, e.n_heads,
+                                       e.n_heads, head_dim, dtype, device),
+               "norm2": _norm_params(cfg, dtype, device),
+               "mlp": mlp_params(gen, cfg.d_model, e.d_ff, dtype, device,
+                                 kind="gelu")}
+              for _ in range(e.n_layers)]
+    pos = torch.randn((e.n_frames, cfg.d_model), generator=gen, dtype=F32,
+                      device=device) * 0.01
+    return {"layers": layers, "pos": pos.to(dtype),
+            "norm_f": _norm_params(cfg, dtype, device)}
+
+
+def encode(frame_embeds, enc_params, cfg: ModelConfig,
+           policy: PrecisionPolicy):
+    """Frame embeddings [B, n_frames, d_model] -> the encoder states: the
+    learned frame positions added (in the embeddings' dtype), then each
+    layer's bidirectional self-attention (no rope, on the prefill route
+    ``cfg.prefill_backend``) and gelu MLP as pre-norm residuals, then the
+    final norm.  The audio frontend is a stub: without frame embeddings
+    this raises, where the JAX package's ``encode`` fails on ``None``."""
+    if frame_embeds is None:
+        raise ValueError(
+            f"{cfg.name}: the encoder needs frame embeddings [B, "
+            f"{cfg.encoder.n_frames}, {cfg.d_model}] (frontend_embeds=); the "
+            f"audio frontend is a stub whose output the caller passes")
+    e = cfg.encoder
+    head_dim = cfg.d_model // e.n_heads
+    x = frame_embeds + enc_params["pos"].to(frame_embeds.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp in enc_params["layers"]:
+        a, _ = attn.gqa_attention(
+            _norm(x, lp["norm1"], cfg), lp["attn"], policy,
+            n_heads=e.n_heads, n_kv_heads=e.n_heads, head_dim=head_dim,
+            positions=positions, causal=False, use_rope=False,
+            chunk=cfg.attn_chunk, prefill_backend=cfg.prefill_backend)
+        x = x + a
+        m = lp["mlp"]
+        x = x + gelu_mlp(_norm(x, lp["norm2"], cfg), m["up"], m["b_up"],
+                         m["down"], m["b_down"], policy)
+    return _norm(x, enc_params["norm_f"], cfg)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -256,8 +337,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 n_pages: Optional[int] = None) -> List:
     """One cache per layer.  Paged (``cfg.paged_kv``): every layer's pool
     adopts the SAME [B, max_pages] table (default: the identity table);
-    an arch whose cache has no page axis (MLA) raises, as the JAX
-    package's ``Model.prefill`` does."""
+    an arch whose cache has no page axis (MLA, or whisper's cross cache)
+    raises, as the JAX package's ``Model.prefill`` does.  A
+    ``cross_attn`` layer's entry is a ``CrossCache``."""
     if cfg.paged_kv:
         why = cfg.paged_unsupported_reason()
         if why is not None:
@@ -278,6 +360,10 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
         else:
             out.append(attn.init_kv_cache(batch, cfg.n_kv_heads, max_len,
                                           cfg.head_dim, kv_dtype, device))
+        if spec.cross_attn:
+            out[-1] = CrossCache(out[-1], attn.init_kv_cache(
+                batch, cfg.n_kv_heads, cfg.encoder.n_frames, cfg.head_dim,
+                kv_dtype, device))
     return out
 
 
@@ -330,21 +416,59 @@ class Model:
         vpad = padded_vocab(cfg.vocab)
         params = {
             "embed": embed_init(gen, vpad, cfg.d_model, dtype, dev),
-            "norm_f": {"g": torch.zeros((cfg.d_model,), dtype=dtype,
-                                        device=dev)},
+            "norm_f": _norm_params(cfg, dtype, dev),
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, cfg.d_model, vpad, dtype, dev)
+        if cfg.max_seq:
+            params["pos_embed"] = (torch.randn(
+                (cfg.max_seq, cfg.d_model), generator=gen, dtype=F32,
+                device=dev) * 0.01).to(dtype)
         params["layers"] = [init_layer(gen, s, cfg, dtype, dev)
                             for s in cfg.layer_list()]
+        if cfg.encoder is not None:
+            params["encoder"] = init_encoder(gen, cfg, dtype, dev)
         return params
 
     # -- embedding / unembedding ------------------------------------------
-    def embed(self, params, tokens):
+    def embed(self, params, tokens, frontend_embeds=None, *, pos_offset=0):
+        """Token embeddings [B, S, d] (scaled by ``emb_scale``).  A patch
+        frontend's ``frontend_embeds`` [B, K, d] overwrite positions 0..K-1
+        (in the embeddings' dtype).  Learned positions (``cfg.max_seq``)
+        are added from ``pos_offset``: an int (rows share positions
+        ``pos_offset ..``, the start clamped so the slice fits, as
+        ``dynamic_slice`` does), a [B] tensor (each row of a one-token
+        step at its own position) or a [B, S] tensor (one position per
+        token)."""
+        cfg = self.cfg
         x = params["embed"][tokens.to(torch.int64)]
-        if self.cfg.emb_scale:
-            x = (x.to(F32) * self.cfg.emb_scale).to(x.dtype)
+        if cfg.emb_scale:
+            x = (x.to(F32) * cfg.emb_scale).to(x.dtype)
+        if cfg.frontend == "patch" and frontend_embeds is not None:
+            fe = torch.as_tensor(frontend_embeds, device=x.device).to(x.dtype)
+            if fe.shape[1] > x.shape[1]:
+                raise ValueError(f"{fe.shape[1]} patch embeddings do not fit "
+                                 f"a sequence of {x.shape[1]} tokens")
+            x = torch.cat([fe, x[:, fe.shape[1]:]], dim=1)
+        if cfg.max_seq:
+            pe = params["pos_embed"]
+            if isinstance(pos_offset, torch.Tensor) and pos_offset.dim() >= 1:
+                pe = pe[pos_offset.to(torch.int64)]
+                if pos_offset.dim() == 1:
+                    pe = pe[:, None]
+            else:
+                s = tokens.shape[1]
+                start = max(0, min(int(pos_offset), pe.shape[0] - s))
+                pe = pe[start:start + s]
+            x = x + pe.to(x.dtype)
         return x
+
+    def encode(self, params, frame_embeds):
+        """The encoder states of ``frame_embeds`` [B, n_frames, d]
+        (module-level ``encode``)."""
+        fe = (None if frame_embeds is None else
+              torch.as_tensor(frame_embeds, device=self.device))
+        return encode(fe, params["encoder"], self.cfg, self.policy)
 
     @property
     def vocab_out(self) -> int:
@@ -365,9 +489,9 @@ class Model:
 
     # -- the stack -------------------------------------------------------
     def apply_layer(self, x, p, spec: LayerSpec, *, positions, cache=None,
-                    cache_pos=None, kv_len=None, esc_fmts=None,
-                    kv_levels=None, kv_scale=None, verify: bool = False,
-                    with_aux: bool = False):
+                    cache_pos=None, kv_len=None, enc_states=None,
+                    esc_fmts=None, kv_levels=None, kv_scale=None,
+                    verify: bool = False, with_aux: bool = False):
         """One block: ``(x, cache)``, or ``(x, cache, kv_flags [B, 2])``
         when ``esc_fmts`` is given (the escalation write path of
         ``attention.gqa_attention``; an MLA layer, as in the JAX package,
@@ -375,9 +499,14 @@ class Model:
         ``verify`` selects the speculative verify read of a GQA layer
         (``speculate_check`` refuses MLA stacks).  ``with_aux`` (training)
         appends the layer's MoE load-balancing loss (an f32 zero for a
-        dense FFN)."""
+        dense FFN).  A ``cross_attn`` layer reads ``enc_states`` (prefill,
+        training: its cross K/V written into ``cache.xkv``) or, without
+        them, the cached cross K/V (decode)."""
         cfg = self.cfg
         rs = cfg.residual_scale
+        xcache = None
+        if spec.cross_attn and cache is not None:
+            cache, xcache = cache
         h = _norm(x, p["norm1"], cfg)
         if spec.mixer == "mla":
             r = attn.mla_attention(
@@ -408,6 +537,23 @@ class Model:
         if spec.post_norms:
             mix = _norm(mix, p["post1"], cfg)
         x = x + rs * mix
+        if spec.cross_attn:
+            hx = _norm(x, p["norm_x"], cfg)
+            kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                      head_dim=cfg.head_dim)
+            if enc_states is not None:
+                mixx, _ = attn.gqa_attention(
+                    hx, p["xattn"], self.policy, positions=positions,
+                    causal=False, use_rope=False, kv_states=enc_states,
+                    cache=xcache, cache_pos=0, chunk=cfg.attn_chunk,
+                    prefill_backend=cfg.prefill_backend, **kw)
+            else:
+                mixx = attn.cross_attend_cached(
+                    hx, p["xattn"], xcache, self.policy,
+                    backend=cfg.decode_backend, **kw)
+            x = x + rs * mixx
+            if cache is not None:
+                cache = CrossCache(cache, xcache)
         h2 = _norm(x, p["norm2"], cfg)
         aux = None
         if spec.ffn == "moe":
@@ -429,8 +575,9 @@ class Model:
         return out
 
     def _run_stack(self, params, x, *, positions, caches=None,
-                   cache_pos=None, kv_len=None, esc_fmts=None,
-                   kv_levels=None, kv_scale=None, verify: bool = False):
+                   cache_pos=None, kv_len=None, enc_states=None,
+                   esc_fmts=None, kv_levels=None, kv_scale=None,
+                   verify: bool = False):
         """``(x, caches)``, with the layers' summed ``kv_flags`` [B, 2]
         appended when ``esc_fmts`` is given."""
         if self.cfg.windowed_slice:
@@ -444,8 +591,9 @@ class Model:
             r = self.apply_layer(x, params["layers"][i], spec,
                                  positions=positions, cache=c,
                                  cache_pos=cache_pos, kv_len=kv_len,
-                                 esc_fmts=esc_fmts, kv_levels=kv_levels,
-                                 kv_scale=kv_scale, verify=verify)
+                                 enc_states=enc_states, esc_fmts=esc_fmts,
+                                 kv_levels=kv_levels, kv_scale=kv_scale,
+                                 verify=verify)
             x, c = r[0], r[1]
             if esc:
                 flags = flags + r[2]
@@ -457,8 +605,9 @@ class Model:
         return _norm(x, params["norm_f"], self.cfg)
 
     # -- training ----------------------------------------------------------
-    def forward_train(self, params, tokens, labels, *, remat: bool = True,
-                      aux_coef: float = 0.01, loss_chunk: int = 1024):
+    def forward_train(self, params, tokens, labels, *, frontend_embeds=None,
+                      remat: bool = True, aux_coef: float = 0.01,
+                      loss_chunk: int = 1024):
         """[B, S] tokens and labels -> the scalar LM loss (mean NLL over
         labels >= 0, f32 statistics) + ``aux_coef`` x the MoE
         load-balancing loss, as the JAX package's ``forward_train``.
@@ -471,7 +620,9 @@ class Model:
         the unbatched matmul outputs and recomputes the rest, ``none``
         saves everything.  Attention takes the dense masked-softmax path,
         as JAX's training does: the hand-written kernels have no backward,
-        so any other ``prefill_backend`` raises."""
+        so any other ``prefill_backend`` raises.  ``frontend_embeds``: the
+        patch embeddings (internvl2) or the encoder's frame embeddings
+        (whisper)."""
         cfg = self.cfg
         if cfg.prefill_backend != "dense":
             raise ValueError(
@@ -483,29 +634,32 @@ class Model:
             params = layer_views(params)
         tokens = torch.as_tensor(tokens, device=self.device)
         labels = torch.as_tensor(labels, device=self.device)
-        x = self.embed(params, tokens)
+        enc = (self.encode(params, frontend_embeds)
+               if cfg.encoder is not None else None)
+        x = self.embed(params, tokens, frontend_embeds)
         positions = torch.arange(tokens.shape[1], device=self.device)
         layers, specs = params["layers"], cfg.layer_list()
         wrap = _remat(cfg.remat_policy) if remat else None
 
-        def run(h, acc, lo, hi):
+        def run(h, acc, enc_states, lo, hi):
             for i in range(lo, hi):
                 h, _, a = self.apply_layer(h, layers[i], specs[i],
                                            positions=positions,
+                                           enc_states=enc_states,
                                            with_aux=True)
                 acc = acc + a
             return h, acc
 
         aux = torch.zeros((), dtype=F32, device=x.device)
         n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
-        x, aux = run(x, aux, 0, n_pre)
+        x, aux = run(x, aux, enc, 0, n_pre)
         for r in range(cfg.repeats):
             lo = n_pre + r * n_pat
             if wrap is None:
-                x, aux = run(x, aux, lo, lo + n_pat)
+                x, aux = run(x, aux, enc, lo, lo + n_pat)
             else:
-                x, aux = wrap(run, x, aux, lo, lo + n_pat)
-        x, aux = run(x, aux, len(specs) - len(cfg.suffix), len(specs))
+                x, aux = wrap(run, x, aux, enc, lo, lo + n_pat)
+        x, aux = run(x, aux, enc, len(specs) - len(cfg.suffix), len(specs))
         x = self._final(params, x)
         loss = self.chunked_ce(params, x, labels, chunk=loss_chunk)
         return loss + aux_coef * aux
@@ -538,25 +692,33 @@ class Model:
                            n_pages=n_pages)
 
     def prefill(self, params, tokens, *, max_len: int, prompt_lens=None,
-                page_table=None, n_pages: Optional[int] = None):
+                page_table=None, n_pages: Optional[int] = None,
+                frontend_embeds=None):
         """Consume a right-padded prompt batch ``tokens`` [B, S]
         (``prompt_lens`` [B]: live lengths of a ragged batch), build caches
         sized ``max_len`` (paged under ``cfg.paged_kv``).  Returns each
-        row's last-live-position logits [B, 1, V] (f32) and the caches."""
+        row's last-live-position logits [B, 1, V] (f32) and the caches.
+        ``frontend_embeds``: internvl2's patch embeddings [B, K, d] (the
+        first K positions), or whisper's frame embeddings [B, n_frames, d],
+        which the encoder turns into the states whose cross K/V every
+        decoder layer caches."""
         cfg = self.cfg
         if not cfg.paged_kv and page_table is not None:
             raise ValueError("page_table given but cfg.paged_kv is off")
         tokens = torch.as_tensor(tokens, device=self.device)
         b, s = tokens.shape
+        enc = (self.encode(params, frontend_embeds)
+               if cfg.encoder is not None else None)
         caches = self.init_caches(b, max_len, page_table=page_table,
                                   n_pages=n_pages)
         lens = (None if prompt_lens is None else
                 torch.as_tensor(prompt_lens, device=self.device).to(
                     torch.int64))
-        x = self.embed(params, tokens)
+        x = self.embed(params, tokens, frontend_embeds)
         positions = torch.arange(s, device=self.device)
         x, caches = self._run_stack(params, x, positions=positions,
-                                    caches=caches, cache_pos=0, kv_len=lens)
+                                    caches=caches, cache_pos=0, kv_len=lens,
+                                    enc_states=enc)
         x = self._final(params, x)
         if lens is None:
             xl = x[:, -1:]
@@ -571,8 +733,9 @@ class Model:
         overrides the attended live length (default ``pos + 1``).
         ``esc_fmts`` / ``kv_levels`` / ``kv_scale`` (the escalation write
         path, ``attention.quantize_kv_rows``) append the per-row OF / UF
-        write counts ``kv_flags`` [B, 2]."""
-        x = self.embed(params, token)
+        write counts ``kv_flags`` [B, 2].  Learned positions are read at
+        ``pos``."""
+        x = self.embed(params, token, pos_offset=pos)
         if isinstance(pos, torch.Tensor) and pos.dim() >= 1:
             positions = pos[:, None, None]
         else:
@@ -603,7 +766,7 @@ class Model:
                 "reads the prefix through the page pool")
         b, s = tokens.shape
         run = _caches_table_view(caches, row) if row is not None else caches
-        x = self.embed(params, tokens)
+        x = self.embed(params, tokens, pos_offset=q_offset)
         positions = q_offset + torch.arange(s, device=self.device)
         live = torch.as_tensor(s if chunk_lens is None else chunk_lens,
                                device=self.device).reshape(-1).to(torch.int64)
@@ -760,7 +923,8 @@ class Model:
                  repetition_penalty: Optional[float] = None,
                  presence_penalty: Optional[float] = None,
                  loop: str = "scan", return_trips: bool = False,
-                 guard_nonfinite: bool = False, **unported):
+                 guard_nonfinite: bool = False, frontend_embeds=None,
+                 **unported):
         """Prefill + ``gen_len`` generated tokens (the first from the
         prefill logits, then ``gen_len - 1`` decode steps).
 
@@ -771,7 +935,8 @@ class Model:
         emit the same tokens by construction.  ``prompt_lens`` [B] serves a
         right-padded ragged batch (per-row write index); ``stop_token``
         freezes a row's outputs and live length the step it emits it;
-        ``page_table`` / ``n_pages`` pass to ``prefill`` (paged models).
+        ``page_table`` / ``n_pages`` pass to ``prefill`` (paged models);
+        ``frontend_embeds`` too (patch or frame embeddings).
 
         Sampling: ``temperature > 0`` draws with ``generator`` (default: a
         generator seeded 0 on the model's device); greedy touches none.
@@ -788,7 +953,8 @@ class Model:
         asked = sorted(k for k, v in unported.items() if v is not None)
         if asked:
             raise NotImplementedError(
-                f"generate(): not ported: {asked} (meshes and frontends)")
+                f"generate(): not ported: {asked} (meshes: ROADMAP Queue 1 "
+                f"item 8)")
         if loop not in ("scan", "while"):
             raise ValueError(f"loop must be scan|while, got {loop!r}")
         dev = self.device
@@ -809,7 +975,8 @@ class Model:
                   torch.as_tensor(prompt_lens, device=dev).to(torch.int64))
         lg0, caches = self.prefill(params, tokens, max_len=max_len,
                                    prompt_lens=lens_t, page_table=page_table,
-                                   n_pages=n_pages)
+                                   n_pages=n_pages,
+                                   frontend_embeds=frontend_embeds)
         cnt = (token_counts(tokens, self.vocab_out, lens_t) if use_pen
                else None)
         tok0, bad0 = pick(lg0[:, -1], counts=cnt)
@@ -872,14 +1039,21 @@ class Model:
     # -- speculative decoding (draft k cheap, verify once, accept prefix) --
     def speculate_check(self):
         """Raise unless this arch can decode speculatively: the verify read
-        folds chunk queries through the GQA decode read, and the MLA latent
-        cache has no multi-query verify read (the JAX package's rule)."""
+        folds chunk queries through the GQA decode read, the MLA latent
+        cache has no multi-query verify read, and cross-attention decode
+        has no verify read (the JAX package's rules and messages)."""
         cfg = self.cfg
-        bad = sorted({s.mixer for s in cfg.layer_list() if s.mixer != "gqa"})
+        bad = sorted({s.mixer for s in cfg.layer_list()
+                      if s.mixer not in ("gqa", "shared_attn", "none")})
         if bad:
             raise ValueError(
                 f"speculative decoding is unsupported for {cfg.name}: "
                 f"{'/'.join(bad)} mixers cannot roll back rejected tokens")
+        if cfg.encoder is not None or any(s.cross_attn
+                                          for s in cfg.layer_list()):
+            raise ValueError(
+                f"speculative decoding is unsupported for {cfg.name}: "
+                f"cross-attention decode has no verify read path")
 
     def draft_view(self, params, caches, draft_repeats, draft_policy=None):
         """Layer-skip draft: the SAME weights cut to the prefix, the first
@@ -927,7 +1101,7 @@ class Model:
         offs = posv[:, None] + torch.arange(s, device=self.device)
         kvl = torch.broadcast_to(torch.as_tensor(kv_len, device=self.device),
                                  (b, s))
-        x = self.embed(params, tokens)
+        x = self.embed(params, tokens, pos_offset=offs)
         r = self._run_stack(params, x, positions=offs[:, None, :],
                             caches=caches, cache_pos=posv, kv_len=kvl,
                             esc_fmts=esc_fmts, kv_levels=kv_levels,

@@ -5,7 +5,8 @@ package's ``train/train_step.py`` on one device.
         -> (params, opt_state, metrics)
 
 ``params`` is the trainer's tree in JAX's own layout (``pattern`` stacked
-``[R, ...]``); the gradient is ``torch.autograd.grad`` of
+``[R, ...]``); ``batch`` may hold ``frontend_embeds`` (patch or frame
+embeddings), which pass to ``forward_train``; the gradient is ``torch.autograd.grad`` of
 ``Model.forward_train`` with respect to its leaves, the update
 ``optim.optimizer.apply_update``.  ``metrics`` holds the step's ``loss``
 and ``grad_norm`` (0-d device tensors) and ``lr`` (host): reading them
@@ -47,6 +48,8 @@ def make_train_step(model: Model, opt_cfg: OptConfig, mesh=None, *,
         flat = [p.detach().requires_grad_() for p in leaves(params)]
         tree = unflatten(params, flat)
         loss = model.forward_train(tree, batch["tokens"], batch["labels"],
+                                   frontend_embeds=batch.get(
+                                       "frontend_embeds"),
                                    remat=remat, aux_coef=aux_coef,
                                    loss_chunk=loss_chunk)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)

@@ -138,6 +138,9 @@ DECODE_CASES = [  # (pool, src, kv grid, q grid, D, G, page, window, softcap)
     (torch.float32, torch.float32, "fp8", "fp16alt", 128, 48, 64, None,
      None),
     (torch.float32, torch.float32, None, None, 128, 12, 16, 70, 30.0),
+    # internvl2-26b: G 6 (6 live heads of the one-head tile's 8), D 128
+    (torch.bfloat16, torch.bfloat16, None, None, 128, 6, 64, None, None),
+    (torch.float8_e5m2, torch.bfloat16, None, None, 128, 6, 16, 50, None),
     (torch.bfloat16, torch.bfloat16, None, None, 20, 12, 64, None, 50.0),
 ]
 
@@ -1221,3 +1224,134 @@ def test_wide_mm_backward_on_the_card(gen):
     for got, want in ((ga, want_a), (gb, want_b)):
         err = (got.double() - want).abs()
         assert (err <= 2.0 ** -8 * want.abs() + 1e-6).all(), err.max()
+
+
+# ---------------------------------------------------------------------------
+# the last attention archs: whisper's non-causal reads and group 1,
+# internvl2's group 6
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("variant", ["tc", "fma"])
+@pytest.mark.parametrize("d,page,group,sq,keys,rows", [
+    (64, 0, 1, 150, 300, [300, 170]),     # whisper's encoder: ragged keys
+    (64, 0, 1, 20, 1500, [1500, 1500]),   # cross prefill: 20 x 1500 frames
+    (128, 16, 6, 100, 130, [130, 61]),    # group 6: 21 queries a 128 tile
+])
+def test_flash_noncausal_matches_plain(gen, variant, d, page, group, sq,
+                                       keys, rows):
+    """``causal=False`` (whisper's encoder and cross-attention prefill):
+    every query reads every live key, whatever its position, on both
+    variants against the plain version at their own key tiles, key counts
+    not a multiple of the tile, query counts not a multiple of the query
+    tile; each launch counts once as non-causal."""
+    q, k, v, lens, table = _flash_inputs(
+        gen, d=d, page=page, group=group, dtype=torch.bfloat16,
+        src=torch.bfloat16, rows=[r - (keys - sq) for r in rows],
+        q_offset=keys - sq, sq=sq)
+    kw = dict(group=group, scale=d ** -0.5, causal=False, window=None,
+              softcap=None, q_offset=0, src_dtype=torch.bfloat16)
+    fn = flash_attention_tc if variant == "tc" else flash_attention_fma
+    before = _flash_counts() + (flash_attention_cuda.launches_noncausal,)
+    got = fn(q, k, v, lens, table, **kw)
+    assert _flash_counts() == _plus(before[:3], 1, variant == "tc")
+    assert flash_attention_cuda.launches_noncausal == before[3] + 1
+    want = flash_attention_plain(q, k, v, lens, table,
+                                 block_k=64 if variant == "tc" else 32, **kw)
+    causal = flash_attention_plain(q, k, v, lens, table,
+                                   block_k=64 if variant == "tc" else 32,
+                                   **dict(kw, causal=True))
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+    # the mask matters here: the causal output is far from it
+    assert (got - causal).abs().max().item() > 100 * TOL
+
+
+@pytest.mark.parametrize("g,d,smax", [(1, 64, 1500), (6, 128, 300),
+                                      (1, 64, 64)])
+def test_decode_contiguous_at_groups_1_and_6(gen, g, d, smax):
+    """Contiguous strips as whisper's caches hold them (G 1, D 64: the
+    1500-frame cross cache, not a multiple of the 64-key unit, and a
+    one-unit self cache) and internvl2's group 6, through
+    ``kernels.ops.decode_attention`` (the split the rule names) against
+    the plain version over the same partition."""
+    b, hkv = 4, 3
+    q = torch.randn((b, hkv * g, 1, d), generator=gen,
+                    device="cuda").bfloat16()
+    k, v = (torch.randn((b, hkv, smax, d), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    lens = torch.tensor([smax, smax - 37, 1, 0], device="cuda")
+    before = decode_attention_cuda.launches_by_group.get(g, 0)
+    got = kops.decode_attention(q, k, v, kv_len=lens, backend="kernel")
+    assert decode_attention_cuda.launches_by_group[g] == before + 1
+    want = kops.decode_attention(q, k, v, kv_len=lens, backend="plain")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+    assert not got[3].any()                         # the idle row stores 0
+
+
+def test_whisper_generate_on_the_card_matches_the_cpu(gen):
+    """Reduced whisper (encoder, cross-attention, learned positions,
+    layernorm with drawn gains and shifts) through ``generate`` on the
+    card, kernels launched, against the same weights on the CPU (plain
+    versions): first-token logits within the model-level 1e-1 (bf16
+    activations round at other places on the two devices), the cross
+    caches within 5e-2, and greedy tokens equal up to a row's first near
+    tie (the CPU's top-2 margin there at most twice the largest logit
+    difference)."""
+    from repro_torch.models.registry import build_model
+    m = build_model("whisper-small", reduced=True, device="cpu")
+    params = m.init(0)
+    g = torch.Generator().manual_seed(1)
+
+    def lively(t, key=None):
+        if isinstance(t, dict):
+            return {k2: lively(v, k2) for k2, v in t.items()}
+        if isinstance(t, list):
+            return [lively(v) for v in t]
+        if key in ("g", "b", "b_up", "b_down"):
+            n = torch.randn(t.shape, generator=g) * 0.2
+            return (n + (1.0 if key == "g" else 0.0)).to(t.dtype)
+        return t
+    params = lively(params)
+    toks = torch.randint(0, m.cfg.vocab, (3, 12), generator=g)
+    lens = torch.tensor([12, 7, 3])
+    frames = torch.randn((3, m.cfg.encoder.n_frames, m.cfg.d_model),
+                         generator=g)
+    kw = dict(gen_len=10, prompt_lens=lens, frontend_embeds=frames,
+              return_logits=True)
+    cpu_gen, cpu_lg = m.generate(params, toks, **kw)
+    _, cpu_caches = m.prefill(params, toks, max_len=22, prompt_lens=lens,
+                              frontend_embeds=frames)
+    mc = build_model("whisper-small", reduced=True, device="cuda")
+    pc = _to_cuda(params)
+    flash_attention_cuda.launches_noncausal = 0
+    d0 = decode_attention_cuda.launches
+    card_gen, card_lg = mc.generate(pc, toks.cuda(), **{
+        **kw, "prompt_lens": lens.cuda(), "frontend_embeds": frames.cuda()})
+    _, card_caches = mc.prefill(pc, toks.cuda(), max_len=22,
+                                prompt_lens=lens.cuda(),
+                                frontend_embeds=frames.cuda())
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches_noncausal == 2 * (
+        m.cfg.encoder.n_layers + m.cfg.n_layers)
+    assert decode_attention_cuda.launches > d0
+    card_lg, card_gen = card_lg.cpu(), card_gen.cpu()
+    assert (card_lg[:, 0] - cpu_lg[:, 0]).abs().max().item() <= 1e-1
+    for a, b2 in zip(cpu_caches, card_caches):
+        assert (a.xkv.k.float() - b2.xkv.k.cpu().float()).abs().max() <= 5e-2
+    diff = (card_lg - cpu_lg).abs().amax(-1)
+    for r in range(toks.shape[0]):
+        bad = (card_gen[r] != cpu_gen[r]).nonzero()
+        if len(bad):
+            s0 = int(bad[0])
+            top2 = cpu_lg[r, s0].topk(2).values
+            assert (top2[0] - top2[1]).item() <= 2 * diff[r, s0].item()
+
+
+def _to_cuda(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cuda(v) for v in tree]
+    return tree.cuda()

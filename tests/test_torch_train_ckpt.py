@@ -234,8 +234,13 @@ def test_data_is_learnable_structure():
     b = SyntheticLMData(dataclasses.replace(noisy, noise=0.0)).batch_at(
         3)["tokens"].numpy()
     assert 0.05 < (a != b).mean() < 0.15
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SyntheticLMData(dataclasses.replace(cfg, frontend="patch"))
+    # a frontend adds its embeddings beside the same tokens
+    fr = SyntheticLMData(dataclasses.replace(
+        cfg, frontend="patch", n_frontend_tokens=8, d_model=16)).batch_at(0)
+    assert fr["frontend_embeds"].shape == (4, 8, 16)
+    assert (fr["tokens"].numpy() == t).all()
+    with pytest.raises(ValueError, match="frontend"):
+        SyntheticLMData(dataclasses.replace(cfg, frontend="video"))
 
 
 # ---------------------------------------------------------------------------
