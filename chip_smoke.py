@@ -36,9 +36,11 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    without softcap, internvl2's decode and 1024-query prefill at group 6,
    whisper's non-causal encoder read (4 x 12 heads x 1500 x 1500 at D
    64) and cross prefill, its decode over the contiguous 1500-frame cross
-   cache and its self cache at group 1; none has a softcap, so SDPA
-   computes each), the plain flash version walking the kernel's own key
-   tiles.
+   cache and its self cache at group 1; zamba2's shared attention
+   block at group 1, D 64: decode over 4 contiguous rows of 1031 keys
+   and the 4 x 32 heads x 1000-query causal prefill; none has a softcap,
+   so SDPA computes each), the plain flash version walking the kernel's
+   own key tiles.
    One JSON line
    per case: error and tolerance, the variant (and for decode the cluster
    size its launch counted, which must be the one ``cluster_size`` names)
@@ -136,7 +138,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    restart's wall time.
 7. Escalation phase (``escalation_phase``): the bf16 model is freed and
    gemma2-9b is built again under policy ``fp32`` (f32 weights, an f32 KV
-   pool; ``ESCALATION_LAYERS`` = 14 of its 42 layers: 14.0 GiB), then
+   pool; ``ESCALATION_LAYERS`` = 8 of its 42 layers: 9.6 GiB), then
    served by the escalation engine (4 slots, chunk
    256, 69 pages of 64; ladder fp8 -> fp16 -> fp16alt at 8 overflow
    flags; overflow injected at rounds 3 and 8) on ``ESCALATION``.  Every
@@ -147,7 +149,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    ``flash_fma``.  tok/s, decode ms per round, prefill s, the events.
 8. MLA phase (``mla_phase``): the fp32 model is freed and minicpm3-4b is
    built at full width under ``tp_bf16`` (MLA with QK head dim 96 and V
-   head dim 64; depth cut to ``MLA_LAYERS`` = 31 of 62), then served by ``Model.generate`` from its
+   head dim 64; depth cut to ``MLA_LAYERS`` = 16 of 62), then served by ``Model.generate`` from its
    contiguous latent cache on four ragged prompts (1024/768/512/256), 32
    greedy tokens.  Gates: scan == while tokens, every flash launch on
    ``flash_tc`` at (96, 64) and no decode-kernel launch (decode is the
@@ -158,7 +160,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 9. DeepSeek phase (``deepseek_phase``): minicpm3 is freed and
    deepseek-v2-lite-16b is built at full width under ``tp_bf16`` (MLA
    with QK head dim 192 and V 128, layer 0 dense, then MoE layers of 64
-   experts top-6 plus 2 shared; depth cut to ``DEEPSEEK_LAYERS`` = 14 of
+   experts top-6 plus 2 shared; depth cut to ``DEEPSEEK_LAYERS`` = 7 of
    27, 15.5 GiB), then served by
    ``Model.generate`` as in the MLA phase.  Gates: scan == while, every
    flash launch ``flash_tc`` at (192, 128) (none ``flash_fma``), no decode
@@ -169,7 +171,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    free-routing difference and the flipped choices are reported).
 10. MoE phase (``moe_phase``): deepseek is freed and qwen3-moe-30b-a3b is
    built at full width under ``tp_bf16`` (32 / 4 heads of 128, 128
-   experts top-8; depth cut to ``MOE_LAYERS`` = 16 of 48, 20.0 GiB; all
+   experts top-8; depth cut to ``MOE_LAYERS`` = 8 of 48, 10.8 GiB; all
    48 take 56.9 GiB, the whole card), then serves the
    slice's queue through ``ContinuousEngine`` (4 slots, chunk 256, pages
    of 64).  Gates: budgets, the pool drains, every decode launch ``mma``
@@ -200,7 +202,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 12. gemma3 phase (``gemma3_phase``): granite is freed and gemma3-12b is
    built at full width under ``tp_bf16`` (16 query heads on 8 KV heads of
    256, window 1024 on 5 of every 6 layers, qk-norm, sandwich norms, no
-   softcap, vocab 262144; ``GEMMA3_LAYERS`` = 12 of 48: two repeats of
+   softcap, vocab 262144; ``GEMMA3_LAYERS`` = 6 of 48: one repeat of
    the pattern), paged in 64-token pages, and serves the slice's queue
    through ``ContinuousEngine`` (``engine_arch_phase``, as granite's):
    budgets, drained pool, every decode launch ``mma`` at group 2 and at
@@ -228,7 +230,29 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    and once a cross-attention layer (``launches_noncausal``); the
    encoder states and every layer's cross cache within ``ENCODER_TOL``
    of the plain path's.
-15. Train phase (``train_phase``): whisper is freed and full-width
+15. zamba2 phase (``zamba2_phase``): whisper is freed and zamba2-1.2b
+   is built at full width and depth under ``tp_bf16`` (38 layers: 32
+   Mamba2 mixers, d_model 2048, d_inner 4096, 64 heads of 64, d_state 64,
+   chunk 256, and one shared attention + SwiGLU block, 32 heads of 64,
+   d_ff 8192, read at 6 positions, each with its own contiguous KV
+   cache), then served by ``Model.generate`` on 4 rows of 1000 tokens
+   (equal lengths: recurrent mixers refuse ragged prompts), 32 greedy
+   tokens (``generate_arch``: decode ``mma`` at group 1, flash
+   ``flash_tc`` at (64, 64), first-token logits and streams against the
+   plain versions).  Gates of its own: the launches are the 6 shared
+   layers times the calls, all causal; the continuation gate
+   (``continuation_gate``: one row under ``fp32``, 8 ``decode_step``
+   calls after the prefill against the prefill of the longer prompt,
+   within ``CONT_TOL``).  Each row's recurrent state and KV bytes.
+16. xlstm phase (``xlstm_phase``): zamba2 is freed and xlstm-1.3b is
+   built at full width and depth under ``tp_bf16`` (48 layers: 42 mLSTM
+   mixers, 4 heads of 1024, chunk 256, and 6 sLSTM mixers, a sequential
+   loop over time with a gated gelu FFN tail), then served by
+   ``Model.generate`` on 4 rows of 600 tokens, 32 greedy tokens: no
+   attention kernel may launch; the continuation gate; state bytes.
+   Both recurrent phases profile the scan by class, with f32-output GEMMs
+   on CUDA cores (``gemm_f32``) apart from the tensor-core GEMMs.
+17. Train phase (``train_phase``): xlstm is freed and full-width
    fpnew-case-study (12 layers, d_model 768, 12 heads of 64, d_ff 2048,
    vocab 32000, tied: 109.6M parameters) trains through ``TrainLoop``
    from seed-0 port weights on the JAX launcher's defaults (seq 256,
@@ -245,7 +269,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    have no backward).  ms a step and tokens/s, a profiled 5-step window
    (busy / idle; gemm / attention / optimizer / other by launching op),
    checkpoint GB and save / restore seconds.
-16. The kernels line (all six kernels; flash attention, tp_matmul and decode
+18. The kernels line (all six kernels; flash attention, tp_matmul and decode
    attention with their launches by variant, the FMA variant's time,
    decode's launches by cluster size, flash's by head dims, the flags-on
    time of the main case and of the telemetry cases, the f32-pool case,
@@ -253,9 +277,10 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    (192, 128) case with SDPA's time; decode's launches by group; the
    attention launches summed over the slice, speculative, generate,
    overload, HA, escalation, MLA, DeepSeek, MoE and granite phases, and
-   the granite phase's own; the gemma3, internvl2 and whisper cases
-   (``arch_cases``) and each of those phases' launches; flash launches
-   without the causal mask), the card line, and as the last
+   the granite phase's own; the gemma3, internvl2, whisper and zamba2
+   cases (``arch_cases``) and each arch phase's launches, xlstm's none;
+   flash launches without the causal mask), the card line, and as the
+   last
    line ``{"ok": true, "device": {...}}``.
 
 Imports no JAX.  Needs one CUDA device and ``nvcc`` (``CUDA_HOME``, PATH
@@ -1648,16 +1673,20 @@ KERNEL_CLASSES = (("decode_attention", ("decode_cluster_kernel",)),
 
 def device_profile(run, wall: float, classes=None):
     """Device time by kernel class (``classes``, default
-    ``KERNEL_CLASSES``) of ``run()`` under ``torch.profiler`` (CUDA
+    ``KERNEL_CLASSES``: a class's fragments, any of which in a kernel's
+    name puts it there, or a predicate on the lower-cased name) of
+    ``run()`` under ``torch.profiler`` (CUDA
     activity only, so the host is barely slowed and the trace stays
     small), against ``wall``, the host-clock time of an unprofiled run of
     the same work: the idle share is one minus busy over ``wall``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    t1 = time.perf_counter()
     by_name = {}
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
@@ -1670,13 +1699,16 @@ def device_profile(run, wall: float, classes=None):
     for key, sec in by_name.items():
         low = key.lower()
         cls = next((name for name, frags in classes
-                    if any(f in low for f in frags)), "other")
+                    if (frags(low) if callable(frags)
+                        else any(f in low for f in frags))), "other")
         by_class[cls] += sec
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return dict(wall_s=wall, device_busy_s=busy,
                 device_idle_share=(1.0 - busy / wall) if busy else None,
                 device_s_by_class=by_class,
-                top_kernels=[[k[:90], sec] for k, sec in top])
+                top_kernels=[[k[:90], sec] for k, sec in top],
+                profiled_run_s=t1 - t0,
+                trace_read_s=time.perf_counter() - t1)
 
 
 def profile_run(eng, reqs) -> dict:
@@ -1762,6 +1794,23 @@ def attention_counters(where: str, rule: set, flash: str = "tc",
                 flash_launches_by_dims=flash_dims(),
                 flash_launches_noncausal=(
                     flash_attention_cuda.launches_noncausal))
+
+
+def no_attention_counters(where: str) -> dict:
+    """The attention launch counters since the last reset, gated to zero
+    (an arch without attention), in ``attention_counters``' layout."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    launches = {"decode_attention": decode_attention_cuda.launches,
+                "flash_attention": flash_attention_cuda.launches}
+    if any(launches.values()):
+        raise AssertionError(f"{where}: attention kernels launched "
+                             f"{launches}, the arch has no attention")
+    return dict(launches=launches,
+                variants={"flash_attention": {"tc": 0, "fma": 0},
+                          "decode_attention": {"mma": 0, "fma": 0}},
+                decode_launches_by_cluster={}, decode_launches_by_group={},
+                flash_launches_by_dims={}, flash_launches_noncausal=0)
 
 
 def flash_dims() -> dict:
@@ -2878,13 +2927,14 @@ def escalation_gates(fin, stats, plan, reqs, where: str) -> None:
         raise AssertionError(f"{where}: fault log {plan.events}")
 
 
-#: the escalation phase's depth: 14 of gemma2-9b's 42 layers (7 repeats
-#: of its local / global pair; 14.0 GiB of f32 weights, 34.4 at 42), cut
-#: to pay for the gemma3, internvl2 and whisper phases (PERF.md §4 has
-#: the phase times).  The schedule gate holds at any depth: an injected
-#: overflow trips the 8-flag threshold in one layer's write (the CPU run
-#: it is held to has 2 layers)
-ESCALATION_LAYERS = 14
+#: the escalation phase's depth: 8 of gemma2-9b's 42 layers (4 repeats
+#: of its local / global pair; 9.6 GiB of f32 weights, 34.4 at 42), cut
+#: to pay for the gemma3, internvl2 and whisper phases and again for the
+#: zamba2 and xlstm phases (PERF.md §4 has the phase times).  The
+#: schedule gate holds at any depth: an injected overflow trips the
+#: 8-flag threshold in one layer's write (the CPU run it is held to has 2
+#: layers)
+ESCALATION_LAYERS = 8
 
 
 def escalation_phase(seed: int = 0) -> dict:
@@ -3134,13 +3184,15 @@ def free_memory_gate(where: str, need_gib: float) -> None:
 MOE_CLASSES = KERNEL_CLASSES + (
     ("moe_dispatch", ("sort", "searchsorted", "index", "scatter",
                       "gather")),)
-#: the depths the smoke runs the MLA and MoE models at, half of each
-#: (minicpm3 62, deepseek-v2-lite 27, qwen3-moe 48 layers) to keep the
+#: the depths the smoke runs the MLA and MoE models at (minicpm3 62,
+#: deepseek-v2-lite 27, qwen3-moe 48 layers): half of each to keep the
 #: smoke well inside its limit on the slower hosts (at full depth, with
 #: the train phase, its phases summed to 1199 s on an H100 80GB HBM3 at
-#: 700 W), and qwen3-moe a third, beside the gemma3, internvl2 and
-#: whisper phases; the launchers serve all
-MLA_LAYERS, DEEPSEEK_LAYERS, MOE_LAYERS = 31, 14, 16
+#: 700 W), qwen3-moe a third beside the gemma3, internvl2 and whisper
+#: phases, and beside the zamba2 and xlstm phases minicpm3 16, deepseek
+#: 7 (its dense layer and 6 MoE layers) and qwen3-moe 8; the launchers
+#: serve all
+MLA_LAYERS, DEEPSEEK_LAYERS, MOE_LAYERS = 16, 7, 8
 #: free device memory the two MoE phases need before their init: weights
 #: (deepseek-v2-lite 15.5 GiB, qwen3-moe 20.0 GiB in bf16 at those
 #: depths) and room for the padded [E, C, D] expert slabs of a
@@ -3586,11 +3638,12 @@ def engine_arch_phase(model, params, tag: str, group: int, dims: str,
 # ---------------------------------------------------------------------------
 # phases 12-14: the last attention archs (gemma3, internvl2, whisper)
 # ---------------------------------------------------------------------------
-#: gemma3-12b's depth in the smoke: two repeats of its 5-local-1-global
-#: pattern (12 of 48 layers, 7.1 GiB of bf16 weights with the 262144-row
-#: embedding), paid for by the cuts in ``ESCALATION_LAYERS``,
-#: ``GRANITE_LAYERS`` and ``MOE_LAYERS``; the launchers serve all 48
-GEMMA3_LAYERS = 12
+#: gemma3-12b's depth in the smoke: one repeat of its 5-local-1-global
+#: pattern (6 of 48 layers, 4.5 GiB of bf16 weights with the 262144-row
+#: embedding: both layer kinds), paid for by the cuts in
+#: ``ESCALATION_LAYERS``, ``GRANITE_LAYERS`` and ``MOE_LAYERS``; two
+#: repeats until the zamba2 and xlstm phases; the launchers serve all 48
+GEMMA3_LAYERS = 6
 GEMMA3_NEED_GIB = 14.0
 #: internvl2-26b's depth: 8 of 48 layers (4.3B parameters, 8.2 GiB)
 INTERNVL2_LAYERS = 8
@@ -3611,6 +3664,58 @@ WHISPER_NEED_GIB = 4.0
 ENCODER_TOL = LOGITS_TOL
 
 
+#: zamba2-1.2b at full width and depth: 4 rows of 1000 tokens (3 whole
+#: 256-token chunks and a padded fourth of 232), 32 greedy tokens; equal
+#: lengths, since recurrent mixers refuse ragged prompts (as in JAX).
+#: 2.4 GiB of bf16 weights, the fp32 copy of the continuation gate 4.8
+ZAMBA2_PROMPT, ZAMBA2_ROWS = 1000, 4
+ZAMBA2_NEED_GIB = 12.0
+#: the layers of zamba2 that read the shared attention block
+ZAMBA2_ATTN_LAYERS = 6
+#: xlstm-1.3b at full width and depth: 4 rows of 600 tokens (2 whole
+#: mLSTM chunks and a padded 88-token one; 600 sequential sLSTM steps a
+#: layer), 32 greedy tokens; 3.6 GiB of bf16 weights, 7.2 in fp32
+XLSTM_PROMPT, XLSTM_ROWS = 600, 4
+XLSTM_NEED_GIB = 20.0
+#: the continuation gate (JAX's ``test_decode_matches_prefill_continuation``
+#: invariant at full width, one row, policy ``fp32``): ``CONT_TOKENS``
+#: decode steps after a prefill against the prefill of the longer prompt,
+#: gated at one pattern repeat and the suffix (8 layers of each arch).
+#: On the CPU (PyTorch) the last logits part by 2.1e-6 on the reduced
+#: configs (prompt 40) and by 1.3e-5 (zamba2, d_model 256, 12 layers,
+#: chunk 256, prompt 600) and 4.5e-6 (xlstm, d_model 256, 8 layers); on
+#: an H100 by 3.1e-4 at xlstm's full width and 8 layers; ``CONT_TOL``
+#: leaves ~6x over that.  A state carried wrongly (the pad, the window,
+#: the stabiliser) moves the logits by O(0.1) or more
+CONT_TOKENS = 8
+CONT_TOL = 2e-3
+#: the gates that random full-depth recurrent stacks need: they carry a
+#: rounding-level change much further than gemma2's stack (on an H100,
+#: zamba2's first-token logits, kernel against plain, 0.353, past
+#: ``LOGITS_TOL``; xlstm's fp32 prefill at chunk 128 against 256, 1.18),
+#: so such a gate is its fixed bound or this many times the model's own
+#: sensitivity to the same kind of change, whichever is larger
+#: (``attention_sensitivity``: plain versions against the dense path;
+#: ``continuation_gate``: half the chunk)
+SENSITIVITY_X = 3.0
+#: the recurrent phases' profiled window: the rows cut to 16 prompt
+#: tokens, 4 generated (the whole scan is ~180,000 kernel launches in
+#: xlstm, 57 s under the profiler and its reading on an H100 host; 64
+#: and 8 took 13.5 s)
+RECURRENT_WINDOW = (16, 4)
+#: device-time classes of the recurrent phases: f32-output GEMMs on CUDA
+#: cores (the projections ``tp_einsum(out_fmt="fp32")`` widens to f32:
+#: ``in_proj``, ``up_proj``, ``w_gates``, the state products) apart from
+#: the 16-bit tensor-core GEMMs
+RECURRENT_CLASSES = (
+    KERNEL_CLASSES[:2]
+    + (("gemm_f32", lambda low: (
+        any(g in low for g in ("gemm", "gemv", "nvjet", "xmma"))
+        and any(f in low for f in ("kernel<float", "f32f32_f32f32",
+                                   "sgemm", "nvjet_sss")))),)
+    + KERNEL_CLASSES[2:])
+
+
 def arch_kernel_cases() -> tuple:
     """The gemma3, internvl2 and whisper phases' attention reads at their
     serving shapes, as ``(decode records, flash records)``; none has a
@@ -3627,9 +3732,14 @@ def arch_kernel_cases() -> tuple:
     group 1): the encoder's non-causal read (4 rows x 1500 x 1500), the
     cross-attention prefill (a 32-token prompt x 1500 frames, non-causal),
     decode over the contiguous 1500-frame cross cache and over the
-    decoder's contiguous self cache."""
+    decoder's contiguous self cache.  zamba2-1.2b (32 heads of 64, group
+    1, the shared attention block at 6 of 38 layers): the last decode
+    step of the zamba2 phase (4 contiguous rows of ``ZAMBA2_PROMPT +
+    GEN_LEN - 1`` keys) and its prefill (4 rows x 32 heads x
+    ``ZAMBA2_PROMPT`` causal queries at (64, 64))."""
     import torch
     bf16 = torch.bfloat16
+    zb = dict(window=None, softcap=None, heads=(32, 1), d=64)
     g3 = dict(window=1024, softcap=None, heads=(8, 2), d=256)
     iv = dict(window=None, softcap=None, heads=(8, INTERNVL2_GROUP), d=128)
     wh = dict(window=None, softcap=None, heads=(12, 1), d=64)
@@ -3645,7 +3755,11 @@ def arch_kernel_cases() -> tuple:
                        **wh),
            decode_case("decode_bf16_whisper_self", dtype=bf16, page=0,
                        kv_lens=[p + GEN_LEN - 1 for p in WHISPER_PROMPTS],
-                       strip=width + GEN_LEN, alias=0, seed=33, **wh)]
+                       strip=width + GEN_LEN, alias=0, seed=33, **wh),
+           decode_case("decode_bf16_zamba2", dtype=bf16, page=0,
+                       kv_lens=[ZAMBA2_PROMPT + GEN_LEN - 1] * ZAMBA2_ROWS,
+                       strip=ZAMBA2_PROMPT + GEN_LEN, alias=0, seed=38,
+                       **zb)]
     fl = [flash_case("flash_bf16_p64_gemma3_chunk", dtype=bf16, page=64,
                      rows=[256, 256], q_offset=1792, chunk=256, alias=4,
                      seed=34, **g3),
@@ -3659,7 +3773,10 @@ def arch_kernel_cases() -> tuple:
                      seed=36, causal=False, main=True, **wh),
           flash_case("flash_bf16_whisper_cross", dtype=bf16, page=0,
                      rows=[frames] * 4, q_offset=0, chunk=width,
-                     keys=frames, alias=0, seed=37, causal=False, **wh)]
+                     keys=frames, alias=0, seed=37, causal=False, **wh),
+          flash_case("flash_bf16_zamba2_prefill", dtype=bf16, page=0,
+                     rows=[ZAMBA2_PROMPT] * ZAMBA2_ROWS, q_offset=0,
+                     chunk=ZAMBA2_PROMPT, alias=0, seed=39, **zb)]
     return dec, fl
 
 
@@ -3688,13 +3805,13 @@ def _ragged(prompts, vocab: int, seed: int):
     return toks.cuda(), torch.tensor(prompts, device="cuda")
 
 
-def stream_near_ties(where: str, got, plain, plain_logits) -> list:
+def stream_near_ties(where: str, got, plain, plain_logits,
+                     tol: float = LOGITS_TOL) -> list:
     """Greedy streams ``got`` (kernel path) against ``plain`` [B, T] (the
     plain path's, with its logits [B, T, V]): where a row first parts, the
     kernel path saw the plain path's own history, so the two candidates'
-    plain logits must lie within ``2 LOGITS_TOL`` (each path's logits
-    within ``LOGITS_TOL`` of the other's).  Returns one record a row that
-    parts."""
+    plain logits must lie within ``2 tol`` (each path's logits within
+    ``tol`` of the other's).  Returns one record a row that parts."""
     ties = []
     for r in range(got.shape[0]):
         diff = (got[r] != plain[r]).nonzero()
@@ -3704,7 +3821,7 @@ def stream_near_ties(where: str, got, plain, plain_logits) -> list:
         a, b = int(plain[r, s]), int(got[r, s])
         gap = abs(plain_logits[r, s, a].item() - plain_logits[r, s, b].item())
         rec = dict(row=r, step=s, plain_token=a, token=b, gap=gap,
-                   bound=2 * LOGITS_TOL)
+                   bound=2 * tol)
         ties.append(rec)
         if not gap <= rec["bound"]:
             raise AssertionError(f"{where}: row {r} parts from the plain "
@@ -3713,23 +3830,32 @@ def stream_near_ties(where: str, got, plain, plain_logits) -> list:
     return ties
 
 
-def generate_arch(model, params, toks, lens, tag: str, fe, rule: set,
+def generate_arch(model, params, toks, lens, tag: str, fe, rule,
                   group: int, dims: str, gen_len: int = GEN_LEN,
-                  classes=None, plain_ctx=None) -> tuple:
-    """``Model.generate`` of ``toks`` (``lens`` live) with frontend
-    embeddings ``fe``, greedy: a warm-up, then the prefill and first
-    token alone and the whole scan, both timed after a counter reset and
-    gated (``attention_counters``: every decode launch ``mma`` at a size
-    in ``rule`` and at group ``group``, every flash launch ``flash_tc`` at
-    ``dims``); one more scan under the profiler.  Then the plain versions'
-    whole scan: first-token logits within ``LOGITS_TOL``, streams equal
-    up to a near tie (``stream_near_ties``), under ``plain_ctx`` (a context
-    manager, e.g. ``EncodeTape.record()``).  Returns ``(record, counters,
-    first-token logits)``."""
+                  classes=None, plain_ctx=None,
+                  logits_tol: float = LOGITS_TOL, window=None) -> tuple:
+    """``Model.generate`` of ``toks`` (``lens`` live, or None: every row
+    whole) with frontend embeddings ``fe``, greedy: a warm-up, then the
+    prefill and first token alone and the whole scan, both timed after a
+    counter reset and gated (``attention_counters``: every decode launch
+    ``mma`` at a size in ``rule`` and at group ``group``, every flash
+    launch ``flash_tc`` at ``dims``; ``rule`` None: an arch without
+    attention, no attention kernel may launch); one more scan under the
+    profiler, or, with ``window`` = (prompt tokens, generated tokens), a
+    generate of the rows cut to that window, timed and profiled (the
+    profiler reads ~0.2 ms of host time an event: a recurrent scan
+    launches ~10^5 kernels).  Then the plain versions' whole scan (skipped without
+    attention: it is the same computation): first-token logits within
+    ``logits_tol``, streams equal up to a near tie (``stream_near_ties``),
+    under ``plain_ctx`` (a context manager, e.g.
+    ``EncodeTape.record()``).  Returns ``(record, counters, first-token
+    logits)``."""
     import torch
     kw = dict(prompt_lens=lens, frontend_embeds=fe, return_logits=True)
+    tw = time.perf_counter()
     model.generate(params, toks, gen_len=2, **kw)         # warm-up
     torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - tw
     reset_attention_counters()
     t0 = time.perf_counter()
     first = model.generate(params, toks, gen_len=1, **kw)
@@ -3738,42 +3864,63 @@ def generate_arch(model, params, toks, lens, tag: str, fe, rule: set,
     gen, lgs = model.generate(params, toks, gen_len=gen_len, **kw)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    counted = attention_counters(tag, rule)
-    groups_gate(tag, counted, group)
-    if set(counted["flash_launches_by_dims"]) != {dims}:
-        raise AssertionError(f"{tag}: flash launches by dims "
-                             f"{counted['flash_launches_by_dims']}")
+    if rule is None:
+        counted = no_attention_counters(tag)
+    else:
+        counted = attention_counters(tag, rule)
+        groups_gate(tag, counted, group)
+        if set(counted["flash_launches_by_dims"]) != {dims}:
+            raise AssertionError(f"{tag}: flash launches by dims "
+                                 f"{counted['flash_launches_by_dims']}")
     if not torch.equal(first[0][:, 0], gen[:, 0]):
         raise AssertionError(f"{tag}: the first token of the scan differs "
                              f"from the prefill's")
-    where = device_profile(lambda: model.generate(params, toks,
-                                                  gen_len=gen_len, **kw),
-                           t2 - t1, classes)
+    if window is None:
+        where = device_profile(lambda: model.generate(
+            params, toks, gen_len=gen_len, **kw), t2 - t1, classes)
+    else:
+        wt = toks[:, :window[0]]
+        run = lambda: model.generate(params, wt, gen_len=window[1], **kw)
+        t3 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        where = dict(device_profile(run, time.perf_counter() - t3, classes),
+                     window=dict(prompt=window[0], gen_len=window[1]))
+    if not lgs.isfinite().all():
+        raise AssertionError(f"{tag}: logits are not finite")
+    n_tok = gen.numel()
+    rec = dict(rows=toks.shape[0],
+               prompts=(lens.tolist() if lens is not None
+                        else [toks.shape[1]] * toks.shape[0]),
+               gen_len=gen_len, prefill_s=t1 - t0, scan_s=t2 - t1,
+               decode_ms_per_step=(t2 - t1 - (t1 - t0)) * 1e3
+               / (gen_len - 1), tok_s=n_tok / (t2 - t1), warmup_s=warmup_s,
+               logits_absmax=lgs[..., :model.cfg.vocab].abs().max().item(),
+               greedy_heads=gen[:, :8].tolist(), where_the_time_goes=where)
+    if rule is None:
+        return rec, counted, lgs[:, 0]
     plain = model.with_cfg(decode_backend="plain", prefill_backend="plain")
     t3 = time.perf_counter()
     with plain_ctx or contextlib.nullcontext():
         gen_p, lgs_p = plain.generate(params, toks, gen_len=gen_len, **kw)
     torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t3
-    if not (lgs.isfinite().all() and lgs_p.isfinite().all()):
-        raise AssertionError(f"{tag}: logits are not finite")
+    rec["plain_s"] = time.perf_counter() - t3
+    if not lgs_p.isfinite().all():
+        raise AssertionError(f"{tag}: the plain path's logits are not "
+                             f"finite")
     lerr = (lgs[:, 0] - lgs_p[:, 0]).abs().max().item()
-    if not lerr <= LOGITS_TOL:
+    rec["plain_vs_kernel"] = dict(
+        logits_max_abs_err=lerr,
+        logits_mean_abs_err=(lgs[:, 0] - lgs_p[:, 0])[
+            ..., :model.cfg.vocab].abs().mean().item(),
+        logits_tol=logits_tol, logits_absmax=rec["logits_absmax"],
+        tokens_agree=int((gen == gen_p).sum()), of=n_tok)
+    log(json.dumps({f"{tag}_plain_vs_kernel": rec["plain_vs_kernel"]}))
+    if not lerr <= logits_tol:
         raise AssertionError(f"{tag}: first-token logits differ from the "
                              f"plain path's by {lerr}")
-    ties = stream_near_ties(tag, gen, gen_p, lgs_p)
-    n_tok = gen.numel()
-    rec = dict(rows=toks.shape[0], prompts=lens.tolist(), gen_len=gen_len,
-               prefill_s=t1 - t0, scan_s=t2 - t1,
-               decode_ms_per_step=(t2 - t1 - (t1 - t0)) * 1e3
-               / (gen_len - 1), tok_s=n_tok / (t2 - t1), plain_s=plain_s,
-               plain_vs_kernel=dict(
-                   logits_max_abs_err=lerr, logits_tol=LOGITS_TOL,
-                   logits_absmax=lgs[..., :model.cfg.vocab].abs().max()
-                   .item(),
-                   tokens_agree=int((gen == gen_p).sum()), of=n_tok,
-                   near_ties=ties),
-               greedy_heads=gen[:, :8].tolist(), where_the_time_goes=where)
+    rec["plain_vs_kernel"]["near_ties"] = stream_near_ties(
+        tag, gen, gen_p, lgs_p, logits_tol)
     return rec, counted, lgs[:, 0]
 
 
@@ -3936,7 +4083,209 @@ def whisper_phase(seed: int = 0) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: transprecision training
+# phases 15-16: the recurrent archs (zamba2, xlstm)
+# ---------------------------------------------------------------------------
+def _uniform(rows: int, prompt: int, vocab: int, seed: int):
+    """``rows`` prompts of ``prompt`` tokens from ``seed``, on the card."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randint(0, vocab, (rows, prompt))).cuda()
+
+
+def state_bytes(model, max_len: int) -> dict:
+    """One row's cache bytes: the recurrent layers' states (conv windows,
+    Mamba2 / mLSTM / sLSTM states) and the attention layers' KV at
+    ``max_len`` positions."""
+    from repro_torch.models import ssm
+    rec = kv = 0
+    for c in model.init_caches(1, max_len):
+        n = _nbytes(*c)
+        if isinstance(c, (ssm.Mamba2Cache, ssm.MLSTMCache,
+                          ssm.SLSTMCache)):
+            rec += n
+        else:
+            kv += n
+    return dict(recurrent_state_bytes_per_row=rec,
+                kv_bytes_per_row=kv, max_len=max_len)
+
+
+def _continuation(model, params, row, extra) -> tuple:
+    """The last logits after ``row``'s prefill and ``extra``'s tokens one
+    ``decode_step`` at a time, against the prefill of both: ``(max abs
+    difference, |logits| max, the prefill's logits)`` over the live
+    vocab."""
+    import torch
+    n, k = row.shape[1], extra.shape[1]
+    full = torch.cat([row, extra], dim=1)
+    lg_a, caches = model.prefill(params, row, max_len=n + k)
+    for i in range(k):
+        lg_a, caches = model.decode_step(params, full[:, n + i:n + i + 1],
+                                         caches, n + i)
+    lg_b, _ = model.prefill(params, full, max_len=n + k)
+    v = model.cfg.vocab
+    if not (lg_a.isfinite().all() and lg_b.isfinite().all()):
+        raise AssertionError(f"{model.cfg.name}: continuation logits are "
+                             f"not finite")
+    return ((lg_a[..., :v] - lg_b[..., :v]).abs().max().item(),
+            lg_b[..., :v].abs().max().item(), lg_b)
+
+
+def continuation_gate(model, params, toks, tag: str, seed: int) -> dict:
+    """JAX's continuation invariant at full width, one row, policy
+    ``fp32`` (the same weights widened): a prefill of ``toks[:1]``, then
+    ``CONT_TOKENS`` seeded tokens through ``decode_step`` one at a time,
+    against the prefill of the prompt and those tokens.  Holds on the
+    card that the chunked state carry, the padded last chunk and the conv
+    window are right.
+
+    Gated at one repeat of the layer pattern and the suffix (``draft_view``:
+    every mixer kind of the arch), within ``CONT_TOL``; at full depth the
+    randomly initialised stacks carry f32 rounding far (xlstm's 48 layers
+    move the logits by O(1) between two chunk sizes), so the whole stack
+    is held to ``SENSITIVITY_X`` times its own sensitivity: the prefill at
+    half the chunk against the prefill at the chunk."""
+    import torch
+    from repro_torch.core.policy import get_policy
+    t0 = time.perf_counter()
+    wide = dataclasses.replace(model, policy=get_policy("fp32"))
+    p32 = _widen(params)
+    row = toks[:1]
+    extra = _uniform(1, CONT_TOKENS, model.cfg.vocab, seed)
+    cut, cp, _ = wide.draft_view(p32, None, 1)
+    err_cut, abs_cut, _ = _continuation(cut, cp, row, extra)
+    err, absmax, lg_b = _continuation(wide, p32, row, extra)
+    half = {sub: dataclasses.replace(getattr(model.cfg, sub),
+                                     chunk=getattr(model.cfg, sub).chunk // 2)
+            for sub in ("mamba", "mlstm") if getattr(model.cfg, sub)}
+    lg_h, _ = wide.with_cfg(**half).prefill(
+        p32, torch.cat([row, extra], dim=1),
+        max_len=row.shape[1] + CONT_TOKENS)
+    torch.cuda.synchronize()
+    v = model.cfg.vocab
+    sens = (lg_h[..., :v] - lg_b[..., :v]).abs().max().item()
+    bound = max(CONT_TOL, SENSITIVITY_X * sens)
+    rec = dict(policy="fp32", prompt=row.shape[1], steps=CONT_TOKENS,
+               one_repeat=dict(layers=cut.cfg.n_layers,
+                               logits_max_abs_err=err_cut, tol=CONT_TOL,
+                               logits_absmax=abs_cut),
+               full_depth=dict(layers=model.cfg.n_layers,
+                               logits_max_abs_err=err, logits_absmax=absmax,
+                               half_chunk_sensitivity=sens, tol=bound),
+               seconds=time.perf_counter() - t0)
+    log(json.dumps({f"{tag}_continuation": rec}))
+    if not err_cut <= CONT_TOL:
+        raise AssertionError(f"{tag}: at {cut.cfg.n_layers} layers, decode "
+                             f"after prefill parts from the prefill of the "
+                             f"longer prompt by {err_cut} > {CONT_TOL}")
+    if not err <= bound:
+        raise AssertionError(f"{tag}: at full depth, decode after prefill "
+                             f"parts from the prefill of the longer prompt "
+                             f"by {err} > {bound}")
+    del wide, p32
+    return rec
+
+
+def _widen(tree):
+    """A parameter tree with every floating tensor widened to f32."""
+    if isinstance(tree, dict):
+        return {k: _widen(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_widen(v) for v in tree]
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def attention_sensitivity(model, params, toks, max_len: int,
+                          tag: str) -> dict:
+    """How far the model itself carries a rounding-level change of its
+    attention into the first-token logits: the prefill's logits through
+    the plain versions (the kernels' tiled walk) against the dense masked
+    softmax (another order of the same f32 sums and another p rounding),
+    both pure PyTorch.  The kernel path's difference from the plain path
+    is held to ``SENSITIVITY_X`` times this where it exceeds
+    ``LOGITS_TOL``."""
+    plain = model.with_cfg(decode_backend="plain", prefill_backend="plain")
+    dense = model.with_cfg(decode_backend="dense", prefill_backend="dense")
+    lg_p, _ = plain.prefill(params, toks, max_len=max_len)
+    lg_d, _ = dense.prefill(params, toks, max_len=max_len)
+    v = model.cfg.vocab
+    d = (lg_p - lg_d)[..., :v].abs()
+    rec = dict(logits_max_abs=d.max().item(),
+               logits_mean_abs=d.mean().item(),
+               logits_absmax=lg_p[..., :v].abs().max().item())
+    log(json.dumps({f"{tag}_sensitivity": rec}))
+    return rec
+
+
+def zamba2_phase(seed: int = 0) -> dict:
+    """zamba2-1.2b at full width and depth under ``tp_bf16`` (38 layers:
+    32 Mamba2 mixers, d_inner 4096, 64 heads of 64, d_state 64, chunk
+    256, and one shared attention + SwiGLU block, 32 heads of 64, d_ff
+    8192, read at 6 positions, each with a KV cache of its own) through
+    ``Model.generate``: ``ZAMBA2_ROWS`` rows of ``ZAMBA2_PROMPT`` tokens,
+    ``GEN_LEN`` greedy tokens (``generate_arch``: decode ``mma`` at group 1
+    over contiguous strips, flash ``flash_tc`` at (64, 64), causal;
+    first-token logits against the plain versions, streams to a near
+    tie, within ``max(LOGITS_TOL, SENSITIVITY_X x`` the model's own
+    sensitivity: ``attention_sensitivity``).  Gates of its own: the
+    launches are the 6 shared layers times the calls (two prefills,
+    ``GEN_LEN - 1`` decode steps), none non-causal; the continuation gate
+    under ``fp32``."""
+    from repro_torch.kernels.decode_attention import STRIP_UNIT, cluster_size
+    model, params = arch_model("zamba2-1.2b", None, ZAMBA2_NEED_GIB,
+                               "zamba2", seed)
+    cfg = model.cfg
+    toks = _uniform(ZAMBA2_ROWS, ZAMBA2_PROMPT, cfg.vocab, seed + 14)
+    max_len = ZAMBA2_PROMPT + GEN_LEN
+    rule = {cluster_size(ZAMBA2_ROWS * cfg.n_kv_heads,
+                         -(-max_len // STRIP_UNIT), STRIP_UNIT)}
+    sens = attention_sensitivity(model, params, toks, max_len, "zamba2")
+    rec, counted, _ = generate_arch(
+        model, params, toks, None, "zamba2", None, rule, 1, "64x64",
+        classes=RECURRENT_CLASSES, window=RECURRENT_WINDOW,
+        logits_tol=max(LOGITS_TOL, SENSITIVITY_X * sens["logits_max_abs"]))
+    want = {"flash_attention": ZAMBA2_ATTN_LAYERS * 2,
+            "decode_attention": ZAMBA2_ATTN_LAYERS * (GEN_LEN - 1)}
+    if counted["launches"] != want or counted["flash_launches_noncausal"]:
+        raise AssertionError(f"zamba2: attention launches "
+                             f"{counted['launches']} (non-causal "
+                             f"{counted['flash_launches_noncausal']}), "
+                             f"expected {want}, all causal")
+    rec.update(arch=cfg.name, layers=cfg.n_layers,
+               attention_layers=ZAMBA2_ATTN_LAYERS, sensitivity=sens,
+               continuation=continuation_gate(model, params, toks, "zamba2",
+                                              seed + 15),
+               **state_bytes(model, max_len), card=card_line(), **counted)
+    log(json.dumps({"zamba2": rec}))
+    return rec
+
+
+def xlstm_phase(seed: int = 0) -> dict:
+    """xlstm-1.3b at full width and depth under ``tp_bf16`` (48 layers: 42
+    mLSTM mixers, 4 heads of 1024 with an f32 [1024, 1024] memory each,
+    chunk 256, and 6 sLSTM mixers, 4 heads of 512, a sequential loop over
+    time, with a gated gelu FFN tail) through ``Model.generate``:
+    ``XLSTM_ROWS`` rows of ``XLSTM_PROMPT`` tokens, ``GEN_LEN`` greedy
+    tokens (``generate_arch`` without attention: no attention kernel may
+    launch).  The continuation gate under ``fp32``."""
+    model, params = arch_model("xlstm-1.3b", None, XLSTM_NEED_GIB, "xlstm",
+                               seed)
+    cfg = model.cfg
+    toks = _uniform(XLSTM_ROWS, XLSTM_PROMPT, cfg.vocab, seed + 16)
+    max_len = XLSTM_PROMPT + GEN_LEN
+    rec, counted, _ = generate_arch(model, params, toks, None, "xlstm", None,
+                                    None, 0, "", classes=RECURRENT_CLASSES,
+                                    window=RECURRENT_WINDOW)
+    rec.update(arch=cfg.name, layers=cfg.n_layers,
+               continuation=continuation_gate(model, params, toks, "xlstm",
+                                              seed + 17),
+               **state_bytes(model, max_len), card=card_line(), **counted)
+    log(json.dumps({"xlstm": rec}))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 17: transprecision training
 # ---------------------------------------------------------------------------
 #: the JAX training launcher's defaults (``launch/train.py``): seq 256,
 #: global batch 16, lr 3e-3, AdamW; warm-up 10 steps
@@ -4298,7 +4647,9 @@ def main() -> int:
     archs = {}
     for tag, phase in (("gemma3", gemma3_phase),
                        ("internvl2", internvl2_phase),
-                       ("whisper", whisper_phase)):
+                       ("whisper", whisper_phase),
+                       ("zamba2", zamba2_phase),
+                       ("xlstm", xlstm_phase)):
         archs[tag] = phase()
         serving.append(archs[tag])
         lap(tag)
@@ -4386,7 +4737,7 @@ def main() -> int:
                                        "max_abs_err", "q_rows",
                                        "other_q_rows_ms", "fma_ms")}
                 for c in cases if any(a in c["case"] for a in (
-                    "gemma3", "internvl2", "whisper"))]
+                    "gemma3", "internvl2", "whisper", "zamba2"))]
             entry["arch_launches"] = {tag: res["launches"][name]
                                       for tag, res in archs.items()}
         line.append(entry)

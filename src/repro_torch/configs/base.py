@@ -8,11 +8,13 @@ Mixture-of-Experts FFN (``moe``: a ``models.moe.MoEConfig``), rmsnorm or
 layernorm (``norm``), rope or learned positions (``max_seq``), a patch
 frontend stub (``frontend="patch"``: ``n_frontend_tokens`` precomputed
 embeddings overwrite the first positions) and whisper's encoder
-(``encoder``, with ``cross_attn`` decoder layers over its states).  The
-recurrent sub-configs (``mamba``, ``mlstm``, ``slstm``, ``shared_block``)
-keep their fields but stay ``None`` in this port.  Defaults differ in one place: ``decode_backend`` /
-``prefill_backend`` are ``"auto"`` (the CUDA kernels for CUDA tensors,
-their plain versions on the CPU).
+(``encoder``, with ``cross_attn`` decoder layers over its states), and
+the recurrent archs: Mamba2, mLSTM and sLSTM mixers (``mamba``,
+``mlstm``, ``slstm``: a ``models.ssm.Mamba2Config`` / ``MLSTMConfig`` /
+``SLSTMConfig``) and zamba2's shared attention block (``shared_block``,
+the ``shared_attn`` mixer).  Defaults differ in one place:
+``decode_backend`` / ``prefill_backend`` are ``"auto"`` (the CUDA kernels
+for CUDA tensors, their plain versions on the CPU).
 """
 from __future__ import annotations
 
@@ -72,7 +74,7 @@ class ModelConfig:
     nope_dim: int = 0
     rope_dim: int = 0
     v_head_dim: int = 0
-    # family sub-configs (moe and encoder ported, the recurrent ones not)
+    # family sub-configs
     moe: Optional[Any] = None
     mamba: Optional[Any] = None
     mlstm: Optional[Any] = None
@@ -126,4 +128,14 @@ class ModelConfig:
         for spec in self.layer_list():
             if spec.mixer == "mla":
                 assert self.kv_lora and self.nope_dim and self.rope_dim
+            if spec.ffn == "moe":
+                assert self.moe is not None
+            if spec.mixer == "mamba2":
+                assert self.mamba is not None
+            if spec.mixer == "mlstm":
+                assert self.mlstm is not None
+            if spec.mixer == "slstm":
+                assert self.slstm is not None
+            if spec.mixer == "shared_attn":
+                assert self.shared_block is not None
         return self

@@ -386,6 +386,10 @@ class ContinuousEngine:
         if not cfg.paged_kv:
             raise ValueError("ContinuousEngine requires cfg.paged_kv "
                              "(admission allocates pages, not batch rows)")
+        why = cfg.paged_unsupported_reason()
+        if why is not None:
+            raise ValueError(f"continuous batching is unsupported for "
+                             f"{cfg.name}: {why} cannot page its cache")
         asked = sorted(k for k, v in unported.items()
                        if v not in (None, False, 0, 0.0))
         if asked:

@@ -15,7 +15,13 @@ internvl2-26b`` (text only: the launcher feeds no patch embeddings, as
 the JAX launcher does not) serve either way.  ``--arch whisper-small``
 is refused by ``--paged`` / ``--continuous`` (its cross-attention cache
 is contiguous) and, like the JAX launcher, feeds the encoder no frame
-embeddings: its fixed batch raises in ``encode``.  ``--ragged``
+embeddings: its fixed batch raises in ``encode``.  ``--arch
+zamba2-1.2b`` (Mamba2 + a shared attention block) and ``--arch
+xlstm-1.3b`` (mLSTM + sLSTM) serve the fixed batch only, as in JAX:
+``--paged`` / ``--continuous`` are refused (recurrent state has no page
+axis), ``--ragged`` raises in ``prefill`` (their mixers cannot mask pad
+tokens out of the state), and ``--speculate`` needs ``--continuous``.
+``--ragged``
 packs prompts of 1/4 .. 4/4 of ``--prompt-len`` into one right-padded
 batch, ``--stop-token`` freezes a row at that token, ``--paged`` serves
 from a page pool of ``--page-size``-token pages; a uniform paged batch

@@ -10,6 +10,8 @@ only acts under a mesh, as in JAX, and is ignored here.  As the JAX
 launcher's, the data carry no frontend: ``--arch internvl2-26b`` trains
 on text alone, and ``--arch whisper-small`` raises in ``encode`` at the
 first step (no frame embeddings), where JAX's fails on ``None``.
+``--arch zamba2-1.2b`` and ``--arch xlstm-1.3b`` train through the
+recurrent mixers' chunked forms (no cache).
 """
 from __future__ import annotations
 

@@ -11,7 +11,8 @@ keeps its ``up`` / ``b_up`` / ``down`` / ``b_down`` leaves, biases
 included (granite).  Whisper's leaves come along: the learned positions
 ``pos_embed``, each decoder layer's ``xattn`` / ``norm_x``, layernorm's
 ``b``, and the ``encoder`` tree, whose stacked ``[L, ...]`` layers are
-unstacked into a list as the pattern's are.  bf16 and fp8 leaves
+unstacked into a list as the pattern's are; zamba2's shared block
+(``shared``) is carried as it is.  bf16 and fp8 leaves
 (ml_dtypes arrays) are reinterpreted bit for bit.  numpy only: this
 module never imports jax.
 
@@ -73,8 +74,9 @@ def from_jax_state(state, device: DeviceLike = None) -> dict:
     return {"params": from_jax_tree(state["params"], device), "opt": opt}
 
 
-#: top-level leaves other than the layers, carried as they are
-_TOP = ("embed", "norm_f", "lm_head", "pos_embed")
+#: top-level leaves other than the layers, carried as they are (zamba2's
+#: shared attention block ``shared`` is one subtree)
+_TOP = ("embed", "norm_f", "lm_head", "pos_embed", "shared")
 
 
 def _unbind(stacked) -> list:
@@ -151,3 +153,30 @@ def from_jax_params(tree, device: DeviceLike = None) -> dict:
                        for i in range(n)],
             "pos": conv(e["pos"]), "norm_f": conv(e["norm_f"])}
     return out
+
+
+def from_jax_caches(caches, device: DeviceLike = None) -> list:
+    """JAX ``init_caches`` / ``prefill`` caches (a ``Caches`` of ``prefix``,
+    the ``[R, ...]``-stacked ``pattern`` and ``suffix``, each layer a
+    ``{"kv": NamedTuple}`` dict, numpy leaves) -> the port's per-layer
+    list in ``cfg.layer_list()`` order: each JAX NamedTuple becomes the
+    port's class of the same name (``KVCache``, ``MLACache``,
+    ``Mamba2Cache``, ``MLSTMCache``, ``SLSTMCache``), bits kept."""
+    from . import attention, ssm
+    classes = {c.__name__: c for c in (
+        attention.KVCache, attention.MLACache, ssm.Mamba2Cache,
+        ssm.MLSTMCache, ssm.SLSTMCache)}
+    device = resolve_device(device)
+
+    def one(layer):
+        kv = layer["kv"]
+        return classes[type(kv).__name__](
+            *(_to_torch(a, device) for a in kv))
+
+    pattern = caches.pattern
+    reps = len(np.asarray(pattern[0]["kv"][0]))
+    out = [one(c) for c in caches.prefix]
+    for r in range(reps):
+        for c in pattern:
+            out.append(one({"kv": type(c["kv"])(*(a[r] for a in c["kv"]))}))
+    return out + [one(c) for c in caches.suffix]

@@ -32,8 +32,11 @@ temperature / top-k / top-p draw (``sample_token``) from an explicit
 
 Parameters are a plain dict of tensors in the JAX layout (``[d_in,
 d_out]``) with the layers UNSTACKED: ``params["layers"][i]`` is layer
-``i`` of ``cfg.layer_list()``.  Caches are a list with one entry per
-layer, updated IN PLACE.  Attention-only archs: GQA (gemma2, gemma3,
+``i`` of ``cfg.layer_list()``; zamba2's shared attention block is
+``params["shared"]``, read at every ``shared_attn`` position.  Caches
+are a list with one entry per layer, updated IN PLACE (a recurrent
+layer's NamedTuple cache is replaced by the one its mixer returns).
+Attention archs: GQA (gemma2, gemma3,
 qwen3-moe, granite's MQA, internvl2: contiguous or paged KV) or MLA
 (minicpm3, deepseek-v2-lite: a contiguous latent cache,
 ``attention.MLACache``; no page axis), each layer with a SwiGLU MLP, a
@@ -47,8 +50,11 @@ params), with rope or learned positions (``params["pos_embed"]``,
 a gelu MLP, learned frame positions) turns the caller's frame embeddings
 into the states every ``cross_attn`` decoder layer reads, whose cache is
 a ``CrossCache`` (the self-attention KV and the cross KV of all
-frames).  The
-escalation write path (``esc_fmts`` / ``kv_levels``, and overflow
+frames).  The recurrent archs (``models.ssm``): zamba2's Mamba2 layers
+with a shared attention + SwiGLU block at every sixth position, and
+xlstm's mLSTM and sLSTM layers, both with ``ffn="none"``; they cannot
+page, take no ragged prompt and cannot speculate, as in the JAX package.
+The escalation write path (``esc_fmts`` / ``kv_levels``, and overflow
 injection ``ovf_at`` / ``ovf_scale`` in ``decode_burst``) snaps every cache
 write onto its row's rung and returns the rows' OF / UF write counts
 ``kv_flags`` [B, 2] last.
@@ -67,6 +73,7 @@ from ..core.policy import PrecisionPolicy, get_policy
 from . import attention as attn
 from . import moe as moe_mod
 from . import paged
+from . import ssm
 from .layers import (dense_init, embed_init, gelu_mlp, layernorm,
                      mlp_params, param_dtype, rmsnorm, softcap, swiglu)
 from ..core import ops as tp
@@ -223,15 +230,25 @@ def _remat(policy: str):
                                      save_dots))
 
 
+#: the recurrent mixers: (sub-config field, mix, cache init, params)
+_RECURRENT = {
+    "mamba2": ("mamba", ssm.mamba2_mix, ssm.init_mamba2_cache,
+               ssm.mamba2_params),
+    "mlstm": ("mlstm", ssm.mlstm_mix, ssm.init_mlstm_cache,
+              ssm.mlstm_params),
+    "slstm": ("slstm", ssm.slstm_mix, ssm.init_slstm_cache,
+              ssm.slstm_params)}
+
+
 def _check_supported(cfg: ModelConfig):
     bad = sorted({f"{s.mixer}/{s.ffn}" for s in cfg.layer_list()
-                  if s.mixer not in ("gqa", "mla")
-                  or s.ffn not in ("swiglu", "gelu", "moe")})
-    if bad or cfg.shared_block is not None:
+                  if s.mixer not in ("gqa", "mla", "shared_attn", *_RECURRENT)
+                  or s.ffn not in ("swiglu", "gelu", "moe", "none")})
+    if bad:
         raise NotImplementedError(
-            f"{cfg.name}: only gqa / mla + swiglu / gelu / moe stacks are "
-            f"ported (got {bad or 'a shared block'}); the recurrent and "
-            f"shared-block mixers are ROADMAP Queue 1 item 7.5")
+            f"{cfg.name}: mixer / ffn {bad} is not one of the JAX "
+            f"package's (gqa, mla, shared_attn, mamba2, mlstm, slstm / "
+            f"swiglu, gelu, moe, none)")
     if cfg.norm not in ("rmsnorm", "layernorm"):
         raise ValueError(f"{cfg.name}: norm must be rmsnorm|layernorm, got "
                          f"{cfg.norm!r}")
@@ -257,30 +274,56 @@ def _norm_params(cfg: ModelConfig, dtype, device) -> dict:
 
 
 def init_layer(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device):
+    """One layer's leaves, as the JAX package's ``init_layer``: ``norm1``,
+    the mixer's ``attn`` (none for ``shared_attn``, whose attention lives
+    in ``params["shared"]``), ``mlp`` and ``norm2`` unless ``ffn="none"``
+    (a ``shared_attn`` layer keeps them, unread, as JAX's tree does), and
+    ``xattn`` / ``norm_x`` / ``post1`` / ``post2`` where the spec asks."""
     z = lambda: _norm_params(cfg, dtype, device)
+    p = {"norm1": z()}
     if spec.mixer == "mla":
-        mixer = attn.mla_params(
+        p["attn"] = attn.mla_params(
             gen, cfg.d_model, cfg.n_heads, q_lora=cfg.q_lora,
             kv_lora=cfg.kv_lora, nope_dim=cfg.nope_dim,
             rope_dim=cfg.rope_dim, v_head_dim=cfg.v_head_dim, dtype=dtype,
             device=device)
-    else:
-        mixer = attn.gqa_params(gen, cfg.d_model, cfg.n_heads,
-                                cfg.n_kv_heads, cfg.head_dim, dtype, device,
-                                qk_norm=spec.qk_norm)
-    mlp = (moe_mod.moe_params(gen, cfg.d_model, cfg.moe, dtype, device)
-           if spec.ffn == "moe" else
-           mlp_params(gen, cfg.d_model, cfg.d_ff, dtype, device,
-                      kind=spec.ffn))
-    p = {"norm1": z(), "attn": mixer, "mlp": mlp, "norm2": z()}
+    elif spec.mixer == "gqa":
+        p["attn"] = attn.gqa_params(gen, cfg.d_model, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.head_dim, dtype,
+                                    device, qk_norm=spec.qk_norm)
+    elif spec.mixer in _RECURRENT:
+        sub, _, _, init = _RECURRENT[spec.mixer]
+        p["attn"] = init(gen, getattr(cfg, sub), dtype, device)
     if spec.cross_attn:
         p["xattn"] = attn.gqa_params(gen, cfg.d_model, cfg.n_heads,
                                      cfg.n_kv_heads, cfg.head_dim, dtype,
                                      device)
         p["norm_x"] = z()
+    if spec.ffn != "none":
+        p["mlp"] = (moe_mod.moe_params(gen, cfg.d_model, cfg.moe, dtype,
+                                       device)
+                    if spec.ffn == "moe" else
+                    mlp_params(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                               kind=spec.ffn))
+        p["norm2"] = z()
     if spec.post_norms:
-        p["post1"], p["post2"] = z(), z()
+        p["post1"] = z()
+        if spec.ffn != "none":
+            p["post2"] = z()
     return p
+
+
+def init_shared_block(gen, cfg: ModelConfig, dtype, device) -> dict:
+    """zamba2: one attention + MLP block whose weights every
+    ``shared_attn`` position reads (``norm1``, ``attn``, ``norm2``,
+    ``mlp`` of ``cfg.shared_block.ffn``)."""
+    return {"norm1": _norm_params(cfg, dtype, device),
+            "attn": attn.gqa_params(gen, cfg.d_model, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.head_dim, dtype,
+                                    device),
+            "norm2": _norm_params(cfg, dtype, device),
+            "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                              kind=cfg.shared_block.ffn)}
 
 
 def init_encoder(gen, cfg: ModelConfig, dtype, device) -> dict:
@@ -337,9 +380,12 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 n_pages: Optional[int] = None) -> List:
     """One cache per layer.  Paged (``cfg.paged_kv``): every layer's pool
     adopts the SAME [B, max_pages] table (default: the identity table);
-    an arch whose cache has no page axis (MLA, or whisper's cross cache)
-    raises, as the JAX package's ``Model.prefill`` does.  A
-    ``cross_attn`` layer's entry is a ``CrossCache``."""
+    an arch whose cache has no page axis (MLA, the recurrent mixers, or
+    whisper's cross cache) raises, as the JAX package's ``Model.prefill``
+    does.  A ``cross_attn`` layer's entry is a ``CrossCache``; a recurrent
+    layer's its mixer's state (``ssm.Mamba2Cache`` / ``MLSTMCache`` /
+    ``SLSTMCache``, the conv window in the KV store dtype); each of
+    zamba2's ``shared_attn`` positions has a KV cache of its own."""
     if cfg.paged_kv:
         why = cfg.paged_unsupported_reason()
         if why is not None:
@@ -352,6 +398,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
         if spec.mixer == "mla":
             out.append(attn.init_mla_cache(batch, max_len, cfg.kv_lora,
                                            cfg.rope_dim, kv_dtype, device))
+        elif spec.mixer in _RECURRENT:
+            sub, _, init, _ = _RECURRENT[spec.mixer]
+            out.append(init(batch, getattr(cfg, sub), kv_dtype, device))
         elif cfg.paged_kv:
             out.append(paged.init_paged_kv_cache(
                 batch, cfg.n_kv_heads, max_len, cfg.page_size, cfg.head_dim,
@@ -426,6 +475,8 @@ class Model:
                 device=dev) * 0.01).to(dtype)
         params["layers"] = [init_layer(gen, s, cfg, dtype, dev)
                             for s in cfg.layer_list()]
+        if cfg.shared_block is not None:
+            params["shared"] = init_shared_block(gen, cfg, dtype, dev)
         if cfg.encoder is not None:
             params["encoder"] = init_encoder(gen, cfg, dtype, dev)
         return params
@@ -491,11 +542,17 @@ class Model:
     def apply_layer(self, x, p, spec: LayerSpec, *, positions, cache=None,
                     cache_pos=None, kv_len=None, enc_states=None,
                     esc_fmts=None, kv_levels=None, kv_scale=None,
-                    verify: bool = False, with_aux: bool = False):
+                    verify: bool = False, with_aux: bool = False,
+                    shared=None):
         """One block: ``(x, cache)``, or ``(x, cache, kv_flags [B, 2])``
         when ``esc_fmts`` is given (the escalation write path of
-        ``attention.gqa_attention``; an MLA layer, as in the JAX package,
-        writes its latent cache as it is and contributes zero flags).
+        ``attention.gqa_attention``; an MLA or recurrent layer, as in the
+        JAX package, writes its cache as it is and contributes zero flags).
+        A ``shared_attn`` layer reads ``norm1`` / ``attn`` / ``norm2`` /
+        ``mlp`` from ``shared`` (zamba2's ``params["shared"]``); a
+        recurrent layer (``models.ssm``) ignores ``positions``,
+        ``cache_pos`` and ``kv_len``, as JAX's do; ``ffn="none"`` skips the
+        FFN.
         ``verify`` selects the speculative verify read of a GQA layer
         (``speculate_check`` refuses MLA stacks).  ``with_aux`` (training)
         appends the layer's MoE load-balancing loss (an f32 zero for a
@@ -507,8 +564,17 @@ class Model:
         xcache = None
         if spec.cross_attn and cache is not None:
             cache, xcache = cache
-        h = _norm(x, p["norm1"], cfg)
-        if spec.mixer == "mla":
+        ap = shared if spec.mixer == "shared_attn" else p
+        h = _norm(x, ap["norm1"], cfg)
+        zero_flags = lambda: (torch.zeros((x.shape[0], 2), dtype=torch.int32,
+                                          device=x.device),)
+        if spec.mixer in _RECURRENT:
+            sub, mix_fn, _, _ = _RECURRENT[spec.mixer]
+            r = mix_fn(h, p["attn"], getattr(cfg, sub), self.policy,
+                       cache=cache)
+            if esc_fmts is not None:
+                r += zero_flags()
+        elif spec.mixer == "mla":
             r = attn.mla_attention(
                 h, p["attn"], self.policy, n_heads=cfg.n_heads,
                 nope_dim=cfg.nope_dim, rope_dim=cfg.rope_dim,
@@ -517,14 +583,13 @@ class Model:
                 cache=cache, cache_pos=cache_pos, chunk=cfg.attn_chunk,
                 prefill_backend=cfg.prefill_backend, kv_len=kv_len)
             if esc_fmts is not None:
-                r += (torch.zeros((x.shape[0], 2), dtype=torch.int32,
-                                  device=x.device),)
+                r += zero_flags()
         else:
             esc_kw = ({} if esc_fmts is None else
                       dict(esc_fmts=esc_fmts, kv_levels=kv_levels,
                            kv_scale=kv_scale))
             r = attn.gqa_attention(
-                h, p["attn"], self.policy, n_heads=cfg.n_heads,
+                h, ap["attn"], self.policy, n_heads=cfg.n_heads,
                 n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
                 positions=positions, causal=True, window=spec.window,
                 attn_softcap=spec.attn_softcap, rope_theta=cfg.rope_theta,
@@ -554,21 +619,23 @@ class Model:
             x = x + rs * mixx
             if cache is not None:
                 cache = CrossCache(cache, xcache)
-        h2 = _norm(x, p["norm2"], cfg)
         aux = None
-        if spec.ffn == "moe":
-            f, aux = moe_mod.moe_block(h2, p["mlp"], cfg.moe, self.policy,
-                                       with_aux=with_aux)
-        elif spec.ffn == "gelu":
-            m = p["mlp"]
-            f = gelu_mlp(h2, m["up"], m["b_up"], m["down"], m["b_down"],
-                         self.policy)
-        else:
-            f = swiglu(h2, p["mlp"]["gate"], p["mlp"]["up"],
-                       p["mlp"]["down"], self.policy)
-        if spec.post_norms:
-            f = _norm(f, p["post2"], cfg)
-        out = (x + rs * f, cache) + tuple(r[2:])
+        if spec.ffn != "none":
+            h2 = _norm(x, ap["norm2"], cfg)
+            m = ap["mlp"]
+            if spec.ffn == "swiglu" or (spec.mixer == "shared_attn" and
+                                        cfg.shared_block.ffn == "swiglu"):
+                f = swiglu(h2, m["gate"], m["up"], m["down"], self.policy)
+            elif spec.ffn == "gelu":
+                f = gelu_mlp(h2, m["up"], m["b_up"], m["down"], m["b_down"],
+                             self.policy)
+            else:
+                f, aux = moe_mod.moe_block(h2, m, cfg.moe, self.policy,
+                                           with_aux=with_aux)
+            if spec.post_norms:
+                f = _norm(f, p["post2"], cfg)
+            x = x + rs * f
+        out = (x, cache) + tuple(r[2:])
         if with_aux:
             out += (aux if aux is not None else
                     torch.zeros((), dtype=F32, device=x.device),)
@@ -593,7 +660,7 @@ class Model:
                                  cache_pos=cache_pos, kv_len=kv_len,
                                  enc_states=enc_states, esc_fmts=esc_fmts,
                                  kv_levels=kv_levels, kv_scale=kv_scale,
-                                 verify=verify)
+                                 verify=verify, shared=params.get("shared"))
             x, c = r[0], r[1]
             if esc:
                 flags = flags + r[2]
@@ -639,6 +706,7 @@ class Model:
         x = self.embed(params, tokens, frontend_embeds)
         positions = torch.arange(tokens.shape[1], device=self.device)
         layers, specs = params["layers"], cfg.layer_list()
+        shared = params.get("shared")
         wrap = _remat(cfg.remat_policy) if remat else None
 
         def run(h, acc, enc_states, lo, hi):
@@ -646,7 +714,7 @@ class Model:
                 h, _, a = self.apply_layer(h, layers[i], specs[i],
                                            positions=positions,
                                            enc_states=enc_states,
-                                           with_aux=True)
+                                           with_aux=True, shared=shared)
                 acc = acc + a
             return h, acc
 
@@ -701,10 +769,20 @@ class Model:
         ``frontend_embeds``: internvl2's patch embeddings [B, K, d] (the
         first K positions), or whisper's frame embeddings [B, n_frames, d],
         which the encoder turns into the states whose cross K/V every
-        decoder layer caches."""
+        decoder layer caches.  A recurrent arch refuses ``prompt_lens``
+        with the JAX package's message: its mixers cannot mask pad tokens
+        out of their state."""
         cfg = self.cfg
         if not cfg.paged_kv and page_table is not None:
             raise ValueError("page_table given but cfg.paged_kv is off")
+        if prompt_lens is not None:
+            rec = sorted({s.mixer for s in cfg.layer_list()
+                          if s.mixer in _RECURRENT})
+            if rec:
+                raise ValueError(
+                    f"prompt_lens (ragged serving) is unsupported for "
+                    f"{cfg.name}: {'/'.join(rec)} mixers cannot mask pad "
+                    f"tokens out of their recurrent state")
         tokens = torch.as_tensor(tokens, device=self.device)
         b, s = tokens.shape
         enc = (self.encode(params, frontend_embeds)

@@ -155,12 +155,6 @@ def test_full_widths():
             wh.max_seq) == (12, 1500, "layernorm", 65536)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
-def test_recurrent_archs_still_refused(arch):
-    with pytest.raises(NotImplementedError, match="7.5"):
-        build_model(arch, reduced=True, device="cpu")
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_refusals_match_jax(arch):
     """``paged_unsupported_reason`` and ``speculate_check`` give JAX's

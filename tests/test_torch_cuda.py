@@ -1355,3 +1355,88 @@ def _to_cuda(tree):
     if isinstance(tree, list):
         return [_to_cuda(v) for v in tree]
     return tree.cuda()
+
+
+# ---------------------------------------------------------------------------
+# the recurrent archs: zamba2 (Mamba2 + a shared attention block), xlstm
+# ---------------------------------------------------------------------------
+def _lively_gains(params, seed):
+    """Norm gains (rmsnorm ``g``, Mamba2's ``norm``, the xLSTM ``ln``)
+    ~ 0.2 N, so every gain matters."""
+    g = torch.Generator().manual_seed(seed)
+
+    def walk(t, key=None):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        if key in ("g", "norm", "ln"):
+            return (torch.randn(t.shape, generator=g) * 0.2).to(t.dtype)
+        return t
+    return walk(params)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_recurrent_archs_on_the_card_match_the_cpu(gen, arch):
+    """Reduced zamba2 / xlstm under ``fp32``: prefill (a padded last
+    chunk), three ``decode_step``s and every recurrent cache field on the
+    card against the CPU, within 2e-4 (f32 sums in another order, as the
+    CPU suite holds the port to JAX).  zamba2's shared attention layer
+    launches the flash kernel once a prefill and the decode kernel once a
+    step; xlstm launches no attention kernel."""
+    from repro_torch.models import ssm
+    from repro_torch.models.registry import build_model
+    m = build_model(arch, policy="fp32", reduced=True, device="cpu")
+    params = _lively_gains(m.init(0), 1)
+    toks = torch.randint(0, m.cfg.vocab, (2, 21),
+                         generator=torch.Generator().manual_seed(2))
+    mc = build_model(arch, policy="fp32", reduced=True, device="cuda")
+    pc = _to_cuda(params)
+    n_attn = sum(s.mixer == "shared_attn" for s in m.cfg.layer_list())
+    f0, d0 = flash_attention_cuda.launches, decode_attention_cuda.launches
+    lg, caches = m.prefill(params, toks, max_len=32)
+    lgc, cc = mc.prefill(pc, toks.cuda(), max_len=32)
+    for i in range(3):
+        assert (lgc.cpu() - lg).abs().max().item() <= 2e-4, i
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        lg, caches = m.decode_step(params, tok, caches, 21 + i)
+        lgc, cc = mc.decode_step(pc, tok.cuda(), cc, 21 + i)
+    torch.cuda.synchronize()
+    assert (lgc.cpu() - lg).abs().max().item() <= 2e-4
+    for c, k in zip(caches, cc):
+        if isinstance(c, (ssm.Mamba2Cache, ssm.MLSTMCache, ssm.SLSTMCache)):
+            for field, a, b in zip(c._fields, c, k):
+                assert (b.cpu() - a).abs().max().item() <= 2e-4 * max(
+                    1.0, a.abs().max().item()), field
+    assert flash_attention_cuda.launches - f0 == n_attn
+    assert decode_attention_cuda.launches - d0 == 3 * n_attn
+
+
+def test_zamba2_generate_on_the_card_launches_the_kernels(gen):
+    """Reduced zamba2 under ``tp_bf16`` through ``generate`` on the card:
+    its shared attention layer launches the flash kernel once (head dim
+    16: ``flash_fma``) and the decode kernel once a step; logits
+    within the model-level 1e-1 of the CPU's and greedy tokens equal up
+    to a row's first near tie."""
+    from repro_torch.models.registry import build_model
+    m = build_model("zamba2-1.2b", reduced=True, device="cpu")
+    params = _lively_gains(m.init(0), 3)
+    toks = torch.randint(0, m.cfg.vocab, (3, 19),
+                         generator=torch.Generator().manual_seed(4))
+    cpu_gen, cpu_lg = m.generate(params, toks, gen_len=8, return_logits=True)
+    mc = build_model("zamba2-1.2b", reduced=True, device="cuda")
+    f0, d0 = flash_attention_cuda.launches, decode_attention_cuda.launches
+    card_gen, card_lg = mc.generate(_to_cuda(params), toks.cuda(),
+                                    gen_len=8, return_logits=True)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches - f0 == 1
+    assert decode_attention_cuda.launches - d0 == 7
+    card_lg, card_gen = card_lg.cpu(), card_gen.cpu()
+    assert (card_lg[:, 0] - cpu_lg[:, 0]).abs().max().item() <= 1e-1
+    for r in range(3):
+        bad = (card_gen[r] != cpu_gen[r]).nonzero()
+        if len(bad):
+            s = int(bad[0])
+            diff = (card_lg[r, :s + 1] - cpu_lg[r, :s + 1]).abs().max()
+            top2 = cpu_lg[r, s].topk(2).values
+            assert (top2[0] - top2[1]).item() <= 2 * diff.item(), (r, s)

@@ -140,9 +140,8 @@ def test_init_matches_jax_param_layout(weights):
 
 
 def test_unported_paths_raise():
-    for arch in ("zamba2-1.2b", "xlstm-1.3b"):
-        with pytest.raises(NotImplementedError, match="7.5"):
-            build_model(arch, reduced=True, device="cpu")
+    for arch in ("zamba2-1.2b", "xlstm-1.3b"):      # ported: they build
+        assert build_model(arch, reduced=True, device="cpu").cfg.n_layers == 4
     tm = build_model("gemma2-9b", reduced=True, device="cpu")
     params = tm.init(0)
     toks = torch.zeros((1, 4), dtype=torch.int64)
