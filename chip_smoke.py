@@ -112,7 +112,9 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    the guard counts must be 0, and prefix sharing must change no token
    and no logit.  Then the prefill and first token again through the
    plain versions: first-token logits within ``LOGITS_TOL``, each row's
-   first token equal but at a near tie.  Decode ms per step and tok/s.
+   first token equal but at a near tie.  Decode ms per step and tok/s;
+   device time by class from a profiled 8-token scan
+   (``GEN_PROFILE_LEN``).
 6. Overload phase (``overload_phase``): the overload-safe engine on a
    short pool with swap preemption, fp8 degrade, sampling with penalties
    and a fault plan.  Every request must get its whole budget, every
@@ -136,6 +138,22 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    each oracle equal up to a near tie.  tok/s, decode ms per round,
    evacuation ms and migrated bytes, journal bytes and append cost, the
    restart's wall time.
+6c. tp phase (``tp_phase``): the slice's model is freed; two ranks
+   (``launch.spmd.spawn``) on the one card over gloo, each with its
+   shards, against oracles served unsharded in this process first:
+   (a) gemma2-9b at full width, ``TP_LAYERS`` = 8 of 42 layers, tensor
+   parallel through ``ContinuousEngine(mesh=)`` (4 slots, chunk 256,
+   pages of 64, 8 requests of 128-1024 tokens, 16 each): streams bitwise
+   across ranks and equal to the oracle's up to a near tie, first-token
+   logits within ``LOGITS_TOL``, one layer's decode and prefill reads
+   bitwise per head at the unsharded split, decode ``mma`` at G 2 and
+   flash ``flash_tc`` on each rank; (b) qwen3-moe at ``TP_MOE_LAYERS`` = 4
+   of 48, expert parallel (64 experts a rank) through ``generate`` with
+   the oracle's expert choices, the same gates at G 8, and ``moe_block``
+   on layer 0 against the unsharded call (indices and dropped set exact,
+   output within ``KERNEL_TOL`` of its largest magnitude).  tok/s and
+   ms a round sharded and unsharded, collectives, their ms and the bytes
+   gloo staged through pinned host memory: not a speed of NCCL.
 7. Escalation phase (``escalation_phase``): the bf16 model is freed and
    gemma2-9b is built again under policy ``fp32`` (f32 weights, an f32 KV
    pool; ``ESCALATION_LAYERS`` = 8 of its 42 layers: 9.6 GiB), then
@@ -231,22 +249,23 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    encoder states and every layer's cross cache within ``ENCODER_TOL``
    of the plain path's.
 15. zamba2 phase (``zamba2_phase``): whisper is freed and zamba2-1.2b
-   is built at full width and depth under ``tp_bf16`` (38 layers: 32
-   Mamba2 mixers, d_model 2048, d_inner 4096, 64 heads of 64, d_state 64,
-   chunk 256, and one shared attention + SwiGLU block, 32 heads of 64,
-   d_ff 8192, read at 6 positions, each with its own contiguous KV
-   cache), then served by ``Model.generate`` on 4 rows of 1000 tokens
+   is built at full width under ``tp_bf16`` (``ZAMBA2_LAYERS`` = 20 of 38
+   layers: 17 Mamba2 mixers, d_model 2048, d_inner 4096, 64 heads of 64,
+   d_state 64, chunk 256, and one shared attention + SwiGLU block, 32
+   heads of 64, d_ff 8192, read at 3 positions, each with its own
+   contiguous KV cache), then served by ``Model.generate`` on 4 rows of 1000 tokens
    (equal lengths: recurrent mixers refuse ragged prompts), 32 greedy
    tokens (``generate_arch``: decode ``mma`` at group 1, flash
    ``flash_tc`` at (64, 64), first-token logits and streams against the
-   plain versions).  Gates of its own: the launches are the 6 shared
+   plain versions).  Gates of its own: the launches are the 3 shared
    layers times the calls, all causal; the continuation gate
    (``continuation_gate``: one row under ``fp32``, 8 ``decode_step``
    calls after the prefill against the prefill of the longer prompt,
    within ``CONT_TOL``).  Each row's recurrent state and KV bytes.
 16. xlstm phase (``xlstm_phase``): zamba2 is freed and xlstm-1.3b is
-   built at full width and depth under ``tp_bf16`` (48 layers: 42 mLSTM
-   mixers, 4 heads of 1024, chunk 256, and 6 sLSTM mixers, a sequential
+   built at full width under ``tp_bf16`` (``XLSTM_LAYERS`` = 24 of 48
+   layers: 21 mLSTM mixers, 4 heads of 1024, chunk 256, and 3 sLSTM
+   mixers, a sequential
    loop over time with a gated gelu FFN tail), then served by
    ``Model.generate`` on 4 rows of 600 tokens, 32 greedy tokens: no
    attention kernel may launch; the continuation gate; state bytes.
@@ -281,7 +300,9 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    cases (``arch_cases``) and each arch phase's launches, xlstm's none;
    flash launches without the causal mask), the card line, and as the
    last
-   line ``{"ok": true, "device": {...}}``.
+   line ``{"ok": true, "device": {...}}``.  The tp phase's launches (both
+   ranks') count with the serving paths' and stand alone as
+   ``tp_launches``.
 
 Imports no JAX.  Needs one CUDA device and ``nvcc`` (``CUDA_HOME``, PATH
 or ``/usr/local/cuda``).
@@ -1746,32 +1767,21 @@ def full_model(seed: int = 0):
 
 
 def reset_attention_counters() -> None:
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    decode_attention_cuda.launches = flash_attention_cuda.launches = 0
-    flash_attention_cuda.launches_noncausal = 0
-    decode_attention_cuda.launches_mma = decode_attention_cuda.launches_fma = 0
-    decode_attention_cuda.launches_by_cluster.clear()
-    decode_attention_cuda.launches_by_group.clear()
-    flash_attention_cuda.launches_tc = flash_attention_cuda.launches_fma = 0
-    flash_attention_cuda.launches_by_dims.clear()
+    from repro_torch.launch.sharded_checks import reset_attention_launches
+    reset_attention_launches()
 
 
 def attention_counters(where: str, rule: set, flash: str = "tc",
-                       decode: str = "mma") -> dict:
-    """The attention launch counters since the last reset, gated: both
-    kernels launched, every flash launch on variant ``flash``, every
-    decode launch on route ``decode`` at a cluster size in ``rule``."""
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    launches = {"decode_attention": decode_attention_cuda.launches,
-                "flash_attention": flash_attention_cuda.launches}
-    variants = {"flash_attention": {"tc": flash_attention_cuda.launches_tc,
-                                    "fma": flash_attention_cuda.launches_fma},
-                "decode_attention": {
-                    "mma": decode_attention_cuda.launches_mma,
-                    "fma": decode_attention_cuda.launches_fma}}
-    by_cluster = dict(decode_attention_cuda.launches_by_cluster)
+                       decode: str = "mma", counted=None) -> dict:
+    """The attention launch counters since the last reset (or
+    ``counted``, a rank's ``sharded_checks.attention_launches()``),
+    gated: both kernels launched, every flash launch on variant
+    ``flash``, every decode launch on route ``decode`` at a cluster size
+    in ``rule``."""
+    from repro_torch.launch.sharded_checks import attention_launches
+    counted = counted if counted is not None else attention_launches()
+    launches, variants = counted["launches"], counted["variants"]
+    by_cluster = counted["decode_launches_by_cluster"]
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{where}: {name} was not launched")
@@ -1787,13 +1797,7 @@ def attention_counters(where: str, rule: set, flash: str = "tc",
             or not set(by_cluster) <= rule):
         raise AssertionError(f"{where}: decode launches by cluster size "
                              f"{by_cluster}: the rule names {sorted(rule)}")
-    return dict(launches=launches, variants=variants,
-                decode_launches_by_cluster=by_cluster,
-                decode_launches_by_group=dict(
-                    decode_attention_cuda.launches_by_group),
-                flash_launches_by_dims=flash_dims(),
-                flash_launches_noncausal=(
-                    flash_attention_cuda.launches_noncausal))
+    return counted
 
 
 def no_attention_counters(where: str) -> dict:
@@ -2163,6 +2167,8 @@ GEN_PROMPTS = (1024, 512, 256, 64)
 GEN_LEN = 32
 GEN_PENALTIES = dict(repetition_penalty=1.1, presence_penalty=0.5)
 GEN_STOP_SAMPLING = dict(temperature=0.7, top_k=64, top_p=0.9)
+#: tokens of the generate phase's profiled scan
+GEN_PROFILE_LEN = 8
 
 
 def generate_phase(model, params, seed: int = 0) -> dict:
@@ -2214,8 +2220,17 @@ def generate_phase(model, params, seed: int = 0) -> dict:
     max_pages = num_pages(width + GEN_LEN, model.cfg.page_size)
     counted = attention_counters(
         "generate", cluster_rule(model, len(GEN_PROMPTS), max_pages))
+    # the profiled window is a short scan: reading a trace back costs about
+    # 0.2 ms an event, and the whole 32-token scan's took 30 s
+    short = {**kw, "gen_len": GEN_PROFILE_LEN}
+    sync()
+    t3 = time.perf_counter()
+    model.generate(params, toks, loop="scan", **short)
+    sync()
     where = device_profile(
-        lambda: model.generate(params, toks, loop="scan", **kw), t2 - t1)
+        lambda: model.generate(params, toks, loop="scan", **short),
+        time.perf_counter() - t3)
+    where["gen_len"] = GEN_PROFILE_LEN
     if not torch.equal(scan, whl) or trips_scan != trips_while:
         raise AssertionError("generate: the while form's tokens differ from "
                              "the scan form's")
@@ -2855,6 +2870,257 @@ def ha_phase(model, params, vdiff: float, seed: int = 0) -> dict:
                phase_s=time.perf_counter() - t_phase, card=card_line(),
                **total)
     log(json.dumps({"ha": res}))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: sharded serving, two ranks on the one card
+# ---------------------------------------------------------------------------
+#: the tp phase: gemma2-9b at full width cut to 8 of its 42 layers (four
+#: repeats of the local / global pattern, 5.0 GiB of bf16 weights) through
+#: the paged engine, 4 slots, pages of 64, chunks of 256, on 8 requests of
+#: 128-1024 prompt tokens, 16 tokens each; qwen3-moe-30b-a3b cut to 4 of
+#: 48 layers through ``generate`` on two ragged rows, 16 tokens, its 128
+#: experts split 64 and 64; ``TP_RANKS`` ranks on the one card over gloo
+TP_RANKS = 2
+TP_LAYERS, TP_MOE_LAYERS = 8, 4
+TP_PROMPTS = (1024, 128, 512, 768, 256, 896, 384, 640)
+TP_GEN = 16
+TP_MOE_PROMPTS = (96, 48)
+#: tokens of the ``moe_block`` probe on layer 0's experts
+TP_PROBE_TOKENS = 64
+#: free memory the phase needs before its parent builds both oracles
+#: (5.0 + 6.0 GiB) and the two ranks build, shard and run theirs
+TP_NEED_GIB = 40.0
+
+
+def tp_requests(vocab: int, seed: int = 0) -> list:
+    """The tp phase's queue: ``TP_PROMPTS`` at ``ARRIVALS``, ``TP_GEN``
+    tokens each."""
+    import numpy as np
+    from repro_torch.launch.engine import Request
+    rng = np.random.RandomState(seed + 25)
+    return [Request(rid=i, tokens=rng.randint(0, vocab, size=p).tolist(),
+                    max_new=TP_GEN, arrival=a)
+            for i, (p, a) in enumerate(zip(TP_PROMPTS, ARRIVALS))]
+
+
+def _stream_gates(where, model, params, reqs, oracle, ranks, vdiff):
+    """The ranks' streams bitwise each other, each against the oracle's
+    equal up to a near tie; returns the near-tie records."""
+    streams = [r["tokens"] for r in ranks]
+    if any(s != streams[0] for s in streams[1:]):
+        raise AssertionError(f"{where}: the ranks' token streams differ")
+    ties = []
+    for req, plain, got in zip(reqs, oracle, streams[0]):
+        if len(got) != len(plain):
+            raise AssertionError(f"{where}: request {req.rid} got "
+                                 f"{len(got)} tokens, the oracle "
+                                 f"{len(plain)}")
+        rec = near_tie_check(model, params, req, plain, got, vdiff, where)
+        if rec is not None:
+            ties.append(rec)
+    return ties
+
+
+def _weights_gate(where, digest, ranks):
+    if any(r["digest"] != digest for r in ranks):
+        raise AssertionError(f"{where}: the ranks' weights are not the "
+                             f"oracle's: {[r['digest'] for r in ranks]} "
+                             f"against {digest}")
+
+
+def tp_phase(seed: int = 0) -> dict:
+    """Sharded serving on one card: ``TP_RANKS`` ranks joined by gloo (NCCL
+    refuses two ranks on one GPU), each on its head / vocab / expert
+    shards, the hand-written kernels on its heads.  This proves the
+    sharded code on the card; it is not a speed of NCCL tensor
+    parallelism.
+
+    (a) gemma2-9b, ``TP_LAYERS`` layers, tensor parallel through
+        ``ContinuousEngine(mesh=)`` on ``tp_requests``, against the same
+        queue through the unsharded engine in this process: the ranks'
+        streams bitwise each other and equal to the oracle's up to a near
+        tie (``near_tie_check`` at the first-token logit difference), the
+        first-token logits of request 0 within ``LOGITS_TOL``, one
+        layer's decode and prefill reads bitwise per head under the
+        pinned split (``sharded_checks.attend_reads``), and on each rank
+        decode launches ``mma`` at group 2 and at the unsharded call's
+        cluster size, flash ``flash_tc`` at (256, 256).
+    (b) qwen3-moe, ``TP_MOE_LAYERS`` layers, expert parallel through
+        ``generate(mesh=)`` with the oracle's expert choices
+        (``RouteTape``): streams as (a), decode at group 8, flash at (128,
+        128); ``moe_block`` on layer 0 against the unsharded call: router
+        indices and the dropped set exact, the output within
+        ``KERNEL_TOL`` of its largest magnitude.
+
+    Each rank builds the weights from the oracle's seed (their digest
+    must be the oracle's), and returns its launch counters (set to 0 just
+    before its run, read just after), its collective count and time and
+    the bytes gloo staged through pinned host memory."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import sharded_checks as sc
+    from repro_torch.launch import spmd
+    from repro_torch.launch.engine import ContinuousEngine, Request
+    from repro_torch.models.paged import num_pages
+
+    free_memory_gate("tp", TP_NEED_GIB)
+    t_phase = time.perf_counter()
+    model, params = arch_model("gemma2-9b", TP_LAYERS, 0.0, "tp", seed,
+                               paged_kv=True, page_size=64)
+    cfg = model.cfg
+    reqs = tp_requests(cfg.vocab, seed)
+    warm = [dataclasses.replace(reqs[1], max_new=2)]
+    max_len = max(r.prompt_len + r.max_new for r in reqs)
+    slots, chunk = 4, 256
+    rule = cluster_rule(model, slots, num_pages(max_len, 64))
+    eng = ContinuousEngine(model, params, slots=slots, max_len=max_len,
+                           chunk=chunk)
+    eng.run(warm)
+    fin, st, wall, counted = engine_run(eng, reqs, "tp oracle", rule,
+                                        "256x256")
+    groups_gate("tp oracle", counted, 2)
+    oracle = [list(f.tokens) for f in fin]
+    lg0 = model.prefill(params, torch.tensor([reqs[0].tokens], device="cuda"),
+                        max_len=reqs[0].prompt_len + 1)[0][0, -1].float().cpu()
+    reads = sc.attend_reads(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    digest = sc.weights_digest(params)
+
+    qm, qp = arch_model("qwen3-moe-30b-a3b", TP_MOE_LAYERS, 0.0, "tp", seed,
+                        paged_kv=True, page_size=64)
+    rng = np.random.RandomState(seed + 26)
+    width = max(TP_MOE_PROMPTS)
+    qtoks = torch.zeros((len(TP_MOE_PROMPTS), width), dtype=torch.int64)
+    for r, n in enumerate(TP_MOE_PROMPTS):
+        qtoks[r, :n] = torch.from_numpy(rng.randint(0, qm.cfg.vocab, size=n))
+    qlens = torch.tensor(TP_MOE_PROMPTS)
+    tape = RouteTape()
+    reset_attention_counters()
+    with tape.record():
+        t0 = time.perf_counter()
+        qgen, qlg = qm.generate(qp, qtoks.cuda(), gen_len=TP_GEN,
+                                prompt_lens=qlens.cuda(), return_logits=True)
+        torch.cuda.synchronize()
+        q_wall = time.perf_counter() - t0
+    q_counted = attention_counters(
+        "tp moe oracle", cluster_rule(qm, len(TP_MOE_PROMPTS),
+                                      num_pages(width + TP_GEN, 64)))
+    groups_gate("tp moe oracle", q_counted, 8)
+    probe_x = torch.randn((1, TP_PROBE_TOKENS, qm.cfg.d_model),
+                          generator=torch.Generator().manual_seed(seed + 27)
+                          ).to(torch.bfloat16)
+    probe = sc.moe_probe(qp["layers"][0]["mlp"], qm.cfg.moe, probe_x.cuda(),
+                         None, "tp_bf16", with_aux=False)
+    q_digest = sc.weights_digest(qp)
+
+    spec = {"engine": dict(arch="gemma2-9b", layers=TP_LAYERS, seed=seed,
+                           requests=reqs, slots=slots, chunk=chunk,
+                           page_size=64, prompt=reqs[0].tokens, warm=warm),
+            "generate": dict(arch="qwen3-moe-30b-a3b", layers=TP_MOE_LAYERS,
+                             seed=seed, tokens=qtoks, lens=qlens,
+                             gen_len=TP_GEN,
+                             routes=[i.cpu() for i in tape.idx],
+                             probe_x=probe_x)}
+    t0 = time.perf_counter()
+    ranks = spmd.spawn(sc.card_rank, TP_RANKS, backend="gloo", args=(spec,))
+    spawn_s = time.perf_counter() - t0
+    eng_r = [r["engine"] for r in ranks]
+    gen_r = [r["generate"] for r in ranks]
+
+    # (a) gates
+    _weights_gate("tp", digest, eng_r)
+    total = None
+    for r, out in enumerate(eng_r):
+        where = f"tp rank {r}"
+        c = attention_counters(where, rule, counted=out["counters"])
+        groups_gate(where, c, 2)
+        if set(c["flash_launches_by_dims"]) != {"256x256"}:
+            raise AssertionError(f"{where}: flash launches by dims "
+                                 f"{c['flash_launches_by_dims']}")
+        if out["pages_live_end"] != 0:
+            raise AssertionError(f"{where}: the pool did not drain")
+        got = out["reads"]
+        h, hk = cfg.n_heads // TP_RANKS, cfg.n_kv_heads // TP_RANKS
+        for k in ("decode", "flash"):
+            if not torch.equal(got[k], reads[k][:, r * h:(r + 1) * h]):
+                raise AssertionError(f"{where}: its heads' {k} read is not "
+                                     f"bitwise the unsharded read's")
+        if got["cluster"] != reads["cluster"]:
+            raise AssertionError(f"{where}: decode split {got['cluster']}, "
+                                 f"the unsharded read's {reads['cluster']}")
+        total = merge_counters(total, c)
+    ldiff = max(float((o["first_logits"] - lg0).abs().max()) for o in eng_r)
+    if not ldiff <= LOGITS_TOL:
+        raise AssertionError(f"tp: first-token logits {ldiff} from the "
+                             f"unsharded model's (tolerance {LOGITS_TOL})")
+    ties = _stream_gates("tp", model, params, reqs, oracle, eng_r, ldiff)
+
+    # (b) gates
+    _weights_gate("tp moe", q_digest, gen_r)
+    qrule = cluster_rule(qm, len(TP_MOE_PROMPTS),
+                         num_pages(width + TP_GEN, 64))
+    for r, out in enumerate(gen_r):
+        where = f"tp moe rank {r}"
+        c = attention_counters(where, qrule, counted=out["counters"])
+        groups_gate(where, c, 8)
+        if set(c["flash_launches_by_dims"]) != {"128x128"}:
+            raise AssertionError(f"{where}: flash launches by dims "
+                                 f"{c['flash_launches_by_dims']}")
+        p = out["probe"]
+        if not (torch.equal(p["idx"], probe["idx"])
+                and torch.equal(p["dropped"], probe["dropped"])):
+            raise AssertionError(f"{where}: moe_block routed or dropped "
+                                 f"otherwise than the unsharded call")
+        total = merge_counters(total, c)
+    y_ref = probe["y"]
+    y_err = max(float((o["probe"]["y"] - y_ref).abs().max()) for o in gen_r)
+    y_tol = KERNEL_TOL * float(y_ref.abs().max())
+    if not y_err <= y_tol:
+        raise AssertionError(f"tp moe: moe_block output {y_err} from the "
+                             f"unsharded call's (tolerance {y_tol})")
+    qdiff = max(float((o["first_logits"] - qlg[:, 0].cpu()).abs().max())
+                for o in gen_r)
+    if not qdiff <= LOGITS_TOL:
+        raise AssertionError(f"tp moe: first-token logits {qdiff} from the "
+                             f"unsharded model's (tolerance {LOGITS_TOL})")
+    qreqs = [Request(rid=r, tokens=qtoks[r, :n].tolist(), max_new=TP_GEN)
+             for r, n in enumerate(TP_MOE_PROMPTS)]
+    q_ties = _stream_gates("tp moe", qm, qp, qreqs, qgen.cpu().tolist(),
+                           gen_r, qdiff)
+
+    n_tok = sum(len(t) for t in oracle)
+    res = dict(
+        ranks=TP_RANKS, backend="gloo", layers=TP_LAYERS,
+        moe_layers=TP_MOE_LAYERS, prompts=list(TP_PROMPTS), gen=TP_GEN,
+        caveat="two ranks on one H100 over gloo: CUDA tensors staged "
+               "through pinned host memory at every collective; not a "
+               "speed of NCCL tensor parallelism",
+        unsharded=dict(tok_s=n_tok / wall, wall_s=wall,
+                       decode_ms_per_round=st["decode_s"] * 1e3
+                       / max(1, st["decode_rounds"]),
+                       decode_rounds=st["decode_rounds"]),
+        sharded=[dict(rank=r, tok_s=n_tok / o["wall_s"], wall_s=o["wall_s"],
+                      decode_ms_per_round=o["decode_s"] * 1e3
+                      / max(1, o["decode_rounds"]),
+                      decode_rounds=o["decode_rounds"],
+                      shard_gib=o["shard_gib"], **o["spmd"])
+                 for r, o in enumerate(eng_r)],
+        first_logits_max_abs_diff=ldiff, near_ties=ties,
+        read_cluster=reads["cluster"],
+        rank_own_cluster=eng_r[0]["reads"]["own_cluster"],
+        rank_own_split_diff=max(o["reads"]["own_split_diff"]
+                                for o in eng_r),
+        moe=dict(unsharded_wall_s=q_wall,
+                 sharded=[dict(rank=r, wall_s=o["wall_s"],
+                               shard_gib=o["shard_gib"], **o["spmd"])
+                          for r, o in enumerate(gen_r)],
+                 probe_max_abs_err=y_err, probe_tol=y_tol,
+                 probe_dropped=int(probe["dropped"].sum()),
+                 first_logits_max_abs_diff=qdiff, near_ties=q_ties),
+        spawn_s=spawn_s, phase_s=time.perf_counter() - t_phase,
+        card=card_line(), **total)
+    log(json.dumps({"tp": res}))
     return res
 
 
@@ -3664,19 +3930,23 @@ WHISPER_NEED_GIB = 4.0
 ENCODER_TOL = LOGITS_TOL
 
 
-#: zamba2-1.2b at full width and depth: 4 rows of 1000 tokens (3 whole
-#: 256-token chunks and a padded fourth of 232), 32 greedy tokens; equal
-#: lengths, since recurrent mixers refuse ragged prompts (as in JAX).
+#: zamba2-1.2b at full width: 4 rows of 1000 tokens (3 whole 256-token
+#: chunks and a padded fourth of 232), 32 greedy tokens; equal lengths,
+#: since recurrent mixers refuse ragged prompts (as in JAX).  At full depth
 #: 2.4 GiB of bf16 weights, the fp32 copy of the continuation gate 4.8
 ZAMBA2_PROMPT, ZAMBA2_ROWS = 1000, 4
 ZAMBA2_NEED_GIB = 12.0
-#: the layers of zamba2 that read the shared attention block
-ZAMBA2_ATTN_LAYERS = 6
-#: xlstm-1.3b at full width and depth: 4 rows of 600 tokens (2 whole
-#: mLSTM chunks and a padded 88-token one; 600 sequential sLSTM steps a
-#: layer), 32 greedy tokens; 3.6 GiB of bf16 weights, 7.2 in fp32
+#: xlstm-1.3b at full width: 4 rows of 600 tokens (2 whole mLSTM chunks
+#: and a padded 88-token one; 600 sequential sLSTM steps a layer), 32
+#: greedy tokens; at full depth 3.6 GiB of bf16 weights, 7.2 in fp32
 XLSTM_PROMPT, XLSTM_ROWS = 600, 4
 XLSTM_NEED_GIB = 20.0
+#: the recurrent phases' depths: three repeats of each pattern, half of
+#: each stack (zamba2 20 of 38 layers: 17 Mamba2 and 3 shared-block
+#: positions; xlstm 24 of 48: 21 mLSTM and 3 sLSTM), to pay with the
+#: generate phase's shorter profile for the tp phase and keep the smoke
+#: near 1000 s on the slower hosts
+ZAMBA2_LAYERS, XLSTM_LAYERS = 20, 24
 #: the continuation gate (JAX's ``test_decode_matches_prefill_continuation``
 #: invariant at full width, one row, policy ``fp32``): ``CONT_TOKENS``
 #: decode steps after a prefill against the prefill of the longer prompt,
@@ -4140,11 +4410,11 @@ def continuation_gate(model, params, toks, tag: str, seed: int) -> dict:
     window are right.
 
     Gated at one repeat of the layer pattern and the suffix (``draft_view``:
-    every mixer kind of the arch), within ``CONT_TOL``; at full depth the
+    every mixer kind of the arch), within ``CONT_TOL``; deeper, the
     randomly initialised stacks carry f32 rounding far (xlstm's 48 layers
-    move the logits by O(1) between two chunk sizes), so the whole stack
-    is held to ``SENSITIVITY_X`` times its own sensitivity: the prefill at
-    half the chunk against the prefill at the chunk."""
+    move the logits by O(1) between two chunk sizes), so the phase's whole
+    stack is held to ``SENSITIVITY_X`` times its own sensitivity: the
+    prefill at half the chunk against the prefill at the chunk."""
     import torch
     from repro_torch.core.policy import get_policy
     t0 = time.perf_counter()
@@ -4179,9 +4449,9 @@ def continuation_gate(model, params, toks, tag: str, seed: int) -> dict:
                              f"after prefill parts from the prefill of the "
                              f"longer prompt by {err_cut} > {CONT_TOL}")
     if not err <= bound:
-        raise AssertionError(f"{tag}: at full depth, decode after prefill "
-                             f"parts from the prefill of the longer prompt "
-                             f"by {err} > {bound}")
+        raise AssertionError(f"{tag}: at {model.cfg.n_layers} layers, decode "
+                             f"after prefill parts from the prefill of the "
+                             f"longer prompt by {err} > {bound}")
     del wide, p32
     return rec
 
@@ -4218,23 +4488,25 @@ def attention_sensitivity(model, params, toks, max_len: int,
 
 
 def zamba2_phase(seed: int = 0) -> dict:
-    """zamba2-1.2b at full width and depth under ``tp_bf16`` (38 layers:
-    32 Mamba2 mixers, d_inner 4096, 64 heads of 64, d_state 64, chunk
-    256, and one shared attention + SwiGLU block, 32 heads of 64, d_ff
-    8192, read at 6 positions, each with a KV cache of its own) through
+    """zamba2-1.2b at full width under ``tp_bf16``, ``ZAMBA2_LAYERS`` of
+    its 38 layers (Mamba2 mixers, d_inner 4096, 64 heads of 64, d_state
+    64, chunk 256, and one shared attention + SwiGLU block, 32 heads of
+    64, d_ff 8192, read at every sixth position, each with a KV cache of
+    its own) through
     ``Model.generate``: ``ZAMBA2_ROWS`` rows of ``ZAMBA2_PROMPT`` tokens,
     ``GEN_LEN`` greedy tokens (``generate_arch``: decode ``mma`` at group 1
     over contiguous strips, flash ``flash_tc`` at (64, 64), causal;
     first-token logits against the plain versions, streams to a near
     tie, within ``max(LOGITS_TOL, SENSITIVITY_X x`` the model's own
     sensitivity: ``attention_sensitivity``).  Gates of its own: the
-    launches are the 6 shared layers times the calls (two prefills,
+    launches are the shared layers times the calls (two prefills,
     ``GEN_LEN - 1`` decode steps), none non-causal; the continuation gate
     under ``fp32``."""
     from repro_torch.kernels.decode_attention import STRIP_UNIT, cluster_size
-    model, params = arch_model("zamba2-1.2b", None, ZAMBA2_NEED_GIB,
+    model, params = arch_model("zamba2-1.2b", ZAMBA2_LAYERS, ZAMBA2_NEED_GIB,
                                "zamba2", seed)
     cfg = model.cfg
+    shared = sum(s.mixer == "shared_attn" for s in cfg.layer_list())
     toks = _uniform(ZAMBA2_ROWS, ZAMBA2_PROMPT, cfg.vocab, seed + 14)
     max_len = ZAMBA2_PROMPT + GEN_LEN
     rule = {cluster_size(ZAMBA2_ROWS * cfg.n_kv_heads,
@@ -4244,15 +4516,15 @@ def zamba2_phase(seed: int = 0) -> dict:
         model, params, toks, None, "zamba2", None, rule, 1, "64x64",
         classes=RECURRENT_CLASSES, window=RECURRENT_WINDOW,
         logits_tol=max(LOGITS_TOL, SENSITIVITY_X * sens["logits_max_abs"]))
-    want = {"flash_attention": ZAMBA2_ATTN_LAYERS * 2,
-            "decode_attention": ZAMBA2_ATTN_LAYERS * (GEN_LEN - 1)}
+    want = {"flash_attention": shared * 2,
+            "decode_attention": shared * (GEN_LEN - 1)}
     if counted["launches"] != want or counted["flash_launches_noncausal"]:
         raise AssertionError(f"zamba2: attention launches "
                              f"{counted['launches']} (non-causal "
                              f"{counted['flash_launches_noncausal']}), "
                              f"expected {want}, all causal")
     rec.update(arch=cfg.name, layers=cfg.n_layers,
-               attention_layers=ZAMBA2_ATTN_LAYERS, sensitivity=sens,
+               attention_layers=shared, sensitivity=sens,
                continuation=continuation_gate(model, params, toks, "zamba2",
                                               seed + 15),
                **state_bytes(model, max_len), card=card_line(), **counted)
@@ -4261,15 +4533,15 @@ def zamba2_phase(seed: int = 0) -> dict:
 
 
 def xlstm_phase(seed: int = 0) -> dict:
-    """xlstm-1.3b at full width and depth under ``tp_bf16`` (48 layers: 42
-    mLSTM mixers, 4 heads of 1024 with an f32 [1024, 1024] memory each,
-    chunk 256, and 6 sLSTM mixers, 4 heads of 512, a sequential loop over
-    time, with a gated gelu FFN tail) through ``Model.generate``:
+    """xlstm-1.3b at full width under ``tp_bf16``, ``XLSTM_LAYERS`` of its
+    48 layers (7 mLSTM mixers, 4 heads of 1024 with an f32 [1024, 1024]
+    memory each, chunk 256, to 1 sLSTM mixer, 4 heads of 512, a sequential
+    loop over time, with a gated gelu FFN tail) through ``Model.generate``:
     ``XLSTM_ROWS`` rows of ``XLSTM_PROMPT`` tokens, ``GEN_LEN`` greedy
     tokens (``generate_arch`` without attention: no attention kernel may
     launch).  The continuation gate under ``fp32``."""
-    model, params = arch_model("xlstm-1.3b", None, XLSTM_NEED_GIB, "xlstm",
-                               seed)
+    model, params = arch_model("xlstm-1.3b", XLSTM_LAYERS, XLSTM_NEED_GIB,
+                               "xlstm", seed)
     cfg = model.cfg
     toks = _uniform(XLSTM_ROWS, XLSTM_PROMPT, cfg.vocab, seed + 16)
     max_len = XLSTM_PROMPT + GEN_LEN
@@ -4628,6 +4900,10 @@ def main() -> int:
     lap("ha")
     del model, params
     gc_cuda()
+    tp = tp_phase()
+    serving.append(tp)
+    lap("tp")
+    gc_cuda()
     serving.append(escalation_phase())
     lap("escalation")
     gc_cuda()
@@ -4730,6 +5006,7 @@ def main() -> int:
                                        "other_q_rows_ms", "fma_ms")}
                 for c in cases if "granite" in c["case"]]
             entry["granite_launches"] = granite["launches"][name]
+            entry["tp_launches"] = tp["launches"][name]
             entry["arch_cases"] = [
                 {k: c.get(k) for k in ("case", "variant", "cluster",
                                        "kernel_ms", "flags_ms", "plain_ms",

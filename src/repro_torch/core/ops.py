@@ -47,9 +47,16 @@ torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _no_narrow_partials(policy):
-    if policy.narrow_partials:
-        raise NotImplementedError("narrow_partials is not ported")
+def _acc_dtype(policy, out) -> torch.dtype:
+    """The product's accumulate dtype under ``native``: ``acc_fmt``'s, or
+    with ``narrow_partials`` the narrower output format's (the JAX
+    package's narrow ``preferred_element_type``: under a mesh the
+    row-parallel partials are then reduced in that narrow type)."""
+    mp = policy.matmul
+    if (policy.narrow_partials and out.width < mp.acc_fmt.width
+            and out.native_dtype is not None):
+        return out.native_dtype
+    return storage_dtype(mp.acc_fmt, "native")
 
 
 def storage_dtype(fmt, mode: str) -> torch.dtype:
@@ -140,9 +147,8 @@ def tp_einsum(spec: str, a, b, policy, *, out_fmt=None,
     mp = policy.matmul
     out = _out_fmt(policy, out_fmt)
     if policy.mode == "native":
-        _no_narrow_partials(policy)
         src = mp.src_fmt.native_dtype
-        acc = storage_dtype(mp.acc_fmt, "native")
+        acc = _acc_dtype(policy, out)
         a, b = a.to(src), b.to(src)
         if a.device.type == "cuda" and out.native_dtype == src \
                 and acc == torch.float32:
@@ -177,15 +183,15 @@ def tp_matmul(a, b, policy, *, out_fmt=None, use_kernel: bool = False,
     if policy.mode != "native":
         return tp_einsum("...ij,jk->...ik", a, b, policy, out_fmt=out_fmt,
                          **kw)
-    _no_narrow_partials(policy)
     mp = policy.matmul
     src = mp.src_fmt.native_dtype
-    acc = storage_dtype(mp.acc_fmt, "native")
-    out = _out_fmt(policy, out_fmt).native_dtype
+    outf = _out_fmt(policy, out_fmt)
+    acc = _acc_dtype(policy, outf)
+    out = outf.native_dtype
     a, b = a.to(src), b.to(src)
     if a.device.type != "cuda":
         return torch.matmul(a.to(acc), b.to(acc)).to(out)
-    if out == src and acc == torch.float32:
+    if out == src and acc in (torch.float32, src):
         return torch.matmul(a, b)
     lead = a.shape[:-1]
     r = _WideMM.apply(a.reshape(-1, a.shape[-1]), b, acc)

@@ -93,8 +93,20 @@ time and reacts to a replica dying mid-run:
     their last journaled token through the reingest resume path.
 
 On one card the replicas share one ``params`` (one copy of the weights);
-each has its own pool and block tables.  Not ported, and refused when
-asked for: meshes (tensor-parallel replicas, ROADMAP Queue 1 item 8).
+each has its own pool and block tables.
+
+Sharded serving (``mesh=``, a ``launch.mesh.Mesh`` over
+``torch.distributed`` ranks, ``launch.spmd``): ``ContinuousEngine`` on a
+mesh whose ``model`` axis has M > 1 ranks keeps this rank's parameter
+shards (``models.sharding.shard_params``, the JAX engine's placement) and
+paged pools of this rank's KV heads; every rank runs the same scheduler
+on the same queue, so block tables and the ``PageAllocator`` stay on the
+host and identical, and each token pick is made on the group's first rank
+and broadcast.  ``ReplicatedEngine`` over a ``(data, model)`` mesh runs
+one engine a data row, in that row's ranks, and gathers the finished
+requests and stats to every rank in the JAX package's order and shape.
+Replica faults and the journal on a mesh with more than one data row
+would move blobs between processes and raise (ROADMAP Queue 1 item 8b).
 """
 from __future__ import annotations
 
@@ -110,11 +122,13 @@ from ..core.policy import EscalationPolicy, get_policy
 from ..models.attention import kv_store_dtype, kv_swap_dtype
 from ..models.paged import (PageAllocator, SwapBlobTag, aggregate_stats,
                             check_blob_tag, dtype_name, num_pages)
+from ..models.sharding import shard_params
 from ..models.transformer import _penalized, _pick, caches_with_table
 from ..train.fault import (EngineStuckError, PoisonedLogitsError,
                            ReplicaFaultPlan, ReplicaLostError,
                            ServeFaultPlan, ServeWatchdog, StragglerMonitor)
-from .mesh import replica_meshes
+from . import spmd
+from .mesh import check_mesh, model_size, replica_meshes
 
 
 def _crc_blobs(blobs: list) -> list:
@@ -362,7 +376,10 @@ class ContinuousEngine:
     journal records and on swap-blob tags), ``replica_fault`` (a
     ``ReplicaFaultPlan``) is consulted at every burst dispatch, and
     ``journal`` (a ``RequestJournal``) records the run and, when it
-    already holds records, is replayed by ``start``."""
+    already holds records, is replayed by ``start``.
+
+    ``mesh``: tensor parallel over its ``model`` axis; ``params`` are the
+    FULL tree, of which the engine keeps this rank's shards."""
 
     def __init__(self, model, params, *, slots: int, max_len: int,
                  chunk: int = 32, n_pages: Optional[int] = None,
@@ -381,7 +398,7 @@ class ContinuousEngine:
                  spec_k: int = 0, draft_repeats: Optional[int] = None,
                  draft_policy=None, replica_id: int = 0,
                  replica_fault: Optional[ReplicaFaultPlan] = None,
-                 journal=None, **unported):
+                 journal=None, mesh=None):
         cfg = model.cfg
         if not cfg.paged_kv:
             raise ValueError("ContinuousEngine requires cfg.paged_kv "
@@ -390,15 +407,14 @@ class ContinuousEngine:
         if why is not None:
             raise ValueError(f"continuous batching is unsupported for "
                              f"{cfg.name}: {why} cannot page its cache")
-        asked = sorted(k for k, v in unported.items()
-                       if v not in (None, False, 0, 0.0))
-        if asked:
-            raise NotImplementedError(
-                f"not ported: {asked} (meshes: ROADMAP Queue 1 item 8)")
+        check_mesh(mesh)
         if preempt not in ("free", "swap"):
             raise ValueError(f"preempt must be free|swap, got {preempt!r}")
         assert slots >= 1 and chunk >= 1 and burst_cap >= 1
-        self.model, self.params, self.device = model, params, model.device
+        self.model, self.device = model, model.device
+        self.mesh = mesh
+        self.params = (shard_params(params, mesh, cfg)
+                       if model_size(mesh) > 1 else params)
         self.slots, self.max_len, self.chunk = slots, max_len, chunk
         self.page = cfg.page_size
         self.max_pages = num_pages(max_len, self.page)
@@ -467,7 +483,7 @@ class ContinuousEngine:
         self._table_dev = None
         self.caches = model.init_caches(slots, max_len,
                                         page_table=self._table,
-                                        n_pages=self.n_pages)
+                                        n_pages=self.n_pages, mesh=mesh)
         self.pos = np.full((slots,), max_len - 1, np.int32)
         self.lens = np.zeros((slots,), np.int32)
         self.done = np.ones((slots,), bool)
@@ -1095,7 +1111,7 @@ class ContinuousEngine:
             r = model.prefill_chunk(
                 params, self._tensor(buf), caches, q_offset=off,
                 row=self._tensor(rows), chunk_lens=self._tensor(lens),
-                **esc_kw)
+                mesh=self.mesh, **esc_kw)
             lg = r[0]
             if self._esc_fmts is not None:
                 # prefill write flags feed the same per-slot pressure
@@ -1106,7 +1122,7 @@ class ContinuousEngine:
                 lg[:, -1], counts=cnts, guard=True,
                 penalties=dict(repetition_penalty=self.repetition_penalty,
                                presence_penalty=self.presence_penalty),
-                **self._sampling())
+                mesh=self.mesh, **self._sampling())
             tok0, badp = tok0.cpu().numpy(), badp.cpu().numpy()
             progress += 1
             for i, b in enumerate(rows):
@@ -1227,7 +1243,7 @@ class ContinuousEngine:
                 out_width=self.burst_cap * (self.spec_k + 1), n_max=n_max,
                 exit_on_finish=wave, stop_token=self.stop_token,
                 poison_at=poison_rel, guard=True,
-                draft_policy=self.draft_policy, **esc_kw)
+                draft_policy=self.draft_policy, mesh=self.mesh, **esc_kw)
             spec = r[-1].cpu().numpy()
             counters["spec_rounds"] += int(spec[0])
             counters["spec_emitted"] += int(spec[1])
@@ -1238,7 +1254,7 @@ class ContinuousEngine:
                 n_max=n_max, exit_on_finish=wave, stop_token=self.stop_token,
                 counts=cnts, repetition_penalty=self.repetition_penalty,
                 presence_penalty=self.presence_penalty, poison_at=poison_rel,
-                guard=True, **esc_kw, **self._sampling())
+                guard=True, mesh=self.mesh, **esc_kw, **self._sampling())
         out, n, tok, _, pos, lens, done, _, bad = r[:9]
         bad = bad.cpu().numpy()
         new_tok = tok.cpu().numpy().astype(np.int32)
@@ -1402,11 +1418,18 @@ class ContinuousEngine:
 
 
 class ReplicatedEngine:
-    """A fleet of data-parallel ``ContinuousEngine`` replicas.  Only the
-    meshless fleet is ported (``mesh=None, replicas=N``): ``N`` replicas
-    time-slicing one device, sharing one ``params`` (one copy of the
-    weights), each with its own ``PageAllocator`` over a disjoint pool and
-    its own block tables.
+    """A fleet of data-parallel ``ContinuousEngine`` replicas over a
+    ``(data, model)`` serving mesh, or, with ``mesh=None, replicas=N``, a
+    meshless fleet of ``N`` replicas time-slicing one device, sharing one
+    ``params`` (one copy of the weights), each with its own
+    ``PageAllocator`` over a disjoint pool and its own block tables.
+
+    On a mesh each data row is ONE engine, tensor parallel over its own
+    ``("model",)`` sub-mesh (``replica_meshes``) and run by that row's
+    ranks: this process builds and steps its row's engine only, and ``run``
+    gathers every row's finished requests, stats and allocator from the
+    row's first rank.  Replica faults and the journal need a fleet in one
+    process (the meshless fleet, or a mesh with one data row).
 
     The queue is partitioned on the host, round-robin in ``(arrival,
     rid)`` order.  ``run`` interleaves the replicas one ``step`` at a
@@ -1435,14 +1458,29 @@ class ReplicatedEngine:
             raise ValueError(f"migrate must be swap|reingest, "
                              f"got {migrate!r}")
         subs = replica_meshes(mesh, replicas)
+        self.mesh = mesh
         self.migrate = migrate
         self.hang_patience = max(1, hang_patience)
         self.replica_fault = kw.pop("replica_fault", None)
         self.journal = kw.pop("journal", None)
-        self.engines = [ContinuousEngine(model, params, replica_id=i,
-                                         replica_fault=self.replica_fault,
-                                         journal=self.journal, **kw)
-                        for i in range(len(subs))]
+        # one engine a data row, this process running its own row's
+        self._rows = len(subs) if mesh is not None and len(subs) > 1 else 0
+        if self._rows:
+            if self.replica_fault is not None or self.journal is not None:
+                raise NotImplementedError(
+                    "replica faults and the journal on a mesh with dp > 1 "
+                    "would move blobs and records between processes: not "
+                    "ported (ROADMAP Queue 1 item 8b); the meshless fleet "
+                    "(--replicas N) has them")
+            row = mesh.coords["data"]
+            self.row = row
+            self.engines = [ContinuousEngine(model, params, mesh=subs[row],
+                                             replica_id=row, **kw)]
+        else:
+            self.engines = [ContinuousEngine(
+                model, params, mesh=m, replica_id=i,
+                replica_fault=self.replica_fault, journal=self.journal,
+                **kw) for i, m in enumerate(subs)]
         self._bound: Optional[List[Request]] = None
         self.reset_monitors()
 
@@ -1472,7 +1510,8 @@ class ReplicatedEngine:
     def partition(self, requests: Sequence[Request]) -> List[List[Request]]:
         """Round-robin split in ``(arrival, rid)`` order: deterministic,
         and each sub-queue keeps the arrival order admission expects."""
-        parts: List[List[Request]] = [[] for _ in self.engines]
+        n = getattr(self, "_rows", 0) or len(self.engines)
+        parts: List[List[Request]] = [[] for _ in range(n)]
         for i, r in enumerate(sorted(requests,
                                      key=lambda r: (r.arrival, r.rid))):
             parts[i % len(parts)].append(r)
@@ -1518,9 +1557,11 @@ class ReplicatedEngine:
             if self._bound is None:
                 raise ValueError("run() needs requests (or bind() first)")
             requests = self._bound
+        self._ha = {k: 0 for k in self._ha}
+        if self._rows:
+            return self._run_sharded(requests)
         self.heartbeats = [{"beats": 0, "missed": 0, "status": "live"}
                            for _ in self.engines]
-        self._ha = {k: 0 for k in self._ha}
         plan = self.replica_fault
         for eng, part in zip(self.engines, self.partition(requests)):
             eng.start(part)
@@ -1567,9 +1608,38 @@ class ReplicatedEngine:
             results.update(res)
             st["replica_status"] = self.heartbeats[i]["status"]
             per.append(st)
+        return ([results[r.rid] for r in requests],
+                self._fleet_stats(per, self.allocators))
+
+    def _run_sharded(self, requests: Sequence[Request]):
+        """This rank's row serves its part of the queue; every row's
+        results, stats and allocator come back from its first rank."""
+        eng = self.engines[0]
+        eng.start(self.partition(requests)[self.row])
+        beats = 0
+        while eng.has_work():
+            eng.step()
+            beats += 1
+        res, st = eng.finalize()
+        st["replica_status"] = "live"
+        mine = (self.row, self.mesh.coords["model"], res, st, eng.alloc,
+                beats)
+        rows = sorted((g for g in spmd.gather_objects(
+            mine, self.mesh.everyone) if g[1] == 0), key=lambda g: g[0])
+        results: Dict[int, Finished] = {}
+        for g in rows:
+            results.update(g[2])
+        self.heartbeats = [{"beats": g[5], "missed": 0, "status": "live"}
+                           for g in rows]
+        return ([results[r.rid] for r in requests],
+                self._fleet_stats([g[3] for g in rows],
+                                  [g[4] for g in rows]))
+
+    def _fleet_stats(self, per: List[dict], allocs) -> dict:
+        """The fleet's stats from each replica's (in row order)."""
         dr = sum(s["decode_rounds"] for s in per)
         stats = {
-            "replicas_n": len(self.engines),
+            "replicas_n": len(per),
             "rounds": max((s["rounds"] for s in per), default=0),
             "decode_rounds": dr,
             "bursts": sum(s["bursts"] for s in per),
@@ -1580,7 +1650,7 @@ class ReplicatedEngine:
             "fixed_equiv_pages": sum(s["fixed_equiv_pages"] for s in per),
             "deadline_total": sum(s["deadline_total"] for s in per),
             "deadline_misses": sum(s["deadline_misses"] for s in per),
-            "pool": aggregate_stats(self.allocators),
+            "pool": aggregate_stats(allocs),
             "replicas": per,
             "heartbeats": [dict(h) for h in self.heartbeats],
             **self._ha,
@@ -1599,4 +1669,4 @@ class ReplicatedEngine:
         for k in per[0] if per else ():
             if k not in stats and isinstance(per[0][k], (int, np.integer)):
                 stats[k] = sum(s[k] for s in per)
-        return [results[r.rid] for r in requests], stats
+        return stats

@@ -1,26 +1,173 @@
-"""Replica topology of the serving fleet (the meshless part of the JAX
-package's ``repro.launch.mesh``).
+"""Serving meshes over ``torch.distributed`` ranks (the JAX package's
+``repro.launch.mesh``).
 
-Only the meshless fleet is ported: ``replica_meshes(None, n)`` gives ``n``
-unsharded engine replicas time-slicing one device over disjoint page
-pools.  A real mesh (tensor-parallel replicas, ``make_serving_mesh``,
-``make_production_mesh``, ``dp_axes_of``) waits for sharding (ROADMAP
-Queue 1 item 8).
+A ``Mesh`` lays the first ``prod(shape)`` ranks of the default process
+group out row-major over named axes, as ``jax.make_mesh`` lays out
+devices: ``axis_names``, ``shape`` (a dict, read as JAX's
+``mesh.shape[axis]``), ``devices`` (the global ranks in that layout),
+this process's ``coords`` and one ``spmd.Group`` per axis, the slice of
+that axis through this rank.  Building one is a collective: every rank
+of the default group creates every slice's process group, in the same
+order.  Without ``torch.distributed`` (one process) only one-rank meshes
+exist, and their groups need no process group.
+
+``make_serving_mesh(dp, tp)``: ``("data", "model")``, the model axis
+tensor-parallelizes heads and page pools inside each engine replica, the
+data axis indexes replicas.  ``replica_meshes`` cuts it into one
+``("model",)`` sub-mesh per data row (or the meshless fleet ``[None] *
+n``).  ``make_production_mesh`` builds the pod meshes over a world that
+large.  JAX's ``core/compat.py`` (jax-version shims for ``shard_map`` and
+``make_mesh``) has no counterpart: nothing here depends on a JAX version.
 """
 from __future__ import annotations
 
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
-def replica_meshes(mesh, n: int = None) -> list:
-    """One sub-mesh per data-parallel replica.  ``mesh=None`` with ``n``
-    set is the meshless fleet: ``[None] * n``, ``n`` unsharded replicas
-    on the default device (no collectives: the replica topology minus
-    the placement)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported: serving meshes (tensor-parallel replicas); only "
-            "the meshless fleet, replica_meshes(None, n), runs — meshes "
-            "wait for sharding, ROADMAP Queue 1 item 8")
-    if n is None or n < 1:
-        raise ValueError("replica_meshes: mesh=None needs an explicit "
-                         f"replica count n >= 1, got {n!r}")
-    return [None] * n
+import numpy as np
+import torch.distributed as dist
+
+from .spmd import Group
+
+
+def _world() -> Tuple[int, int]:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+class Mesh:
+    """Named axes over ranks.  ``group(axis)`` is this rank's slice of
+    ``axis``; ``coords[axis]`` its index along it (absent when this rank
+    lies outside the mesh); ``everyone`` the group of all its ranks."""
+
+    def __init__(self, axis_names: Sequence[str], devices: np.ndarray,
+                 rank: int, groups: Dict[str, Group], everyone: Group):
+        self.axis_names = tuple(axis_names)
+        self.devices = np.asarray(devices)
+        self.shape = dict(zip(self.axis_names, self.devices.shape))
+        self.rank = rank
+        hit = np.argwhere(self.devices == rank)
+        self.coords = ({a: int(i) for a, i in zip(self.axis_names, hit[0])}
+                       if len(hit) else {})
+        self.groups = groups
+        self.everyone = everyone
+
+    @property
+    def member(self) -> bool:
+        return bool(self.coords)
+
+    def group(self, axis: str) -> Group:
+        return self.groups[axis]
+
+    def __repr__(self) -> str:
+        return (f"Mesh({dict(self.shape)}, rank={self.rank}, "
+                f"coords={self.coords})")
+
+
+def _slices(devices: np.ndarray, ax: int):
+    """Every slice of ``devices`` along axis ``ax``: lists of ranks."""
+    moved = np.moveaxis(devices, ax, -1)
+    return [list(map(int, row)) for row in moved.reshape(-1,
+                                                         moved.shape[-1])]
+
+
+def _mk_mesh(shape, axes) -> Mesh:
+    """A mesh over the first ``prod(shape)`` ranks; raises as the JAX
+    package's ``_mk_mesh`` does when the world is too small."""
+    n = math.prod(shape)
+    world, rank = _world()
+    if world < n:
+        raise ValueError(f"mesh {tuple(shape)} needs {n} devices, "
+                         f"have {world}")
+    devices = np.arange(n).reshape(shape)
+    groups = {}
+    for ax, name in enumerate(axes):
+        mine = None
+        for ranks in _slices(devices, ax):
+            # new_group is collective over the whole world: every rank
+            # makes every slice's group, in one order
+            pg = (dist.new_group(ranks) if len(ranks) > 1 and world > 1
+                  else None)
+            if rank in ranks:
+                mine = Group(ranks, ranks.index(rank), pg)
+        groups[name] = mine if mine is not None else Group(
+            [], -1, None)
+    ranks = list(range(n))
+    pg = (None if n == 1 else dist.group.WORLD if n == world
+          else dist.new_group(ranks))
+    everyone = Group(ranks, ranks.index(rank) if rank < n else -1, pg)
+    return Mesh(axes, devices, rank, groups, everyone)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """Single pod ``(data=16, model=16)``; multi-pod ``(pod=2, data=16,
+    model=16)``, the ``pod`` axis a second data-parallel axis."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mk_mesh(shape, axes)
+
+
+def make_serving_mesh(dp: int, tp: int) -> Mesh:
+    """Serving mesh ``(data=dp, model=tp)`` over the first ``dp * tp``
+    ranks."""
+    if dp < 1 or tp < 1:
+        raise ValueError(f"mesh axes must be >= 1, got dp={dp} tp={tp}")
+    return _mk_mesh((dp, tp), ("data", "model"))
+
+
+def replica_meshes(mesh, n: Optional[int] = None) -> list:
+    """One ``("model",)`` sub-mesh per ``data`` row of a serving mesh (each
+    replica's tensor parallelism runs over its own row of ranks, so
+    replicas share no collective); a ``("model",)`` mesh is its own one
+    replica.  A rank outside row ``i`` gets a sub-mesh it is no member of.
+
+    ``mesh=None`` with ``n`` set is the meshless fleet: ``[None] * n``,
+    ``n`` unsharded replicas on the default device."""
+    if mesh is None:
+        if n is None or n < 1:
+            raise ValueError("replica_meshes: mesh=None needs an explicit "
+                             f"replica count n >= 1, got {n!r}")
+        return [None] * n
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"expected a launch.mesh.Mesh (or None), got "
+                        f"{type(mesh).__name__}")
+    if mesh.axis_names == ("model",):
+        return [mesh]
+    if mesh.axis_names != ("data", "model"):
+        raise ValueError(f"expected a (data, model) serving mesh, got "
+                         f"axes {mesh.axis_names}")
+    model = mesh.group("model")
+    subs = []
+    for i in range(mesh.devices.shape[0]):
+        row = mesh.devices[i]
+        mine = mesh.coords.get("data") == i
+        grp = model if mine else Group([int(r) for r in row], -1, None)
+        subs.append(Mesh(("model",), row, mesh.rank, {"model": grp}, grp))
+    if n is not None and n != len(subs):
+        raise ValueError(f"mesh data axis has {len(subs)} replicas but "
+                         f"replicas={n} was requested")
+    return subs
+
+
+def dp_axes_of(mesh) -> tuple:
+    """The batch-sharding axes of a production mesh."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def model_size(mesh) -> int:
+    """The ``model`` axis size of ``mesh`` (1 without a mesh or axis)."""
+    if mesh is None or "model" not in getattr(mesh, "axis_names", ()):
+        return 1
+    return int(mesh.shape["model"])
+
+
+def check_mesh(mesh) -> None:
+    """Raise unless ``mesh`` is None or a ``Mesh`` this rank belongs to."""
+    if mesh is None:
+        return
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a launch.mesh.Mesh (or None), got "
+                        f"{type(mesh).__name__}")
+    if not mesh.member:
+        raise ValueError(f"rank {mesh.rank} is not a member of {mesh!r}")

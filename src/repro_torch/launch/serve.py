@@ -70,11 +70,21 @@ restart).  A run with a fault plan or a journal runs once, without the
 warm-up.  A ``replica HA`` line counts kills, hangs, migrations and each
 replica's heartbeats.
 
+Sharded serving: ``--mesh DP,TP`` spawns DP x TP ranks
+(``launch.spmd``) joined by ``--dist-backend``: ``nccl`` (the default)
+runs one rank per card, ``gloo`` runs on the CPU (``--device cpu``) or
+several ranks on one card.  Each ``data`` row is one engine replica,
+tensor parallel over its TP ranks (heads, paged pools, MLPs, vocab;
+MoE experts); DP > 1 needs ``--continuous``.  Every rank builds the same
+weights from seed 0 and keeps its shards; rank 0 prints.  Replica faults
+and the journal on a mesh are not ported (ROADMAP Queue 1 item 8b), nor
+``--loop python``.
+
 Sampling everywhere: ``--temperature --top-k --top-p --seed
 --repetition-penalty --presence-penalty``.  The model is the reduced
 config unless ``--full``; weights are random from seed 0.  Runs on the GPU
 unless ``--device cpu``; without a card and without ``--device`` it
-raises.  Only meshes (``--mesh``) are not ported.
+raises.
 
     python -m repro_torch.launch.serve --full --batch 4 --gen 32
     python -m repro_torch.launch.serve --arch minicpm3-4b --full --ragged
@@ -93,11 +103,16 @@ raises.  Only meshes (``--mesh``) are not ported.
         --draft-layers 1 --device cpu
     python -m repro_torch.launch.serve --full --continuous --replicas 2 \
         --fault-replica 1:2 --journal /tmp/j.jsonl
+    python -m repro_torch.launch.serve --continuous --mesh 2,2 \
+        --dist-backend gloo --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
+import sys
 import time
 
 import numpy as np
@@ -107,12 +122,15 @@ from ..core.policy import EscalationPolicy
 from ..models.paged import (PageAllocator, build_tables, identity_block_table,
                             num_pages)
 from ..models.registry import build_model, get_config
+from ..models.sharding import shard_params
 from ..models.transformer import sample_token
 from ..train.fault import (PoisonedLogitsError, ReplicaFaultPlan,
                            ServeFaultPlan, run_with_restarts)
+from . import spmd
 from .engine import (ContinuousEngine, ReplicatedEngine, Request,
                      synthetic_trace)
 from .journal import RequestJournal
+from .mesh import make_serving_mesh, replica_meshes
 
 
 def ragged_lengths(batch: int, prompt_len: int):
@@ -123,7 +141,8 @@ def ragged_lengths(batch: int, prompt_len: int):
             for i in range(batch)]
 
 
-def prefix_sharing_parity(model, params, prompts, *, gen: int, max_len: int):
+def prefix_sharing_parity(model, params, prompts, *, gen: int, max_len: int,
+                          mesh=None):
     """Give every row of ``prompts`` [B, S] the first row's first half,
     store the pages that half covers ONCE (aliased into every row's block
     table), and generate greedily from the shared and from the identity
@@ -140,7 +159,8 @@ def prefix_sharing_parity(model, params, prompts, *, gen: int, max_len: int):
     shared = build_tables(alloc, b, mp, shared_pages=common // page)
     shared = torch.as_tensor(shared, device=model.device)
     runs = [model.generate(params, prompts, gen_len=gen, max_len=max_len,
-                           page_table=t, n_pages=n_pages, return_logits=True)
+                           page_table=t, n_pages=n_pages, return_logits=True,
+                           mesh=mesh)
             for t in (shared, torch.as_tensor(identity_block_table(b, mp),
                                               device=model.device))]
     (g_s, lg_s), (g_u, lg_u) = runs
@@ -226,7 +246,14 @@ def _arg_parser():
     ap.add_argument("--full", dest="reduced", action="store_false",
                     help="the arch at full width")
     ap.add_argument("--mesh", default=None, metavar="DP,TP",
-                    help="serving mesh (not ported: refused)")
+                    help="serving mesh dp,tp: tp-way tensor-parallel "
+                         "heads, paged KV pools, MLPs and vocab per "
+                         "replica, dp data-parallel engine replicas (dp > 1 "
+                         "requires --continuous); spawns dp*tp ranks")
+    ap.add_argument("--dist-backend", choices=spmd.BACKENDS, default="nccl",
+                    help="torch.distributed backend of --mesh: nccl (one "
+                         "rank per card) or gloo (the CPU, or several "
+                         "ranks on one card)")
     ap.add_argument("--replicas", type=int, default=None, metavar="N",
                     help="meshless HA fleet: N engine replicas on the one "
                          "device over disjoint page pools (requires "
@@ -275,9 +302,31 @@ def main(argv=None):
         if args.temperature > 0.0 or pen:
             ap.error("--speculate is greedy-only: temperature and "
                      "penalties would change the verified stream")
+    args.mesh_dims = None
     if args.mesh is not None:
-        ap.error("--mesh is not ported (sharding, ROADMAP Queue 1 item "
-                 "8); --replicas N serves a meshless fleet")
+        try:
+            dp, tp = (int(x) for x in args.mesh.split(","))
+        except ValueError:
+            ap.error("--mesh expects DP,TP (e.g. --mesh 2,4)")
+        if dp < 1 or tp < 1:
+            ap.error(f"--mesh axes must be >= 1, got {dp},{tp}")
+        if dp > 1 and not args.continuous:
+            ap.error("--mesh with dp > 1 requires --continuous (the data "
+                     "axis is engine replication)")
+        if args.loop == "python":
+            ap.error("--mesh requires --loop scan or while")
+        if args.replicas is not None:
+            ap.error("--replicas (the meshless fleet) and --mesh are "
+                     "exclusive: --mesh DP,TP with DP > 1 is the sharded "
+                     "fleet")
+        if args.fault_replica is not None or args.journal is not None:
+            ap.error("--fault-replica / --journal on a mesh are not ported "
+                     "(ROADMAP Queue 1 item 8b): they move blobs and "
+                     "records between processes")
+        if args.dist_backend == "nccl" and args.device == "cpu":
+            ap.error("--dist-backend nccl runs on cards: use gloo with "
+                     "--device cpu")
+        args.mesh_dims = (dp, tp)
     if args.replicas is not None:
         if args.replicas < 1:
             ap.error(f"--replicas must be >= 1, got {args.replicas}")
@@ -302,7 +351,35 @@ def main(argv=None):
                      "(--replicas N) — a lone replica's loss has no "
                      "survivor to migrate to")
         args.fault_replica = (fr, fb, fmode)
+    if args.mesh_dims is not None:
+        dp, tp = args.mesh_dims
+        return spmd.spawn(_mesh_rank, dp * tp, backend=args.dist_backend,
+                          args=(args,))[0]
+    return _serve(ap, args)
 
+
+def _mesh_rank(rank: int, world: int, args):
+    """One rank of ``--mesh``: this rank's replica row, rank 0 printing."""
+    if args.dist_backend == "nccl":
+        args.device = f"cuda:{rank}"
+    mesh = make_serving_mesh(*args.mesh_dims)
+    rmesh = replica_meshes(mesh)[mesh.coords["data"]]
+    if rank == 0:
+        dp, tp = args.mesh_dims
+        print(f"serving mesh: {dp} data-parallel replica(s) x {tp}-way "
+              f"tensor parallel over {world} ranks ({args.dist_backend})")
+    sink = sys.stdout if rank == 0 else io.StringIO()
+    with contextlib.redirect_stdout(sink):
+        out = _serve(_arg_parser(), args, mesh, rmesh)
+        if rank == 0:
+            st = spmd.STATS
+            print(f"collectives: {st['collectives']} calls, "
+                  f"{st['collective_ms']:.1f} ms, {st['staged_bytes']} "
+                  f"bytes staged through the host")
+    return out if rank == 0 else None
+
+
+def _serve(ap, args, mesh=None, rmesh=None):
     paged = args.paged or args.continuous
     cfg = get_config(args.arch, reduced=args.reduced)
     why = cfg.paged_unsupported_reason()
@@ -314,8 +391,12 @@ def main(argv=None):
                         page_size=args.page_size)
     params = model.init(0)
     if args.continuous:
-        return _continuous(args, model, params)
-    return _fixed_batch(args, model, params)
+        return _continuous(args, model, params, mesh, rmesh)
+    if rmesh is None:
+        return _fixed_batch(args, model, params)
+    gen = _fixed_batch(args, model, shard_params(params, rmesh, model.cfg),
+                       rmesh)
+    return gen.cpu()            # the rank's result crosses to the parent
 
 
 def _where(model) -> str:
@@ -328,7 +409,7 @@ def _sync(model) -> None:
         torch.cuda.synchronize(model.device)
 
 
-def _fixed_batch(args, model, params):
+def _fixed_batch(args, model, params, mesh=None):
     dev = model.device
     max_len = args.prompt_len + args.gen
     rng = np.random.RandomState(1)
@@ -346,7 +427,7 @@ def _fixed_batch(args, model, params):
     if args.paged and not args.ragged:
         d_tok, d_lg, prompts, page_table, n_pages, live = \
             prefix_sharing_parity(model, params, prompts, gen=args.gen,
-                                  max_len=max_len)
+                                  max_len=max_len, mesh=mesh)
         print(f"paged pool: page={args.page_size}, {live}/{n_pages} pages "
               f"live with the shared prefix ({args.prompt_len // 2} common "
               f"prompt tokens) vs {n_pages} unshared")
@@ -369,7 +450,7 @@ def _fixed_batch(args, model, params):
                 stop_token=args.stop_token, page_table=page_table,
                 n_pages=n_pages, repetition_penalty=args.repetition_penalty,
                 presence_penalty=args.presence_penalty,
-                guard_nonfinite=True, **sampling)
+                guard_nonfinite=True, mesh=mesh, **sampling)
         run()                               # warm-up (kernel build)
         _sync(model)
         t0 = time.perf_counter()
@@ -406,7 +487,7 @@ def _fixed_batch(args, model, params):
     return gen
 
 
-def _continuous(args, model, params):
+def _continuous(args, model, params, mesh=None, rmesh=None):
     dl_rounds = (None if args.deadline_ms is None
                  else max(1, int(args.deadline_ms / args.round_ms)))
     if args.arrival_trace:
@@ -470,8 +551,11 @@ def _continuous(args, model, params):
         eng = ReplicatedEngine(model, params, replicas=args.replicas,
                                migrate=args.migrate, replica_fault=rplan,
                                journal=journal, **eng_kw)
+    elif mesh is not None and mesh.shape["data"] > 1:
+        eng = ReplicatedEngine(model, params, mesh=mesh, **eng_kw)
     else:
-        eng = ContinuousEngine(model, params, journal=journal, **eng_kw)
+        eng = ContinuousEngine(model, params, journal=journal, mesh=rmesh,
+                               **eng_kw)
     restarts = 0
     if rplan is None and journal is None:
         eng.run(reqs)                   # warm-up (kernel build, allocator)

@@ -5,7 +5,7 @@ Runs on the GPU unless ``--device cpu`` is given (without a card it then
 raises, never falls back).  ``--reduced`` (the default) trains the arch's
 two-layer cut, ``--full`` the published widths.  Training attention is the
 dense path (the attention kernels have no backward).  ``--mesh
-pod1|pod2`` is not ported (ROADMAP Queue 1 item 8); ``--compress-grads``
+pod1|pod2`` is not ported (ROADMAP Queue 1 item 8b); ``--compress-grads``
 only acts under a mesh, as in JAX, and is ignored here.  As the JAX
 launcher's, the data carry no frontend: ``--arch internvl2-26b`` trains
 on text alone, and ``--arch whisper-small`` raises in ``encode`` at the
@@ -42,8 +42,8 @@ def main(argv=None):
 
     if args.mesh != "none":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: meshes are not ported (ROADMAP Queue 1 "
-            f"item 8, sharding)")
+            f"--mesh {args.mesh}: training under a mesh is not ported "
+            f"(ROADMAP Queue 1 item 8b; serving shards)")
 
     from ..data.pipeline import DataConfig
     from ..models.registry import build_model

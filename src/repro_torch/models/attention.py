@@ -25,7 +25,15 @@ layer's contiguous cross cache at prefill, and every query reads every
 frame (non-causal) on the prefill route; decode reads the cached cross
 K/V over all frames on the decode route (``cross_attend_cached``).
 
-Not ported yet: tensor-parallel head sharding.
+Tensor parallelism (``mesh`` with a ``model`` axis of size M dividing
+both head counts, ``_head_shard_size``): this rank's ``wq`` / ``wk`` /
+``wv`` columns, Q/K/V and cache carry only its H/M and Hkv/M heads, so
+every read (dense, kernel, prefill, decode, verify, contiguous, paged,
+cross) is the unsharded read on a head slice, bitwise per head; the decode
+reads pin the split partition of the unsharded call (``cluster`` for B *
+Hkv rows), so a head's split does not change with M.  ``wo`` is
+row-parallel (``_row_parallel_wo``): f32 partials, an f32 sum across the
+model group, one snap after the sum.  MLA under a mesh raises.
 """
 from __future__ import annotations
 
@@ -37,7 +45,7 @@ from ..core import ops as tp
 from ..core.formats import get_format
 from ..kernels import ops as kops
 from ..kernels.quant_common import quantize_flag_masks_grid
-from .layers import apply_rope, dense_init, rmsnorm, softcap
+from .layers import apply_rope, dense_init, rmsnorm, row_parallel, softcap
 from .paged import (PagedKVCache, gather_paged_kv, paged_update_rows,
                     write_slots)
 
@@ -245,23 +253,25 @@ def _decode_attend_paged(q, cache: PagedKVCache, policy, *, kv_len, window,
                           backend="dense")
 
 
-def _verify_attend(q, cache, policy, *, kv_len, window, cap, backend):
+def _verify_attend(q, cache, policy, *, kv_len, window, cap, backend,
+                   shards: int = 1):
     """The verify read: q [B, H, S, Dh] folded to [B*S, H, 1, Dh] through
     the decode read of the just-written cache, at the partition of a
-    decode step of the B rows; ``kv_len`` [B, S].  Returns [B, H, S, Dh]."""
+    decode step of the B rows (of the unsharded heads: ``shards``, the
+    head-shard count); ``kv_len`` [B, S].  Returns [B, H, S, Dh]."""
     b, h, s, dh = q.shape
     qf = q.transpose(1, 2).reshape(b * s, h, 1, dh)
     kvl = torch.as_tensor(kv_len, device=q.device).reshape(b * s)
     if isinstance(cache, PagedKVCache):
-        cluster = kops.decode_cluster(b, cache.k_pool, cache.block_table,
-                                      window)
+        cluster = kops.decode_cluster(b * shards, cache.k_pool,
+                                      cache.block_table, window)
         rep = PagedKVCache(cache.k_pool, cache.v_pool,
                            cache.block_table.repeat_interleave(s, 0))
         out = _decode_attend_paged(qf, rep, policy, kv_len=kvl,
                                    window=window, cap=cap, backend=backend,
                                    cluster=cluster)
     else:
-        cluster = kops.decode_cluster(b, cache.k, None, window)
+        cluster = kops.decode_cluster(b * shards, cache.k, None, window)
         out = _decode_attend(qf, cache.k.repeat_interleave(s, 0),
                              cache.v.repeat_interleave(s, 0), policy,
                              kv_len=kvl, window=window, cap=cap,
@@ -284,6 +294,50 @@ def _prefill_attend(q, k, v, policy, *, causal, window, cap, q_offset,
                          backend=backend)
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel head sharding (mesh "model" axis)
+# ---------------------------------------------------------------------------
+def _head_shard_size(mesh, n_heads, n_kv_heads, axis: str = "model"):
+    """Tensor-parallel degree for head-sharded attention, or ``None`` for
+    the unsharded path: a mesh with a ``model`` axis of size > 1 that
+    divides BOTH head counts (every rank gets whole heads of each, so GQA
+    groups never straddle ranks)."""
+    if mesh is None or axis not in getattr(mesh, "axis_names", ()):
+        return None
+    size = mesh.shape[axis]
+    if size <= 1 or n_heads % size or n_kv_heads % size:
+        return None
+    return size
+
+
+def _local_heads(params, n_heads, n_kv_heads, head_dim, shards):
+    """``(H, Hkv)`` of this rank's slice; raises when ``params`` are not
+    this rank's shards (``models.sharding.shard_params``)."""
+    h, hkv = n_heads // shards, n_kv_heads // shards
+    if params["wq"].shape[-1] != h * head_dim:
+        raise ValueError(
+            f"wq {tuple(params['wq'].shape)} is not a {shards}-way head "
+            f"shard of {n_heads} heads x {head_dim}: pass this rank's "
+            f"shards (models.sharding.shard_params)")
+    return h, hkv
+
+
+def _row_parallel_wo(mesh, out, wo, policy, axis: str = "model"):
+    """Row-parallel output projection: ``out`` [B, S, H/M*Dv] holds this
+    rank's heads, ``wo`` [H/M*Dv, D] the same rows; the f32 partials are
+    summed over the model group and snapped once (never in a narrow type:
+    JAX's ``_row_parallel_wo`` psums f32 whatever ``narrow_partials``
+    says).  Per-head attend outputs are bitwise; this sum's order is not,
+    so projections match the unsharded path to f32 reduction noise."""
+    return row_parallel(out, wo, policy, mesh.group(axis), narrow=False)
+
+
+def _project_out(out, params, policy, mesh, shards):
+    if shards is None:
+        return tp.tp_matmul(out, params["wo"], policy)
+    return _row_parallel_wo(mesh, out, params["wo"], policy)
+
+
 def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
                   positions, causal=True, window=None, attn_softcap=None,
                   rope_theta=1e4, qk_norm=False, norm_eps=1e-6,
@@ -292,9 +346,16 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
                   decode_backend: str = "auto",
                   prefill_backend: str = "auto", kv_len=None, esc_fmts=None,
                   kv_levels=None, kv_scale: Optional[float] = None,
-                  verify: bool = False):
+                  verify: bool = False, mesh=None,
+                  return_attend: bool = False):
     """Returns ``(out [B,S,D], cache)``, or ``(out, cache, kv_flags)``
-    when ``esc_fmts`` is given.
+    when ``esc_fmts`` is given.  ``return_attend`` (a test hook) returns
+    the per-head attend output [B, H, S, Dv] in place of ``out``.
+
+    Tensor parallelism: ``mesh`` whose ``model`` axis divides both head
+    counts runs every read on this rank's heads (``params`` and ``cache``
+    are its shards) and the output projection row-parallel; otherwise the
+    unsharded path runs.
 
     Cross-attention (``kv_states`` [B, T, D], the encoder's output): K/V
     are projected from ``kv_states`` (rope, if any, at positions 0..T-1),
@@ -331,6 +392,10 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
     b, s, d = x.shape
     src = x if kv_states is None else kv_states
     t = src.shape[1]
+    shards = _head_shard_size(mesh, n_heads, n_kv_heads)
+    if shards is not None:
+        n_heads, n_kv_heads = _local_heads(params, n_heads, n_kv_heads,
+                                           head_dim, shards)
     q = tp.tp_matmul(x, params["wq"], policy).reshape(b, s, n_heads, head_dim)
     k = tp.tp_matmul(src, params["wk"], policy).reshape(b, t, n_kv_heads,
                                                         head_dim)
@@ -381,7 +446,8 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
         if verify and s > 1:
             out = _verify_attend(q, cache, policy, kv_len=kv_len,
                                  window=window, cap=attn_softcap,
-                                 backend=decode_backend)
+                                 backend=decode_backend,
+                                 shards=shards or 1)
         elif s > 1 and paged:
             live = kv_len if kv_len is not None else cache_pos + s
             if prefill_backend == "dense":
@@ -404,36 +470,55 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
         else:
             if kv_len is None:
                 kv_len = cache_pos + s
+            pin = None
+            if shards is not None:
+                # split as the unsharded call's B * Hkv rows would
+                pin = kops.decode_cluster(
+                    b * shards, cache.k_pool if paged else cache.k,
+                    cache.block_table if paged else None, window)
             if paged:
                 out = _decode_attend_paged(q, cache, policy, kv_len=kv_len,
                                            window=window, cap=attn_softcap,
-                                           backend=decode_backend)
+                                           backend=decode_backend,
+                                           cluster=pin)
             else:
                 out = _decode_attend(q, cache.k, cache.v, policy,
                                      kv_len=kv_len, window=window,
                                      cap=attn_softcap,
-                                     backend=decode_backend)
+                                     backend=decode_backend, cluster=pin)
 
+    if return_attend:
+        return out, cache
     out = out.transpose(1, 2).reshape(b, s, n_heads * head_dim)
-    proj = tp.tp_matmul(out, params["wo"], policy)
+    proj = _project_out(out, params, policy, mesh, shards)
     if esc_fmts is not None:
         return proj, cache, kv_flags
     return proj, cache
 
 
 def cross_attend_cached(x, params, cache: KVCache, policy, *, n_heads,
-                        n_kv_heads, head_dim, backend: str = "auto"):
+                        n_kv_heads, head_dim, backend: str = "auto",
+                        mesh=None, return_attend: bool = False):
     """Decode-time cross-attention: q from ``x`` [B, 1, D] against the
     whole cached cross K/V [B, Hkv, n_frames, Dh] (the encoder states never
-    change while decoding) on the decode route, no window, no softcap."""
+    change while decoding) on the decode route, no window, no softcap.
+    ``mesh`` and ``return_attend`` as in ``gqa_attention``."""
     b, s, d = x.shape
+    shards = _head_shard_size(mesh, n_heads, n_kv_heads)
+    pin = None
+    if shards is not None:
+        n_heads, n_kv_heads = _local_heads(params, n_heads, n_kv_heads,
+                                           head_dim, shards)
+        pin = kops.decode_cluster(b * shards, cache.k, None, None)
     q = tp.tp_matmul(x, params["wq"], policy).reshape(
         b, s, n_heads, head_dim).transpose(1, 2)
     out = _decode_attend(q, cache.k, cache.v, policy,
                          kv_len=cache.k.shape[2], window=None, cap=None,
-                         backend=backend)
+                         backend=backend, cluster=pin)
+    if return_attend:
+        return out
     out = out.transpose(1, 2).reshape(b, s, n_heads * head_dim)
-    return tp.tp_matmul(out, params["wo"], policy)
+    return _project_out(out, params, policy, mesh, shards)
 
 
 # ---------------------------------------------------------------------------

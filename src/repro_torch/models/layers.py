@@ -1,7 +1,13 @@
 """Common policy-aware layers: rms and layer norms, rotary embeddings,
 the SwiGLU and gelu MLPs, logit soft-capping and the init helpers.  Every
 matmul routes through ``core.ops`` so the active PrecisionPolicy applies
-uniformly.  Weights keep the JAX layout ``[d_in, d_out]`` (``x @ W``)."""
+uniformly.  Weights keep the JAX layout ``[d_in, d_out]`` (``x @ W``).
+
+Tensor parallelism (``group``, a ``launch.spmd.Group`` of the mesh's model
+axis): the MLPs take this rank's column block of ``gate`` / ``up`` /
+``b_up`` and row block of ``down``, and ``row_parallel`` sums the partial
+products across the group before the policy's one output snap — what
+GSPMD makes of the JAX package's ``col`` / ``row`` rules."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,7 +15,8 @@ from typing import Optional
 import torch
 
 from ..core import ops as tp
-from ..core.policy import PrecisionPolicy
+from ..core.policy import PrecisionPolicy, get_policy
+from ..launch import spmd
 
 F32 = torch.float32
 
@@ -90,22 +97,57 @@ def apply_rope(x, positions, theta: float = 1e4):
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
-def swiglu(x, w_gate, w_up, w_down, policy):
+def row_parallel(h, w, policy, group, *, narrow: bool = True):
+    """``h [..., K/M] @ w [K/M, N]`` summed over the M ranks of ``group``:
+    each rank's partial product in f32, an f32 sum across the group, and
+    the policy's accumulate / output snap ONCE on the sum (where the
+    unsharded ``tp_matmul`` applies it: a per-rank snap would round the
+    partials themselves).  Under ``narrow_partials`` (and ``narrow``) the
+    partials come out in the narrow output type and are summed in it.
+    The same on every rank of the group."""
+    pol = get_policy(policy)
+    mp = pol.matmul
+    out_f = mp.resolved_out()
+    if (narrow and pol.mode == "native" and pol.narrow_partials
+            and out_f.width < mp.acc_fmt.width
+            and out_f.native_dtype is not None):
+        return spmd.all_reduce_sum(tp.tp_matmul(h, w, pol), group,
+                                   dtype=out_f.native_dtype)
+    r = spmd.all_reduce_sum(tp.tp_matmul(h, w, pol, out_fmt="fp32"), group)
+    if pol.mode == "native":
+        return r.to(out_f.native_dtype)
+    if mp.acc_fmt.name != "fp32":
+        r = tp.quantize_ste(r, mp.acc_fmt, pol.rounding)
+    if out_f.name != "fp32":
+        r = tp.quantize_ste(r, out_f, pol.rounding)
+    return r
+
+
+def _down(h, w_down, policy, group):
+    if group is None or group.size == 1:
+        return tp.tp_matmul(h, w_down, policy)
+    return row_parallel(h, w_down, policy, group)
+
+
+def swiglu(x, w_gate, w_up, w_down, policy, group=None):
     """SwiGLU MLP: matmuls under the multi-format FMA policy, the
-    activation under the elementwise policy."""
+    activation under the elementwise policy.  ``group``: the weights are
+    this rank's blocks, ``down`` row-parallel over it."""
     g = tp.tp_matmul(x, w_gate, policy)
     u = tp.tp_matmul(x, w_up, policy)
     h = tp.tp_elementwise("silu", g, policy=policy) * u
-    return tp.tp_matmul(h, w_down, policy)
+    return _down(h, w_down, policy, group)
 
 
-def gelu_mlp(x, w_up, b_up, w_down, b_down, policy):
+def gelu_mlp(x, w_up, b_up, w_down, b_down, policy, group=None):
     """Non-gated gelu MLP with biases (granite): each bias is added to
     the matmul's output in its output dtype, then gelu (tanh form) under
-    the elementwise policy, as the JAX package's ``gelu_mlp``."""
+    the elementwise policy, as the JAX package's ``gelu_mlp``.  ``group``:
+    ``up`` / ``b_up`` are this rank's column blocks, ``down`` its row
+    block, and ``b_down`` is added once, after the reduce."""
     h = tp.tp_matmul(x, w_up, policy) + b_up
     h = tp.tp_elementwise("gelu", h, policy=policy)
-    return tp.tp_matmul(h, w_down, policy) + b_down
+    return _down(h, w_down, policy, group) + b_down
 
 
 def softcap(x, cap: Optional[float]):

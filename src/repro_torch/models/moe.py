@@ -1,5 +1,4 @@
-"""Mixture-of-Experts: the JAX package's ``repro.models.moe``, local
-dispatch only.
+"""Mixture-of-Experts: the JAX package's ``repro.models.moe``.
 
 Dispatch is the sort-based capacity scheme (no [T, E, C] one-hot tensors):
 
@@ -11,15 +10,23 @@ Dispatch is the sort-based capacity scheme (no [T, E, C] one-hot tensors):
      the token count) every assignment fits, so a token's output does not
      depend on what else is in the batch (chunked verify equals sequential
      decode); a finite factor restores training-style over-capacity drops,
-  4. the batched expert SwiGLU over the [E, C, D] slabs,
-  5. gather back, unsort, and the f32 gate-weighted combine.
+  4. expert parallelism (a ``mesh`` with a ``model`` axis of M > 1 ranks,
+     the experts this rank's [E/M, ...] block): the slabs, as
+     [M(dest), E/M, C, D], go through ``all_to_all``, this rank's experts
+     run over the M*C rows they received, and a reverse ``all_to_all``
+     brings every expert's output home,
+  5. the batched expert SwiGLU over the [E, C, D] slabs,
+  6. gather back, unsort, and the f32 gate-weighted combine.
 
 Everything stays on the device: C comes from shapes alone, and nothing
 reads a data-dependent size back to the host.  The expert SwiGLU runs on
 every expert's whole slab, padding included, as the JAX package lays it
 out: a routed-rows grouped GEMM is later work (ROADMAP, Hopper
-follow-ups).  Expert parallelism (``ep_axis`` / ``mesh``, the JAX
-package's ``all_to_all`` path) is not ported (ROADMAP Queue 1 item 8).
+follow-ups).  Under expert parallelism the tokens are replicated within
+the replica (JAX's ``P(None)`` on a ``("model",)`` sub-mesh): every rank
+routes every token, the router replicated, so the M slabs a rank receives
+are the same rows, as in the JAX package; the shared experts run tensor
+parallel (``layers.swiglu`` with the model group).
 
 Transprecision: the expert products follow the multi-format FMA policy
 (``core.ops.tp_einsum``), the activation the elementwise policy; the router
@@ -33,6 +40,8 @@ from typing import Optional
 import torch
 
 from ..core import ops as tp
+from ..launch import spmd
+from ..launch.mesh import check_mesh
 from .layers import dense_init, swiglu
 
 F32 = torch.float32
@@ -121,18 +130,20 @@ def dispatch_slots(idx, cap: int, n_experts: int):
 
 
 def moe_core(x_flat, params, cfg: MoEConfig, policy, *,
-             ep_axis: Optional[str] = None, ep_size: int = 1,
-             with_aux: bool = True):
+             ep_group: Optional[spmd.Group] = None, with_aux: bool = True):
     """x_flat [T, D] -> (y [T, D], aux scalar): routing, dispatch, the
-    expert SwiGLU and the combine, on one device.  ``with_aux=False``
-    (serving) skips the aux loss and returns None in its place, as XLA
-    drops it from the JAX package's serving graphs."""
-    if ep_axis is not None and ep_size > 1:
-        raise NotImplementedError(
-            "expert parallelism (ep_axis, all_to_all) is not ported: ROADMAP "
-            "Queue 1 item 8 (sharding)")
+    expert SwiGLU and the combine.  ``ep_group`` (M ranks): the expert
+    weights are this rank's [E/M, ...] block and the slabs cross the group
+    through ``all_to_all``.  ``with_aux=False`` (serving) skips the aux
+    loss and returns None in its place, as XLA drops it from the JAX
+    package's serving graphs."""
     t, d = x_flat.shape
     e_total, k = cfg.n_experts, cfg.top_k
+    e_loc = params["w_gate"].shape[0]
+    ep = ep_group.size if ep_group is not None else 1
+    if e_loc * ep != e_total:
+        raise ValueError(f"{e_loc} local experts x {ep} ranks is not "
+                         f"{e_total} experts")
     cap = _capacity(t, cfg)
 
     probs, gates, idx = route(x_flat, params["router"], cfg)
@@ -151,8 +162,20 @@ def moe_core(x_flat, params, cfg: MoEConfig, policy, *,
                       device=x_flat.device)
     # only the drop row can receive two writes, and it is cut off
     buf[slot] = x_flat[order // k]
-    out = _expert_ffn(buf[:-1].reshape(e_total, cap, d), params["w_gate"],
-                      params["w_up"], params["w_down"], policy)
+    buf = buf[:-1].reshape(e_total, cap, d)
+    if ep > 1:
+        # [E, C, D] -> [M(dest), E_loc, C, D] -> a2a -> [M(src), E_loc, C,
+        # D] -> [E_loc, M*C, D]
+        buf = spmd.all_to_all(buf.reshape(ep, e_loc, cap, d), ep_group)
+        buf = buf.transpose(0, 1).reshape(e_loc, ep * cap, d)
+    out = _expert_ffn(buf, params["w_gate"], params["w_up"],
+                      params["w_down"], policy)
+    if ep > 1:
+        # [E_loc, M(src), C, D] -> [M, E_loc, C, D] -> a2a -> [M(expert
+        # block), E_loc, C, D], which is [E, C, D] expert-major
+        out = spmd.all_to_all(
+            out.reshape(e_loc, ep, cap, d).transpose(0, 1).contiguous(),
+            ep_group)
     out = torch.cat([out.reshape(e_total * cap, d),
                      torch.zeros((1, d), dtype=out.dtype, device=out.device)])
     gathered = torch.empty((t * k, d), dtype=out.dtype, device=out.device)
@@ -162,20 +185,32 @@ def moe_core(x_flat, params, cfg: MoEConfig, policy, *,
     return y, aux
 
 
+def _axis_group(mesh, axis: Optional[str], width: int):
+    """``mesh``'s group on ``axis`` when it has M > 1 ranks dividing
+    ``width`` (the sharding rules' divisibility), else None."""
+    check_mesh(mesh)
+    if mesh is None or axis not in mesh.axis_names:
+        return None
+    m = mesh.shape[axis]
+    return mesh.group(axis) if m > 1 and width % m == 0 else None
+
+
 def moe_block(x, params, cfg: MoEConfig, policy, *, mesh=None,
               ep_axis: Optional[str] = "model", with_aux: bool = True):
     """x [B, S, D] -> (y, aux): the routed experts plus the shared experts'
-    SwiGLU.  A ``mesh`` (expert parallelism) raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_block under a mesh (expert parallelism over ep_axis) is not "
-            "ported: ROADMAP Queue 1 item 8 (sharding)")
+    SwiGLU.  A ``mesh`` with ``ep_axis`` of M > 1 ranks dividing the
+    expert count runs expert parallel over it (``params`` this rank's
+    shards, the tokens the same on every rank); the result is the same on
+    every rank."""
     b, s, d = x.shape
     routed = {n: v for n, v in params.items() if n != "shared"}
     y, aux = moe_core(x.reshape(b * s, d), routed, cfg, policy,
+                      ep_group=_axis_group(mesh, ep_axis, cfg.n_experts),
                       with_aux=with_aux)
     y = y.reshape(b, s, d)
     if cfg.n_shared:
         sh = params["shared"]
-        y = y + swiglu(x, sh["gate"], sh["up"], sh["down"], policy)
+        y = y + swiglu(x, sh["gate"], sh["up"], sh["down"], policy,
+                       _axis_group(mesh, "model",
+                                   cfg.n_shared * cfg.d_expert))
     return y, aux

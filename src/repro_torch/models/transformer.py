@@ -58,6 +58,19 @@ The escalation write path (``esc_fmts`` / ``kv_levels``, and overflow
 injection ``ovf_at`` / ``ovf_scale`` in ``decode_burst``) snaps every cache
 write onto its row's rung and returns the rows' OF / UF write counts
 ``kv_flags`` [B, 2] last.
+
+Tensor parallelism (``mesh=`` on every entry point, a ``launch.mesh.Mesh``
+whose ``model`` axis has M > 1 ranks; ``params`` are this rank's shards,
+``models.sharding.shard_params``): attention runs on this rank's heads
+with a row-parallel ``wo`` (``attention.gqa_attention``), the MLPs
+column / row parallel (``layers.row_parallel``), MoE expert parallel
+(``moe.moe_block``), the embedding over this rank's vocab rows (a masked
+lookup, then an exact sum across the group) and the logits over its
+vocab columns (``all_gather``, then the softcap and the pad mask); the
+caches hold this rank's KV heads.  Every replicated value (hidden states,
+logits) is bitwise the same on every rank, and every token pick is made
+on the group's first rank and broadcast.  MLA and the recurrent mixers
+under a mesh raise.
 """
 from __future__ import annotations
 
@@ -70,6 +83,8 @@ import torch
 
 from ..configs.base import LayerSpec, ModelConfig
 from ..core.policy import PrecisionPolicy, get_policy
+from ..launch import spmd
+from ..launch.mesh import check_mesh, model_size
 from . import attention as attn
 from . import moe as moe_mod
 from . import paged
@@ -182,10 +197,26 @@ def sanitize_logits(lg):
     return torch.where(finite, lg, -1e30), ~finite.all(dim=-1)
 
 
+def tp_group(mesh):
+    """The model-axis group of ``mesh`` when it shards (M > 1), else
+    None."""
+    check_mesh(mesh)
+    return mesh.group("model") if model_size(mesh) > 1 else None
+
+
+def _agree(x, mesh):
+    """``x`` as the model group's first rank holds it, on every rank (no
+    copy without a sharding mesh)."""
+    grp = tp_group(mesh)
+    return x if grp is None else spmd.broadcast(x, grp)
+
+
 def _pick(lgv, *, counts, penalties: dict, generator, temperature, top_k,
-          top_p, guard: bool):
+          top_p, guard: bool, mesh=None):
     """One sampling site: guard, penalties, sample.  Returns ``(tok [B],
-    bad [B] or None)``."""
+    bad [B] or None)``.  Under a sharding ``mesh`` every rank samples (its
+    generator advances as the others') and the group's first rank's pick
+    is broadcast, so sampling cannot part the ranks."""
     bad = None
     if guard:
         lgv, bad = sanitize_logits(lgv)
@@ -193,7 +224,7 @@ def _pick(lgv, *, counts, penalties: dict, generator, temperature, top_k,
         lgv = apply_penalties(lgv, counts, **penalties)
     tok = sample_token(lgv, generator, temperature=temperature, top_k=top_k,
                        top_p=top_p)
-    return tok, bad
+    return _agree(tok, mesh), (None if bad is None else _agree(bad, mesh))
 
 
 def _penalized(repetition_penalty, presence_penalty) -> bool:
@@ -346,7 +377,7 @@ def init_encoder(gen, cfg: ModelConfig, dtype, device) -> dict:
 
 
 def encode(frame_embeds, enc_params, cfg: ModelConfig,
-           policy: PrecisionPolicy):
+           policy: PrecisionPolicy, mesh=None):
     """Frame embeddings [B, n_frames, d_model] -> the encoder states: the
     learned frame positions added (in the embeddings' dtype), then each
     layer's bidirectional self-attention (no rope, on the prefill route
@@ -367,17 +398,27 @@ def encode(frame_embeds, enc_params, cfg: ModelConfig,
             _norm(x, lp["norm1"], cfg), lp["attn"], policy,
             n_heads=e.n_heads, n_kv_heads=e.n_heads, head_dim=head_dim,
             positions=positions, causal=False, use_rope=False,
-            chunk=cfg.attn_chunk, prefill_backend=cfg.prefill_backend)
+            chunk=cfg.attn_chunk, prefill_backend=cfg.prefill_backend,
+            mesh=mesh)
         x = x + a
         m = lp["mlp"]
         x = x + gelu_mlp(_norm(x, lp["norm2"], cfg), m["up"], m["b_up"],
-                         m["down"], m["b_down"], policy)
+                         m["down"], m["b_down"], policy,
+                         _ffn_group(mesh, e.d_ff))
     return _norm(x, enc_params["norm_f"], cfg)
+
+
+def _ffn_group(mesh, width: int):
+    """The model group when ``mesh`` shards an MLP of ``width`` (the
+    ``col`` / ``row`` rules' divisibility), else None."""
+    tp_n = model_size(mesh)
+    return (mesh.group("model") if tp_n > 1 and width % tp_n == 0
+            else None)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 policy: PrecisionPolicy, device, page_table=None,
-                n_pages: Optional[int] = None) -> List:
+                n_pages: Optional[int] = None, mesh=None) -> List:
     """One cache per layer.  Paged (``cfg.paged_kv``): every layer's pool
     adopts the SAME [B, max_pages] table (default: the identity table);
     an arch whose cache has no page axis (MLA, the recurrent mixers, or
@@ -385,7 +426,11 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     does.  A ``cross_attn`` layer's entry is a ``CrossCache``; a recurrent
     layer's its mixer's state (``ssm.Mamba2Cache`` / ``MLSTMCache`` /
     ``SLSTMCache``, the conv window in the KV store dtype); each of
-    zamba2's ``shared_attn`` positions has a KV cache of its own."""
+    zamba2's ``shared_attn`` positions has a KV cache of its own.  Under a
+    head-sharding ``mesh`` every KV cache and pool holds this rank's
+    ``n_kv_heads / M`` heads."""
+    shards = attn._head_shard_size(mesh, cfg.n_heads, cfg.n_kv_heads) or 1
+    hkv = cfg.n_kv_heads // shards
     if cfg.paged_kv:
         why = cfg.paged_unsupported_reason()
         if why is not None:
@@ -403,15 +448,15 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
             out.append(init(batch, getattr(cfg, sub), kv_dtype, device))
         elif cfg.paged_kv:
             out.append(paged.init_paged_kv_cache(
-                batch, cfg.n_kv_heads, max_len, cfg.page_size, cfg.head_dim,
+                batch, hkv, max_len, cfg.page_size, cfg.head_dim,
                 kv_dtype, device=device, block_table=page_table,
                 n_pages=n_pages))
         else:
-            out.append(attn.init_kv_cache(batch, cfg.n_kv_heads, max_len,
+            out.append(attn.init_kv_cache(batch, hkv, max_len,
                                           cfg.head_dim, kv_dtype, device))
         if spec.cross_attn:
             out[-1] = CrossCache(out[-1], attn.init_kv_cache(
-                batch, cfg.n_kv_heads, cfg.encoder.n_frames, cfg.head_dim,
+                batch, hkv, cfg.encoder.n_frames, cfg.head_dim,
                 kv_dtype, device))
     return out
 
@@ -482,7 +527,8 @@ class Model:
         return params
 
     # -- embedding / unembedding ------------------------------------------
-    def embed(self, params, tokens, frontend_embeds=None, *, pos_offset=0):
+    def embed(self, params, tokens, frontend_embeds=None, *, pos_offset=0,
+              mesh=None):
         """Token embeddings [B, S, d] (scaled by ``emb_scale``).  A patch
         frontend's ``frontend_embeds`` [B, K, d] overwrite positions 0..K-1
         (in the embeddings' dtype).  Learned positions (``cfg.max_seq``)
@@ -490,9 +536,22 @@ class Model:
         ``pos_offset ..``, the start clamped so the slice fits, as
         ``dynamic_slice`` does), a [B] tensor (each row of a one-token
         step at its own position) or a [B, S] tensor (one position per
-        token)."""
+        token).  Under a sharding ``mesh`` the table holds this rank's
+        vocab rows: a masked local lookup, then a sum across the model
+        group (exact: one rank contributes each row)."""
         cfg = self.cfg
-        x = params["embed"][tokens.to(torch.int64)]
+        tab, tokens = params["embed"], tokens.to(torch.int64)
+        grp = tp_group(mesh)
+        if grp is not None and tab.shape[0] != padded_vocab(cfg.vocab):
+            rows = tab.shape[0]
+            loc = tokens - grp.index * rows
+            hit = (loc >= 0) & (loc < rows)
+            x = torch.where(hit[..., None], tab[loc.clamp(0, rows - 1)],
+                            torch.zeros((), dtype=tab.dtype,
+                                        device=tab.device))
+            x = spmd.all_reduce_sum(x, grp).to(tab.dtype)
+        else:
+            x = tab[tokens]
         if cfg.emb_scale:
             x = (x.to(F32) * cfg.emb_scale).to(x.dtype)
         if cfg.frontend == "patch" and frontend_embeds is not None:
@@ -514,25 +573,32 @@ class Model:
             x = x + pe.to(x.dtype)
         return x
 
-    def encode(self, params, frame_embeds):
+    def encode(self, params, frame_embeds, mesh=None):
         """The encoder states of ``frame_embeds`` [B, n_frames, d]
         (module-level ``encode``)."""
         fe = (None if frame_embeds is None else
               torch.as_tensor(frame_embeds, device=self.device))
-        return encode(fe, params["encoder"], self.cfg, self.policy)
+        return encode(fe, params["encoder"], self.cfg, self.policy, mesh)
 
     @property
     def vocab_out(self) -> int:
         return padded_vocab(self.cfg.vocab)
 
-    def logits(self, params, x):
+    def logits(self, params, x, mesh=None):
+        """Logits over the padded vocab, the pad tail masked.  Under a
+        sharding ``mesh`` the tied table / ``lm_head`` hold this rank's
+        vocab block: the local product, an ``all_gather`` across the model
+        group, then the softcap and the pad mask."""
         cfg = self.cfg
         out_fmt = "fp16alt" if cfg.ce_dtype == "fp16alt" else "fp32"
         w = (params["embed"].t() if cfg.tie_embeddings
              else params["lm_head"])
         lg = tp.tp_matmul(x, w, self.policy, out_fmt=out_fmt)
-        lg = softcap(lg, cfg.logit_softcap)
         vpad = padded_vocab(cfg.vocab)
+        grp = tp_group(mesh)
+        if grp is not None and w.shape[-1] != vpad:
+            lg = spmd.all_gather(lg, grp, dim=-1)
+        lg = softcap(lg, cfg.logit_softcap)
         if vpad != cfg.vocab:
             live = torch.arange(vpad, device=lg.device) < cfg.vocab
             lg = torch.where(live, lg, -1e30)
@@ -543,7 +609,7 @@ class Model:
                     cache_pos=None, kv_len=None, enc_states=None,
                     esc_fmts=None, kv_levels=None, kv_scale=None,
                     verify: bool = False, with_aux: bool = False,
-                    shared=None):
+                    shared=None, mesh=None):
         """One block: ``(x, cache)``, or ``(x, cache, kv_flags [B, 2])``
         when ``esc_fmts`` is given (the escalation write path of
         ``attention.gqa_attention``; an MLA or recurrent layer, as in the
@@ -561,6 +627,12 @@ class Model:
         them, the cached cross K/V (decode)."""
         cfg = self.cfg
         rs = cfg.residual_scale
+        if model_size(mesh) > 1 and (spec.mixer == "mla"
+                                     or spec.mixer in _RECURRENT):
+            raise NotImplementedError(
+                f"{cfg.name}: {spec.mixer} layers under a sharding mesh "
+                f"are not ported (ROADMAP Queue 1 item 8b); GQA archs "
+                f"shard")
         xcache = None
         if spec.cross_attn and cache is not None:
             cache, xcache = cache
@@ -597,7 +669,7 @@ class Model:
                 cache_pos=cache_pos, use_rope=spec.use_rope,
                 chunk=cfg.attn_chunk, decode_backend=cfg.decode_backend,
                 prefill_backend=cfg.prefill_backend, kv_len=kv_len,
-                verify=verify, **esc_kw)
+                verify=verify, mesh=mesh, **esc_kw)
         mix, cache = r[0], r[1]
         if spec.post_norms:
             mix = _norm(mix, p["post1"], cfg)
@@ -605,7 +677,7 @@ class Model:
         if spec.cross_attn:
             hx = _norm(x, p["norm_x"], cfg)
             kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                      head_dim=cfg.head_dim)
+                      head_dim=cfg.head_dim, mesh=mesh)
             if enc_states is not None:
                 mixx, _ = attn.gqa_attention(
                     hx, p["xattn"], self.policy, positions=positions,
@@ -623,15 +695,17 @@ class Model:
         if spec.ffn != "none":
             h2 = _norm(x, ap["norm2"], cfg)
             m = ap["mlp"]
+            grp = _ffn_group(mesh, cfg.d_ff)
             if spec.ffn == "swiglu" or (spec.mixer == "shared_attn" and
                                         cfg.shared_block.ffn == "swiglu"):
-                f = swiglu(h2, m["gate"], m["up"], m["down"], self.policy)
+                f = swiglu(h2, m["gate"], m["up"], m["down"], self.policy,
+                           grp)
             elif spec.ffn == "gelu":
                 f = gelu_mlp(h2, m["up"], m["b_up"], m["down"], m["b_down"],
-                             self.policy)
+                             self.policy, grp)
             else:
                 f, aux = moe_mod.moe_block(h2, m, cfg.moe, self.policy,
-                                           with_aux=with_aux)
+                                           with_aux=with_aux, mesh=mesh)
             if spec.post_norms:
                 f = _norm(f, p["post2"], cfg)
             x = x + rs * f
@@ -644,7 +718,7 @@ class Model:
     def _run_stack(self, params, x, *, positions, caches=None,
                    cache_pos=None, kv_len=None, enc_states=None,
                    esc_fmts=None, kv_levels=None, kv_scale=None,
-                   verify: bool = False):
+                   verify: bool = False, mesh=None):
         """``(x, caches)``, with the layers' summed ``kv_flags`` [B, 2]
         appended when ``esc_fmts`` is given."""
         if self.cfg.windowed_slice:
@@ -660,7 +734,8 @@ class Model:
                                  cache_pos=cache_pos, kv_len=kv_len,
                                  enc_states=enc_states, esc_fmts=esc_fmts,
                                  kv_levels=kv_levels, kv_scale=kv_scale,
-                                 verify=verify, shared=params.get("shared"))
+                                 verify=verify, shared=params.get("shared"),
+                                 mesh=mesh)
             x, c = r[0], r[1]
             if esc:
                 flags = flags + r[2]
@@ -754,14 +829,14 @@ class Model:
 
     # -- entry points ----------------------------------------------------
     def init_caches(self, batch: int, max_len: int, page_table=None,
-                    n_pages: Optional[int] = None):
+                    n_pages: Optional[int] = None, mesh=None):
         return init_caches(self.cfg, batch, max_len, self.policy,
                            self.device, page_table=page_table,
-                           n_pages=n_pages)
+                           n_pages=n_pages, mesh=mesh)
 
     def prefill(self, params, tokens, *, max_len: int, prompt_lens=None,
                 page_table=None, n_pages: Optional[int] = None,
-                frontend_embeds=None):
+                frontend_embeds=None, mesh=None):
         """Consume a right-padded prompt batch ``tokens`` [B, S]
         (``prompt_lens`` [B]: live lengths of a ragged batch), build caches
         sized ``max_len`` (paged under ``cfg.paged_kv``).  Returns each
@@ -785,27 +860,28 @@ class Model:
                     f"tokens out of their recurrent state")
         tokens = torch.as_tensor(tokens, device=self.device)
         b, s = tokens.shape
-        enc = (self.encode(params, frontend_embeds)
+        enc = (self.encode(params, frontend_embeds, mesh)
                if cfg.encoder is not None else None)
         caches = self.init_caches(b, max_len, page_table=page_table,
-                                  n_pages=n_pages)
+                                  n_pages=n_pages, mesh=mesh)
         lens = (None if prompt_lens is None else
                 torch.as_tensor(prompt_lens, device=self.device).to(
                     torch.int64))
-        x = self.embed(params, tokens, frontend_embeds)
+        x = self.embed(params, tokens, frontend_embeds, mesh=mesh)
         positions = torch.arange(s, device=self.device)
         x, caches = self._run_stack(params, x, positions=positions,
                                     caches=caches, cache_pos=0, kv_len=lens,
-                                    enc_states=enc)
+                                    enc_states=enc, mesh=mesh)
         x = self._final(params, x)
         if lens is None:
             xl = x[:, -1:]
         else:
             xl = x[torch.arange(b, device=self.device), lens - 1][:, None]
-        return self.logits(params, xl).to(F32), caches
+        return self.logits(params, xl, mesh).to(F32), caches
 
     def decode_step(self, params, token, caches, pos, *, kv_len=None,
-                    esc_fmts=None, kv_levels=None, kv_scale=None):
+                    esc_fmts=None, kv_levels=None, kv_scale=None,
+                    mesh=None):
         """One decode step: token [B, 1] at write index ``pos`` (int, or a
         per-row [B] tensor) -> (logits [B, 1, V], caches).  ``kv_len``
         overrides the attended live length (default ``pos + 1``).
@@ -813,20 +889,21 @@ class Model:
         path, ``attention.quantize_kv_rows``) append the per-row OF / UF
         write counts ``kv_flags`` [B, 2].  Learned positions are read at
         ``pos``."""
-        x = self.embed(params, token, pos_offset=pos)
+        x = self.embed(params, token, pos_offset=pos, mesh=mesh)
         if isinstance(pos, torch.Tensor) and pos.dim() >= 1:
             positions = pos[:, None, None]
         else:
             positions = torch.arange(1, device=self.device) + int(pos)
         r = self._run_stack(params, x, positions=positions, caches=caches,
                             cache_pos=pos, kv_len=kv_len, esc_fmts=esc_fmts,
-                            kv_levels=kv_levels, kv_scale=kv_scale)
+                            kv_levels=kv_levels, kv_scale=kv_scale,
+                            mesh=mesh)
         x = self._final(params, r[0])
-        return (self.logits(params, x).to(F32), r[1]) + tuple(r[2:])
+        return (self.logits(params, x, mesh).to(F32), r[1]) + tuple(r[2:])
 
     def prefill_chunk(self, params, tokens, caches, *, q_offset: int,
                       row=None, chunk_lens=None, esc_fmts=None,
-                      kv_levels=None):
+                      kv_levels=None, mesh=None):
         """Consume ONE prompt chunk [b, C] (right-padded) into EXISTING
         paged caches at query offset ``q_offset`` (an int); ``chunk_lens``
         [b] are the live tokens of the chunk.  ``row`` ([m] batch-slot
@@ -844,17 +921,19 @@ class Model:
                 "reads the prefix through the page pool")
         b, s = tokens.shape
         run = _caches_table_view(caches, row) if row is not None else caches
-        x = self.embed(params, tokens, pos_offset=q_offset)
+        x = self.embed(params, tokens, pos_offset=q_offset, mesh=mesh)
         positions = q_offset + torch.arange(s, device=self.device)
         live = torch.as_tensor(s if chunk_lens is None else chunk_lens,
                                device=self.device).reshape(-1).to(torch.int64)
         r = self._run_stack(params, x, positions=positions, caches=run,
                             cache_pos=int(q_offset), kv_len=q_offset + live,
-                            esc_fmts=esc_fmts, kv_levels=kv_levels)
+                            esc_fmts=esc_fmts, kv_levels=kv_levels,
+                            mesh=mesh)
         x = self._final(params, r[0])
         last = torch.clamp(live.expand(b), min=1) - 1
         xl = x[torch.arange(b, device=self.device), last][:, None]
-        return (self.logits(params, xl).to(F32), caches) + tuple(r[2:])
+        return (self.logits(params, xl, mesh).to(F32), caches) + \
+            tuple(r[2:])
 
     def decode_round(self, params, tok, caches, pos, *, lens, done,
                      stop_token: Optional[int] = None,
@@ -864,7 +943,8 @@ class Model:
                      counts=None, repetition_penalty: Optional[float] = None,
                      presence_penalty: Optional[float] = None,
                      poison: bool = False, guard: bool = False,
-                     esc_fmts=None, kv_levels=None, kv_scale=None):
+                     esc_fmts=None, kv_levels=None, kv_scale=None,
+                     mesh=None):
         """ONE decode round over every batch slot: rows attend ``lens``
         when done/idle, ``pos + 1`` when running, then sample.  ``counts``
         [B, V] applies the penalties (the caller owns its upkeep);
@@ -881,7 +961,7 @@ class Model:
         attend = torch.where(done, lens, pos + 1)
         r = self.decode_step(params, tok, caches, pos, kv_len=attend,
                              esc_fmts=esc_fmts, kv_levels=kv_levels,
-                             kv_scale=kv_scale)
+                             kv_scale=kv_scale, mesh=mesh)
         lg, caches = r[0], r[1]
         lgv = lg[:, -1]
         if poison:
@@ -890,7 +970,7 @@ class Model:
                          penalties=dict(repetition_penalty=repetition_penalty,
                                         presence_penalty=presence_penalty),
                          generator=generator, temperature=temperature,
-                         top_k=top_k, top_p=top_p, guard=guard)
+                         top_k=top_k, top_p=top_p, guard=guard, mesh=mesh)
         nxt = nxt[:, None]
         if stop_token is not None:
             nxt = torch.where(done[:, None], stop_token, nxt)
@@ -909,7 +989,8 @@ class Model:
                      presence_penalty: Optional[float] = None,
                      poison_at: Optional[int] = None, guard: bool = False,
                      esc_fmts=None, kv_levels=None,
-                     ovf_at: Optional[int] = None, ovf_scale: float = 1.0):
+                     ovf_at: Optional[int] = None, ovf_scale: float = 1.0,
+                     mesh=None):
         """Up to ``n_max`` decode rounds.  Per-row state: write index
         ``pos``, live length ``lens``, ``done``, and ``limit`` (the pos at
         which a row has emitted its whole budget).  Exits when every row is
@@ -965,7 +1046,8 @@ class Model:
                 presence_penalty=presence_penalty,
                 poison=i == poison_at,
                 guard=guard, esc_fmts=esc_fmts, kv_levels=kv_levels,
-                kv_scale=ovf_scale if esc and i == ovf_at else None)
+                kv_scale=ovf_scale if esc and i == ovf_at else None,
+                mesh=mesh)
             nxt, caches = r[0], r[2]
             out[:, i] = nxt[:, 0]
             fin = done | (pos + 1 >= limit)
@@ -1002,7 +1084,7 @@ class Model:
                  presence_penalty: Optional[float] = None,
                  loop: str = "scan", return_trips: bool = False,
                  guard_nonfinite: bool = False, frontend_embeds=None,
-                 **unported):
+                 mesh=None):
         """Prefill + ``gen_len`` generated tokens (the first from the
         prefill logits, then ``gen_len - 1`` decode steps).
 
@@ -1022,17 +1104,15 @@ class Model:
         so far (prompt, pad excluded, plus emitted) at every step.
         ``guard_nonfinite`` sanitizes every sampling site and counts, per
         row, the steps whose logits were non-finite while the row was live.
+        ``mesh``: tensor parallel over its model axis (``params`` this
+        rank's shards); every rank returns the same tokens.
 
         Returns ``(gen_tokens [B, gen_len], logits)``, ``logits`` [B,
         gen_len, V] (prefill's then each step's; zeros after a while-form
         exit) when ``return_logits`` else None; ``return_trips`` appends
         the decode steps run, ``guard_nonfinite`` the per-row guard counts
         [B] int32, in that order."""
-        asked = sorted(k for k, v in unported.items() if v is not None)
-        if asked:
-            raise NotImplementedError(
-                f"generate(): not ported: {asked} (meshes: ROADMAP Queue 1 "
-                f"item 8)")
+        check_mesh(mesh)
         if loop not in ("scan", "while"):
             raise ValueError(f"loop must be scan|while, got {loop!r}")
         dev = self.device
@@ -1048,13 +1128,13 @@ class Model:
             _pick, penalties=dict(repetition_penalty=repetition_penalty,
                                   presence_penalty=presence_penalty),
             generator=generator, temperature=temperature, top_k=top_k,
-            top_p=top_p, guard=guard_nonfinite)
+            top_p=top_p, guard=guard_nonfinite, mesh=mesh)
         lens_t = (None if prompt_lens is None else
                   torch.as_tensor(prompt_lens, device=dev).to(torch.int64))
         lg0, caches = self.prefill(params, tokens, max_len=max_len,
                                    prompt_lens=lens_t, page_table=page_table,
                                    n_pages=n_pages,
-                                   frontend_embeds=frontend_embeds)
+                                   frontend_embeds=frontend_embeds, mesh=mesh)
         cnt = (token_counts(tokens, self.vocab_out, lens_t) if use_pen
                else None)
         tok0, bad0 = pick(lg0[:, -1], counts=cnt)
@@ -1088,7 +1168,7 @@ class Model:
             # one step body for both loop forms
             attend = torch.where(done, lens, pos + 1) if use_stop else None
             lg, caches = self.decode_step(params, tok, caches, pos,
-                                          kv_len=attend)
+                                          kv_len=attend, mesh=mesh)
             nxt, bad = pick(lg[:, -1], counts=cnt)
             nxt = nxt[:, None]
             if use_stop:
@@ -1161,7 +1241,8 @@ class Model:
         return dm, dp, dc
 
     def verify_chunk(self, params, tokens, caches, pos, *, kv_len,
-                     esc_fmts=None, kv_levels=None, kv_scale=None):
+                     esc_fmts=None, kv_levels=None, kv_scale=None,
+                     mesh=None):
         """Score a [B, S] candidate chunk at target precision through the
         DECODE read: the speculative verify call.
 
@@ -1179,20 +1260,20 @@ class Model:
         offs = posv[:, None] + torch.arange(s, device=self.device)
         kvl = torch.broadcast_to(torch.as_tensor(kv_len, device=self.device),
                                  (b, s))
-        x = self.embed(params, tokens, pos_offset=offs)
+        x = self.embed(params, tokens, pos_offset=offs, mesh=mesh)
         r = self._run_stack(params, x, positions=offs[:, None, :],
                             caches=caches, cache_pos=posv, kv_len=kvl,
                             esc_fmts=esc_fmts, kv_levels=kv_levels,
-                            kv_scale=kv_scale, verify=True)
+                            kv_scale=kv_scale, verify=True, mesh=mesh)
         x = self._final(params, r[0])
-        return (self.logits(params, x).to(F32), r[1]) + tuple(r[2:])
+        return (self.logits(params, x, mesh).to(F32), r[1]) + tuple(r[2:])
 
     def speculate_step(self, params, tok, caches, pos, *, lens, done, limit,
                        spec_k: int, draft_repeats=None, k_rows=None,
                        stop_token: Optional[int] = None, guard: bool = False,
                        esc_fmts=None, kv_levels=None, kv_scale=None,
                        poison: bool = False, draft_policy=None,
-                       _draft_fn=None):
+                       _draft_fn=None, mesh=None):
         """ONE speculative round: draft ``spec_k`` tokens a row with the
         draft pass (``draft_view``), verify the chunk at target precision
         in one ``verify_chunk``, accept the longest matching prefix plus
@@ -1228,7 +1309,8 @@ class Model:
                 # each draft step attends its own earlier proposals
                 dlg, _ = dm.decode_step(dp, dtok, dc, dpos,
                                         kv_len=torch.where(done, lens,
-                                                           dpos + 1))
+                                                           dpos + 1),
+                                        mesh=mesh)
                 dtok = torch.argmax(dlg[:, -1], dim=-1).to(tok.dtype)[:, None]
                 seq.append(dtok)
                 dpos = dpos + 1
@@ -1239,13 +1321,14 @@ class Model:
         r = self.verify_chunk(
             params, chunk, caches, pos,
             kv_len=torch.where(done[:, None], lens[:, None], offs + 1),
-            esc_fmts=esc_fmts, kv_levels=kv_levels, kv_scale=kv_scale)
+            esc_fmts=esc_fmts, kv_levels=kv_levels, kv_scale=kv_scale,
+            mesh=mesh)
         lg, caches = r[0], r[1]
         if poison:
             lg = torch.full_like(lg, torch.nan)
         if guard:
             lg, badm = sanitize_logits(lg)                   # badm [B, k+1]
-        g = torch.argmax(lg, dim=-1).to(torch.int32)
+        g = _agree(torch.argmax(lg, dim=-1).to(torch.int32), mesh)
         m = torch.cumprod((drafts == g[:, :-1]).to(torch.int64),
                           dim=1).sum(dim=1)
         if k_rows is not None:
@@ -1278,7 +1361,7 @@ class Model:
                          prompt_lens=None, stop_token: Optional[int] = None,
                          page_table=None, n_pages: Optional[int] = None,
                          draft_policy=None, _draft_fn=None,
-                         return_stats: bool = False):
+                         return_stats: bool = False, mesh=None):
         """The speculative twin of greedy ``generate``: prefill, then
         ``speculate_step`` rounds (one host sync each, on ``done``) until
         every row is done, each emitting 1 to ``spec_k + 1`` tokens a row.
@@ -1306,8 +1389,9 @@ class Model:
                   torch.as_tensor(prompt_lens, device=dev).to(torch.int64))
         lg0, caches = self.prefill(params, tokens, max_len=max_len,
                                    prompt_lens=lens_t, page_table=page_table,
-                                   n_pages=n_pages)
-        tok = torch.argmax(lg0[:, -1], dim=-1).to(torch.int32)[:, None]
+                                   n_pages=n_pages, mesh=mesh)
+        tok = _agree(torch.argmax(lg0[:, -1], dim=-1).to(torch.int32),
+                     mesh)[:, None]
         pos = (lens_t if lens_t is not None else
                torch.full((b,), prompt_len, dtype=torch.int64, device=dev))
         limit = pos + gen_len - 1
@@ -1327,7 +1411,7 @@ class Model:
                 params, tok, caches, pos, lens=lens, done=done, limit=limit,
                 spec_k=spec_k, draft_repeats=draft_repeats,
                 stop_token=stop_token, draft_policy=draft_policy,
-                _draft_fn=_draft_fn)
+                _draft_fn=_draft_fn, mesh=mesh)
             valid = ar[None, :] < n[:, None]
             sidx = torch.where(valid, ec[:, None] + ar, gen_len + ar)
             out[rows, sidx] = torch.where(valid, g, pad)
@@ -1346,7 +1430,7 @@ class Model:
                         poison_at: Optional[int] = None, guard: bool = False,
                         esc_fmts=None, kv_levels=None,
                         ovf_at: Optional[int] = None, ovf_scale: float = 1.0,
-                        draft_policy=None, _draft_fn=None):
+                        draft_policy=None, _draft_fn=None, mesh=None):
         """The speculative twin of ``decode_burst``: up to ``n_max``
         ``speculate_step`` rounds, with its exit rules (every row done, the
         ``exit_on_finish``-th finish since entry) and one more: another
@@ -1396,7 +1480,7 @@ class Model:
                 kv_levels=kv_levels,
                 kv_scale=ovf_scale if esc and i == ovf_at else None,
                 poison=i == poison_at, draft_policy=draft_policy,
-                _draft_fn=_draft_fn)
+                _draft_fn=_draft_fn, mesh=mesh)
             g, n, tok, pos, new_lens, new_done, caches = r[:7]
             valid = ar[None, :] < n[:, None]
             out[rows, torch.where(valid, ec[:, None] + ar, out_width + ar)] = \

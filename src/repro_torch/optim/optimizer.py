@@ -224,4 +224,4 @@ def opt_state_specs(*args, **kwargs):
     """ZeRO-1 optimizer-state sharding specs: not ported."""
     raise NotImplementedError(
         "opt_state_specs (ZeRO-1 sharding of the optimizer state over the "
-        "data axis) is not ported: ROADMAP Queue 1 item 8 (sharding)")
+        "data axis) is not ported: ROADMAP Queue 1 item 8b (training under a mesh)")

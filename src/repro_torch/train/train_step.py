@@ -15,7 +15,8 @@ is the caller's sync.
 As in JAX, ``compress_grads`` (the narrow-format data-parallel gradient
 sync) takes effect only under a mesh: without one it is ignored
 (``use_compress = compress_grads is not None and mesh is not None``).
-A mesh is not ported and raises (ROADMAP Queue 1 item 8).
+Training under a mesh is not ported and raises (ROADMAP Queue 1 item 8b;
+serving shards, ``launch.mesh``).
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ def make_train_step(model: Model, opt_cfg: OptConfig, mesh=None, *,
         raise NotImplementedError(
             "make_train_step under a mesh (data / model parallel training, "
             "compressed gradient sync, ZeRO-1) is not ported: ROADMAP "
-            "Queue 1 item 8 (sharding)")
+            "Queue 1 item 8b (training under a mesh)")
     del compress_grads                   # acts only under a mesh
     policy = model.policy
 

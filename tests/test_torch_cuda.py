@@ -1440,3 +1440,43 @@ def test_zamba2_generate_on_the_card_launches_the_kernels(gen):
             diff = (card_lg[r, :s + 1] - cpu_lg[r, :s + 1]).abs().max()
             top2 = cpu_lg[r, s].topk(2).values
             assert (top2[0] - top2[1]).item() <= 2 * diff.item(), (r, s)
+
+
+def test_sharded_gloo_ranks_on_the_card(gen):
+    """Two ranks on the one card over gloo (``launch.spmd``: every CUDA
+    tensor staged through pinned host memory): reduced gemma2 at tp 2.
+    Each rank's heads of the kernel reads (decode at the unsharded call's
+    split, prefill) are bitwise the card's unsharded reads; its ``fp32``
+    prefill logits within 1e-4 of the CPU's unsharded logits, argmax
+    equal; the engine serves every request its budget, the ranks' streams
+    equal; the collectives ran and staged bytes."""
+    from repro_torch.launch import sharded_checks as sc
+    from repro_torch.launch import spmd
+    from repro_torch.models.registry import build_model
+    m = build_model("gemma2-9b", policy="fp32", reduced=True, device="cpu")
+    params = m.init(0)
+    toks = torch.randint(0, m.cfg.vocab, (2, 12),
+                         generator=torch.Generator().manual_seed(1))
+    dims = dict(heads=m.cfg.n_heads, kv_heads=m.cfg.n_kv_heads,
+                head_dim=m.cfg.head_dim)
+    plan = [("reads", "reads", (1, 2), dims),
+            ("logits", "logits", (1, 2), {"params": params, "tokens": toks}),
+            ("engine", "engine", (1, 2), {"params": params,
+                                          "policy": "fp32"})]
+    cpu = sc.run_plan([("logits", "logits", None, plan[1][3])])
+    card = sc.run_plan([("reads", "reads", None, dims)], device="cuda")
+    ranks = spmd.spawn(sc.rank_main, 2, backend="gloo", args=(plan, "cuda"))
+    for out in ranks:
+        r = out["rank"]
+        for k in ("decode", "flash"):
+            assert torch.equal(out["reads"][k],
+                               sc.head_slice(card["reads"][k], r, 2)), k
+        assert out["reads"]["cluster"] == card["reads"]["cluster"]
+        got, want = out["logits"]["logits"], cpu["logits"]["logits"]
+        assert (got - want).abs().max().item() <= 1e-4
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+        eng = out["engine"]
+        assert all(len(t) > 0 for t in eng["tokens"])
+        assert eng["tokens"] == ranks[0]["engine"]["tokens"]
+        assert eng["spmd"]["collectives"] > 0
+        assert eng["spmd"]["staged_bytes"] > 0

@@ -92,7 +92,9 @@ def test_engine_refuses_unported_options():
     tm = build_model("gemma2-9b", reduced=True, device="cpu", paged_kv=True,
                      page_size=16)
     params = tm.init(0)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # meshes are ported (tests/test_torch_tp.py): a foreign object is not
+    # one
+    with pytest.raises(TypeError, match="Mesh"):
         ContinuousEngine(tm, params, slots=2, max_len=32, mesh=object())
     # replicas and the journal are ported (tests/test_torch_replica_ha.py)
     from repro_torch.launch.journal import RequestJournal

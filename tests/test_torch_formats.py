@@ -138,13 +138,14 @@ def test_native_ops_match_jax_on_cpu(policy):
 
 def test_emulate_mode_is_refused():
     """Emulate mode is ported (``tests/test_torch_tp_ops.py`` holds it
-    against JAX); what is still refused is ``narrow_partials``, a sharding
-    feature that is not ported."""
+    against JAX), and so is ``narrow_partials`` (``tests/
+    test_torch_sharding.py`` holds it against JAX): on one device the
+    product's accumulate type becomes the narrow output type."""
     x = torch.ones(2, 2)
     assert torch.equal(tops.tp_matmul(x, x * 1.1, "em_fp16"),
                        torch.full((2, 2), 2.19921875))
     narrow = tpolicy.PRESETS["tp_bf16"].replace(narrow_partials=True)
-    with pytest.raises(NotImplementedError, match="narrow_partials"):
-        tops.tp_matmul(x, x, narrow)
-    with pytest.raises(NotImplementedError, match="narrow_partials"):
-        tops.tp_einsum("ij,jk->ik", x, x, narrow)
+    want = tops.tp_matmul(x, x * 1.1, "tp_bf16")
+    for got in (tops.tp_matmul(x, x * 1.1, narrow),
+                tops.tp_einsum("ij,jk->ik", x, x * 1.1, narrow)):
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)

@@ -133,15 +133,22 @@ def test_drop_free_output_does_not_depend_on_the_batch(policy):
 
 
 def test_expert_parallel_paths_raise():
-    """``ep_axis`` / ``mesh`` (the JAX package's all_to_all path) wait for
-    sharding: both raise, naming the roadmap item."""
+    """Expert parallelism is ported (``tests/test_torch_tp.py`` runs it
+    across ranks): a foreign mesh raises, experts that are not an
+    ``ep_group``'s shards raise, and a one-rank mesh is the local path
+    bitwise."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.spmd import Group
     _, tcfg, _, tp, _, xt = _setup("dropfree", "fp32")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tmoe.moe_block(xt[None], tp, tcfg, get_policy("fp32"),
-                       mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tmoe.moe_core(xt, tp, tcfg, get_policy("fp32"), ep_axis="model",
-                      ep_size=2)
+    pol = get_policy("fp32")
+    with pytest.raises(TypeError, match="Mesh"):
+        tmoe.moe_block(xt[None], tp, tcfg, pol, mesh=object())
+    with pytest.raises(ValueError, match="local experts"):
+        tmoe.moe_core(xt, tp, tcfg, pol, ep_group=Group([0, 1]))
+    y0, a0 = tmoe.moe_block(xt[None], tp, tcfg, pol)
+    y1, a1 = tmoe.moe_block(xt[None], tp, tcfg, pol,
+                            mesh=make_serving_mesh(1, 1))
+    assert torch.equal(y0, y1) and torch.equal(a0, a1)
 
 
 MOE_ARCHS = ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b")

@@ -681,7 +681,7 @@ def test_replica_meshes_meshless():
         tmesh.replica_meshes(None)
     with pytest.raises(ValueError, match="replica count"):
         tmesh.replica_meshes(None, 0)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="Mesh"):
         tmesh.replica_meshes(object(), 2)
 
 
@@ -689,10 +689,10 @@ def test_replicated_engine_validation(setup):
     with pytest.raises(ValueError, match="swap|reingest"):
         te.ReplicatedEngine(None, None, replicas=1, migrate="teleport")
     model, params = setup
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="Mesh"):
         te.ReplicatedEngine(model, params, mesh=object(), slots=1,
                             max_len=16)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         te.ContinuousEngine(model, params, slots=1, max_len=16,
                             mesh=object())
 
@@ -827,7 +827,7 @@ def test_launcher_restart_replays_journal(capsys, tmp_path):
     (["--replicas", "2", "--fault-replica", "1:2:crash"], "kill|hang"),
     (["--replicas", "2", "--fault-replica", "1"], "R:BURST"),
     (["--replicas", "0"], "must be >= 1"),
-    (["--mesh", "2,1"], "not ported"),
+    (["--mesh", "2"], "DP,TP"),
 ])
 def test_launcher_flag_errors(argv, msg, capsys):
     with pytest.raises(SystemExit):
