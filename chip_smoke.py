@@ -150,10 +150,20 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    flash ``flash_tc`` on each rank; (b) qwen3-moe at ``TP_MOE_LAYERS`` = 4
    of 48, expert parallel (64 experts a rank) through ``generate`` with
    the oracle's expert choices, the same gates at G 8, and ``moe_block``
-   on layer 0 against the unsharded call (indices and dropped set exact,
-   output within ``KERNEL_TOL`` of its largest magnitude).  tok/s and
-   ms a round sharded and unsharded, collectives, their ms and the bytes
-   gloo staged through pinned host memory: not a speed of NCCL.
+   on its first MoE layer against the unsharded call (indices and
+   dropped set exact, output within ``KERNEL_TOL`` of its largest
+   magnitude); (c) minicpm3-4b (8 of 62) and (d) deepseek-v2-lite (4 of
+   27, experts pinned) through ``generate``, each rank's heads of the
+   (D, Dv) prefill read bitwise and of the absorbed decode within
+   ``KERNEL_TOL``; (e) zamba2-1.2b (8 of 38) and xlstm-1.3b (8 of 48)
+   through ``generate``, first-token logits within ``LOGITS_TOL`` or 3x
+   the model's own chunk sensitivity; (f) the sharded fleet on a (2, 1)
+   mesh, four journaled legs (unfailed, kill, hang with swap migration,
+   a double loss replayed by ``run_with_restarts``), streams, schedule,
+   heartbeats, ``ha_*`` and the journal's bytes those of the meshless
+   2-replica fleet in this process.  tok/s and ms a round sharded and
+   unsharded, collectives, their ms and the bytes gloo staged through
+   pinned host memory: not a speed of NCCL.
 7. Escalation phase (``escalation_phase``): the bf16 model is freed and
    gemma2-9b is built again under policy ``fp32`` (f32 weights, an f32 KV
    pool; ``ESCALATION_LAYERS`` = 8 of its 42 layers: 9.6 GiB), then
@@ -314,8 +324,10 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2761,15 +2773,22 @@ def ha_phase(model, params, vdiff: float, seed: int = 0) -> dict:
                      migrate="swap", hang_patience=3,
                      replica_fault=ReplicaFaultPlan(replica=0, at_burst=2,
                                                     mode="hang"))
+    # a loss's time: the victim's evacuation and the survivors' adoption
     evac = []
-    lose = fleet._lose_replica
+    evacuate, settle = fleet._evacuate, fleet._settle
 
-    def timed_lose(*a, **kw):
+    def timed_evacuate(*a, **kw):
         t0 = time.perf_counter()
-        lose(*a, **kw)
+        out = evacuate(*a, **kw)
         evac.append(time.perf_counter() - t0)
+        return out
 
-    fleet._lose_replica = timed_lose
+    def timed_settle(*a, **kw):
+        t0 = time.perf_counter()
+        settle(*a, **kw)
+        evac[-1] += time.perf_counter() - t0
+
+    fleet._evacuate, fleet._settle = timed_evacuate, timed_settle
     fc, sc, legs["c_hang"] = ha_leg("c_hang", fleet, hang_reqs, model,
                                     counted)
     victim = sc["replicas"][0]
@@ -2876,22 +2895,37 @@ def ha_phase(model, params, vdiff: float, seed: int = 0) -> dict:
 # ---------------------------------------------------------------------------
 # phase 6c: sharded serving, two ranks on the one card
 # ---------------------------------------------------------------------------
-#: the tp phase: gemma2-9b at full width cut to 8 of its 42 layers (four
+#: the tp phase, ``TP_RANKS`` ranks on the one card over gloo, every
+#: model at full width: (a) gemma2-9b cut to 8 of its 42 layers (four
 #: repeats of the local / global pattern, 5.0 GiB of bf16 weights) through
 #: the paged engine, 4 slots, pages of 64, chunks of 256, on 8 requests of
-#: 128-1024 prompt tokens, 16 tokens each; qwen3-moe-30b-a3b cut to 4 of
-#: 48 layers through ``generate`` on two ragged rows, 16 tokens, its 128
-#: experts split 64 and 64; ``TP_RANKS`` ranks on the one card over gloo
+#: 128-1024 prompt tokens, 16 tokens each; through ``generate`` on two
+#: ragged rows of ``TP_ROWS`` tokens, ``TP_GEN`` each: (b)
+#: qwen3-moe-30b-a3b cut to 4 of 48 layers, its 128 experts split 64 and
+#: 64, (c) minicpm3-4b 8 of 62 (20 of its 40 heads a rank) and (d)
+#: deepseek-v2-lite-16b 4 of 27 (the dense layer 0 and 3 MoE layers, 8
+#: of 16 heads and 32 of 64 experts a rank); (e) zamba2-1.2b 8 of 38 (the
+#: least depth its layout allows: one pattern repeat and the 2-layer
+#: suffix, 7 Mamba2 layers and the shared block once) and xlstm-1.3b 8 of
+#: 48 (7 mLSTM, 1 sLSTM) on a row of 256 and one of 128 tokens, one
+#: ``generate`` call a row (recurrent mixers refuse ragged prompts)
 TP_RANKS = 2
 TP_LAYERS, TP_MOE_LAYERS = 8, 4
+TP_MLA_LAYERS, TP_DEEPSEEK_LAYERS = 8, 4
+TP_ZAMBA2_LAYERS, TP_XLSTM_LAYERS = 8, 8
 TP_PROMPTS = (1024, 128, 512, 768, 256, 896, 384, 640)
 TP_GEN = 16
-TP_MOE_PROMPTS = (96, 48)
-#: tokens of the ``moe_block`` probe on layer 0's experts
+TP_ROWS = (96, 48)
+TP_RECURRENT_PROMPTS = (256, 128)
+#: tokens of the ``moe_block`` probe on the first MoE layer's experts
 TP_PROBE_TOKENS = 64
-#: free memory the phase needs before its parent builds both oracles
-#: (5.0 + 6.0 GiB) and the two ranks build, shard and run theirs
+#: free memory the phase needs before its parent builds its oracles
+#: (gemma2 5.0, qwen3 6.0, minicpm3 1.3, deepseek 4.6, zamba2 and xlstm
+#: 1.4 GiB) and the two ranks build, shard and run theirs
 TP_NEED_GIB = 40.0
+#: (f) the sharded fleet on a (2, 1) mesh: the (a) model and queue, 4
+#: slots a row, against the meshless 2-replica fleet in this process
+TP_FLEET = dict(slots=4, chunk=256, page_size=64)
 
 
 def tp_requests(vocab: int, seed: int = 0) -> list:
@@ -2930,6 +2964,275 @@ def _weights_gate(where, digest, ranks):
                              f"against {digest}")
 
 
+def tp_arch_oracle(arch: str, layers: int, prompts, seed: int, tag: str,
+                   **cfg_kw) -> tuple:
+    """The unsharded oracle of a tp case (b)-(e): ``arch`` at full width
+    cut to ``layers`` (``cfg_kw``: config overrides) through ``generate``
+    on ``prompts`` (one ragged batch, or one call a row for a recurrent
+    stack, which refuses ragged prompts), its counters (gated by
+    ``tp_counter_gates``), its expert choices (``RouteTape``) and, for
+    MoE, the ``moe_block`` probe input and output; for MLA
+    ``sharded_checks.mla_reads`` of layer 0; for a recurrent stack its own
+    sensitivity to another order of the same sums (the prefill at half
+    its chunk).  Returns the rank spec beside the oracle's results."""
+    import torch
+    from repro_torch.kernels.decode_attention import STRIP_UNIT, cluster_size
+    from repro_torch.launch import sharded_checks as sc
+    from repro_torch.models.paged import num_pages
+    model, params = arch_model(arch, layers, 0.0, tag, seed, **cfg_kw)
+    cfg = model.cfg
+    recurrent = cfg.mamba is not None or cfg.mlstm is not None
+    if recurrent:
+        batches = [(_uniform(1, n, cfg.vocab, seed + 28 + i).cpu(), None)
+                   for i, n in enumerate(prompts)]
+        rule = {cluster_size(cfg.n_kv_heads,
+                             -(-(n + TP_GEN) // STRIP_UNIT), STRIP_UNIT)
+                for n in prompts}
+    else:
+        toks, lens = _ragged(prompts, cfg.vocab, seed + 28)
+        batches = [(toks.cpu(), lens.cpu())]
+        rule = cluster_rule(model, len(prompts),
+                            num_pages(max(prompts) + TP_GEN, cfg.page_size))
+    tape = RouteTape() if cfg.moe is not None else None
+    reset_attention_counters()
+    ctx = tape.record() if tape is not None else contextlib.nullcontext()
+    with ctx:
+        t0 = time.perf_counter()
+        outs = [model.generate(params, t.cuda(), gen_len=TP_GEN,
+                               prompt_lens=None if n is None else n.cuda(),
+                               return_logits=True) for t, n in batches]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counted = tp_counter_gates(f"{tag} oracle", model,
+                               sc.attention_launches(), rule)
+    spec = dict(arch=arch, layers=layers, seed=seed, batches=batches,
+                gen_len=TP_GEN, **cfg_kw)
+    res = dict(model=model, params=params, batches=batches, wall_s=wall,
+               counted=counted, rule=rule,
+               tokens=[g.cpu().tolist() for g, _ in outs],
+               first_logits=[lg[:, 0].float().cpu() for _, lg in outs],
+               digest=sc.weights_digest(params))
+    if tape is not None:
+        spec["routes"] = [i.cpu() for i in tape.idx]
+        spec["probe_x"] = torch.randn(
+            (1, TP_PROBE_TOKENS, cfg.d_model),
+            generator=torch.Generator().manual_seed(seed + 27)).to(
+                torch.bfloat16)
+        i = next(i for i, sp in enumerate(cfg.layer_list())
+                 if sp.ffn == "moe")
+        res["probe"] = sc.moe_probe(params["layers"][i]["mlp"], cfg.moe,
+                                    spec["probe_x"].cuda(), None, "tp_bf16",
+                                    with_aux=False)
+    if cfg.layer_list()[0].mixer == "mla":
+        spec["mla_rows"] = list(prompts)
+        res["mla_reads"] = sc.mla_reads(cfg, params["layers"][0]["attn"],
+                                        list(prompts), seed=seed)
+    if recurrent:
+        sub = "mamba" if cfg.mamba is not None else "mlstm"
+        half = model.with_cfg(**{sub: dataclasses.replace(
+            getattr(cfg, sub), chunk=getattr(cfg, sub).chunk // 2)})
+        sens = 0.0
+        for t, _ in batches:
+            t = t.cuda()
+            lg, _ = model.prefill(params, t, max_len=t.shape[1] + 1)
+            lh, _ = half.prefill(params, t, max_len=t.shape[1] + 1)
+            sens = max(sens, float((lg - lh)[..., :cfg.vocab].abs().max()))
+        res["sensitivity"] = sens
+    return spec, res
+
+
+def tp_counter_gates(where: str, model, c: dict, rule: set) -> dict:
+    """One run's attention launch counters (``attention_launches``),
+    gated for ``model``'s stack: MLA flash ``flash_tc`` at its (D, Dv) and
+    no decode launch (it decodes in the absorbed form); a stack without
+    attention (xlstm) none; otherwise decode ``mma`` at its group and a
+    cluster size in ``rule``, flash ``flash_tc`` at (D, D)."""
+    cfg = model.cfg
+    kinds = {sp.mixer for sp in cfg.layer_list()}
+    if "mla" in kinds:
+        dims = f"{cfg.nope_dim + cfg.rope_dim}x{cfg.v_head_dim}"
+        fl = c["launches"]["flash_attention"]
+        if (fl <= 0 or c["launches"]["decode_attention"]
+                or c["variants"]["flash_attention"]["tc"] != fl
+                or c["flash_launches_by_dims"] != {dims: fl}):
+            raise AssertionError(f"{where}: attention launches {c}: "
+                                 f"flash_tc at {dims} only")
+        return c
+    if not kinds & {"gqa", "shared_attn"}:
+        if any(c["launches"].values()):
+            raise AssertionError(f"{where}: attention kernels launched "
+                                 f"{c['launches']}, the arch has none")
+        return c
+    c = attention_counters(where, rule, counted=c)
+    groups_gate(where, c, cfg.n_heads // cfg.n_kv_heads)
+    dims = f"{cfg.head_dim}x{cfg.head_dim}"
+    if set(c["flash_launches_by_dims"]) != {dims}:
+        raise AssertionError(f"{where}: flash launches by dims "
+                             f"{c['flash_launches_by_dims']}, all at {dims}")
+    return c
+
+
+def tp_arch_gates(tag: str, oracle: dict, ranks: list) -> dict:
+    """The gates of a tp case (b)-(e) against its oracle
+    (``tp_arch_oracle``): the ranks' weights the oracle's, their streams
+    bitwise each other and the oracle's up to a near tie, first-token
+    logits within ``LOGITS_TOL`` (a recurrent stack: or ``SENSITIVITY_X``
+    times its own sensitivity, where that is larger), every attention
+    launch on its variant and counted (``tp_counter_gates``), the MoE
+    probe's routing exact and output within ``KERNEL_TOL`` of its largest
+    magnitude, and for MLA each rank's heads of the prefill read bitwise
+    the unsharded read's and of the absorbed decode within
+    ``KERNEL_TOL``."""
+    import torch
+    from repro_torch.launch.engine import Request
+    model, params = oracle["model"], oracle["params"]
+    cfg = model.cfg
+    _weights_gate(f"tp {tag}", oracle["digest"], ranks)
+    mla = "mla_reads" in oracle
+    total, rec = None, {}
+    for r, out in enumerate(ranks):
+        c = tp_counter_gates(f"tp {tag} rank {r}", model, out["counters"],
+                             oracle["rule"])
+        total = merge_counters(total, c)
+    ldiff = max(float((a - b).abs().max()) for o in ranks
+                for a, b in zip(o["first_logits"], oracle["first_logits"]))
+    tol = LOGITS_TOL
+    if "sensitivity" in oracle:
+        tol = max(tol, SENSITIVITY_X * oracle["sensitivity"])
+        rec["sensitivity"] = oracle["sensitivity"]
+    if not ldiff <= tol:
+        raise AssertionError(f"tp {tag}: first-token logits {ldiff} from "
+                             f"the unsharded model's (tolerance {tol})")
+    reqs, plain = [], []
+    for b, (toks, lens) in enumerate(oracle["batches"]):
+        for row in range(toks.shape[0]):
+            n = toks.shape[1] if lens is None else int(lens[row])
+            reqs.append(Request(rid=len(reqs), tokens=toks[row, :n].tolist(),
+                                max_new=TP_GEN))
+            plain.append(oracle["tokens"][b][row])
+    flat = [dict(tokens=[t for b in o["tokens"] for t in b]) for o in ranks]
+    ties = _stream_gates(f"tp {tag}", model, params, reqs, plain, flat,
+                         ldiff)
+    if "probe" in oracle:
+        probe = oracle["probe"]
+        for r, out in enumerate(ranks):
+            p = out["probe"]
+            if not (torch.equal(p["idx"], probe["idx"])
+                    and torch.equal(p["dropped"], probe["dropped"])):
+                raise AssertionError(f"tp {tag} rank {r}: moe_block routed "
+                                     f"or dropped otherwise")
+        y_err = max(float((o["probe"]["y"] - probe["y"]).abs().max())
+                    for o in ranks)
+        y_tol = KERNEL_TOL * float(probe["y"].abs().max())
+        if not y_err <= y_tol:
+            raise AssertionError(f"tp {tag}: moe_block output {y_err} from "
+                                 f"the unsharded call's (tolerance {y_tol})")
+        rec.update(probe_max_abs_err=y_err, probe_tol=y_tol,
+                   probe_dropped=int(probe["dropped"].sum()))
+    if mla:
+        want = oracle["mla_reads"]
+        dec_err, dec_bitwise = 0.0, True
+        for r, out in enumerate(ranks):
+            got, h = out["mla_reads"], out["mla_reads"]["heads"]
+            mine = lambda t: t[:, r * h:(r + 1) * h]
+            if not torch.equal(got["flash"], mine(want["flash"])):
+                raise AssertionError(f"tp {tag} rank {r}: its heads' "
+                                     f"prefill read is not bitwise the "
+                                     f"unsharded read's")
+            d = (got["decode"] - mine(want["decode"])).abs().max().item()
+            dec_err = max(dec_err, d)
+            dec_bitwise = dec_bitwise and torch.equal(got["decode"],
+                                                      mine(want["decode"]))
+        if not dec_err <= KERNEL_TOL:
+            raise AssertionError(f"tp {tag}: the absorbed decode per head "
+                                 f"{dec_err} from the unsharded one "
+                                 f"(tolerance {KERNEL_TOL})")
+        rec.update(heads_per_rank=ranks[0]["mla_reads"]["heads"],
+                   flash_read_bitwise=True, decode_max_abs_err=dec_err,
+                   decode_bitwise=dec_bitwise)
+    n_tok = sum(len(t) for t in plain)
+    rec.update(arch=cfg.name, layers=cfg.n_layers,
+               unsharded_wall_s=oracle["wall_s"],
+               unsharded_tok_s=n_tok / oracle["wall_s"],
+               sharded=[dict(rank=r, wall_s=o["wall_s"],
+                             tok_s=n_tok / o["wall_s"],
+                             shard_gib=o["shard_gib"], **o["spmd"])
+                        for r, o in enumerate(ranks)],
+               first_logits_max_abs_diff=ldiff, logits_tol=tol,
+               near_ties=ties, counters=total)
+    return rec
+
+
+def tp_fleet_oracle(model, params, reqs, journal_dir: str) -> tuple:
+    """(f)'s meshless 2-replica fleet in this process, leg by leg
+    (``sharded_checks.fleet_run``, journaled): unfailed, then a kill, a
+    hang (swap migration) and a double loss replayed by
+    ``run_with_restarts``, the bursts chosen from the unfailed leg's so
+    that each plan fires mid-run.  Returns ``(legs, results)``."""
+    import os
+    from repro_torch.launch import sharded_checks as sc
+    kw = {k: v for k, v in TP_FLEET.items() if k != "page_size"}
+    run = lambda name, **leg: sc.fleet_run(
+        model, params, None, reqs, replicas=2,
+        journal=os.path.join(journal_dir, f"plain_{name}.jsonl"),
+        **dict(kw, **leg))
+    res = {"unfailed": run("unfailed")}
+    b0, b1 = res["unfailed"]["bursts"]
+    k0, k1 = max(1, b0 // 3), max(2, b1 // 2)
+    legs = {"unfailed": {},
+            "kill": dict(faults=((0, k0, "kill"),), migrate="reingest"),
+            "hang": dict(faults=((0, k0, "hang"),), preempt="swap",
+                         migrate="swap", hang_patience=1),
+            "double": dict(faults=((0, k0, "kill"), (1, k1, "kill")),
+                           migrate="reingest", restarts=2)}
+    for name, leg in legs.items():
+        if name != "unfailed":
+            res[name] = run(name, **leg)
+    ha = {n: r["ha"] for n, r in res.items()}
+    if (ha["kill"]["ha_kills"] != 1 or ha["hang"]["ha_hangs"] != 1
+            or ha["hang"]["ha_migrated_swap"] < 1
+            or res["double"]["restarts"] != 1
+            or res["double"]["tokens"] != res["unfailed"]["tokens"]):
+        raise AssertionError(f"tp fleet: the meshless legs did not fail as "
+                             f"planned (bursts {b0}, {b1}; {ha})")
+    return legs, res
+
+
+def tp_fleet_gates(oracle: dict, ranks: list, rule: set) -> dict:
+    """(f)'s gates, leg by leg: every rank's streams, schedule,
+    heartbeats and ``ha_*`` counters the meshless fleet's, the journal
+    written by rank 0 byte for byte the meshless fleet's, every
+    attention launch on its variant (decode ``mma`` at group 2 at a
+    cluster size in ``rule``, flash ``flash_tc`` at (256, 256))."""
+    total, legs = None, {}
+    for name, want in oracle.items():
+        for r, out in enumerate(ranks):
+            got, where = out[name], f"tp fleet {name} rank {r}"
+            for k in ("tokens", "schedule", "heartbeats", "ha", "restarts"):
+                if got[k] != want[k]:
+                    raise AssertionError(f"{where}: {k} {got[k]} is not the "
+                                         f"meshless fleet's {want[k]}")
+            c = attention_counters(where, rule, counted=got["counters"])
+            groups_gate(where, c, 2)
+            if set(c["flash_launches_by_dims"]) != {"256x256"}:
+                raise AssertionError(f"{where}: flash launches by dims "
+                                     f"{c['flash_launches_by_dims']}")
+            total = merge_counters(total, c)
+        if ranks[0][name]["journal"] != want["journal"]:
+            raise AssertionError(f"tp fleet {name}: rank 0's journal is "
+                                 f"not the meshless fleet's, byte for byte")
+        legs[name] = dict(
+            meshless_wall_s=want["wall_s"],
+            sharded_wall_s=[o[name]["wall_s"] for o in ranks],
+            ha=want["ha"], heartbeats=want["heartbeats"],
+            restarts=want["restarts"], journal_bytes=len(want["journal"]),
+            evacuate_ms=[o[name]["migration"]["evacuate_ms"] for o in ranks],
+            migrated_bytes=[o[name]["migration"]["migrated_bytes"]
+                            for o in ranks],
+            spmd=[o[name]["spmd"] for o in ranks])
+    return dict(legs=legs, counters=total)
+
+
 def tp_phase(seed: int = 0) -> dict:
     """Sharded serving on one card: ``TP_RANKS`` ranks joined by gloo (NCCL
     refuses two ranks on one GPU), each on its head / vocab / expert
@@ -2947,22 +3250,34 @@ def tp_phase(seed: int = 0) -> dict:
         pinned split (``sharded_checks.attend_reads``), and on each rank
         decode launches ``mma`` at group 2 and at the unsharded call's
         cluster size, flash ``flash_tc`` at (256, 256).
-    (b) qwen3-moe, ``TP_MOE_LAYERS`` layers, expert parallel through
-        ``generate(mesh=)`` with the oracle's expert choices
-        (``RouteTape``): streams as (a), decode at group 8, flash at (128,
-        128); ``moe_block`` on layer 0 against the unsharded call: router
-        indices and the dropped set exact, the output within
-        ``KERNEL_TOL`` of its largest magnitude.
+    (b)-(e) through ``generate(mesh=)`` (``tp_arch_oracle`` /
+        ``tp_arch_gates``; streams as (a), every launch gated by
+        ``tp_counter_gates``): (b) qwen3-moe, ``TP_MOE_LAYERS`` layers,
+        expert parallel with the oracle's expert choices (``RouteTape``),
+        and ``moe_block`` on its first MoE layer against the unsharded
+        call (router indices and the dropped set exact, the output within
+        ``KERNEL_TOL`` of its largest magnitude); (c) minicpm3-4b and (d)
+        deepseek-v2-lite (experts pinned, probed as (b)) on rows of 96
+        and 48 tokens, each rank's heads of the (D, Dv) prefill read
+        bitwise the unsharded read's and of the absorbed decode within
+        ``KERNEL_TOL``; (e) zamba2-1.2b and xlstm-1.3b on a row of 256
+        and one of 128 tokens, first-token logits within ``LOGITS_TOL``
+        or ``SENSITIVITY_X`` times the model's own chunk sensitivity.
+    (f) the sharded fleet on a ``(TP_RANKS, 1)`` mesh (``card_fleet``):
+        (a)'s model and queue, ``TP_FLEET`` engines, four journaled legs
+        (unfailed, kill, hang with swap migration, a double loss replayed
+        by ``run_with_restarts``), each held to the meshless 2-replica
+        fleet in this process (``tp_fleet_oracle`` / ``tp_fleet_gates``):
+        streams, schedule, heartbeats, ``ha_*`` and the journal's bytes.
 
     Each rank builds the weights from the oracle's seed (their digest
     must be the oracle's), and returns its launch counters (set to 0 just
     before its run, read just after), its collective count and time and
     the bytes gloo staged through pinned host memory."""
-    import numpy as np
     import torch
     from repro_torch.launch import sharded_checks as sc
     from repro_torch.launch import spmd
-    from repro_torch.launch.engine import ContinuousEngine, Request
+    from repro_torch.launch.engine import ContinuousEngine
     from repro_torch.models.paged import num_pages
 
     free_memory_gate("tp", TP_NEED_GIB)
@@ -2987,46 +3302,35 @@ def tp_phase(seed: int = 0) -> dict:
     reads = sc.attend_reads(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     digest = sc.weights_digest(params)
 
-    qm, qp = arch_model("qwen3-moe-30b-a3b", TP_MOE_LAYERS, 0.0, "tp", seed,
-                        paged_kv=True, page_size=64)
-    rng = np.random.RandomState(seed + 26)
-    width = max(TP_MOE_PROMPTS)
-    qtoks = torch.zeros((len(TP_MOE_PROMPTS), width), dtype=torch.int64)
-    for r, n in enumerate(TP_MOE_PROMPTS):
-        qtoks[r, :n] = torch.from_numpy(rng.randint(0, qm.cfg.vocab, size=n))
-    qlens = torch.tensor(TP_MOE_PROMPTS)
-    tape = RouteTape()
-    reset_attention_counters()
-    with tape.record():
-        t0 = time.perf_counter()
-        qgen, qlg = qm.generate(qp, qtoks.cuda(), gen_len=TP_GEN,
-                                prompt_lens=qlens.cuda(), return_logits=True)
-        torch.cuda.synchronize()
-        q_wall = time.perf_counter() - t0
-    q_counted = attention_counters(
-        "tp moe oracle", cluster_rule(qm, len(TP_MOE_PROMPTS),
-                                      num_pages(width + TP_GEN, 64)))
-    groups_gate("tp moe oracle", q_counted, 8)
-    probe_x = torch.randn((1, TP_PROBE_TOKENS, qm.cfg.d_model),
-                          generator=torch.Generator().manual_seed(seed + 27)
-                          ).to(torch.bfloat16)
-    probe = sc.moe_probe(qp["layers"][0]["mlp"], qm.cfg.moe, probe_x.cuda(),
-                         None, "tp_bf16", with_aux=False)
-    q_digest = sc.weights_digest(qp)
+    # (b)-(e) through generate; (f): the meshless fleet
+    arch_specs, arch_oracles = {}, {}
+    for tag, arch, layers, prompts, cfg_kw in (
+            ("qwen3", "qwen3-moe-30b-a3b", TP_MOE_LAYERS, TP_ROWS,
+             dict(paged_kv=True, page_size=64)),
+            ("minicpm3", "minicpm3-4b", TP_MLA_LAYERS, TP_ROWS, {}),
+            ("deepseek", "deepseek-v2-lite-16b", TP_DEEPSEEK_LAYERS, TP_ROWS,
+             {}),
+            ("zamba2", "zamba2-1.2b", TP_ZAMBA2_LAYERS,
+             TP_RECURRENT_PROMPTS, {}),
+            ("xlstm", "xlstm-1.3b", TP_XLSTM_LAYERS, TP_RECURRENT_PROMPTS,
+             {})):
+        arch_specs[tag], arch_oracles[tag] = tp_arch_oracle(
+            arch, layers, prompts, seed, f"tp {tag}", **cfg_kw)
+    journal_dir = tempfile.mkdtemp(prefix="tp-fleet-")
+    fleet_legs, fleet_oracle = tp_fleet_oracle(model, params, reqs,
+                                               journal_dir)
 
     spec = {"engine": dict(arch="gemma2-9b", layers=TP_LAYERS, seed=seed,
                            requests=reqs, slots=slots, chunk=chunk,
                            page_size=64, prompt=reqs[0].tokens, warm=warm),
-            "generate": dict(arch="qwen3-moe-30b-a3b", layers=TP_MOE_LAYERS,
-                             seed=seed, tokens=qtoks, lens=qlens,
-                             gen_len=TP_GEN,
-                             routes=[i.cpu() for i in tape.idx],
-                             probe_x=probe_x)}
+            "archs": arch_specs,
+            "fleet": dict(arch="gemma2-9b", layers=TP_LAYERS, seed=seed,
+                          requests=reqs, legs=fleet_legs,
+                          journal_dir=journal_dir, **TP_FLEET)}
     t0 = time.perf_counter()
     ranks = spmd.spawn(sc.card_rank, TP_RANKS, backend="gloo", args=(spec,))
     spawn_s = time.perf_counter() - t0
     eng_r = [r["engine"] for r in ranks]
-    gen_r = [r["generate"] for r in ranks]
 
     # (a) gates
     _weights_gate("tp", digest, eng_r)
@@ -3056,38 +3360,16 @@ def tp_phase(seed: int = 0) -> dict:
                              f"unsharded model's (tolerance {LOGITS_TOL})")
     ties = _stream_gates("tp", model, params, reqs, oracle, eng_r, ldiff)
 
-    # (b) gates
-    _weights_gate("tp moe", q_digest, gen_r)
-    qrule = cluster_rule(qm, len(TP_MOE_PROMPTS),
-                         num_pages(width + TP_GEN, 64))
-    for r, out in enumerate(gen_r):
-        where = f"tp moe rank {r}"
-        c = attention_counters(where, qrule, counted=out["counters"])
-        groups_gate(where, c, 8)
-        if set(c["flash_launches_by_dims"]) != {"128x128"}:
-            raise AssertionError(f"{where}: flash launches by dims "
-                                 f"{c['flash_launches_by_dims']}")
-        p = out["probe"]
-        if not (torch.equal(p["idx"], probe["idx"])
-                and torch.equal(p["dropped"], probe["dropped"])):
-            raise AssertionError(f"{where}: moe_block routed or dropped "
-                                 f"otherwise than the unsharded call")
-        total = merge_counters(total, c)
-    y_ref = probe["y"]
-    y_err = max(float((o["probe"]["y"] - y_ref).abs().max()) for o in gen_r)
-    y_tol = KERNEL_TOL * float(y_ref.abs().max())
-    if not y_err <= y_tol:
-        raise AssertionError(f"tp moe: moe_block output {y_err} from the "
-                             f"unsharded call's (tolerance {y_tol})")
-    qdiff = max(float((o["first_logits"] - qlg[:, 0].cpu()).abs().max())
-                for o in gen_r)
-    if not qdiff <= LOGITS_TOL:
-        raise AssertionError(f"tp moe: first-token logits {qdiff} from the "
-                             f"unsharded model's (tolerance {LOGITS_TOL})")
-    qreqs = [Request(rid=r, tokens=qtoks[r, :n].tolist(), max_new=TP_GEN)
-             for r, n in enumerate(TP_MOE_PROMPTS)]
-    q_ties = _stream_gates("tp moe", qm, qp, qreqs, qgen.cpu().tolist(),
-                           gen_r, qdiff)
+    # (b)-(f) gates
+    arch_res = {}
+    for tag, arch_oracle in arch_oracles.items():
+        arch_res[tag] = tp_arch_gates(tag, arch_oracle,
+                                      [r[tag] for r in ranks])
+        total = merge_counters(total, arch_res[tag].pop("counters"))
+    _weights_gate("tp fleet", digest, [r["fleet"] for r in ranks])
+    fleet = tp_fleet_gates(fleet_oracle, [r["fleet"] for r in ranks], rule)
+    total = merge_counters(total, fleet.pop("counters"))
+    shutil.rmtree(journal_dir)
 
     n_tok = sum(len(t) for t in oracle)
     res = dict(
@@ -3111,13 +3393,7 @@ def tp_phase(seed: int = 0) -> dict:
         rank_own_cluster=eng_r[0]["reads"]["own_cluster"],
         rank_own_split_diff=max(o["reads"]["own_split_diff"]
                                 for o in eng_r),
-        moe=dict(unsharded_wall_s=q_wall,
-                 sharded=[dict(rank=r, wall_s=o["wall_s"],
-                               shard_gib=o["shard_gib"], **o["spmd"])
-                          for r, o in enumerate(gen_r)],
-                 probe_max_abs_err=y_err, probe_tol=y_tol,
-                 probe_dropped=int(probe["dropped"].sum()),
-                 first_logits_max_abs_diff=qdiff, near_ties=q_ties),
+        archs=arch_res, fleet=fleet,
         spawn_s=spawn_s, phase_s=time.perf_counter() - t_phase,
         card=card_line(), **total)
     log(json.dumps({"tp": res}))

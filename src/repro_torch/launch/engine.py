@@ -105,8 +105,9 @@ host and identical, and each token pick is made on the group's first rank
 and broadcast.  ``ReplicatedEngine`` over a ``(data, model)`` mesh runs
 one engine a data row, in that row's ranks, and gathers the finished
 requests and stats to every rank in the JAX package's order and shape.
-Replica faults and the journal on a mesh with more than one data row
-would move blobs between processes and raise (ROADMAP Queue 1 item 8b).
+Replica faults and the journal run on a mesh with more than one data row
+too: the rows exchange each sweep's turns, journal records and a lost
+row's evacuated entries over the data axis (``ReplicatedEngine``).
 """
 from __future__ import annotations
 
@@ -128,6 +129,8 @@ from ..train.fault import (EngineStuckError, PoisonedLogitsError,
                            ReplicaFaultPlan, ReplicaLostError,
                            ServeFaultPlan, ServeWatchdog, StragglerMonitor)
 from . import spmd
+from .journal import JournalTap, one_writer
+from .journal import merge as merge_journal
 from .mesh import check_mesh, model_size, replica_meshes
 
 
@@ -441,7 +444,7 @@ class ContinuousEngine:
         # kill plan consulted at every burst dispatch, the shared journal
         self.replica_id = int(replica_id)
         self.replica_fault = replica_fault
-        self.journal = journal
+        self.journal = one_writer(journal, mesh)
         self.escalate = escalate
         self._esc_fmts = None
         if escalate is not None:
@@ -1428,8 +1431,10 @@ class ReplicatedEngine:
     ``("model",)`` sub-mesh (``replica_meshes``) and run by that row's
     ranks: this process builds and steps its row's engine only, and ``run``
     gathers every row's finished requests, stats and allocator from the
-    row's first rank.  Replica faults and the journal need a fleet in one
-    process (the meshless fleet, or a mesh with one data row).
+    row's first rank.  Replica faults and the journal run there as on the
+    meshless fleet, to the same streams, heartbeats, ``ha_*`` counters and
+    journal bytes (``_run_sharded``); global rank 0 writes the journal's
+    file (``journal.one_writer``), every rank keeps the records.
 
     The queue is partitioned on the host, round-robin in ``(arrival,
     rid)`` order.  ``run`` interleaves the replicas one ``step`` at a
@@ -1462,21 +1467,19 @@ class ReplicatedEngine:
         self.migrate = migrate
         self.hang_patience = max(1, hang_patience)
         self.replica_fault = kw.pop("replica_fault", None)
-        self.journal = kw.pop("journal", None)
+        self.journal = one_writer(kw.pop("journal", None), mesh)
         # one engine a data row, this process running its own row's
         self._rows = len(subs) if mesh is not None and len(subs) > 1 else 0
         if self._rows:
-            if self.replica_fault is not None or self.journal is not None:
-                raise NotImplementedError(
-                    "replica faults and the journal on a mesh with dp > 1 "
-                    "would move blobs and records between processes: not "
-                    "ported (ROADMAP Queue 1 item 8b); the meshless fleet "
-                    "(--replicas N) has them")
             row = mesh.coords["data"]
             self.row = row
-            self.engines = [ContinuousEngine(model, params, mesh=subs[row],
-                                             replica_id=row, **kw)]
+            self._tap = (JournalTap(self.journal)
+                         if self.journal is not None else None)
+            self.engines = [ContinuousEngine(
+                model, params, mesh=subs[row], replica_id=row,
+                replica_fault=self.replica_fault, journal=self._tap, **kw)]
         else:
+            self._tap = None
             self.engines = [ContinuousEngine(
                 model, params, mesh=m, replica_id=i,
                 replica_fault=self.replica_fault, journal=self.journal,
@@ -1522,32 +1525,6 @@ class ReplicatedEngine:
         return [i for i, h in enumerate(self.heartbeats)
                 if h["status"] == "live"]
 
-    def _lose_replica(self, i: int, *, readable: bool, burst: int,
-                      why: str) -> None:
-        """Declare replica ``i`` dead and migrate its work: ``readable``
-        says whether its pages can still be swapped out (a hang) or are
-        gone (a kill).  Without a survivor the loss re-raises; the journal
-        then holds every token emitted so far."""
-        self.heartbeats[i]["status"] = "dead"
-        entries = self.engines[i].evacuate(readable=readable,
-                                           mode=self.migrate)
-        if self.journal is not None:
-            self.journal.append("replica_lost", replica=i, why=why,
-                                burst=burst, evacuated=len(entries))
-        alive = self._survivors()
-        if not alive:
-            raise ReplicaLostError(
-                f"replica {i} {why} at burst {burst} and no replica "
-                f"survives to adopt its {len(entries)} requests — "
-                f"restart and replay the journal",
-                replica=i, burst=burst)
-        for j, e in enumerate(entries):
-            swap = e.resume is not None and e.resume.blobs is not None
-            self.engines[alive[j % len(alive)]].adopt([e])
-            self._ha["ha_migrations"] += 1
-            self._ha["ha_migrated_swap" if swap
-                     else "ha_migrated_reingest"] += 1
-
     # -- the fleet loop ---------------------------------------------------
     def run(self, requests: Optional[Sequence[Request]] = None):
         """Serve ``requests`` (or the ``bind``-ed queue) across the
@@ -1558,39 +1535,24 @@ class ReplicatedEngine:
                 raise ValueError("run() needs requests (or bind() first)")
             requests = self._bound
         self._ha = {k: 0 for k in self._ha}
+        self.heartbeats = [{"beats": 0, "missed": 0, "status": "live"}
+                           for _ in range(self._rows or len(self.engines))]
+        # what moved, on this process: the swap blobs' bytes and CRC32s by
+        # rid, evacuated (victim) and adopted (survivor)
+        self._moved = {"evacuate_ms": 0.0, "migrated_bytes": 0,
+                       "evacuated": {}, "adopted": {}}
         if self._rows:
             return self._run_sharded(requests)
-        self.heartbeats = [{"beats": 0, "missed": 0, "status": "live"}
-                           for _ in self.engines]
-        plan = self.replica_fault
         for eng, part in zip(self.engines, self.partition(requests)):
             eng.start(part)
         while True:
             stepped = False
-            for i, eng in enumerate(self.engines):
-                hb = self.heartbeats[i]
-                if hb["status"] == "dead" or not eng.has_work():
-                    continue
-                if plan is not None and plan.hang_due(i, eng._bursts):
-                    # the victim stops responding: a missed beat per sweep,
-                    # then declared dead with its memory still readable
-                    hb["missed"] += 1
-                    if hb["missed"] == 1:
-                        self._ha["ha_hangs"] += 1
-                    if hb["missed"] >= self.hang_patience:
-                        self._lose_replica(i, readable=True,
-                                           burst=eng._bursts, why="hung")
-                    stepped = True
-                    continue
-                try:
-                    eng.step()
-                    hb["beats"] += 1
-                    stepped = True
-                except ReplicaLostError as err:
-                    self._ha["ha_kills"] += 1
-                    self._lose_replica(i, readable=False, burst=err.burst,
-                                       why="killed")
-                    stepped = True
+            for i in range(len(self.engines)):
+                msg = self._turn(i)
+                self._count(msg)
+                stepped = stepped or "stepped" in msg
+                if "lost" in msg:
+                    self._settle(i, msg["lost"])
             work = [i for i in self._survivors()
                     if self.engines[i].has_work()]
             if not work:
@@ -1608,32 +1570,203 @@ class ReplicatedEngine:
             results.update(res)
             st["replica_status"] = self.heartbeats[i]["status"]
             per.append(st)
-        return ([results[r.rid] for r in requests],
-                self._fleet_stats(per, self.allocators))
+        stats = self._fleet_stats(per, self.allocators)
+        stats["migration"] = dict(self._moved)
+        return [results[r.rid] for r in requests], stats
 
     def _run_sharded(self, requests: Sequence[Request]):
-        """This rank's row serves its part of the queue; every row's
-        results, stats and allocator come back from its first rank."""
-        eng = self.engines[0]
-        eng.start(self.partition(requests)[self.row])
-        beats = 0
-        while eng.has_work():
-            eng.step()
-            beats += 1
+        """The meshless fleet's loop with each replica in its own row of
+        ranks, the rows stepping at the same time.
+
+        A sweep gives every row its turn (a step, a missed beat, or a
+        loss), in the meshless loop's order: replica ``i``'s loss is
+        adopted before the replicas after it step in that sweep, and by
+        those before it after theirs.  Every rank holds the same fault
+        plan, so before a sweep every rank knows from the plan which
+        replicas can be lost in it (``might_lose``, from a replica's burst
+        count and missed beats); the sweep runs as phases that end at each
+        of them, the rows of a phase stepping together, and a phase ends
+        with one exchange over the data axis (``_sync``): turns taken,
+        plan calls, the journal records held, and a loss's evacuated
+        entries.  A kill's entries are reingest state, the same host
+        objects on every rank of the victim row; a hang's swap blobs are
+        each rank's own KV heads, and the data axis carries each to the
+        survivor row's rank of the same model coordinate.  Survivors adopt
+        by ``alive[j % len(alive)]``; with none, every rank raises
+        ``ReplicaLostError`` together, after a barrier (the journal on
+        file is then whole).  Every row's results, stats and allocator
+        come back from its first rank."""
+        eng, me, n = self.engines[0], self.row, self._rows
+        if self._tap is not None:
+            self._tap.key = (-1, me, 0)
+        eng.start(self.partition(requests)[me])
+        msgs = self._sync({})
+        while True:
+            stepped, lo = False, 0
+            plan = self.replica_fault
+            cands = [i for i in range(n) if plan is not None
+                     and self.heartbeats[i]["status"] == "live"
+                     and plan.might_lose(i, msgs[i]["bursts"],
+                                         self.heartbeats[i]["missed"],
+                                         self.hang_patience)]
+            for v in cands + [n]:
+                hi = min(v, n - 1)
+                msgs = self._sync(self._turn(me) if lo <= me <= hi else {})
+                stepped = stepped or any(m.get("stepped") for m in msgs)
+                for m in msgs:
+                    if "lost" in m:
+                        if m["row"] != v:
+                            raise RuntimeError(
+                                f"replica {m['row']} was lost in a phase "
+                                f"that ends at {v}: the plan's "
+                                f"might_lose missed it")
+                        self._settle(m["row"], m["lost"])
+                lo = hi + 1
+            work = [i for i in self._survivors() if msgs[i]["work"]]
+            if not work:
+                break
+            if not stepped:     # defensive: nothing can advance
+                raise EngineStuckError(
+                    "replicated loop made no progress",
+                    {"heartbeats": self.heartbeats, "pending": work})
         res, st = eng.finalize()
-        st["replica_status"] = "live"
-        mine = (self.row, self.mesh.coords["model"], res, st, eng.alloc,
-                beats)
+        st["replica_status"] = self.heartbeats[me]["status"]
+        mine = (me, self.mesh.coords["model"], res, st, eng.alloc)
         rows = sorted((g for g in spmd.gather_objects(
             mine, self.mesh.everyone) if g[1] == 0), key=lambda g: g[0])
         results: Dict[int, Finished] = {}
         for g in rows:
             results.update(g[2])
-        self.heartbeats = [{"beats": g[5], "missed": 0, "status": "live"}
-                           for g in rows]
-        return ([results[r.rid] for r in requests],
-                self._fleet_stats([g[3] for g in rows],
-                                  [g[4] for g in rows]))
+        stats = self._fleet_stats([g[3] for g in rows], [g[4] for g in rows])
+        stats["migration"] = dict(self._moved)
+        return [results[r.rid] for r in requests], stats
+
+    def _local(self, i: int):
+        """Replica ``i``'s engine in this process, or None: a sharded
+        fleet runs only this rank's row."""
+        if not self._rows:
+            return self.engines[i]
+        return self.engines[0] if i == self.row else None
+
+    def _turn(self, i: int) -> dict:
+        """Replica ``i``'s turn of a sweep, as a message (on a mesh, the
+        one ``_sync`` carries to every row): a step is a heartbeat; a
+        ``ReplicaFaultPlan`` hang stops the victim stepping, a missed beat
+        a sweep, and after ``hang_patience`` of them the replica is lost
+        with its memory still readable; a kill raises at the victim's
+        burst dispatch, its memory gone.  A loss's entries are evacuated
+        (``lost``) for ``_settle``."""
+        eng, hb, plan = self._local(i), self.heartbeats[i], self.replica_fault
+        if hb["status"] == "dead" or not eng.has_work():
+            return {}
+        if self._tap is not None:
+            self._tap.key = (i, 0, 0)
+        if plan is not None and plan.hang_due(i, eng._bursts):
+            hb["missed"] += 1
+            msg = {"stepped": True, "calls": [("hang", i, eng._bursts)],
+                   "hangs": int(hb["missed"] == 1)}
+            if hb["missed"] >= self.hang_patience:
+                msg["lost"] = self._evacuate(i, True, eng._bursts, "hung")
+            return msg
+        try:
+            eng.step()
+            hb["beats"] += 1
+            return {"stepped": True}
+        except ReplicaLostError as err:
+            return {"stepped": True, "calls": [("kill", i, err.burst)],
+                    "kills": 1,
+                    "lost": self._evacuate(i, False, err.burst, "killed")}
+
+    def _evacuate(self, i: int, readable: bool, burst: int,
+                  why: str) -> dict:
+        """The victim's side of a loss: its entries (on a mesh, this
+        rank's swap blobs in them) and the journal's ``replica_lost``."""
+        t0 = time.perf_counter()
+        eng = self._local(i)
+        entries = eng.evacuate(readable=readable, mode=self.migrate)
+        if eng.journal is not None:
+            eng.journal.append("replica_lost", replica=i, why=why,
+                               burst=burst, evacuated=len(entries))
+        for e in entries:
+            rs = e.resume
+            if rs is not None and rs.blobs is not None:
+                if self._rows:
+                    # the blobs are views of one pinned buffer, and pickle
+                    # carries a view's whole buffer: each gets its own
+                    rs.blobs = [tuple(x.clone() for x in kv)
+                                for kv in rs.blobs]
+                self._moved["evacuated"][e.req.rid] = rs.checksums
+        return {"why": why, "burst": burst, "entries": entries,
+                "ms": (time.perf_counter() - t0) * 1e3}
+
+    def _count(self, msg: dict) -> None:
+        self._ha["ha_hangs"] += msg.get("hangs", 0)
+        self._ha["ha_kills"] += msg.get("kills", 0)
+
+    def _sync(self, msg: dict) -> List[dict]:
+        """One exchange over the data axis: every row's ``msg`` with its
+        burst count, whether it has work, its beats and its held journal
+        records; merges the records into the journal, mirrors the other
+        rows' plan calls on this rank's plan and their beats and ``ha_*``
+        counts into the fleet's view.  Returns the messages in row
+        order."""
+        eng = self.engines[0]
+        hb = self.heartbeats[self.row]
+        msg = dict(msg, row=self.row, bursts=eng._bursts,
+                   work=eng.has_work(), beats=hb["beats"],
+                   missed=hb["missed"],
+                   held=self._tap.take() if self._tap is not None else [])
+        msgs = spmd.gather_objects(msg, self.mesh.group("data"))
+        if self.journal is not None:
+            merge_journal(self.journal, [m["held"] for m in msgs])
+        for m in msgs:
+            r = m["row"]
+            if r != self.row:
+                for kind, i, b in m.get("calls", ()):
+                    if kind == "hang":
+                        self.replica_fault.hang_due(i, b)
+                    else:
+                        self.replica_fault.take_kill(i, b)
+            self.heartbeats[r].update(beats=m["beats"], missed=m["missed"])
+            self._count(m)
+        return msgs
+
+    def _settle(self, v: int, lost: dict) -> None:
+        """Every process's side of replica ``v``'s loss: the victim is
+        dead, the survivors adopt its entries by ``alive[j % len(alive)]``
+        (on a mesh, this row its share, each entry's swap blobs this
+        rank's model coordinate's), or with none the loss re-raises — on
+        a mesh on every rank together, after a barrier — for
+        ``train.fault.run_with_restarts``; the journal then holds every
+        token emitted so far."""
+        entries = lost["entries"]
+        self.heartbeats[v]["status"] = "dead"
+        self._moved["evacuate_ms"] += lost["ms"]
+        alive = self._survivors()
+        if not alive:
+            if self._rows:
+                spmd.barrier(self.mesh.everyone)
+            raise ReplicaLostError(
+                f"replica {v} {lost['why']} at burst {lost['burst']} and "
+                f"no replica survives to adopt its {len(entries)} requests "
+                f"— restart and replay the journal",
+                replica=v, burst=lost["burst"])
+        for j, e in enumerate(entries):
+            swap = e.resume is not None and e.resume.blobs is not None
+            eng = self._local(alive[j % len(alive)])
+            if eng is not None:
+                if self._tap is not None:
+                    self._tap.key = (v, 1, j)
+                eng.adopt([e])
+                if swap:
+                    self._moved["adopted"][e.req.rid] = e.resume.checksums
+            if swap:
+                self._moved["migrated_bytes"] += sum(
+                    x.numel() * x.element_size()
+                    for kv in e.resume.blobs for x in kv)
+            self._ha["ha_migrations"] += 1
+            self._ha["ha_migrated_swap" if swap
+                     else "ha_migrated_reingest"] += 1
 
     def _fleet_stats(self, per: List[dict], allocs) -> dict:
         """The fleet's stats from each replica's (in row order)."""

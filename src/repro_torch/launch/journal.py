@@ -26,7 +26,11 @@ every unfinished request from its last journaled token.
     to the journal is answered from the record.
 
 The journal does not checkpoint device state: K/V pages are derived data,
-recomputed from tokens.  Plain Python: no torch.
+recomputed from tokens.  An engine on a mesh has ONE writer: every rank
+keeps the records, and only global rank 0 keeps the file (``one_writer``).
+A fleet sharded over processes appends through a ``JournalTap`` a row and
+merges every row's records in the meshless fleet's order at each of its
+exchanges, which are then its durability points.  Plain Python: no torch.
 """
 from __future__ import annotations
 
@@ -139,3 +143,49 @@ class RequestJournal:
         for r in self.records:
             out[r["kind"]] = out.get(r["kind"], 0) + 1
         return out
+
+
+def one_writer(journal: Optional[RequestJournal], mesh):
+    """``journal`` as a rank of ``mesh`` keeps it.  Every rank of a mesh
+    runs the same scheduler and appends the same records: each keeps them
+    (a restart replays them on every rank), and only global rank 0 keeps
+    the file, so the file holds each record once."""
+    if journal is not None and mesh is not None and mesh.rank != 0:
+        journal.close()
+    return journal
+
+
+class JournalTap:
+    """One row's view of the journal of a fleet sharded over processes
+    (``ReplicatedEngine`` on a mesh with more than one data row).  Reads
+    (``records``, ``emitted``, ``finish_record``, ...) go to the fleet's
+    ``journal``; appends are held, each with the sort ``key`` the fleet
+    set for the turn it belongs to in the meshless fleet's order, until
+    the fleet ``take``s every row's and appends them, merged, to the
+    journal (``merge``)."""
+
+    def __init__(self, journal: RequestJournal):
+        self.journal = journal
+        self.key: tuple = ()
+        self.held: list = []
+
+    def append(self, kind: str, **payload) -> None:
+        self.held.append((self.key, len(self.held),
+                          {"kind": kind, **payload}))
+
+    def take(self) -> list:
+        out, self.held = self.held, []
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.journal, name)
+
+
+def merge(journal: RequestJournal, rows: List[list]) -> None:
+    """Append the held records of every row (``JournalTap.take``, in row
+    order) to ``journal`` sorted by ``(key, row, order held)``."""
+    recs = sorted(((key, row, i), rec) for row, held in enumerate(rows)
+                  for key, i, rec in held)
+    for _, rec in recs:
+        payload = dict(rec)
+        journal.append(payload.pop("kind"), **payload)

@@ -75,10 +75,13 @@ Sharded serving: ``--mesh DP,TP`` spawns DP x TP ranks
 runs one rank per card, ``gloo`` runs on the CPU (``--device cpu``) or
 several ranks on one card.  Each ``data`` row is one engine replica,
 tensor parallel over its TP ranks (heads, paged pools, MLPs, vocab;
-MoE experts); DP > 1 needs ``--continuous``.  Every rank builds the same
-weights from seed 0 and keeps its shards; rank 0 prints.  Replica faults
-and the journal on a mesh are not ported (ROADMAP Queue 1 item 8b), nor
-``--loop python``.
+MoE experts; MLA's heads with its latents gathered whole; the recurrent
+mixers' projections); DP > 1 needs ``--continuous``, and then takes
+``--fault-replica`` and ``--journal`` as ``--replicas`` does.  On any
+mesh the journal's file is written by global rank 0 alone.  Every rank
+builds the same weights from seed 0 and keeps its shards; rank 0
+prints.  ``--loop python`` is not
+ported to a mesh.
 
 Sampling everywhere: ``--temperature --top-k --top-p --seed
 --repetition-penalty --presence-penalty``.  The model is the reduced
@@ -104,6 +107,11 @@ raises.
     python -m repro_torch.launch.serve --full --continuous --replicas 2 \
         --fault-replica 1:2 --journal /tmp/j.jsonl
     python -m repro_torch.launch.serve --continuous --mesh 2,2 \
+        --dist-backend gloo --device cpu
+    python -m repro_torch.launch.serve --continuous --mesh 2,1 \
+        --dist-backend gloo --device cpu --fault-replica 0:3:hang \
+        --journal /tmp/j.jsonl
+    python -m repro_torch.launch.serve --arch minicpm3-4b --mesh 1,2 \
         --dist-backend gloo --device cpu
 """
 from __future__ import annotations
@@ -319,10 +327,6 @@ def main(argv=None):
             ap.error("--replicas (the meshless fleet) and --mesh are "
                      "exclusive: --mesh DP,TP with DP > 1 is the sharded "
                      "fleet")
-        if args.fault_replica is not None or args.journal is not None:
-            ap.error("--fault-replica / --journal on a mesh are not ported "
-                     "(ROADMAP Queue 1 item 8b): they move blobs and "
-                     "records between processes")
         if args.dist_backend == "nccl" and args.device == "cpu":
             ap.error("--dist-backend nccl runs on cards: use gloo with "
                      "--device cpu")
@@ -346,10 +350,11 @@ def main(argv=None):
         if fmode not in ("kill", "hang"):
             ap.error(f"--fault-replica MODE must be kill|hang, "
                      f"got {fmode!r}")
-        if args.replicas is None:
+        if args.replicas is None and (args.mesh_dims is None
+                                      or args.mesh_dims[0] < 2):
             ap.error("--fault-replica needs a replicated engine "
-                     "(--replicas N) — a lone replica's loss has no "
-                     "survivor to migrate to")
+                     "(--replicas N or --mesh with dp > 1) — a lone "
+                     "replica's loss has no survivor to migrate to")
         args.fault_replica = (fr, fb, fmode)
     if args.mesh_dims is not None:
         dp, tp = args.mesh_dims
@@ -546,13 +551,13 @@ def _continuous(args, model, params, mesh=None, rmesh=None):
              if args.fault_replica is not None else None)
     journal = (RequestJournal(args.journal)
                if args.journal is not None else None)
-    replicated = args.replicas is not None
+    replicated = args.replicas is not None or (
+        mesh is not None and mesh.shape["data"] > 1)
     if replicated:
-        eng = ReplicatedEngine(model, params, replicas=args.replicas,
-                               migrate=args.migrate, replica_fault=rplan,
-                               journal=journal, **eng_kw)
-    elif mesh is not None and mesh.shape["data"] > 1:
-        eng = ReplicatedEngine(model, params, mesh=mesh, **eng_kw)
+        eng = ReplicatedEngine(model, params, mesh=mesh,
+                               replicas=args.replicas, migrate=args.migrate,
+                               replica_fault=rplan, journal=journal,
+                               **eng_kw)
     else:
         eng = ContinuousEngine(model, params, journal=journal, mesh=rmesh,
                                **eng_kw)
@@ -586,7 +591,7 @@ def _continuous(args, model, params, mesh=None, rmesh=None):
                 if args.draft_layers is not None else "")
              + (f" draft_fmt={args.draft_fmt}" if args.draft_fmt else "")
              if args.speculate else "")
-          + (f", replicas={len(eng.engines)} migrate={args.migrate}"
+          + (f", replicas={stats['replicas_n']} migrate={args.migrate}"
              if replicated else ""))
     for f in fin:
         trail = ""

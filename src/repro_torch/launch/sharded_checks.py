@@ -15,20 +15,27 @@ rank's ``("model",)`` replica sub-mesh of it:
     read; cross-attention prefill and cached decode), the per-head attend
     outputs of this rank's heads (``return_attend``), and the projected
     outputs under ``tp_bf16`` and ``fp32``;
-  * ``logits``: a model's prefill logits from the given full weights;
+  * ``logits``: a model's prefill logits from the given full weights,
+    this rank's parameter bytes and greedy ``generate`` tokens;
   * ``engine``: a ``ContinuousEngine`` run's token streams and stats;
   * ``replicated``: a ``ReplicatedEngine`` over the whole ``(dp, tp)``
     mesh: streams, order and the fleet stats;
+  * ``fleet_ha``: a journaled ``ReplicatedEngine`` (on the mesh, or the
+    meshless fleet of ``replicas``) under a replica fault plan: streams,
+    schedule, heartbeats, ``ha_*``, the journal's bytes, moved blobs;
   * ``moe``: ``moe_block`` with its router choices and dropped (token,
     slot) set recorded;
   * ``reads``: one layer's decode and prefill reads through the kernels'
     wrappers on the same q and pools, this rank's heads.
 
 ``card_rank`` runs chip_smoke's tp phase on each rank of one card:
-``card_engine`` (gemma2-9b through the paged engine) and
-``card_generate`` (qwen3-moe through ``generate`` with the oracle's
-expert choices, then ``moe_block`` alone), each between a reset and a
-read of the attention kernels' launch counters.
+``card_engine`` (gemma2-9b through the paged engine) and ``card_arch``
+(through ``generate``: qwen3-moe with the oracle's expert choices, then
+``moe_block`` alone; MLA's minicpm3 and deepseek, with ``mla_reads``;
+the recurrent zamba2 and xlstm), each between a reset and a read of the
+attention kernels' launch counters, on a ``(1, world)`` mesh; then
+``card_fleet`` (the sharded fleet's legs, faults and journal) on a
+``(world, 1)`` mesh.
 """
 from __future__ import annotations
 
@@ -139,12 +146,21 @@ def _model(arch, policy, device, **cfg):
 
 
 def logits(mesh, rmesh, device, *, params, tokens, arch="gemma2-9b",
-           policy="fp32", max_len=24) -> dict:
+           policy="fp32", max_len=24, gen_len=0) -> dict:
+    """A model's prefill logits from the given full weights (the last
+    position's), this rank's parameter bytes and, with ``gen_len``,
+    greedy ``generate`` tokens."""
     model = _model(arch, policy, device)
     p = shard_params(_to(params, device), rmesh, model.cfg)
-    lg, _ = model.prefill(p, torch.as_tensor(tokens, device=device),
-                          max_len=max_len, mesh=rmesh)
-    return {"logits": lg.cpu()}
+    toks = torch.as_tensor(tokens, device=device)
+    lg, _ = model.prefill(p, toks, max_len=max(max_len,
+                                               toks.shape[1] + gen_len),
+                          mesh=rmesh)
+    out = {"logits": lg.cpu(), "param_bytes": weights_bytes(p)}
+    if gen_len:
+        out["tokens"] = model.generate(p, toks, gen_len=gen_len,
+                                       mesh=rmesh)[0].cpu()
+    return out
 
 
 def _to(tree, device):
@@ -189,6 +205,85 @@ def replicated(mesh, rmesh, device, *, params, arch="gemma2-9b",
                      "replica_pages": [r["n_pages"]
                                        for r in st["pool"]["replicas"]]},
             "replica_rounds": [r["decode_rounds"] for r in st["replicas"]]}
+
+
+#: the fleet cases' engines (``tests/test_torch_replica_ha.py``'s)
+FLEET = dict(slots=2, chunk=8, burst_cap=4)
+
+
+def fleet_queue(vocab: int, queue: str):
+    """``short``: eight mixed requests over two arrival waves (a kill
+    lands mid-run with residents in flight); ``long``: four long-budget
+    residents, mid-decode for several bursts (a hang finds pages to
+    swap)."""
+    if queue == "short":
+        return synthetic_trace(8, 4, 16, 8, vocab)
+    import numpy as np
+    from .engine import Request
+    rng = np.random.RandomState(3)
+    return [Request(rid=i, tokens=rng.randint(0, vocab, size=6).tolist(),
+                    max_new=14, arrival=0) for i in range(4)]
+
+
+def fault_plan(faults):
+    """``faults``: ``(replica, at_burst, mode)`` triples -> one plan, or
+    ``ReplicaFaultPlans`` of several (None for none)."""
+    from ..train.fault import ReplicaFaultPlan, ReplicaFaultPlans
+    plans = [ReplicaFaultPlan(replica=r, at_burst=b, mode=m)
+             for r, b, m in faults]
+    if not plans:
+        return None
+    return plans[0] if len(plans) == 1 else ReplicaFaultPlans(plans)
+
+
+def fleet_run(model, params, mesh, reqs, *, journal, faults=(),
+              replicas=2, restarts=0, **kw) -> dict:
+    """A journaled ``ReplicatedEngine`` under the ``faults`` plan: on the
+    ``(dp, tp)`` mesh, or (``mesh=None``) the meshless fleet of
+    ``replicas``.  ``restarts``: the run goes through
+    ``run_with_restarts`` (at most that many), then answers the queue
+    again from the journal.  Returns the streams, the schedule fields,
+    heartbeats, ``ha_*`` counters, the journal file's bytes (from the
+    process that writes it), what moved and the wall time."""
+    from ..train.fault import run_with_restarts
+    from .journal import RequestJournal
+    max_len = max(r.prompt_len + r.max_new for r in reqs)
+    jr = RequestJournal(journal)
+    fleet = ReplicatedEngine(model, params, mesh=mesh, replicas=replicas,
+                             max_len=max_len, journal=jr,
+                             replica_fault=fault_plan(faults), **kw)
+    used = None
+    t0 = time.perf_counter()
+    if restarts:
+        _, used = run_with_restarts(lambda: fleet.bind(reqs),
+                                    max_restarts=restarts)
+    fin, st = fleet.run(reqs)
+    wall = time.perf_counter() - t0
+    jr.close()
+    data = None
+    if mesh is None or mesh.rank == 0:
+        with open(journal, "rb") as f:
+            data = f.read()
+    fields = ("rid", "admit_round", "finish_round", "slot", "preemptions")
+    return {"tokens": {f.rid: list(f.tokens) for f in fin},
+            "schedule": [[getattr(f, k) for k in fields] for f in fin],
+            "heartbeats": st["heartbeats"],
+            "ha": {k: v for k, v in st.items() if k.startswith("ha_")},
+            "sdc_detected": st["sdc_detected"], "restarts": used,
+            "bursts": [r["bursts"] for r in st["replicas"]],
+            "journal": data, "migration": st.get("migration"),
+            "wall_s": wall}
+
+
+def fleet_ha(mesh, rmesh, device, *, params, journal, queue="short",
+             arch="gemma2-9b", policy="tp_bf16", **kw) -> dict:
+    """``fleet_run`` of reduced ``arch`` (paged at 16 tokens) on a
+    ``fleet_queue``, the engines ``FLEET``'s unless ``kw`` says
+    otherwise."""
+    model = _model(arch, policy, device, paged_kv=True, page_size=16)
+    reqs = fleet_queue(model.cfg.vocab, queue)
+    return fleet_run(model, _to(params, device), mesh, reqs,
+                     journal=journal, **dict(FLEET, **kw))
 
 
 def moe_inputs(capacity_factor: Optional[float] = None, device="cpu"):
@@ -240,7 +335,8 @@ def reads(mesh, rmesh, device, *, heads, kv_heads, head_dim) -> dict:
 
 
 CASES = {"attend": attend, "logits": logits, "engine": engine,
-         "replicated": replicated, "moe": moe, "reads": reads}
+         "replicated": replicated, "fleet_ha": fleet_ha, "moe": moe,
+         "reads": reads}
 
 
 def run_plan(plan, device="cpu") -> dict:
@@ -468,44 +564,144 @@ def replay_routes(idx):
         moe_mod.route = real
 
 
-def card_generate(rmesh, *, arch, layers, seed, tokens, lens, gen_len,
-                  routes, probe_x, device="cuda", reduced=False) -> dict:
-    """``generate`` on this rank's shards with the oracle's expert choices
-    (``routes``) between a counter reset and a read, then ``moe_probe`` of
-    layer 0 on ``probe_x``."""
-    model, params = _card_model(arch, layers, seed, device, reduced,
-                                paged_kv=True, page_size=64)
+def mla_read_inputs(cfg, rows, seed: int = 0):
+    """The MLA reads' inputs at ``cfg``'s widths, made on the CPU from
+    ``seed``: the expanded prefill's q / k [B, H, S, nope + rope] and v
+    [B, H, S, v_head] (bf16) for ``rows`` prompt lengths (right-padded to
+    the longest), and one decode step's x [B, 1, D] with a latent cache
+    ``(c_kv, k_pe)`` [B, T, r] of T = the longest + 1."""
+    gen = torch.Generator().manual_seed(seed)
+    bf = torch.bfloat16
+    b, s_ = len(rows), max(rows)
+    qd, h = cfg.nope_dim + cfg.rope_dim, cfg.n_heads
+    r = lambda *shape: torch.randn(shape, generator=gen).to(bf)
+    return dict(q=r(b, h, s_, qd), k=r(b, h, s_, qd),
+                v=r(b, h, s_, cfg.v_head_dim),
+                x=r(b, 1, cfg.d_model), c_kv=r(b, s_ + 1, cfg.kv_lora),
+                k_pe=r(b, s_ + 1, cfg.rope_dim),
+                lens=torch.tensor(rows))
+
+
+def mla_reads(cfg, layer_params, rows, *, rmesh=None, seed: int = 0,
+              device="cuda") -> dict:
+    """This rank's heads (all heads without ``rmesh``) of MLA's two reads
+    on the same inputs (``mla_read_inputs``): the expanded prefill through
+    the flash kernel's wrapper, and one absorbed decode step of the
+    layer ``layer_params`` (this rank's shards) against the latent cache,
+    through ``mla_attention(return_attend=True)``."""
+    from ..kernels import ops as kops
+    t = {k: v.to(device) for k, v in mla_read_inputs(cfg, rows,
+                                                      seed).items()}
+    shards = attn._head_shard_size(rmesh, cfg.n_heads, cfg.n_heads) or 1
+    rank = rmesh.coords["model"] if shards > 1 else 0
+    h = cfg.n_heads // shards
+    mine = lambda x: x[:, rank * h:(rank + 1) * h].contiguous()
+    qd = cfg.nope_dim + cfg.rope_dim
+    flash = kops.flash_attention(mine(t["q"]), mine(t["k"]), mine(t["v"]),
+                                 kv_len=t["lens"], policy="tp_bf16",
+                                 scale=qd ** -0.5, causal=True)
+    cache = attn.MLACache(t["c_kv"].clone(), t["k_pe"].clone())
+    dec, _ = attn.mla_attention(
+        t["x"], layer_params, "tp_bf16", n_heads=cfg.n_heads,
+        nope_dim=cfg.nope_dim, rope_dim=cfg.rope_dim,
+        v_head_dim=cfg.v_head_dim, positions=t["lens"][:, None, None],
+        rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps, cache=cache,
+        cache_pos=t["lens"], mesh=rmesh, return_attend=True)
+    return {"flash": flash.cpu(), "decode": dec.float().cpu(),
+            "heads": h}
+
+
+def card_arch(rmesh, *, arch, layers, seed, batches, gen_len,
+              routes=None, probe_x=None, mla_rows=None, device="cuda",
+              reduced=False, **cfg) -> dict:
+    """``generate`` on this rank's shards of ``arch`` (``cfg``: config
+    overrides), one call a batch of ``batches`` (``(tokens, prompt_lens
+    or None)``), with the oracle's expert choices (``routes``) for a MoE
+    stack, between a counter reset and a read; then ``moe_probe`` of the
+    first MoE layer on ``probe_x`` and, for an MLA stack, ``mla_reads`` of
+    layer 0 at ``mla_rows``."""
+    model, params = _card_model(arch, layers, seed, device, reduced, **cfg)
     got = weights_digest(params)
     local = shard_params(params, rmesh, model.cfg)
     del params
-    toks = torch.as_tensor(tokens, device=device)
-    plen = torch.as_tensor(lens, device=device)
     reset_attention_launches()
     spmd.reset_stats()
-    with replay_routes(routes):
-        (gen, lgs), wall = _timed(lambda: model.generate(
-            local, toks, gen_len=gen_len, prompt_lens=plen, mesh=rmesh,
-            return_logits=True), device)
+    ctx = (replay_routes(routes) if routes is not None
+           else contextlib.nullcontext())
+
+    def run():
+        out = []
+        for toks, lens in batches:
+            out.append(model.generate(
+                local, toks.to(device), gen_len=gen_len, mesh=rmesh,
+                prompt_lens=None if lens is None else lens.to(device),
+                return_logits=True))
+        return out
+    with ctx:
+        outs, wall = _timed(run, device)
     counted, coll = attention_launches(), dict(spmd.STATS)
-    probe = moe_probe(local["layers"][0]["mlp"], model.cfg.moe,
-                      probe_x.to(device), rmesh, "tp_bf16", with_aux=False)
-    return {"digest": got, "tokens": gen.cpu().tolist(), "wall_s": wall,
-            "first_logits": lgs[:, 0].float().cpu(),
-            "counters": counted, "spmd": coll, "probe": probe,
-            "shard_gib": weights_bytes(local) / 2 ** 30}
+    res = {"digest": got, "tokens": [g.cpu().tolist() for g, _ in outs],
+           "first_logits": [lg[:, 0].float().cpu() for _, lg in outs],
+           "wall_s": wall, "counters": counted, "spmd": coll,
+           "shard_gib": weights_bytes(local) / 2 ** 30}
+    if probe_x is not None:
+        i = next(i for i, sp in enumerate(model.cfg.layer_list())
+                 if sp.ffn == "moe")
+        res["probe"] = moe_probe(local["layers"][i]["mlp"], model.cfg.moe,
+                                 probe_x.to(device), rmesh, "tp_bf16",
+                                 with_aux=False)
+    if mla_rows is not None:
+        res["mla_reads"] = mla_reads(model.cfg, local["layers"][0]["attn"],
+                                     mla_rows, rmesh=rmesh, seed=seed,
+                                     device=device)
+    return res
+
+
+def card_fleet(mesh, *, arch, layers, seed, requests, legs, journal_dir,
+               device="cuda", reduced=False, **kw) -> dict:
+    """The sharded fleet on ``mesh`` (this rank's row), each leg of
+    ``legs`` (name -> ``fleet_run`` arguments: ``faults``, ``restarts``,
+    engine knobs) journaled to its own file in ``journal_dir``, between a
+    reset and a read of the attention kernels' launch counters."""
+    import os
+    rmesh = replica_meshes(mesh)[mesh.coords["data"]]
+    model, params = _card_model(arch, layers, seed, device, reduced,
+                                paged_kv=True, page_size=kw.pop("page_size"))
+    got = weights_digest(params)
+    local = shard_params(params, rmesh, model.cfg)
+    del params
+    out = {"digest": got}
+    for name, leg in legs.items():
+        reset_attention_launches()
+        spmd.reset_stats()
+        out[name] = fleet_run(model, local, mesh, requests,
+                              journal=os.path.join(journal_dir,
+                                                   f"mesh_{name}.jsonl"),
+                              **dict(kw, **leg))
+        out[name].update(counters=attention_launches(),
+                         spmd=dict(spmd.STATS))
+    return out
 
 
 def card_rank(rank: int, world: int, spec: dict) -> dict:
-    """One of ``world`` ranks on one card: a ``(1, world)`` mesh, then
-    ``card_engine`` on ``spec["engine"]`` and ``card_generate`` on
-    ``spec["generate"]``."""
+    """One of ``world`` ranks on one card: on a ``(1, world)`` mesh,
+    ``card_engine`` on ``spec["engine"]`` and ``card_arch`` on each of
+    ``spec["archs"]``; on a ``(world, 1)`` mesh ``card_fleet`` on
+    ``spec["fleet"]``."""
     mesh = make_serving_mesh(1, world)
     rmesh = replica_meshes(mesh)[0]
     out = {"rank": rank}
-    if "engine" in spec:
-        out["engine"] = card_engine(rmesh, **spec["engine"])
+
+    def free():
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
-    if "generate" in spec:
-        out["generate"] = card_generate(rmesh, **spec["generate"])
+    if "engine" in spec:
+        out["engine"] = card_engine(rmesh, **spec["engine"])
+        free()
+    for tag, kw in spec.get("archs", {}).items():
+        out[tag] = card_arch(rmesh, **kw)
+        free()
+    if "fleet" in spec:
+        out["fleet"] = card_fleet(make_serving_mesh(world, 1),
+                                  **spec["fleet"])
     return out

@@ -22,7 +22,8 @@ sum in a narrow dtype), ``all_gather`` (concatenated along a dim),
 ``all_to_all`` (leading-axis slabs) and ``broadcast``.  A group of one
 rank is the identity and needs no process group.  Data-movement
 collectives carry the bytes of their tensor (a ``uint8`` view), so a
-16-bit or fp8 tensor moves bit for bit whatever dtypes the backend knows.
+16-bit or fp8 tensor moves bit for bit whatever dtypes the backend knows;
+``all_gather_cat`` gathers several tensors of any shapes in one call.
 
 The rank functions live in importable modules: under ``spawn`` a function
 defined in a ``__main__`` script or a test module cannot be pickled into
@@ -30,6 +31,7 @@ the child.
 """
 from __future__ import annotations
 
+import gc
 import os
 import pickle
 import tempfile
@@ -99,7 +101,12 @@ def _rank_main(rank: int, fn: Callable, world: int, backend: str,
         os.replace(os.path.join(root, f"rank{rank}.pkl.tmp"),
                    os.path.join(root, f"rank{rank}.pkl"))
     finally:
+        # objects in reference cycles (a closure over an engine, over its
+        # mesh) hold process groups: free them now, not in the
+        # interpreter's teardown, where a gloo group's destructor aborts
+        gc.collect()
         dist.destroy_process_group()
+        gc.collect()
 
 
 def spawn(fn: Callable, nprocs: int, *, backend: str,
@@ -198,6 +205,28 @@ def all_gather(x: torch.Tensor, group: Group, dim: int = -1) -> torch.Tensor:
 
 
 @_timed
+def all_gather_cat(parts: Sequence[torch.Tensor],
+                   group: Group) -> List[torch.Tensor]:
+    """Each of ``parts`` (any shapes and dtypes, on one device) with the
+    ranks' blocks concatenated along its LAST dim in group order, bit for
+    bit, in one collective over their bytes."""
+    if group.size == 1:
+        return list(parts)
+    flat = torch.cat([_bytes(p) for p in parts])
+    ranks = _gather(flat, group)
+    out, off = [], 0
+    for p in parts:
+        n = p.numel() * p.element_size()
+        # a copy of each slice: a view at an odd byte offset cannot
+        # change dtype
+        blocks = [r[off:off + n].clone().view(p.dtype).reshape(p.shape)
+                  for r in ranks]
+        out.append(torch.cat(blocks, dim=-1))
+        off += n
+    return out
+
+
+@_timed
 def all_to_all(x: torch.Tensor, group: Group) -> torch.Tensor:
     """``x`` [M, ...] with M the group size: slab ``j`` goes to rank ``j``;
     returns [M, ...] whose slab ``i`` came from rank ``i``."""
@@ -224,6 +253,13 @@ def broadcast(x: torch.Tensor, group: Group, src: int = 0) -> torch.Tensor:
     return _from_wire(w, b).view(x.dtype).reshape(x.shape)
 
 
+def barrier(group: Group) -> None:
+    """Wait for every rank of ``group``."""
+    if group.size > 1:
+        dist.barrier(group=group.pg)
+
+
+@_timed
 def gather_objects(obj, group: Group) -> list:
     """Every rank's picklable ``obj``, in group order, on every rank."""
     if group.size == 1:

@@ -33,7 +33,8 @@ cross) is the unsharded read on a head slice, bitwise per head; the decode
 reads pin the split partition of the unsharded call (``cluster`` for B *
 Hkv rows), so a head's split does not change with M.  ``wo`` is
 row-parallel (``_row_parallel_wo``): f32 partials, an f32 sum across the
-model group, one snap after the sum.  MLA under a mesh raises.
+model group, one snap after the sum.  MLA under a mesh: its latents
+are gathered whole on every rank, its heads sharded (``mla_attention``).
 """
 from __future__ import annotations
 
@@ -45,7 +46,8 @@ from ..core import ops as tp
 from ..core.formats import get_format
 from ..kernels import ops as kops
 from ..kernels.quant_common import quantize_flag_masks_grid
-from .layers import apply_rope, dense_init, rmsnorm, row_parallel, softcap
+from .layers import (apply_rope, dense_init, rmsnorm, row_parallel, softcap,
+                     whole_cols)
 from .paged import (PagedKVCache, gather_paged_kv, paged_update_rows,
                     write_slots)
 
@@ -576,8 +578,10 @@ def mla_attention(x, params, policy, *, n_heads, nope_dim, rope_dim,
                   v_head_dim, positions, rope_theta=1e4, norm_eps=1e-6,
                   cache: Optional[MLACache] = None, cache_pos=None,
                   chunk: int = 512, prefill_backend: str = "auto",
-                  kv_len=None):
-    """MLA with decoupled rope: ``(out [B, S, D], cache)``.
+                  kv_len=None, mesh=None, return_attend: bool = False):
+    """MLA with decoupled rope: ``(out [B, S, D], cache)``; with
+    ``return_attend`` (a test hook) the per-head read [B, H, S, Dv] in
+    place of ``out``.
 
     With a cache, the step's latent ``c_kv`` and rope key ``k_pe`` are
     written first (in place) at ``cache_pos`` (scalar or per-row [B]).
@@ -588,6 +592,17 @@ def mla_attention(x, params, policy, *, n_heads, nope_dim, rope_dim,
     D``, scale ``(nope + rope)^-0.5``) or, with ``prefill_backend="dense"``,
     the masked-softmax path.
 
+    Tensor parallelism (``mesh`` with a ``model`` axis of M > 1 ranks;
+    ``params`` this rank's shards): the down projections ``w_dq`` /
+    ``w_dkv`` / ``w_kr`` are ``col``, so each rank computes its block of
+    the latents and one ``all_gather_cat`` makes them whole before the
+    norms and the cache write (the latent cache is whole on every rank);
+    where M divides the heads, ``w_uq`` / ``w_q`` / ``w_uk`` / ``w_uv``
+    hold this rank's H/M whole heads, every read (prefill, absorbed
+    decode) runs on them and ``wo`` is row-parallel
+    (``_row_parallel_wo``); otherwise those leaves are whole
+    (``shard_params(cfg=)``) and the heads run unsharded.
+
     Rope: every key is rotated at its own position, in prefill as in
     decode, as MiniCPM3 and DeepSeek-V2 define it.  (The JAX package's
     prefill broadcasts its ``[B, S, 1, rope]`` keys against ``[S]``
@@ -596,20 +611,37 @@ def mla_attention(x, params, policy, *, n_heads, nope_dim, rope_dim,
     JAX package's token-by-token decode.)"""
     b, s, _ = x.shape
     qd = nope_dim + rope_dim
+    kv_lora = params["kv_norm"].shape[-1]
+    shards = _head_shard_size(mesh, n_heads, n_heads)
+    group = (mesh.group("model") if mesh is not None
+             and mesh.shape.get("model", 1) > 1 else None)
+    if shards is not None:
+        n_heads //= shards
+        wq = params["w_uq" if "w_uq" in params else "w_q"]
+        if wq.shape[-1] != n_heads * qd:
+            raise ValueError(
+                f"MLA query projection {tuple(wq.shape)} is not a "
+                f"{shards}-way head shard ({n_heads} heads x {qd}): pass "
+                f"this rank's shards (models.sharding.shard_params)")
+    parts = [tp.tp_matmul(x, params["w_dkv"], policy),
+             tp.tp_matmul(x, params["w_kr"], policy)]
+    widths = [kv_lora, rope_dim]
     if "w_dq" in params:
-        cq = rmsnorm(tp.tp_matmul(x, params["w_dq"], policy),
-                     params["q_norm"], norm_eps)
+        parts.append(tp.tp_matmul(x, params["w_dq"], policy))
+        widths.append(params["q_norm"].shape[-1])
+    parts = whole_cols(parts, widths, group)
+    if "w_dq" in params:
+        cq = rmsnorm(parts[2], params["q_norm"], norm_eps)
         q = tp.tp_matmul(cq, params["w_uq"], policy)
     else:
         q = tp.tp_matmul(x, params["w_q"], policy)
     q = q.reshape(b, s, n_heads, qd).transpose(1, 2)         # [B, H, S, qd]
     q_nope = q[..., :nope_dim]
     q_pe = apply_rope(q[..., nope_dim:], positions, rope_theta)
-    c_kv = rmsnorm(tp.tp_matmul(x, params["w_dkv"], policy),
-                   params["kv_norm"], norm_eps)             # [B, S, kv_lora]
+    c_kv = rmsnorm(parts[0], params["kv_norm"], norm_eps)   # [B, S, kv_lora]
     # [B, 1, S, rope]: the keys take the positions as one head's rows do
-    k_pe = apply_rope(tp.tp_matmul(x, params["w_kr"], policy)[:, None],
-                      positions, rope_theta)[:, 0]          # [B, S, rope]
+    k_pe = apply_rope(parts[1][:, None], positions,
+                      rope_theta)[:, 0]                     # [B, S, rope]
     scale = qd ** -0.5
 
     if cache is not None:
@@ -619,7 +651,7 @@ def mla_attention(x, params, policy, *, n_heads, nope_dim, rope_dim,
         if kv_len is None:
             kv_len = cache_pos + s
         cc, cp = cache
-        kv_lora, smax = cc.shape[-1], cc.shape[1]
+        smax = cc.shape[1]
         # absorbed decode: q_nope into the latent space through W_uk
         w_uk = params["w_uk"].reshape(kv_lora, n_heads, nope_dim)
         q_lat = tp.tp_einsum("bhsn,rhn->bhsr", q_nope, w_uk, policy)
@@ -653,5 +685,7 @@ def mla_attention(x, params, policy, *, n_heads, nope_dim, rope_dim,
             out = _flash_attend(qq, kk, vv, policy, causal=True, window=None,
                                 cap=None, kv_len=kv_len,
                                 backend=prefill_backend)
+    if return_attend:
+        return out, cache
     out = out.transpose(1, 2).reshape(b, s, n_heads * v_head_dim)
-    return tp.tp_matmul(out, params["wo"], policy), cache
+    return _project_out(out, params, policy, mesh, shards), cache

@@ -7,7 +7,10 @@ Tensor parallelism (``group``, a ``launch.spmd.Group`` of the mesh's model
 axis): the MLPs take this rank's column block of ``gate`` / ``up`` /
 ``b_up`` and row block of ``down``, and ``row_parallel`` sums the partial
 products across the group before the policy's one output snap — what
-GSPMD makes of the JAX package's ``col`` / ``row`` rules."""
+GSPMD makes of the JAX package's ``col`` / ``row`` rules.  ``whole_cols``
+and ``row_project`` do the same for a mixer whose ``col`` outputs must be
+whole before it runs (MLA's latents, the recurrent mixers' projections):
+gather the column blocks, run whole, project out row-parallel."""
 from __future__ import annotations
 
 from typing import Optional
@@ -121,6 +124,36 @@ def row_parallel(h, w, policy, group, *, narrow: bool = True):
     if out_f.name != "fp32":
         r = tp.quantize_ste(r, out_f, pol.rounding)
     return r
+
+
+def whole_cols(parts, widths, group):
+    """The whole of each ``parts[i]`` ([..., widths[i]]): a ``col``-sharded
+    leaf's output or weight holds this rank's block of the last dim and
+    is gathered (every sharded part in ONE ``spmd.all_gather_cat`` over
+    ``group``); a part already whole (its leaf replicated) is kept."""
+    out = list(parts)
+    if group is None or group.size == 1:
+        return out
+    idx = [i for i, (p, w) in enumerate(zip(parts, widths))
+           if p.shape[-1] != w]
+    if idx:
+        for i, g in zip(idx, spmd.all_gather_cat([parts[i] for i in idx],
+                                                 group)):
+            out[i] = g
+    return out
+
+
+def row_project(h, w, policy, group, unsharded):
+    """``h [..., K]`` (whole on every rank) through a ``row`` leaf ``w``:
+    with ``w`` this rank's block of rows [K/M, N], this rank's slice of
+    ``h``'s last dim through ``row_parallel`` (f32 partials, one snap after
+    the sum, as ``attention._row_parallel_wo``); with ``w`` whole (no
+    group, or the leaf replicated), ``unsharded(h, w)``."""
+    if group is None or group.size == 1 or w.shape[0] == h.shape[-1]:
+        return unsharded(h, w)
+    k = w.shape[0]
+    hs = h[..., group.index * k:(group.index + 1) * k]
+    return row_parallel(hs, w, policy, group, narrow=False)
 
 
 def _down(h, w_down, policy, group):

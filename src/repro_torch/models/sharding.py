@@ -56,8 +56,9 @@ _PARAM_RULES = {
     "q_norm": "rep", "k_norm": "rep", "kv_norm": "rep",
 }
 
-#: the attention projections a head-sharded layer slices by heads
-ATTN_LEAVES = ("wq", "wk", "wv", "wo")
+#: the attention projections a head-sharded layer slices by heads (GQA's
+#: and MLA's head-major up projections)
+ATTN_LEAVES = ("wq", "wk", "wv", "wo", "w_q", "w_uq", "w_uk", "w_uv")
 
 
 def _spec_for_role(role: str, shape: Tuple[int, ...], model_axis: str,
@@ -229,10 +230,11 @@ def local_shard(t, spec: tuple, mesh):
 
 def shard_params(params, mesh, cfg=None, overrides: Optional[dict] = None):
     """This rank's shards of the full ``params`` under ``param_specs`` at
-    the mesh's model size.  With ``cfg``, attention projections replicate
-    where the heads cannot be split whole (the head-sharded path then runs
-    unsharded, as the JAX package's does).  A mesh without a model axis
-    > 1 returns ``params`` as they are."""
+    the mesh's model size.  With ``cfg``, the attention projections by
+    heads (``ATTN_LEAVES``: GQA's and MLA's) replicate where the heads
+    cannot be split whole (the head-sharded path then runs unsharded, as
+    the JAX package's does; MLA's latent down projections stay ``col``).
+    A mesh without a model axis > 1 returns ``params`` as they are."""
     tp = model_size(mesh)
     if tp == 1:
         return params

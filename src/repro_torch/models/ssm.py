@@ -19,6 +19,19 @@ conv window is stored between calls in the cache's dtype
 (``attention.kv_store_dtype``: bf16 under ``tp_bf16``, fp8 under
 ``tp_bf16_kv8``), so it is rounded there, as in JAX.
 
+Tensor parallelism (``group``, the mesh's model axis, M ranks; ``params``
+this rank's shards under the rule table): the ``col`` leaves split
+concatenated projections into contiguous column blocks that do not line
+up with the segments the mixers cut their outputs into (Mamba2's ``[z |
+xBC | dt]``, mLSTM's ``[x | z]`` and ``[i | f]``, sLSTM's gate and up
+halves), so each rank computes its block of the projection and one
+``layers.whole_cols`` gather per call makes it whole, the ``col`` conv
+weights (and mLSTM's ``w_if``) with it; the mixer then runs whole on every
+rank on the whole state, with no collective inside its chunk or time
+loop; the out projections (``out_proj``, ``down_proj``, ``down``) run
+row-parallel on this rank's slice of the mixer's output
+(``layers.row_project``).  The states stay whole on every rank.
+
 ``softplus`` and ``log_sigmoid`` are JAX's forms (``logaddexp(x, 0)``),
 ``silu`` is ``x * sigmoid(x)``; torch's ``F.softplus`` would return ``x``
 itself above 20.
@@ -33,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import ops as tp
-from .layers import dense_init, rmsnorm
+from .layers import dense_init, rmsnorm, row_project, whole_cols
 
 F32 = torch.float32
 
@@ -173,18 +186,22 @@ def _pad_time(t, pad: int, value: float = 0.0):
 
 
 def mamba2_mix(x, params, cfg: Mamba2Config, policy, *,
-               cache: Optional[Mamba2Cache] = None):
+               cache: Optional[Mamba2Cache] = None, group=None):
     """x [B, S, D] -> (y [B, S, D], new cache or None).
 
     Chunked SSD over ``S / chunk`` chunks (the last padded with ``dt =
     0``, so the pad neither decays nor feeds the state), carrying the
-    [B, H, P, N] f32 state from ``cache.ssm`` (zeros without a cache)."""
+    [B, H, P, N] f32 state from ``cache.ssm`` (zeros without a cache).
+    ``group``: tensor parallel over its ranks (module docstring)."""
     b, s, _ = x.shape
     h, p, n, g = cfg.n_heads, cfg.head_dim, cfg.d_state, cfg.n_groups
-    zxbcdt = tp.tp_einsum("bsd,de->bse", x, params["in_proj"], policy,
-                          out_fmt="fp32")
+    zxbcdt, conv_w, conv_b = whole_cols(
+        [tp.tp_einsum("bsd,de->bse", x, params["in_proj"], policy,
+                      out_fmt="fp32"), params["conv_w"], params["conv_b"]],
+        [2 * cfg.d_inner + 2 * g * n + h, cfg.conv_dim, cfg.conv_dim],
+        group)
     z, xbc, dt = _split_zxbcdt(zxbcdt, cfg)
-    xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"],
+    xbc, new_conv = _causal_conv(xbc, conv_w, conv_b,
                                  cache.conv if cache is not None else None)
     di = cfg.d_inner
     xin = xbc[..., :di].reshape(b, s, h, p)
@@ -232,7 +249,8 @@ def mamba2_mix(x, params, cfg: Mamba2Config, policy, *,
     y = y.reshape(b, s, di)
     # gated RMSNorm (Mamba2's norm_before_gate=False): norm(y * silu(z))
     y = rmsnorm(y * _silu(z), params["norm"])
-    out = tp.tp_einsum("bse,ed->bsd", y, params["out_proj"], policy)
+    out = row_project(y, params["out_proj"], policy, group,
+                      lambda a, w: tp.tp_einsum("bse,ed->bsd", a, w, policy))
     new_cache = (Mamba2Cache(new_conv.to(cache.conv.dtype), state)
                  if cache is not None else None)
     return out, new_cache
@@ -301,22 +319,25 @@ def mlstm_params(gen: torch.Generator, cfg: MLSTMConfig, dtype,
 
 
 def mlstm_mix(x, params, cfg: MLSTMConfig, policy, *,
-              cache: Optional[MLSTMCache] = None):
+              cache: Optional[MLSTMCache] = None, group=None):
     """Chunkwise-parallel mLSTM with log-space gate stabilisation.
 
     Within a chunk, ``W_ij = exp(F_i - F_j + logi_j - m_i)`` weighs the
     intra-chunk term; the inter-chunk term reads the carried matrix
     memory ``C``.  A padded last chunk gets ``logi = -1e30`` (no input)
-    and ``logf = 0`` (no decay), so the final state does not see it."""
+    and ``logf = 0`` (no decay), so the final state does not see it.
+    ``group``: tensor parallel over its ranks (module docstring)."""
     b, s, _ = x.shape
     h, dk, di = cfg.n_heads, cfg.head_dim, cfg.d_inner
     narrow = cfg.narrow_intra
     act_fmt = "fp16alt" if narrow else "fp32"
     intra_dt = torch.bfloat16 if narrow else F32
-    up = tp.tp_einsum("bsd,de->bse", x, params["up_proj"], policy,
-                      out_fmt=act_fmt)
+    up, conv_w, conv_b, w_if = whole_cols(
+        [tp.tp_einsum("bsd,de->bse", x, params["up_proj"], policy,
+                      out_fmt=act_fmt), params["conv_w"], params["conv_b"],
+         params["w_if"]], [2 * di, di, di, 2 * h], group)
     xb, z = up[..., :di], up[..., di:]
-    xc, new_conv = _causal_conv(xb, params["conv_w"], params["conv_b"],
+    xc, new_conv = _causal_conv(xb, conv_w, conv_b,
                                 cache.conv if cache is not None else None)
     xch = xc.to(up.dtype).reshape(b, s, h, dk)
     xbh = xb.reshape(b, s, h, dk)
@@ -326,7 +347,7 @@ def mlstm_mix(x, params, cfg: MLSTMConfig, policy, *,
                      out_fmt=act_fmt) * dk ** -0.5
     v = tp.tp_einsum("bshe,hef->bshf", xbh, params["wv_h"], policy,
                      out_fmt=act_fmt)
-    gates = (tp.tp_einsum("bse,eg->bsg", xb, params["w_if"], policy,
+    gates = (tp.tp_einsum("bse,eg->bsg", xb, w_if, policy,
                           out_fmt="fp32") + params["b_if"])
     logi = gates[..., :h]                              # [B, S, H]
     logf = _log_sigmoid(gates[..., h:])
@@ -384,7 +405,8 @@ def mlstm_mix(x, params, cfg: MLSTMConfig, policy, *,
     y = torch.cat(ys, dim=1)[:, :s].reshape(b, s, di)
     y = rmsnorm(y, params["ln"])
     y = y * _silu(z)                                   # output gate branch
-    out = tp.tp_einsum("bse,ed->bsd", y, params["down_proj"], policy)
+    out = row_project(y, params["down_proj"], policy, group,
+                      lambda a, w: tp.tp_einsum("bse,ed->bsd", a, w, policy))
     new_cache = (MLSTMCache(new_conv.to(cache.conv.dtype), C, nrm, m)
                  if cache is not None else None)
     return out, new_cache
@@ -444,9 +466,10 @@ def slstm_params(gen: torch.Generator, cfg: SLSTMConfig, dtype,
 
 
 def slstm_mix(x, params, cfg: SLSTMConfig, policy, *,
-              cache: Optional[SLSTMCache] = None):
+              cache: Optional[SLSTMCache] = None, group=None):
     """A sequential loop over time (the sLSTM's memory mixing is
-    recurrent), then the norm and the gated gelu FFN tail."""
+    recurrent), then the norm and the gated gelu FFN tail.  ``group``:
+    tensor parallel over its ranks (module docstring)."""
     b, s, d = x.shape
     h, dh = cfg.n_heads, cfg.head_dim
     gx = tp.tp_einsum("bsd,dg->bsg", x, params["w_gates"], policy,
@@ -472,11 +495,13 @@ def slstm_mix(x, params, cfg: SLSTMConfig, policy, *,
         ys.append(hp)
     y = rmsnorm(torch.stack(ys, dim=1), params["ln"])  # [B, S, D]
     # gated FFN tail (part of the sLSTM block in xLSTM)
-    uu = tp.tp_einsum("bsd,df->bsf", y, params["up"], policy)
-    dff = uu.shape[-1] // 2
+    dff = int(cfg.proj_factor * d)
+    uu, = whole_cols([tp.tp_einsum("bsd,df->bsf", y, params["up"], policy)],
+                     [2 * dff], group)
     y = tp.tp_elementwise("gelu", uu[..., :dff], policy=policy) \
         * uu[..., dff:]
-    out = tp.tp_einsum("bsf,fd->bsd", y, params["down"], policy)
+    out = row_project(y, params["down"], policy, group,
+                      lambda a, w: tp.tp_einsum("bsf,fd->bsd", a, w, policy))
     new_cache = SLSTMCache(c, nrm, m, hp) if cache is not None else None
     return out, new_cache
 

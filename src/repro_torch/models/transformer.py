@@ -69,8 +69,11 @@ lookup, then an exact sum across the group) and the logits over its
 vocab columns (``all_gather``, then the softcap and the pad mask); the
 caches hold this rank's KV heads.  Every replicated value (hidden states,
 logits) is bitwise the same on every rank, and every token pick is made
-on the group's first rank and broadcast.  MLA and the recurrent mixers
-under a mesh raise.
+on the group's first rank and broadcast.  MLA gathers its latents whole
+on every rank and runs its heads sharded (``attention.mla_attention``);
+the recurrent mixers gather their projections whole, run whole on every
+rank and project out row-parallel (``models.ssm``); their caches stay
+whole on every rank.
 """
 from __future__ import annotations
 
@@ -627,12 +630,6 @@ class Model:
         them, the cached cross K/V (decode)."""
         cfg = self.cfg
         rs = cfg.residual_scale
-        if model_size(mesh) > 1 and (spec.mixer == "mla"
-                                     or spec.mixer in _RECURRENT):
-            raise NotImplementedError(
-                f"{cfg.name}: {spec.mixer} layers under a sharding mesh "
-                f"are not ported (ROADMAP Queue 1 item 8b); GQA archs "
-                f"shard")
         xcache = None
         if spec.cross_attn and cache is not None:
             cache, xcache = cache
@@ -643,7 +640,7 @@ class Model:
         if spec.mixer in _RECURRENT:
             sub, mix_fn, _, _ = _RECURRENT[spec.mixer]
             r = mix_fn(h, p["attn"], getattr(cfg, sub), self.policy,
-                       cache=cache)
+                       cache=cache, group=tp_group(mesh))
             if esc_fmts is not None:
                 r += zero_flags()
         elif spec.mixer == "mla":
@@ -653,7 +650,8 @@ class Model:
                 v_head_dim=cfg.v_head_dim, positions=positions,
                 rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
                 cache=cache, cache_pos=cache_pos, chunk=cfg.attn_chunk,
-                prefill_backend=cfg.prefill_backend, kv_len=kv_len)
+                prefill_backend=cfg.prefill_backend, kv_len=kv_len,
+                mesh=mesh)
             if esc_fmts is not None:
                 r += zero_flags()
         else:

@@ -25,6 +25,7 @@ Replica-level counterparts (the fleet of
     chosen burst (:class:`ReplicaLostError` raised at the burst dispatch:
     device memory unreachable) or HANGS it (the fleet's heartbeat view
     declares it dead after missed beats, device memory still readable),
+    and :class:`ReplicaFaultPlans`, several of them as one,
   * :class:`ReplicaLostError` — a :class:`SimulatedFailure`, so a loss
     with no surviving replica propagates into :func:`run_with_restarts`,
     whose ``attempt_log`` names the replica behind each attempt,
@@ -158,6 +159,48 @@ class ReplicaFaultPlan:
             self._hung = True
             self.note("hang", replica=replica, burst=burst)
         return True
+
+    def might_lose(self, replica: int, burst: int, missed: int,
+                   patience: int) -> bool:
+        """Whether ``replica`` (at ``burst``, ``missed`` beats behind)
+        can be lost at its next turn of the fleet loop: a kill still due
+        at its next dispatch, or a hang whose next missed beat exhausts
+        ``patience``.  Changes nothing (a sharded fleet asks it of every
+        replica before a sweep)."""
+        if replica != self.replica:
+            return False
+        if self.mode == "kill":
+            return not self._killed and burst >= self.at_burst
+        return ((self._hung or burst >= self.at_burst)
+                and missed + 1 >= patience)
+
+
+class ReplicaFaultPlans:
+    """Several :class:`ReplicaFaultPlan` as one (a fleet that loses more
+    than one replica, each plan its own victim): every call asks each
+    plan in turn; ``events`` lists theirs in plan order."""
+
+    def __init__(self, plans):
+        self.plans = list(plans)
+
+    def reset(self) -> None:
+        for p in self.plans:
+            p.reset()
+
+    @property
+    def events(self) -> list:
+        return [e for p in self.plans for e in p.events]
+
+    def take_kill(self, replica: int, burst: int) -> bool:
+        return any([p.take_kill(replica, burst) for p in self.plans])
+
+    def hang_due(self, replica: int, burst: int) -> bool:
+        return any([p.hang_due(replica, burst) for p in self.plans])
+
+    def might_lose(self, replica: int, burst: int, missed: int,
+                   patience: int) -> bool:
+        return any(p.might_lose(replica, burst, missed, patience)
+                   for p in self.plans)
 
 
 class PoisonedLogitsError(RuntimeError):

@@ -1480,3 +1480,33 @@ def test_sharded_gloo_ranks_on_the_card(gen):
         assert eng["tokens"] == ranks[0]["engine"]["tokens"]
         assert eng["spmd"]["collectives"] > 0
         assert eng["spmd"]["staged_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch", ("minicpm3-4b", "zamba2-1.2b"))
+def test_tp_archs_gloo_ranks_on_the_card(gen, arch):
+    """Two ranks on the one card over gloo: reduced minicpm3 (MLA: the
+    latents gathered whole, 2 of 4 heads a rank) and zamba2 (Mamba2's
+    projections gathered whole, the mixer whole on each rank, its out
+    projection row-parallel; the shared block on its head shards) at tp
+    2 under ``fp32``.  Each rank's last-position prefill logits within
+    2e-4 of the CPU's unsharded logits (f32 sums in another order), the
+    ranks' logits and greedy tokens equal each other and the CPU's
+    tokens; the collectives ran and staged bytes."""
+    from repro_torch.launch import sharded_checks as sc
+    from repro_torch.launch import spmd
+    from repro_torch.models.registry import build_model
+    m = build_model(arch, policy="fp32", reduced=True, device="cpu")
+    params = _lively_gains(m.init(0), 5)
+    toks = torch.randint(0, m.cfg.vocab, (2, 12),
+                         generator=torch.Generator().manual_seed(6))
+    kw = {"arch": arch, "params": params, "tokens": toks, "gen_len": 4}
+    cpu = sc.run_plan([("a", "logits", None, kw)])["a"]
+    ranks = spmd.spawn(sc.rank_main, 2, backend="gloo",
+                       args=([("a", "logits", (1, 2), kw)], "cuda"))
+    for out in ranks:
+        got = out["a"]
+        assert (got["logits"] - cpu["logits"]).abs().max().item() <= 2e-4
+        assert torch.equal(got["logits"], ranks[0]["a"]["logits"])
+        assert torch.equal(got["tokens"], cpu["tokens"])
+        assert got["spmd"]["collectives"] > 0
+        assert got["spmd"]["staged_bytes"] > 0

@@ -19,7 +19,9 @@ H, HKV, HD = 2, 16, 32, 8, 8, 16``):
   * MoE expert parallelism at tp 2 against the local path: router indices
     and the dropped (token, slot) set exact, y within 2e-5, aux within
     1e-5 (JAX's ``test_moe_ep_on_model_only_mesh`` bounds);
-  * the launcher's ``--mesh 1,2 --dist-backend gloo``.
+  * the launcher's ``--mesh 1,2 --dist-backend gloo`` (gemma2 and MLA's
+    minicpm3), and ``--mesh 2,1`` with ``--fault-replica`` / ``--journal``
+    against the meshless ``--replicas 2`` fleet.
 
 One spawn per world size (a module-scoped fixture) runs every case; the
 ranks return their results through ``launch.spmd.spawn``.
@@ -231,8 +233,70 @@ def test_launcher_mesh_flag_errors(capsys):
                       (["--mesh", "1,2"], "gloo with --device cpu"),
                       (["--continuous", "--mesh", "2,1", "--replicas", "2"],
                        "exclusive"),
-                      (["--continuous", "--mesh", "2,1", "--dist-backend",
-                        "gloo", "--journal", "/dev/null"], "item 8b")):
+                      (["--continuous", "--mesh", "1,2", "--dist-backend",
+                        "gloo", "--fault-replica", "0:3"],
+                       "needs a replicated engine")):
         with pytest.raises(SystemExit):
             serve.main(["--device", "cpu"] + argv)
         assert msg in capsys.readouterr().err, argv
+
+
+def _ha_lines(out: str) -> list:
+    """The launcher's per-request and ``replica HA`` lines (the rest
+    carries timings and the engine's count of stragglers)."""
+    return [ln for ln in out.splitlines()
+            if ln.startswith("  req") or ln.startswith("replica HA")]
+
+
+@pytest.mark.parametrize("flags", (
+    ["--fault-replica", "0:3"],
+    ["--fault-replica", "0:3:hang", "--preempt", "swap"],
+    ["--fault-replica", "0:3", "--journal"]),
+    ids=("kill", "hang", "journal"))
+def test_launcher_mesh_fleet_faults(capfd, tmp_path, flags):
+    """``--mesh 2,1`` takes ``--fault-replica`` and ``--journal`` (on a mesh
+    with dp > 1) and serves as the meshless ``--replicas 2`` fleet does:
+    the same per-request lines, the same ``replica HA`` line, and the
+    journal file byte for byte."""
+    def run(tag, fleet):
+        argv = ["--continuous", "--device", "cpu"] + fleet + flags
+        if argv[-1] == "--journal":
+            argv.append(str(tmp_path / f"{tag}.jsonl"))
+        serve.main(argv)
+        return capfd.readouterr().out
+    want = run("replicas", ["--replicas", "2"])
+    got = run("mesh", ["--mesh", "2,1", "--dist-backend", "gloo"])
+    assert "serving mesh: 2 data-parallel replica(s)" in got
+    assert _ha_lines(got) == _ha_lines(want)
+    assert "1 kills" in got or "1 hangs" in got
+    if flags[-1] == "--journal":
+        assert (tmp_path / "mesh.jsonl").read_bytes() == \
+            (tmp_path / "replicas.jsonl").read_bytes()
+
+
+def test_launcher_tp_mesh_journal_has_one_writer(capfd, tmp_path):
+    """``--mesh 1,2 --journal``: both ranks run the one replica's
+    scheduler, and only global rank 0 writes the file — the bytes the
+    unsharded ``--journal`` writes, each record once."""
+    def run(tag, mesh):
+        path = tmp_path / f"{tag}.jsonl"
+        serve.main(["--continuous", "--device", "cpu", "--requests", "4",
+                    "--journal", str(path)] + mesh)
+        return capfd.readouterr().out, path.read_bytes()
+    want_out, want = run("plain", [])
+    got_out, got = run("mesh", ["--mesh", "1,2", "--dist-backend", "gloo"])
+    assert "serving mesh: 1 data-parallel replica(s) x 2-way" in got_out
+    assert _ha_lines(got_out) == _ha_lines(want_out)
+    assert got.count(b'"kind":"admit"') == 4
+    assert got == want
+
+
+def test_launcher_serves_minicpm3_on_a_mesh(capfd):
+    """``--arch minicpm3-4b --mesh 1,2``: MLA's heads split over two gloo
+    ranks, the tokens the unsharded launcher's."""
+    argv = ["--device", "cpu", "--arch", "minicpm3-4b", "--batch", "2",
+            "--prompt-len", "8", "--gen", "4"]
+    want = serve.main(argv)
+    got = serve.main(argv + ["--mesh", "1,2", "--dist-backend", "gloo"])
+    assert "2-way" in capfd.readouterr().out
+    assert torch.equal(got, want)
