@@ -115,15 +115,16 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    first token equal but at a near tie.  Decode ms per step and tok/s;
    device time by class from a profiled 8-token scan
    (``GEN_PROFILE_LEN``).
-6. Overload phase (``overload_phase``): the overload-safe engine on a
-   short pool with swap preemption, fp8 degrade, sampling with penalties
-   and a fault plan.  Every request must get its whole budget, every
+6. Overload phase (``overload_phase``), on the first ``FLEET_LAYERS`` =
+   14 of the slice model's 42 layers and their weights: the
+   overload-safe engine on a short pool with swap preemption, fp8
+   degrade, sampling with penalties and a fault plan.  Every request must get its whole budget, every
    overload counter must fire, each injected SDC must be detected, a
    second run must repeat every token, and the schedule must equal a CPU
    run of the same queue at the reduced config.  tok/s, decode ms per
    round, swap bytes, time and GB/s, and the sampling step's device time
    at [4, 256000].
-6b. HA phase (``ha_phase``), on the slice's model and weights: a
+6b. HA phase (``ha_phase``), on the overload phase's 14 layers: a
    meshless ``ReplicatedEngine`` of two replicas (2 slots each, chunk
    256, burst cap 8, one copy of the weights, a pool each) on the
    session trace (12 requests, prompts 256-1548, budgets 4-16): (a)
@@ -281,9 +282,11 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    attention kernel may launch; the continuation gate; state bytes.
    Both recurrent phases profile the scan by class, with f32-output GEMMs
    on CUDA cores (``gemm_f32``) apart from the tensor-core GEMMs.
-17. Train phase (``train_phase``): xlstm is freed and full-width
-   fpnew-case-study (12 layers, d_model 768, 12 heads of 64, d_ff 2048,
-   vocab 32000, tied: 109.6M parameters) trains through ``TrainLoop``
+17. Train phase (``train_phase``; it needs no kernel, so ``main`` runs
+   it in a process of its own beside the build, on the card that the
+   build leaves idle): full-width fpnew-case-study (12 layers, d_model
+   768, 12 heads of 64, d_ff 2048, vocab 32000, tied: 109.6M
+   parameters) trains through ``TrainLoop``
    from seed-0 port weights on the JAX launcher's defaults (seq 256,
    batch 16, lr 3e-3, warm-up 10, AdamW): (a) ``tp_bf16`` for 100 steps
    with checkpoints every 40 in a temporary directory, (b) ``fp32`` and
@@ -298,7 +301,23 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    have no backward).  ms a step and tokens/s, a profiled 5-step window
    (busy / idle; gemm / attention / optimizer / other by launching op),
    checkpoint GB and save / restore seconds.
-18. The kernels line (all six kernels; flash attention, tp_matmul and decode
+18. Training under a mesh (``train_mesh_phase``; it needs no kernel, so
+   ``main`` runs it in a thread beside the build and the train phase):
+   two gloo ranks on the one card (not NCCL), the same model and
+   settings as the train phase: (e) dp (2, 1) with the plain f32 sync,
+   10 steps (the first step's loss, gradient norm and update against
+   the unsharded step on the whole batch, the losses against the
+   unsharded run's), (f) the fp8 and fp16alt compressed sync, 10 steps
+   each (losses within ``TRAIN_MESH_BAND`` of (e) and well inside the
+   gap of a run without updates, the first gradient norm as (e)'s,
+   error feedback nonzero after step 1, 2 bytes a parameter on the
+   wire), (g)
+   tp (1, 2), 5 steps (every leaf's gradient gathered whole against the
+   unsharded step's), (h) ZeRO-1 through the ``jit_train_step`` twin,
+   params bitwise (e)'s at step 3, (i) (e)'s step-5 checkpoint restored
+   under (1, 2) and under no mesh, bitwise, 3 more steps each tracking
+   the unsharded run.  No hand-written kernel launches on any rank.
+19. The kernels line (all six kernels; flash attention, tp_matmul and decode
    attention with their launches by variant, the FMA variant's time,
    decode's launches by cluster size, flash's by head dims, the flags-on
    time of the main case and of the telemetry cases, the f32-pool case,
@@ -327,8 +346,11 @@ import os
 import shutil
 import subprocess
 import sys
+import multiprocessing as mp
 import tempfile
+import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1758,6 +1780,22 @@ def profile_run(eng, reqs) -> dict:
 PROMPTS = (1024, 128, 512, 4080, 768, 256, 896, 384)
 ARRIVALS = (0, 0, 0, 0, 2, 4, 6, 8)
 GEN = 32
+
+
+#: depth of the overload and HA phases: the first 14 of the slice's 42
+#: gemma2-9b layers, on its weights.  The whole stack runs in the slice,
+#: speculative and generate phases; what these two phases gate
+#: (admission, preemption, swap, degrade, faults, migration, the
+#: journal) acts on whole rows at any depth.  Cut to keep the smoke
+#: inside its time limit (PERF.md §4 has each phase's measured need)
+FLEET_LAYERS = 14
+
+
+def prefix_model(model, params, layers: int):
+    """``model`` and ``params`` cut to their first ``layers`` layers (the
+    weights are shared, not copied)."""
+    return (model.with_cfg(n_layers=layers),
+            dict(params, layers=params["layers"][:layers]))
 
 
 def full_model(seed: int = 0):
@@ -3328,7 +3366,8 @@ def tp_phase(seed: int = 0) -> dict:
                           requests=reqs, legs=fleet_legs,
                           journal_dir=journal_dir, **TP_FLEET)}
     t0 = time.perf_counter()
-    ranks = spmd.spawn(sc.card_rank, TP_RANKS, backend="gloo", args=(spec,))
+    ranks = spmd.spawn(sc.card_rank, TP_RANKS, backend="gloo", args=(spec,),
+                       timeout=600)
     spawn_s = time.perf_counter() - t0
     eng_r = [r["engine"] for r in ranks]
 
@@ -5120,6 +5159,248 @@ def train_phase(seed: int = 0) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# training under a mesh: two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+#: steps of each case: (e) dp plain, (f) each compressed format, (g) tp,
+#: (h) ZeRO-1 (its params held to (e)'s at this step), (i) the continued
+#: restores; (e) checkpoints at ``TRAIN_MESH_CKPT_AT``
+TRAIN_MESH_STEPS = dict(e=10, f=10, g=5, h=3, i=3)
+TRAIN_MESH_CKPT_AT = 5
+TRAIN_MESH_COMPRESS = ("fp8", "fp16alt")
+#: the first step against the unsharded step on the whole batch (tp_bf16:
+#: ``tests/test_torch_train.py``'s bounds): the loss and the gradient
+#: norm; and the step's update (the master after it less the master
+#: before it) by relative L2 over the leaves whose reference gradient is
+#: not zero, whole and per leaf.  An update that never happened reads
+#: 1.0 on both; a sound sync reads the share of Adam's first sign(g) lr
+#: steps that flip where a bf16 gradient sits within rounding of 0
+TRAIN_MESH_LOSS_TOL, TRAIN_MESH_GRAD_REL = 5e-3, 3e-2
+TRAIN_MESH_UPDATE_REL, TRAIN_MESH_UPDATE_LEAF_REL = 0.2, 0.5
+#: a sharded run's losses against the unsharded run's, step by step (bf16
+#: sums in another order drift apart over the steps: 1.32e-3 at most on
+#: an H100, where a run without updates reads about 0.1)
+TRAIN_MESH_TRACK = 1e-2
+#: the compressed runs against (e): their losses, step by step, within
+#: ``TRAIN_MESH_BAND`` (the largest sound gap read 4.4e-3, fp8) and within
+#: 1 / ``TRAIN_MESH_CONTROL_X`` of the gap that a run without updates
+#: (the seed-0 weights' losses on the same batches) shows to (e); the
+#: first step's gradient norm within ``TRAIN_MESH_NORM_REL`` of (e)'s
+#: (Adam's step is blind to the gradient's scale: a sync that drops the
+#: gradient reads 1.0 there, one that halves it 0.5)
+TRAIN_MESH_BAND, TRAIN_MESH_CONTROL_X, TRAIN_MESH_NORM_REL = 2e-2, 4.0, 5e-2
+TRAIN_MESH_NEED_GIB = 16.0
+
+
+def train_mesh_phase(seed: int = 0) -> dict:
+    """Training under a ``(data, model)`` mesh on the one card: two gloo
+    ranks (NCCL refuses two ranks on one GPU), full-width
+    fpnew-case-study under ``tp_bf16`` on ``train_phase``'s settings (seq
+    256, global batch 16, lr 3e-3, warm-up 10, AdamW, remat ``full``,
+    seed-0 weights), deterministic algorithms on.  Cases
+    (``train.mesh_checks.card_rank``, every number per rank):
+
+    (e) dp (2, 1), plain f32 sync, ``TrainLoop(mesh=)`` 10 steps: the
+        first step's loss, gradient norm and update against the
+        unsharded step on the whole batch, the losses against the
+        unsharded run's (run here first);
+    (f) dp (2, 1) with ``compress_grads`` fp8 and fp16alt, 10 steps each:
+        finite, within ``TRAIN_MESH_BAND`` of (e) and well inside the gap
+        of a run without updates, the first gradient norm as (e)'s, error
+        feedback nonzero after step 1, wire bytes a step a rank;
+    (g) tp (1, 2): the first step's loss and every leaf's gradient,
+        gathered whole, against the unsharded step's; 5 steps, their
+        collectives and staged bytes;
+    (h) ZeRO-1 through the ``jit_train_step`` twin at (2, 1), 3 steps:
+        params bitwise (e)'s at step 3; state bytes a rank and whole;
+    (i) (e)'s step-5 checkpoint restored under (1, 2) (on the ranks) and
+        under no mesh (here): the restored state bitwise the saved one,
+        3 more steps tracking the unsharded run.
+
+    No hand-written kernel launches on any rank."""
+    import shutil
+    import statistics
+    import tempfile
+    import torch
+    from repro_torch.ckpt.checkpoint import restore_pytree
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import spmd
+    from repro_torch.train import mesh_checks as mc
+
+    t_phase = time.perf_counter()
+    free_memory_gate("train mesh", TRAIN_MESH_NEED_GIB)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    launches0 = _kernel_launches()
+    st = TRAIN_MESH_STEPS
+    seq, batch = TRAIN_SEQ, TRAIN_BATCH
+    opt = dict(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=st["e"])
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_mesh_")
+    res = dict(arch="fpnew-case-study", policy="tp_bf16", seq=seq,
+               batch=batch, ranks=TP_RANKS, backend="gloo, one card (not "
+               "NCCL)")
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.use_deterministic_algorithms(True)
+    try:
+        model = mc._model("fpnew-case-study", "tp_bf16", "cuda",
+                          reduced=False)
+        oracle = mc._loop(model, None, steps=st["e"], batch=batch, seq=seq,
+                          opt=opt, seed=seed)
+        n_params = sum(t.numel() for t in leaves(oracle.params))
+        # the control: the seed-0 weights' losses on the run's batches
+        with torch.no_grad():
+            control = [float(model.forward_train(
+                oracle.params, *(oracle.data.batch_at(k)[n].to("cuda")
+                                 for n in ("tokens", "labels")),
+                remat=False)) for k in range(st["e"])]
+        t0 = time.perf_counter()
+        oracle.run()
+        torch.cuda.synchronize()
+        u_loss = [r["loss"] for r in oracle.metrics_log]
+        u_dt = [r["dt"] for r in oracle.metrics_log]
+        res["unsharded"] = dict(losses=u_loss, wall_s=time.perf_counter() - t0,
+                                ms_per_step=statistics.median(u_dt[1:]) * 1e3,
+                                n_params=n_params, no_update_losses=control)
+        del oracle
+        gc_cuda()
+        spec = dict(policy="tp_bf16", seq=seq, batch=batch, opt=opt,
+                    seed=seed, steps=st, ckpt_at=TRAIN_MESH_CKPT_AT,
+                    root=root, compress=TRAIN_MESH_COMPRESS)
+        t0 = time.perf_counter()
+        ranks = spmd.spawn(mc.card_rank, TP_RANKS, backend="gloo",
+                           args=(spec,), timeout=900)
+        res["spawn_s"] = time.perf_counter() - t0
+        r0 = ranks[0]
+        # every rank computed the same losses (replicated after the sync)
+        for tag in ["e", "g", "i"] + ["f_" + f for f in TRAIN_MESH_COMPRESS]:
+            if any(r[tag]["losses"] != r0[tag]["losses"] for r in ranks):
+                raise AssertionError(f"train mesh ({tag}): the ranks' "
+                                     f"losses differ")
+        gaps = lambda got, want: [abs(a - b) for a, b in zip(got, want)]
+        ms = lambda dts: statistics.median(dts[1:] or dts) * 1e3
+        e = r0["e"]
+        e_gap = gaps(e["losses"], u_loss)
+        control_gap = max(gaps(control, e["losses"]))
+        res["e_dp"] = dict(
+            first_loss_gap=e["first_loss_vs_unsharded"],
+            grad_norm_rel=abs(e["first_grad_norm"] - e["unsharded_grad_norm"])
+            / e["unsharded_grad_norm"],
+            update_rel_after_1=max(r["e"]["update_rel_after_1"]
+                                   for r in ranks),
+            update_leaf_rel_max=max(r["e"]["update_leaf_rel_max"]
+                                    for r in ranks),
+            update_leaves=[e["update_leaves"], e["leaves"]],
+            loss_gap_max=max(e_gap), no_update_gap_max=control_gap,
+            losses=e["losses"], ms_per_step=ms(e["dts"]), wall_s=e["wall_s"],
+            collectives_per_step=e["spmd"]["collectives"] / e["spmd_steps"],
+            staged_bytes_per_step=e["spmd"]["staged_bytes"]
+            / e["spmd_steps"],
+            wire_bytes_per_step={k: v / e["spmd_steps"] for k, v in
+                                 e["spmd"]["wire_bytes"].items()})
+        d = res["e_dp"]
+        log(json.dumps({"train_mesh_e": d}))
+        if not (d["first_loss_gap"] <= TRAIN_MESH_LOSS_TOL
+                and d["grad_norm_rel"] <= TRAIN_MESH_GRAD_REL
+                and d["update_rel_after_1"] <= TRAIN_MESH_UPDATE_REL
+                and d["update_leaf_rel_max"] <= TRAIN_MESH_UPDATE_LEAF_REL
+                and d["loss_gap_max"] <= TRAIN_MESH_TRACK):
+            raise AssertionError(f"train mesh (e): {d}")
+        for fmt in TRAIN_MESH_COMPRESS:
+            f = r0["f_" + fmt]
+            band = max(gaps(f["losses"], e["losses"]))
+            res["f_" + fmt] = dict(
+                losses=f["losses"], band_max=band,
+                no_update_gap_max=control_gap,
+                grad_norm_rel=abs(f["first_grad_norm"]
+                                  - e["first_grad_norm"])
+                / e["first_grad_norm"],
+                ef_max_after_1=f["ef_max_after_1"],
+                wire_bytes_per_step=f["wire_bytes_per_step"],
+                ms_per_step=ms(f["dts"]), wall_s=f["wall_s"])
+            d = res["f_" + fmt]
+            log(json.dumps({"train_mesh_f_" + fmt: d}))
+            want = {fmt: 2 * n_params}
+            if not (all(math.isfinite(x) for x in f["losses"])
+                    and band <= TRAIN_MESH_BAND
+                    and band <= control_gap / TRAIN_MESH_CONTROL_X
+                    and d["grad_norm_rel"] <= TRAIN_MESH_NORM_REL
+                    and f["ef_max_after_1"] > 0
+                    and f["wire_bytes_per_step"] == want):
+                raise AssertionError(f"train mesh (f {fmt}): {d} (wire "
+                                     f"{want})")
+        g = r0["g"]
+        res["g_tp"] = dict(
+            first_loss_gap=g["first_loss_vs_unsharded"],
+            grad_rel_max=max(max(r["g"]["grad_rel"]) for r in ranks),
+            loss_gap_max=max(gaps(g["losses"], u_loss)), losses=g["losses"],
+            local=(g["local_heads"], g["local_mlp_cols"],
+                   g["local_vocab_rows"]),
+            ms_per_step=ms(g["dts"]), wall_s=g["wall_s"],
+            collectives_per_step=g["spmd"]["collectives"] / st["g"],
+            staged_bytes_per_step=g["spmd"]["staged_bytes"] / st["g"],
+            grad_step_collectives=g["grad_step_spmd"]["collectives"])
+        d = res["g_tp"]
+        if not (d["first_loss_gap"] <= TRAIN_MESH_LOSS_TOL
+                and d["grad_rel_max"] <= TRAIN_MESH_GRAD_REL
+                and d["loss_gap_max"] <= TRAIN_MESH_TRACK
+                and tuple(d["local"]) == (6, 1024, 16000)):
+            raise AssertionError(f"train mesh (g): {d}")
+        h = r0["h"]
+        res["h_zero1"] = dict(
+            bitwise=[r["h"]["bitwise"] for r in ranks], of=h["of"],
+            ms_per_step=ms(h["dts"]), wall_s=h["wall_s"],
+            state_bytes_rank=h["state_bytes_rank"],
+            state_bytes_whole=h["state_bytes_whole"])
+        if any(r["h"]["bitwise"] != h["of"] for r in ranks):
+            raise AssertionError(f"train mesh (h): params not bitwise (e)'s "
+                                 f"at step {st['h']}: {res['h_zero1']}")
+        i = r0["i"]
+        # (i) here: the same checkpoint restored under no mesh
+        lp = mc._loop(model, None, steps=TRAIN_MESH_CKPT_AT + st["i"],
+                      batch=batch, seq=seq, opt=opt, seed=seed,
+                      ckpt_every=0, ckpt_dir=os.path.join(root, "e"))
+        saved, _ = restore_pytree(lp.ckpt.path(TRAIN_MESH_CKPT_AT),
+                                  lp.state_tree())
+        same = sum(torch.equal(a, b) for a, b in
+                   zip(leaves(saved), leaves(lp.state_tree())))
+        n_leaves = len(leaves(saved))
+        at, lp.ckpt = lp.step, None         # restored: no more writes
+        del saved
+        lp.run()
+        want = u_loss[TRAIN_MESH_CKPT_AT:TRAIN_MESH_CKPT_AT + st["i"]]
+        res["i_elastic"] = dict(
+            tp_restored_at=i["restored_at"],
+            tp_bitwise=[r["i"]["bitwise"] for r in ranks], of=i["of"],
+            tp_loss_gap_max=max(gaps(i["losses"], want)),
+            none_restored_at=at, none_bitwise=same, none_of=n_leaves,
+            none_loss_gap_max=max(gaps([r["loss"] for r in lp.metrics_log],
+                                       want)))
+        d = res["i_elastic"]
+        if not (d["tp_restored_at"] == d["none_restored_at"]
+                == TRAIN_MESH_CKPT_AT
+                and all(b == d["of"] for b in d["tp_bitwise"])
+                and d["none_bitwise"] == d["none_of"]
+                and d["tp_loss_gap_max"] <= TRAIN_MESH_TRACK
+                and d["none_loss_gap_max"] <= TRAIN_MESH_TRACK):
+            raise AssertionError(f"train mesh (i): {d}")
+        del lp
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        shutil.rmtree(root, ignore_errors=True)
+    launched = {k: v - launches0[k] for k, v in _kernel_launches().items()}
+    for r in ranks:
+        for k, v in r["kernel_launches"].items():
+            launched[k] = launched.get(k, 0) + v
+    if any(launched.values()):
+        raise AssertionError(f"train mesh: hand-written kernels launched "
+                             f"on the training path: {launched}")
+    res.update(kernel_launches=launched, phase_s=time.perf_counter() - t_phase,
+               card=card_line())
+    log(json.dumps({"train_mesh": res}))
+    return res
+
+
 def gc_cuda() -> None:
     """Frees what the last phase dropped."""
     import gc
@@ -5154,8 +5435,33 @@ def main() -> int:
         clock.append(time.perf_counter())
         phase_s[name] = round(clock[-1] - clock[-2], 1)
 
-    hgmma_gate = build_phase()
-    lap("build")
+    # the two training phases need no kernel: they run on the card while
+    # nvcc builds the libraries on the host, the unsharded one in a
+    # process of its own (its deterministic-algorithm switch and its
+    # profile stay its own), the mesh phase in a thread here
+    beside = {}
+
+    def train_mesh():
+        try:
+            beside["res"] = train_mesh_phase()
+        except BaseException as e:      # re-raised in the main thread
+            beside["error"] = e
+
+    trainer = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+    try:
+        trained = trainer.submit(train_phase)
+        mesh_thread = threading.Thread(target=train_mesh, name="train_mesh")
+        mesh_thread.start()
+        hgmma_gate = build_phase()
+        lap("build")
+        mesh_thread.join()
+        if "error" in beside:
+            raise beside["error"]
+        trained.result()
+    finally:
+        trainer.shutdown(wait=True, cancel_futures=True)
+    lap("training_after_build")
+    gc_cuda()
     recs = kernel_phase()
     recs.update(op_kernel_phase())
     op_res = op_path_phase()
@@ -5169,11 +5475,14 @@ def main() -> int:
     lap("speculative")
     serving.append(generate_phase(model, params))
     lap("generate")
-    serving.append(overload_phase(model, params))
+    fleet_model, fleet_params = prefix_model(model, params, FLEET_LAYERS)
+    serving.append(overload_phase(fleet_model, fleet_params))
     lap("overload")
     serving.append(ha_phase(
-        model, params, serving[1]["verify_vs_step"]["logits_max_abs_diff"]))
+        fleet_model, fleet_params,
+        serving[1]["verify_vs_step"]["logits_max_abs_diff"]))
     lap("ha")
+    del fleet_model, fleet_params
     del model, params
     gc_cuda()
     tp = tp_phase()
@@ -5206,8 +5515,6 @@ def main() -> int:
         serving.append(archs[tag])
         lap(tag)
         gc_cuda()
-    train_phase()
-    lap("train")
     log(json.dumps({"phase_s": phase_s}))
     launches, variants, by_cluster = dict(op_res["launches"]), {}, {}
     by_dims, by_group, noncausal = {}, {}, 0

@@ -15,7 +15,9 @@
     the next save (or a restore) joins the thread.
 
 numpy and torch only: bf16 leaves are read back through an integer view,
-without ``ml_dtypes``."""
+without ``ml_dtypes``.  A checkpoint holds whole leaves whatever mesh
+wrote it (``train.loop`` gathers its shards first); ``restore_pytree(...,
+shardings=)`` cuts them for any other mesh."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.tree import flatten_with_paths, unflatten
+from ..core.tree import flatten_with_paths, leaves, unflatten
 
 #: dtype tag -> (integer container, torch dtype) of the leaves numpy has
 #: no dtype for
@@ -91,10 +93,17 @@ def save_pytree(path: str, tree, extra: Optional[dict] = None):
     os.replace(tmp, path)
 
 
-def restore_pytree(path: str, like):
+def restore_pytree(path: str, like, shardings=None):
     """Restore into the structure of ``like`` (whose leaf paths must be the
     checkpoint's); each leaf lands on the device of ``like``'s leaf (the
-    host for non-tensors).  Returns ``(tree, extra)``."""
+    host for non-tensors).  Returns ``(tree, extra)``.
+
+    ``shardings`` (mesh-elastic restore): ``(specs, mesh)``, a spec tree
+    mirroring ``like`` and a ``launch.mesh.Mesh``; each rank keeps its
+    ``models.sharding.local_shard`` of every whole leaf, whatever mesh
+    wrote it, and a block whose shape is not ``like``'s raises (an error
+    feedback buffer of another data-parallel size, as JAX's shapes
+    would)."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     flat = flatten_with_paths(like)
@@ -110,7 +119,18 @@ def restore_pytree(path: str, like):
             dev = ref.device if isinstance(ref, torch.Tensor) else "cpu"
             out.append(_from_host(data[f"leaf_{i}"],
                                   meta["dtypes"][f"leaf_{i}"], dev))
-    return unflatten(like, out), meta["extra"]
+    tree = unflatten(like, out)
+    if shardings is not None:
+        from ..models.sharding import local_shard, map_specs
+        specs, mesh = shardings
+        tree = map_specs(lambda x, s: local_shard(x, s, mesh), tree, specs)
+        for p, got, (_, ref) in zip(paths, leaves(tree), flat):
+            if isinstance(ref, torch.Tensor) and got.shape != ref.shape:
+                raise ValueError(
+                    f"checkpoint {path}: leaf {p} restores as "
+                    f"{tuple(got.shape)} on this rank of {mesh!r}; the "
+                    f"target expects {tuple(ref.shape)}")
+    return tree, meta["extra"]
 
 
 class CheckpointManager:
@@ -164,10 +184,10 @@ class CheckpointManager:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
 
-    def restore_latest(self, like):
+    def restore_latest(self, like, shardings=None):
         self.wait()
         step = self.latest_step()
         if step is None:
             return None, None, None
-        tree, extra = restore_pytree(self.path(step), like)
+        tree, extra = restore_pytree(self.path(step), like, shardings)
         return step, tree, extra

@@ -1,4 +1,4 @@
-"""Ranks and collectives for the sharded serving path.
+"""Ranks and collectives for the sharded serving and training paths.
 
 The JAX package runs one program over a device mesh and lets XLA's runtime
 place the collectives.  Here every rank is a process: ``spawn`` starts
@@ -18,12 +18,22 @@ The backend is always the caller's choice, never switched on failure:
 
 The collective helpers take a ``Group`` (one axis slice of a
 ``launch.mesh.Mesh``): ``all_reduce_sum`` (an f32 sum, or the rank-order
-sum in a narrow dtype), ``all_gather`` (concatenated along a dim),
-``all_to_all`` (leading-axis slabs) and ``broadcast``.  A group of one
-rank is the identity and needs no process group.  Data-movement
-collectives carry the bytes of their tensor (a ``uint8`` view), so a
-16-bit or fp8 tensor moves bit for bit whatever dtypes the backend knows;
-``all_gather_cat`` gathers several tensors of any shapes in one call.
+sum in a narrow dtype), ``all_reduce_max``, ``all_gather``
+(concatenated along a dim), ``all_to_all`` (leading-axis slabs) and
+``broadcast``.  A group of one rank is the identity and needs no process
+group.
+
+Training differentiates through them: ``all_reduce_sum`` backprops as
+the identity (what follows it is replicated), ``all_gather`` as this
+rank's block of the cotangent, ``all_to_all`` as the reverse exchange;
+``grad_sum`` is the identity forward whose backward sums the cotangent
+over the group, for a replicated value entering sharded compute.  A
+backward collective is counted in ``STATS`` as a forward one is.
+
+Data-movement collectives carry the bytes of their tensor (a ``uint8``
+view), so a 16-bit or fp8 tensor moves bit for bit whatever dtypes the
+backend knows; ``all_gather_cat`` gathers several tensors of any shapes
+in one call.
 
 The rank functions live in importable modules: under ``spawn`` a function
 defined in a ``__main__`` script or a test module cannot be pickled into
@@ -45,13 +55,27 @@ import torch.distributed as dist
 BACKENDS = ("nccl", "gloo")
 
 #: what the collectives cost, per process: staged bytes (device -> host ->
-#: device under gloo), collective calls and their wall time in ms
-STATS = {"staged_bytes": 0, "collectives": 0, "collective_ms": 0.0}
+#: device under gloo), collective calls and their wall time in ms, and
+#: the bytes the data-parallel gradient sync put on the wire, by format
+#: (``wire_bytes``: "fp32" for the plain sync, the compressed format's
+#: name otherwise; counted by the train step)
+STATS = {"staged_bytes": 0, "collectives": 0, "collective_ms": 0.0,
+         "wire_bytes": {}}
 
 
 def reset_stats() -> None:
-    for k in STATS:
-        STATS[k] = 0 if k != "collective_ms" else 0.0
+    STATS.update(staged_bytes=0, collectives=0, collective_ms=0.0,
+                 wire_bytes={})
+
+
+def snapshot() -> dict:
+    """A copy of ``STATS`` that later collectives leave as it is."""
+    return dict(STATS, wire_bytes=dict(STATS["wire_bytes"]))
+
+
+def count_wire(fmt: str, nbytes: int) -> None:
+    """Adds ``nbytes`` sent by this rank's gradient sync in ``fmt``."""
+    STATS["wire_bytes"][fmt] = STATS["wire_bytes"].get(fmt, 0) + nbytes
 
 
 @dataclass
@@ -109,16 +133,33 @@ def _rank_main(rank: int, fn: Callable, world: int, backend: str,
         gc.collect()
 
 
-def spawn(fn: Callable, nprocs: int, *, backend: str,
-          args: tuple = ()) -> List:
+def spawn(fn: Callable, nprocs: int, *, backend: str, args: tuple = (),
+          timeout: Optional[float] = None) -> List:
     """Run ``fn(rank, world, *args)`` on ``nprocs`` fresh processes joined
     by ``backend``; returns the ranks' return values in rank order.  A
-    rank that raises makes this raise (the others are terminated)."""
+    rank that raises makes this raise (the others are terminated).
+    ``timeout`` (seconds): ranks still running then are killed and
+    ``TimeoutError`` is raised (a rank waiting in a collective for one
+    that failed would otherwise wait for ever)."""
     import torch.multiprocessing as mp
     check_backend(backend, nprocs)
     with tempfile.TemporaryDirectory(prefix="spmd-") as root:
-        mp.spawn(_rank_main, args=(fn, nprocs, backend, root, tuple(args)),
-                 nprocs=nprocs, join=True)
+        ctx = mp.spawn(_rank_main,
+                       args=(fn, nprocs, backend, root, tuple(args)),
+                       nprocs=nprocs, join=False)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        try:
+            while not ctx.join(None if deadline is None else
+                               max(deadline - time.monotonic(), 0.0)):
+                if deadline is not None and time.monotonic() >= deadline:
+                    raise TimeoutError(
+                        f"spawn: {nprocs} ranks of {getattr(fn, '__name__', fn)}"
+                        f" still running after {timeout} s: killed")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
         out = []
         for r in range(nprocs):
             with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
@@ -165,15 +206,19 @@ def _bytes(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().reshape(-1).view(torch.uint8)
 
 
-@_timed
-def all_reduce_sum(x: torch.Tensor, group: Group,
-                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """The sum of ``x`` over the group, identical on every rank.  Default:
-    an f32 sum (returned in f32).  ``dtype`` narrower than f32 (the
-    ``narrow_partials`` reduce): the partials, cast to ``dtype``, are
-    gathered and added in rank order in ``dtype``, one rounding an add."""
+def _grad_path(x: torch.Tensor) -> bool:
+    """Whether a collective on ``x`` must carry a backward."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _sum(x: torch.Tensor, group: Group,
+         dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The sum, never reduced in ``x``'s own storage (the caller's tensor,
+    a saved input or an incoming cotangent stays as it was)."""
     if dtype is None or dtype == torch.float32:
         y = x.to(torch.float32).contiguous()
+        if group.size > 1 and y.data_ptr() == x.data_ptr():
+            y = y.clone()
         if group.size == 1:
             return y
         w = _to_wire(y, group)
@@ -184,6 +229,74 @@ def all_reduce_sum(x: torch.Tensor, group: Group,
     for p in parts[1:]:
         out = out + p
     return out
+
+
+class _Sum(torch.autograd.Function):
+    """The group sum; its backward is the identity: what follows the sum
+    is replicated, so each rank's cotangent is already the whole one."""
+
+    @staticmethod
+    def forward(ctx, x, group, dtype):
+        ctx.dtype = x.dtype
+        return _sum(x, group, dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None, None
+
+
+@_timed
+def all_reduce_sum(x: torch.Tensor, group: Group,
+                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The sum of ``x`` over the group, identical on every rank.  Default:
+    an f32 sum (returned in f32).  ``dtype`` narrower than f32 (the
+    ``narrow_partials`` reduce): the partials, cast to ``dtype``, are
+    gathered and added in rank order in ``dtype``, one rounding an add.
+    Backward: the identity."""
+    if _grad_path(x) and group.size > 1:
+        return _Sum.apply(x, group, dtype)
+    return _sum(x, group, dtype)
+
+
+@_timed
+def all_reduce_max(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The elementwise max of ``x`` over the group (exact, any order),
+    identical on every rank; no backward."""
+    if group.size == 1:
+        return x
+    y = x.detach().contiguous().clone()
+    w = _to_wire(y, group)
+    dist.all_reduce(w, op=dist.ReduceOp.MAX, group=group.pg)
+    return _from_wire(w, y)
+
+
+class _GradSum(torch.autograd.Function):
+    """Identity forward; backward sums the cotangent over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _grad_total(g, ctx.group), None
+
+
+@_timed
+def _grad_total(g: torch.Tensor, group: Group) -> torch.Tensor:
+    """``grad_sum``'s backward: the f32 sum of the ranks' cotangents."""
+    return _sum(g, group, None).to(g.dtype)
+
+
+def grad_sum(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+    """``x`` itself; its gradient is the sum of the ranks' gradients.  It
+    goes where a replicated value (hidden states, a replicated weight)
+    enters column-, head- or vocab-sharded compute: each rank's
+    cotangent then covers only its shard's share of the whole."""
+    if group is None or group.size == 1 or not _grad_path(x):
+        return x
+    return _GradSum.apply(x, group)
 
 
 def _gather(x: torch.Tensor, group: Group) -> List[torch.Tensor]:
@@ -197,11 +310,28 @@ def _gather(x: torch.Tensor, group: Group) -> List[torch.Tensor]:
     return [_from_wire(o, b).view(x.dtype).reshape(x.shape) for o in outs]
 
 
+class _Gather(torch.autograd.Function):
+    """Concatenation along ``dim``; backward: this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.index, ctx.n, ctx.dim = group.index, x.shape[dim], dim
+        return torch.cat(_gather(x.detach(), group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None
+
+
 @_timed
 def all_gather(x: torch.Tensor, group: Group, dim: int = -1) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in group order, bit for
-    bit."""
-    return x if group.size == 1 else torch.cat(_gather(x, group), dim=dim)
+    bit.  Backward: this rank's block of the cotangent."""
+    if group.size == 1:
+        return x
+    if _grad_path(x):
+        return _Gather.apply(x, group, dim)
+    return torch.cat(_gather(x, group), dim=dim)
 
 
 @_timed
@@ -209,7 +339,7 @@ def all_gather_cat(parts: Sequence[torch.Tensor],
                    group: Group) -> List[torch.Tensor]:
     """Each of ``parts`` (any shapes and dtypes, on one device) with the
     ranks' blocks concatenated along its LAST dim in group order, bit for
-    bit, in one collective over their bytes."""
+    bit, in one collective over their bytes (no backward)."""
     if group.size == 1:
         return list(parts)
     flat = torch.cat([_bytes(p) for p in parts])
@@ -226,6 +356,28 @@ def all_gather_cat(parts: Sequence[torch.Tensor],
     return out
 
 
+def _exchange(x: torch.Tensor, group: Group) -> torch.Tensor:
+    b = _bytes(x)
+    w = _to_wire(b, group)
+    out = torch.empty_like(w)
+    dist.all_to_all_single(out, w, group=group.pg)
+    return _from_wire(out, b).view(x.dtype).reshape(x.shape)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The slab exchange; backward: the reverse exchange (slab ``i`` of
+    the cotangent goes back to rank ``i``), itself an ``all_to_all``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x.detach(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g.contiguous(), ctx.group), None
+
+
 @_timed
 def all_to_all(x: torch.Tensor, group: Group) -> torch.Tensor:
     """``x`` [M, ...] with M the group size: slab ``j`` goes to rank ``j``;
@@ -235,11 +387,9 @@ def all_to_all(x: torch.Tensor, group: Group) -> torch.Tensor:
                          f"the group size {group.size}")
     if group.size == 1:
         return x
-    b = _bytes(x)
-    w = _to_wire(b, group)
-    out = torch.empty_like(w)
-    dist.all_to_all_single(out, w, group=group.pg)
-    return _from_wire(out, b).view(x.dtype).reshape(x.shape)
+    if _grad_path(x):
+        return _AllToAll.apply(x, group)
+    return _exchange(x, group)
 
 
 @_timed

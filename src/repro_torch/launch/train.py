@@ -5,8 +5,17 @@ Runs on the GPU unless ``--device cpu`` is given (without a card it then
 raises, never falls back).  ``--reduced`` (the default) trains the arch's
 two-layer cut, ``--full`` the published widths.  Training attention is the
 dense path (the attention kernels have no backward).  ``--mesh
-pod1|pod2`` is not ported (ROADMAP Queue 1 item 8b); ``--compress-grads``
-only acts under a mesh, as in JAX, and is ignored here.  As the JAX
+pod1|pod2`` builds JAX's production mesh (``launch.mesh.
+make_production_mesh``: ``(data=16, model=16)``, or ``(pod=2, data=16,
+model=16)``) over one rank a device, spawned on ``--dist-backend`` (the
+serving launcher's flag and default), each rank running ``TrainLoop(mesh=)``
+and rank 0 printing; where the ranks cannot be had (one device for
+``--device cpu``, the visible cards otherwise) it raises JAX's
+``_mk_mesh`` message ("mesh (16, 16) needs 256 devices, have N").
+``--compress-grads`` acts under a mesh only, as in JAX.  There is no
+``DP,TP`` flag, as JAX's training launcher has none: small meshes are
+driven through ``TrainLoop(mesh=)`` in spawned ranks
+(``train.mesh_checks``).  As the JAX
 launcher's, the data carry no frontend: ``--arch internvl2-26b`` trains
 on text alone, and ``--arch whisper-small`` raises in ``encode`` at the
 first step (no frame embeddings), where JAX's fails on ``None``.
@@ -16,6 +25,12 @@ recurrent mixers' chunked forms (no cache).
 from __future__ import annotations
 
 import argparse
+import math
+
+from . import spmd
+
+#: the production meshes' shapes (JAX's ``make_production_mesh``)
+MESH_SHAPES = {"pod1": (16, 16), "pod2": (2, 16, 16)}
 
 
 def main(argv=None):
@@ -38,13 +53,36 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run on the "
                          "CPU)")
+    ap.add_argument("--dist-backend", choices=spmd.BACKENDS, default="nccl",
+                    help="torch.distributed backend of --mesh: nccl (one "
+                         "rank a card) or gloo")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: training under a mesh is not ported "
-            f"(ROADMAP Queue 1 item 8b; serving shards)")
+    if args.mesh == "none":
+        return _train(args)
+    shape = MESH_SHAPES[args.mesh]
+    n = math.prod(shape)
+    if args.device == "cpu":
+        have = 1
+    else:
+        import torch
+        have = torch.cuda.device_count()
+    if have < n:
+        raise ValueError(f"mesh {shape} needs {n} devices, have {have}")
+    return spmd.spawn(_mesh_rank, n, backend=args.dist_backend,
+                      args=(args,))[0]
 
+
+def _mesh_rank(rank: int, world: int, args):
+    """One rank of ``--mesh``: its card, the production mesh, the loop."""
+    from .mesh import make_production_mesh
+    if args.device != "cpu":
+        args.device = f"cuda:{rank}"
+    mesh = make_production_mesh(multi_pod=args.mesh == "pod2")
+    return _train(args, mesh)
+
+
+def _train(args, mesh=None):
     from ..data.pipeline import DataConfig
     from ..models.registry import build_model
     from ..optim.optimizer import OptConfig
@@ -60,9 +98,11 @@ def main(argv=None):
                     log_every=max(args.steps // 20, 1),
                     ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
                     compress_grads=args.compress_grads)
-    loop = TrainLoop(model, opt, data, lc)
+    loop = TrainLoop(model, opt, data, lc, mesh=mesh)
     log = loop.run()
-    print(f"done: {len(log)} steps, final loss {log[-1]['loss']:.4f}")
+    if loop.lead:
+        print(f"done: {len(log)} steps, final loss {log[-1]['loss']:.4f}")
+    return log
 
 
 if __name__ == "__main__":

@@ -46,6 +46,7 @@ from ..core import ops as tp
 from ..core.formats import get_format
 from ..kernels import ops as kops
 from ..kernels.quant_common import quantize_flag_masks_grid
+from ..launch import spmd
 from .layers import (apply_rope, dense_init, rmsnorm, row_parallel, softcap,
                      whole_cols)
 from .paged import (PagedKVCache, gather_paged_kv, paged_update_rows,
@@ -395,17 +396,26 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
     src = x if kv_states is None else kv_states
     t = src.shape[1]
     shards = _head_shard_size(mesh, n_heads, n_kv_heads)
+    q_norm, k_norm = params.get("q_norm"), params.get("k_norm")
     if shards is not None:
         n_heads, n_kv_heads = _local_heads(params, n_heads, n_kv_heads,
                                            head_dim, shards)
+        # training: the replicated inputs of this rank's heads take the
+        # sum of the ranks' gradients
+        grp = mesh.group("model")
+        x = spmd.grad_sum(x, grp)
+        src = x if kv_states is None else spmd.grad_sum(kv_states, grp)
+        if qk_norm:
+            q_norm, k_norm = (spmd.grad_sum(q_norm, grp),
+                              spmd.grad_sum(k_norm, grp))
     q = tp.tp_matmul(x, params["wq"], policy).reshape(b, s, n_heads, head_dim)
     k = tp.tp_matmul(src, params["wk"], policy).reshape(b, t, n_kv_heads,
                                                         head_dim)
     v = tp.tp_matmul(src, params["wv"], policy).reshape(b, t, n_kv_heads,
                                                         head_dim)
     if qk_norm:
-        q = rmsnorm(q, params["q_norm"], norm_eps)
-        k = rmsnorm(k, params["k_norm"], norm_eps)
+        q = rmsnorm(q, q_norm, norm_eps)
+        k = rmsnorm(k, k_norm, norm_eps)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if use_rope:
         q = apply_rope(q, positions, rope_theta)

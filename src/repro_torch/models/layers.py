@@ -10,7 +10,11 @@ products across the group before the policy's one output snap — what
 GSPMD makes of the JAX package's ``col`` / ``row`` rules.  ``whole_cols``
 and ``row_project`` do the same for a mixer whose ``col`` outputs must be
 whole before it runs (MLA's latents, the recurrent mixers' projections):
-gather the column blocks, run whole, project out row-parallel."""
+gather the column blocks, run whole, project out row-parallel.
+
+Training under a model axis: the sums backprop as the identity, and the
+replicated input of the column-parallel ``gate`` / ``up`` passes through
+``spmd.grad_sum`` (its gradient is the sum of the ranks')."""
 from __future__ import annotations
 
 from typing import Optional
@@ -166,6 +170,7 @@ def swiglu(x, w_gate, w_up, w_down, policy, group=None):
     """SwiGLU MLP: matmuls under the multi-format FMA policy, the
     activation under the elementwise policy.  ``group``: the weights are
     this rank's blocks, ``down`` row-parallel over it."""
+    x = spmd.grad_sum(x, group)
     g = tp.tp_matmul(x, w_gate, policy)
     u = tp.tp_matmul(x, w_up, policy)
     h = tp.tp_elementwise("silu", g, policy=policy) * u
@@ -178,7 +183,7 @@ def gelu_mlp(x, w_up, b_up, w_down, b_down, policy, group=None):
     the elementwise policy, as the JAX package's ``gelu_mlp``.  ``group``:
     ``up`` / ``b_up`` are this rank's column blocks, ``down`` its row
     block, and ``b_down`` is added once, after the reduce."""
-    h = tp.tp_matmul(x, w_up, policy) + b_up
+    h = tp.tp_matmul(spmd.grad_sum(x, group), w_up, policy) + b_up
     h = tp.tp_elementwise("gelu", h, policy=policy)
     return _down(h, w_down, policy, group) + b_down
 

@@ -228,29 +228,94 @@ def local_shard(t, spec: tuple, mesh):
     return out.clone() if out is not t else t
 
 
-def shard_params(params, mesh, cfg=None, overrides: Optional[dict] = None):
-    """This rank's shards of the full ``params`` under ``param_specs`` at
-    the mesh's model size.  With ``cfg``, the attention projections by
-    heads (``ATTN_LEAVES``: GQA's and MLA's) replicate where the heads
-    cannot be split whole (the head-sharded path then runs unsharded, as
-    the JAX package's does; MLA's latent down projections stay ``col``).
-    A mesh without a model axis > 1 returns ``params`` as they are."""
+def shard_specs(params, mesh, cfg=None, overrides: Optional[dict] = None):
+    """The specs ``shard_params`` cuts the full ``params`` by: ``param_specs``
+    at the mesh's model size, with, given ``cfg``, the attention
+    projections by heads (``ATTN_LEAVES``: GQA's and MLA's) replicated
+    where the heads cannot be split whole (the head-sharded path then runs
+    unsharded, as the JAX package's does; MLA's latent down projections
+    stay ``col``).  Every spec is ``()`` without a model axis > 1."""
     tp = model_size(mesh)
     if tp == 1:
-        return params
+        return map_specs(lambda p, s: (), params, params)
     rules = dict(overrides or {})
     if cfg is not None and _head_shard_size(mesh, cfg.n_heads,
                                             cfg.n_kv_heads) is None:
         rules.update({n: "rep" for n in ATTN_LEAVES})
-    specs = param_specs(params, model_size=tp, overrides=rules)
+    return param_specs(params, model_size=tp, overrides=rules)
 
-    def cut(p, s):
-        if isinstance(p, dict):
-            return {k: cut(p[k], s[k]) for k in p}
-        if isinstance(p, (list, tuple)):
-            return type(p)(cut(a, b) for a, b in zip(p, s))
-        if p is None:
-            return None
-        return local_shard(p, s, mesh)
 
-    return cut(params, specs)
+def shard_params(params, mesh, cfg=None, overrides: Optional[dict] = None):
+    """This rank's shards of the full ``params`` under ``shard_specs``.  A
+    mesh without a model axis > 1 returns ``params`` as they are."""
+    if model_size(mesh) == 1:
+        return params
+    return map_specs(lambda p, s: local_shard(p, s, mesh), params,
+                     shard_specs(params, mesh, cfg, overrides))
+
+
+# ---------------------------------------------------------------------------
+# spec trees: a spec (a tuple) is a leaf, dicts and lists are nodes
+# ---------------------------------------------------------------------------
+def map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over ``tree``'s leaves (dicts, lists, tuples of
+    tensors), ``spec`` the entry of ``specs`` at the same place."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_specs(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def spec_leaves(specs) -> list:
+    """The specs of a spec tree in JAX's flatten order (sorted dict keys;
+    the order of ``core.tree.leaves`` on the tree they describe)."""
+    if specs is None:
+        return []
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [x for v in specs for x in spec_leaves(v)]
+    return [tuple(specs)]
+
+
+def split_axes(spec: tuple, ndim: int, mesh) -> list:
+    """Per dim of an ``ndim`` leaf, the axes (of size > 1) that ``spec``
+    splits it over, outer first."""
+    out = []
+    for d in range(ndim):
+        e = spec[d] if d < len(spec) else None
+        names = () if e is None else (e if isinstance(e, tuple) else (e,))
+        out.append(tuple(a for a in names if mesh.shape.get(a, 1) > 1))
+    return out
+
+
+def gather_whole(t, spec: tuple, mesh):
+    """The whole tensor from every rank's ``local_shard`` under ``spec``:
+    one ``all_gather`` per axis that splits a dim (differentiable)."""
+    return relayout(t, spec, (), mesh)
+
+
+def relayout(t, have: tuple, want: tuple, mesh):
+    """``t``, this rank's block under spec ``have``, as its block under
+    ``want``: a dim split in ``have`` but not the same in ``want`` is
+    gathered whole (inner axis first), then cut by ``want``'s axes."""
+    from ..launch import spmd
+    hs = split_axes(have, t.dim(), mesh)
+    ws = split_axes(want, t.dim(), mesh)
+    out = t
+    for d, (h, w) in enumerate(zip(hs, ws)):
+        if h == w:
+            continue
+        for a in reversed(h):
+            out = spmd.all_gather(out, mesh.group(a), dim=d)
+        if w:
+            n = math.prod(mesh.shape[a] for a in w)
+            idx = 0
+            for a in w:
+                idx = idx * mesh.shape[a] + mesh.coords[a]
+            step = out.shape[d] // n
+            out = out.narrow(d, idx * step, step)
+    return out

@@ -596,10 +596,13 @@ class Model:
         out_fmt = "fp16alt" if cfg.ce_dtype == "fp16alt" else "fp32"
         w = (params["embed"].t() if cfg.tie_embeddings
              else params["lm_head"])
-        lg = tp.tp_matmul(x, w, self.policy, out_fmt=out_fmt)
         vpad = padded_vocab(cfg.vocab)
         grp = tp_group(mesh)
-        if grp is not None and w.shape[-1] != vpad:
+        sharded = grp is not None and w.shape[-1] != vpad
+        if sharded:
+            x = spmd.grad_sum(x, grp)
+        lg = tp.tp_matmul(x, w, self.policy, out_fmt=out_fmt)
+        if sharded:
             lg = spmd.all_gather(lg, grp, dim=-1)
         lg = softcap(lg, cfg.logit_softcap)
         if vpad != cfg.vocab:
@@ -746,7 +749,7 @@ class Model:
 
     # -- training ----------------------------------------------------------
     def forward_train(self, params, tokens, labels, *, frontend_embeds=None,
-                      remat: bool = True, aux_coef: float = 0.01,
+                      mesh=None, remat: bool = True, aux_coef: float = 0.01,
                       loss_chunk: int = 1024):
         """[B, S] tokens and labels -> the scalar LM loss (mean NLL over
         labels >= 0, f32 statistics) + ``aux_coef`` x the MoE
@@ -762,7 +765,16 @@ class Model:
         as JAX's training does: the hand-written kernels have no backward,
         so any other ``prefill_backend`` raises.  ``frontend_embeds``: the
         patch embeddings (internvl2) or the encoder's frame embeddings
-        (whisper)."""
+        (whisper).
+
+        ``mesh``: tensor parallel over its model axis, as the serving
+        entry points (``params`` this rank's shards): the embedding, the
+        layers and the logits run sharded, the logits are gathered whole,
+        so every rank computes the same loss; the sums backprop as the
+        identity and ``spmd.grad_sum`` sums the gradients of the
+        replicated values entering sharded compute.  Every rank of the
+        model group must run the same call (remat recomputes the forward
+        collectives in the backward, in one order on every rank)."""
         cfg = self.cfg
         if cfg.prefill_backend != "dense":
             raise ValueError(
@@ -776,7 +788,7 @@ class Model:
         labels = torch.as_tensor(labels, device=self.device)
         enc = (self.encode(params, frontend_embeds)
                if cfg.encoder is not None else None)
-        x = self.embed(params, tokens, frontend_embeds)
+        x = self.embed(params, tokens, frontend_embeds, mesh=mesh)
         positions = torch.arange(tokens.shape[1], device=self.device)
         layers, specs = params["layers"], cfg.layer_list()
         shared = params.get("shared")
@@ -787,7 +799,8 @@ class Model:
                 h, _, a = self.apply_layer(h, layers[i], specs[i],
                                            positions=positions,
                                            enc_states=enc_states,
-                                           with_aux=True, shared=shared)
+                                           with_aux=True, shared=shared,
+                                           mesh=mesh)
                 acc = acc + a
             return h, acc
 
@@ -802,20 +815,23 @@ class Model:
                 x, aux = wrap(run, x, aux, enc, lo, lo + n_pat)
         x, aux = run(x, aux, enc, len(specs) - len(cfg.suffix), len(specs))
         x = self._final(params, x)
-        loss = self.chunked_ce(params, x, labels, chunk=loss_chunk)
+        loss = self.chunked_ce(params, x, labels, chunk=loss_chunk,
+                               mesh=mesh)
         return loss + aux_coef * aux
 
-    def chunked_ce(self, params, x, labels, *, chunk: int = 1024):
+    def chunked_ce(self, params, x, labels, *, chunk: int = 1024,
+                   mesh=None):
         """Cross-entropy over [B, S] positions a chunk of ``chunk`` at a
         time, so [B, S, V] logits never exist whole: f32 logits,
         log-sum-exp and gold logit, labels < 0 masked, the sum over the
-        count of live labels."""
+        count of live labels.  Under a sharding ``mesh`` on the logits
+        gathered whole (``logits``)."""
         s = x.shape[1]
         chunk = min(chunk, s)
         tot = torch.zeros((), dtype=F32, device=x.device)
         cnt = torch.zeros((), dtype=torch.int64, device=x.device)
         for c0 in range(0, s, chunk):
-            lg = self.logits(params, x[:, c0:c0 + chunk]).to(F32)
+            lg = self.logits(params, x[:, c0:c0 + chunk], mesh).to(F32)
             li = labels[:, c0:c0 + chunk]
             mask = li >= 0
             gold = torch.gather(lg, -1, li.clamp(min=0).to(torch.int64)[

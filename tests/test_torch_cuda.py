@@ -1204,6 +1204,51 @@ def test_train_step_on_the_card_matches_the_cpu(gen, policy, loss_tol,
         assert a.device.type == "cuda" and torch.isfinite(a).all()
 
 
+def test_dp2_train_step_on_the_card_matches_the_cpu(gen):
+    """One data-parallel step on a (2, 1) mesh of two gloo ranks on the
+    card (``train.mesh_checks.step``: the plain f32 sync of the global
+    token mean) against the unsharded step on the CPU, under ``fp32``
+    (TF32 off): the loss within 1e-5 relative, the gradient norm and every
+    leaf's gradient and master within 1e-4 relative L2; the ranks'
+    params bitwise each other."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import spmd
+    from repro_torch.models.convert import stack_layers
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+    from repro_torch.train import mesh_checks as mc
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+    opt = dict(lr=1e-3, warmup_steps=0, total_steps=10)
+    m = build_model("fpnew-case-study", policy="fp32", reduced=True,
+                    device="cpu", prefill_backend="dense")
+    whole = stack_layers(m.init(0), m.cfg)
+    state = {"params": whole,
+             "opt": init_opt_state(whole, OptConfig(**opt), m.policy)}
+    g = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, 256, (4, 32), generator=g, dtype=torch.int32)
+    labels = torch.randint(0, 256, (4, 32), generator=g, dtype=torch.int32)
+    labels[2, :20] = -1                       # the ranks' counts differ
+    batch = {"tokens": toks, "labels": labels}
+    ranks = spmd.spawn(mc.rank_main, 2, backend="gloo", args=(
+        [("dp", "step", dict(dims=(2, 1), state=state, batch=batch,
+                             policy="fp32", opt=opt, device="cuda"))],),
+        timeout=600)
+    _, grads = loss_and_grads(m, whole, batch)
+    _, s2, met = make_train_step(m, OptConfig(**opt))(whole, state["opt"],
+                                                      batch)
+    for r in (x["dp"] for x in ranks):
+        assert abs(r["loss"] - met["loss"].item()) <= \
+            1e-5 * abs(met["loss"].item())
+        assert abs(r["grad_norm"] - met["grad_norm"].item()) <= \
+            1e-4 * met["grad_norm"].item()
+        for a, b in zip(r["grads"], grads):
+            assert _rel(a, b) < 1e-4
+        for a, b in zip(r["master"], leaves(s2["master"])):
+            assert _rel(a, b) < 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(ranks[0]["dp"]["params"],
+                                                 ranks[1]["dp"]["params"]))
+
+
 def test_wide_mm_backward_on_the_card(gen):
     """The bf16-operand, f32-output product's backward: both gradients
     within one bf16 rounding of the f64 products of the bf16-rounded
@@ -1465,7 +1510,8 @@ def test_sharded_gloo_ranks_on_the_card(gen):
                                           "policy": "fp32"})]
     cpu = sc.run_plan([("logits", "logits", None, plan[1][3])])
     card = sc.run_plan([("reads", "reads", None, dims)], device="cuda")
-    ranks = spmd.spawn(sc.rank_main, 2, backend="gloo", args=(plan, "cuda"))
+    ranks = spmd.spawn(sc.rank_main, 2, backend="gloo", args=(plan, "cuda"),
+                       timeout=600)
     for out in ranks:
         r = out["rank"]
         for k in ("decode", "flash"):
@@ -1502,7 +1548,8 @@ def test_tp_archs_gloo_ranks_on_the_card(gen, arch):
     kw = {"arch": arch, "params": params, "tokens": toks, "gen_len": 4}
     cpu = sc.run_plan([("a", "logits", None, kw)])["a"]
     ranks = spmd.spawn(sc.rank_main, 2, backend="gloo",
-                       args=([("a", "logits", (1, 2), kw)], "cuda"))
+                       args=([("a", "logits", (1, 2), kw)], "cuda"),
+                       timeout=600)
     for out in ranks:
         got = out["a"]
         assert (got["logits"] - cpu["logits"]).abs().max().item() <= 2e-4

@@ -76,7 +76,7 @@ def _sharded(params, tmp_path_factory, dims):
              dict(kw, params=params, journal=str(d / f"{n}.jsonl")))
             for n, kw in CASES.items()]
     return spmd.spawn(sc.rank_main, dims[0] * dims[1], backend="gloo",
-                      args=(plan,))
+                      args=(plan,), timeout=300)
 
 
 @pytest.fixture(scope="module")

@@ -42,6 +42,8 @@ from repro_torch.models.convert import from_jax_params  # noqa: E402
 
 torch.set_num_threads(1)
 
+#: seconds before a hung rank's spawn is killed (the spawns take ~35 s)
+SPAWN_S = 300
 RTOL, ATOL = 5e-2, 1e-1          # tests/test_torch_model.py's bf16 bounds
 NARROW = PRESETS["tp_bf16"].replace(narrow_partials=True)
 
@@ -93,14 +95,14 @@ def _unsharded(plan):
 def world2(inputs):
     plan = _plan(inputs, 2)
     return _unsharded(plan), spmd.spawn(sc.rank_main, 2, backend="gloo",
-                                        args=(plan,))
+                                        args=(plan,), timeout=SPAWN_S)
 
 
 @pytest.fixture(scope="module")
 def world4(inputs):
     plan = _plan(inputs, 4)
     return _unsharded(plan), spmd.spawn(sc.rank_main, 4, backend="gloo",
-                                        args=(plan,))
+                                        args=(plan,), timeout=SPAWN_S)
 
 
 def _world(request, n):

@@ -96,7 +96,7 @@ def _run(world):
     plan = _plan(world)
     ref = sc.run_plan([(n, c, None, kw) for n, c, _, kw in plan])
     return ref, spmd.spawn(sc.rank_main, world, backend="gloo",
-                           args=(plan,))
+                           args=(plan,), timeout=300)
 
 
 @pytest.fixture(scope="module")

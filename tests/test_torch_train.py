@@ -338,14 +338,28 @@ def test_stochastic_requant_lands_on_the_grid_unbiased_and_seeded():
 
 
 def test_unported_sharding_pieces_raise():
-    m = _tmodel("tp_bf16")
-    cfg = topt.OptConfig()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        topt.opt_state_specs({}, {})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tstep.make_train_step(m, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tlaunch.main(["--device", "cpu", "--mesh", "pod1"])
+    """Training under a mesh is ported (``tests/test_torch_train_mesh.py``):
+    ``--mesh pod1`` without 256 ranks raises JAX's ``_mk_mesh`` message,
+    and the archs of ROADMAP Queue 1 item 8b.3 refuse a training mesh."""
+    import numpy as np_
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import Mesh
+    for flag, n in (("pod1", 256), ("pod2", 512)):
+        with pytest.raises(ValueError, match=f"needs {n} devices, have 1"):
+            tlaunch.main(["--device", "cpu", "--mesh", flag])
+    specs = topt.opt_state_specs({"w": (None, "model")},
+                                 {"step": 0, "master": {"w": torch.empty(
+                                     (4, 8), device="meta")}})
+    assert specs == {"step": (), "master": {"w": ("data", "model")}}
+    devices = np_.arange(2).reshape(1, 2)
+    mesh = Mesh(("data", "model"), devices, 0,
+                {"data": spmd.Group([0], 0, None),
+                 "model": spmd.Group([0, 1], 0, None)},
+                spmd.Group([0, 1], 0, None))
+    for arch in ("minicpm3-4b", "qwen3-moe-30b-a3b"):
+        with pytest.raises(NotImplementedError, match="item 8b.3"):
+            tstep.make_train_step(_tmodel("tp_bf16", arch=arch),
+                                  topt.OptConfig(), mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
