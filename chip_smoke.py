@@ -317,6 +317,18 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    params bitwise (e)'s at step 3, (i) (e)'s step-5 checkpoint restored
    under (1, 2) and under no mesh, bitwise, 3 more steps each tracking
    the unsharded run.  No hand-written kernel launches on any rank.
+   The other archs under a training mesh (``train_mesh_archs_phase``,
+   two gloo ranks spawned once, in a second thread: (l)–(o) beside the
+   fpnew mesh phase, (j)–(k) once it has ended; full widths cut in
+   depth, ``tp_bf16``, seq 256, global batch 4, one step a leg and
+   mesh): (j) qwen3-moe 1 layer at (1, 2), expert parallel;
+   (k) deepseek-v2-lite 2 layers at (2, 1) (the MoE aux over the global
+   batch) and (1, 2); (l) minicpm3 4 layers, (m) zamba2 5 Mamba2 layers
+   and the shared block, (n) xlstm one pattern and (o) whisper-small 12
+   + 12 at (1, 2), xlstm under ``fp32``.  The step against rank 0's
+   unsharded step (routes pinned): loss, every leaf's gradient and
+   update over the whole leaf, the MoE aux; ms a step, collectives,
+   staged and wire bytes and state bytes a rank.
 19. The kernels line (all six kernels; flash attention, tp_matmul and decode
    attention with their launches by variant, the FMA variant's time,
    decode's launches by cluster size, flash's by head dims, the flags-on
@@ -5401,6 +5413,194 @@ def train_mesh_phase(seed: int = 0) -> dict:
     return res
 
 
+#: the other archs under a training mesh, each at full width cut in depth
+#: to fit two gloo ranks and rank 0's unsharded reference (its AdamW
+#: state at ~20 B a parameter) on the one card: (tag, arch, config
+#: overrides, meshes, options: ``lively`` norms, the recurrent stacks'
+#: ``sensitivity`` (their gradient and update at half the mixers' chunk,
+#: another order of the same sums), whose ``SENSITIVITY_X`` multiple
+#: widens their gradient and update gates where it exceeds them, and a
+#: ``policy`` of the leg's own: xlstm's bf16 gradient is noise at this
+#: depth, its own move at half the chunk 1.7 on a leaf and 0.87 on the
+#: whole update, so its leg runs and is gated under ``fp32``)
+TRAIN_MESH_ARCH_LEGS = (
+    ("j", "qwen3-moe-30b-a3b", dict(n_layers=1), ((1, 2),), {}),
+    ("k", "deepseek-v2-lite-16b", dict(n_layers=2), ((2, 1), (1, 2)), {}),
+    ("l", "minicpm3-4b", dict(n_layers=4), ((1, 2),), {}),
+    ("m", "zamba2-1.2b", dict(n_layers=6, suffix=()), ((1, 2),),
+     dict(sensitivity=True)),
+    ("n", "xlstm-1.3b", dict(n_layers=8), ((1, 2),), dict(policy="fp32")),
+    ("o", "whisper-small", {}, ((1, 2),), dict(lively=True)))
+#: the legs small enough (rank 0's reference at most 26 GB) run beside
+#: the fpnew mesh phase and the unsharded train phase from the start; the
+#: MoE legs (41.8–48.8 GB), these, wait for the fpnew mesh phase to end
+TRAIN_MESH_ARCH_LATE = ("j", "k")
+#: the global batch of each leg's one step (gated against the unsharded
+#: step and timed: a second, timed step cost the smoke ~16 s)
+TRAIN_MESH_ARCH_BATCH = 4
+#: the MoE aux statistic against the unsharded step's, by mesh
+#: (``train.train_step``'s table)
+TRAIN_MESH_AUX_TOL = 1e-5
+#: free memory each group of legs needs at its start: rank 0's unsharded
+#: reference of its largest leg (qwen3-moe, 1.24B parameters: bf16
+#: weights and gradients, AdamW's f32 state twice over during the update,
+#: 48.8 GiB at its peak; whisper's 25.9 among the early legs)
+TRAIN_MESH_ARCHS_NEED_GIB = {"early": 28.0, "late": 50.0}
+#: the file whose existence starts the late legs
+TRAIN_MESH_ARCHS_GO = "late_legs_go"
+
+
+def train_mesh_archs_gates(legs, ranks) -> tuple:
+    """``(per-leg results, failed gates)`` of ``train_mesh_archs_phase``'s
+    ranks (``card_arch_rank``'s returns), each leg's result logged."""
+    out_legs, bad = {}, []
+    for leg in legs:
+        tag, r0 = leg["tag"], ranks[0][leg["tag"]]
+        u = r0["unsharded"]
+        out = dict(arch=leg["arch"], layers=r0["layers"],
+                   policy=r0["policy"],
+                   n_params=r0["n_params"], unsharded_loss=u["loss"],
+                   unsharded_aux=u["aux"], unsharded_ms_per_step=u["ms"],
+                   routes_pinned=r0["routes_recorded"],
+                   unsharded_s=u["seconds"], unsharded_parts_s=u["parts_s"],
+                   ready_s=[r[tag]["ready_s"] for r in ranks],
+                   wall_s=[r[tag]["wall_s"] for r in ranks],
+                   peak_gib=[r[tag]["peak_gib"] for r in ranks])
+        n_leaves = len(r0[f"{leg['dims'][0][0]}x{leg['dims'][0][1]}"][
+            "grad_rel"])
+        # each leaf's bounds: the gates', or SENSITIVITY_X times a
+        # recurrent stack's own move at half its chunk where that is larger
+        g_bound = [max(TRAIN_MESH_GRAD_REL, SENSITIVITY_X * x)
+                   for x in u.get("grad_sens", [0.0] * n_leaves)]
+        u_bound = [max(TRAIN_MESH_UPDATE_LEAF_REL, SENSITIVITY_X * x)
+                   for x in u.get("update_sens", [0.0] * n_leaves)]
+        uw_bound = max(TRAIN_MESH_UPDATE_REL,
+                       SENSITIVITY_X * u.get("update_sens_whole", 0.0))
+        if "grad_sens" in u:
+            out.update(grad_sens_max=max(u["grad_sens"]),
+                       update_sens_max=max(u["update_sens"]),
+                       update_sens_whole=u["update_sens_whole"],
+                       update_rel_bound=uw_bound)
+        for dims in leg["dims"]:
+            key = f"{dims[0]}x{dims[1]}"
+            g = r0[key]
+            per = [r[tag][key] for r in ranks]
+            live = [(x, b) for x, b in zip(g["update_leaf_rel"], u_bound)
+                    if x is not None]
+            d = dict(
+                loss_gap=abs(g["loss"] - u["loss"]),
+                grad_rel_max=max(g["grad_rel"]),
+                grad_rel_of_bound_max=max(
+                    x / b for x, b in zip(g["grad_rel"], g_bound)),
+                update_rel=g["update_rel"],
+                update_leaf_rel_max=max(x for x, _ in live),
+                update_leaf_rel_of_bound_max=max(x / b for x, b in live),
+                aux=g["aux"], aux_gap=abs(g["aux"] - u["aux"]),
+                loss=g["loss"],
+                ms_per_step=[p["ms"] for p in per],
+                setup_s=[p["setup_s"] for p in per],
+                compare_s=[p["compare_s"] for p in per],
+                collectives_per_step=[p["spmd"]["collectives"] for p in per],
+                staged_bytes_per_step=[p["spmd"]["staged_bytes"]
+                                       for p in per],
+                wire_bytes_per_step=[p["spmd"]["wire_bytes"] for p in per],
+                state_bytes_rank=[p["state_bytes"] for p in per],
+                param_bytes_rank=[p["param_bytes"] for p in per])
+            out[key] = d
+            ok = (d["loss_gap"] <= TRAIN_MESH_LOSS_TOL
+                  and d["grad_rel_of_bound_max"] <= 1.0
+                  and d["update_rel"] <= uw_bound
+                  and d["update_leaf_rel_of_bound_max"] <= 1.0
+                  and math.isfinite(d["loss"])
+                  and all(p["loss"] == g["loss"] for p in per))
+            if r0["routes_recorded"]:
+                ok = ok and d["aux_gap"] <= TRAIN_MESH_AUX_TOL
+            if not ok:
+                bad.append(f"({tag}) {leg['arch']} {key}: {d}")
+        out_legs[tag] = out
+        log(json.dumps({f"train_mesh_{tag}": out}))
+    return out_legs, bad
+
+
+def train_mesh_archs_phase(go_dir: str, seed: int = 0) -> dict:
+    """Training under a mesh for the archs beyond the dense ones, two gloo
+    ranks on the one card (``train.mesh_checks.card_arch_rank``, one
+    spawn for every leg), ``tp_bf16``, seq 256, global batch 4, AdamW as
+    ``train_mesh_phase``, seed-0 weights (whisper's layernorms lively):
+
+    (j) qwen3-moe-30b-a3b, 1 layer, at (1, 2): expert parallel, 64 of its
+        128 experts a rank, qk-norm heads sharded;
+    (k) deepseek-v2-lite-16b, its dense layer 0 and one MoE layer, at
+        (2, 1) (the aux over the global batch) and at (1, 2) (MLA's 16
+        heads sharded, expert parallel, shared experts tensor parallel);
+    (l) minicpm3-4b, 4 of 62 layers, at (1, 2) (q-LoRA MLA, 40 heads);
+    (m) zamba2-1.2b, 5 Mamba2 layers and the shared attention block, at
+        (1, 2);
+    (n) xlstm-1.3b, one pattern (7 mLSTM, 1 sLSTM), at (1, 2), under
+        ``fp32`` (under ``tp_bf16`` its gradient moves by O(1) between
+        two chunk sizes of the unsharded step: noise to gate on);
+    (o) whisper-small, 12 + 12 layers, seeded frame embeddings [4, 1500,
+        768], at (1, 2) (the encoder sharded too).
+
+    (l)–(o) run first; (j) and (k) start once ``go_dir`` holds
+    ``TRAIN_MESH_ARCHS_GO`` (``main`` writes it when the fpnew mesh phase
+    has ended) and the card has ``TRAIN_MESH_ARCHS_NEED_GIB["late"]``
+    free.  One step a leg and mesh, gated (rank 0 against its unsharded
+    step on the whole batch, the MoE routes of that step pinned in the
+    sharded one: ``RouteTape``): the loss within ``TRAIN_MESH_LOSS_TOL``,
+    every leaf's gradient over the whole leaf (its blocks' sums, each
+    rank sent its block of the reference) within
+    ``TRAIN_MESH_GRAD_REL``, the update within ``TRAIN_MESH_UPDATE_REL``
+    whole and ``TRAIN_MESH_UPDATE_LEAF_REL`` a leaf (for the recurrent
+    stacks, (m) and (n), each bound or ``SENSITIVITY_X`` times the
+    stack's own move when its mixers run at half their chunk, whichever
+    is larger, as the serving phases gate them), the MoE aux within
+    ``TRAIN_MESH_AUX_TOL``; the loss finite and the same on both ranks;
+    no hand-written kernel launches on any rank.  The gated step is the
+    timed one, collectives included (the first of its shapes on the
+    ranks: its ms includes first-call costs)."""
+    from repro_torch.launch import spmd
+    from repro_torch.train import mesh_checks as mc
+
+    t_phase = time.perf_counter()
+    free_memory_gate("train mesh archs", TRAIN_MESH_ARCHS_NEED_GIB["early"])
+    launches0 = _kernel_launches()
+    order = sorted(TRAIN_MESH_ARCH_LEGS,
+                   key=lambda leg: leg[0] in TRAIN_MESH_ARCH_LATE)
+    legs = [dict(tag=t, arch=a, cfg=c, dims=list(d), **o)
+            for t, a, c, d, o in order]
+    spec = dict(policy="tp_bf16", seq=TRAIN_SEQ,
+                batch=TRAIN_MESH_ARCH_BATCH,
+                opt=dict(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                         total_steps=TRAIN_MESH_STEPS["e"]),
+                seed=seed, legs=legs,
+                wait=dict(before=TRAIN_MESH_ARCH_LATE[0],
+                          path=os.path.join(go_dir, TRAIN_MESH_ARCHS_GO),
+                          need_gib=TRAIN_MESH_ARCHS_NEED_GIB["late"]))
+    t0 = time.perf_counter()
+    ranks = spmd.spawn(mc.card_arch_rank, TP_RANKS, backend="gloo",
+                       args=(spec,), timeout=900)
+    res = dict(policy="tp_bf16", seq=TRAIN_SEQ, batch=TRAIN_MESH_ARCH_BATCH,
+               ranks=TP_RANKS, backend="gloo, one card (not NCCL)",
+               spawn_s=time.perf_counter() - t0,
+               waited=[r["waited"] for r in ranks])
+    res["legs"], bad = train_mesh_archs_gates(legs, ranks)
+    launched = {k: v - launches0[k] for k, v in _kernel_launches().items()}
+    for r in ranks:
+        for k, v in r["kernel_launches"].items():
+            launched[k] = launched.get(k, 0) + v
+    res.update(kernel_launches=launched,
+               phase_s=time.perf_counter() - t_phase, card=card_line())
+    log(json.dumps({"train_mesh_archs": {
+        k: v for k, v in res.items() if k != "legs"}}))
+    if bad:
+        raise AssertionError("train mesh archs: " + "; ".join(bad))
+    if any(launched.values()):
+        raise AssertionError(f"train mesh archs: hand-written kernels "
+                             f"launched on the training path: {launched}")
+    return res
+
+
 def gc_cuda() -> None:
     """Frees what the last phase dropped."""
     import gc
@@ -5435,31 +5635,51 @@ def main() -> int:
         clock.append(time.perf_counter())
         phase_s[name] = round(clock[-1] - clock[-2], 1)
 
-    # the two training phases need no kernel: they run on the card while
-    # nvcc builds the libraries on the host, the unsharded one in a
-    # process of its own (its deterministic-algorithm switch and its
-    # profile stay its own), the mesh phase in a thread here
+    # the training phases need no kernel: they run on the card while nvcc
+    # builds the libraries on the host, the unsharded one in a process of
+    # its own (its deterministic-algorithm switch and its profile stay its
+    # own), the mesh phases in two threads here
     beside = {}
 
-    def train_mesh():
+    def run(*phases):
         try:
-            beside["res"] = train_mesh_phase()
+            for tag, phase in phases:
+                beside[tag] = phase()
+                phase_s[tag] = round(beside[tag]["phase_s"], 1)
+                gc_cuda()
         except BaseException as e:      # re-raised in the main thread
-            beside["error"] = e
+            beside.setdefault("errors", []).append(e)
 
     trainer = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+    go_dir = tempfile.mkdtemp(prefix="chip_smoke_train_mesh_archs_")
     try:
         trained = trainer.submit(train_phase)
-        mesh_thread = threading.Thread(target=train_mesh, name="train_mesh")
-        mesh_thread.start()
+
+        def mesh_then_go():
+            run(("train_mesh", train_mesh_phase))
+            # the MoE arch legs need the card this phase held
+            open(os.path.join(go_dir, TRAIN_MESH_ARCHS_GO), "w").close()
+
+        # the smaller arch legs beside the fpnew mesh phase from the start
+        # (the card holds the three training phases at once), the MoE legs
+        # in the same ranks once it has ended
+        threads = [threading.Thread(
+            target=run, name="train_mesh_archs",
+            args=(("train_mesh_archs",
+                   lambda: train_mesh_archs_phase(go_dir)),)),
+            threading.Thread(target=mesh_then_go, name="train_mesh")]
+        for t in threads:
+            t.start()
         hgmma_gate = build_phase()
         lap("build")
-        mesh_thread.join()
-        if "error" in beside:
-            raise beside["error"]
+        for t in threads:
+            t.join()
+        if "errors" in beside:
+            raise beside["errors"][0]
         trained.result()
     finally:
         trainer.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(go_dir, ignore_errors=True)
     lap("training_after_build")
     gc_cuda()
     recs = kernel_phase()

@@ -57,19 +57,45 @@ class Mesh:
     def member(self) -> bool:
         return bool(self.coords)
 
-    def group(self, axis: str) -> Group:
-        return self.groups[axis]
+    def group(self, axis) -> Group:
+        """This rank's slice of ``axis``; a tuple of axes is the slice of
+        their flattened product, row-major in the order given (this
+        rank's ``index`` in it is JAX's ``axis_index(axes)``).  The first
+        request for a tuple of two or more axes is a collective: every
+        rank of the default group makes every slice's process group, so
+        every rank asks for it, in one order."""
+        if isinstance(axis, str):
+            return self.groups[axis]
+        axes = tuple(axis)
+        if len(axes) == 1:
+            return self.groups[axes[0]]
+        if axes not in self.groups:
+            self.groups[axes] = _slice_group(self.devices, [
+                self.axis_names.index(a) for a in axes], self.rank)
+        return self.groups[axes]
 
     def __repr__(self) -> str:
         return (f"Mesh({dict(self.shape)}, rank={self.rank}, "
                 f"coords={self.coords})")
 
 
-def _slices(devices: np.ndarray, ax: int):
-    """Every slice of ``devices`` along axis ``ax``: lists of ranks."""
-    moved = np.moveaxis(devices, ax, -1)
-    return [list(map(int, row)) for row in moved.reshape(-1,
-                                                         moved.shape[-1])]
+def _slice_group(devices: np.ndarray, dims, rank: int) -> Group:
+    """This rank's group among the slices of ``devices`` over ``dims``
+    (flattened row-major in that order), every slice's process group
+    made on every rank."""
+    world, _ = _world()
+    rest = [d for d in range(devices.ndim) if d not in dims]
+    moved = np.transpose(devices, rest + list(dims))
+    mine = None
+    for row in moved.reshape(-1, math.prod(devices.shape[d] for d in dims)):
+        ranks = list(map(int, row))
+        # new_group is collective over the whole world: every rank makes
+        # every slice's group, in one order
+        pg = (dist.new_group(ranks) if len(ranks) > 1 and world > 1
+              else None)
+        if rank in ranks:
+            mine = Group(ranks, ranks.index(rank), pg)
+    return mine if mine is not None else Group([], -1, None)
 
 
 def _mk_mesh(shape, axes) -> Mesh:
@@ -81,18 +107,8 @@ def _mk_mesh(shape, axes) -> Mesh:
         raise ValueError(f"mesh {tuple(shape)} needs {n} devices, "
                          f"have {world}")
     devices = np.arange(n).reshape(shape)
-    groups = {}
-    for ax, name in enumerate(axes):
-        mine = None
-        for ranks in _slices(devices, ax):
-            # new_group is collective over the whole world: every rank
-            # makes every slice's group, in one order
-            pg = (dist.new_group(ranks) if len(ranks) > 1 and world > 1
-                  else None)
-            if rank in ranks:
-                mine = Group(ranks, ranks.index(rank), pg)
-        groups[name] = mine if mine is not None else Group(
-            [], -1, None)
+    groups = {name: _slice_group(devices, [ax], rank)
+              for ax, name in enumerate(axes)}
     ranks = list(range(n))
     pg = (None if n == 1 else dist.group.WORLD if n == world
           else dist.new_group(ranks))

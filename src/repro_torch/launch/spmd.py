@@ -24,8 +24,9 @@ sum in a narrow dtype), ``all_reduce_max``, ``all_gather``
 group.
 
 Training differentiates through them: ``all_reduce_sum`` backprops as
-the identity (what follows it is replicated), ``all_gather`` as this
-rank's block of the cotangent, ``all_to_all`` as the reverse exchange;
+the identity (what follows it is replicated), ``all_gather`` and
+``all_gather_cat`` as this rank's block of the cotangent, ``all_to_all``
+as the reverse exchange;
 ``grad_sum`` is the identity forward whose backward sums the cotangent
 over the group, for a replicated value entering sharded compute.  A
 backward collective is counted in ``STATS`` as a forward one is.
@@ -334,14 +335,8 @@ def all_gather(x: torch.Tensor, group: Group, dim: int = -1) -> torch.Tensor:
     return torch.cat(_gather(x, group), dim=dim)
 
 
-@_timed
-def all_gather_cat(parts: Sequence[torch.Tensor],
-                   group: Group) -> List[torch.Tensor]:
-    """Each of ``parts`` (any shapes and dtypes, on one device) with the
-    ranks' blocks concatenated along its LAST dim in group order, bit for
-    bit, in one collective over their bytes (no backward)."""
-    if group.size == 1:
-        return list(parts)
+def _gather_cat(parts: Sequence[torch.Tensor],
+                group: Group) -> List[torch.Tensor]:
     flat = torch.cat([_bytes(p) for p in parts])
     ranks = _gather(flat, group)
     out, off = [], 0
@@ -354,6 +349,37 @@ def all_gather_cat(parts: Sequence[torch.Tensor],
         out.append(torch.cat(blocks, dim=-1))
         off += n
     return out
+
+
+class _GatherCat(torch.autograd.Function):
+    """``all_gather_cat``; backward: this rank's block of each part's
+    cotangent (right where the gathered parts feed compute that runs
+    whole on every rank, so that each cotangent is already whole)."""
+
+    @staticmethod
+    def forward(ctx, group, *parts):
+        ctx.index, ctx.widths = group.index, [p.shape[-1] for p in parts]
+        return tuple(_gather_cat([p.detach() for p in parts], group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + tuple(
+            None if g is None else g.narrow(-1, ctx.index * n, n)
+            for g, n in zip(grads, ctx.widths))
+
+
+@_timed
+def all_gather_cat(parts: Sequence[torch.Tensor],
+                   group: Group) -> List[torch.Tensor]:
+    """Each of ``parts`` (any shapes and dtypes, on one device) with the
+    ranks' blocks concatenated along its LAST dim in group order, bit for
+    bit, in one collective over their bytes.  Backward: this rank's block
+    of each cotangent."""
+    if group.size == 1:
+        return list(parts)
+    if any(_grad_path(p) for p in parts):
+        return list(_GatherCat.apply(group, *parts))
+    return _gather_cat(parts, group)
 
 
 def _exchange(x: torch.Tensor, group: Group) -> torch.Tensor:

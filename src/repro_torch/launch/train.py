@@ -12,7 +12,10 @@ serving launcher's flag and default), each rank running ``TrainLoop(mesh=)``
 and rank 0 printing; where the ranks cannot be had (one device for
 ``--device cpu``, the visible cards otherwise) it raises JAX's
 ``_mk_mesh`` message ("mesh (16, 16) needs 256 devices, have N").
-``--compress-grads`` acts under a mesh only, as in JAX.  There is no
+``--compress-grads`` acts under a mesh only, as in JAX.  Every arch trains
+under ``--mesh`` (MoE with JAX's aux loss by mesh and expert parallelism;
+MLA, the recurrent mixers and whisper's encoder tensor parallel).  There
+is no
 ``DP,TP`` flag, as JAX's training launcher has none: small meshes are
 driven through ``TrainLoop(mesh=)`` in spawned ranks
 (``train.mesh_checks``).  As the JAX

@@ -584,6 +584,12 @@ def mla_params(gen, d_model, n_heads, *, q_lora, kv_lora, nope_dim, rope_dim,
     return p
 
 
+def _into_heads(t, group):
+    """A replicated latent entering this rank's heads: its cotangent
+    summed over the model group (``spmd.grad_sum``)."""
+    return spmd.grad_sum(t, group)
+
+
 def mla_attention(x, params, policy, *, n_heads, nope_dim, rope_dim,
                   v_head_dim, positions, rope_theta=1e4, norm_eps=1e-6,
                   cache: Optional[MLACache] = None, cache_pos=None,
@@ -611,7 +617,11 @@ def mla_attention(x, params, policy, *, n_heads, nope_dim, rope_dim,
     hold this rank's H/M whole heads, every read (prefill, absorbed
     decode) runs on them and ``wo`` is row-parallel
     (``_row_parallel_wo``); otherwise those leaves are whole
-    (``shard_params(cfg=)``) and the heads run unsharded.
+    (``shard_params(cfg=)``) and the heads run unsharded.  Training: the
+    gather backprops as this rank's block; ``spmd.grad_sum`` sits on
+    ``x`` where it enters a sharded product and, with the heads sharded,
+    on ``cq``, ``c_kv`` and ``k_pe`` where they enter this rank's heads
+    (the norm gains ``q_norm`` / ``kv_norm`` then get whole gradients).
 
     Rope: every key is rotated at its own position, in prefill as in
     decode, as MiniCPM3 and DeepSeek-V2 define it.  (The JAX package's
@@ -633,25 +643,35 @@ def mla_attention(x, params, policy, *, n_heads, nope_dim, rope_dim,
                 f"MLA query projection {tuple(wq.shape)} is not a "
                 f"{shards}-way head shard ({n_heads} heads x {qd}): pass "
                 f"this rank's shards (models.sharding.shard_params)")
-    parts = [tp.tp_matmul(x, params["w_dkv"], policy),
-             tp.tp_matmul(x, params["w_kr"], policy)]
-    widths = [kv_lora, rope_dim]
+    names = ["w_dkv", "w_kr"] + (["w_dq"] if "w_dq" in params else [])
+    widths = [kv_lora, rope_dim] + (
+        [params["q_norm"].shape[-1]] if "w_dq" in params else [])
+    # training: x's cotangent sums over the ranks where it enters a
+    # column block or this rank's heads, and stays as it is where the
+    # product runs whole (a replicated leaf)
+    split = [params[k].shape[-1] != n for k, n in zip(names, widths)]
+    if "w_q" in params:
+        split.append(shards is not None)
+    xs = spmd.grad_sum(x, group) if any(split) else x
+    parts = whole_cols([tp.tp_matmul(xs if sp else x, params[k], policy)
+                        for k, sp in zip(names, split)], widths, group)
+    # what enters this rank's heads: replicated values, their cotangents
+    # summed over the ranks (with the heads whole, already whole)
+    heads = (lambda t: _into_heads(t, group)) if shards is not None \
+        else (lambda t: t)
     if "w_dq" in params:
-        parts.append(tp.tp_matmul(x, params["w_dq"], policy))
-        widths.append(params["q_norm"].shape[-1])
-    parts = whole_cols(parts, widths, group)
-    if "w_dq" in params:
-        cq = rmsnorm(parts[2], params["q_norm"], norm_eps)
+        cq = heads(rmsnorm(parts[2], params["q_norm"], norm_eps))
         q = tp.tp_matmul(cq, params["w_uq"], policy)
     else:
-        q = tp.tp_matmul(x, params["w_q"], policy)
+        q = tp.tp_matmul(xs if split[-1] else x, params["w_q"], policy)
     q = q.reshape(b, s, n_heads, qd).transpose(1, 2)         # [B, H, S, qd]
     q_nope = q[..., :nope_dim]
     q_pe = apply_rope(q[..., nope_dim:], positions, rope_theta)
-    c_kv = rmsnorm(parts[0], params["kv_norm"], norm_eps)   # [B, S, kv_lora]
+    # [B, S, kv_lora]
+    c_kv = heads(rmsnorm(parts[0], params["kv_norm"], norm_eps))
     # [B, 1, S, rope]: the keys take the positions as one head's rows do
-    k_pe = apply_rope(parts[1][:, None], positions,
-                      rope_theta)[:, 0]                     # [B, S, rope]
+    k_pe = heads(apply_rope(parts[1][:, None], positions,
+                            rope_theta)[:, 0])              # [B, S, rope]
     scale = qd ** -0.5
 
     if cache is not None:

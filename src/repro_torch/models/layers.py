@@ -14,7 +14,12 @@ gather the column blocks, run whole, project out row-parallel.
 
 Training under a model axis: the sums backprop as the identity, and the
 replicated input of the column-parallel ``gate`` / ``up`` passes through
-``spmd.grad_sum`` (its gradient is the sum of the ranks')."""
+``spmd.grad_sum`` (its gradient is the sum of the ranks').  The gather of
+``whole_cols`` backprops as this rank's block of each cotangent, which is
+right because what follows it runs whole on every rank: ``row_project``
+sums the cotangent of its whole input (each rank's covers only its own
+rows' slice), and ``col_input`` sums that of a replicated input entering
+a ``col`` projection whose weight this rank holds a block of."""
 from __future__ import annotations
 
 from typing import Optional
@@ -147,15 +152,29 @@ def whole_cols(parts, widths, group):
     return out
 
 
+def col_input(x, w, width, group):
+    """``x``, a value replicated over ``group``, as the input of the ``col``
+    leaf ``w`` (output width ``width`` whole): through ``spmd.grad_sum``
+    when ``w`` is this rank's column block (each rank's cotangent of
+    ``x`` then covers its block only), else ``x`` itself (a replicated
+    leaf's product runs whole, its cotangent whole on every rank)."""
+    if group is None or group.size == 1 or w.shape[-1] == width:
+        return x
+    return spmd.grad_sum(x, group)
+
+
 def row_project(h, w, policy, group, unsharded):
     """``h [..., K]`` (whole on every rank) through a ``row`` leaf ``w``:
     with ``w`` this rank's block of rows [K/M, N], this rank's slice of
     ``h``'s last dim through ``row_parallel`` (f32 partials, one snap after
     the sum, as ``attention._row_parallel_wo``); with ``w`` whole (no
-    group, or the leaf replicated), ``unsharded(h, w)``."""
+    group, or the leaf replicated), ``unsharded(h, w)``.  In training the
+    slice's cotangent covers this rank's rows only, so ``h`` passes
+    through ``spmd.grad_sum`` first: the whole cotangent on every rank."""
     if group is None or group.size == 1 or w.shape[0] == h.shape[-1]:
         return unsharded(h, w)
     k = w.shape[0]
+    h = spmd.grad_sum(h, group)
     hs = h[..., group.index * k:(group.index + 1) * k]
     return row_parallel(hs, w, policy, group, narrow=False)
 

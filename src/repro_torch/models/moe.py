@@ -28,6 +28,22 @@ routes every token, the router replicated, so the M slabs a rank receives
 are the same rows, as in the JAX package; the shared experts run tensor
 parallel (``layers.swiglu`` with the model group).
 
+Training under expert parallelism: the M identical slabs an expert rank
+receives each carry the whole cotangent back through the reverse
+``all_to_all``, so the expert weights would get M times their gradient;
+``_ExpertGrad`` (identity forward) divides their cotangent by M, exact
+for M a power of two.  The tokens' cotangent is whole on every rank as
+it comes back, and so is the replicated router's: neither is summed.
+
+The aux load-balancing loss, as the JAX package takes it by mesh (the
+trainer picks): over this call's tokens (no mesh; the compressed sync,
+each replica's own; a model axis > 1, each data shard's own, which the
+trainer averages), or with ``aux_groups`` (a ``(data, 1)`` mesh under
+the plain sync, where JAX's GSPMD routes the global batch) over the
+global batch: each rank's summed router probabilities and top-1 counts
+summed over the groups first (the sum's backward is the identity, so
+each rank's gradient carries its own tokens' share).
+
 Transprecision: the expert products follow the multi-format FMA policy
 (``core.ops.tp_einsum``), the activation the elementwise policy; the router
 runs in f32.
@@ -129,14 +145,55 @@ def dispatch_slots(idx, cap: int, n_experts: int):
     return order, slot
 
 
+class _ExpertGrad(torch.autograd.Function):
+    """Identity forward; backward divides the cotangent by ``m`` (the
+    expert-parallel group's size: its M identical slabs)."""
+
+    @staticmethod
+    def forward(ctx, w, m):
+        ctx.m = m
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.m, None
+
+
+def _expert_weights(params, m: int):
+    """The expert weights as the expert SwiGLU reads them: under M > 1
+    ranks in training, through ``_ExpertGrad``."""
+    ws = [params[k] for k in ("w_gate", "w_up", "w_down")]
+    if m == 1 or not torch.is_grad_enabled():
+        return ws
+    return [_ExpertGrad.apply(w, m) if w.requires_grad else w for w in ws]
+
+
+def aux_loss(probs, top1, n_experts: int, aux_groups=()):
+    """Switch-style load balancing: ``E * sum_e mean_t(probs) *
+    frac_top1``, over this call's tokens, or over those of every rank of
+    ``aux_groups`` (the summed probabilities [E], the top-1 counts [E]
+    and the token count summed over each group first, in one
+    collective)."""
+    t = torch.full((), probs.shape[0], dtype=F32, device=probs.device)
+    if not aux_groups:
+        return n_experts * torch.sum(probs.mean(dim=0) * (top1 / t))
+    stats = torch.cat([probs.sum(dim=0), top1, t[None]])
+    for g in aux_groups:
+        stats = spmd.all_reduce_sum(stats, g)
+    p_sum, counts, t = stats[:n_experts], stats[n_experts:-1], stats[-1]
+    return n_experts * torch.sum((p_sum / t) * (counts / t))
+
+
 def moe_core(x_flat, params, cfg: MoEConfig, policy, *,
-             ep_group: Optional[spmd.Group] = None, with_aux: bool = True):
+             ep_group: Optional[spmd.Group] = None, with_aux: bool = True,
+             aux_groups=()):
     """x_flat [T, D] -> (y [T, D], aux scalar): routing, dispatch, the
     expert SwiGLU and the combine.  ``ep_group`` (M ranks): the expert
     weights are this rank's [E/M, ...] block and the slabs cross the group
     through ``all_to_all``.  ``with_aux=False`` (serving) skips the aux
     loss and returns None in its place, as XLA drops it from the JAX
-    package's serving graphs."""
+    package's serving graphs; ``aux_groups``: the aux over the tokens of
+    every rank of these groups (``aux_loss``)."""
     t, d = x_flat.shape
     e_total, k = cfg.n_experts, cfg.top_k
     e_loc = params["w_gate"].shape[0]
@@ -149,13 +206,11 @@ def moe_core(x_flat, params, cfg: MoEConfig, policy, *,
     probs, gates, idx = route(x_flat, params["router"], cfg)
     aux = None
     if with_aux:
-        # Switch-style load balancing: mean router probability times the
-        # top-1 dispatch fraction, per expert (counted by a scatter: no
-        # host sync)
+        # the top-1 dispatch counts by a scatter: no host sync
         top1 = torch.zeros((e_total,), dtype=F32, device=x_flat.device)
         top1.scatter_add_(0, idx[:, 0], torch.ones((t,), dtype=F32,
                                                    device=x_flat.device))
-        aux = e_total * torch.sum(probs.mean(dim=0) * (top1 / t))
+        aux = aux_loss(probs, top1, e_total, aux_groups)
 
     order, slot = dispatch_slots(idx, cap, e_total)
     buf = torch.zeros((e_total * cap + 1, d), dtype=x_flat.dtype,
@@ -168,8 +223,7 @@ def moe_core(x_flat, params, cfg: MoEConfig, policy, *,
         # D] -> [E_loc, M*C, D]
         buf = spmd.all_to_all(buf.reshape(ep, e_loc, cap, d), ep_group)
         buf = buf.transpose(0, 1).reshape(e_loc, ep * cap, d)
-    out = _expert_ffn(buf, params["w_gate"], params["w_up"],
-                      params["w_down"], policy)
+    out = _expert_ffn(buf, *_expert_weights(params, ep), policy)
     if ep > 1:
         # [E_loc, M(src), C, D] -> [M, E_loc, C, D] -> a2a -> [M(expert
         # block), E_loc, C, D], which is [E, C, D] expert-major
@@ -196,17 +250,18 @@ def _axis_group(mesh, axis: Optional[str], width: int):
 
 
 def moe_block(x, params, cfg: MoEConfig, policy, *, mesh=None,
-              ep_axis: Optional[str] = "model", with_aux: bool = True):
+              ep_axis: Optional[str] = "model", with_aux: bool = True,
+              aux_groups=()):
     """x [B, S, D] -> (y, aux): the routed experts plus the shared experts'
     SwiGLU.  A ``mesh`` with ``ep_axis`` of M > 1 ranks dividing the
     expert count runs expert parallel over it (``params`` this rank's
     shards, the tokens the same on every rank); the result is the same on
-    every rank."""
+    every rank.  ``aux_groups``: as ``moe_core``'s."""
     b, s, d = x.shape
     routed = {n: v for n, v in params.items() if n != "shared"}
     y, aux = moe_core(x.reshape(b * s, d), routed, cfg, policy,
                       ep_group=_axis_group(mesh, ep_axis, cfg.n_experts),
-                      with_aux=with_aux)
+                      with_aux=with_aux, aux_groups=aux_groups)
     y = y.reshape(b, s, d)
     if cfg.n_shared:
         sh = params["shared"]

@@ -208,10 +208,12 @@ def input_specs_train(batch: int, mesh, batch_axes=("data",)) -> tuple:
 # ---------------------------------------------------------------------------
 # a rank's shard
 # ---------------------------------------------------------------------------
-def local_shard(t, spec: tuple, mesh):
+def local_shard(t, spec: tuple, mesh, coords: Optional[dict] = None):
     """This rank's block of the full tensor ``t`` under ``spec`` (an entry
     per leading dim: an axis name, a tuple of names, or None), as a tensor
-    of its own (the full tensor can be freed)."""
+    of its own (the full tensor can be freed); ``coords``: the block of
+    the rank at these mesh coordinates instead."""
+    coords = mesh.coords if coords is None else coords
     out = t
     for dim, ax in enumerate(spec):
         if ax is None:
@@ -222,7 +224,7 @@ def local_shard(t, spec: tuple, mesh):
             continue
         idx = 0
         for a in names:
-            idx = idx * mesh.shape[a] + mesh.coords[a]
+            idx = idx * mesh.shape[a] + coords[a]
         step = out.shape[dim] // n
         out = out.narrow(dim, idx * step, step)
     return out.clone() if out is not t else t

@@ -30,7 +30,13 @@ weights (and mLSTM's ``w_if``) with it; the mixer then runs whole on every
 rank on the whole state, with no collective inside its chunk or time
 loop; the out projections (``out_proj``, ``down_proj``, ``down``) run
 row-parallel on this rank's slice of the mixer's output
-(``layers.row_project``).  The states stay whole on every rank.
+(``layers.row_project``).  The states stay whole on every rank.  In
+training the gather backprops as this rank's block of the whole
+cotangent, the replicated input of the ``col`` projection passes through
+``layers.col_input`` and the mixer's output through ``row_project``'s
+``spmd.grad_sum``, so the replicated leaves (``A_log``, ``D``,
+``dt_bias``, the norms, mLSTM's headwise projections, sLSTM's gates) get
+whole gradients on every rank.
 
 ``softplus`` and ``log_sigmoid`` are JAX's forms (``logaddexp(x, 0)``),
 ``silu`` is ``x * sigmoid(x)``; torch's ``F.softplus`` would return ``x``
@@ -46,7 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import ops as tp
-from .layers import dense_init, rmsnorm, row_project, whole_cols
+from .layers import col_input, dense_init, rmsnorm, row_project, whole_cols
 
 F32 = torch.float32
 
@@ -195,10 +201,12 @@ def mamba2_mix(x, params, cfg: Mamba2Config, policy, *,
     ``group``: tensor parallel over its ranks (module docstring)."""
     b, s, _ = x.shape
     h, p, n, g = cfg.n_heads, cfg.head_dim, cfg.d_state, cfg.n_groups
+    d_proj = 2 * cfg.d_inner + 2 * g * n + h
+    x = col_input(x, params["in_proj"], d_proj, group)
     zxbcdt, conv_w, conv_b = whole_cols(
         [tp.tp_einsum("bsd,de->bse", x, params["in_proj"], policy,
                       out_fmt="fp32"), params["conv_w"], params["conv_b"]],
-        [2 * cfg.d_inner + 2 * g * n + h, cfg.conv_dim, cfg.conv_dim],
+        [d_proj, cfg.conv_dim, cfg.conv_dim],
         group)
     z, xbc, dt = _split_zxbcdt(zxbcdt, cfg)
     xbc, new_conv = _causal_conv(xbc, conv_w, conv_b,
@@ -332,6 +340,7 @@ def mlstm_mix(x, params, cfg: MLSTMConfig, policy, *,
     narrow = cfg.narrow_intra
     act_fmt = "fp16alt" if narrow else "fp32"
     intra_dt = torch.bfloat16 if narrow else F32
+    x = col_input(x, params["up_proj"], 2 * di, group)
     up, conv_w, conv_b, w_if = whole_cols(
         [tp.tp_einsum("bsd,de->bse", x, params["up_proj"], policy,
                       out_fmt=act_fmt), params["conv_w"], params["conv_b"],
@@ -496,6 +505,7 @@ def slstm_mix(x, params, cfg: SLSTMConfig, policy, *,
     y = rmsnorm(torch.stack(ys, dim=1), params["ln"])  # [B, S, D]
     # gated FFN tail (part of the sLSTM block in xLSTM)
     dff = int(cfg.proj_factor * d)
+    y = col_input(y, params["up"], 2 * dff, group)
     uu, = whole_cols([tp.tp_einsum("bsd,df->bsf", y, params["up"], policy)],
                      [2 * dff], group)
     y = tp.tp_elementwise("gelu", uu[..., :dff], policy=policy) \

@@ -615,7 +615,7 @@ class Model:
                     cache_pos=None, kv_len=None, enc_states=None,
                     esc_fmts=None, kv_levels=None, kv_scale=None,
                     verify: bool = False, with_aux: bool = False,
-                    shared=None, mesh=None):
+                    shared=None, mesh=None, aux_groups=()):
         """One block: ``(x, cache)``, or ``(x, cache, kv_flags [B, 2])``
         when ``esc_fmts`` is given (the escalation write path of
         ``attention.gqa_attention``; an MLA or recurrent layer, as in the
@@ -628,7 +628,8 @@ class Model:
         ``verify`` selects the speculative verify read of a GQA layer
         (``speculate_check`` refuses MLA stacks).  ``with_aux`` (training)
         appends the layer's MoE load-balancing loss (an f32 zero for a
-        dense FFN).  A ``cross_attn`` layer reads ``enc_states`` (prefill,
+        dense FFN; ``aux_groups`` as ``moe.moe_core``'s).  A
+        ``cross_attn`` layer reads ``enc_states`` (prefill,
         training: its cross K/V written into ``cache.xkv``) or, without
         them, the cached cross K/V (decode)."""
         cfg = self.cfg
@@ -706,7 +707,8 @@ class Model:
                              self.policy, grp)
             else:
                 f, aux = moe_mod.moe_block(h2, m, cfg.moe, self.policy,
-                                           with_aux=with_aux, mesh=mesh)
+                                           with_aux=with_aux, mesh=mesh,
+                                           aux_groups=aux_groups)
             if spec.post_norms:
                 f = _norm(f, p["post2"], cfg)
             x = x + rs * f
@@ -772,9 +774,25 @@ class Model:
         layers and the logits run sharded, the logits are gathered whole,
         so every rank computes the same loss; the sums backprop as the
         identity and ``spmd.grad_sum`` sums the gradients of the
-        replicated values entering sharded compute.  Every rank of the
-        model group must run the same call (remat recomputes the forward
-        collectives in the backward, in one order on every rank)."""
+        replicated values entering sharded compute; whisper's encoder
+        runs under the mesh too.  Every rank of the model group must run
+        the same call (remat recomputes the forward collectives in the
+        backward, in one order on every rank).  The loss is
+        ``nll + aux_coef * aux`` of ``train_terms``."""
+        nll, aux = self.train_terms(
+            params, tokens, labels, frontend_embeds=frontend_embeds,
+            mesh=mesh, remat=remat, loss_chunk=loss_chunk)
+        return nll + aux_coef * aux
+
+    def train_terms(self, params, tokens, labels, *, frontend_embeds=None,
+                    mesh=None, remat: bool = True, loss_chunk: int = 1024,
+                    aux_groups=()):
+        """``forward_train``'s two terms apart: ``(nll, aux)``, the mean
+        NLL over this call's live labels and the MoE aux summed over the
+        layers (an f32 zero without MoE), for a trainer that weighs them
+        apart (``train.train_step.loss_and_grads``).  ``aux_groups``: the
+        MoE aux over the tokens of every rank of these groups
+        (``moe.aux_loss``; the trainer's ``(data, 1)`` plain sync)."""
         cfg = self.cfg
         if cfg.prefill_backend != "dense":
             raise ValueError(
@@ -786,7 +804,7 @@ class Model:
             params = layer_views(params)
         tokens = torch.as_tensor(tokens, device=self.device)
         labels = torch.as_tensor(labels, device=self.device)
-        enc = (self.encode(params, frontend_embeds)
+        enc = (self.encode(params, frontend_embeds, mesh)
                if cfg.encoder is not None else None)
         x = self.embed(params, tokens, frontend_embeds, mesh=mesh)
         positions = torch.arange(tokens.shape[1], device=self.device)
@@ -800,7 +818,7 @@ class Model:
                                            positions=positions,
                                            enc_states=enc_states,
                                            with_aux=True, shared=shared,
-                                           mesh=mesh)
+                                           mesh=mesh, aux_groups=aux_groups)
                 acc = acc + a
             return h, acc
 
@@ -815,9 +833,8 @@ class Model:
                 x, aux = wrap(run, x, aux, enc, lo, lo + n_pat)
         x, aux = run(x, aux, enc, len(specs) - len(cfg.suffix), len(specs))
         x = self._final(params, x)
-        loss = self.chunked_ce(params, x, labels, chunk=loss_chunk,
-                               mesh=mesh)
-        return loss + aux_coef * aux
+        nll = self.chunked_ce(params, x, labels, chunk=loss_chunk, mesh=mesh)
+        return nll, aux
 
     def chunked_ce(self, params, x, labels, *, chunk: int = 1024,
                    mesh=None):

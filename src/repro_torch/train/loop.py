@@ -11,8 +11,10 @@ an uninterrupted one.  Safe to re-instantiate after a crash
 write finish: the node dies after its last save is durable, which is
 what the restart reads.
 
-Under a ``(data, model)`` mesh (every rank of it runs the loop, as JAX's
-one program does): ``dp_axes = ("data",)``, the params are this rank's
+Under a ``(data, model)`` mesh, any arch (every rank of it runs the
+loop, as JAX's one program does): ``dp_axes = ("data",)`` as JAX's loop
+sets it (a ``pod`` axis then replicates; ``make_train_step(dp_axes=
+("pod", "data"))`` is the step over both), the params are this rank's
 ``shard_params``, each data rank takes its rows of the global
 ``batch_at(step)`` (so the run is the unsharded one's, batch for batch),
 the compressed sync's error feedback is carried and checkpointed under

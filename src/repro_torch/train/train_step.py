@@ -33,11 +33,26 @@ step, JAX runs one program):
     optimizer state held under ZeRO-1 (``opt_state_specs`` over
     ``data``), each rank updating its slice and the new params gathered.
 
-As in JAX, ``compress_grads`` takes effect only under a mesh.  Refused
-under a mesh, naming ROADMAP Queue 1 item 8b.3: MoE archs under any mesh
-(JAX's GSPMD takes the aux loss's token fractions over the global batch),
-and under a model axis > 1 MLA, the recurrent mixers and whisper's
-encoder.
+As in JAX, ``compress_grads`` takes effect only under a mesh, and any
+arch trains on any mesh.  The MoE aux loss follows JAX's by mesh:
+
+  =========================  ===========================================
+  mesh / sync                the aux in the loss
+  =========================  ===========================================
+  none                       over the whole batch
+  ``(data, 1)``, plain       over the GLOBAL batch (JAX's GSPMD routes
+                             the global tokens): the ranks' router
+                             statistics summed over the data axes, at
+                             weight 1 in each rank's gradient
+  ``(data, model>1)``,       the mean over the data shards of each
+  plain                      shard's own aux (JAX's ``shard_map`` body),
+                             at weight ``1 / n_dp`` a rank
+  compressed, any mesh       each replica's own, inside its local loss
+  =========================  ===========================================
+
+In the plain sync the NLL's weight is the rank's share of the global
+live labels; the aux's is not (``loss_and_grads``), and the reported
+loss counts it once.
 """
 from __future__ import annotations
 
@@ -48,7 +63,7 @@ import torch
 
 from ..core.tree import leaves, unflatten
 from ..launch import spmd
-from ..launch.mesh import check_mesh
+from ..launch.mesh import check_mesh, model_size
 from ..models import sharding as shd
 from ..models.convert import stack_layers
 from ..models.transformer import Model
@@ -58,31 +73,6 @@ from ..optim.optimizer import (Layout, OptConfig, apply_update,
                                sr_generator)
 
 F32 = torch.float32
-
-#: what a training mesh refuses, and where the work is queued
-QUEUED = "ROADMAP Queue 1 item 8b.3 (the rest of sharded training)"
-
-
-def check_trainable(cfg, mesh) -> None:
-    """Raise ``NotImplementedError`` for an arch this mesh cannot train."""
-    if mesh is None:
-        return
-    specs = cfg.layer_list()
-    if any(s.ffn == "moe" for s in specs):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training under a mesh is not ported (JAX's "
-            f"GSPMD takes the aux loss's token fractions over the global "
-            f"batch): {QUEUED}")
-    if mesh.shape.get("model", 1) > 1:
-        odd = sorted({s.mixer for s in specs
-                      if s.mixer not in ("gqa", "shared_attn")})
-        if cfg.encoder is not None:
-            odd.append("encoder")
-        if odd:
-            raise NotImplementedError(
-                f"{cfg.name}: training {'/'.join(odd)} under a model axis > "
-                f"1 is not ported: {QUEUED}")
-
 
 def train_input_shardings(mesh, batch: int, dp_axes=("data",),
                           with_frontend=False) -> dict:
@@ -152,45 +142,73 @@ def sync_generator(seed: int, step: int, leaf: int, replica: int,
 
 
 def _grads(model, params, batch, mesh, remat, aux_coef, loss_chunk,
-           weight=None):
-    """``(loss, flat grads)`` of ``forward_train`` on this rank's batch
-    (scaled by ``weight`` where given)."""
+           weights=None, aux_groups=()):
+    """``(loss, aux, flat grads)`` of ``Model.train_terms`` on this rank's
+    batch: the gradient of ``nll + aux_coef * aux``, or with ``weights``
+    = ``(w_nll, w_aux, w_report)`` of ``w_nll * nll + w_aux * aux_coef *
+    aux``, the loss then ``w_nll * nll + w_report * aux_coef * aux``."""
     flat = [p.detach().requires_grad_() for p in leaves(params)]
     tree = unflatten(params, flat)
-    loss = model.forward_train(tree, batch["tokens"], batch["labels"],
-                               frontend_embeds=batch.get("frontend_embeds"),
-                               mesh=mesh, remat=remat, aux_coef=aux_coef,
-                               loss_chunk=loss_chunk)
-    if weight is not None:
-        loss = loss * weight
-    grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    return loss.detach(), [torch.zeros_like(p) if g is None else g
-                           for p, g in zip(flat, grads)]
+    nll, aux = model.train_terms(
+        tree, batch["tokens"], batch["labels"],
+        frontend_embeds=batch.get("frontend_embeds"), mesh=mesh,
+        remat=remat, loss_chunk=loss_chunk, aux_groups=aux_groups)
+    if weights is None:
+        loss = objective = nll + aux_coef * aux
+    else:
+        w_nll, w_aux, w_report = weights
+        nll = nll * w_nll
+        objective = nll + (aux * aux_coef) * w_aux
+        loss = nll.detach() + (aux.detach() * aux_coef) * w_report
+    grads = torch.autograd.grad(objective, flat, allow_unused=True)
+    return loss.detach(), aux.detach(), [
+        torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
 
 
 def loss_and_grads(model: Model, params, batch, mesh=None, *,
                    dp_axes=("data",), remat: bool = True,
-                   aux_coef: float = 0.01, loss_chunk: int = 1024):
+                   aux_coef: float = 0.01, loss_chunk: int = 1024,
+                   return_aux: bool = False):
     """The plain sync's loss and gradients, as one step takes them: the
-    global mean NLL and, per leaf, this rank's block of its gradient (f32
-    under a mesh, summed over ``dp_axes``)."""
+    global mean NLL plus the MoE aux by mesh (module docstring) and, per
+    leaf, this rank's block of its gradient (f32 under a mesh, summed over
+    ``dp_axes``).  ``return_aux``: ``(loss, grads, aux)``, ``aux`` the
+    statistic in the loss (the mean of the data shards' under a model
+    axis > 1), the same on every rank.
+
+    The weights: each rank's NLL at its live labels over the global count
+    (the dp sum then gives the global token mean); the aux at weight 1
+    where its statistics are summed over the data axes (each rank's
+    gradient then carries its own tokens' share of the global aux, and
+    the dp sum the whole), ``1 / n_dp`` where each data shard has its
+    own; the reported loss counts the aux once (``1 / n_dp`` a rank)."""
     if mesh is None:
-        return _grads(model, params, batch, None, remat, aux_coef,
-                      loss_chunk)
+        loss, aux, grads = _grads(model, params, batch, None, remat,
+                                  aux_coef, loss_chunk)
+        return (loss, grads, aux) if return_aux else (loss, grads)
     groups = [mesh.group(a) for a in dp_axes]
+    n_dp = _dp_size(mesh, dp_axes)
     live = (torch.as_tensor(batch["labels"]) >= 0).sum().to(
         F32).to(model.device)
     total = live
     for g in groups:
         total = spmd.all_reduce_sum(total, g)
-    loss, grads = _grads(model, params, batch, mesh, remat, aux_coef,
-                         loss_chunk, weight=live / torch.clamp(total, min=1))
+    global_aux = model.cfg.moe is not None and model_size(mesh) == 1
+    weights = (live / torch.clamp(total, min=1),
+               1.0 if global_aux else 1.0 / n_dp, 1.0 / n_dp)
+    loss, aux, grads = _grads(
+        model, params, batch, mesh, remat, aux_coef, loss_chunk,
+        weights=weights,
+        aux_groups=tuple(g for g in groups if g.size > 1) if global_aux
+        else ())
+    aux = aux / n_dp
     for grp in groups:
         loss = spmd.all_reduce_sum(loss, grp)
+        aux = spmd.all_reduce_sum(aux, grp)
         grads = [spmd.all_reduce_sum(g, grp) for g in grads]
         if grp.size > 1:
             spmd.count_wire("fp32", sum(g.numel() * 4 for g in grads))
-    return loss, grads
+    return (loss, grads, aux) if return_aux else (loss, grads)
 
 
 def make_train_step(model: Model, opt_cfg: OptConfig, mesh=None, *,
@@ -219,7 +237,6 @@ def make_train_step(model: Model, opt_cfg: OptConfig, mesh=None, *,
         return step
 
     check_mesh(mesh)
-    check_trainable(model.cfg, mesh)
     layout = param_layout(model, mesh, opt_specs)
 
     def update(params, grads, opt_state, sr_seed):
@@ -241,17 +258,17 @@ def make_train_step(model: Model, opt_cfg: OptConfig, mesh=None, *,
 
         return step
 
-    if len(dp_axes) != 1:
-        raise NotImplementedError(
-            f"the compressed sync over several data axes {dp_axes}: {QUEUED}")
-    dp = mesh.group(dp_axes[0])
+    # one group over the flattened data axes (JAX's collectives over
+    # ``dp_axes``), the replica index JAX's ``axis_index(dp_axes)``
+    dp = mesh.group(tuple(dp_axes))
     n_dp, replica = dp.size, dp.index
     model_grp = (mesh.group("model")
                  if mesh.shape.get("model", 1) > 1 else None)
     split = [any(layout.splits(sp, len(sp))) for sp in layout.p]
 
     def step(params, opt_state, batch, ef, sr_seed: int):
-        loss, grads = _grads(model, params, batch, mesh, **kw)
+        # each replica's local loss: its mean NLL and its own MoE aux
+        loss, _, grads = _grads(model, params, batch, mesh, **kw)
         at = int(opt_state["step"]) + 1
         synced, new_ef = [], []
         for i, (g, e) in enumerate(zip(grads, leaves(ef))):

@@ -1557,3 +1557,51 @@ def test_tp_archs_gloo_ranks_on_the_card(gen, arch):
         assert torch.equal(got["tokens"], cpu["tokens"])
         assert got["spmd"]["collectives"] > 0
         assert got["spmd"]["staged_bytes"] > 0
+
+
+def test_ep2_moe_train_step_on_the_card_matches_the_cpu(gen):
+    """One expert-parallel step of reduced qwen3-moe on a (1, 2) mesh of
+    two gloo ranks on the card (``train.mesh_checks.step``: 4 of its 8
+    experts a rank, the M identical slabs' gradient divided by M, the aux
+    over the one data shard) against the unsharded step on the CPU,
+    under ``fp32`` (TF32 off): the loss and the aux within 1e-5
+    relative, the gradient norm and every leaf's gradient and master
+    within 1e-4 relative L2; the ranks' params bitwise each other."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import spmd
+    from repro_torch.models.convert import stack_layers
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+    from repro_torch.train import mesh_checks as mc
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+    arch = "qwen3-moe-30b-a3b"
+    opt = dict(lr=1e-3, warmup_steps=0, total_steps=10)
+    m = build_model(arch, policy="fp32", reduced=True, device="cpu",
+                    prefill_backend="dense")
+    whole = stack_layers(m.init(0), m.cfg)
+    state = {"params": whole,
+             "opt": init_opt_state(whole, OptConfig(**opt), m.policy)}
+    g = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, 256, (4, 32), generator=g, dtype=torch.int32)
+    labels = torch.randint(0, 256, (4, 32), generator=g, dtype=torch.int32)
+    labels[2, :20] = -1
+    batch = {"tokens": toks, "labels": labels}
+    ranks = spmd.spawn(mc.rank_main, 2, backend="gloo", args=(
+        [("ep", "step", dict(dims=(1, 2), arch=arch, state=state,
+                             batch=batch, policy="fp32", opt=opt,
+                             device="cuda"))],), timeout=600)
+    _, grads, aux = loss_and_grads(m, whole, batch, return_aux=True)
+    _, s2, met = make_train_step(m, OptConfig(**opt))(whole, state["opt"],
+                                                      batch)
+    for r in (x["ep"] for x in ranks):
+        assert abs(r["loss"] - met["loss"].item()) <= \
+            1e-5 * abs(met["loss"].item())
+        assert abs(r["aux"] - aux.item()) <= 1e-5 * abs(aux.item())
+        assert abs(r["grad_norm"] - met["grad_norm"].item()) <= \
+            1e-4 * met["grad_norm"].item()
+        for a, b in zip(r["grads"], grads):
+            assert _rel(a, b) < 1e-4
+        for a, b in zip(r["master"], leaves(s2["master"])):
+            assert _rel(a, b) < 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(ranks[0]["ep"]["params"],
+                                                 ranks[1]["ep"]["params"]))

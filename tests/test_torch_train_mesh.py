@@ -29,7 +29,9 @@ Tolerances (relative L2 of a leaf's difference against the JAX leaf):
   read under a mesh, elastic (2, 1) -> (1, 2) -> none bitwise at the
   restore, the continued losses within 1e-5 of each other; an error
   feedback of another data size refused;
-* the refusals of ROADMAP Queue 1 item 8b.3.
+* the archs of ROADMAP Queue 1 item 8b.3 (MoE under any mesh; MLA, the
+  recurrent mixers and whisper's encoder under a model axis) build a
+  step (their steps: ``tests/test_torch_train_mesh_archs.py``).
 """
 import os
 import shutil
@@ -581,7 +583,7 @@ def test_error_feedback_of_another_data_size_is_refused(world2):
 
 
 # ---------------------------------------------------------------------------
-# refusals, the spawn timeout
+# the archs of item 8b.3 build a step; the spawn timeout
 # ---------------------------------------------------------------------------
 def _fake_mesh(dp, tp):
     devices = np.arange(dp * tp).reshape(dp, tp)
@@ -596,10 +598,16 @@ def _fake_mesh(dp, tp):
     ("whisper-small", (1, 2)), ("qwen3-moe-30b-a3b", (2, 1)),
     ("deepseek-v2-lite-16b", (2, 1))])
 def test_unported_mesh_training_names_8b3(arch, dims):
+    """The archs that refused a training mesh until ROADMAP Queue 1 item
+    8b.3 was done now build a step on it, with the plain and the
+    compressed sync (their steps run in
+    ``tests/test_torch_train_mesh_archs.py``)."""
     m = treg.build_model(arch, policy="fp32", reduced=True, device="cpu",
                          prefill_backend="dense")
-    with pytest.raises(NotImplementedError, match="item 8b.3"):
-        tstep.make_train_step(m, topt.OptConfig(), _fake_mesh(*dims))
+    for fmt in (None, "fp8"):
+        assert callable(tstep.make_train_step(m, topt.OptConfig(),
+                                              _fake_mesh(*dims),
+                                              compress_grads=fmt))
 
 
 def test_spawn_timeout_kills_the_ranks():
