@@ -329,6 +329,29 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    unsharded step (routes pinned): loss, every leaf's gradient and
    update over the whole leaf, the MoE aux; ms a step, collectives,
    staged and wire bytes and state bytes a rank.
+18b. The tooling.  The dry-run leg (``dryrun_leg_start``): a
+   CPU process started before the build (no card visible to it) runs
+   ``launch.dryrun.run_cell`` for gemma2-9b ``decode_32k`` on pod1 and
+   pod2 (rank 0's peak bytes, flops, collectives; the benchmark twin's
+   ``shard_dryrun_*`` figures), joined at the end.  The energy leg
+   (``energy_phase``, after training, the card otherwise idle): a GEMM
+   loop per format (8192^3; fp32 with TF32 off, bf16, fp16, fp8 by
+   ``torch._scaled_mm``) and a 2 GiB device copy, each 1 s to settle and
+   3 s measured while ``nvidia-smi -lms 100`` samples ``power.draw``: pJ
+   per flop and per byte (board power above idle over rate), the idle
+   power before,
+   the card's ``total_memory`` (``core/energy.py`` and ``core/hw.py``
+   hold the values read).  The dry-run card check (``dryrun_card_phase``,
+   on the slice's weights before the slice): gemma2-9b's decode step
+   with the dense backends, 2 rows against a 32768-token cache, on the
+   card against its dry run on meta tensors: flops and argument bytes
+   equal, the step's own peak (peak less arguments) within
+   ``DRYRUN_PEAK_TOL`` of the dry run's.  The example twins
+   (``examples_phase``, in a thread from the build's end while the
+   training phases finish, joined before the energy leg):
+   ``torch_quickstart.py`` and
+   ``torch_serve_decode.py --decode-backend kernel`` on the card, each
+   in a process, the latter's decode and flash launches > 0.
 19. The kernels line (all six kernels; flash attention, tp_matmul and decode
    attention with their launches by variant, the FMA variant's time,
    decode's launches by cluster size, flash's by head dims, the flags-on
@@ -350,6 +373,7 @@ or ``/usr/local/cuda``).
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -5601,6 +5625,324 @@ def train_mesh_archs_phase(go_dir: str, seed: int = 0) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# tooling: the card's energy rows, the dry run against the card, examples
+# ---------------------------------------------------------------------------
+#: each energy loop's measured span (s), after ``ENERGY_SETTLE_S`` of
+#: the same loop whose power samples are dropped (``power.draw`` is
+#: averaged over about a second)
+ENERGY_S = 3.0
+ENERGY_SETTLE_S = 1.0
+#: square GEMM side and copy size of the energy loops
+ENERGY_N = 8192
+ENERGY_COPY_BYTES = 2 * 2 ** 30
+
+
+class PowerSampler:
+    """``nvidia-smi --query-gpu=power.draw -lms 100`` in the background:
+    ``mean(t0, t1)`` is the mean board power (W) of the samples that
+    arrived between two ``time.perf_counter()`` readings."""
+
+    def __init__(self):
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                self.samples.append((time.perf_counter(),
+                                     float(line.strip())))
+            except ValueError:
+                pass
+
+    def mean(self, t0: float, t1: float) -> tuple:
+        got = [w for t, w in self.samples if t0 <= t <= t1]
+        if len(got) < 5:
+            raise AssertionError(f"power sampler: {len(got)} samples "
+                                 f"between its readings (need >= 5)")
+        return sum(got) / len(got), len(got)
+
+    def stop(self):
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _power_loop(sampler, fn, work: float) -> dict:
+    """Runs ``fn`` in synchronized batches of about 0.1 s for
+    ``ENERGY_SETTLE_S + ENERGY_S`` seconds; the rate (``work`` units a
+    call) and mean power over the last ``ENERGY_S``."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    batch = max(1, int(0.1 / max(time.perf_counter() - t, 1e-6)))
+    start = time.perf_counter()
+    settle = start + ENERGY_SETTLE_S
+    end = settle + ENERGY_S
+    done, t_first, t_last = 0, None, None
+    while True:
+        for _ in range(batch):
+            fn()
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if now < settle:
+            continue
+        if t_first is None:
+            t_first = now
+        else:
+            done += batch
+            t_last = now
+        if now >= end:
+            break
+    rate = done * work / (t_last - t_first)
+    watts, n = sampler.mean(t_first, t_last)
+    return {"rate": rate, "watts": watts, "samples": n,
+            "seconds": round(t_last - t_first, 3)}
+
+
+def energy_phase() -> dict:
+    """The H100's energy rows for ``core.energy``: board power above idle
+    over the achieved rate of a GEMM loop per format (fp32 on CUDA cores
+    with TF32 off, bf16, fp16, fp8 by ``torch._scaled_mm``) and of a
+    device-to-device copy, with the idle power read before them (whole-board
+    figures are printed beside); and the card's memory size for
+    ``core.hw``."""
+    import torch
+    t0 = time.perf_counter()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    n = ENERGY_N
+    flops = 2.0 * n ** 3
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sampler = PowerSampler()
+    try:
+        time.sleep(0.3)
+        torch.cuda.synchronize()
+        t_idle = time.perf_counter()
+        time.sleep(2.0)
+        idle_w, idle_n = sampler.mean(t_idle, time.perf_counter())
+        rows = {}
+        for fmt, dtype in (("fp32", torch.float32),
+                           ("fp16alt", torch.bfloat16),
+                           ("fp16", torch.float16)):
+            a = torch.randn((n, n), generator=gen, device="cuda").to(dtype)
+            b = torch.randn((n, n), generator=gen, device="cuda").to(dtype)
+            rows[fmt] = _power_loop(sampler, lambda: torch.mm(a, b), flops)
+            del a, b
+        a = torch.randn((n, n), generator=gen, device="cuda").to(
+            torch.float8_e4m3fn)
+        bt = torch.randn((n, n), generator=gen, device="cuda").to(
+            torch.float8_e4m3fn)
+        one = torch.ones((), device="cuda")
+        rows["fp8"] = _power_loop(sampler, lambda: torch._scaled_mm(
+            a, bt.t(), scale_a=one, scale_b=one,
+            out_dtype=torch.bfloat16), flops)
+        del a, bt
+        src = torch.empty(ENERGY_COPY_BYTES, dtype=torch.uint8,
+                          device="cuda").fill_(1)
+        dst = torch.empty_like(src)
+        copy = _power_loop(sampler, lambda: dst.copy_(src),
+                           2.0 * ENERGY_COPY_BYTES)
+        del src, dst
+    finally:
+        sampler.stop()
+    gc_cuda()
+    above = lambda r: (r["watts"] - idle_w) / r["rate"] * 1e12
+    res = {"phase": "energy", "card": card_line(),
+           "idle_w": round(idle_w, 2), "idle_samples": idle_n,
+           "pj_per_flop": {f: above(r) for f, r in rows.items()},
+           "board_pj_per_flop": {f: r["watts"] / r["rate"] * 1e12
+                                 for f, r in rows.items()},
+           "tflop_s": {f: r["rate"] / 1e12 for f, r in rows.items()},
+           "watts": {f: r["watts"] for f, r in rows.items()},
+           "pj_per_byte": above(copy),
+           "board_pj_per_byte": copy["watts"] / copy["rate"] * 1e12,
+           "copy_tb_s": copy["rate"] / 1e12,
+           "copy_watts": copy["watts"],
+           "samples": {**{f: r["samples"] for f, r in rows.items()},
+                       "copy": copy["samples"]},
+           "total_memory": torch.cuda.get_device_properties(0).total_memory,
+           "phase_s": round(time.perf_counter() - t0, 1)}
+    for f, pj in list(res["pj_per_flop"].items()) + [
+            ("copy", res["pj_per_byte"])]:
+        if not (0 < pj < 1e4):
+            raise AssertionError(f"energy: {f} row {pj} pJ is not a "
+                                 f"positive finite reading")
+    log(json.dumps(res))
+    return res
+
+
+#: the dry run's card check: gemma2-9b's full-width decode step, dense
+#: backends, ``batch`` rows against a ``max_len`` cache (decode_32k's
+#: length; its batch cut to fit one card beside the serving weights)
+DRYRUN_CARD = dict(batch=2, max_len=32768)
+#: the step's own peak on the card (``max_memory_allocated`` less the
+#: bytes held before it) may differ from the dry run's (its peak less its
+#: argument bytes, the one figure of the peak that the dry run measures
+#: and does not read off the arguments) by this share of the dry one: the
+#: allocator rounds blocks up to 512 bytes, and cuBLAS may take a
+#: workspace the dry run cannot see
+DRYRUN_PEAK_TOL = 0.01
+
+
+def dryrun_card_phase(model, params) -> dict:
+    """The dry run of gemma2-9b's decode step (meta tensors, the card's op
+    path, a one-rank mesh) against the same step on the card with the
+    serving phases' weights: flops equal (``FlopCounterMode`` on both),
+    argument bytes equal, and the step's own peak (the peak less the
+    arguments) within ``DRYRUN_PEAK_TOL`` of the dry run's; the whole
+    peak's share is printed, not gated (its argument bytes are the same
+    count on both sides)."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.train.serve_step import make_decode_step
+    t0 = time.perf_counter()
+    b, length = DRYRUN_CARD["batch"], DRYRUN_CARD["max_len"]
+    mesh = dryrun.dry_mesh(shape=(1, 1))
+    m = model.with_cfg(paged_kv=False, decode_backend="dense",
+                       prefill_backend="dense")
+    step_d, args_d = dryrun.build_step(m.cfg, "decode_32k", mesh, "tp_bf16",
+                                       batch=b, seq=length)
+    dry = dryrun.count(step_d, args_d)
+    step, _, _ = make_decode_step(m, mesh, batch=b, max_len=length)
+    args = (params, torch.zeros((b, 1), dtype=torch.int32, device="cuda"),
+            m.init_caches(b, length), length - 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    card = dryrun.count(step, args)
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated() - before
+    card_peak = card["memory"]["argument_bytes"] + step_peak
+    dry_step = dry["memory"]["peak_bytes"] - dry["memory"]["argument_bytes"]
+    del args
+    gc_cuda()
+    res = {"phase": "dryrun_card", "batch": b, "max_len": length,
+           "dry": dry, "card_counted": {k: card[k] for k in (
+               "flops", "bytes", "transcendentals", "memory")},
+           "card_peak_bytes": card_peak,
+           "card_step_peak_bytes": step_peak,
+           "dry_step_peak_bytes": dry_step,
+           "step_peak_rel_diff": (step_peak - dry_step) / dry_step,
+           "peak_rel_diff": (card_peak - dry["memory"]["peak_bytes"])
+           / dry["memory"]["peak_bytes"],
+           "peak_tol": DRYRUN_PEAK_TOL,
+           "phase_s": round(time.perf_counter() - t0, 1)}
+    log(json.dumps(res))
+    if dry["flops"] != card["flops"] or dry["flops"] <= 0:
+        raise AssertionError(f"dry run: {dry['flops']} flops, the card's "
+                             f"step {card['flops']}")
+    if dry["memory"]["argument_bytes"] != card["memory"]["argument_bytes"]:
+        raise AssertionError(
+            f"dry run: argument bytes {dry['memory']['argument_bytes']}, "
+            f"the card's {card['memory']['argument_bytes']}")
+    if dry_step <= 0 or abs(res["step_peak_rel_diff"]) > DRYRUN_PEAK_TOL:
+        raise AssertionError(f"dry run: the step's peak {dry_step} vs the "
+                             f"card's {step_peak}: "
+                             f"{res['step_peak_rel_diff']:.4f} of it, over "
+                             f"{DRYRUN_PEAK_TOL}")
+    return res
+
+
+#: the dry-run leg: gemma2-9b decode_32k on both production meshes, in a
+#: CPU process of its own beside the build
+DRYRUN_CELLS = (("gemma2-9b", "decode_32k", False),
+                ("gemma2-9b", "decode_32k", True))
+
+
+def dryrun_leg_start():
+    """Starts the dry-run leg (``python -m repro_torch.launch.dryrun`` on
+    the meta device, one process, no card: ``CUDA_VISIBLE_DEVICES`` is
+    empty there); returns its join, which gates and returns the records."""
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    script = ("import json, sys; from repro_torch.launch import dryrun; "
+              "json.dump([dryrun.run_cell(a, s, mp, 'tp_bf16') "
+              "for a, s, mp in json.loads(sys.argv[1])], "
+              "open(sys.argv[2], 'w'))")
+    path = os.path.join(out, "cells.json")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", script, json.dumps(DRYRUN_CELLS), path],
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+             "PYTHONPATH": os.path.join(ROOT, "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # a run that fails before the join stops the leg too
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+
+    def join() -> dict:
+        try:
+            text = proc.communicate(timeout=600)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode != 0:
+            raise AssertionError(f"dry-run leg failed ({proc.returncode}):"
+                                 f" {text[-2000:]}")
+        with open(path) as f:
+            recs = json.load(f)
+        shutil.rmtree(out, ignore_errors=True)
+        res = {"phase": "dryrun_leg", "seconds": round(
+            time.perf_counter() - t0, 1), "cells": [
+            {k: r[k] for k in ("arch", "shape", "mesh", "n_devices", "ok",
+                               "memory", "flops", "bytes",
+                               "transcendentals", "coll", "times")}
+            for r in recs]}
+        for r in recs:
+            if not r["ok"] or r["flops"] <= 0 or not r["coll"]:
+                raise AssertionError(f"dry-run leg: {r['mesh']} record "
+                                     f"{r}")
+        log(json.dumps(res))
+        return res
+    return join
+
+
+#: the example twins run on the card, each in a process of its own, with
+#: the text their output must hold
+EXAMPLES = (("torch_quickstart.py", (), "GEMM energy on the H100"),
+            ("torch_serve_decode.py", ("--decode-backend", "kernel"),
+             "kernel launches: decode_attention"))
+
+
+def examples_phase() -> dict:
+    """Runs the example twins on the card; the serving one must have
+    launched both attention kernels."""
+    t0 = time.perf_counter()
+    res = {"phase": "examples", "runs": {}}
+    for name, argv, want in EXAMPLES:
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "examples", name), *argv],
+            env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+            capture_output=True, text=True, timeout=300)
+        if r.returncode != 0 or want not in r.stdout:
+            raise AssertionError(f"example {name} {argv}: rc "
+                                 f"{r.returncode}: {(r.stdout + r.stderr)[-2000:]}")
+        res["runs"][name] = {"seconds": round(time.perf_counter() - t, 1),
+                             "tail": r.stdout.strip().splitlines()[-2:]}
+        if name == "torch_serve_decode.py":
+            line = [ln for ln in r.stdout.splitlines() if want in ln][0]
+            counts = [int(x.strip().split()[-1])
+                      for x in line.split(":", 1)[1].split(",")]
+            res["runs"][name]["launches"] = counts
+            if min(counts) <= 0:
+                raise AssertionError(f"example {name}: {line}")
+    res["phase_s"] = round(time.perf_counter() - t0, 1)
+    log(json.dumps(res))
+    return res
+
+
 def gc_cuda() -> None:
     """Frees what the last phase dropped."""
     import gc
@@ -5650,6 +5992,7 @@ def main() -> int:
         except BaseException as e:      # re-raised in the main thread
             beside.setdefault("errors", []).append(e)
 
+    dry_leg = dryrun_leg_start()
     trainer = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
     go_dir = tempfile.mkdtemp(prefix="chip_smoke_train_mesh_archs_")
     try:
@@ -5672,6 +6015,11 @@ def main() -> int:
             t.start()
         hgmma_gate = build_phase()
         lap("build")
+        # the example twins need the built kernels and little of the card:
+        # they run while the training phases finish
+        examples = threading.Thread(
+            target=run, name="examples", args=(("examples", examples_phase),))
+        examples.start()
         for t in threads:
             t.join()
         if "errors" in beside:
@@ -5681,7 +6029,14 @@ def main() -> int:
         trainer.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(go_dir, ignore_errors=True)
     lap("training_after_build")
+    # the energy leg wants the card otherwise idle
+    examples.join()
+    if "errors" in beside:
+        raise beside["errors"][0]
+    lap("examples_wait")
     gc_cuda()
+    energy = energy_phase()
+    lap("energy")
     recs = kernel_phase()
     recs.update(op_kernel_phase())
     op_res = op_path_phase()
@@ -5689,6 +6044,8 @@ def main() -> int:
     hgmma_gate()
     lap("kernels")
     model, params = full_model()
+    dry_card = dryrun_card_phase(model, params)
+    lap("dryrun_card")
     serving = [slice_phase(model, params)]
     lap("slice")
     serving.append(speculative_phase(model, params, serving[0]))
@@ -5735,6 +6092,15 @@ def main() -> int:
         serving.append(archs[tag])
         lap(tag)
         gc_cuda()
+    dry_leg()
+    lap("dryrun_leg_wait")
+    log(json.dumps({"tooling": {
+        "energy_pj_per_flop": energy["pj_per_flop"],
+        "energy_pj_per_byte": energy["pj_per_byte"],
+        "idle_w": energy["idle_w"], "dryrun_card_flops": dry_card["dry"][
+            "flops"], "dryrun_card_step_peak_rel_diff": dry_card[
+            "step_peak_rel_diff"], "dryrun_card_peak_rel_diff": dry_card[
+            "peak_rel_diff"]}}))
     log(json.dumps({"phase_s": phase_s}))
     launches, variants, by_cluster = dict(op_res["launches"]), {}, {}
     by_dims, by_group, noncausal = {}, {}, 0

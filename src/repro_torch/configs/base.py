@@ -139,3 +139,96 @@ class ModelConfig:
             if spec.mixer == "shared_attn":
                 assert self.shared_block is not None
         return self
+
+    # -- parameter count (for roofline MODEL_FLOPS and docs) ------------------
+    def param_counts(self) -> dict:
+        """Returns three counts:
+          total  — distinct parameters stored,
+          active — distinct parameters touched per token (MoE: only the
+                   routed top-k + shared experts; weight-shared blocks once),
+          flops  — per-use parameter count for the 6·N·D FLOPs estimate
+                   (weight-shared blocks counted once per invocation)."""
+        d, v = self.d_model, self.vocab
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        total = emb
+        active = emb
+
+        def attn_params(spec):
+            if spec.mixer == "gqa":
+                qkv = d * self.n_heads * self.head_dim \
+                    + 2 * d * self.n_kv_heads * self.head_dim \
+                    + self.n_heads * self.head_dim * d
+                return qkv
+            if spec.mixer == "mla":
+                qd = self.nope_dim + self.rope_dim
+                p = d * self.kv_lora + d * self.rope_dim \
+                    + self.kv_lora * self.n_heads * (self.nope_dim
+                                                     + self.v_head_dim) \
+                    + self.n_heads * self.v_head_dim * d
+                if self.q_lora:
+                    p += d * self.q_lora + self.q_lora * self.n_heads * qd
+                else:
+                    p += d * self.n_heads * qd
+                return p
+            if spec.mixer == "mamba2":
+                m = self.mamba
+                return d * (2 * m.d_inner + 2 * m.n_groups * m.d_state
+                            + m.n_heads) + m.d_inner * d \
+                    + m.d_conv * m.conv_dim
+            if spec.mixer == "mlstm":
+                ml = self.mlstm
+                # headwise (block-diagonal) qkv: 3 * H * head_dim^2
+                return d * 2 * ml.d_inner \
+                    + 3 * ml.n_heads * ml.head_dim ** 2 \
+                    + ml.d_inner * 2 * ml.n_heads + ml.d_inner * d \
+                    + ml.d_conv * ml.d_inner
+            if spec.mixer == "slstm":
+                sl = self.slstm
+                dff = int(sl.proj_factor * d)
+                return 4 * d * d + 4 * d * sl.head_dim \
+                    + d * 2 * dff + dff * d
+            if spec.mixer == "shared_attn":
+                sb = self.shared_block
+                return d * self.n_heads * self.head_dim * 2 \
+                    + 2 * d * self.n_kv_heads * self.head_dim \
+                    + (3 * d * self.d_ff if sb.ffn == "swiglu"
+                       else 2 * d * self.d_ff)
+            return 0
+
+        def ffn_params(spec):
+            if spec.ffn == "swiglu":
+                return 3 * d * self.d_ff
+            if spec.ffn == "gelu":
+                return 2 * d * self.d_ff + self.d_ff + d
+            if spec.ffn == "moe":
+                mc = self.moe
+                routed = mc.n_experts * 3 * d * mc.d_expert
+                shared = mc.n_shared * 3 * d * mc.d_expert
+                act = mc.top_k * 3 * d * mc.d_expert + shared
+                return routed + shared + d * mc.n_experts, act
+            return 0
+
+        flops = active
+        shared_counted = False
+        for spec in self.layer_list():
+            a = attn_params(spec)
+            f = ffn_params(spec)
+            f_total, f_active = f if isinstance(f, tuple) else (f, f)
+            if spec.mixer == "shared_attn":
+                if not shared_counted:
+                    total += a + f_total
+                    active += a + f_active
+                    shared_counted = True
+                flops += a + f_active
+            else:
+                total += a + f_total
+                active += a + f_active
+                flops += a + f_active
+        if self.encoder is not None:
+            e = self.encoder
+            per = 4 * (d * e.n_heads * (d // e.n_heads)) \
+                + 2 * d * e.d_ff + e.d_ff + d
+            total += e.n_layers * per
+            active += e.n_layers * per
+            flops += e.n_layers * per
+        return {"total": total, "active": active, "flops": flops}

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from . import softfloat
+from .device import card_path
 from .formats import get_format
 from .policy import get_policy
 
@@ -150,7 +151,7 @@ def tp_einsum(spec: str, a, b, policy, *, out_fmt=None,
         src = mp.src_fmt.native_dtype
         acc = _acc_dtype(policy, out)
         a, b = a.to(src), b.to(src)
-        if a.device.type == "cuda" and out.native_dtype == src \
+        if card_path(a) and out.native_dtype == src \
                 and acc == torch.float32:
             return torch.einsum(spec, a, b)      # f32 sum, one rounding
         return torch.einsum(spec, a.to(acc), b.to(acc)).to(out.native_dtype)
@@ -189,7 +190,7 @@ def tp_matmul(a, b, policy, *, out_fmt=None, use_kernel: bool = False,
     acc = _acc_dtype(policy, outf)
     out = outf.native_dtype
     a, b = a.to(src), b.to(src)
-    if a.device.type != "cuda":
+    if not card_path(a):
         return torch.matmul(a.to(acc), b.to(acc)).to(out)
     if out == src and acc in (torch.float32, src):
         return torch.matmul(a, b)

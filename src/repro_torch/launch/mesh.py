@@ -16,7 +16,8 @@ tensor-parallelizes heads and page pools inside each engine replica, the
 data axis indexes replicas.  ``replica_meshes`` cuts it into one
 ``("model",)`` sub-mesh per data row (or the meshless fleet ``[None] *
 n``).  ``make_production_mesh`` builds the pod meshes over a world that
-large.  JAX's ``core/compat.py`` (jax-version shims for ``shard_map`` and
+large, or (``dry=True``) rank 0's view of them with no ranks at all, whose
+collectives ``launch.spmd`` answers on meta tensors.  JAX's ``core/compat.py`` (jax-version shims for ``shard_map`` and
 ``make_mesh``) has no counterpart: nothing here depends on a JAX version.
 """
 from __future__ import annotations
@@ -42,8 +43,10 @@ class Mesh:
     lies outside the mesh); ``everyone`` the group of all its ranks."""
 
     def __init__(self, axis_names: Sequence[str], devices: np.ndarray,
-                 rank: int, groups: Dict[str, Group], everyone: Group):
+                 rank: int, groups: Dict[str, Group], everyone: Group,
+                 dry: bool = False):
         self.axis_names = tuple(axis_names)
+        self.dry = dry
         self.devices = np.asarray(devices)
         self.shape = dict(zip(self.axis_names, self.devices.shape))
         self.rank = rank
@@ -71,7 +74,8 @@ class Mesh:
             return self.groups[axes[0]]
         if axes not in self.groups:
             self.groups[axes] = _slice_group(self.devices, [
-                self.axis_names.index(a) for a in axes], self.rank)
+                self.axis_names.index(a) for a in axes], self.rank,
+                self.dry)
         return self.groups[axes]
 
     def __repr__(self) -> str:
@@ -79,11 +83,12 @@ class Mesh:
                 f"coords={self.coords})")
 
 
-def _slice_group(devices: np.ndarray, dims, rank: int) -> Group:
+def _slice_group(devices: np.ndarray, dims, rank: int,
+                 dry: bool = False) -> Group:
     """This rank's group among the slices of ``devices`` over ``dims``
     (flattened row-major in that order), every slice's process group
-    made on every rank."""
-    world, _ = _world()
+    made on every rank (none on a ``dry`` mesh)."""
+    world = 1 if dry else _world()[0]
     rest = [d for d in range(devices.ndim) if d not in dims]
     moved = np.transpose(devices, rest + list(dims))
     mine = None
@@ -98,30 +103,34 @@ def _slice_group(devices: np.ndarray, dims, rank: int) -> Group:
     return mine if mine is not None else Group([], -1, None)
 
 
-def _mk_mesh(shape, axes) -> Mesh:
+def _mk_mesh(shape, axes, dry: bool = False) -> Mesh:
     """A mesh over the first ``prod(shape)`` ranks; raises as the JAX
-    package's ``_mk_mesh`` does when the world is too small."""
+    package's ``_mk_mesh`` does when the world is too small.  ``dry``:
+    rank 0's view of the mesh with no process group at all, whatever the
+    world (its collectives are ``spmd``'s dry ones, on meta tensors)."""
     n = math.prod(shape)
-    world, rank = _world()
+    world, rank = (n, 0) if dry else _world()
     if world < n:
         raise ValueError(f"mesh {tuple(shape)} needs {n} devices, "
                          f"have {world}")
     devices = np.arange(n).reshape(shape)
-    groups = {name: _slice_group(devices, [ax], rank)
+    groups = {name: _slice_group(devices, [ax], rank, dry)
               for ax, name in enumerate(axes)}
     ranks = list(range(n))
-    pg = (None if n == 1 else dist.group.WORLD if n == world
+    pg = (None if n == 1 or dry else dist.group.WORLD if n == world
           else dist.new_group(ranks))
     everyone = Group(ranks, ranks.index(rank) if rank < n else -1, pg)
-    return Mesh(axes, devices, rank, groups, everyone)
+    return Mesh(axes, devices, rank, groups, everyone, dry)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         dry: bool = False) -> Mesh:
     """Single pod ``(data=16, model=16)``; multi-pod ``(pod=2, data=16,
-    model=16)``, the ``pod`` axis a second data-parallel axis."""
+    model=16)``, the ``pod`` axis a second data-parallel axis.  ``dry``:
+    rank 0's view without ranks (``launch.dryrun``)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mk_mesh(shape, axes)
+    return _mk_mesh(shape, axes, dry)
 
 
 def make_serving_mesh(dp: int, tp: int) -> Mesh:
@@ -159,7 +168,8 @@ def replica_meshes(mesh, n: Optional[int] = None) -> list:
         row = mesh.devices[i]
         mine = mesh.coords.get("data") == i
         grp = model if mine else Group([int(r) for r in row], -1, None)
-        subs.append(Mesh(("model",), row, mesh.rank, {"model": grp}, grp))
+        subs.append(Mesh(("model",), row, mesh.rank, {"model": grp}, grp,
+                         mesh.dry))
     if n is not None and n != len(subs):
         raise ValueError(f"mesh data axis has {len(subs)} replicas but "
                          f"replicas={n} was requested")

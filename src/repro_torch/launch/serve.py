@@ -83,6 +83,14 @@ builds the same weights from seed 0 and keeps its shards; rank 0
 prints.  ``--loop python`` is not
 ported to a mesh.
 
+Attention backends: ``--decode-backend`` / ``--prefill-backend``
+``auto|kernel|plain|dense`` (``pallas``, the JAX package's name, is
+``kernel``), as ``kernels.ops`` names them; ``auto`` (the default) is the
+kernel on the card and its plain version on the CPU.  ``--devices N`` is
+the JAX package's CPU bring-up flag for ``--mesh``: N ranks (gloo's with
+``--device cpu``), the mesh over the first dp x tp of them, and N below
+dp x tp raises ("mesh (dp, tp) needs n devices, have N").
+
 Sampling everywhere: ``--temperature --top-k --top-p --seed
 --repetition-penalty --presence-penalty``.  The model is the reduced
 config unless ``--full``; weights are random from seed 0.  Runs on the GPU
@@ -176,6 +184,15 @@ def prefix_sharing_parity(model, params, prompts, *, gen: int, max_len: int,
             prompts, shared, n_pages, alloc.n_live)
 
 
+#: the attention backend flags' choices: ``kops.BACKENDS`` and ``pallas``,
+#: the JAX package's name for the kernel
+BACKEND_CHOICES = ("auto", "kernel", "plain", "dense", "pallas")
+
+
+def _backend(name: str) -> str:
+    return "kernel" if name == "pallas" else name
+
+
 def _arg_parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="gemma2-9b")
@@ -183,6 +200,17 @@ def _arg_parser():
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--decode-backend", choices=BACKEND_CHOICES,
+                    default="auto",
+                    help="decode attention: kernel (the CUDA decode "
+                         "kernel; 'pallas', the JAX package's name, is the "
+                         "same), plain (its PyTorch version), dense (the "
+                         "masked softmax), auto (default: the kernel on the "
+                         "card, the plain version on the CPU)")
+    ap.add_argument("--prefill-backend", choices=BACKEND_CHOICES,
+                    default="auto",
+                    help="prefill attention: the flash kernel, its plain "
+                         "version or the dense path, as --decode-backend")
     ap.add_argument("--loop", choices=("scan", "while", "python"),
                     default="scan")
     ap.add_argument("--temperature", type=float, default=0.0,
@@ -258,6 +286,11 @@ def _arg_parser():
                          "heads, paged KV pools, MLPs and vocab per "
                          "replica, dp data-parallel engine replicas (dp > 1 "
                          "requires --continuous); spawns dp*tp ranks")
+    ap.add_argument("--devices", type=int, default=None, metavar="N",
+                    help="--mesh over a world of N ranks (the JAX package's "
+                         "CPU bring-up flag): the mesh takes the first dp*tp "
+                         "and N < dp*tp raises; with --device cpu the ranks "
+                         "are gloo's")
     ap.add_argument("--dist-backend", choices=spmd.BACKENDS, default="nccl",
                     help="torch.distributed backend of --mesh: nccl (one "
                          "rank per card) or gloo (the CPU, or several "
@@ -290,6 +323,13 @@ def _arg_parser():
 def main(argv=None):
     ap = _arg_parser()
     args = ap.parse_args(argv)
+    args.decode_backend = _backend(args.decode_backend)
+    args.prefill_backend = _backend(args.prefill_backend)
+    if args.devices is not None:
+        if args.devices < 1:
+            ap.error(f"--devices must be >= 1, got {args.devices}")
+        if args.device == "cpu":
+            args.dist_backend = "gloo"
     if ((args.ragged or args.paged or args.stop_token is not None
          or args.continuous) and args.loop == "python"):
         ap.error("--ragged / --paged / --stop-token / --continuous require "
@@ -358,9 +398,14 @@ def main(argv=None):
         args.fault_replica = (fr, fb, fmode)
     if args.mesh_dims is not None:
         dp, tp = args.mesh_dims
-        return spmd.spawn(_mesh_rank, dp * tp, backend=args.dist_backend,
+        world = dp * tp if args.devices is None else args.devices
+        if world < dp * tp:
+            raise ValueError(f"mesh {(dp, tp)} needs {dp * tp} devices, "
+                             f"have {world}")
+        return spmd.spawn(_mesh_rank, world, backend=args.dist_backend,
                           args=(args,))[0]
     return _serve(ap, args)
+
 
 
 def _mesh_rank(rank: int, world: int, args):
@@ -368,6 +413,8 @@ def _mesh_rank(rank: int, world: int, args):
     if args.dist_backend == "nccl":
         args.device = f"cuda:{rank}"
     mesh = make_serving_mesh(*args.mesh_dims)
+    if not mesh.member:                 # a --devices rank past dp * tp
+        return None
     rmesh = replica_meshes(mesh)[mesh.coords["data"]]
     if rank == 0:
         dp, tp = args.mesh_dims
@@ -393,7 +440,9 @@ def _serve(ap, args, mesh=None, rmesh=None):
                  f"{cfg.name}: {why} cannot page a contiguous-state cache")
     model = build_model(args.arch, policy=args.policy, reduced=args.reduced,
                         device=args.device, paged_kv=paged,
-                        page_size=args.page_size)
+                        page_size=args.page_size,
+                        decode_backend=args.decode_backend,
+                        prefill_backend=args.prefill_backend)
     params = model.init(0)
     if args.continuous:
         return _continuous(args, model, params, mesh, rmesh)

@@ -36,6 +36,16 @@ view), so a 16-bit or fp8 tensor moves bit for bit whatever dtypes the
 backend knows; ``all_gather_cat`` gathers several tensors of any shapes
 in one call.
 
+``STATS["coll"]`` tables every collective as the JAX package's dry run
+keys its HLO's (``op@group_size``: ``all-reduce``, ``all-gather``,
+``all-to-all``, ``broadcast``): calls and output bytes.
+
+Dry mode: a group of more than one rank with no process group (a
+``launch.mesh`` mesh built with ``dry=True``, rank 0's view of a mesh no
+process has) answers every collective on META tensors with a tensor of
+the shape the real collective returns, and tables it as a real one is;
+``launch.dryrun`` runs the steps so.
+
 The rank functions live in importable modules: under ``spawn`` a function
 defined in a ``__main__`` script or a test module cannot be pickled into
 the child.
@@ -59,19 +69,21 @@ BACKENDS = ("nccl", "gloo")
 #: device under gloo), collective calls and their wall time in ms, and
 #: the bytes the data-parallel gradient sync put on the wire, by format
 #: (``wire_bytes``: "fp32" for the plain sync, the compressed format's
-#: name otherwise; counted by the train step)
+#: name otherwise; counted by the train step), and ``coll``: per
+#: ``op@group_size``, the calls and their output bytes
 STATS = {"staged_bytes": 0, "collectives": 0, "collective_ms": 0.0,
-         "wire_bytes": {}}
+         "wire_bytes": {}, "coll": {}}
 
 
 def reset_stats() -> None:
     STATS.update(staged_bytes=0, collectives=0, collective_ms=0.0,
-                 wire_bytes={})
+                 wire_bytes={}, coll={})
 
 
 def snapshot() -> dict:
     """A copy of ``STATS`` that later collectives leave as it is."""
-    return dict(STATS, wire_bytes=dict(STATS["wire_bytes"]))
+    return dict(STATS, wire_bytes=dict(STATS["wire_bytes"]),
+                coll={k: dict(v) for k, v in STATS["coll"].items()})
 
 
 def count_wire(fmt: str, nbytes: int) -> None:
@@ -95,6 +107,26 @@ class Group:
 
 def backend_of(group: Group) -> Optional[str]:
     return dist.get_backend(group.pg) if group.pg is not None else None
+
+
+def _dry(group: Group, *tensors: torch.Tensor) -> bool:
+    """Whether ``group``'s collective is a dry one (module docstring);
+    raises for a dry group given a tensor with values."""
+    if group.pg is not None or group.size == 1:
+        return False
+    if any(t.device.type != "meta" for t in tensors):
+        raise ValueError(
+            f"a group of {group.size} ranks without a process group (a dry "
+            f"mesh) carries meta tensors only")
+    return True
+
+
+def _table(op: str, group: Group, outs) -> None:
+    """Count one ``op`` collective over ``group`` and its output bytes."""
+    rec = STATS["coll"].setdefault(f"{op}@{group.size}",
+                                   {"count": 0, "bytes": 0})
+    rec["count"] += 1
+    rec["bytes"] += sum(o.numel() * o.element_size() for o in outs)
 
 
 # ---------------------------------------------------------------------------
@@ -218,12 +250,14 @@ def _sum(x: torch.Tensor, group: Group,
     a saved input or an incoming cotangent stays as it was)."""
     if dtype is None or dtype == torch.float32:
         y = x.to(torch.float32).contiguous()
-        if group.size > 1 and y.data_ptr() == x.data_ptr():
+        if group.size > 1 and y is x:
             y = y.clone()
         if group.size == 1:
             return y
         w = _to_wire(y, group)
-        dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group.pg)
+        if not _dry(group, w):
+            dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group.pg)
+        _table("all-reduce", group, [w])
         return _from_wire(w, y)
     parts = _gather(x.to(dtype), group)
     out = parts[0]
@@ -267,7 +301,9 @@ def all_reduce_max(x: torch.Tensor, group: Group) -> torch.Tensor:
         return x
     y = x.detach().contiguous().clone()
     w = _to_wire(y, group)
-    dist.all_reduce(w, op=dist.ReduceOp.MAX, group=group.pg)
+    if not _dry(group, w):
+        dist.all_reduce(w, op=dist.ReduceOp.MAX, group=group.pg)
+    _table("all-reduce", group, [w])
     return _from_wire(w, y)
 
 
@@ -307,7 +343,9 @@ def _gather(x: torch.Tensor, group: Group) -> List[torch.Tensor]:
     b = _bytes(x)
     w = _to_wire(b, group)
     outs = [torch.empty_like(w) for _ in range(group.size)]
-    dist.all_gather(outs, w, group=group.pg)
+    if not _dry(group, w):
+        dist.all_gather(outs, w, group=group.pg)
+    _table("all-gather", group, outs)
     return [_from_wire(o, b).view(x.dtype).reshape(x.shape) for o in outs]
 
 
@@ -386,7 +424,9 @@ def _exchange(x: torch.Tensor, group: Group) -> torch.Tensor:
     b = _bytes(x)
     w = _to_wire(b, group)
     out = torch.empty_like(w)
-    dist.all_to_all_single(out, w, group=group.pg)
+    if not _dry(group, w):
+        dist.all_to_all_single(out, w, group=group.pg)
+    _table("all-to-all", group, [out])
     return _from_wire(out, b).view(x.dtype).reshape(x.shape)
 
 
@@ -425,13 +465,15 @@ def broadcast(x: torch.Tensor, group: Group, src: int = 0) -> torch.Tensor:
         return x
     b = _bytes(x).clone()
     w = _to_wire(b, group)
-    dist.broadcast(w, src=group.ranks[src], group=group.pg)
+    if not _dry(group, w):
+        dist.broadcast(w, src=group.ranks[src], group=group.pg)
+    _table("broadcast", group, [w])
     return _from_wire(w, b).view(x.dtype).reshape(x.shape)
 
 
 def barrier(group: Group) -> None:
     """Wait for every rank of ``group``."""
-    if group.size > 1:
+    if group.size > 1 and group.pg is not None:
         dist.barrier(group=group.pg)
 
 
@@ -440,6 +482,8 @@ def gather_objects(obj, group: Group) -> list:
     """Every rank's picklable ``obj``, in group order, on every rank."""
     if group.size == 1:
         return [obj]
+    if group.pg is None:                # a dry group: every rank is this one
+        return [obj] * group.size
     out = [None] * group.size
     dist.all_gather_object(out, obj, group=group.pg)
     return out

@@ -177,26 +177,45 @@ def _flash_attend_paged(q, cache: PagedKVCache, policy, *, causal, window,
 
 
 def _masked_softmax_attend(q, k, v, policy, *, causal, window, cap,
-                           q_offset, kv_len=None, chunk=512):
+                           q_offset, kv_len=None, chunk=512,
+                           windowed_slice: bool = False):
     """Dense path: q [B,H,S,Dh] vs k/v [B,Hkv,T,Dh] -> [B,H,S,Dh], one
-    query chunk at a time (each chunk sees every key and masks)."""
+    query chunk at a time (each chunk sees every key and masks).
+
+    ``windowed_slice`` (the JAX package's knob): on a causal sliding-window
+    layer query chunk ``i`` reads only the keys ``[start, start + w_eff)``,
+    ``start = clip(i * chunk + chunk - w_eff, 0, T - w_eff)``, ``w_eff``
+    the window plus a chunk rounded up to 128 (at most T), so the work
+    drops from O(S*T) to O(S*(window+chunk)); the KV is broadcast to full
+    heads once, outside the chunk loop, as JAX's is."""
     b, h, s, dh = q.shape
-    _, hkv, t, _ = k.shape
-    group = h // hkv
+    t = k.shape[2]
     scale = dh ** -0.5
     kvl = _len_rows(t if kv_len is None else kv_len, q.device)   # [1] or [B]
-    qg = q.reshape(b, hkv, group, s, dh)
-    k_idx = torch.arange(t, device=q.device)
-    lmask = k_idx[None, :] < kvl[:, None]                        # [1|B, t]
+    chunk = min(chunk, s)
+    w_eff = t                                  # every chunk reads every key
+    if (windowed_slice and window is not None and causal and q_offset == 0
+            and window + chunk < t):
+        w_eff = min(-(-(window + chunk) // 128) * 128, t)
+        k = k.repeat_interleave(h // k.shape[1], dim=1)
+        v = v.repeat_interleave(h // v.shape[1], dim=1)
+    hkv = k.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, s, dh)
+    k_all = torch.arange(t, device=q.device)
+    l_all = k_all[None, :] < kvl[:, None]                        # [1|B, t]
     outs = []
     for c0 in range(0, s, chunk):
         qi = qg[:, :, :, c0:c0 + chunk]
         c = qi.shape[3]
-        scores = tp.tp_einsum("bhgcd,bhtd->bhgct", qi, k, policy,
+        start = min(max(c0 + chunk - w_eff, 0), t - w_eff)
+        ks, vs = k[:, :, start:start + w_eff], v[:, :, start:start + w_eff]
+        k_idx, lmask = (k_all[start:start + w_eff],
+                        l_all[:, start:start + w_eff])
+        scores = tp.tp_einsum("bhgcd,bhtd->bhgct", qi, ks, policy,
                               out_fmt="fp32") * scale
         scores = softcap(scores, cap)
         q_idx = q_offset + c0 + torch.arange(c, device=q.device)
-        mask = torch.ones((c, t), dtype=torch.bool, device=q.device)
+        mask = torch.ones((c, w_eff), dtype=torch.bool, device=q.device)
         if causal:
             mask = mask & (q_idx[:, None] >= k_idx[None, :])
         if window is not None:
@@ -206,7 +225,7 @@ def _masked_softmax_attend(q, k, v, policy, *, causal, window, cap,
         m = scores.amax(dim=-1, keepdim=True)
         p = torch.exp(scores - torch.where(m <= NEG_INF / 2, 0.0, m))
         p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-        outs.append(tp.tp_einsum("bhgct,bhtd->bhgcd", p, v, policy,
+        outs.append(tp.tp_einsum("bhgct,bhtd->bhgcd", p, vs, policy,
                                  out_fmt="fp32"))
     out = torch.cat(outs, dim=3)
     return out.reshape(b, h, s, v.shape[-1])
@@ -283,15 +302,17 @@ def _verify_attend(q, cache, policy, *, kv_len, window, cap, backend,
 
 
 def _prefill_attend(q, k, v, policy, *, causal, window, cap, q_offset,
-                    kv_len, chunk, backend):
+                    kv_len, chunk, backend, windowed_slice: bool = False):
     """q [B,H,S,Dh] vs fresh contiguous k/v [B,Hkv,T,Dh] on the prefill
-    route: the dense masked softmax, or the flash kernel (its plain
-    version on the CPU)."""
+    route: the dense masked softmax (``windowed_slice`` its knob), or the
+    flash kernel (its plain version on the CPU), whose block schedule
+    already skips the blocks left of the window."""
     if backend == "dense":
         return _masked_softmax_attend(q, k, v, policy, causal=causal,
                                       window=window, cap=cap,
                                       q_offset=q_offset, kv_len=kv_len,
-                                      chunk=chunk)
+                                      chunk=chunk,
+                                      windowed_slice=windowed_slice)
     return _flash_attend(q, k, v, policy, causal=causal, window=window,
                          cap=cap, q_offset=q_offset, kv_len=kv_len,
                          backend=backend)
@@ -350,10 +371,13 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
                   prefill_backend: str = "auto", kv_len=None, esc_fmts=None,
                   kv_levels=None, kv_scale: Optional[float] = None,
                   verify: bool = False, mesh=None,
+                  windowed_slice: bool = False,
                   return_attend: bool = False):
     """Returns ``(out [B,S,D], cache)``, or ``(out, cache, kv_flags)``
     when ``esc_fmts`` is given.  ``return_attend`` (a test hook) returns
     the per-head attend output [B, H, S, Dv] in place of ``out``.
+    ``windowed_slice``: the dense prefill read's knob
+    (``_masked_softmax_attend``).
 
     Tensor parallelism: ``mesh`` whose ``model`` axis divides both head
     counts runs every read on this rank's heads (``params`` and ``cache``
@@ -433,7 +457,8 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
     elif cache is None:
         out = _prefill_attend(q, k, v, policy, causal=causal, window=window,
                               cap=attn_softcap, q_offset=0, kv_len=kv_len,
-                              chunk=chunk, backend=prefill_backend)
+                              chunk=chunk, backend=prefill_backend,
+                              windowed_slice=windowed_slice)
     else:
         paged = isinstance(cache, PagedKVCache)
         if esc_fmts is not None:
@@ -467,7 +492,8 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
                     q, gather_paged_kv(cache.k_pool, cache.block_table),
                     gather_paged_kv(cache.v_pool, cache.block_table), policy,
                     causal=causal, window=window, cap=attn_softcap,
-                    q_offset=int(cache_pos), kv_len=live, chunk=chunk)
+                    q_offset=int(cache_pos), kv_len=live, chunk=chunk,
+                    windowed_slice=windowed_slice)
             else:
                 out = _flash_attend_paged(q, cache, policy, causal=causal,
                                           window=window, cap=attn_softcap,
@@ -478,7 +504,8 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
             out = _prefill_attend(q, k, v, policy, causal=causal,
                                   window=window, cap=attn_softcap,
                                   q_offset=int(cache_pos), kv_len=kv_len,
-                                  chunk=chunk, backend=prefill_backend)
+                                  chunk=chunk, backend=prefill_backend,
+                                  windowed_slice=windowed_slice)
         else:
             if kv_len is None:
                 kv_len = cache_pos + s

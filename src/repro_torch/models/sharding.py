@@ -260,14 +260,17 @@ def shard_params(params, mesh, cfg=None, overrides: Optional[dict] = None):
 # spec trees: a spec (a tuple) is a leaf, dicts and lists are nodes
 # ---------------------------------------------------------------------------
 def map_specs(fn, tree, specs):
-    """``fn(leaf, spec)`` over ``tree``'s leaves (dicts, lists, tuples of
-    tensors), ``spec`` the entry of ``specs`` at the same place."""
+    """``fn(leaf, spec)`` over ``tree``'s leaves (dicts, lists, tuples and
+    NamedTuples of tensors), ``spec`` the entry of ``specs`` at the same
+    place."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: map_specs(fn, v, specs[k]) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(map_specs(fn, v, s) for v, s in zip(tree, specs))
+        out = [map_specs(fn, v, s) for v, s in zip(tree, specs)]
+        return (type(tree)(*out) if hasattr(tree, "_fields")
+                else type(tree)(out))
     return fn(tree, specs)
 
 

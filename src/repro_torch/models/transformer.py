@@ -85,6 +85,7 @@ import numpy as np
 import torch
 
 from ..configs.base import LayerSpec, ModelConfig
+from ..core.device import device_generator
 from ..core.policy import PrecisionPolicy, get_policy
 from ..launch import spmd
 from ..launch.mesh import check_mesh, model_size
@@ -508,7 +509,7 @@ class Model:
         ``Model.init``, different numbers."""
         cfg, dev = self.cfg, self.device
         gen = seed if isinstance(seed, torch.Generator) else \
-            torch.Generator(device=dev).manual_seed(int(seed))
+            device_generator(dev).manual_seed(int(seed))
         dtype = param_dtype(self.policy)
         vpad = padded_vocab(cfg.vocab)
         params = {
@@ -671,7 +672,8 @@ class Model:
                 cache_pos=cache_pos, use_rope=spec.use_rope,
                 chunk=cfg.attn_chunk, decode_backend=cfg.decode_backend,
                 prefill_backend=cfg.prefill_backend, kv_len=kv_len,
-                verify=verify, mesh=mesh, **esc_kw)
+                verify=verify, mesh=mesh,
+                windowed_slice=cfg.windowed_slice, **esc_kw)
         mix, cache = r[0], r[1]
         if spec.post_norms:
             mix = _norm(mix, p["post1"], cfg)
@@ -724,8 +726,6 @@ class Model:
                    verify: bool = False, mesh=None):
         """``(x, caches)``, with the layers' summed ``kv_flags`` [B, 2]
         appended when ``esc_fmts`` is given."""
-        if self.cfg.windowed_slice:
-            raise NotImplementedError("windowed_slice is not ported")
         esc = esc_fmts is not None
         flags = (torch.zeros((x.shape[0], 2), dtype=torch.int32,
                              device=x.device) if esc else None)

@@ -48,6 +48,7 @@ from typing import Optional
 import torch
 
 from ..core import softfloat
+from ..core.device import device_generator
 from ..core.policy import PrecisionPolicy
 from ..core.tree import leaves, tree_map, unflatten
 from ..launch import spmd
@@ -148,7 +149,7 @@ def sr_generator(seed: int, step: int, leaf: int, device,
     mix = ((seed + 1) * 0x9E3779B97F4A7C15 ^ step * 0xBF58476D1CE4E5B9
            ^ (leaf + 1) * 0x94D049BB133111EB
            ^ salt * 0xD6E8FEB86659FD93) % (1 << 63)
-    return torch.Generator(device=device).manual_seed(mix)
+    return device_generator(device).manual_seed(mix)
 
 
 class Layout:
