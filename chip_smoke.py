@@ -19,8 +19,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    phase's prefill read, V's head dim 64 against QK's 96, ragged and
    uniform; the speculative phase's verify fold ``decode_bf16_p64_verify``:
    4 slots x 4 positions folded into 128 rows, read at the step form's
-   16-CTA partition, BITWISE the 4 step-form calls, timed also at the
-   fold's own 4-CTA partition, as the 4 step calls and as SDPA without
+   partition (the size ``kernels.ops`` picks for the 4 slots), BITWISE
+   the 4 step-form calls, timed also at the fold's own partition, as the 4 step calls and as SDPA without
    softcap; the MoE phases' reads: qwen3-moe's decode at group 8, head
    dim 128 on a bf16 and an fp8-e5m2 pool (``decode_bf16_p64_qwen3``,
    ``decode_fp8_p64_qwen3``), its 256-token chunk
@@ -30,8 +30,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    phase's reads at group 48, head dim 128: decode on a bf16, an
    fp8-e5m2 and an f32 pool (``decode_bf16_p64_granite`` on ``mma``,
    ``decode_fp8_p64_granite``, ``decode_f32_p64_granite`` on ``fma``) and
-   its 256-token chunk on ``flash_tc`` (``flash_bf16_p64_granite_chunk``,
-   both query tiles); the last attention archs' reads
+   its 256-token chunk on ``flash_tc`` (``flash_bf16_p64_granite_chunk``);
+   the last attention archs' reads
    (``arch_kernel_cases``): gemma3's windowed decode and chunk at group 2
    without softcap, internvl2's decode and 1024-query prefill at group 6,
    whisper's non-causal encoder read (4 x 12 heads x 1500 x 1500 at D
@@ -43,15 +43,16 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    own key tiles.
    One JSON line
    per case: error and tolerance, the variant (and for decode the cluster
-   size its launch counted, which must be the one ``cluster_size`` names)
-   that ran, kernel / plain / library time, and the card's least time for
+   size, for ``flash_tc`` the query tile, and for tp_matmul the plan its
+   launch counted, which must be the one ``kernels.ops`` picks: a winner
+   of the autotuner for this card and build, else the static rule) that
+   ran, kernel / plain / library time, and the card's least time for
    the same work (``bound_ms``).  Kernel and library times are device
    times per call from a replayed CUDA graph (``device_ms``); ``eager_ms``
    is the same call launched from Python, host overhead included;
    ``plain_ms`` is eager; decode's ``kernel_only_ms`` times the kernel's
    own launch without the wrapper's index expansion.  The main flash cases
-   also time the kept FMA variant (``fma_ms``) and the tensor-core variant with
-   the query tile (64 or 128 rows) that ``plan_q_rows`` did not pick; a small
+   also time the kept FMA variant (``fma_ms``); a small
    policy-``fp32`` case holds the FMA variant against its plain version.
    Every case also runs the kernel's telemetry instantiation
    (``debug_visits`` / ``debug_flags``): its output must be bitwise the
@@ -77,7 +78,14 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    ``core.ops.tp_matmul(..., "em_fp8", use_kernel=True)`` products, pack
    them, and the expanding dot product of the two weights — with every
    launch counter > 0 afterwards and both products on the tensor-core
-   variant.
+   variant, each at the plan ``kernels.ops`` picked.
+3b. Autotune leg (``autotune_phase``): how many shipped winners
+   (``kernels/pretuned.json``) the loader adopted for this card and build
+   (whether the later phases run tuned), then a sweep of the slice's
+   local decode, its 256-token chunk and the MLP down product through
+   the tuner into a temporary cache, each candidate held to its plain
+   version before it is timed; one default ``kernels.ops`` call must then
+   count its launch under the winner.
 4. Slice phase: full-width gemma2-9b under ``tp_bf16`` with seeded random
    weights, served by ``ContinuousEngine`` (4 slots, 8 requests, pages of
    64 tokens, one request crossing the 4096-token local window).  Every
@@ -86,7 +94,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    window (the first four requests, 8 tokens each) under
    ``torch.profiler`` gives device time by kernel class and the device's
    idle share.  Every decode launch must take the mma route, at the
-   cluster size ``cluster_size`` names for its layer.  Then one request
+   cluster size ``kernels.ops`` picks for its layer, every ``flash_tc``
+   launch at the query tile it picked.  Then one request
    is served again with the plain versions and its first-token logits
    and greedy tokens are compared.
 4b. Speculative phase (``speculative_phase``), on the slice's model and
@@ -204,7 +213,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    48 take 56.9 GiB, the whole card), then serves the
    slice's queue through ``ContinuousEngine`` (4 slots, chunk 256, pages
    of 64).  Gates: budgets, the pool drains, every decode launch ``mma``
-   at ``cluster_size``'s size, every flash launch ``flash_tc`` at (128,
+   at the cluster size ``kernels.ops`` picks, every flash launch ``flash_tc`` at (128,
    128); request 2 against the plain versions (routing pinned, as above;
    greedy tokens equal up to a near tie); a window under ``tp_bf16_kv8``
    (the fp8 pool); one speculative run on that window (``spec_k`` 3, a
@@ -222,7 +231,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    serves the slice's queue through
    ``ContinuousEngine`` (4 slots, chunk 256, pages of 64).  Gates:
    budgets, the pool drains, every decode launch ``mma`` at group 48
-   and at ``cluster_size``'s size, every flash launch ``flash_tc`` at
+   and at the cluster size ``kernels.ops`` picks, every flash launch ``flash_tc`` at
    (128, 128); request 2 against the plain versions (first-token logits
    within ``LOGITS_TOL``, greedy tokens equal up to a near tie); a window
    (4 requests x 8 tokens) under ``tp_bf16_kv8`` with the same gates.
@@ -235,7 +244,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    the pattern), paged in 64-token pages, and serves the slice's queue
    through ``ContinuousEngine`` (``engine_arch_phase``, as granite's):
    budgets, drained pool, every decode launch ``mma`` at group 2 and at
-   ``cluster_size``'s size, every flash launch ``flash_tc`` at (256,
+   the cluster size ``kernels.ops`` picks, every flash launch ``flash_tc`` at (256,
    256), a profiled window, request 2 against the plain versions.
 13. internvl2 phase (``internvl2_phase``): internvl2-26b at full width
    (48 query heads on 8 KV heads of 128: group 6; d_ff 16384, vocab
@@ -319,7 +328,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    the unsharded run.  No hand-written kernel launches on any rank.
    The other archs under a training mesh (``train_mesh_archs_phase``,
    two gloo ranks spawned once, in a second thread: (l)–(o) beside the
-   fpnew mesh phase, (j)–(k) once it has ended; full widths cut in
+   fpnew mesh phase, (j)–(k) once it and the unsharded training phase
+   have ended; full widths cut in
    depth, ``tp_bf16``, seq 256, global batch 4, one step a leg and
    mesh): (j) qwen3-moe 1 layer at (1, 2), expert parallel;
    (k) deepseek-v2-lite 2 layers at (2, 1) (the MoE aux over the global
@@ -386,7 +396,7 @@ import multiprocessing as mp
 import tempfile
 import threading
 import time
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, wait as wait_futures
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -447,6 +457,10 @@ KERNELS = {
         replaces="src/repro/kernels/dotp_ex.py:43"),
 }
 
+
+#: the autotuner op that picks each kernel's launch knob
+OP_OF_KERNEL = {"decode_attention": "decode_attn", "flash_attention": "attn",
+                "tp_matmul": "matmul"}
 
 #: libraries with a tensor-core (wgmma) variant
 TC_LIBRARIES = ("flash_attention", "tp_matmul")
@@ -591,21 +605,23 @@ def _bits_equal(a, b) -> bool:
                        b.contiguous().view(torch.int32))
 
 
-def decode_telemetry(name, args, kw, variant) -> dict:
+def decode_telemetry(name, args, kw, variant, cluster=None) -> dict:
     """The decode kernel's telemetry instantiation on the flat arguments
-    ``args`` / ``kw`` of ``decode_attention_cuda``: its output must be
-    bitwise the flags-off output, its visits and flags exactly the plain
-    version's, and the launch must count on route ``variant``.  Returns
-    the flags-on device ms and the counts."""
+    ``args`` / ``kw`` of ``decode_attention_cuda`` at ``cluster`` CTAs a
+    row: its output must be bitwise the flags-off output, its visits and
+    flags exactly the plain version's, and the launch must count on route
+    ``variant``.  Returns the flags-on device ms and the counts."""
+    import functools
     import torch
     from repro_torch.kernels.decode_attention import (
         decode_attention_cuda, decode_attention_plain)
-    cu = decode_attention_cuda
+    cu = functools.partial(decode_attention_cuda, cluster=cluster)
     off = cu(*args, **kw)
-    before = (cu.launches_telemetry, cu.launches_mma, cu.launches_fma)
+    dc = decode_attention_cuda
+    before = (dc.launches_telemetry, dc.launches_mma, dc.launches_fma)
     on, visits, flags = cu(*args, debug_visits=True, debug_flags=True, **kw)
-    routed = (cu.launches_telemetry - before[0], cu.launches_mma - before[1],
-              cu.launches_fma - before[2])
+    routed = (dc.launches_telemetry - before[0], dc.launches_mma - before[1],
+              dc.launches_fma - before[2])
     _, pv, pf = decode_attention_plain(*args, debug_visits=True,
                                        debug_flags=True, **kw)
     torch.cuda.synchronize()
@@ -626,8 +642,9 @@ def decode_telemetry(name, args, kw, variant) -> dict:
 
 
 def flash_telemetry(name, args, kw, variant) -> dict:
-    """``decode_telemetry`` for ``flash_attention_cuda``: the plain
-    version walks the variant's own tiles (``kernel_tiles``)."""
+    """``decode_telemetry`` for ``flash_attention_cuda`` (``kw`` may hold
+    ``flash_tc``'s ``q_rows``): the plain version walks the variant's own
+    tiles (``kernel_tiles``)."""
     import torch
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_attention_plain, kernel_tiles)
@@ -635,7 +652,9 @@ def flash_telemetry(name, args, kw, variant) -> dict:
     q, v = args[0], args[2]
     bq, bk = kernel_tiles(kw["src_dtype"], kw.get("src_fmt_name"),
                           q.shape[1], q.shape[0] // kw["group"],
-                          kw["group"], q.shape[2], v.shape[-1])
+                          kw["group"], q.shape[2], v.shape[-1],
+                          q_rows=kw.get("q_rows"))
+    plain_kw = {k: x for k, x in kw.items() if k != "q_rows"}
     off = cu(*args, **kw)
     before = (cu.launches_telemetry, cu.launches_tc, cu.launches_fma)
     on, visits, flags = cu(*args, debug_visits=True, debug_flags=True, **kw)
@@ -643,7 +662,7 @@ def flash_telemetry(name, args, kw, variant) -> dict:
               cu.launches_fma - before[2])
     _, pv, pf = flash_attention_plain(*args, block_k=bk, block_q=bq,
                                       debug_visits=True, debug_flags=True,
-                                      **kw)
+                                      **plain_kw)
     torch.cuda.synchronize()
     if routed != ((1, 1, 0) if variant == "tc" else (1, 0, 1)):
         raise AssertionError(f"{name}: telemetry launches (flags, tc, fma) "
@@ -715,24 +734,22 @@ def _sdpa_decode(q, k_pool, v_pool, table, kv_len, window):
 
 
 def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
-                seed, q_scale=1.0, sweep=False, heads=(8, 2), d=256,
-                strip=None):
+                seed, q_scale=1.0, heads=(8, 2), d=256, strip=None):
     """Decode over ``heads`` = (KV heads, group) of head dim ``d``, through
     a page pool of ``page``-token pages or, with ``page == 0``, over
     contiguous strips of ``strip`` keys (None: the longest row + 1; the
     kernel splits a strip into 64-key units).
     ``q_scale`` > 1 puts the scores into the softcap's bend; the case
     then also checks that the cap changes the output (``CAP_EFFECT_MIN``).
-    The launch must count under the cluster size ``cluster_size`` names.
-    Without a softcap SDPA computes the same function (``library_ms``; an
-    idle row, whose output the kernel stores as 0, is NaN there).
-    ``sweep`` also times the kernel alone at 4, 8 and 16 CTAs a row
-    (``cluster_ms``)."""
+    The launch must count under the cluster size ``kernels.ops`` picks
+    (``cluster_tuned``: a winner of the tuner made it, else
+    ``cluster_size``).  Without a softcap SDPA computes the same function
+    (``library_ms``; an idle row, whose output the kernel stores as 0, is
+    NaN there)."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.decode_attention import (
-        cluster_size, decode_attention_cuda, decode_route)
-    from repro_torch.kernels.decode_attention import STRIP_UNIT
+        STRIP_UNIT, cluster_size, decode_attention_cuda, decode_route)
     b, (hkv, g) = len(kv_lens), heads
     gen = torch.Generator(device="cuda").manual_seed(seed)
     max_len = max(kv_lens) + 1
@@ -767,10 +784,11 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
     if routed != ((1, 0) if variant == "mma" else (0, 1)):
         raise AssertionError(f"{name}: launches (mma, fma) {routed}, "
                              f"expected the {variant} route")
-    rule = cluster_size(b * hkv, units, unit, window)
+    rule, tuned = kops.decode_cluster(b, k, table, window, group=g,
+                                      with_source=True)
     if ran != [rule]:
         raise AssertionError(f"{name}: launch counted under cluster sizes "
-                             f"{ran}, the rule names {rule}")
+                             f"{ran}, kernels.ops picks {rule}")
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel output is not finite")
     err = (got - want).abs().max().item()
@@ -796,11 +814,18 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
     args = (q.reshape(b * hkv, g, d), flat(k), flat(v), lens, flat_tab)
     kw = dict(scale=d ** -0.5, window=window, softcap=softcap,
               src_dtype=src_dt)
-    alone = lambda c=None: decode_attention_cuda(*args, cluster=c, **kw)
-    kernel_only = device_ms(alone)
-    tele = decode_telemetry(name, args, kw, variant)
+    kernel_only = device_ms(lambda: decode_attention_cuda(
+        *args, cluster=rule, **kw))
+    tele = decode_telemetry(name, args, kw, variant, rule)
+    static = cluster_size(b * hkv, units, unit, window)
+    if static != rule:
+        tele["rule_ms"] = device_ms(lambda: kops.decode_attention(
+            q, k, v, kv_len=kvl, block_table=table, policy=policy,
+            window=window, softcap=softcap, backend="kernel",
+            cluster=static))
     rec = dict(case=name, kernel="decode_attention", variant=variant,
-               cluster=ran[0], ctas=b * hkv * ran[0], max_abs_err=err,
+               cluster=ran[0], cluster_tuned=tuned, cluster_rule=static,
+               ctas=b * hkv * ran[0], max_abs_err=err,
                tol=tol, q_scale=q_scale, cap_effect=cap,
                kernel_ms=device_ms(lambda: call("kernel")),
                kernel_only_ms=kernel_only, **tele,
@@ -811,9 +836,6 @@ def decode_case(name, *, dtype, page, kv_lens, window, softcap, alias,
                           strip=None if page else skv,
                           kv_len=kv_lens, window=window, softcap=softcap,
                           pool=str(dtype).replace("torch.", "")))
-    if sweep:
-        rec["cluster_ms"] = {c: device_ms(lambda c=c: alone(c))
-                             for c in (4, 8, 16)}
     log(json.dumps(rec))
     if not err <= tol:
         raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
@@ -829,17 +851,16 @@ def verify_case(name="decode_bf16_p64_verify", seed: int = 14) -> dict:
     speculative phase's 65-page tables, query i of slot b at ``kv_len =
     pos_b + i + 1`` with ``pos`` the slice's first four prompt lengths.
     The fold (128 rows) at the step form's partition (``decode_cluster``
-    of the 4 slots: 16 CTAs a row) must be BITWISE the 4 step-form kernel
-    calls (16 each), and within ``KERNEL_TOL`` of the plain version at the
-    same partition.  Times: the fold at the step partition and at its own
-    ``cluster_size`` (4), the 4 step calls, SDPA without softcap over the
-    4 slots' gathered cache with a per-query mask (the library's
-    multi-query read)."""
+    of the 4 slots, the size ``kernels.ops`` picks: by the static rule 16
+    CTAs a row) must be BITWISE the 4 step-form kernel calls, and within
+    ``KERNEL_TOL`` of the plain version at the same partition.  Times: the
+    fold at the step partition and at its own (by the rule 4), the 4 step
+    calls, SDPA without softcap over the 4 slots' gathered cache with a
+    per-query mask (the library's multi-query read)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.decode_attention import (cluster_size,
-                                                      decode_attention_cuda)
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.models.paged import gather_paged_kv
     b, s, hkv, g, d, page, window = 4, SPEC_K + 1, 8, 2, 256, 64, 4096
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -852,11 +873,11 @@ def verify_case(name="decode_bf16_p64_verify", seed: int = 14) -> dict:
     kvl = pos[:, None] + torch.arange(s, device="cuda") + 1      # [b, s]
     qf = q.reshape(b * s, hkv * g, 1, d)
     tf, lf = table.repeat_interleave(s, 0), kvl.reshape(-1)
-    step_c = kops.decode_cluster(b, k, table, window)
-    own_c = kops.decode_cluster(b * s, k, tf, window)
-    if (step_c, own_c) != (cluster_size(b * hkv, max_pages, page, window),
-                           cluster_size(b * s * hkv, max_pages, page,
-                                        window)):
+    step_c = kops.decode_cluster(b, k, table, window, group=g)
+    own_c = kops.decode_cluster(b * s, k, tf, window, group=g)
+    if (step_c, own_c) != tuple(kops.decode_pick(
+            r * hkv, max_pages, page, g, d, torch.bfloat16, "cuda", window)
+            for r in (b, b * s)):
         raise AssertionError(f"{name}: decode_cluster {step_c}/{own_c}")
     kw = dict(policy="tp_bf16", window=window, softcap=50.0)
     fold = lambda backend="kernel", c=step_c: kops.decode_attention(
@@ -972,16 +993,16 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
     ``causal=False`` (whisper's encoder and cross-attention): every query
     reads every live key, ``rows`` then the live keys of each row.
     ``q_scale`` as in :func:`decode_case`.  The plain version walks the
-    kernel's own key tiles.  ``main`` cases also time the FMA variant
-    (``fma_ms``) and the tensor-core variant with the query tile that
-    ``plan_q_rows`` did not pick (``other_q_rows``: 64 or 128 rows) beside
-    the routed kernel."""
+    kernel's own key tiles.  A ``flash_tc`` launch must count under the
+    query tile ``kernels.ops`` picks (``q_rows``; ``q_rows_tuned``: a
+    winner of the tuner made it, else ``plan_q_rows``).  ``main`` cases
+    also time the FMA variant (``fma_ms``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.flash_attention import (
-        flash_attention_cuda, flash_attention_fma, flash_attention_tc,
-        kernel_block_k, plan_q_rows, tc_tile_dtype)
+        flash_attention_cuda, flash_attention_fma, kernel_block_k,
+        plan_q_rows, tc_tile_dtype)
     b, (hkv, g) = len(rows), heads
     h = hkv * g
     dv = d if dv is None else dv
@@ -1009,16 +1030,18 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
     bk = kernel_block_k(src_dt, src_fmt, d, dv)
     variant = ("tc" if tc_tile_dtype(src_dt, src_fmt, d, dv) is not None
                else "fma")
-    call = lambda backend, cap=softcap: kops.flash_attention(
+    call = lambda backend, cap=softcap, rows=None: kops.flash_attention(
         q, k, v, kv_len=kvl, block_table=table, policy=policy,
         causal=causal, window=window, softcap=cap, q_offset=q_offset,
-        backend=backend, block_k=bk)
+        backend=backend, block_k=bk, q_rows=rows)
+    by_rows = flash_attention_cuda.launches_by_q_rows
     before = (flash_attention_cuda.launches_tc,
               flash_attention_cuda.launches_fma,
-              flash_attention_cuda.launches_noncausal)
+              flash_attention_cuda.launches_noncausal, dict(by_rows))
     got = call("kernel")
     routed = (flash_attention_cuda.launches_tc - before[0],
               flash_attention_cuda.launches_fma - before[1])
+    ran = [r for r, n in by_rows.items() if n != before[3].get(r, 0)]
     if flash_attention_cuda.launches_noncausal - before[2] != int(not causal):
         raise AssertionError(f"{name}: the non-causal counter did not count "
                              f"the launch as {'causal' if causal else 'not'}")
@@ -1027,6 +1050,11 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
     if routed != ((1, 0) if variant == "tc" else (0, 1)):
         raise AssertionError(f"{name}: launches (tc, fma) {routed}, "
                              f"expected the {variant} variant")
+    q_rows, tuned = kops.flash_q_rows(chunk, b * hkv, g, d, dv, dtype,
+                                      "cuda", with_source=True)
+    if ran != ([q_rows] if variant == "tc" else []):
+        raise AssertionError(f"{name}: flash_tc counted under query tiles "
+                             f"{ran}, kernels.ops picks {q_rows}")
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel output is not finite")
     err = (got - want).abs().max().item()
@@ -1060,18 +1088,17 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
     args, kw = _flat_flash(q, k, v, kvl, table, policy)
     kw.update(causal=causal, window=window, softcap=softcap,
               q_offset=q_offset)
+    kw["q_rows"] = q_rows
     extra = flash_telemetry(name, args, kw, variant)
+    if variant == "tc":
+        static = plan_q_rows(chunk, b * hkv, g)
+        extra.update(q_rows=q_rows, q_rows_tuned=tuned, q_rows_rule=static)
+        if static != q_rows:
+            extra["rule_ms"] = device_ms(lambda: call("kernel", rows=static))
     if main:
-        rows_planned = plan_q_rows(chunk, b * hkv, g)
-        alt = 64 if rows_planned == 128 else 128
-        extra.update(
-            fma_ms=device_ms(lambda: flash_attention_fma(*args, **kw), 3, 1),
-            q_rows=rows_planned, other_q_rows=alt,
-            other_q_rows_ms=device_ms(lambda: flash_attention_tc(
-                *args, q_rows=alt, **kw)))
-        other = flash_attention_tc(*args, q_rows=alt, **kw)
-        extra["other_q_rows_max_abs_err"] = (other.reshape(got.shape)
-                                             - want).abs().max().item()
+        kw.pop("q_rows")
+        extra["fma_ms"] = device_ms(lambda: flash_attention_fma(*args, **kw),
+                                    3, 1)
     rec = dict(case=name, kernel="flash_attention", variant=variant,
                block_k=bk, max_abs_err=err,
                tol=tol, q_scale=q_scale, cap_effect=cap,
@@ -1090,22 +1117,16 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
     log(json.dumps(rec))
     if not err <= tol:
         raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
-    if main and not extra["other_q_rows_max_abs_err"] <= KERNEL_TOL:
-        raise AssertionError(f"{name}: {extra['other_q_rows']}-row tiles, "
-                             f"max_abs_err "
-                             f"{extra['other_q_rows_max_abs_err']} > "
-                             f"{KERNEL_TOL}")
     if cap is not None and not cap >= CAP_EFFECT_MIN:
         raise AssertionError(f"{name}: the softcap changes the output by "
                              f"{cap} < {CAP_EFFECT_MIN}")
     return rec
 
 
-def decode_phase(sweep: bool = False) -> list:
-    """The decode cases; the first is at the serving path's shapes.
-    ``sweep``, a diagnostic that ``main`` does not run, times each case's
-    kernel at 4, 8 and 16 CTAs a row, the sizes ``cluster_size`` chooses
-    among: ``python3 -c "import chip_smoke as c; c.decode_phase(True)"``."""
+def decode_phase() -> list:
+    """The decode cases; the first is at the serving path's shapes (the
+    tuner times every cluster size: ``autotune_phase``,
+    ``scripts/pretune.py``)."""
     import torch
     bf16, fp8 = torch.bfloat16, torch.float8_e5m2
     d = []
@@ -1113,37 +1134,34 @@ def decode_phase(sweep: bool = False) -> list:
     # one idle slot, one row past the window, aliased prefix pages
     d.append(decode_case("decode_bf16_p64_local", dtype=bf16, page=64,
                          kv_lens=[1056, 540, 0, 4111], window=4096,
-                         softcap=50.0, alias=4, seed=1, sweep=sweep))
+                         softcap=50.0, alias=4, seed=1))
     # q x 24: scores near +-80, in the softcap's bend
     d.append(decode_case("decode_fp8_p16_window", dtype=fp8, page=16,
                          kv_lens=[300, 17, 0, 1000], window=64,
-                         softcap=50.0, alias=2, seed=2, q_scale=24.0,
-                         sweep=sweep))
+                         softcap=50.0, alias=2, seed=2, q_scale=24.0))
     d.append(decode_case("decode_bf16_p64_global_nocap", dtype=bf16, page=64,
                          kv_lens=[1056, 540, 128, 4111], window=None,
-                         softcap=None, alias=0, seed=3, sweep=sweep))
+                         softcap=None, alias=0, seed=3))
     # gemma2-9b's single-stream decode on a global layer at full context:
     # 8 rows, the latency case a one-CTA-per-row grid leaves 124 SMs idle
     d.append(decode_case("decode_bf16_p64_b1_global", dtype=bf16, page=64,
                          kv_lens=[8191], window=None, softcap=50.0, alias=0,
-                         seed=8, sweep=sweep))
-    # 16 slots on a local layer near the window: 128 rows, where
-    # ``cluster_size`` drops to 4 CTAs a row
+                         seed=8))
+    # 16 slots on a local layer near the window: 128 rows, where the
+    # static rule drops to 4 CTAs a row
     d.append(decode_case("decode_bf16_p64_b16_local", dtype=bf16, page=64,
                          kv_lens=[4111 - 97 * i for i in range(16)],
-                         window=4096, softcap=50.0, alias=4, seed=9,
-                         sweep=sweep))
+                         window=4096, softcap=50.0, alias=4, seed=9))
     # generate_phase's last decode step: its four ragged rows over the
     # 17-page tables of a 1024-token width plus 32 tokens
     d.append(decode_case("decode_bf16_p64_generate", dtype=bf16, page=64,
                          kv_lens=[p + GEN_LEN - 1 for p in GEN_PROMPTS],
-                         window=4096, softcap=50.0, alias=0, seed=10,
-                         sweep=sweep))
+                         window=4096, softcap=50.0, alias=0, seed=10))
     # the slice's local layer on the escalation phase's f32 pool (policy
     # fp32): the fma route
     d.append(decode_case("decode_f32_p64_local", dtype=torch.float32,
                          page=64, kv_lens=[1056, 540, 0, 4111], window=4096,
-                         softcap=50.0, alias=4, seed=12, sweep=sweep))
+                         softcap=50.0, alias=4, seed=12))
     return d
 
 
@@ -1228,8 +1246,8 @@ def granite_kernel_cases() -> tuple:
     window, no softcap) on a bf16 pool (route ``mma``), an fp8-e5m2 pool
     (``tp_bf16_kv8``) and an f32 pool (policy ``fp32``: route ``fma``);
     its 256-token prefill chunk at q_offset 768 on ``flash_tc`` (one KV
-    head, group 48: ``plan_q_rows`` picks 64 rows, one query of each head
-    and 16 masked rows; the 128-row tile is timed and checked beside it).
+    head, group 48, at the query tile ``kernels.ops`` picks; the tuner
+    times both).
     Each runs its telemetry instantiation (bitwise the flags-off output);
     none has a softcap, so SDPA computes each (``library_ms``)."""
     import torch
@@ -1423,9 +1441,13 @@ def mm_case(name, *, m, k, n, dtype, out_dtype, quant=None, seed,
             flop_s=BF16_FLOP_S, library=True, library_note=None, iters=20,
             main=False):
     """One tp_matmul case: ``a [m, k] @ b [k, n]`` (b scaled by k^-1/2,
-    a weight's scale) in ``dtype``, stored in ``out_dtype``.  ``main``
-    cases also time the FMA variant (``fma_ms``)."""
+    a weight's scale) in ``dtype``, stored in ``out_dtype``, the
+    tensor-core variant at the plan ``kernels.ops`` picks (``plan_tuned``:
+    a winner of the tuner made it, else ``plan_tc``); the plain version
+    walks the same K ranges.  ``main`` cases also time the FMA variant
+    (``fma_ms``)."""
     import torch
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels.tp_matmul import (agreement_tol, plan_tc,
                                                tc_operand_dtype,
                                                tp_matmul_cuda, tp_matmul_fma,
@@ -1434,21 +1456,30 @@ def mm_case(name, *, m, k, n, dtype, out_dtype, quant=None, seed,
     a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
     b = (torch.randn((k, n), generator=gen, device="cuda")
          * k ** -0.5).to(dtype)
-    kern = lambda: tp_matmul_cuda(a, b, out_dtype=out_dtype,
-                                  quant_fmt_name=quant)
-    plain = lambda: tp_matmul_plain(a, b, out_dtype=out_dtype,
-                                    quant_fmt_name=quant)
     variant = ("tc" if tc_operand_dtype(dtype, quant) is not None
                else "fma")
-    before = tp_matmul_cuda.launches_tc, tp_matmul_cuda.launches_fma
+    plan, tuned = kops.tp_matmul_plan(m, k, n, dtype, "cuda", quant,
+                                      with_source=True)
+    plan = plan if variant == "tc" else None
+    kern = lambda: tp_matmul_cuda(a, b, out_dtype=out_dtype,
+                                  quant_fmt_name=quant, plan=plan)
+    plain = lambda: tp_matmul_plain(a, b, out_dtype=out_dtype,
+                                    quant_fmt_name=quant, plan=plan)
+    by_plan = tp_matmul_cuda.launches_by_plan
+    before = (tp_matmul_cuda.launches_tc, tp_matmul_cuda.launches_fma,
+              dict(by_plan))
     got = kern()
     routed = (tp_matmul_cuda.launches_tc - before[0],
               tp_matmul_cuda.launches_fma - before[1])
+    ran = [p for p, c in by_plan.items() if c != before[2].get(p, 0)]
     want = plain()
     torch.cuda.synchronize()
     if routed != ((1, 0) if variant == "tc" else (0, 1)):
         raise AssertionError(f"{name}: launches (tc, fma) {routed}, "
                              f"expected the {variant} variant")
+    if ran != ([(plan.wm, plan.splits)] if plan else []):
+        raise AssertionError(f"{name}: tp_matmul_tc counted under plans "
+                             f"{ran}, kernels.ops picks {plan}")
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: kernel output is not finite")
     err = (got.float() - want.float()).abs()
@@ -1458,12 +1489,17 @@ def mm_case(name, *, m, k, n, dtype, out_dtype, quant=None, seed,
     bound_ms, bound_by = bound(_nbytes(a, b, got), 2.0 * m * k * n, flop_s)
     lib = device_ms(lambda: torch.mm(a, b)) if library else None
     extra = {}
+    static = plan_tc(m, k, n) if plan else None
+    if static is not None and static != plan:
+        extra["rule_ms"] = device_ms(lambda: tp_matmul_cuda(
+            a, b, out_dtype=out_dtype, quant_fmt_name=quant, plan=static))
     if main:
         extra["fma_ms"] = device_ms(lambda: tp_matmul_fma(
             a, b, out_dtype=out_dtype, quant_fmt_name=quant), 3, 1)
-    plan = plan_tc(m, k, n) if variant == "tc" else None
     rec = dict(case=name, kernel="tp_matmul", variant=variant,
                plan=dataclasses.asdict(plan) if plan else None,
+               plan_tuned=tuned if plan else None,
+               plan_rule=dataclasses.asdict(static) if plan else None,
                max_abs_err=err.max().item(),
                elements_over_tol=over,
                max_err_over_tol=(err / tol).max().item(),
@@ -1702,6 +1738,8 @@ def op_path_phase(seed: int = 0) -> dict:
     for fn in kernels.values():
         fn.launches = 0
     tp_matmul_cuda.launches_tc = tp_matmul_cuda.launches_fma = 0
+    tp_matmul_cuda.launches_by_plan.clear()
+    kops.reset_picked()
     t0 = time.perf_counter()
     w1q = kops.tp_quantize(w1, fmt="fp8")
     w2q = kops.tp_quantize(w2, fmt="fp8")
@@ -1715,6 +1753,11 @@ def op_path_phase(seed: int = 0) -> dict:
     launches = {name: fn.launches for name, fn in kernels.items()}
     variants = {"tp_matmul": {"tc": tp_matmul_cuda.launches_tc,
                               "fma": tp_matmul_cuda.launches_fma}}
+    by_plan = dict(tp_matmul_cuda.launches_by_plan)
+    if by_plan != kops.picked["matmul"]:
+        raise AssertionError(f"op path: tp_matmul_tc launches by plan "
+                             f"{by_plan}, kernels.ops picked "
+                             f"{kops.picked['matmul']}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the op path")
@@ -1740,6 +1783,9 @@ def op_path_phase(seed: int = 0) -> dict:
         "op path dotp", w1q.half().reshape(-1), w2q.half().reshape(-1),
         d.reshape(1, 1), d.reshape(1, 1))
     res = dict(wall_s=wall, launches=launches, variants=variants,
+               matmul_launches_by_plan={f"{wm}x{sp}": c for (wm, sp), c
+                                        in by_plan.items()},
+               matmul_tuned_picks=kops.tuned["matmul"],
                weight_snap_mismatches=w_bad,
                matmul_elements_over_tol=y_over, pack_mismatches=p_bad,
                dotp=d.item(), dotp_exact=exact, dotp_sum_abs=scale,
@@ -1750,6 +1796,117 @@ def op_path_phase(seed: int = 0) -> dict:
                              f"{res}")
     del w1, w2, x, outs, w1q, w2q, y1, y2, packed
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the autotuner
+# ---------------------------------------------------------------------------
+#: one shape per op: the slice's local decode, its 256-token chunk, and
+#: the op path's MLP down product (``autotune`` shapes; the tensors of the
+#: default call that follows give the same keys)
+AUTOTUNE_LEG = (("decode_bf16_p64_local", "decode_attn",
+                 (32, 65, 64, 2, 256)),
+                ("flash_bf16_p64_chunk", "attn", (256, 16, 2, 256, 256)),
+                ("mm_bf16_mlp_down", "matmul", (256, D_FF, D_MODEL)))
+
+
+def _autotune_default_call(op: str, shape) -> dict:
+    """One default call through ``kernels.ops`` at ``shape`` (bf16), and
+    the launches it counted by its knob: {knob: launches}."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.tp_matmul import tp_matmul_cuda
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    bf = torch.bfloat16
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(bf)
+    if op == "decode_attn":          # 4 slots x 8 KV heads, a local layer
+        rows, units, page, g, d = shape
+        b = rows // 8
+        k, v = rnd(b * units + 1, 8, page, d), rnd(b * units + 1, 8, page, d)
+        table = torch.arange(b * units, dtype=torch.int32,
+                             device="cuda").reshape(b, units)
+        kvl = torch.full((b,), units * page - 1, dtype=torch.int32,
+                         device="cuda")
+        counter = decode_attention_cuda.launches_by_cluster
+        call = lambda: kops.decode_attention(
+            rnd(b, 8 * g, 1, d), k, v, kv_len=kvl, block_table=table,
+            window=4096, softcap=50.0)
+    elif op == "attn":               # 2 rows x 8 KV heads, contiguous
+        sq, bkv, g, d, _ = shape
+        b = bkv // 8
+        counter = flash_attention_cuda.launches_by_q_rows
+        call = lambda: kops.flash_attention(
+            rnd(b, 8 * g, sq, d), rnd(b, 8, sq, d), rnd(b, 8, sq, d),
+            kv_len=torch.full((b,), sq, dtype=torch.int32, device="cuda"))
+    else:
+        m, k, n = shape
+        counter = tp_matmul_cuda.launches_by_plan
+        call = lambda: kops.tp_matmul(rnd(m, k), rnd(k, n) * k ** -0.5,
+                                      policy="tp_bf16")
+    before = dict(counter)
+    with torch.no_grad():
+        out = call()
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError(f"autotune {op}: the default call is not finite")
+    return {c: n - before.get(c, 0) for c, n in counter.items()
+            if n != before.get(c, 0)}
+
+
+def autotune_phase() -> dict:
+    """The autotuner on the card: how many of the shipped winners
+    (``kernels/pretuned.json``) the loader adopted for this card and
+    build, so whether the serving phases run tuned; then a sweep of each
+    ``AUTOTUNE_LEG`` shape through ``autotune_*`` into a temporary user
+    cache (``REPRO_TORCH_AUTOTUNE_CACHE``, never the home directory), each
+    candidate held to its plain version at that candidate before it is
+    timed (device ms, median of 5 CUDA-graph replays).  With the winner
+    recorded, one default call through ``kernels.ops`` must count its
+    launch under the winner (``launches_by_cluster``,
+    ``launches_by_q_rows``, ``launches_by_plan``).  The temporary cache is
+    dropped at the end: the later phases run on the shipped winners, as a
+    user's first run would."""
+    from repro_torch.kernels import autotune
+    t0 = time.perf_counter()
+    shipped = autotune.pretuned_status()
+    saved = os.environ.get("REPRO_TORCH_AUTOTUNE_CACHE")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(tmp, "at.json")
+    autotune.reset()
+    legs = []
+    try:
+        for case, op, shape in AUTOTUNE_LEG:
+            fn = {"decode_attn": autotune.autotune_decode,
+                  "attn": autotune.autotune_attention,
+                  "matmul": autotune.autotune_matmul}[op]
+            winner, timings = fn(*shape, dtype="bfloat16", device="cuda")
+            counted = _autotune_default_call(op, shape)
+            key = winner if op == "matmul" else winner[0]
+            leg = dict(case=case, op=op, shape=list(shape),
+                       heuristic=list(autotune.default_block(op, shape)),
+                       winner=list(winner),
+                       candidates=[[list(b), t["ms"], t["spread_ms"]]
+                                   for b, t in timings.items()],
+                       default_call_counted={str(c): n for c, n
+                                             in counted.items()})
+            legs.append(leg)
+            if counted != {key: 1}:
+                raise AssertionError(f"autotune {case}: the default call "
+                                     f"counted {counted}, the winner is "
+                                     f"{winner}")
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = saved
+        autotune.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = dict(shipped=shipped, legs=legs,
+               phase_s=time.perf_counter() - t0)
+    log(json.dumps({"autotune": res}))
     return res
 
 
@@ -1882,8 +2039,20 @@ def attention_counters(where: str, rule: set, flash: str = "tc",
     if (sum(by_cluster.values()) != launches["decode_attention"]
             or not set(by_cluster) <= rule):
         raise AssertionError(f"{where}: decode launches by cluster size "
-                             f"{by_cluster}: the rule names {sorted(rule)}")
+                             f"{by_cluster}: kernels.ops picks "
+                             f"{sorted(rule)}")
+    q_rows_gate(where, counted)
     return counted
+
+
+def q_rows_gate(where: str, counted: dict) -> None:
+    """Every ``flash_tc`` launch at the query tile ``kernels.ops`` picked
+    for it: the wrapper's launches by tile equal the ops' picks."""
+    if counted["flash_launches_by_q_rows"] != counted["flash_picks_by_q_rows"]:
+        raise AssertionError(f"{where}: flash_tc launches by query tile "
+                             f"{counted['flash_launches_by_q_rows']}, "
+                             f"kernels.ops picked "
+                             f"{counted['flash_picks_by_q_rows']}")
 
 
 def no_attention_counters(where: str) -> dict:
@@ -1900,7 +2069,9 @@ def no_attention_counters(where: str) -> dict:
                 variants={"flash_attention": {"tc": 0, "fma": 0},
                           "decode_attention": {"mma": 0, "fma": 0}},
                 decode_launches_by_cluster={}, decode_launches_by_group={},
-                flash_launches_by_dims={}, flash_launches_noncausal=0)
+                flash_launches_by_dims={}, flash_launches_noncausal=0,
+                flash_launches_by_q_rows={}, flash_picks_by_q_rows={},
+                tuned_picks={})
 
 
 def flash_dims() -> dict:
@@ -1911,12 +2082,28 @@ def flash_dims() -> dict:
 
 
 def cluster_rule(model, rows: int, max_pages: int) -> set:
-    """The cluster sizes ``cluster_size`` names for ``rows`` batch rows
-    over ``max_pages``-page tables, one per layer kind."""
-    from repro_torch.kernels.decode_attention import cluster_size
-    return {cluster_size(rows * model.cfg.n_kv_heads, max_pages,
-                         model.cfg.page_size, spec.window)
-            for spec in model.cfg.layer_list()}
+    """The cluster sizes ``kernels.ops`` picks for ``rows`` batch rows over
+    ``max_pages``-page tables of the model's pool, one per layer kind."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.attention import kv_store_dtype
+    cfg = model.cfg
+    return {kops.decode_pick(rows * cfg.n_kv_heads, max_pages, cfg.page_size,
+                             cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
+                             kv_store_dtype(model.policy), "cuda",
+                             spec.window)
+            for spec in cfg.layer_list()}
+
+
+def strip_rule(cfg, rows: int, lens) -> set:
+    """The cluster sizes ``kernels.ops`` picks for ``rows`` contiguous bf16
+    strips of each length in ``lens``."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.decode_attention import STRIP_UNIT
+    return {kops.decode_pick(rows * cfg.n_kv_heads, -(-n // STRIP_UNIT),
+                             STRIP_UNIT, cfg.n_heads // max(1, cfg.n_kv_heads),
+                             cfg.head_dim, torch.bfloat16, "cuda")
+            for n in lens}
 
 
 def slice_requests(model, seed: int = 0) -> list:
@@ -2025,7 +2212,10 @@ def merge_counters(total: dict, part: dict) -> dict:
                           decode_launches_by_group={},
                           flash_launches_by_dims={})
     for key in ("launches", "decode_launches_by_cluster",
-                "decode_launches_by_group", "flash_launches_by_dims"):
+                "decode_launches_by_group", "flash_launches_by_dims",
+                "flash_launches_by_q_rows", "flash_picks_by_q_rows",
+                "tuned_picks"):
+        total.setdefault(key, {})
         for k, n in part.get(key, {}).items():
             total[key][k] = total[key].get(k, 0) + n
     for name, by in part["variants"].items():
@@ -3050,7 +3240,6 @@ def tp_arch_oracle(arch: str, layers: int, prompts, seed: int, tag: str,
     sensitivity to another order of the same sums (the prefill at half
     its chunk).  Returns the rank spec beside the oracle's results."""
     import torch
-    from repro_torch.kernels.decode_attention import STRIP_UNIT, cluster_size
     from repro_torch.launch import sharded_checks as sc
     from repro_torch.models.paged import num_pages
     model, params = arch_model(arch, layers, 0.0, tag, seed, **cfg_kw)
@@ -3059,9 +3248,7 @@ def tp_arch_oracle(arch: str, layers: int, prompts, seed: int, tag: str,
     if recurrent:
         batches = [(_uniform(1, n, cfg.vocab, seed + 28 + i).cpu(), None)
                    for i, n in enumerate(prompts)]
-        rule = {cluster_size(cfg.n_kv_heads,
-                             -(-(n + TP_GEN) // STRIP_UNIT), STRIP_UNIT)
-                for n in prompts}
+        rule = strip_rule(cfg, 1, [n + TP_GEN for n in prompts])
     else:
         toks, lens = _ragged(prompts, cfg.vocab, seed + 28)
         batches = [(toks.cpu(), lens.cpu())]
@@ -3658,13 +3845,19 @@ def mla_counters(where: str, dims: str = "96x64") -> dict:
     if decode_attention_cuda.launches:
         raise AssertionError(f"{where}: the decode kernel launched "
                              f"{decode_attention_cuda.launches} times")
+    from repro_torch.launch.sharded_checks import attention_launches
+    counted = attention_launches()
+    q_rows_gate(where, counted)
     return dict(launches={"decode_attention": 0,
                           "flash_attention": fa.launches},
                 variants={"flash_attention": {"tc": fa.launches_tc,
                                               "fma": 0},
                           "decode_attention": {"mma": 0, "fma": 0}},
                 decode_launches_by_cluster={},
-                flash_launches_by_dims=by_dims)
+                flash_launches_by_dims=by_dims,
+                **{k: counted[k] for k in ("flash_launches_by_q_rows",
+                                           "flash_picks_by_q_rows",
+                                           "tuned_picks")})
 
 
 def _mla_rope_check(model, params, prompt) -> dict:
@@ -3915,8 +4108,7 @@ def moe_layer_probe(model, params, rows=MOE_PROBE_ROWS, reps: int = 10,
     return out
 
 
-def kv8_window(model, params, warm, window, fin, max_len, rule,
-               where) -> tuple:
+def kv8_window(model, params, warm, window, fin, max_len, where) -> tuple:
     """``window`` through a fresh engine on the ``tp_bf16_kv8`` pool (fp8
     K/V) after a warm-up on ``warm``, gated by ``engine_run``; returns its
     record (first tokens compared with ``fin``'s bf16 run) and
@@ -3931,7 +4123,9 @@ def kv8_window(model, params, warm, window, fin, max_len, rule,
         raise AssertionError(f"{where} kv8: pool dtype "
                              f"{eng8.caches[0].k_pool.dtype}")
     eng8.run(warm)
-    fin8, st8, wall8, c8 = engine_run(eng8, window, f"{where} kv8", rule)
+    fin8, st8, wall8, c8 = engine_run(eng8, window, f"{where} kv8",
+                                      cluster_rule(kv8, eng8.slots,
+                                                   eng8.max_pages))
     rec = dict(requests=len(window), max_new=window[0].max_new,
                wall_s=wall8,
                decode_ms_per_round=(st8["decode_s"] * 1e3
@@ -3948,7 +4142,7 @@ def moe_phase(seed: int = 0) -> dict:
     ``ContinuousEngine`` (4 slots, chunk 256, pages of 64) on the slice's
     queue (``PROMPTS`` at ``ARRIVALS``, ``GEN`` tokens).  Gates
     (``engine_run``): budgets, the pool drains, decode on ``mma`` at the
-    cluster size ``cluster_size`` names, flash on ``flash_tc`` at (128,
+    cluster size ``kernels.ops`` picks, flash on ``flash_tc`` at (128,
     128).  A profiled window (the first four requests, 8 tokens) gives
     device time by class with ``moe_dispatch``; ``moe_layer_probe`` times
     one layer's FFN at a decode round's, a verify chunk's and a prefill
@@ -4044,7 +4238,7 @@ def moe_phase(seed: int = 0) -> dict:
                              "between the kernel path and the plain path")
 
     res["kv8"], c8 = kv8_window(model, params, warm, window, fin, max_len,
-                                rule, "moe")
+                                "moe")
     counted = merge_counters(counted, c8)
 
     # speculative: a 1-repeat draft (one layer)
@@ -4160,7 +4354,7 @@ def engine_arch_phase(model, params, tag: str, group: int, dims: str,
     """``model`` (paged, 64-token pages) served by ``ContinuousEngine`` (4
     slots, chunk 256) on the slice's queue (``PROMPTS`` at ``ARRIVALS``,
     ``GEN`` tokens).  Gates (``engine_run``): budgets, the pool drains,
-    every decode launch on ``mma`` at the cluster size ``cluster_size``
+    every decode launch on ``mma`` at the cluster size ``kernels.ops``
     names and at group ``group``, every flash launch ``flash_tc`` at
     ``dims``.  A profiled window (the first four requests, 8 tokens)
     gives device time by class and the idle share.  Request 2 (512
@@ -4242,7 +4436,7 @@ def engine_arch_phase(model, params, tag: str, group: int, dims: str,
 
     if kv8:
         res["kv8"], c8 = kv8_window(model, params, warm, window, fin,
-                                    max_len, rule, tag)
+                                    max_len, tag)
         groups_gate(f"{tag} kv8", c8, group)
         counted = merge_counters(counted, c8)
     res.update(card=card_line(), **counted)
@@ -4647,7 +4841,6 @@ def whisper_phase(seed: int = 0) -> dict:
     layer's own weights: what the plain prefill writes)."""
     import torch
     from repro_torch.core import ops as tp
-    from repro_torch.kernels.decode_attention import STRIP_UNIT, cluster_size
     model, params = arch_model("whisper-small", None, WHISPER_NEED_GIB,
                                "whisper", seed)
     _lively_norms(params, seed + 11)
@@ -4658,9 +4851,7 @@ def whisper_phase(seed: int = 0) -> dict:
     frames = torch.randn((b, e.n_frames, cfg.d_model), generator=gen,
                          device="cuda").to(torch.bfloat16)
     max_len = max(WHISPER_PROMPTS) + GEN_LEN
-    rows = b * cfg.n_kv_heads
-    rule = {cluster_size(rows, -(-n // STRIP_UNIT), STRIP_UNIT)
-            for n in (max_len, e.n_frames)}
+    rule = strip_rule(cfg, b, (max_len, e.n_frames))
     tape = EncodeTape()
     rec, counted, _ = generate_arch(model, params, toks, lens, "whisper",
                                     frames, rule, 1, "64x64",
@@ -4853,15 +5044,13 @@ def zamba2_phase(seed: int = 0) -> dict:
     launches are the shared layers times the calls (two prefills,
     ``GEN_LEN - 1`` decode steps), none non-causal; the continuation gate
     under ``fp32``."""
-    from repro_torch.kernels.decode_attention import STRIP_UNIT, cluster_size
     model, params = arch_model("zamba2-1.2b", ZAMBA2_LAYERS, ZAMBA2_NEED_GIB,
                                "zamba2", seed)
     cfg = model.cfg
     shared = sum(s.mixer == "shared_attn" for s in cfg.layer_list())
     toks = _uniform(ZAMBA2_ROWS, ZAMBA2_PROMPT, cfg.vocab, seed + 14)
     max_len = ZAMBA2_PROMPT + GEN_LEN
-    rule = {cluster_size(ZAMBA2_ROWS * cfg.n_kv_heads,
-                         -(-max_len // STRIP_UNIT), STRIP_UNIT)}
+    rule = strip_rule(cfg, ZAMBA2_ROWS, (max_len,))
     sens = attention_sensitivity(model, params, toks, max_len, "zamba2")
     rec, counted, _ = generate_arch(
         model, params, toks, None, "zamba2", None, rule, 1, "64x64",
@@ -6000,12 +6189,15 @@ def main() -> int:
 
         def mesh_then_go():
             run(("train_mesh", train_mesh_phase))
-            # the MoE arch legs need the card this phase held
+            # the MoE arch legs need the card this phase and the unsharded
+            # training phase held: started beside the latter's last runs,
+            # they ran the card out of memory
+            wait_futures([trained])
             open(os.path.join(go_dir, TRAIN_MESH_ARCHS_GO), "w").close()
 
         # the smaller arch legs beside the fpnew mesh phase from the start
         # (the card holds the three training phases at once), the MoE legs
-        # in the same ranks once it has ended
+        # in the same ranks once it and the unsharded phase have ended
         threads = [threading.Thread(
             target=run, name="train_mesh_archs",
             args=(("train_mesh_archs",
@@ -6043,6 +6235,8 @@ def main() -> int:
     tele = telemetry_phase()
     hgmma_gate()
     lap("kernels")
+    tuned = autotune_phase()
+    lap("autotune")
     model, params = full_model()
     dry_card = dryrun_card_phase(model, params)
     lap("dryrun_card")
@@ -6103,9 +6297,14 @@ def main() -> int:
             "peak_rel_diff"]}}))
     log(json.dumps({"phase_s": phase_s}))
     launches, variants, by_cluster = dict(op_res["launches"]), {}, {}
-    by_dims, by_group, noncausal = {}, {}, 0
+    by_dims, by_group, noncausal, by_q_rows = {}, {}, 0, {}
+    tuned_picks = {"matmul": op_res["matmul_tuned_picks"]}
     variants.update(op_res["variants"])
     for res in serving:
+        for key, total in (("flash_launches_by_q_rows", by_q_rows),
+                           ("tuned_picks", tuned_picks)):
+            for c, n in res.get(key, {}).items():
+                total[c] = total.get(c, 0) + n
         for dims, n in res["flash_launches_by_dims"].items():
             by_dims[dims] = by_dims.get(dims, 0) + n
         for name, n in res["launches"].items():
@@ -6140,6 +6339,14 @@ def main() -> int:
                          telemetry_cases=[[t["case"], t["variant"],
                                            t["flags_ms"]] for t in tele
                                           if t["kernel"] == name])
+        op = OP_OF_KERNEL.get(name)
+        if op is not None:
+            entry["tuned_picks"] = tuned_picks.get(op, 0)
+            entry["autotune_leg"] = [
+                {k: leg[k] for k in ("case", "heuristic", "winner")}
+                for leg in tuned["legs"] if leg["op"] == op]
+        if name == "tp_matmul":
+            entry["launches_by_plan"] = op_res["matmul_launches_by_plan"]
         if name == "decode_attention":
             entry["launches_by_cluster"] = by_cluster
             entry["launches_by_group"] = by_group
@@ -6149,6 +6356,7 @@ def main() -> int:
                           "kernel_ms", "own_cluster_ms", "steps_ms",
                           "bound_ms", "bound_by", "sdpa_nocap_ms")}
         if name == "flash_attention":
+            entry["launches_by_q_rows"] = by_q_rows
             entry["launches_by_dims"] = by_dims
             entry["launches_noncausal"] = noncausal
             entry["mla_cases"] = [
@@ -6171,17 +6379,21 @@ def main() -> int:
                 {k: c.get(k) for k in ("case", "variant", "cluster",
                                        "kernel_ms", "flags_ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
-                                       "max_abs_err", "q_rows",
-                                       "other_q_rows_ms", "fma_ms")}
+                                       "max_abs_err", "q_rows", "fma_ms")}
                 for c in cases if "granite" in c["case"]]
+            entry["tuned_cases"] = [
+                [c["case"], c.get("cluster", c.get("q_rows")),
+                 c.get("cluster_rule", c.get("q_rows_rule")),
+                 c["kernel_ms"], c.get("rule_ms")]
+                for c in cases if c.get("cluster_tuned")
+                or c.get("q_rows_tuned")]
             entry["granite_launches"] = granite["launches"][name]
             entry["tp_launches"] = tp["launches"][name]
             entry["arch_cases"] = [
                 {k: c.get(k) for k in ("case", "variant", "cluster",
                                        "kernel_ms", "flags_ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
-                                       "max_abs_err", "q_rows",
-                                       "other_q_rows_ms", "fma_ms")}
+                                       "max_abs_err", "q_rows", "fma_ms")}
                 for c in cases if any(a in c["case"] for a in (
                     "gemma3", "internvl2", "whisper", "zamba2"))]
             entry["arch_launches"] = {tag: res["launches"][name]

@@ -1,2 +1,4 @@
-"""The attention kernels: hand-written CUDA (``csrc/``), their plain
-torch versions, and the wrappers the model calls."""
+"""The kernels: hand-written CUDA (``csrc/``), their plain torch
+versions, the wrappers the model calls (``ops``), and the block-shape
+autotuner (``autotune``) whose winners, swept on the card and shipped in
+``pretuned.json``, pick each kernel's launch knob."""

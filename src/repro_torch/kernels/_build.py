@@ -70,14 +70,20 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(name: str) -> Path:
-    """Where the library of kernel ``name`` is (or will be) built."""
+def source_digest(name: str) -> str:
+    """16 hex digits of a digest of the flags and the sources library
+    ``name`` is built from (its ``.cu`` and every header)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.iterdir()):
         if src.name == f"{name}.cu" or src.suffix == ".cuh":
             h.update(src.name.encode())
             h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    """Where the library of kernel ``name`` is (or will be) built."""
+    return BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
 
 
 def build_all(names: Sequence[str] = KERNELS) -> Dict[str, dict]:

@@ -95,14 +95,16 @@ def kernel_block_k(src_dtype, src_fmt_name: Optional[str], d: int,
 
 
 def kernel_tiles(src_dtype, src_fmt_name: Optional[str], sq: int, bkv: int,
-                 group: int, d: int, dv: Optional[int] = None
-                 ) -> Tuple[int, int]:
+                 group: int, d: int, dv: Optional[int] = None,
+                 q_rows: Optional[int] = None) -> Tuple[int, int]:
     """``(bq, bk)``: queries per head and keys of the tile the CUDA
     variant these arguments route to walks — its telemetry's block
-    schedule (``flash_tc``: ``plan_q_rows // group`` by 64; ``flash_fma``:
-    32 by 32)."""
+    schedule (``flash_tc``: ``q_rows // group`` by 64, ``q_rows`` None:
+    ``plan_q_rows``; ``flash_fma``: 32 by 32)."""
     if tc_tile_dtype(src_dtype, src_fmt_name, d, dv) is not None:
-        return plan_q_rows(sq, bkv, group) // group, TC_BLOCK_K
+        if q_rows is None:
+            q_rows = plan_q_rows(sq, bkv, group)
+        return q_rows // group, TC_BLOCK_K
     return FMA_BLOCK_Q, FMA_BLOCK_K
 
 
@@ -276,8 +278,9 @@ def flash_attention_tc(q, k, v, kv_len=None, block_table=None, *,
     bh, sq, d = q.shape
     if q_rows is None:
         q_rows = plan_q_rows(sq, bh // group, group)
-    if not 1 <= group <= q_rows:
-        raise ValueError(f"group {group} does not fit a {q_rows}-row tile")
+    if q_rows not in (64, 128) or not 1 <= group <= q_rows:
+        raise ValueError(f"group {group} does not fit a {q_rows}-row tile "
+                         f"(64 or 128 rows)")
     tele = debug_visits or debug_flags
     n_steps, visits, flags = _telemetry(tele, bh, sq, nk * page,
                                         q_rows // group, TC_BLOCK_K, causal,
@@ -296,6 +299,8 @@ def flash_attention_tc(q, k, v, kv_len=None, block_table=None, *,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_tc")
     _counted("tc", d, out.shape[-1], causal)
+    by_rows = flash_attention_cuda.launches_by_q_rows
+    by_rows[q_rows] = by_rows.get(q_rows, 0) + 1
     return _finish(out, out_dtype, visits, flags, debug_visits, debug_flags)
 
 
@@ -341,33 +346,36 @@ def flash_attention_cuda(q, k, v, kv_len=None, block_table=None, *,
                          softcap: Optional[float] = None, q_offset: int = 0,
                          src_fmt_name: Optional[str] = None,
                          src_dtype=torch.bfloat16, out_dtype=torch.float32,
+                         q_rows: Optional[int] = None,
                          debug_visits: bool = False,
                          debug_flags: bool = False):
     """q [BH, Sq, D]; k [BKV, Skv, D] or a pool [n_pages, page, D] with
     ``block_table`` [BKV, nk], v likewise at width Dv; ``kv_len`` None (=
     Skv), scalar or [BH].  Returns [BH, Sq, Dv].  One launch per call, of
-    the variant ``tc_tile_dtype`` picks (from D and Dv); raises on
-    tensors that do not lie on a CUDA device.  ``debug_visits`` /
-    ``debug_flags`` append the telemetry at the variant's tiles
-    (``kernel_tiles``)."""
-    fn = (flash_attention_tc
-          if tc_tile_dtype(src_dtype, src_fmt_name, q.shape[-1],
-                           v.shape[-1]) is not None
-          else flash_attention_fma)
-    return fn(q, k, v, kv_len, block_table, group=group, scale=scale,
-              causal=causal, window=window, softcap=softcap,
-              q_offset=q_offset, src_fmt_name=src_fmt_name,
+    the variant ``tc_tile_dtype`` picks (from D and Dv; ``q_rows`` is
+    ``flash_tc``'s query tile, None: ``plan_q_rows``, and ``flash_fma``
+    has none); raises on tensors that do not lie on a CUDA device.
+    ``debug_visits`` / ``debug_flags`` append the telemetry at the
+    variant's tiles (``kernel_tiles``)."""
+    kw = dict(group=group, scale=scale, causal=causal, window=window,
+              softcap=softcap, q_offset=q_offset, src_fmt_name=src_fmt_name,
               src_dtype=src_dtype, out_dtype=out_dtype,
               debug_visits=debug_visits, debug_flags=debug_flags)
+    if tc_tile_dtype(src_dtype, src_fmt_name, q.shape[-1],
+                     v.shape[-1]) is not None:
+        return flash_attention_tc(q, k, v, kv_len, block_table,
+                                  q_rows=q_rows, **kw)
+    return flash_attention_fma(q, k, v, kv_len, block_table, **kw)
 
 
 #: launches of the CUDA kernels, in all, by variant, by head dims (D, Dv),
-#: without the causal mask (whisper's encoder and cross-attention) and of
-#: the telemetry instantiations (CPU calls and plain-version calls add
-#: none)
+#: by ``flash_tc``'s query tile (64 or 128 rows), without the causal mask
+#: (whisper's encoder and cross-attention) and of the telemetry
+#: instantiations (CPU calls and plain-version calls add none)
 flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_noncausal = 0
 flash_attention_cuda.launches_tc = 0
 flash_attention_cuda.launches_fma = 0
 flash_attention_cuda.launches_by_dims = {}
+flash_attention_cuda.launches_by_q_rows = {}
 flash_attention_cuda.launches_telemetry = 0

@@ -17,6 +17,13 @@ Backends (``cfg.decode_backend`` / ``cfg.prefill_backend``):
   ``"dense"``  the model's dense masked-softmax path (no kernel contract;
                handled in ``models.attention``).
 
+Launch knobs (``decode_pick``, ``flash_q_rows``, ``tp_matmul_plan``):
+the one place each kernel's knob is picked, from the tensors' device, by
+``autotune.best_block`` — a winner swept on this card and build (the
+user's cache, then the shipped ``pretuned.json``), clamped to the live
+shape, else the kernel's static rule.  ``picked`` counts the picks of
+the default calls that launched a kernel.
+
 The kernels have no backward: on the kernel route every wrapper raises
 when grad mode is on and an input requires grad (``_no_grad_into_kernel``),
 never detaching quietly.
@@ -34,15 +41,80 @@ import torch
 
 from ..core.formats import get_format
 from ..core.policy import get_policy
-from .decode_attention import (STRIP_UNIT, cluster_size, decode_attention_cuda,
+from . import autotune
+from .decode_attention import (STRIP_UNIT, decode_attention_cuda,
                                decode_attention_plain, plan_splits)
 from .dotp_ex import dotp_ex_cuda, dotp_ex_plain
-from .flash_attention import flash_attention_cuda, flash_attention_plain
-from .tp_matmul import tp_matmul_cuda, tp_matmul_plain
+from .flash_attention import (flash_attention_cuda, flash_attention_plain,
+                              tc_tile_dtype)
+from .tp_matmul import (tc_operand_dtype, tc_plan, tp_matmul_cuda,
+                        tp_matmul_plain)
 from .tp_quant import (cast_and_pack_cuda, cast_and_pack_plain,
                        tp_quantize_cuda, tp_quantize_plain)
 
 BACKENDS = ("auto", "kernel", "plain", "dense")
+
+#: picks of the default calls that launched a kernel: op -> {pick: calls},
+#: and how many of them a tuned winner made (``tuned``); reset by hand
+picked = {"decode_attn": {}, "attn": {}, "matmul": {}}
+tuned = {"decode_attn": 0, "attn": 0, "matmul": 0}
+
+
+def reset_picked() -> None:
+    for d in picked.values():
+        d.clear()
+    for op in tuned:
+        tuned[op] = 0
+
+
+def _count_pick(op: str, pick, was_tuned: bool) -> None:
+    picked[op][pick] = picked[op].get(pick, 0) + 1
+    tuned[op] += int(was_tuned)
+
+
+def decode_pick(rows: int, units: int, unit: int, group: int, d: int, dtype,
+                device, window: Optional[int] = None,
+                with_source: bool = False):
+    """CTAs a row of a decode read of ``rows`` rows of ``units`` units of
+    ``unit`` keys (live units bounded by ``window`` as ``cluster_size``
+    bounds them), group ``group``, head dim ``d``, a pool of ``dtype`` on
+    ``device``: the tuned winner clamped to the live units, else
+    ``cluster_size``.  ``with_source`` also returns whether a winner made
+    it."""
+    if window is not None:
+        units = min(units, -(-window // unit) + 1)
+    (c,), was_tuned = autotune._best(
+        "decode_attn", (rows, units, unit, group, d),
+        autotune.dtype_name(dtype), torch.device(device))
+    while c > 1 and c > units:
+        c //= 2
+    return (c, was_tuned) if with_source else c
+
+
+def flash_q_rows(sq: int, bkv: int, group: int, d: int, dv: int, dtype,
+                 device, with_source: bool = False):
+    """``flash_tc``'s query tile for ``sq`` queries over ``bkv`` KV rows of
+    ``group`` heads (QK width ``d``, V width ``dv``, a pool of ``dtype``):
+    the tuned winner (128 where the group does not fit 64 rows), else
+    ``plan_q_rows``."""
+    (r,), was_tuned = autotune._best(
+        "attn", (sq, bkv, group, d, dv), autotune.dtype_name(dtype),
+        torch.device(device))
+    r = r if group <= r else 128
+    return (r, was_tuned) if with_source else r
+
+
+def tp_matmul_plan(m: int, k: int, n: int, dtype, device,
+                   quant_fmt_name: Optional[str] = None,
+                   with_source: bool = False):
+    """``tp_matmul_tc``'s plan of ``[m, k] @ [k, n]`` on operands of
+    ``dtype`` (snapped onto ``quant_fmt_name``'s grid): the tuned ``(wm,
+    splits)`` (splits clamped to the K steps), else ``plan_tc``."""
+    (wm, splits), was_tuned = autotune._best(
+        "matmul", (m, k, n), autotune.dtype_name(dtype, quant_fmt_name),
+        torch.device(device))
+    plan = tc_plan(m, k, n, wm, splits)
+    return (plan, was_tuned) if with_source else plan
 
 
 def _no_grad_into_kernel(name: str, *tensors) -> None:
@@ -120,6 +192,7 @@ def flash_attention(q, k, v, *, kv_len=None, policy=None, block_table=None,
                     softcap: Optional[float] = None, q_offset: int = 0,
                     backend: str = "auto", block_k: Optional[int] = None,
                     block_q: Optional[int] = None,
+                    q_rows: Optional[int] = None,
                     return_flags: bool = False):
     """q [B, H, S, D], k [B, Hkv, Skv, D], v [B, Hkv, Skv, Dv] -> [B, H,
     S, Dv] f32 (Dv != D: MLA's expanded prefill).
@@ -129,8 +202,11 @@ def flash_attention(q, k, v, *, kv_len=None, policy=None, block_table=None,
     ``kv_len`` is None (= Skv), a scalar, or per-sequence [B];
     ``q_offset`` shifts the query positions (a chunk's start in its row).  ``block_k`` /
     ``block_q`` are the plain version's key block and telemetry query
-    block (None: its defaults; ``flash_attention.kernel_tiles`` gives a
-    CUDA variant's own tiles); the kernels ignore them.
+    block (None: its default key block, and the query block of the
+    variant these arguments route to: ``q_rows // group`` on
+    ``flash_tc``, 32 otherwise; ``flash_attention.kernel_tiles``); the
+    kernels ignore them.  ``q_rows`` is ``flash_tc``'s query tile (None:
+    ``flash_q_rows``); ``flash_fma`` has none.
 
     ``return_flags=True`` also returns per-sequence int32 [B, 4] IEEE flag
     counts (OF, UF, NX, NV summed over heads and scheduled steps, per
@@ -149,15 +225,25 @@ def flash_attention(q, k, v, *, kv_len=None, policy=None, block_table=None,
         kf = k.reshape(b * hkv, skv, d)
         vf = v.reshape(b * hkv, skv, v.shape[-1])
         table = None
+    group, dv = h // hkv, v.shape[-1]
+    on_tc = tc_tile_dtype(src_dt, src_fmt_name, d, dv) is not None
+    default = on_tc and q_rows is None
+    if default:
+        q_rows, was_tuned = flash_q_rows(sq, b * hkv, group, d, dv, k.dtype,
+                                         q.device, with_source=True)
     if resolve_backend(backend, q.device) == "kernel":
         _no_grad_into_kernel("flash_attention", q, k, v)
-        fn = flash_attention_cuda
+        fn = functools.partial(flash_attention_cuda, q_rows=q_rows)
+        if default:
+            _count_pick("attn", q_rows, was_tuned)
     else:
+        if block_q is None and on_tc:
+            block_q = q_rows // group
         fn = functools.partial(flash_attention_plain, block_k=block_k,
                                block_q=block_q)
     o = fn(q.reshape(b * h, sq, d), kf, vf,
            expand_kv_lens(kv_len, b, h, skv, q.device), table,
-           group=h // hkv, scale=d ** -0.5 if scale is None else scale,
+           group=group, scale=d ** -0.5 if scale is None else scale,
            causal=causal, window=window, softcap=softcap, q_offset=q_offset,
            src_fmt_name=src_fmt_name, src_dtype=src_dt,
            out_dtype=torch.float32, debug_flags=return_flags)
@@ -176,13 +262,16 @@ def _split_units(k, block_table):
 
 
 def decode_cluster(batch: int, k, block_table=None,
-                   window: Optional[int] = None) -> int:
-    """The split partition (CTAs a row, ``cluster_size``) of a decode read
-    of ``batch`` sequences over the cache ``k`` ([B, Hkv, Smax, D], or the
-    page pool [n_pages, Hkv, page, D] with ``block_table`` [B,
-    max_pages]): what ``decode_attention`` picks for them by default."""
+                   window: Optional[int] = None, *, group: int,
+                   with_source: bool = False):
+    """The split partition (CTAs a row, ``decode_pick``) of a decode read
+    of ``batch`` sequences of ``group`` query heads a KV head over the
+    cache ``k`` ([B, Hkv, Smax, D], or the page pool [n_pages, Hkv, page,
+    D] with ``block_table`` [B, max_pages]): what ``decode_attention``
+    picks for them by default."""
     unit, units = _split_units(k, block_table)
-    return cluster_size(batch * k.shape[1], units, unit, window)
+    return decode_pick(batch * k.shape[1], units, unit, group, k.shape[-1],
+                       k.dtype, k.device, window, with_source=with_source)
 
 
 def decode_attention(q, k, v, *, kv_len, policy=None, block_table=None,
@@ -212,8 +301,11 @@ def decode_attention(q, k, v, *, kv_len, policy=None, block_table=None,
                    and policy.kv_fmt is not None else None)
     b, h, sq, d = q.shape
     assert sq == 1, q.shape
-    if cluster is None:
-        cluster = decode_cluster(b, k, block_table, window)
+    default = cluster is None
+    if default:
+        cluster, was_tuned = decode_cluster(b, k, block_table, window,
+                                            group=h // k.shape[1],
+                                            with_source=True)
     if block_table is not None:
         n_pages, hkv, page, _ = k.shape
         smax = block_table.shape[1] * page
@@ -230,6 +322,8 @@ def decode_attention(q, k, v, *, kv_len, policy=None, block_table=None,
     if resolve_backend(backend, q.device) == "kernel":
         _no_grad_into_kernel("decode_attention", q, k, v)
         fn = functools.partial(decode_attention_cuda, cluster=cluster)
+        if default:
+            _count_pick("decode_attn", cluster, was_tuned)
     else:
         unit, units = _split_units(k, block_table)
         fn = functools.partial(decode_attention_plain, splits=plan_splits(
@@ -252,7 +346,8 @@ def _on_card(x) -> bool:
     return resolve_backend("auto", x.device) == "kernel"
 
 
-def tp_matmul(a, b, *, policy=None, out_fmt=None, bk: Optional[int] = None):
+def tp_matmul(a, b, *, policy=None, out_fmt=None, bk: Optional[int] = None,
+              plan=None):
     """Policy-aware kernel matmul ``a [.., M, K] @ b [K, N]``.
 
     native : operands cast to ``src_fmt``'s dtype, f32 sums, stored in
@@ -262,7 +357,9 @@ def tp_matmul(a, b, *, policy=None, out_fmt=None, bk: Optional[int] = None):
              out-format snap — the JAX package's Pallas route, which
              differs from ``core.ops.tp_einsum``.
     ``bk`` fixes the plain version's K-block schedule; the CUDA kernel has
-    its own and ignores it."""
+    its own and ignores it.  ``plan`` is the tensor-core variant's plan
+    (None: ``tp_matmul_plan``); the plain version walks its K ranges
+    when it is given or tuned, and sums K whole otherwise."""
     policy = get_policy(policy if policy is not None else "tp_bf16")
     mp = policy.matmul
     lead = a.shape[:-2]
@@ -278,12 +375,24 @@ def tp_matmul(a, b, *, policy=None, out_fmt=None, bk: Optional[int] = None):
         a2, b2 = a2.to(torch.float32), b.to(torch.float32)
         qname = mp.src_fmt.name if mp.src_fmt.name != "fp32" else None
         out_dtype = torch.float32
+    m, k = a2.shape
     if _on_card(a2):
         _no_grad_into_kernel("tp_matmul", a, b)
-        r = tp_matmul_cuda(a2, b2, out_dtype=out_dtype, quant_fmt_name=qname)
+        if plan is None and tc_operand_dtype(a2.dtype, qname) is not None:
+            plan, was_tuned = tp_matmul_plan(m, k, b2.shape[1], a2.dtype,
+                                             a2.device, qname,
+                                             with_source=True)
+            _count_pick("matmul", (plan.wm, plan.splits), was_tuned)
+        r = tp_matmul_cuda(a2, b2, out_dtype=out_dtype, quant_fmt_name=qname,
+                           plan=plan)
     else:
+        if plan is None:
+            tuned_plan, was_tuned = tp_matmul_plan(
+                m, k, b2.shape[1], a2.dtype, a2.device, qname,
+                with_source=True)
+            plan = tuned_plan if was_tuned else None
         r = tp_matmul_plain(a2, b2, out_dtype=out_dtype,
-                            quant_fmt_name=qname, bk=bk)
+                            quant_fmt_name=qname, bk=bk, plan=plan)
     return r.reshape(*lead, a.shape[-2], b.shape[-1])
 
 

@@ -47,11 +47,21 @@ _OUTPUTS = (torch.float32, torch.bfloat16, torch.float16)
 
 def tp_matmul_plain(a, b, *, out_dtype=torch.float32,
                     quant_fmt_name: Optional[str] = None,
-                    bk: Optional[int] = None):
+                    bk: Optional[int] = None, plan=None):
     """The kernel's function in plain torch; ``bk`` fixes the K-block
-    summation schedule (None: one block)."""
-    return ref.tp_matmul_ref(a, b, out_dtype=out_dtype,
-                             quant_fmt_name=quant_fmt_name, bk=bk)
+    summation schedule (None: one block).  With ``plan`` (a ``TcPlan`` of
+    this product) the sum runs split by split over ``plan.k_ranges`` and
+    the f32 partial sums are added in split order, as the tensor-core
+    kernel's second pass adds them."""
+    if plan is None or plan.splits == 1:
+        return ref.tp_matmul_ref(a, b, out_dtype=out_dtype,
+                                 quant_fmt_name=quant_fmt_name, bk=bk)
+    total = None
+    for lo, hi in plan.k_ranges(a.shape[1]):
+        part = ref.tp_matmul_ref(a[:, lo:hi], b[lo:hi], out_dtype=torch.float32,
+                                 quant_fmt_name=quant_fmt_name, bk=bk)
+        total = part if total is None else total + part
+    return total.to(out_dtype)
 
 
 def tc_operand_dtype(dtype, quant_fmt_name: Optional[str] = None):
@@ -91,19 +101,32 @@ class TcPlan:
                 for z in range(self.splits)]
 
 
-def plan_tc(m: int, k: int, n: int, sms: int = _build.NUM_SMS) -> TcPlan:
-    """One CTA covers all rows up to M = 256 (BM 256 above M = 128), so
-    each weight element is read once; when the output tiles fill fewer
-    than ``sms`` SMs, K is split into up to ``sms // tiles`` contiguous
-    ranges of at least ``TC_MIN_STEPS_PER_SPLIT`` steps."""
-    wm = 1 if m <= 128 else 2
+def tc_plan(m: int, k: int, n: int, wm: int, splits: int) -> TcPlan:
+    """The plan of ``wm`` (1: BM 128, 2: BM 256) and K cut into about
+    ``splits`` contiguous ranges of whole 64-wide steps: ``splits`` is
+    clamped to [1, K steps], and ranges of ``ceil(steps / splits)`` steps
+    may need fewer splits than asked (56 steps asked for 32 splits give
+    28 of 2)."""
+    if wm not in (1, 2):
+        raise ValueError(f"wm must be 1 or 2, got {wm}")
     m_tiles = -(-m // (128 * wm))
     n_tiles = -(-n // TC_BN)
     k_steps = max(1, -(-k // TC_BK))
-    tiles = m_tiles * n_tiles
-    splits = max(1, min(sms // tiles, k_steps // TC_MIN_STEPS_PER_SPLIT))
-    per = -(-k_steps // splits)
+    per = -(-k_steps // max(1, min(int(splits), k_steps)))
     return TcPlan(wm, m_tiles, n_tiles, k_steps, -(-k_steps // per), per)
+
+
+def plan_tc(m: int, k: int, n: int, sms: int = _build.NUM_SMS) -> TcPlan:
+    """The heuristic plan.  One CTA covers all rows up to M = 256 (BM 256
+    above M = 128), so each weight element is read once; when the output
+    tiles fill fewer than ``sms`` SMs, K is split into up to ``sms //
+    tiles`` contiguous ranges of at least ``TC_MIN_STEPS_PER_SPLIT``
+    steps."""
+    wm = 1 if m <= 128 else 2
+    tiles = -(-m // (128 * wm)) * -(-n // TC_BN)
+    k_steps = max(1, -(-k // TC_BK))
+    return tc_plan(m, k, n, wm, max(1, min(
+        sms // tiles, k_steps // TC_MIN_STEPS_PER_SPLIT)))
 
 
 def _check(a, b, out_dtype):
@@ -123,8 +146,10 @@ def _check(a, b, out_dtype):
 
 
 def tp_matmul_tc(a, b, *, out_dtype=torch.float32,
-                 quant_fmt_name: Optional[str] = None):
-    """The tensor-core variant (operands must route to a 16-bit tile)."""
+                 quant_fmt_name: Optional[str] = None,
+                 plan: Optional[TcPlan] = None):
+    """The tensor-core variant (operands must route to a 16-bit tile), at
+    ``plan`` (a ``tc_plan`` of this product; None: ``plan_tc``)."""
     _check(a, b, out_dtype)
     tile = tc_operand_dtype(a.dtype, quant_fmt_name)
     if tile is None:
@@ -140,7 +165,11 @@ def tp_matmul_tc(a, b, *, out_dtype=torch.float32,
         return out
     if k == 0:
         return out.zero_()
-    plan = plan_tc(m, k, n)
+    if plan is None:
+        plan = plan_tc(m, k, n)
+    elif plan != tc_plan(m, k, n, plan.wm, plan.splits):
+        raise ValueError(f"{plan} is not a plan of a [{m}, {k}] @ [{k}, {n}] "
+                         f"product")
     ws = (torch.empty((plan.splits, m, n), dtype=torch.float32,
                       device=a.device) if plan.splits > 1 else None)
     # TMA reads the operands as they are only when they already are the
@@ -162,6 +191,9 @@ def tp_matmul_tc(a, b, *, out_dtype=torch.float32,
     _build.check(err, "tp_matmul_tc")
     tp_matmul_cuda.launches_tc += 1
     tp_matmul_cuda.launches += 1
+    by_plan = tp_matmul_cuda.launches_by_plan
+    key = (plan.wm, plan.splits)
+    by_plan[key] = by_plan.get(key, 0) + 1
     return out
 
 
@@ -186,22 +218,29 @@ def tp_matmul_fma(a, b, *, out_dtype=torch.float32,
 
 
 def tp_matmul_cuda(a, b, *, out_dtype=torch.float32,
-                   quant_fmt_name: Optional[str] = None):
+                   quant_fmt_name: Optional[str] = None,
+                   plan: Optional[TcPlan] = None):
     """``a [M, K] @ b [K, N]`` with f32 accumulation and an ``out_dtype``
-    store; one launch per call, of the variant ``tc_operand_dtype`` picks.
-    Raises on tensors that do not lie on a CUDA device and on shapes or
-    dtypes the kernels do not take."""
+    store; one launch per call, of the variant ``tc_operand_dtype`` picks
+    (``plan``: the tensor-core variant's tiles and K split, None:
+    ``plan_tc``; the FMA variant has none).  Raises on tensors that do not
+    lie on a CUDA device and on shapes or dtypes the kernels do not
+    take."""
     _check(a, b, out_dtype)
-    fn = (tp_matmul_tc if tc_operand_dtype(a.dtype, quant_fmt_name)
-          is not None else tp_matmul_fma)
-    return fn(a, b, out_dtype=out_dtype, quant_fmt_name=quant_fmt_name)
+    if tc_operand_dtype(a.dtype, quant_fmt_name) is not None:
+        return tp_matmul_tc(a, b, out_dtype=out_dtype,
+                            quant_fmt_name=quant_fmt_name, plan=plan)
+    return tp_matmul_fma(a, b, out_dtype=out_dtype,
+                         quant_fmt_name=quant_fmt_name)
 
 
-#: launches of the CUDA kernels, in all and by variant (CPU calls and
+#: launches of the CUDA kernels, in all, by variant and, for the
+#: tensor-core variant, by plan ``(wm, splits)`` (CPU calls and
 #: plain-version calls add none)
 tp_matmul_cuda.launches = 0
 tp_matmul_cuda.launches_tc = 0
 tp_matmul_cuda.launches_fma = 0
+tp_matmul_cuda.launches_by_plan = {}
 
 _OUT_MANT = {torch.bfloat16: 7, torch.float16: 10}
 

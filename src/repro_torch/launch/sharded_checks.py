@@ -377,10 +377,16 @@ def head_slice(t: torch.Tensor, rank: int, shards: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def attention_launches() -> dict:
     """The two attention kernels' launch counters as their wrappers keep
-    them (the count since the last ``reset_attention_launches``)."""
+    them (the count since the last ``reset_attention_launches``), beside
+    the query tiles ``kernels.ops`` picked for its default flash calls
+    and how many of its picks a tuned winner made."""
+    from ..kernels import ops as kops
     from ..kernels.decode_attention import decode_attention_cuda as dec
     from ..kernels.flash_attention import flash_attention_cuda as fla
     return dict(
+        flash_launches_by_q_rows=dict(fla.launches_by_q_rows),
+        flash_picks_by_q_rows=dict(kops.picked["attn"]),
+        tuned_picks=dict(kops.tuned),
         launches={"decode_attention": dec.launches,
                   "flash_attention": fla.launches},
         variants={"flash_attention": {"tc": fla.launches_tc,
@@ -395,14 +401,16 @@ def attention_launches() -> dict:
 
 
 def reset_attention_launches() -> None:
+    from ..kernels import ops as kops
     from ..kernels.decode_attention import decode_attention_cuda as dec
     from ..kernels.flash_attention import flash_attention_cuda as fla
     dec.launches = fla.launches = fla.launches_noncausal = 0
     dec.launches_mma = dec.launches_fma = 0
     fla.launches_tc = fla.launches_fma = 0
     for d in (dec.launches_by_cluster, dec.launches_by_group,
-              fla.launches_by_dims):
+              fla.launches_by_dims, fla.launches_by_q_rows):
         d.clear()
+    kops.reset_picked()
 
 
 def weights_digest(params) -> float:
@@ -457,7 +465,7 @@ def attend_reads(heads, kv_heads, head_dim, *, shards: int = 1,
     kp, vp = (p[:, rank * hk:(rank + 1) * hk].contiguous() for p in (kp, vp))
     lens = torch.tensor(READ_LENS, device=device)
     b = len(READ_LENS)
-    pinned = kops.decode_cluster(b * shards, kp, table)
+    pinned = kops.decode_cluster(b * shards, kp, table, group=h // hk)
     dec = kops.decode_attention(q, kp, vp, kv_len=lens, block_table=table,
                                 policy="tp_bf16", softcap=softcap,
                                 cluster=pinned)
@@ -466,7 +474,7 @@ def attend_reads(heads, kv_heads, head_dim, *, shards: int = 1,
                                block_table=table[:1], policy="tp_bf16",
                                scale=head_dim ** -0.5, causal=True,
                                softcap=softcap, q_offset=off)
-    own = kops.decode_cluster(b, kp, table)
+    own = kops.decode_cluster(b, kp, table, group=h // hk)
     mine = kops.decode_attention(q, kp, vp, kv_len=lens, block_table=table,
                                  policy="tp_bf16", softcap=softcap,
                                  cluster=own)

@@ -286,14 +286,16 @@ def _verify_attend(q, cache, policy, *, kv_len, window, cap, backend,
     kvl = torch.as_tensor(kv_len, device=q.device).reshape(b * s)
     if isinstance(cache, PagedKVCache):
         cluster = kops.decode_cluster(b * shards, cache.k_pool,
-                                      cache.block_table, window)
+                                      cache.block_table, window,
+                                      group=h // cache.k_pool.shape[1])
         rep = PagedKVCache(cache.k_pool, cache.v_pool,
                            cache.block_table.repeat_interleave(s, 0))
         out = _decode_attend_paged(qf, rep, policy, kv_len=kvl,
                                    window=window, cap=cap, backend=backend,
                                    cluster=cluster)
     else:
-        cluster = kops.decode_cluster(b * shards, cache.k, None, window)
+        cluster = kops.decode_cluster(b * shards, cache.k, None, window,
+                                      group=h // cache.k.shape[1])
         out = _decode_attend(qf, cache.k.repeat_interleave(s, 0),
                              cache.v.repeat_interleave(s, 0), policy,
                              kv_len=kvl, window=window, cap=cap,
@@ -514,7 +516,8 @@ def gqa_attention(x, params, policy, *, n_heads, n_kv_heads, head_dim,
                 # split as the unsharded call's B * Hkv rows would
                 pin = kops.decode_cluster(
                     b * shards, cache.k_pool if paged else cache.k,
-                    cache.block_table if paged else None, window)
+                    cache.block_table if paged else None, window,
+                    group=n_heads // n_kv_heads)
             if paged:
                 out = _decode_attend_paged(q, cache, policy, kv_len=kv_len,
                                            window=window, cap=attn_softcap,
@@ -548,7 +551,8 @@ def cross_attend_cached(x, params, cache: KVCache, policy, *, n_heads,
     if shards is not None:
         n_heads, n_kv_heads = _local_heads(params, n_heads, n_kv_heads,
                                            head_dim, shards)
-        pin = kops.decode_cluster(b * shards, cache.k, None, None)
+        pin = kops.decode_cluster(b * shards, cache.k, None, None,
+                                  group=n_heads // n_kv_heads)
     q = tp.tp_matmul(x, params["wq"], policy).reshape(
         b, s, n_heads, head_dim).transpose(1, 2)
     out = _decode_attend(q, cache.k, cache.v, policy,

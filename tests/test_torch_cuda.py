@@ -35,7 +35,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.dotp_ex import dotp_ex_cuda, dotp_ex_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_fma, flash_attention_plain,
-    flash_attention_tc, kernel_block_k)
+    flash_attention_tc, kernel_block_k, plan_q_rows)
 from repro_torch.kernels.tp_matmul import (  # noqa: E402
     agreement_tol, plan_tc, tc_operand_dtype, tp_matmul_cuda, tp_matmul_fma,
     tp_matmul_plain, tp_matmul_tc)
@@ -1036,9 +1036,10 @@ def _to_device(tree, dev):
 @pytest.mark.parametrize("paged", [False, True], ids=["contig", "paged"])
 def test_folded_kernel_read_is_bitwise_the_step_form(gen, paged):
     """4 slots x 4 chunk positions x 8 KV heads (D 256, 65-unit rows, a
-    local layer): the fold of 128 rows at the step form's partition (16
-    CTAs a row; its own ``cluster_size`` would be 4) is bitwise the 4
-    step-form kernel calls, and launches at that size."""
+    local layer): the fold of 128 rows at the step form's partition (the
+    size ``kernels.ops`` picks for the 4 slots; by the static rule 16 CTAs
+    a row, and 4 for the fold's own rows) is bitwise the 4 step-form
+    kernel calls, and launches at that size."""
     b, s, hkv, g, d, nk, window = 4, 4, 8, 2, 256, 65, 4096
     unit = 64
     pos = torch.tensor([1024, 128, 512, 4080], device="cuda")
@@ -1054,9 +1055,12 @@ def test_folded_kernel_read_is_bitwise_the_step_form(gen, paged):
         k, v, table = mk(), mk(), None
         fold_kv = (k.repeat_interleave(s, 0), v.repeat_interleave(s, 0),
                    None)
-    step_c = kops.decode_cluster(b, k, table, window)
-    assert step_c == cluster_size(b * hkv, nk, unit, window) == 16
-    assert kops.decode_cluster(b * s, fold_kv[0], fold_kv[2], window) == 4
+    step_c = kops.decode_cluster(b, k, table, window, group=g)
+    assert step_c == kops.decode_pick(b * hkv, nk, unit, g, d,
+                                      torch.bfloat16, "cuda", window)
+    assert kops.decode_cluster(b * s, fold_kv[0], fold_kv[2], window,
+                               group=g) == kops.decode_pick(
+        b * s * hkv, nk, unit, g, d, torch.bfloat16, "cuda", window)
     kvl = pos[:, None] + torch.arange(s, device="cuda") + 1
     kw = dict(policy="tp_bf16", window=window, softcap=50.0,
               backend="kernel")
@@ -1064,12 +1068,12 @@ def test_folded_kernel_read_is_bitwise_the_step_form(gen, paged):
         q[:, i, :, None], k, v, kv_len=kvl[:, i], block_table=table,
         **kw)[:, :, 0] for i in range(s)], 1)
     by = decode_attention_cuda.launches_by_cluster
-    before = by.get(16, 0)
+    before = by.get(step_c, 0)
     fold = kops.decode_attention(
         q.reshape(b * s, hkv * g, 1, d), fold_kv[0], fold_kv[1],
         kv_len=kvl.reshape(-1), block_table=fold_kv[2], cluster=step_c, **kw)
     torch.cuda.synchronize()
-    assert by[16] == before + 1
+    assert by[step_c] == before + 1
     assert torch.equal(fold.reshape(b, s, hkv * g, d).view(torch.int32),
                        steps.view(torch.int32))
 
@@ -1605,3 +1609,125 @@ def test_ep2_moe_train_step_on_the_card_matches_the_cpu(gen):
             assert _rel(a, b) < 1e-4
     assert all(torch.equal(a, b) for a, b in zip(ranks[0]["ep"]["params"],
                                                  ranks[1]["ep"]["params"]))
+
+
+# ---------------------------------------------------------------------------
+# the autotuner on the card
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def card_tuner(gen, tmp_path, monkeypatch):
+    """The tuner on a temporary user cache, the shipped file kept."""
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    autotune.reset()
+    yield autotune
+    autotune.reset()
+
+
+@pytest.mark.parametrize("op,args", [
+    ("decode_attn", (16, 12, 64, 2, 128)),
+    ("attn", (256, 4, 2, 128)),
+    ("matmul", (128, 2048, 256)),
+])
+def test_autotune_sweep_on_the_card(card_tuner, op, args):
+    """A sweep of one small shape per op: every candidate launches, agrees
+    with its plain version at that candidate (the sweep raises otherwise)
+    and is timed on the device; the winner is recorded under the card's
+    key, and a default ``kernels.ops`` call then counts its launch under
+    the winner (cluster, query tile, plan)."""
+    at = card_tuner
+    fn = {"decode_attn": at.autotune_decode, "attn": at.autotune_attention,
+          "matmul": at.autotune_matmul}[op]
+    winner, timings = fn(*args, device="cuda", repeats=5)
+    shape = args if op != "attn" else args + (args[-1],)
+    assert list(timings) == at.candidates(op, shape, torch.bfloat16)
+    assert len(timings) > 1 and all(t["ms"] > 0 for t in timings.values())
+    assert at.lookup(op, shape, torch.bfloat16, "cuda") == winner
+    assert "sm90" in at._key(op, shape, torch.bfloat16, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda").bfloat16()
+    if op == "decode_attn":
+        rows, units, page, grp, d = args
+        k, v = rnd(rows * units + 1, 1, page, d), rnd(rows * units + 1, 1,
+                                                      page, d)
+        table = torch.arange(rows * units, dtype=torch.int32,
+                             device="cuda").reshape(rows, units)
+        by = decode_attention_cuda.launches_by_cluster
+        before = dict(by)
+        kops.decode_attention(rnd(rows, grp, 1, d), k, v,
+                              kv_len=torch.full((rows,), units * page,
+                                                device="cuda"),
+                              block_table=table)
+        key = winner[0]
+    elif op == "attn":
+        sq, bkv, grp, d = args
+        by = flash_attention_cuda.launches_by_q_rows
+        before = dict(by)
+        kops.flash_attention(rnd(bkv, grp, sq, d), rnd(bkv, 1, sq, d),
+                             rnd(bkv, 1, sq, d))
+        key = winner[0]
+    else:
+        m, k, n = args
+        by = tp_matmul_cuda.launches_by_plan
+        before = dict(by)
+        kops.tp_matmul(rnd(m, k), rnd(k, n), policy="tp_bf16")
+        key = winner
+    torch.cuda.synchronize()
+    assert {c: x - before.get(c, 0) for c, x in by.items()
+            if x != before.get(c, 0)} == {key: 1}
+
+
+def test_recorded_winners_drive_the_card_launches(card_tuner):
+    """A recorded winner other than the rule: the default calls launch at
+    it, bitwise the calls that ask for it, and count under it."""
+    at = card_tuner
+    g = torch.Generator(device="cuda").manual_seed(6)
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda").bfloat16()
+    # decode: 8 rows of 16 pages (the rule: 16 CTAs a row) recorded at 2
+    b, hkv, grp, d, page, nk = 4, 2, 2, 128, 64, 16
+    assert cluster_size(b * hkv, nk, page) == 16
+    at.record("decode_attn", (b * hkv, nk, page, grp, d), torch.bfloat16,
+              (2,), device="cuda", persist=False)
+    k, v = rnd(b * nk + 1, hkv, page, d), rnd(b * nk + 1, hkv, page, d)
+    table = torch.randperm(b * nk, generator=g, device="cuda").reshape(
+        b, nk).to(torch.int32)
+    q = rnd(b, hkv * grp, 1, d)
+    lens = torch.tensor([nk * page, 5, 700, 0], device="cuda")
+    by = decode_attention_cuda.launches_by_cluster
+    before = by.get(2, 0)
+    got = kops.decode_attention(q, k, v, kv_len=lens, block_table=table)
+    want = kops.decode_attention(q, k, v, kv_len=lens, block_table=table,
+                                 cluster=2)
+    plain = kops.decode_attention(q, k, v, kv_len=lens, block_table=table,
+                                  backend="plain")
+    torch.cuda.synchronize()
+    assert by[2] == before + 2
+    assert torch.equal(got, want)
+    assert (got - plain).abs().max().item() <= TOL
+    # flash: a 2-row chunk of 8 KV heads at group 2 recorded at 128 rows
+    at.record("attn", (128, 8, 2, 128, 128), torch.bfloat16, (128,),
+              device="cuda", persist=False)
+    assert plan_q_rows(128, 8, 2) == 64
+    by = flash_attention_cuda.launches_by_q_rows
+    before = by.get(128, 0)
+    fq, fk, fv = rnd(2, 8, 128, 128), rnd(2, 4, 128, 128), rnd(2, 4, 128, 128)
+    got = kops.flash_attention(fq, fk, fv, block_k=64)
+    plain = kops.flash_attention(fq, fk, fv, block_k=64, backend="plain")
+    torch.cuda.synchronize()
+    assert by[128] == before + 1
+    assert (got - plain).abs().max().item() <= TOL
+    # tp_matmul: recorded at BM 256 and 4 splits
+    at.record("matmul", (64, 4096, 256), torch.bfloat16, (2, 4),
+              device="cuda", persist=False)
+    assert (plan_tc(64, 4096, 256).wm, plan_tc(64, 4096, 256).splits) != (2, 4)
+    by = tp_matmul_cuda.launches_by_plan
+    before = by.get((2, 4), 0)
+    a, w = rnd(64, 4096), rnd(4096, 256) * 4096 ** -0.5
+    got = kops.tp_matmul(a, w, policy="tp_bf16")
+    plan = kops.tp_matmul_plan(64, 4096, 256, torch.bfloat16, "cuda")
+    want = tp_matmul_plain(a, w, out_dtype=torch.bfloat16, plan=plan)
+    torch.cuda.synchronize()
+    assert by[(2, 4)] == before + 1 and plan.splits == 4
+    assert ((got.float() - want.float()).abs()
+            <= agreement_tol(a, w, got, want)).all()

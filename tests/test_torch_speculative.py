@@ -382,10 +382,10 @@ def test_folded_decode_read_is_bitwise_at_step_partition(paged):
         smax = nk * dk.STRIP_UNIT
         k, v = _rand((b, hkv, smax, d), 2), _rand((b, hkv, smax, d), 3)
         table = None
-    step_c = kops.decode_cluster(b, k, table, window=None)
+    step_c = kops.decode_cluster(b, k, table, window=None, group=g)
     assert step_c == dk.cluster_size(
         b * hkv, nk, page if paged else dk.STRIP_UNIT) == 16
-    assert kops.decode_cluster(b * s, k, table) == 4
+    assert kops.decode_cluster(b * s, k, table, group=g) == 4
     kw = dict(policy="tp_bf16", window=None, softcap=50.0)
     steps = [kops.decode_attention(
         q[:, i, :, None], k, v, kv_len=pos + i + 1, block_table=table, **kw)
