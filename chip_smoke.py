@@ -52,19 +52,29 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    is the same call launched from Python, host overhead included;
    ``plain_ms`` is eager; decode's ``kernel_only_ms`` times the kernel's
    own launch without the wrapper's index expansion.  The main flash cases
-   also time the kept FMA variant (``fma_ms``); a small
-   policy-``fp32`` case holds the FMA variant against its plain version.
+   and every split-route case also time the kept FMA variant
+   (``fma_ms``) and hold its output against the plain version at its own
+   tiles (``fma_max_abs_err``); the split route's ``bound_ms`` counts each
+   kept piece pair as one pass at the bf16 rate (``split_passes``).
    Every case also runs the kernel's telemetry instantiation
    (``debug_visits`` / ``debug_flags``): its output must be bitwise the
    flags-off output, its visits and flag counts exactly the plain
    version's, on the route named (``flags_ms``).  The f32-pool cases
-   ``decode_f32_p64_local`` (route fma) and ``flash_f32_p64_chunk``
-   (``flash_fma``) hold the escalation phase's routes at the slice's
-   shapes within ``F32_TOL``.  ``telemetry_phase`` then plants +-Inf and
+   ``decode_f32_p64_local`` (route fma) and ``flash_f32_p64_chunk`` (the
+   split route) hold the escalation phase's routes at the slice's shapes
+   within ``F32_TOL``; ``flash_f32_contig_nocap`` times SDPA in f32 beside
+   the split route, and ``flash_f32_fp32_small`` holds it at D 128 with
+   pages of 16; ``flash_f32_p64_wide_table`` runs the chunk through
+   8192-key tables, within ``WIDE_TABLE_RATIO`` of the chunk's time (the
+   staging follows the live keys); ``flash_f32_fma_d32`` holds
+   ``flash_fma`` (D 32, outside the tensor-core pairs) on an f32 pool.
+   ``telemetry_phase`` then plants +-Inf and
    NaN in live, dead and window-left slots of a bf16 pool (decode mma,
    ``flash_tc`` by TMA) and fills an ``em_fp8`` f32 pool with values
    beyond fp8's range (decode fma, ``flash_tc`` converting), with the
-   same gates.
+   same gates, and ``nonfinite_phase`` holds the split routes' values on
+   operands with +-Inf and NaN against the plain version (NaN, signed Inf
+   and finite values alike).
 3. Op-path phase: the transprecision op path at gemma2-9b's MLP widths
    (d_model 3584, d_ff 14336).  Each of its kernels (tp_matmul,
    tp_quantize, cast_and_pack, dotp_ex) against its plain version on the
@@ -72,8 +82,11 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    ``2 K 2^-24 (|A| @ |B|)`` plus one output ulp (with its fused snap read
    back bit for bit), dotp_ex within ``1e-5 sum |a b|`` of the exact f64
    sum, and the paper's Table III stream to >= 22 correct bits.  The main
-   tp_matmul cases also time the kept FMA variant; a small tf32-grid case
-   holds it against its plain version.  Then the
+   tp_matmul cases and the split route's (``mm_tf32_grid_small``, two
+   pieces; ``mm_fp32_mlp_up``, f32 without a grid at the main shape, three,
+   beside ``torch.mm`` in full f32) also time the kept FMA variant and
+   hold its output within the same tolerance.
+   Then the
    public entry points in sequence — quantize two weights to fp8, two
    ``core.ops.tp_matmul(..., "em_fp8", use_kernel=True)`` products, pack
    them, and the expanding dot product of the two weights — with every
@@ -183,8 +196,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    request gets its budget, escalations >= 1, the ``no_escalate``
    request refuses and stays at rung 0, no non-finite logits, a repeat
    run repeats tokens and events, the schedule equals the reduced
-   config's on the CPU, and every launch is on the fma route /
-   ``flash_fma``.  tok/s, decode ms per round, prefill s, the events.
+   config's on the CPU, and every launch is on the fma route / the split
+   route.  tok/s, decode ms per round, prefill s, the events.
 8. MLA phase (``mla_phase``): the fp32 model is freed and minicpm3-4b is
    built at full width under ``tp_bf16`` (MLA with QK head dim 96 and V
    head dim 64; depth cut to ``MLA_LAYERS`` = 16 of 62), then served by ``Model.generate`` from its
@@ -418,6 +431,10 @@ KERNEL_TOL = 2.0 ** -8
 #: off by at most 2^-24 of the running sum, so 2^-12 of a unit-scale
 #: output bounds the worst case; about 1e-5 is expected)
 F32_TOL = 2.0 ** -12
+#: the split route through a block table 8x wider than its live keys may
+#: take at most this many times the chunk's own table (it stages only the
+#: keys a query sees)
+WIDE_TABLE_RATIO = 1.5
 
 #: the softcap's effect in the cap-region cases (q scaled by ``q_scale``):
 #: the kernel's capped and uncapped outputs must differ by at least this,
@@ -535,6 +552,28 @@ def bound(nbytes: float, flops: float, flop_s: float = BF16_FLOP_S):
 # ---------------------------------------------------------------------------
 # phase 1: build
 # ---------------------------------------------------------------------------
+def split_passes(pieces: int, top: int = 2) -> int:
+    """Tensor-core passes of one split product whose operands both take
+    ``pieces`` pieces: its kept piece pairs (``quant_common.split_pairs``;
+    ``top`` 1: flash's P V), each a full product at the bf16 rate."""
+    from repro_torch.kernels.quant_common import split_pairs
+    return len(split_pairs(pieces, pieces, top))
+
+
+def flash_variant_counts() -> dict:
+    """``flash_attention_cuda``'s launches by variant so far."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda as c
+    return {"tc": c.launches_tc, "split": c.launches_split,
+            "fma": c.launches_fma}
+
+
+def matmul_variant_counts() -> dict:
+    """``tp_matmul_cuda``'s launches by variant so far."""
+    from repro_torch.kernels.tp_matmul import tp_matmul_cuda as c
+    return {"tc": c.launches_tc, "split": c.launches_split,
+            "fma": c.launches_fma}
+
+
 def hgmma_count(lib) -> int:
     """``HGMMA`` (wgmma) instructions in a built library's SASS."""
     from repro_torch.kernels import _build
@@ -656,17 +695,18 @@ def flash_telemetry(name, args, kw, variant) -> dict:
                           q_rows=kw.get("q_rows"))
     plain_kw = {k: x for k, x in kw.items() if k != "q_rows"}
     off = cu(*args, **kw)
-    before = (cu.launches_telemetry, cu.launches_tc, cu.launches_fma)
+    before = (cu.launches_telemetry, flash_variant_counts())
     on, visits, flags = cu(*args, debug_visits=True, debug_flags=True, **kw)
-    routed = (cu.launches_telemetry - before[0], cu.launches_tc - before[1],
-              cu.launches_fma - before[2])
+    routed = (cu.launches_telemetry - before[0],
+              {v: n - before[1][v] for v, n in flash_variant_counts().items()})
     _, pv, pf = flash_attention_plain(*args, block_k=bk, block_q=bq,
                                       debug_visits=True, debug_flags=True,
                                       **plain_kw)
     torch.cuda.synchronize()
-    if routed != ((1, 1, 0) if variant == "tc" else (1, 0, 1)):
-        raise AssertionError(f"{name}: telemetry launches (flags, tc, fma) "
-                             f"{routed}, expected the {variant} variant")
+    if routed != (1, {v: int(v == variant) for v in routed[1]}):
+        raise AssertionError(f"{name}: telemetry launches (flags, by "
+                             f"variant) {routed}, expected the {variant} "
+                             f"variant")
     same = _bits_equal(on, off)
     rec = dict(flags_ms=device_ms(lambda: cu(*args, debug_visits=True,
                                              debug_flags=True, **kw)),
@@ -996,13 +1036,17 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
     kernel's own key tiles.  A ``flash_tc`` launch must count under the
     query tile ``kernels.ops`` picks (``q_rows``; ``q_rows_tuned``: a
     winner of the tuner made it, else ``plan_q_rows``).  ``main`` cases
-    also time the FMA variant (``fma_ms``)."""
+    and the split route's also time the FMA variant (``fma_ms``) and hold
+    its output against the plain version at its own 32-key tiles
+    (``fma_max_abs_err``, the case's tolerance); the split route's bound
+    counts each kept piece pair as one pass at the bf16 tensor-core rate
+    (``split_passes``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.flash_attention import (
-        flash_attention_cuda, flash_attention_fma, kernel_block_k,
-        plan_q_rows, tc_tile_dtype)
+        FMA_BLOCK_K, flash_attention_cuda, flash_attention_fma, flash_route,
+        kernel_block_k, plan_q_rows, split_pieces_of)
     b, (hkv, g) = len(rows), heads
     h = hkv * g
     dv = d if dv is None else dv
@@ -1028,27 +1072,25 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
                         device="cuda").to(dtype)
         table = None
     bk = kernel_block_k(src_dt, src_fmt, d, dv)
-    variant = ("tc" if tc_tile_dtype(src_dt, src_fmt, d, dv) is not None
-               else "fma")
-    call = lambda backend, cap=softcap, rows=None: kops.flash_attention(
-        q, k, v, kv_len=kvl, block_table=table, policy=policy,
-        causal=causal, window=window, softcap=cap, q_offset=q_offset,
-        backend=backend, block_k=bk, q_rows=rows)
+    variant = flash_route(src_dt, src_fmt, d, dv)
+    call = lambda backend, cap=softcap, rows=None, blk=bk: \
+        kops.flash_attention(q, k, v, kv_len=kvl, block_table=table,
+                             policy=policy, causal=causal, window=window,
+                             softcap=cap, q_offset=q_offset, backend=backend,
+                             block_k=blk, q_rows=rows)
     by_rows = flash_attention_cuda.launches_by_q_rows
-    before = (flash_attention_cuda.launches_tc,
-              flash_attention_cuda.launches_fma,
-              flash_attention_cuda.launches_noncausal, dict(by_rows))
+    before = (flash_variant_counts(), flash_attention_cuda.launches_noncausal,
+              dict(by_rows))
     got = call("kernel")
-    routed = (flash_attention_cuda.launches_tc - before[0],
-              flash_attention_cuda.launches_fma - before[1])
-    ran = [r for r, n in by_rows.items() if n != before[3].get(r, 0)]
-    if flash_attention_cuda.launches_noncausal - before[2] != int(not causal):
+    routed = {v: n - before[0][v] for v, n in flash_variant_counts().items()}
+    ran = [r for r, n in by_rows.items() if n != before[2].get(r, 0)]
+    if flash_attention_cuda.launches_noncausal - before[1] != int(not causal):
         raise AssertionError(f"{name}: the non-causal counter did not count "
                              f"the launch as {'causal' if causal else 'not'}")
     want = call("plain")
     torch.cuda.synchronize()
-    if routed != ((1, 0) if variant == "tc" else (0, 1)):
-        raise AssertionError(f"{name}: launches (tc, fma) {routed}, "
+    if routed != {v: int(v == variant) for v in routed}:
+        raise AssertionError(f"{name}: launches by variant {routed}, "
                              f"expected the {variant} variant")
     q_rows, tuned = kops.flash_q_rows(chunk, b * hkv, g, d, dv, dtype,
                                       "cuda", with_source=True)
@@ -1073,13 +1115,17 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
     nbytes = (q.numel() * q.element_size() + keys * hkv * (d + dv) * esz
               + got.numel() * 4 + kvl.numel() * 4)
     flops = 2.0 * (d + dv) * pairs
+    if variant == "split":
+        pqk, ppv = split_pieces_of(src_dt, src_fmt)
+        flops = 2.0 * pairs * (d * split_passes(pqk)
+                               + dv * split_passes(ppv, top=1))
     bound_ms, bound_by = bound(nbytes, flops,
-                               BF16_FLOP_S if variant == "tc" else F32_FLOP_S)
+                               F32_FLOP_S if variant == "fma" else BF16_FLOP_S)
     tol = F32_TOL if src_dt == torch.float32 and not src_fmt else KERNEL_TOL
     lib = None
     if (softcap is None and window is None and table is None
-            and q_offset == 0 and min(rows) == k.shape[2]
-            and q_dt != torch.float32):
+            and q_offset == 0 and min(rows) == k.shape[2]):
+        # f32 q, k and v: SDPA in f32 (TF32 stays off in the port)
         lib = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True))
     elif softcap is None and q_dt != torch.float32:
@@ -1095,8 +1141,11 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
         extra.update(q_rows=q_rows, q_rows_tuned=tuned, q_rows_rule=static)
         if static != q_rows:
             extra["rule_ms"] = device_ms(lambda: call("kernel", rows=static))
-    if main:
+    if main or variant == "split":
         kw.pop("q_rows")
+        fwant = call("plain", blk=FMA_BLOCK_K)
+        fgot = flash_attention_fma(*args, **kw).reshape(fwant.shape)
+        extra["fma_max_abs_err"] = (fgot - fwant).abs().max().item()
         extra["fma_ms"] = device_ms(lambda: flash_attention_fma(*args, **kw),
                                     3, 1)
     rec = dict(case=name, kernel="flash_attention", variant=variant,
@@ -1112,11 +1161,14 @@ def flash_case(name, *, dtype, page, rows, q_offset, chunk, window,
                           q_offset=q_offset, page=page, kv_len=kv_lens,
                           window=window, softcap=softcap, policy=policy,
                           pool=str(dtype).replace("torch.", "")))
-    if main:
+    if "fma_ms" in rec:
         rec["speedup_vs_fma"] = rec["fma_ms"] / rec["kernel_ms"]
     log(json.dumps(rec))
     if not err <= tol:
         raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
+    if not rec.get("fma_max_abs_err", 0.0) <= tol:
+        raise AssertionError(f"{name}: flash_fma is off its plain version "
+                             f"by {rec['fma_max_abs_err']} > {tol}")
     if cap is not None and not cap >= CAP_EFFECT_MIN:
         raise AssertionError(f"{name}: the softcap changes the output by "
                              f"{cap} < {CAP_EFFECT_MIN}")
@@ -1185,7 +1237,7 @@ def kernel_phase() -> dict:
                         rows=[1024, 1024], q_offset=0, chunk=1024,
                         window=None, softcap=None, alias=0, seed=6,
                         main=True))
-    # the FMA variant, held against its plain version (policy fp32: f32
+    # the split route, held against its plain version (policy fp32: f32
     # operands without a grid)
     f.append(flash_case("flash_f32_fp32_small", dtype=torch.float32, page=16,
                         rows=[96, 40], q_offset=32, chunk=96, window=48,
@@ -1198,10 +1250,39 @@ def kernel_phase() -> dict:
                         chunk=max(GEN_PROMPTS), window=4096, softcap=50.0,
                         alias=0, seed=11,
                         pages=-(-(max(GEN_PROMPTS) + GEN_LEN) // 64)))
-    # the slice's chunk on the escalation phase's f32 pool: flash_fma
+    # the slice's chunk on the escalation phase's f32 pool: the split
+    # route, flash_fma timed beside it
     f.append(flash_case("flash_f32_p64_chunk", dtype=torch.float32, page=64,
                         rows=[256, 200], q_offset=768, chunk=256,
                         window=4096, softcap=50.0, alias=4, seed=13))
+    # the 2 x 1024 causal prompt without softcap on f32 K/V: SDPA in f32
+    # beside the split route
+    f.append(flash_case("flash_f32_contig_nocap", dtype=torch.float32,
+                        page=0, rows=[1024, 1024], q_offset=0, chunk=1024,
+                        window=None, softcap=None, alias=0, seed=6,
+                        policy="fp32"))
+    # the chunk again through 8192-key block tables (a long-context
+    # engine's): the split route stages only the keys a query sees, so the
+    # wide table must cost no more than the narrow one
+    f.append(flash_case("flash_f32_p64_wide_table", dtype=torch.float32,
+                        page=64, rows=[256, 200], q_offset=768, chunk=256,
+                        window=4096, softcap=50.0, alias=4, seed=13,
+                        pages=128))
+    narrow = next(c for c in f if c["case"] == "flash_f32_p64_chunk")
+    if not f[-1]["kernel_ms"] <= WIDE_TABLE_RATIO * narrow["kernel_ms"]:
+        raise AssertionError(
+            f"flash_f32_p64_wide_table: {f[-1]['kernel_ms']} ms through an "
+            f"8192-key table, {narrow['kernel_ms']} ms through the chunk's "
+            f"own (more than {WIDE_TABLE_RATIO}x)")
+    # flash_fma, the route of every (D, Dv) outside TC_HEAD_PAIRS (the
+    # card tests' reduced escalation model has D 16), on an f32 pool with
+    # a window and softcap
+    f.append(flash_case("flash_f32_fma_d32", dtype=torch.float32, page=16,
+                        rows=[96, 40], q_offset=32, chunk=96, window=48,
+                        softcap=50.0, alias=2, seed=20, policy="fp32",
+                        heads=(2, 2), d=32))
+    if f[-1]["variant"] != "fma":
+        raise AssertionError(f"flash_f32_fma_d32 ran on {f[-1]['variant']}")
     f.extend(mla_kernel_cases())
     for cases in (moe_kernel_cases, granite_kernel_cases, arch_kernel_cases):
         dec, fl = cases()
@@ -1294,15 +1375,15 @@ def telemetry_phase() -> list:
     row of length 0 and left of the window; decode ``fma`` and
     ``flash_tc`` (converting f32 containers) on an ``em_fp8`` pool with
     ``kv_fmt`` fp8 holding values beyond fp8's max and below its min
-    normal, with a window.  (``flash_fma`` is held on the f32-pool case
-    of the kernel phase.)  Each: the output bitwise the flags-off one,
+    normal, with a window.  (The split route is held on the f32-pool
+    cases of the kernel phase.)  Each: the output bitwise the flags-off one,
     visits and flags exactly the plain version's, the route named."""
     import torch
     from repro_torch.core.formats import get_format
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.decode_attention import decode_route
-    from repro_torch.kernels.flash_attention import tc_tile_dtype
+    from repro_torch.kernels.flash_attention import flash_route
     bf16, f32 = torch.bfloat16, torch.float32
     hkv, g, d = 8, 2, 256
     out = []
@@ -1361,7 +1442,7 @@ def telemetry_phase() -> list:
         fkw = dict(group=g, scale=d ** -0.5, causal=True, window=window,
                    softcap=50.0, q_offset=off, src_fmt_name=grid,
                    src_dtype=src_dt)
-        fvar = "tc" if tc_tile_dtype(src_dt, grid, d) is not None else "fma"
+        fvar = flash_route(src_dt, grid, d)
         rec = dict(case=name.replace("telemetry", "flash"),
                    kernel="flash_attention", variant=fvar,
                    **flash_telemetry(name, fargs, fkw, fvar))
@@ -1371,6 +1452,114 @@ def telemetry_phase() -> list:
             ("decode_attention", "fma"), ("decode_attention", "mma"),
             ("flash_attention", "tc"), ("flash_attention", "tc")]:
         raise AssertionError(f"telemetry cases ran on {out}")
+    return out
+
+
+def _same_class(name, got, want, tol) -> float:
+    """Raise unless ``got`` is NaN where ``want`` is, the same signed Inf
+    where it is Inf, and within ``tol`` (a number or a tensor) of it
+    elsewhere; returns the largest error over the finite outputs."""
+    import torch
+    got, want = got.float(), want.float()
+    inf = torch.isinf(want)
+    fin = torch.isfinite(want)
+    if not (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.isinf(got), inf)
+            and torch.equal(got[inf], want[inf])):
+        raise AssertionError(
+            f"{name}: non-finite outputs differ from the plain version's "
+            f"(NaN {int(torch.isnan(got).sum())} vs "
+            f"{int(torch.isnan(want).sum())}, Inf {int(torch.isinf(got).sum())}"
+            f" vs {int(inf.sum())})")
+    err = (got[fin] - want[fin]).abs()
+    tol = tol[fin] if torch.is_tensor(tol) else tol
+    if not (err <= tol).all():
+        raise AssertionError(f"{name}: finite outputs beyond the tolerance")
+    return err.max().item() if err.numel() else 0.0
+
+
+def nonfinite_phase() -> list:
+    """The split routes on operands holding +-Inf and NaN, their values
+    held against the plain version: NaN where it gives NaN, the same
+    signed Inf where it gives Inf, the finite outputs within the route's
+    tolerance.  Flash on a gemma2-9b-wide f32 pool (policy fp32) with Inf
+    in one element of K and of V at live keys, without and with softcap
+    (which caps a K Inf's score); tp_matmul, f32 without a grid (a split
+    K) and on the tf32 grid, with an Inf meeting a bf16-exact partner
+    (whose lower pieces are 0), Inf x Inf at one index, Inf x 0 and a
+    NaN."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     kernel_block_k)
+    from repro_torch.kernels.tp_matmul import (agreement_tol, plan_split,
+                                               tp_matmul_cuda,
+                                               tp_matmul_plain)
+    out = []
+    hkv, g, d, page, chunk, off = 8, 2, 256, 64, 128, 64
+    rows = [128, 100]
+    for softcap in (None, 50.0):
+        gen = torch.Generator(device="cuda").manual_seed(22)
+        b = len(rows)
+        k, v, table = _pool_and_table(gen, b, hkv, -(-(off + chunk) // page),
+                                      page, d, torch.float32, 0)
+        k[int(table[0, 70 // page]), 3, 70 % page, 5] = float("inf")
+        v[int(table[0, 40 // page]), 1, 40 % page, 7] = float("inf")
+        v[int(table[1, 90 // page]), 6, 90 % page, 9] = -float("inf")
+        q = torch.randn((b, hkv * g, chunk, d), generator=gen, device="cuda")
+        kvl = torch.tensor([off + r for r in rows], dtype=torch.int32,
+                           device="cuda")
+        call = lambda backend: kops.flash_attention(
+            q, k, v, kv_len=kvl, block_table=table, policy="fp32",
+            window=None, softcap=softcap, q_offset=off, backend=backend,
+            block_k=kernel_block_k(torch.float32, None, d))
+        before = flash_attention_cuda.launches_split
+        got = call("kernel")
+        if flash_attention_cuda.launches_split != before + 1:
+            raise AssertionError("nonfinite flash: not on the split route")
+        want = call("plain")
+        name = f"nonfinite_flash_f32_{'cap' if softcap else 'nocap'}"
+        rec = dict(case=name, kernel="flash_attention", variant="split",
+                   nan=int(torch.isnan(want).sum()),
+                   inf=int(torch.isinf(want).sum()),
+                   max_abs_err=_same_class(name, got, want, F32_TOL),
+                   tol=F32_TOL)
+        if not rec["inf"]:
+            raise AssertionError(f"{name}: the plain version has no Inf")
+        log(json.dumps(rec))
+        out.append(rec)
+    for name, (m, kk, n), quant in (
+            ("nonfinite_mm_f32_split_k", (64, 3584, 256), None),
+            ("nonfinite_mm_tf32", (96, 640, 200), "tf32")):
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        a = torch.randn((m, kk), generator=gen, device="cuda")
+        bm = torch.randn((kk, n), generator=gen, device="cuda") * kk ** -0.5
+        a[0, 3], bm[3, 1] = float("inf"), 0.5
+        bm[3, 2] = -float("inf")
+        a[1, 4], bm[4, 9] = -float("inf"), 0.0
+        a[2, 5], a[2, 6], bm[5, 11], bm[6, 11] = (float("inf"),) * 2 + (
+            1.0, -1.0)
+        a[3, 0] = float("nan")
+        bm[kk - 1, n - 1] = float("inf")
+        before = tp_matmul_cuda.launches_split
+        plan = plan_split(m, kk, n)
+        got = tp_matmul_cuda(a, bm, quant_fmt_name=quant, plan=plan)
+        if tp_matmul_cuda.launches_split != before + 1:
+            raise AssertionError(f"{name}: not on the split route")
+        want = tp_matmul_plain(a, bm, quant_fmt_name=quant, plan=plan)
+        rec = dict(case=name, kernel="tp_matmul", variant="split",
+                   splits=plan.splits, nan=int(torch.isnan(want).sum()),
+                   inf=int(torch.isinf(want).sum()),
+                   max_abs_err=_same_class(
+                       name, got, want,
+                       agreement_tol(a, bm, got, want, quant)))
+        if not (rec["inf"] and rec["nan"]):
+            raise AssertionError(f"{name}: the plain version lacks Inf or "
+                                 f"NaN")
+        log(json.dumps(rec))
+        out.append(rec)
+    if plan_split(64, 3584, 256).splits < 2:
+        raise AssertionError("nonfinite_mm_f32_split_k: K is not split")
     return out
 
 
@@ -1442,58 +1631,72 @@ def mm_case(name, *, m, k, n, dtype, out_dtype, quant=None, seed,
             main=False):
     """One tp_matmul case: ``a [m, k] @ b [k, n]`` (b scaled by k^-1/2,
     a weight's scale) in ``dtype``, stored in ``out_dtype``, the
-    tensor-core variant at the plan ``kernels.ops`` picks (``plan_tuned``:
-    a winner of the tuner made it, else ``plan_tc``); the plain version
-    walks the same K ranges.  ``main`` cases also time the FMA variant
-    (``fma_ms``)."""
+    tensor-core variant or the split route at the plan ``kernels.ops``
+    picks (``plan_tuned``: a winner of the tuner made it, else
+    ``plan_tc`` / ``plan_split``); the plain version walks the same K
+    ranges.  ``main`` cases and the split route's also time the FMA
+    variant (``fma_ms``) and hold its output against the plain version
+    within ``agreement_tol`` (``fma_max_err_over_tol``); the split
+    route's bound counts each kept piece pair as one pass at the bf16
+    rate."""
     import torch
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.tp_matmul import (agreement_tol, plan_tc,
-                                               tc_operand_dtype,
+    from repro_torch.kernels.quant_common import split_pieces
+    from repro_torch.kernels.tp_matmul import (agreement_tol, matmul_route,
+                                               plan_split, plan_tc,
                                                tp_matmul_cuda, tp_matmul_fma,
                                                tp_matmul_plain)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
     b = (torch.randn((k, n), generator=gen, device="cuda")
          * k ** -0.5).to(dtype)
-    variant = ("tc" if tc_operand_dtype(dtype, quant) is not None
-               else "fma")
+    variant = matmul_route(dtype, quant)
     plan, tuned = kops.tp_matmul_plan(m, k, n, dtype, "cuda", quant,
                                       with_source=True)
-    plan = plan if variant == "tc" else None
+    plan = plan if variant != "fma" else None
     kern = lambda: tp_matmul_cuda(a, b, out_dtype=out_dtype,
                                   quant_fmt_name=quant, plan=plan)
     plain = lambda: tp_matmul_plain(a, b, out_dtype=out_dtype,
                                     quant_fmt_name=quant, plan=plan)
     by_plan = tp_matmul_cuda.launches_by_plan
-    before = (tp_matmul_cuda.launches_tc, tp_matmul_cuda.launches_fma,
-              dict(by_plan))
+    before = (matmul_variant_counts(), dict(by_plan))
     got = kern()
-    routed = (tp_matmul_cuda.launches_tc - before[0],
-              tp_matmul_cuda.launches_fma - before[1])
-    ran = [p for p, c in by_plan.items() if c != before[2].get(p, 0)]
+    routed = {v: c - before[0][v] for v, c in matmul_variant_counts().items()}
+    ran = [p for p, c in by_plan.items() if c != before[1].get(p, 0)]
     want = plain()
     torch.cuda.synchronize()
-    if routed != ((1, 0) if variant == "tc" else (0, 1)):
-        raise AssertionError(f"{name}: launches (tc, fma) {routed}, "
+    if routed != {v: int(v == variant) for v in routed}:
+        raise AssertionError(f"{name}: launches by variant {routed}, "
                              f"expected the {variant} variant")
     if ran != ([(plan.wm, plan.splits)] if plan else []):
-        raise AssertionError(f"{name}: tp_matmul_tc counted under plans "
-                             f"{ran}, kernels.ops picks {plan}")
+        raise AssertionError(f"{name}: tp_matmul_{variant} counted under "
+                             f"plans {ran}, kernels.ops picks {plan}")
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: kernel output is not finite")
     err = (got.float() - want.float()).abs()
     tol = agreement_tol(a, b, got, want, quant)
     over = int((err > tol).sum().item())
     snap_bad = _snap_readback(a, b, quant) if quant else None
-    bound_ms, bound_by = bound(_nbytes(a, b, got), 2.0 * m * k * n, flop_s)
+    flops = 2.0 * m * k * n
+    if variant == "split":
+        flops *= split_passes(split_pieces(dtype, quant))
+    bound_ms, bound_by = bound(_nbytes(a, b, got), flops, flop_s)
+    if library and dtype == torch.float32:
+        # torch.mm in full f32, the kernel's function (TF32 off in the port)
+        assert not torch.backends.cuda.matmul.allow_tf32
     lib = device_ms(lambda: torch.mm(a, b)) if library else None
     extra = {}
-    static = plan_tc(m, k, n) if plan else None
+    static = ((plan_split if variant == "split" else plan_tc)(m, k, n)
+              if plan else None)
     if static is not None and static != plan:
         extra["rule_ms"] = device_ms(lambda: tp_matmul_cuda(
             a, b, out_dtype=out_dtype, quant_fmt_name=quant, plan=static))
-    if main:
+    if main or variant == "split":
+        fgot = tp_matmul_fma(a, b, out_dtype=out_dtype, quant_fmt_name=quant)
+        ferr = (fgot.float() - want.float()).abs()
+        ftol = agreement_tol(a, b, fgot, want, quant)
+        extra["fma_elements_over_tol"] = int((ferr > ftol).sum().item())
+        extra["fma_max_err_over_tol"] = (ferr / ftol).max().item()
         extra["fma_ms"] = device_ms(lambda: tp_matmul_fma(
             a, b, out_dtype=out_dtype, quant_fmt_name=quant), 3, 1)
     rec = dict(case=name, kernel="tp_matmul", variant=variant,
@@ -1511,11 +1714,15 @@ def mm_case(name, *, m, k, n, dtype, out_dtype, quant=None, seed,
                library_note=library_note,
                shape=dict(m=m, k=k, n=n, operands=str(dtype)[6:],
                           out=str(out_dtype)[6:], quant=quant))
-    if main:
+    if "fma_ms" in rec:
         rec["speedup_vs_fma"] = rec["fma_ms"] / rec["kernel_ms"]
     log(json.dumps(rec))
     if over:
         raise AssertionError(f"{name}: {over} elements beyond the tolerance")
+    if extra.get("fma_elements_over_tol"):
+        raise AssertionError(f"{name}: tp_matmul_fma has "
+                             f"{extra['fma_elements_over_tol']} elements "
+                             f"beyond agreement_tol")
     if snap_bad:
         raise AssertionError(f"{name}: {snap_bad} snapped operands differ")
     return rec
@@ -1681,12 +1888,16 @@ def op_kernel_phase() -> dict:
     mm.append(mm_case("mm_em_fp8_mlp_up", m=256, k=D_MODEL, n=D_FF,
                       dtype=f32, out_dtype=f32, quant="fp8", seed=17,
                       library=False, iters=10, library_note=no_snap_lib))
-    # the FMA variant, held against its plain version (tf32 grid: wider
-    # than 16 bits)
+    # the split route, held against its plain version: the tf32 grid
+    # (wider than 16 bits: two pieces, every kept pair exact) and f32
+    # without a grid at the op path's main shape (three pieces), beside
+    # torch.mm in full f32
     mm.append(mm_case("mm_tf32_grid_small", m=96, k=640, n=200, dtype=f32,
                       out_dtype=f32, quant="tf32", seed=18, library=False,
                       library_note="no one torch call fuses the tf32 grid "
                                    "snap into the product"))
+    mm.append(mm_case("mm_fp32_mlp_up", m=256, k=D_MODEL, n=D_FF, dtype=f32,
+                      out_dtype=f32, seed=19, iters=10))
     mm.append(mm_case("mm_fp8_native", m=256, k=D_MODEL, n=D_FF,
                       dtype=torch.float8_e5m2, out_dtype=bf16, seed=14,
                       flop_s=FP8_FLOP_S, library=False,
@@ -1737,7 +1948,8 @@ def op_path_phase(seed: int = 0) -> dict:
     torch.cuda.synchronize()
     for fn in kernels.values():
         fn.launches = 0
-    tp_matmul_cuda.launches_tc = tp_matmul_cuda.launches_fma = 0
+    tp_matmul_cuda.launches_tc = tp_matmul_cuda.launches_split = 0
+    tp_matmul_cuda.launches_fma = 0
     tp_matmul_cuda.launches_by_plan.clear()
     kops.reset_picked()
     t0 = time.perf_counter()
@@ -1751,8 +1963,7 @@ def op_path_phase(seed: int = 0) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
-    variants = {"tp_matmul": {"tc": tp_matmul_cuda.launches_tc,
-                              "fma": tp_matmul_cuda.launches_fma}}
+    variants = {"tp_matmul": matmul_variant_counts()}
     by_plan = dict(tp_matmul_cuda.launches_by_plan)
     if by_plan != kops.picked["matmul"]:
         raise AssertionError(f"op path: tp_matmul_tc launches by plan "
@@ -1761,7 +1972,7 @@ def op_path_phase(seed: int = 0) -> dict:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the op path")
-    if variants["tp_matmul"] != {"tc": 2, "fma": 0}:
+    if variants["tp_matmul"] != {"tc": 2, "split": 0, "fma": 0}:
         raise AssertionError(f"the em_fp8 products did not both take the "
                              f"tensor-core variant: {variants}")
     outs = dict(w1q=w1q, w2q=w2q, y1=y1, y2=y2, packed=packed, d=d)
@@ -1886,7 +2097,8 @@ def autotune_phase() -> dict:
             counted = _autotune_default_call(op, shape)
             key = winner if op == "matmul" else winner[0]
             leg = dict(case=case, op=op, shape=list(shape),
-                       heuristic=list(autotune.default_block(op, shape)),
+                       heuristic=list(autotune.default_block(op, shape,
+                                                             "bfloat16")),
                        winner=list(winner),
                        candidates=[[list(b), t["ms"], t["spread_ms"]]
                                    for b, t in timings.items()],
@@ -1915,7 +2127,9 @@ def autotune_phase() -> dict:
 # ---------------------------------------------------------------------------
 #: device-time classes of the profiled run, by kernel-name fragment
 KERNEL_CLASSES = (("decode_attention", ("decode_cluster_kernel",)),
-                  ("flash_attention", ("flash_kernel", "flash_tc_kernel")),
+                  ("flash_attention", ("flash_kernel", "flash_tc_kernel",
+                                       "flash_split_kernel",
+                                       "stage_kv_pieces_kernel")),
                   ("gemm", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
 
 
@@ -2028,7 +2242,7 @@ def attention_counters(where: str, rule: set, flash: str = "tc",
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{where}: {name} was not launched")
-    want = {"flash_attention": {"tc": 0, "fma": 0},
+    want = {"flash_attention": {"tc": 0, "split": 0, "fma": 0},
             "decode_attention": {"mma": 0, "fma": 0}}
     want["flash_attention"][flash] = launches["flash_attention"]
     want["decode_attention"][decode] = launches["decode_attention"]
@@ -2066,7 +2280,8 @@ def no_attention_counters(where: str) -> dict:
         raise AssertionError(f"{where}: attention kernels launched "
                              f"{launches}, the arch has no attention")
     return dict(launches=launches,
-                variants={"flash_attention": {"tc": 0, "fma": 0},
+                variants={"flash_attention": {"tc": 0, "split": 0,
+                                              "fma": 0},
                           "decode_attention": {"mma": 0, "fma": 0}},
                 decode_launches_by_cluster={}, decode_launches_by_group={},
                 flash_launches_by_dims={}, flash_launches_noncausal=0,
@@ -3751,7 +3966,7 @@ def escalation_phase(seed: int = 0) -> dict:
     repeats the tokens and the fault plan's events; the schedule (admit /
     finish / escalate rounds by rid) equals the same queue's on the CPU at
     the reduced config; every decode launch on the fma route and every
-    flash launch on ``flash_fma``.  The caller frees the bf16 model
+    flash launch on the split route.  The caller frees the bf16 model
     first."""
     import torch
     from repro_torch.models.registry import build_model
@@ -3771,7 +3986,7 @@ def escalation_phase(seed: int = 0) -> dict:
     fin, stats = eng.run(reqs)
     counted = attention_counters(
         "escalation", cluster_rule(model, eng.slots, eng.max_pages),
-        flash="fma", decode="fma")
+        flash="split", decode="fma")
     escalation_gates(fin, stats, plan, reqs, "escalation")
     events = list(plan.events)
     sched = escalation_schedule(fin, plan)
@@ -3851,7 +4066,7 @@ def mla_counters(where: str, dims: str = "96x64") -> dict:
     return dict(launches={"decode_attention": 0,
                           "flash_attention": fa.launches},
                 variants={"flash_attention": {"tc": fa.launches_tc,
-                                              "fma": 0},
+                                              "split": 0, "fma": 0},
                           "decode_attention": {"mma": 0, "fma": 0}},
                 decode_launches_by_cluster={},
                 flash_launches_by_dims=by_dims,
@@ -6233,6 +6448,7 @@ def main() -> int:
     recs.update(op_kernel_phase())
     op_res = op_path_phase()
     tele = telemetry_phase()
+    nonfinite = nonfinite_phase()
     hgmma_gate()
     lap("kernels")
     tuned = autotune_phase()
@@ -6330,6 +6546,24 @@ def main() -> int:
             entry.update(launches_by_variant=variants[name])
             if "fma_ms" in main_case:
                 entry["fma_ms"] = main_case["fma_ms"]
+        entry["nonfinite_cases"] = [
+            {k: c[k] for k in ("case", "nan", "inf", "max_abs_err")}
+            for c in nonfinite if c["kernel"] == name]
+        fma = [c for c in cases if "fma_max_abs_err" in c
+               or "fma_max_err_over_tol" in c]
+        if fma:
+            entry["fma_held"] = [
+                {k: c.get(k) for k in ("case", "fma_ms", "fma_max_abs_err",
+                                       "fma_max_err_over_tol")}
+                for c in fma]
+        split = [c for c in cases if c.get("variant") == "split"]
+        if split:
+            entry["split_cases"] = [
+                {k: c.get(k) for k in ("case", "kernel_ms", "fma_ms",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "max_abs_err",
+                                       "max_err_over_tol", "flags_ms")}
+                for c in split]
         if "flags_ms" in main_case:
             f32 = [c for c in cases if c["case"] in (
                 "decode_f32_p64_local", "flash_f32_p64_chunk")][0]

@@ -115,7 +115,7 @@ def main() -> None:
         winner, timings = autotune.main(argv)
         entries[key] = list(winner)
         rec = {"case": case, "heuristic": list(autotune.default_block(
-            op, shape)), "winner": list(winner), "candidates": [
+            op, shape, dtype)), "winner": list(winner), "candidates": [
             [list(b), t["ms"], t["spread_ms"]] for b, t in timings.items()]}
         sweeps.setdefault(key, []).append(rec)
         print("SWEEP " + json.dumps(dict(key=key, **rec)), flush=True)

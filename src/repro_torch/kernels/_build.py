@@ -49,9 +49,13 @@ ARGTYPES = {
     "flash_attention": {"flash_attention_fma_launch":
                         [_VOIDP] * 8 + [_INT] * 18 + [_FLOAT, _FLOAT, _VOIDP],
                         "flash_attention_tc_launch":
-                        [_VOIDP] * 8 + [_INT] * 20 + [_FLOAT, _FLOAT, _VOIDP]},
+                        [_VOIDP] * 8 + [_INT] * 20 + [_FLOAT, _FLOAT, _VOIDP],
+                        "flash_attention_split_launch":
+                        [_VOIDP] * 10 + [_INT] * 20 + [_FLOAT, _FLOAT, _VOIDP]},
     "tp_matmul": {"tp_matmul_fma_launch": [_VOIDP] * 3 + [_INT] * 8 + [_VOIDP],
                   "tp_matmul_tc_launch": [_VOIDP] * 6 + [_INT] * 12
+                  + [_VOIDP],
+                  "tp_matmul_split_launch": [_VOIDP] * 6 + [_INT] * 11
                   + [_VOIDP]},
     "tp_quant": {"tp_quantize_launch": [_VOIDP] * 3 + [_LL] + [_INT] * 5
                  + [_VOIDP],

@@ -9,7 +9,8 @@ and the card, and a static rule that picks it today:
                    group's heads (``flash_attention.plan_q_rows``);
   ``matmul``       ``tp_matmul_tc``'s plan ``(wm, splits)``: BM 128 or 256,
                    and K in that many contiguous ranges
-                   (``tp_matmul.plan_tc``).
+                   (``tp_matmul.plan_tc``); the split route's, BM 128
+                   (``tp_matmul.plan_split``).
 
 This module times the legal values on the live device and memoizes the
 winner in a JSON cache keyed by ``op|shape|dtype|device|build``:
@@ -62,6 +63,7 @@ the plain version at the same candidate, raises.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -74,8 +76,8 @@ from ..core.device import resolve_device
 from . import _build
 from .decode_attention import MAX_CLUSTER, cluster_size
 from .flash_attention import TC_HEAD_PAIRS, kernel_block_k, plan_q_rows
-from .tp_matmul import (agreement_tol, plan_tc, tc_operand_dtype, tc_plan,
-                        tp_matmul_plain)
+from .tp_matmul import (agreement_tol, matmul_route, plan_split, plan_tc,
+                        tc_plan, tp_matmul_plain)
 
 __all__ = [
     "best_block", "lookup", "record", "reset", "candidates", "default_block",
@@ -295,8 +297,18 @@ def pretuned_status(device=None) -> dict:
 # ---------------------------------------------------------------------------
 # heuristics + candidate grids
 # ---------------------------------------------------------------------------
-def default_block(op: str, shape: Sequence[int]) -> Tuple[int, ...]:
-    """The static rules the kernels picked by before the tuner."""
+def _matmul_split(dtype) -> bool:
+    """Whether a ``matmul`` dtype (None: a 16-bit tile) takes the split
+    route, whose plans are 128-row tiles (``plan_split``)."""
+    return dtype is not None and matmul_route(
+        *_split_dtype(dtype_name(dtype))) == "split"
+
+
+def default_block(op: str, shape: Sequence[int], dtype=None
+                  ) -> Tuple[int, ...]:
+    """The static rules the kernels picked by before the tuner (``dtype``
+    picks ``matmul``'s route: ``plan_split`` on the split route, else
+    ``plan_tc``)."""
     if op == "decode_attn":
         rows, units, unit, _, _ = shape
         return (cluster_size(rows, units, unit),)
@@ -304,14 +316,15 @@ def default_block(op: str, shape: Sequence[int]) -> Tuple[int, ...]:
         sq, bkv, group = shape[:3]
         return (plan_q_rows(sq, bkv, group),)
     if op == "matmul":
-        p = plan_tc(*shape)
+        p = (plan_split if _matmul_split(dtype) else plan_tc)(*shape)
         return (p.wm, p.splits)
     raise ValueError(op)
 
 
 def _flash_tc(shape, dtype) -> bool:
     """Whether an ``attn`` shape and dtype route to ``flash_tc`` (an f32
-    pool without a grid takes ``flash_fma``)."""
+    pool without a grid takes the split route, whose query tile is
+    fixed, or ``flash_fma``)."""
     if (shape[3], shape[4]) not in TC_HEAD_PAIRS:
         return False
     return dtype is None or dtype_name(dtype) != "float32"
@@ -320,9 +333,11 @@ def _flash_tc(shape, dtype) -> bool:
 def candidates(op: str, shape: Sequence[int], dtype=None
                ) -> List[Tuple[int, ...]]:
     """Legal values for one op / shape, deduplicated, heuristic first (so
-    a tie keeps it).  ``dtype`` tells a route without a knob (``flash_fma``,
-    ``tp_matmul_fma``): its one candidate is the heuristic."""
-    out = [default_block(op, shape)]
+    a tie keeps it).  ``dtype`` tells the route: one without a knob
+    (flash's split route, ``flash_fma``, ``tp_matmul_fma``) has the
+    heuristic alone; ``tp_matmul``'s split route has 128-row tiles (wm 1)
+    at power-of-two K splits."""
+    out = [default_block(op, shape, dtype)]
     if op == "decode_attn":
         units = shape[1]
         c = 1
@@ -337,10 +352,11 @@ def candidates(op: str, shape: Sequence[int], dtype=None
                     out.append((rows,))
     elif op == "matmul":
         m, k, n = shape
-        if dtype is None or tc_operand_dtype(*_split_dtype(
-                dtype_name(dtype))) is not None:
+        route = ("tc" if dtype is None
+                 else matmul_route(*_split_dtype(dtype_name(dtype))))
+        if route != "fma":
             k_steps = max(1, -(-k // 64))
-            for wm in (1, 2):
+            for wm in ((1, 2) if route == "tc" else (1,)):
                 s = 1
                 while s <= k_steps:
                     p = tc_plan(m, k, n, wm, s)
@@ -358,14 +374,14 @@ def _best(op: str, shape: Tuple[int, ...], dtype, device
     False.  A meta tensor (the dry run) takes the heuristic."""
     device = torch.device(device)
     if device.type == "meta":
-        return default_block(op, shape), False
+        return default_block(op, shape, dtype), False
     memo = (op, shape, dtype, device)
     try:
         win = _PICKS[memo]
     except KeyError:
         win = _PICKS[memo] = lookup(op, shape, dtype, device)
     if win is None:
-        return default_block(op, shape), False
+        return default_block(op, shape, dtype), False
     return win, True
 
 
@@ -540,9 +556,18 @@ def autotune_attention(sq: int, bkv: int, group: int, d: int,
                       verbose=verbose)
 
 
-def _matmul_policy(dtype, grid) -> str:
+def _matmul_policy(dtype, grid):
+    """The policy whose ``kernels.ops.tp_matmul`` runs these operands: a
+    preset, or for a grid without one (tf32) ``em_fp8``'s emulation on
+    that grid."""
     if grid:
-        return f"em_{grid}"
+        from ..core.formats import get_format
+        from ..core.policy import PRESETS
+        if f"em_{grid}" in PRESETS:
+            return f"em_{grid}"
+        em = PRESETS["em_fp8"]
+        return em.replace(name=f"em_{grid}", matmul=dataclasses.replace(
+            em.matmul, src_fmt=get_format(grid)))
     return {torch.bfloat16: "tp_bf16", torch.float16: "tp_fp16",
             torch.float8_e5m2: "tp_fp8", torch.float32: "fp32"}[dtype]
 
@@ -550,7 +575,8 @@ def _matmul_policy(dtype, grid) -> str:
 def autotune_matmul(m: int, k: int, n: int, dtype=torch.bfloat16, *,
                     device=None, repeats: int = REPEATS, persist: bool = True,
                     verbose: bool = False, seed: int = 0):
-    """Sweep ``tp_matmul_tc``'s plan for ``a [m, k] @ b [k, n]`` in
+    """Sweep ``tp_matmul``'s plan (``tp_matmul_tc``'s, or the split
+    route's 128-row plans) for ``a [m, k] @ b [k, n]`` in
     ``dtype`` (``float32+fp8``: f32 operands snapped onto fp8 in the
     kernel, policy ``em_fp8``); b scaled by k^-1/2, a weight's scale."""
     from . import ops as kops
@@ -613,7 +639,8 @@ def main(argv=None):
                          repeats=args.repeats, verbose=True)
     print(f"winner for {args.op} {args.shape} [{args.dtype}] on "
           f"{device_tag(device)}: {winner} ({timings[winner]['ms']:.5f} ms; "
-          f"heuristic {default_block(args.op, dims)}) -> {cache_path()}")
+          f"heuristic {default_block(args.op, dims, args.dtype)}) -> "
+          f"{cache_path()}")
     return winner, timings
 
 

@@ -8,6 +8,9 @@
 //   * wgmma.mma_async m64nNk16 with bf16 / fp16 operands and an f32
 //     accumulator: A and B from shared memory (SS) or A from registers
 //     (RS); ``TB`` = 1 sets the transpose bit of an N-major B;
+//   * the split route's arithmetic: an f32 operand as two or three bf16
+//     pieces (``split_bf16``) and the piece pairs a product keeps
+//     (``for_each_pair``), shared by flash attention and tp_matmul;
 //   * wgmma.fence / commit_group / wait_group;
 //   * mbarrier init / arrive / arrive_expect_tx / try_wait.parity, and the
 //     fences that order generic-proxy writes before async-proxy reads;
@@ -193,12 +196,97 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 }
 
 // ---------------------------------------------------------------------------
+// The split route: an f32 operand as P bf16 pieces (twin of
+// ``quant_common.split_bf16`` in kernels/quant_common.py).  Piece i is the
+// RNE bf16 of what pieces 0 .. i-1 leave of x; each subtraction is exact
+// in f32.  A piece carries 8 significant bits and, by the sign of RNE's
+// remainder, leaves at most (bits - 9) behind, so P = 3 holds every normal
+// f32 exactly and P = 2 every value of <= 17 significant bits (tf32's 11);
+// only a piece that underflows bf16's subnormals loses bits.  The first
+// piece of a finite x that RNE would round past bf16's largest finite value
+// is x truncated instead (the rest then holds what truncation left).  Inf
+// and NaN go whole into the LAST piece, the others 0: the last piece meets
+// only its partner's first (``for_each_pair`` at three pieces, flash's
+// P V pairs), which is 0 only where the partner is, so such a pair gives
+// IEEE's +-Inf or NaN; where a route's pairs still meet a partner's zero
+// piece (two pieces of each, or both operands non-finite at one index),
+// the NaN that gives is repaired from the pieces' sums (``piece_sum``).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ bool finite_f32(float x) {
+  return (__float_as_uint(x) & 0x7F800000u) != 0x7F800000u;
+}
+// One piece: the next piece of what ``r`` holds (``first``: x itself,
+// ``last``: the final piece), and ``r`` left holding the rest.
+__device__ __forceinline__ float split_step(float& r, bool first, bool last) {
+  if (!finite_f32(r)) {  // a non-finite x: held back for the last piece
+    const float h = last ? r : 0.f;
+    if (last) r = 0.f;
+    return h;
+  }
+  float h = __bfloat162float(__float2bfloat16_rn(r));
+  if (first && !finite_f32(h))
+    h = __uint_as_float(__float_as_uint(r) & 0xFFFF0000u);
+  r = r - h;
+  return h;
+}
+template <int P>
+__device__ __forceinline__ void split_bf16(float x, float (&pc)[P]) {
+  float r = x;
+#pragma unroll
+  for (int i = 0; i < P; ++i) pc[i] = split_step(r, i == 0, i == P - 1);
+}
+// The value P pieces hold (exact for the values they hold exactly; a
+// non-finite x is its last piece plus zeros, so x again).
+template <int P>
+__device__ __forceinline__ float piece_sum(const __nv_bfloat16* x,
+                                           long long stride) {
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < P; ++i) s += __bfloat162float(x[i * stride]);
+  return s;
+}
+
+// The piece pairs (i, j) a split product keeps: i + j <= 2, the pairs of
+// weight 2^-16 and up (P = 3: six, P = 2: all four), issued smallest
+// weight first so that while the accumulator is still small the small
+// pairs add at its own precision: ``fn(i, j, first)`` for each.
+template <int PA, int PB, typename Fn>
+__device__ __forceinline__ void for_each_pair(Fn&& fn) {
+  bool first = true;
+#pragma unroll
+  for (int w = 2; w >= 0; --w) {
+#pragma unroll
+    for (int i = PA - 1; i >= 0; --i) {
+      const int j = w - i;
+      if (j >= 0 && j < PB) {
+        fn(i, j, first);
+        first = false;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // wgmma.mma_async m64nNk16, f32 accumulator (one warpgroup).  Accumulator
 // register i of thread t holds row 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2)
 // % 2), column 8 * (i / 4) + 2 * (t % 4) + i % 2.  The RS form takes A as the
 // four 32-bit registers a0..a3 of an m16n8k16 A fragment of the thread's
 // warp.
 // ---------------------------------------------------------------------------
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_m64n32_bf16(
+    float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, %19;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
 template <int TB>
 __device__ __forceinline__ void wgmma_ss_m64n64_bf16(
     float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
@@ -411,11 +499,14 @@ template <typename TT, int N, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d) {
   constexpr bool kBf16 = std::is_same<TT, __nv_bfloat16>::value;
-  if constexpr (N == 64) {
+  if constexpr (N == 32) {
+    static_assert(kBf16, "SS wgmma: N 32 is bf16 only (the split route)");
+    wgmma_ss_m64n32_bf16<TB>(d, a, b, scale_d);
+  } else if constexpr (N == 64) {
     if constexpr (kBf16) wgmma_ss_m64n64_bf16<TB>(d, a, b, scale_d);
     else wgmma_ss_m64n64_f16<TB>(d, a, b, scale_d);
   } else {
-    static_assert(N == 128, "SS wgmma: N is 64 or 128");
+    static_assert(N == 128, "SS wgmma: N is 32, 64 or 128");
     if constexpr (kBf16) wgmma_ss_m64n128_bf16<TB>(d, a, b, scale_d);
     else wgmma_ss_m64n128_f16<TB>(d, a, b, scale_d);
   }

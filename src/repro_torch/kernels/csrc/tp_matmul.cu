@@ -42,8 +42,30 @@
 // cast.  The tile and split plan is made on the host (``plan_tc`` in
 // kernels/tp_matmul.py).
 //
-// ``tp_matmul_fma`` (the first version, kept for f32 operands without a
-// grid, tf32 and grids wider than 16 bits): a shared-memory GEMM on the
+// ``tp_matmul_split`` (the split route: f32 operands that no 16-bit type
+// holds — f32 without a grid, tf32 and other grids of up to 22 mantissa
+// bits): the staging pass cuts each operand into P bf16 pieces
+// (``tc::split_bf16``; P = 2 holds <= 17 significant bits exactly, the
+// tf32 grid among them, P = 3 every normal f32), once, into [P][rows][ld]
+// copies, and the tensor-core GEMM above, on 128-row tiles (P pieces of A
+// and B for a 64-deep step take 96 KB, so two stages at P = 3, three at
+// P = 2), runs the kept piece pairs (``tc::for_each_pair``: i + j <= 2,
+// six at P = 3, all four at P = 2) into one f32 accumulator, smallest
+// weight first.  What it drops (mid x lo, lo x mid, lo x lo) is at most
+// 2^-23 |a||b| a product by the loose bound (each piece is at most 2^-8
+// of what it splits), 2^-26 by the tight one: below the sum-order term of
+// ``agreement_tol``, 2 K 2^-24 (|A| @ |B|), from K = 1 up.  At P = 2 every
+// kept pair is exact.  Bound at the op path's main shape: six passes of
+// 26.3 GFLOP at the bf16 rate, 0.160 ms, plus the staging pass's 205 MB
+// of f32 weight read and 308 MB of pieces written.  K splits as
+// ``tp_matmul_tc``'s does (``plan_split``), the partials added in order.
+// Non-finite operands keep IEEE's results: an Inf is its last piece,
+// zeros before it, and where it still meets a partner's zero piece the
+// NaN that gives is recomputed from the pieces' values
+// (``split_dot_repair``; the sum over the split's K range).
+//
+// ``tp_matmul_fma`` (the first version; no product routes to it since the
+// split route, kept and timed beside it): a shared-memory GEMM on the
 // f32 FMA units.  A CTA of 256 threads owns a 128 x 128 output tile and
 // walks K in steps of 16; operands are widened (and snapped) as they are
 // staged into shared memory; each thread accumulates an 8 x 8 micro-tile
@@ -294,6 +316,42 @@ __device__ __forceinline__ void store_pair(void* out, int out_dtype,
   }
 }
 
+// The epilogue of a consumer warpgroup: its WM m64n128 accumulators (rows
+// m0 + (cw * WM + mi) * 64 ..) to the output, or to this split's f32
+// partials when K is split.
+template <int WM>
+__device__ __forceinline__ void store_tile(const TcParams& p,
+                                           const float (&acc)[WM][64], int m0,
+                                           int n0, int cw, int t) {
+  const int warp = t / 32, lane = t % 32;
+  const bool split = p.splits > 1;
+  void* dst = split ? static_cast<void*>(p.ws + (long long)blockIdx.z * p.M * p.N)
+                    : p.out;
+  const int dt = split ? DT_F32 : p.out_dtype;
+  const bool even = (p.N & 1) == 0;
+#pragma unroll
+  for (int mi = 0; mi < WM; ++mi) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + (cw * WM + mi) * 64 + 16 * warp + lane / 4 + 8 * h;
+        const int col = n0 + 8 * j + 2 * (lane % 4);
+        if (row < p.M && col < p.N) {
+          const float x = acc[mi][4 * j + 2 * h], y = acc[mi][4 * j + 2 * h + 1];
+          const long long idx = (long long)row * p.N + col;
+          if (col + 1 < p.N && even) {
+            store_pair(dst, dt, idx, x, y, true);
+          } else {
+            store_pair(dst, dt, idx, x, 0.f, false);
+            if (col + 1 < p.N) store_pair(dst, dt, idx + 1, y, 0.f, false);
+          }
+        }
+      }
+    }
+  }
+}
+
 template <typename TT, int WM>
 __global__ void __launch_bounds__(kTcThreads, 1)
     tp_matmul_tc_kernel(const __grid_constant__ CUtensorMap map_a,
@@ -374,34 +432,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
   for (int mi = 0; mi < WM; ++mi) tc::fence_regs(acc[mi]);
 
-  // ---- epilogue: registers -> output (or this split's partials) ----
-  const int warp = t / 32, lane = t % 32;
-  const bool split = p.splits > 1;
-  void* dst = split ? static_cast<void*>(p.ws + (long long)blockIdx.z * p.M * p.N)
-                    : p.out;
-  const int dt = split ? DT_F32 : p.out_dtype;
-  const bool even = (p.N & 1) == 0;
-#pragma unroll
-  for (int mi = 0; mi < WM; ++mi) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + (cw * WM + mi) * 64 + 16 * warp + lane / 4 + 8 * h;
-        const int col = n0 + 8 * j + 2 * (lane % 4);
-        if (row < p.M && col < p.N) {
-          const float x = acc[mi][4 * j + 2 * h], y = acc[mi][4 * j + 2 * h + 1];
-          const long long idx = (long long)row * p.N + col;
-          if (col + 1 < p.N && even) {
-            store_pair(dst, dt, idx, x, y, true);
-          } else {
-            store_pair(dst, dt, idx, x, 0.f, false);
-            if (col + 1 < p.N) store_pair(dst, dt, idx + 1, y, 0.f, false);
-          }
-        }
-      }
-    }
-  }
+  store_tile<WM>(p, acc, m0, n0, cw, t);
 }
 
 // Second pass of a split K: out = cast(sum over splits, in split order).
@@ -539,4 +570,288 @@ extern "C" int tp_matmul_tc_launch(const void* a, const void* b, void* out,
                                         m_tiles, n_tiles, s)
                  : launch_tc<__half, 2>(a, b, a16, b16, in_dtype, snap, p,
                                         m_tiles, n_tiles, s);
+}
+
+// ===========================================================================
+// tp_matmul_split: f32 products on the tensor cores as sums of bf16 piece
+// products (the split route), on tp_matmul_tc's staging pass, TMA ring,
+// split K and in-order second pass
+// ===========================================================================
+namespace {
+
+using namespace repro;
+
+// One A piece: 128 rows of 64 values; one B piece: two 64-column chunks.
+constexpr uint32_t kSpAPiece = 128 * 128, kSpBPiece = kTcBBytes;
+
+template <int P>
+__host__ __device__ constexpr int sp_stages() {
+  return P == 3 ? 2 : 3;  // 96 KB or 64 KB a stage
+}
+template <int P>
+__host__ __device__ constexpr uint32_t sp_smem_bytes() {
+  return sp_stages<P>() * P * (kSpAPiece + kSpBPiece) + 2 * sp_stages<P>() * 8 +
+         1024;
+}
+
+// The split route's staging pass: src [rows, cols] widened (and snapped
+// onto the grid when one is given), each value cut into P bf16 pieces
+// (``tc::split_bf16``), piece i written to dst [i][rows][ld] (ld = cols
+// rounded up to 8, the padding zero).  The pieces are formed here, once,
+// and never per MMA.
+template <typename T, int P>
+__global__ void stage_split_kernel(const T* __restrict__ src,
+                                   uint4* __restrict__ dst, int rows,
+                                   int cols, int ld, Snap snap) {
+  const long long per_row = ld / 8, total = (long long)rows * per_row;
+  for (long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       g < total; g += (long long)gridDim.x * blockDim.x) {
+    const int r = (int)(g / per_row), c = (int)(g % per_row) * 8;
+    float v[8], pc[8][P];
+    load8(src + (long long)r * cols, c, cols, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if (snap.m > 0) v[e] = quantize_rne_bits(v[e], snap.m, snap.emax, snap.emin);
+      tc::split_bf16<P>(v[e], pc[e]);
+    }
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      dst[i * total + g] = make_uint4(
+          tc::pack2<__nv_bfloat16>(pc[0][i], pc[1][i]),
+          tc::pack2<__nv_bfloat16>(pc[2][i], pc[3][i]),
+          tc::pack2<__nv_bfloat16>(pc[4][i], pc[5][i]),
+          tc::pack2<__nv_bfloat16>(pc[6][i], pc[7][i]));
+  }
+}
+
+// One output of a split's K range [k0, k1) as the f32 dot of the values
+// the staged pieces hold (``tc::piece_sum``): the repair of a NaN sum,
+// which a non-finite operand makes when it meets its partner's zero piece
+// (IEEE's product gives +-Inf there), and which NaN operands, Inf x 0 and
+// Inf - Inf make again.  Run only on a NaN sum.  (Inlined, at one call
+// site: a call would make ptxas serialize the kernel's wgmmas.)
+template <int P>
+__device__ __forceinline__ float split_dot_repair(
+    const __nv_bfloat16* __restrict__ a16,
+    const __nv_bfloat16* __restrict__ b16, int M, int K, int lda, int ldb,
+    int row, int col, int k0, int k1) {
+  const long long sa = (long long)M * lda, sb = (long long)K * ldb;
+  float s = 0.f;
+  for (int k = k0; k < k1; ++k)
+    s = fmaf(tc::piece_sum<P>(a16 + (long long)row * lda + k, sa),
+             tc::piece_sum<P>(b16 + (long long)k * ldb + col, sb), s);
+  return s;
+}
+
+// A CTA of three warpgroups owns a 128 x 128 output tile (blockIdx.x the
+// row tile, so the CTAs that share a weight tile run side by side and the
+// second reads it from L2); warpgroup 0's first thread loads the P pieces
+// of A and of B for each 64-deep K step by TMA (3-D maps, the piece the
+// third coordinate), warpgroups 1 and 2 each run, for their 64 rows, the
+// kept piece pairs (``tc::for_each_pair``) as m64n128k16 wgmmas into one
+// f32 accumulator; a NaN sum is repaired from a16 / b16, the staged
+// pieces ([P][rows][ld]), before the store.
+template <int P>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    tp_matmul_split_kernel(const __grid_constant__ CUtensorMap map_a,
+                           const __grid_constant__ CUtensorMap map_b,
+                           TcParams p, const __nv_bfloat16* a16,
+                           const __nv_bfloat16* b16) {
+  constexpr int kStages = sp_stages<P>();
+  constexpr uint32_t kABytes = P * kSpAPiece, kBBytes = P * kSpBPiece;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* As = smem;
+  uint8_t* Bs = smem + kStages * kABytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + kStages * kBBytes);
+  uint64_t* empty = full + kStages;
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int m0 = blockIdx.x * 128, n0 = blockIdx.y * kTcBN;
+  const int kb0 = blockIdx.z * p.kb_per_split;
+  const int nk = min(p.nkb, kb0 + p.kb_per_split) - kb0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      tc::mbar_init(&full[s], 1);
+      tc::mbar_init(&empty[s], 256);
+    }
+    tc::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    tc::regs_dec<kTcProducerRegs>();
+    if (t == 0) {
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % kStages, k0 = (kb0 + it) * kTcBK;
+        tc::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        tc::mbar_arrive_expect_tx(&full[s], kABytes + kBBytes);
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          uint8_t* a = As + s * kABytes + i * kSpAPiece;
+          uint8_t* b = Bs + s * kBBytes + i * kSpBPiece;
+          tc::tma_load_3d(a, &map_a, &full[s], k0, m0, i);
+          tc::tma_load_3d(b, &map_b, &full[s], n0, k0, i);
+          tc::tma_load_3d(b + kTcBChunk, &map_b, &full[s], n0 + 64, k0, i);
+        }
+      }
+    }
+    return;
+  }
+
+  tc::regs_inc<kTcConsumerRegs>();
+  const int cw = wg - 1;
+  float acc[1][64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[0][i] = 0.f;
+
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % kStages;
+    tc::mbar_wait(&full[s], (it / kStages) & 1);
+    const uint32_t a_base = tc::smem_u32(As + s * kABytes) + cw * 64 * 128;
+    const uint32_t b_base = tc::smem_u32(Bs + s * kBBytes);
+    tc::wgmma_fence();
+    tc::for_each_pair<P, P>([&](int i, int j, bool) {
+#pragma unroll
+      for (int kk = 0; kk < kTcBK / 16; ++kk) {
+        const uint64_t da =
+            tc::desc_sw128(a_base + i * kSpAPiece + kk * 32, 16, 1024);
+        const uint64_t db = tc::desc_sw128(
+            b_base + j * kSpBPiece + kk * 2048, kTcBChunk, 1024);
+        tc::wgmma_ss<__nv_bfloat16, 128, 1>(acc[0], da, db, 1);
+      }
+    });
+    tc::wgmma_commit();
+    tc::wgmma_wait<1>();
+    tc::fence_regs(acc[0]);
+    if (it > 0) tc::mbar_arrive(&empty[(it - 1) % kStages]);
+  }
+  tc::wgmma_wait<0>();
+  tc::fence_regs(acc[0]);
+  uint64_t nan_acc = 0;
+#pragma unroll
+  for (int e = 0; e < 64; ++e)
+    nan_acc |= (acc[0][e] != acc[0][e]) ? 1ull << e : 0ull;
+  store_tile<1>(p, acc, m0, n0, cw, t);
+  // NaN sums: the stored NaN overwritten by the repair (one copy of it)
+  const int warp = t / 32, lane = t % 32;
+  const int lda = (p.K + 7) / 8 * 8, ldb = (p.N + 7) / 8 * 8;
+  while (nan_acc) {
+    const int e = __ffsll((long long)nan_acc) - 1;
+    nan_acc &= nan_acc - 1;
+    const int row = m0 + cw * 64 + 16 * warp + lane / 4 + 8 * ((e / 2) % 2);
+    const int col = n0 + 8 * (e / 4) + 2 * (lane % 4) + (e % 2);
+    if (row >= p.M || col >= p.N) continue;
+    const float r = split_dot_repair<P>(a16, b16, p.M, p.K, lda, ldb, row,
+                                        col, kb0 * kTcBK,
+                                        min(p.K, (kb0 + nk) * kTcBK));
+    const bool split = p.splits > 1;
+    store_pair(split ? static_cast<void*>(p.ws + (long long)blockIdx.z * p.M * p.N)
+                     : p.out,
+               split ? DT_F32 : p.out_dtype, (long long)row * p.N + col, r,
+               0.f, false);
+  }
+}
+
+template <typename T, int P>
+cudaError_t stage_split_typed(const void* src, void* dst, int rows, int cols,
+                              Snap snap, cudaStream_t stream) {
+  const int ld = (cols + 7) / 8 * 8;
+  const long long groups = (long long)rows * (ld / 8);
+  if (groups == 0) return cudaSuccess;
+  stage_split_kernel<T, P><<<grid_blocks(groups, 256), 256, 0, stream>>>(
+      static_cast<const T*>(src), static_cast<uint4*>(dst), rows, cols, ld,
+      snap);
+  return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t stage_split(const void* src, void* dst, int rows, int cols,
+                        int in_dtype, Snap snap, cudaStream_t stream) {
+  switch (in_dtype) {
+    case DT_F32: return stage_split_typed<float, P>(src, dst, rows, cols, snap, stream);
+    case DT_BF16:
+      return stage_split_typed<__nv_bfloat16, P>(src, dst, rows, cols, snap, stream);
+    case DT_F16: return stage_split_typed<__half, P>(src, dst, rows, cols, snap, stream);
+    case DT_FP8E5M2:
+      return stage_split_typed<__nv_fp8_e5m2, P>(src, dst, rows, cols, snap, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int P>
+cudaError_t launch_split(const void* a, const void* b, void* a16, void* b16,
+                         int in_dtype, Snap snap, const TcParams& p,
+                         int m_tiles, int n_tiles, cudaStream_t stream) {
+  cudaError_t err = stage_split<P>(a, a16, p.M, p.K, in_dtype, snap, stream);
+  if (err == cudaSuccess)
+    err = stage_split<P>(b, b16, p.K, p.N, in_dtype, snap, stream);
+  if (err != cudaSuccess) return err;
+  const uint64_t lda = (p.K + 7) / 8 * 8, ldb = (p.N + 7) / 8 * 8;
+  const uint64_t da[3] = {lda, (uint64_t)p.M, (uint64_t)P},
+                 db[3] = {ldb, (uint64_t)p.K, (uint64_t)P};
+  const uint32_t ba[3] = {64u, 128u, 1u}, bb[3] = {64u, 64u, 1u};
+  CUtensorMap ma, mb;
+  if (!tc_host::make_map(&ma, a16, true, 3, da, ba) ||
+      !tc_host::make_map(&mb, b16, true, 3, db, bb))
+    return cudaErrorInvalidValue;
+  auto kern = tp_matmul_split_kernel<P>;
+  constexpr int smem = (int)sp_smem_bytes<P>();
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs * kTcThreads < 128 * (kTcProducerRegs + 2 * kTcConsumerRegs))
+    return cudaErrorInvalidConfiguration;
+  kern<<<dim3(m_tiles, n_tiles, p.splits), kTcThreads, smem, stream>>>(
+      ma, mb, p, static_cast<const __nv_bfloat16*>(a16),
+      static_cast<const __nv_bfloat16*>(b16));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return err;
+  const long long n = (long long)p.M * p.N;
+  tp_matmul_reduce_kernel<<<grid_blocks(n, 256), 256, 0, stream>>>(
+      p.ws, p.out, n, p.splits, p.out_dtype);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// pieces: 2 (operands of <= 17 significant bits: the tf32 grid) or 3 (f32
+// without a grid); a16 / b16: the staging buffers of the pieces, [pieces,
+// M, K8] and [pieces, K, N8] bf16; splits / kb_per_split: the K split
+// planned on the host (``plan_split``: 128-row tiles), ws its [splits, M,
+// N] f32 workspace.
+extern "C" int tp_matmul_split_launch(const void* a, const void* b, void* out,
+                                      void* ws, void* a16, void* b16, int m,
+                                      int k, int n, int in_dtype,
+                                      int out_dtype, int pieces, int q_m,
+                                      int q_emax, int q_emin, int splits,
+                                      int kb_per_split, void* stream) {
+  if (m < 0 || k < 1 || n < 0 || q_m < 0 || q_m > 22 ||
+      (pieces != 2 && pieces != 3) || splits < 1 || kb_per_split < 1 ||
+      !a16 || !b16)
+    return cudaErrorInvalidValue;
+  if (m == 0 || n == 0) return cudaSuccess;
+  TcParams p;
+  p.out = out; p.ws = static_cast<float*>(ws);
+  p.M = m; p.K = k; p.N = n;
+  p.out_dtype = out_dtype;
+  p.nkb = (k + kTcBK - 1) / kTcBK;
+  p.kb_per_split = kb_per_split;
+  p.splits = splits;
+  if ((long long)(splits - 1) * kb_per_split >= p.nkb ||
+      (long long)splits * kb_per_split < p.nkb || (splits > 1 && !ws))
+    return cudaErrorInvalidValue;
+  const Snap snap{q_m, q_emax, q_emin};
+  const int m_tiles = (m + 127) / 128, n_tiles = (n + kTcBN - 1) / kTcBN;
+  if (n_tiles > 65535 || splits > 65535) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return pieces == 3
+             ? launch_split<3>(a, b, a16, b16, in_dtype, snap, p, m_tiles,
+                               n_tiles, s)
+             : launch_split<2>(a, b, a16, b16, in_dtype, snap, p, m_tiles,
+                               n_tiles, s);
 }

@@ -3,17 +3,28 @@
 ``flash_attention_cuda`` is the port of the TPU kernel
 ``repro.kernels.flash_attention.flash_attention_pallas``: hand-written CUDA
 kernels (``csrc/flash_attention.cu``, sm_90a) for tensors on the card, in
-two variants chosen by ``tc_tile_dtype`` alone:
+three variants chosen by ``flash_route`` (dtype, grid and head dims) alone:
 
-  ``flash_tc``   wgmma tiles (QK^T from shared memory, PV with P in
-                 registers), K/V fed by TMA or converted by a producer
-                 warpgroup, one CTA per (KV row, query tile) carrying all
-                 heads of the GQA group; 64-key tiles; for src bf16 / fp16
-                 or f32 on a grid exact in 16 bits, (D, Dv) in
-                 ``TC_HEAD_PAIRS``;
-  ``flash_fma``  the first, f32-FMA version (32 x 32 tiles), for policy
-                 ``fp32``, grids wider than 16 bits and every other
-                 D, Dv <= 256.
+  ``flash_tc``     wgmma tiles (QK^T from shared memory, PV with P in
+                   registers), K/V fed by TMA or converted by a producer
+                   warpgroup, one CTA per (KV row, query tile) carrying all
+                   heads of the GQA group; 64-key tiles; for src bf16 /
+                   fp16 or f32 on a grid exact in 16 bits, (D, Dv) in
+                   ``TC_HEAD_PAIRS``;
+  ``flash_split``  the split route on the same code, for f32 src that no
+                   16-bit type holds (policy ``fp32``, tf32 and grids up to
+                   22 mantissa bits) at (D, Dv) in ``TC_HEAD_PAIRS``: a
+                   staging pass cuts K into the pieces of
+                   ``quant_common.split_pieces`` (three without a grid) and
+                   V into two, once a launch (the keys a query can see,
+                   ``split_staged_keys``), the kernel reads them by TMA,
+                   cuts Q likewise and p into two, and QK^T / PV sum the
+                   kept piece products on the tensor cores (PV: the three
+                   pairs of weight 2^-8 and up); 64-row query tiles,
+                   ``split_block_k`` keys; non-finite operands give
+                   IEEE's +-Inf / NaN as the plain version does;
+  ``flash_fma``    the first, f32-FMA version (32 x 32 tiles), for every
+                   other D, Dv <= 256.
 
 ``flash_attention_plain`` is the plain-torch version.  The choice between
 kernel and plain version is made in one place, ``kernels.ops.resolve_backend``:
@@ -52,15 +63,40 @@ import torch.nn.functional as F
 
 from . import _build
 from . import ref
-from .quant_common import operand_tile_dtype
+from .quant_common import operand_tile_dtype, split_pieces
 
 #: query block of the plain version's walk, and its key block unless
 #: ``block_k`` is given (paged: the page)
 PLAIN_BLOCK = 32
 #: key tile of each CUDA variant, and the FMA variant's query tile
 TC_BLOCK_K, FMA_BLOCK_K, FMA_BLOCK_Q = 64, 32, 32
-#: (QK head dim, V head dim) pairs the tensor-core variant takes
+#: (QK head dim, V head dim) pairs the tensor-core and split variants take
 TC_HEAD_PAIRS = ((64, 64), (128, 128), (256, 256), (96, 64), (192, 128))
+#: the split route's query tile (rows over the group's heads) and the
+#: pieces of p and V
+SPLIT_Q_ROWS, SPLIT_PV_PIECES = 64, 2
+
+
+def split_block_k(d: int) -> int:
+    """The split route's key tile: 64 keys, or 32 above D 128, where three
+    pieces of a 64-row Q tile and two stages of K in three pieces fill the
+    card's 227 KB of shared memory."""
+    return 32 if d > 128 else 64
+
+
+def split_staged_keys(nk: int, page: int, sq: int, q_offset: int,
+                      causal: bool) -> int:
+    """Keys a KV row of the split route's staging buffers holds: those a
+    query can see — the table's ``nk * page``, and under the causal mask
+    no more than ``q_offset + sq`` — rounded up to 64 (at least 64).  The
+    staging pass writes only each row's live keys and its last tile's
+    tail, so under the causal mask a block table far wider than the
+    context costs neither memory nor time; without it the buffers span
+    the table, and only the live keys are written."""
+    keys = nk * page
+    if causal:
+        keys = min(keys, max(0, q_offset + sq))
+    return max(64, -(-keys // 64) * 64)
 
 
 def plan_q_rows(sq: int, bkv: int, group: int) -> int:
@@ -87,11 +123,33 @@ def tc_tile_dtype(src_dtype, src_fmt_name: Optional[str], d: int,
     return operand_tile_dtype(src_dtype, src_fmt_name)
 
 
+def flash_route(src_dtype, src_fmt_name: Optional[str], d: int,
+                dv: Optional[int] = None) -> str:
+    """The variant these arguments launch: "tc" (``tc_tile_dtype``),
+    "split" (f32 src whose operands the split route's pieces hold,
+    ``quant_common.split_pieces``, at a (D, Dv) of ``TC_HEAD_PAIRS``) or
+    "fma"."""
+    if tc_tile_dtype(src_dtype, src_fmt_name, d, dv) is not None:
+        return "tc"
+    if ((d, d if dv is None else dv) in TC_HEAD_PAIRS
+            and split_pieces(src_dtype, src_fmt_name) is not None):
+        return "split"
+    return "fma"
+
+
+def split_pieces_of(src_dtype, src_fmt_name: Optional[str]):
+    """``(QK pieces, PV pieces)`` of the split route for this src, the
+    plain version's ``split=`` emulation of the kernel's products."""
+    return split_pieces(src_dtype, src_fmt_name), SPLIT_PV_PIECES
+
+
 def kernel_block_k(src_dtype, src_fmt_name: Optional[str], d: int,
                    dv: Optional[int] = None) -> int:
     """The key tile of the CUDA variant these arguments route to."""
-    return (TC_BLOCK_K if tc_tile_dtype(src_dtype, src_fmt_name, d, dv)
-            is not None else FMA_BLOCK_K)
+    route = flash_route(src_dtype, src_fmt_name, d, dv)
+    if route == "split":
+        return split_block_k(d)
+    return TC_BLOCK_K if route == "tc" else FMA_BLOCK_K
 
 
 def kernel_tiles(src_dtype, src_fmt_name: Optional[str], sq: int, bkv: int,
@@ -100,11 +158,15 @@ def kernel_tiles(src_dtype, src_fmt_name: Optional[str], sq: int, bkv: int,
     """``(bq, bk)``: queries per head and keys of the tile the CUDA
     variant these arguments route to walks — its telemetry's block
     schedule (``flash_tc``: ``q_rows // group`` by 64, ``q_rows`` None:
-    ``plan_q_rows``; ``flash_fma``: 32 by 32)."""
-    if tc_tile_dtype(src_dtype, src_fmt_name, d, dv) is not None:
+    ``plan_q_rows``; ``flash_split``: ``64 // group`` by
+    ``split_block_k``; ``flash_fma``: 32 by 32)."""
+    route = flash_route(src_dtype, src_fmt_name, d, dv)
+    if route == "tc":
         if q_rows is None:
             q_rows = plan_q_rows(sq, bkv, group)
         return q_rows // group, TC_BLOCK_K
+    if route == "split":
+        return SPLIT_Q_ROWS // group, split_block_k(d)
     return FMA_BLOCK_Q, FMA_BLOCK_K
 
 
@@ -154,7 +216,8 @@ def flash_attention_plain(q, k, v, kv_len=None, block_table=None, *,
                           block_k: Optional[int] = None,
                           block_q: Optional[int] = None,
                           debug_visits: bool = False,
-                          debug_flags: bool = False):
+                          debug_flags: bool = False,
+                          split: Optional[Tuple[int, int]] = None):
     """The kernel's function in plain torch: the blocked online-softmax
     walk of ``ref.flash_attention_ref`` over the pruned schedule, keys in
     blocks of ``block_k`` (None: 32, or the page when paged; a CUDA
@@ -162,11 +225,14 @@ def flash_attention_plain(q, k, v, kv_len=None, block_table=None, *,
     the gathered pages.  ``debug_visits`` / ``debug_flags`` append the
     telemetry of ``ref.flash_telemetry_ref`` over query blocks of
     ``block_q`` (None: 32) and those key blocks, in that order (a CUDA
-    variant's tiles: ``kernel_tiles``)."""
+    variant's tiles: ``kernel_tiles``).  ``split`` (``(QK pieces, PV
+    pieces)``, ``split_pieces_of``) emulates the split route's products:
+    QK^T and PV as sums of bf16 piece products (``quant_common
+    .split_product``); None multiplies the f32 operands whole."""
     sq = q.shape[1]
     kw = dict(group=group, scale=scale, causal=causal, window=window,
               softcap=softcap, q_offset=q_offset, src_fmt_name=src_fmt_name,
-              src_dtype=src_dtype, out_dtype=out_dtype)
+              src_dtype=src_dtype, out_dtype=out_dtype, split=split)
     qp = _pad_rows(q, PLAIN_BLOCK)
     if block_table is not None:
         skv = block_table.shape[1] * k.shape[1]
@@ -206,7 +272,8 @@ def _telemetry(tele: bool, bh: int, sq: int, skv: int, bq: int, bk: int,
 
 
 def _counted(variant: str, d: int, dv: int, causal: bool) -> None:
-    """One launch of ``variant`` ("tc" / "fma") at head dims (d, dv)."""
+    """One launch of ``variant`` ("tc" / "split" / "fma") at head dims
+    (d, dv)."""
     fn = flash_attention_cuda
     fn.launches += 1
     setattr(fn, f"launches_{variant}", getattr(fn, f"launches_{variant}") + 1)
@@ -304,6 +371,57 @@ def flash_attention_tc(q, k, v, kv_len=None, block_table=None, *,
     return _finish(out, out_dtype, visits, flags, debug_visits, debug_flags)
 
 
+def flash_attention_split(q, k, v, kv_len=None, block_table=None, *,
+                          group: int = 1, scale: float = 1.0,
+                          causal: bool = True, window: Optional[int] = None,
+                          softcap: Optional[float] = None, q_offset: int = 0,
+                          src_fmt_name: Optional[str] = None,
+                          src_dtype=torch.float32, out_dtype=torch.float32,
+                          debug_visits: bool = False,
+                          debug_flags: bool = False):
+    """The split route (the arguments must route to it, ``flash_route``);
+    64-row query tiles (group <= 64); telemetry steps are at
+    ``(64 // group, split_block_k(D))``."""
+    d, dv = q.shape[-1], v.shape[-1]
+    if flash_route(src_dtype, src_fmt_name, d, dv) != "split":
+        raise ValueError(f"src {src_dtype} / grid {src_fmt_name} at (D, Dv) "
+                         f"{(d, dv)} does not take the split route")
+    if not 1 <= group <= SPLIT_Q_ROWS:
+        raise ValueError(f"group {group} does not fit the split route's "
+                         f"{SPLIT_Q_ROWS}-row tile")
+    q, k, v, kvl, table, out, nk, page, rows = _launch_args(
+        q, k, v, kv_len, block_table, group)
+    bh, sq, _ = q.shape
+    tele = debug_visits or debug_flags
+    n_steps, visits, flags = _telemetry(tele, bh, sq, nk * page,
+                                        SPLIT_Q_ROWS // group,
+                                        split_block_k(d), causal, window,
+                                        int(q_offset), q.device)
+    # the staging pass's pieces of K and V, each KV row's keys in order
+    pieces = split_pieces(src_dtype, src_fmt_name)
+    skv_pad = split_staged_keys(nk, page, sq, int(q_offset), causal)
+    kp = torch.empty((pieces, bh // group, skv_pad, d), dtype=torch.bfloat16,
+                     device=q.device)
+    vp = torch.empty((SPLIT_PV_PIECES, bh // group, skv_pad, dv),
+                     dtype=torch.bfloat16, device=q.device)
+    fn = _build.load("flash_attention").flash_attention_split_launch
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kvl.data_ptr(),
+             table.data_ptr() if table is not None else None,
+             out.data_ptr(), visits.data_ptr() if tele else None,
+             flags.data_ptr() if tele else None, kp.data_ptr(),
+             vp.data_ptr(), n_steps,
+             bh, group, sq, d, dv, nk, page, rows, int(q_offset),
+             int(bool(causal)), -1 if window is None else int(window),
+             _build.dtype_code(q.dtype), _build.dtype_code(k.dtype),
+             _build.src_kind(src_dtype), *_build.snap_args(src_fmt_name),
+             pieces, skv_pad,
+             float(scale), 0.0 if softcap is None else float(softcap),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_split")
+    _counted("split", d, dv, causal)
+    return _finish(out, out_dtype, visits, flags, debug_visits, debug_flags)
+
+
 def flash_attention_fma(q, k, v, kv_len=None, block_table=None, *,
                         group: int = 1, scale: float = 1.0,
                         causal: bool = True, window: Optional[int] = None,
@@ -352,8 +470,9 @@ def flash_attention_cuda(q, k, v, kv_len=None, block_table=None, *,
     """q [BH, Sq, D]; k [BKV, Skv, D] or a pool [n_pages, page, D] with
     ``block_table`` [BKV, nk], v likewise at width Dv; ``kv_len`` None (=
     Skv), scalar or [BH].  Returns [BH, Sq, Dv].  One launch per call, of
-    the variant ``tc_tile_dtype`` picks (from D and Dv; ``q_rows`` is
-    ``flash_tc``'s query tile, None: ``plan_q_rows``, and ``flash_fma``
+    the variant ``flash_route`` picks (from the src and D and Dv;
+    ``q_rows`` is ``flash_tc``'s query tile, None: ``plan_q_rows``; the
+    other routes ignore it: the split route's is 64 rows and ``flash_fma``
     has none); raises on tensors that do not lie on a CUDA device.
     ``debug_visits`` / ``debug_flags`` append the telemetry at the
     variant's tiles (``kernel_tiles``)."""
@@ -361,10 +480,12 @@ def flash_attention_cuda(q, k, v, kv_len=None, block_table=None, *,
               softcap=softcap, q_offset=q_offset, src_fmt_name=src_fmt_name,
               src_dtype=src_dtype, out_dtype=out_dtype,
               debug_visits=debug_visits, debug_flags=debug_flags)
-    if tc_tile_dtype(src_dtype, src_fmt_name, q.shape[-1],
-                     v.shape[-1]) is not None:
+    route = flash_route(src_dtype, src_fmt_name, q.shape[-1], v.shape[-1])
+    if route == "tc":
         return flash_attention_tc(q, k, v, kv_len, block_table,
                                   q_rows=q_rows, **kw)
+    if route == "split":
+        return flash_attention_split(q, k, v, kv_len, block_table, **kw)
     return flash_attention_fma(q, k, v, kv_len, block_table, **kw)
 
 
@@ -375,6 +496,7 @@ def flash_attention_cuda(q, k, v, kv_len=None, block_table=None, *,
 flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_noncausal = 0
 flash_attention_cuda.launches_tc = 0
+flash_attention_cuda.launches_split = 0
 flash_attention_cuda.launches_fma = 0
 flash_attention_cuda.launches_by_dims = {}
 flash_attention_cuda.launches_by_q_rows = {}

@@ -45,10 +45,9 @@ from . import autotune
 from .decode_attention import (STRIP_UNIT, decode_attention_cuda,
                                decode_attention_plain, plan_splits)
 from .dotp_ex import dotp_ex_cuda, dotp_ex_plain
-from .flash_attention import (flash_attention_cuda, flash_attention_plain,
-                              tc_tile_dtype)
-from .tp_matmul import (tc_operand_dtype, tc_plan, tp_matmul_cuda,
-                        tp_matmul_plain)
+from .flash_attention import (SPLIT_Q_ROWS, flash_attention_cuda,
+                              flash_attention_plain, flash_route)
+from .tp_matmul import matmul_route, tc_plan, tp_matmul_cuda, tp_matmul_plain
 from .tp_quant import (cast_and_pack_cuda, cast_and_pack_plain,
                        tp_quantize_cuda, tp_quantize_plain)
 
@@ -107,12 +106,15 @@ def flash_q_rows(sq: int, bkv: int, group: int, d: int, dv: int, dtype,
 def tp_matmul_plan(m: int, k: int, n: int, dtype, device,
                    quant_fmt_name: Optional[str] = None,
                    with_source: bool = False):
-    """``tp_matmul_tc``'s plan of ``[m, k] @ [k, n]`` on operands of
-    ``dtype`` (snapped onto ``quant_fmt_name``'s grid): the tuned ``(wm,
-    splits)`` (splits clamped to the K steps), else ``plan_tc``."""
+    """The plan of ``[m, k] @ [k, n]`` on operands of ``dtype`` (snapped
+    onto ``quant_fmt_name``'s grid): the tuned ``(wm, splits)`` (splits
+    clamped to the K steps), else the route's rule (``plan_tc``, or
+    ``plan_split`` on the split route, whose tiles are 128 rows)."""
     (wm, splits), was_tuned = autotune._best(
         "matmul", (m, k, n), autotune.dtype_name(dtype, quant_fmt_name),
         torch.device(device))
+    if matmul_route(dtype, quant_fmt_name) == "split":
+        wm = 1
     plan = tc_plan(m, k, n, wm, splits)
     return (plan, was_tuned) if with_source else plan
 
@@ -204,9 +206,10 @@ def flash_attention(q, k, v, *, kv_len=None, policy=None, block_table=None,
     ``block_q`` are the plain version's key block and telemetry query
     block (None: its default key block, and the query block of the
     variant these arguments route to: ``q_rows // group`` on
-    ``flash_tc``, 32 otherwise; ``flash_attention.kernel_tiles``); the
-    kernels ignore them.  ``q_rows`` is ``flash_tc``'s query tile (None:
-    ``flash_q_rows``); ``flash_fma`` has none.
+    ``flash_tc``, ``64 // group`` on the split route, 32 otherwise;
+    ``flash_attention.kernel_tiles``); the kernels ignore them.
+    ``q_rows`` is ``flash_tc``'s query tile (None: ``flash_q_rows``); the
+    split route's is fixed and ``flash_fma`` has none.
 
     ``return_flags=True`` also returns per-sequence int32 [B, 4] IEEE flag
     counts (OF, UF, NX, NV summed over heads and scheduled steps, per
@@ -226,7 +229,8 @@ def flash_attention(q, k, v, *, kv_len=None, policy=None, block_table=None,
         vf = v.reshape(b * hkv, skv, v.shape[-1])
         table = None
     group, dv = h // hkv, v.shape[-1]
-    on_tc = tc_tile_dtype(src_dt, src_fmt_name, d, dv) is not None
+    route = flash_route(src_dt, src_fmt_name, d, dv)
+    on_tc = route == "tc"
     default = on_tc and q_rows is None
     if default:
         q_rows, was_tuned = flash_q_rows(sq, b * hkv, group, d, dv, k.dtype,
@@ -239,6 +243,8 @@ def flash_attention(q, k, v, *, kv_len=None, policy=None, block_table=None,
     else:
         if block_q is None and on_tc:
             block_q = q_rows // group
+        elif block_q is None and route == "split":
+            block_q = SPLIT_Q_ROWS // group
         fn = functools.partial(flash_attention_plain, block_k=block_k,
                                block_q=block_q)
     o = fn(q.reshape(b * h, sq, d), kf, vf,
@@ -378,7 +384,7 @@ def tp_matmul(a, b, *, policy=None, out_fmt=None, bk: Optional[int] = None,
     m, k = a2.shape
     if _on_card(a2):
         _no_grad_into_kernel("tp_matmul", a, b)
-        if plan is None and tc_operand_dtype(a2.dtype, qname) is not None:
+        if plan is None and matmul_route(a2.dtype, qname) != "fma":
             plan, was_tuned = tp_matmul_plan(m, k, b2.shape[1], a2.dtype,
                                              a2.device, qname,
                                              with_source=True)

@@ -173,3 +173,72 @@ def operand_tile_dtype(src_dtype, grid=None):
     if src_dtype == torch.float32 and grid:
         return exact_tile_dtype(grid)
     return None
+
+
+def split_pieces(src_dtype, grid=None):
+    """The bf16 pieces the split route cuts each operand into — the route
+    for f32 operands that no 16-bit type holds exactly — or None (a 16-bit
+    tile takes them, or they are not f32 values the kernels split).  A
+    piece carries 8 significant bits and leaves at most ``bits - 9``
+    behind (the sign of RNE's remainder), so two pieces hold a value of up
+    to 17 significant bits exactly (a grid with m <= 16: tf32 among them)
+    and three every normal f32 (no grid)."""
+    if grid:
+        f = get_format(grid)
+        if (exact_tile_dtype(f) is not None
+                or not (1 <= f.m_bits < 23 and f.e_bits <= 8)):
+            return None
+        return 2 if f.m_bits <= 16 else 3
+    return 3 if src_dtype == torch.float32 else None
+
+
+def split_bf16(x: torch.Tensor, pieces: int):
+    """The plain twin of ``tc::split_bf16`` (``csrc/tc_common.cuh``): f32
+    ``x`` as ``pieces`` f32 tensors holding bf16 values, piece i the RNE
+    bf16 of what the pieces before it leave (each subtraction exact).  A
+    finite x that RNE would round past bf16's largest finite value gets
+    its truncation as the first piece; Inf and NaN go whole into the last
+    piece, the others 0."""
+    r = x.to(torch.float32)
+    fin = torch.isfinite(r)
+    r = torch.where(fin, r, torch.zeros_like(r))
+    out = []
+    for i in range(pieces):
+        h = r.to(torch.bfloat16).to(torch.float32)
+        if i == 0:
+            trunc = (r.contiguous().view(torch.int32) & -65536).view(
+                torch.float32)
+            h = torch.where(torch.isinf(h), trunc, h)
+        r = r - h
+        out.append(h)
+    out[-1] = torch.where(fin, out[-1], x.to(torch.float32))
+    return out
+
+
+def split_pairs(pa: int, pb: int, top: int = 2):
+    """The piece pairs ``(i, j)`` a split product keeps, in the kernels'
+    order (``tc::for_each_pair``): ``i + j <= top`` — at ``top`` 2 the
+    pairs of weight 2^-16 and up, all four at two pieces, six at three;
+    flash's P V keeps ``top`` 1, three pairs of two pieces — smallest
+    weight first."""
+    return [(i, w - i) for w in range(top, -1, -1)
+            for i in range(pa - 1, -1, -1) if 0 <= w - i < pb]
+
+
+def split_product(f, x: torch.Tensor, y: torch.Tensor, px: int, py: int,
+                  top: int = 2, repair: bool = True):
+    """A bilinear ``f(x, y)`` (a matmul, an einsum) as the split route
+    computes it: ``f`` of the kept piece pairs (``split_pairs``), summed in
+    f32 in the kernels' order.  Every piece product is exact in f32.  With
+    ``repair``, a NaN the pairs make is ``f`` of the operands whole, as the
+    kernels recompute it (a non-finite operand meeting a partner's zero
+    piece gives NaN where IEEE's product gives +-Inf)."""
+    xs, ys = split_bf16(x, px), split_bf16(y, py)
+    out = None
+    for i, j in split_pairs(px, py, top):
+        t = f(xs[i], ys[j])
+        out = t if out is None else out + t
+    if repair:
+        out = torch.where(torch.isnan(out), f(x.to(torch.float32),
+                                              y.to(torch.float32)), out)
+    return out

@@ -18,13 +18,14 @@ contract (``quant_common.quantize_bits``, RNE) reached another way.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from ..core import softfloat
 from ..core.formats import get_format
-from .quant_common import widen, widen_with_flags
+from .quant_common import split_product, widen, widen_with_flags
 
 NEG_INF = -1e30
 #: flag-counter channels, in order: OF, UF, NX, NV
@@ -119,7 +120,8 @@ def flash_attention_ref(q, k, v, *, group: int = 1, scale: float = 1.0,
                         softcap: Optional[float] = None, kv_len=None,
                         q_offset: int = 0, src_fmt_name: Optional[str] = None,
                         src_dtype=torch.bfloat16, out_dtype=torch.float32,
-                        bq: Optional[int] = None, bk: Optional[int] = None):
+                        bq: Optional[int] = None, bk: Optional[int] = None,
+                        split: Optional[Tuple[int, int]] = None):
     """Prefill attention with the flash kernel's contract.
 
     q [BH, Sq, D]; k [BKV, Skv, D]; v [BKV, Skv, Dv]; BH = BKV * group.
@@ -128,7 +130,9 @@ def flash_attention_ref(q, k, v, *, group: int = 1, scale: float = 1.0,
     per-block update (``NEG_INF/2`` guards, ``p`` widened to ``src_dtype``
     before ``p @ V``); without them it is the one-max dense softmax.
     ``kv_len``: scalar or per-row [BH]; ``q_offset`` shifts query
-    positions for the causal / window masks."""
+    positions for the causal / window masks.  ``split`` = ``(QK pieces,
+    PV pieces)`` computes QK^T and p V as the split route does, sums of
+    bf16 piece products (``quant_common.split_product``)."""
     bh, sq, d = q.shape
     skv = k.shape[1]
     kvl = per_row_lens(kv_len, bh, skv, q.device)
@@ -142,8 +146,10 @@ def flash_attention_ref(q, k, v, *, group: int = 1, scale: float = 1.0,
                                   causal=causal, window=window,
                                   softcap=softcap, q_offset=q_offset,
                                   fmt=fmt, src_dtype=src_dtype,
-                                  out_dtype=out_dtype, bq=bq, bk=bk)
-    s = torch.einsum("hqd,hkd->hqk", qs, ks) * scale
+                                  out_dtype=out_dtype, bq=bq, bk=bk,
+                                  split=split)
+    qk, pv = _products(split)
+    s = qk(qs, ks) * scale
     if softcap is not None:
         s = softcap_scores(s, softcap)
     mask = _mask(q_offset, 0, sq, 0, skv, kvl, causal, window, q.device)
@@ -154,8 +160,22 @@ def flash_attention_ref(q, k, v, *, group: int = 1, scale: float = 1.0,
     l = p.sum(dim=-1, keepdim=True)
     # as the JAX dense oracle: p on the src grid times V as stored (f32)
     vf = v.float().repeat_interleave(group, dim=0)
-    o = torch.einsum("hqk,hkd->hqd", widen(p, fmt, src_dtype).float(), vf)
+    o = pv(widen(p, fmt, src_dtype).float(), vf)
     return (o / torch.where(l == 0.0, 1.0, l)).to(out_dtype)
+
+
+def _products(split):
+    """``(QK^T, p V)`` of the flash oracles: f32 einsums, or with ``split``
+    = ``(QK pieces, PV pieces)`` the split route's piece-product sums
+    (QK^T: the kept pairs, a NaN score recomputed whole; p V: the three
+    pairs of weight 2^-8 and up, unrepaired, as ``flash_split`` does)."""
+    qk = functools.partial(torch.einsum, "hqd,hkd->hqk")
+    pv = functools.partial(torch.einsum, "hqk,hkd->hqd")
+    if split is None:
+        return qk, pv
+    return (lambda x, y: split_product(qk, x, y, split[0], split[0]),
+            lambda x, y: split_product(pv, x, y, split[1], split[1], top=1,
+                                       repair=False))
 
 
 def _mask(q_base, k_base, nq, q_start, nk, kvl, causal, window, device):
@@ -173,7 +193,8 @@ def _mask(q_base, k_base, nq, q_start, nk, kvl, causal, window, device):
 
 
 def _flash_blocked_ref(qs, ks, vs, kvl, *, scale, causal, window, softcap,
-                       q_offset, fmt, src_dtype, out_dtype, bq, bk):
+                       q_offset, fmt, src_dtype, out_dtype, bq, bk,
+                       split=None):
     """Blocked online-softmax walk over the pruned schedule, all head rows
     at once (a row whose block lies past its ``kv_len`` is fully masked
     there, which leaves its online state exactly unchanged — the kernel's
@@ -185,6 +206,7 @@ def _flash_blocked_ref(qs, ks, vs, kvl, *, scale, causal, window, softcap,
     qi, ki, ff, lf = block_schedule(sq, skv, bq, bk, causal=causal,
                                     window=window, q_offset=q_offset)
     dev = qs.device
+    qk, pv_of = _products(split)
     out = torch.empty((bh, sq, dv), dtype=out_dtype, device=dev)
     for step in range(len(qi)):
         iq, ik = int(qi[step]), int(ki[step])
@@ -196,7 +218,7 @@ def _flash_blocked_ref(qs, ks, vs, kvl, *, scale, causal, window, softcap,
         qb = qs[:, iq * bq:(iq + 1) * bq]
         kb = ks[:, ik * bk:(ik + 1) * bk]
         vb = vs[:, ik * bk:(ik + 1) * bk]
-        s = torch.einsum("hqd,hkd->hqk", qb, kb) * scale
+        s = qk(qb, kb) * scale
         if softcap is not None:
             s = softcap_scores(s, softcap)
         mask = _mask(q_offset, ik * bk, bq, iq * bq, bk, kvl, causal, window,
@@ -209,8 +231,7 @@ def _flash_blocked_ref(qs, ks, vs, kvl, *, scale, causal, window, softcap,
         alpha = torch.exp(torch.where(dead, 0.0, m - m_new))
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         vb = torch.where(mask.any(dim=1)[..., None], vb, 0.0)
-        pv = torch.einsum("hqk,hkd->hqd", widen(p, fmt, src_dtype).float(),
-                          vb)
+        pv = pv_of(widen(p, fmt, src_dtype).float(), vb)
         acc = acc * alpha + pv
         m = m_new
         if lf[step]:

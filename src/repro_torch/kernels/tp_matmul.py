@@ -3,15 +3,25 @@ slice as a GEMM.
 
 ``tp_matmul_cuda`` is the port of the TPU kernel
 ``repro.kernels.tp_matmul.tp_matmul_pallas``: hand-written CUDA kernels
-(``csrc/tp_matmul.cu``, sm_90a) for tensors on the card, in two variants
-chosen by ``tc_operand_dtype`` alone:
+(``csrc/tp_matmul.cu``, sm_90a) for tensors on the card, in three variants
+chosen by ``matmul_route`` (dtype and grid) alone:
 
-  ``tp_matmul_tc``   wgmma tiles fed by TMA (after a staging pass into
-                     16-bit copies where the operands need one), for every
-                     product whose operands as multiplied are exact in bf16
-                     or fp16;
-  ``tp_matmul_fma``  the first, f32-FMA version, for the rest (f32 without a
-                     grid, tf32 and other grids wider than 16 bits).
+  ``tp_matmul_tc``     wgmma tiles fed by TMA (after a staging pass into
+                       16-bit copies where the operands need one), for every
+                       product whose operands as multiplied are exact in
+                       bf16 or fp16;
+  ``tp_matmul_split``  the split route, for f32 operands no 16-bit type
+                       holds (f32 without a grid, tf32 and other grids of
+                       up to 22 mantissa bits): the staging pass cuts each
+                       operand into 2 or 3 bf16 pieces
+                       (``quant_common.split_pieces``) and the same wgmma
+                       machinery sums the piece products of weight 2^-16
+                       and up (``quant_common.split_pairs``) into one f32
+                       accumulator, at 128-row tiles (``plan_split``);
+  ``tp_matmul_fma``    the first, f32-FMA version: every product the
+                       contract takes routes to one of the two above since
+                       the split route, so it runs only when called by
+                       name (timed beside the split route as ``fma_ms``).
 
 ``tp_matmul_plain`` is the plain-torch version (``ref.tp_matmul_ref``).
 ``kernels.ops.tp_matmul`` chooses between kernel and plain version by the
@@ -29,6 +39,9 @@ for both).  M, K and N are arbitrary: the kernels mask the ragged edges
 themselves.  The f32 sum order differs from the plain version's ``bk``
 schedule, so the two agree within ``2 K 2^-24 (|A| @ |B|)`` (plus one ulp
 of a bf16/fp16 output), not bitwise; the snapped operands are bitwise equal.
+The split route keeps IEEE's non-finite results: an Inf or NaN is its own
+last piece, and a NaN sum (an Inf met a partner's zero piece) is
+recomputed from the pieces' values over the split's K range.
 """
 from __future__ import annotations
 
@@ -39,7 +52,7 @@ import torch
 
 from . import _build
 from . import ref
-from .quant_common import exact_tile_dtype
+from .quant_common import exact_tile_dtype, split_pieces, split_product
 
 _OPERANDS = (torch.float32, torch.bfloat16, torch.float16, torch.float8_e5m2)
 _OUTPUTS = (torch.float32, torch.bfloat16, torch.float16)
@@ -74,6 +87,18 @@ def tc_operand_dtype(dtype, quant_fmt_name: Optional[str] = None):
         return exact_tile_dtype(quant_fmt_name)
     return {torch.bfloat16: torch.bfloat16, torch.float16: torch.float16,
             torch.float8_e5m2: torch.float16}.get(dtype)
+
+
+def matmul_route(dtype, quant_fmt_name: Optional[str] = None) -> str:
+    """The variant a product of ``dtype`` operands (snapped onto
+    ``quant_fmt_name``'s grid) launches: "tc" when a 16-bit tile holds the
+    operands (``tc_operand_dtype``), "split" when the split route's pieces
+    do (``quant_common.split_pieces``), else "fma"."""
+    if tc_operand_dtype(dtype, quant_fmt_name) is not None:
+        return "tc"
+    if split_pieces(dtype, quant_fmt_name) is not None:
+        return "split"
+    return "fma"
 
 
 #: the tensor-core variant's tile: BM = 128 * wm rows, 128 columns, K in
@@ -127,6 +152,39 @@ def plan_tc(m: int, k: int, n: int, sms: int = _build.NUM_SMS) -> TcPlan:
     k_steps = max(1, -(-k // TC_BK))
     return tc_plan(m, k, n, wm, max(1, min(
         sms // tiles, k_steps // TC_MIN_STEPS_PER_SPLIT)))
+
+
+def plan_split(m: int, k: int, n: int, sms: int = _build.NUM_SMS) -> TcPlan:
+    """The split route's plan: 128-row tiles (three pieces of A and B for
+    a 64-deep step fill 96 KB of shared memory, so a 256-row tile would
+    leave one stage), K split as ``plan_tc`` splits it."""
+    tiles = -(-m // 128) * -(-n // TC_BN)
+    k_steps = max(1, -(-k // TC_BK))
+    return tc_plan(m, k, n, 1, max(1, min(
+        sms // tiles, k_steps // TC_MIN_STEPS_PER_SPLIT)))
+
+
+def split_matmul_plain(a, b, *, out_dtype=torch.float32,
+                       quant_fmt_name: Optional[str] = None,
+                       plan: Optional[TcPlan] = None):
+    """The split route's arithmetic in plain torch (for tests): the
+    operands as multiplied, cut into the route's pieces, the kept piece
+    products summed in f32 in the kernel's pair order (split by split over
+    ``plan``'s K ranges, added in split order; a NaN sum of a split
+    recomputed from the operands, as the kernel repairs it)."""
+    sa, sb = a.to(torch.float32), b.to(torch.float32)
+    if quant_fmt_name:
+        sa = ref.tp_quantize_ref(sa, fmt_name=quant_fmt_name)
+        sb = ref.tp_quantize_ref(sb, fmt_name=quant_fmt_name)
+    pieces = split_pieces(a.dtype, quant_fmt_name)
+    ranges = (plan.k_ranges(a.shape[1]) if plan is not None
+              else [(0, a.shape[1])])
+    total = None
+    for lo, hi in ranges:
+        part = split_product(torch.matmul, sa[:, lo:hi], sb[lo:hi], pieces,
+                             pieces)
+        total = part if total is None else total + part
+    return total.to(out_dtype)
 
 
 def _check(a, b, out_dtype):
@@ -197,6 +255,54 @@ def tp_matmul_tc(a, b, *, out_dtype=torch.float32,
     return out
 
 
+def tp_matmul_split(a, b, *, out_dtype=torch.float32,
+                    quant_fmt_name: Optional[str] = None,
+                    plan: Optional[TcPlan] = None):
+    """The split route (operands must route to it, ``matmul_route``), at
+    ``plan`` (a ``tc_plan`` of this product with wm 1; None:
+    ``plan_split``)."""
+    _check(a, b, out_dtype)
+    if matmul_route(a.dtype, quant_fmt_name) != "split":
+        raise ValueError(f"{a.dtype} operands with grid {quant_fmt_name} do "
+                         f"not take the split route")
+    pieces = split_pieces(a.dtype, quant_fmt_name)
+    snap = (_build.grid_args(quant_fmt_name) if quant_fmt_name
+            else _build.snap_args(None))
+    m, k = a.shape
+    n = b.shape[1]
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    if plan is None:
+        plan = plan_split(m, k, n)
+    elif plan.wm != 1 or plan != tc_plan(m, k, n, 1, plan.splits):
+        raise ValueError(f"{plan} is not a 128-row plan of a [{m}, {k}] @ "
+                         f"[{k}, {n}] product")
+    ws = (torch.empty((plan.splits, m, n), dtype=torch.float32,
+                      device=a.device) if plan.splits > 1 else None)
+    a16 = torch.empty((pieces, m, -(-k // 8) * 8), dtype=torch.bfloat16,
+                      device=a.device)
+    b16 = torch.empty((pieces, k, -(-n // 8) * 8), dtype=torch.bfloat16,
+                      device=a.device)
+    fn = _build.load("tp_matmul").tp_matmul_split_launch
+    err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+             ws.data_ptr() if ws is not None else None, a16.data_ptr(),
+             b16.data_ptr(), m, k, n, _build.dtype_code(a.dtype),
+             _build.dtype_code(out_dtype), pieces, *snap, plan.splits,
+             plan.steps_per_split,
+             torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(err, "tp_matmul_split")
+    tp_matmul_cuda.launches_split += 1
+    tp_matmul_cuda.launches += 1
+    by_plan = tp_matmul_cuda.launches_by_plan
+    key = (plan.wm, plan.splits)
+    by_plan[key] = by_plan.get(key, 0) + 1
+    return out
+
+
 def tp_matmul_fma(a, b, *, out_dtype=torch.float32,
                   quant_fmt_name: Optional[str] = None):
     """The f32-FMA variant (any operands the contract takes)."""
@@ -221,24 +327,29 @@ def tp_matmul_cuda(a, b, *, out_dtype=torch.float32,
                    quant_fmt_name: Optional[str] = None,
                    plan: Optional[TcPlan] = None):
     """``a [M, K] @ b [K, N]`` with f32 accumulation and an ``out_dtype``
-    store; one launch per call, of the variant ``tc_operand_dtype`` picks
-    (``plan``: the tensor-core variant's tiles and K split, None:
-    ``plan_tc``; the FMA variant has none).  Raises on tensors that do not
-    lie on a CUDA device and on shapes or dtypes the kernels do not
-    take."""
+    store; one launch per call, of the variant ``matmul_route`` picks
+    (``plan``: the tensor-core variant's or the split route's tiles and K
+    split, None: ``plan_tc`` / ``plan_split``; the FMA variant has none).
+    Raises on tensors that do not lie on a CUDA device and on shapes or
+    dtypes the kernels do not take."""
     _check(a, b, out_dtype)
-    if tc_operand_dtype(a.dtype, quant_fmt_name) is not None:
+    route = matmul_route(a.dtype, quant_fmt_name)
+    if route == "tc":
         return tp_matmul_tc(a, b, out_dtype=out_dtype,
                             quant_fmt_name=quant_fmt_name, plan=plan)
+    if route == "split":
+        return tp_matmul_split(a, b, out_dtype=out_dtype,
+                               quant_fmt_name=quant_fmt_name, plan=plan)
     return tp_matmul_fma(a, b, out_dtype=out_dtype,
                          quant_fmt_name=quant_fmt_name)
 
 
 #: launches of the CUDA kernels, in all, by variant and, for the
-#: tensor-core variant, by plan ``(wm, splits)`` (CPU calls and
+#: tensor-core and split variants, by plan ``(wm, splits)`` (CPU calls and
 #: plain-version calls add none)
 tp_matmul_cuda.launches = 0
 tp_matmul_cuda.launches_tc = 0
+tp_matmul_cuda.launches_split = 0
 tp_matmul_cuda.launches_fma = 0
 tp_matmul_cuda.launches_by_plan = {}
 

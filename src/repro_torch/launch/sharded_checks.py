@@ -390,6 +390,7 @@ def attention_launches() -> dict:
         launches={"decode_attention": dec.launches,
                   "flash_attention": fla.launches},
         variants={"flash_attention": {"tc": fla.launches_tc,
+                                      "split": fla.launches_split,
                                       "fma": fla.launches_fma},
                   "decode_attention": {"mma": dec.launches_mma,
                                        "fma": dec.launches_fma}},
@@ -406,7 +407,7 @@ def reset_attention_launches() -> None:
     from ..kernels.flash_attention import flash_attention_cuda as fla
     dec.launches = fla.launches = fla.launches_noncausal = 0
     dec.launches_mma = dec.launches_fma = 0
-    fla.launches_tc = fla.launches_fma = 0
+    fla.launches_tc = fla.launches_split = fla.launches_fma = 0
     for d in (dec.launches_by_cluster, dec.launches_by_group,
               fla.launches_by_dims, fla.launches_by_q_rows):
         d.clear()

@@ -33,7 +33,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     TC_BLOCK_K, kernel_tiles, plan_q_rows)
 from repro_torch.kernels.tp_matmul import (  # noqa: E402
-    plan_tc, tc_plan, tp_matmul_plain)
+    plan_split, plan_tc, tc_plan, tp_matmul_plain)
 
 torch.set_num_threads(1)
 
@@ -91,9 +91,10 @@ def test_candidates_legal_and_include_default(op, shape, dtype):
     """Heuristic first, no repeats; clusters powers of two up to the live
     units and 16; query tiles 64 / 128 on ``flash_tc`` (128 alone past a
     group of 64), one on ``flash_fma``; plans whose splits each hold a K
-    step, one on ``tp_matmul_fma``."""
+    step, 128-row plans at power-of-two splits on ``tp_matmul``'s split
+    route (f32 without a grid, the tf32 grid), led by ``plan_split``."""
     cands = autotune.candidates(op, shape, dtype)
-    assert cands[0] == autotune.default_block(op, shape)
+    assert cands[0] == autotune.default_block(op, shape, dtype)
     assert len(cands) == len(set(cands)) >= 1
     if op == "decode_attn":
         units = shape[1]
@@ -118,8 +119,11 @@ def test_candidates_legal_and_include_default(op, shape, dtype):
             assert (p.wm, p.splits) == (wm, splits)
             assert (splits - 1) * p.steps_per_split < steps \
                 <= splits * p.steps_per_split
-        if dtype == F32:                 # tp_matmul_fma: no knob
-            assert len(cands) == 1
+        if dtype in (F32, "float32+tf32"):     # the split route
+            assert cands[0] == (1, plan_split(m, k, n).splits)
+            assert set(cands) == {cands[0]} | {
+                (1, tc_plan(m, k, n, 1, 2 ** i).splits)
+                for i in range(steps.bit_length())}
 
 
 def test_tiny_shapes_collapse():

@@ -10,8 +10,13 @@ f32 and round p to the src dtype before p.V; a summation-order difference
 can flip one such rounding, worth up to 2^-8 of a unit-scale output.  The
 plain flash version walks the kernel's own key tiles
 (``flash_attention.kernel_block_k``), so both round p against the same
-running max.  Flash attention and tp_matmul each have a tensor-core and an
-FMA variant: every case checks which one launched (per-variant counters).
+running max.  Flash attention and tp_matmul each have a tensor-core
+variant, a split route (f32 operands no 16-bit type holds, as sums of bf16
+piece products on the tensor cores) and an FMA variant: every case checks
+which one launched (per-variant counters).  The split route is held at
+the unchanged gates: ``F32_TOL`` = 2^-12 for flash on an f32 pool without
+a grid (its dropped piece pairs are worth about 2^-16 of p V, far under
+that), ``TOL`` on a grid, ``agreement_tol`` for tp_matmul from K = 1 up.
 The decode kernel splits each row over a cluster of CTAs and has an mma and
 an FMA route; its cases compare with the plain version walking the same
 partition (``plan_splits``) and check the per-route counters.
@@ -35,10 +40,11 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.dotp_ex import dotp_ex_cuda, dotp_ex_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_fma, flash_attention_plain,
-    flash_attention_tc, kernel_block_k, plan_q_rows)
+    flash_attention_split, flash_attention_tc, flash_route, kernel_block_k,
+    kernel_tiles, plan_q_rows)
 from repro_torch.kernels.tp_matmul import (  # noqa: E402
-    agreement_tol, plan_tc, tc_operand_dtype, tp_matmul_cuda, tp_matmul_fma,
-    tp_matmul_plain, tp_matmul_tc)
+    agreement_tol, matmul_route, plan_split, plan_tc, tp_matmul_cuda,
+    tp_matmul_fma, tp_matmul_plain, tp_matmul_split, tp_matmul_tc)
 from repro_torch.kernels.tp_quant import (  # noqa: E402
     cast_and_pack_cuda, cast_and_pack_plain, tp_quantize_cuda,
     tp_quantize_plain)
@@ -46,6 +52,8 @@ from repro_torch.kernels.tp_quant import (  # noqa: E402
 pytestmark = pytest.mark.gpu
 
 TOL = 2.0 ** -8
+#: flash on an f32 pool without a grid (chip_smoke's ``F32_TOL``)
+F32_TOL = 2.0 ** -12
 
 POLICY = {torch.bfloat16: "tp_bf16", torch.float8_e5m2: "tp_bf16_kv8"}
 
@@ -335,17 +343,21 @@ def test_kernels_in_the_softcap_region(gen, dtype):
 
 def _flash_counts():
     c = flash_attention_cuda
-    return c.launches, c.launches_tc, c.launches_fma
+    return c.launches, c.launches_tc, c.launches_split, c.launches_fma
 
 
 def _mm_counts():
     c = tp_matmul_cuda
-    return c.launches, c.launches_tc, c.launches_fma
+    return c.launches, c.launches_tc, c.launches_split, c.launches_fma
 
 
-def _plus(before, n, tc):
-    return (before[0] + n, before[1] + (n if tc else 0),
-            before[2] + (0 if tc else n))
+def _plus(before, n, variant):
+    """``before`` (``_flash_counts`` / ``_mm_counts``) after ``n`` launches
+    of ``variant``: "tc", "split" or "fma" (True: "tc", False: "fma")."""
+    variant = {True: "tc", False: "fma"}.get(variant, variant)
+    return (before[0] + n,) + tuple(
+        b + (n if v == variant else 0)
+        for b, v in zip(before[1:], ("tc", "split", "fma")))
 
 
 def test_flash_kernel_contiguous_f32_snap(gen):
@@ -520,6 +532,78 @@ def test_flash_tc_f32_snap(gen, fmt):
     assert (got - want).abs().max().item() <= TOL
 
 
+@pytest.mark.parametrize("d,dv,page,group,window,softcap,grid", [
+    (64, 64, 16, 2, None, 50.0, None),
+    (64, 64, 0, 1, 33, None, None),
+    (128, 128, 64, 1, 40, None, None),
+    (128, 128, 16, 2, None, 50.0, "tf32"),
+    (256, 256, 64, 2, 100, 50.0, None),
+    (256, 256, 16, 2, None, 50.0, None),
+    (256, 256, 0, 2, None, None, None),
+    (96, 64, 16, 1, None, None, None),
+    (96, 64, 0, 2, 70, 30.0, None),
+    (192, 128, 64, 1, None, 50.0, None),
+    (192, 128, 0, 1, 33, 30.0, None),
+])
+def test_flash_split_route_matches_plain(gen, d, dv, page, group, window,
+                                         softcap, grid):
+    """The split route on f32 pools (policy fp32, or snapped onto tf32) at
+    every (D, Dv) of ``TC_HEAD_PAIRS``: paged (pages of 16 and 64, an
+    aliased page) and contiguous, ragged rows, GQA 1 and 2, against the
+    plain version at the route's own key tiles within ``F32_TOL`` (``TOL``
+    on the tf32 grid, where p is snapped); the telemetry instantiation's
+    output bitwise the flags-off one, visits and flags the plain
+    version's; the default wrapper routes there."""
+    src = torch.float32
+    assert flash_route(src, grid, d, dv) == "split"
+    q, k, v, lens, table = _flash_inputs(
+        gen, d=d, page=page, group=group, dtype=torch.float32, src=src,
+        rows=[150, 37], q_offset=70, sq=150, dv=dv)
+    kw = dict(group=group, scale=d ** -0.5, causal=True, window=window,
+              softcap=softcap, q_offset=70, src_fmt_name=grid, src_dtype=src)
+    before = _flash_counts()
+    got = flash_attention_split(q, k, v, lens, table, **kw)
+    assert _flash_counts() == _plus(before, 1, "split")
+    bq, bk = kernel_tiles(src, grid, 150, len(lens) // group, group, d, dv)
+    want = flash_attention_plain(q, k, v, lens, table, block_k=bk, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (q.shape[0], 150, dv) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= (TOL if grid else F32_TOL)
+    on, visits, flags = flash_attention_split(
+        q, k, v, lens, table, debug_visits=True, debug_flags=True, **kw)
+    _, pv, pf = flash_attention_plain(q, k, v, lens, table, block_k=bk,
+                                      block_q=bq, debug_visits=True,
+                                      debug_flags=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(on.view(torch.int32), got.view(torch.int32))
+    assert torch.equal(visits, pv) and torch.equal(flags, pf)
+    before = _flash_counts()
+    again = flash_attention_cuda(q, k, v, lens, table, **kw)
+    assert _flash_counts() == _plus(before, 1, "split")
+    assert torch.equal(again, got)
+
+
+def test_flash_split_route_in_the_softcap_region(gen):
+    """q scaled by 24 (scores near +-80, where softcap 50 bends them) at
+    the slice's chunk shape on an f32 pool: within ``F32_TOL`` of the
+    plain version, and the cap changes the output by far more."""
+    d, group = 256, 2
+    q, k, v, lens, table = _flash_inputs(
+        gen, d=d, page=64, group=group, dtype=torch.float32,
+        src=torch.float32, rows=[256, 200], q_offset=768, sq=256)
+    q = q * 24.0
+    kw = dict(group=group, scale=d ** -0.5, causal=True, window=4096,
+              q_offset=768, src_dtype=torch.float32)
+    bk = kernel_block_k(torch.float32, None, d)
+    got = flash_attention_cuda(q, k, v, lens, table, softcap=50.0, **kw)
+    want = flash_attention_plain(q, k, v, lens, table, block_k=bk,
+                                 softcap=50.0, **kw)
+    uncapped = flash_attention_cuda(q, k, v, lens, table, softcap=None, **kw)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= F32_TOL
+    assert (got - uncapped).abs().max().item() >= 64 * TOL
+
+
 def test_engine_on_the_card_matches_the_plain_path(gen):
     """Reduced gemma2 served on the card through the kernels and through
     the plain versions: the same greedy streams, and the kernels ran."""
@@ -588,8 +672,7 @@ def test_tp_matmul_kernel_matches_plain(gen, m, k, n, dtype, out_dtype,
     b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
     before = _mm_counts()
     got = tp_matmul_cuda(a, b, out_dtype=out_dtype, quant_fmt_name=quant)
-    assert _mm_counts() == _plus(before, 1, tc_operand_dtype(dtype, quant)
-                                 is not None)
+    assert _mm_counts() == _plus(before, 1, matmul_route(dtype, quant))
     want = tp_matmul_plain(a, b, out_dtype=out_dtype, quant_fmt_name=quant)
     torch.cuda.synchronize()
     assert got.dtype == out_dtype and got.shape == (m, n)
@@ -640,6 +723,61 @@ def test_tp_matmul_variants_match_plain(gen, variant, m, k, n, dtype,
         # the split's second pass adds the partials in a fixed order
         assert torch.equal(got, fn(a, b, out_dtype=out_dtype,
                                    quant_fmt_name=quant))
+
+
+@pytest.mark.parametrize("k", list(range(1, 17)))
+@pytest.mark.parametrize("quant", [None, "tf32"])
+def test_tp_matmul_split_route_at_small_k(gen, k, quant):
+    """K 1..16 (one k16 step, mostly zero padding): the split route's sum
+    of six (or four exact) piece products, with the small pairs added
+    first, within the unchanged ``agreement_tol``, whose worst case has
+    the least room at small K."""
+    m, n = 64, 96
+    a = torch.randn((m, k), generator=gen, device="cuda")
+    b = torch.randn((k, n), generator=gen, device="cuda")
+    before = _mm_counts()
+    got = tp_matmul_cuda(a, b, quant_fmt_name=quant)
+    assert _mm_counts() == _plus(before, 1, "split")
+    want = tp_matmul_plain(a, b, quant_fmt_name=quant)
+    torch.cuda.synchronize()
+    assert ((got - want).abs() <= agreement_tol(a, b, got, want,
+                                                quant)).all()
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (4, 3584, 1024),        # the decode batch: TMA pads M = 4 to the tile
+    (50, 100, 70),          # ragged M, N and K (unaligned rows)
+    (300, 520, 136),        # ragged, three row tiles
+    (256, 14336, 384),      # split K (3 column tiles)
+    (256, 1024, 14336),     # unsplit K, two row tiles on one weight tile
+])
+@pytest.mark.parametrize("out_dtype,quant", [
+    (torch.float32, None), (torch.bfloat16, None), (torch.float32, "tf32"),
+])
+def test_tp_matmul_split_route_matches_plain(gen, m, k, n, out_dtype, quant):
+    a = torch.randn((m, k), generator=gen, device="cuda")
+    b = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+    plan = plan_split(m, k, n)
+    before = _mm_counts()
+    got = tp_matmul_split(a, b, out_dtype=out_dtype, quant_fmt_name=quant)
+    assert _mm_counts() == _plus(before, 1, "split")
+    want = tp_matmul_plain(a, b, out_dtype=out_dtype, quant_fmt_name=quant,
+                           plan=plan)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    tol = agreement_tol(a, b, got, want, quant)
+    assert ((got.float() - want.float()).abs() <= tol).all()
+    if plan.splits > 1:
+        # the second pass adds the partials in a fixed order
+        assert torch.equal(got, tp_matmul_split(a, b, out_dtype=out_dtype,
+                                                quant_fmt_name=quant))
+    if quant and k <= 1024:
+        # the snapped operands read back through identity products: two
+        # pieces hold a tf32 value, so x * 1 summed over its pieces is x
+        snap = lambda x: ref.tp_quantize_ref(x, fmt_name=quant)
+        eye = torch.eye(k, device="cuda")
+        assert torch.equal(tp_matmul_cuda(a, eye, quant_fmt_name=quant),
+                           snap(a))
 
 
 @pytest.mark.parametrize("fmt", ["fp8", "fp16", "fp16alt", "fp8_e4m3",
@@ -936,11 +1074,15 @@ def test_decode_telemetry_at_large_groups(gen, route, g, pool, page):
 
 @pytest.mark.parametrize("case", ["tc_bf16_p64", "tc_em_fp8_p16_window",
                                   "tc_bf16_strip_offset", "fma_f32_p16",
-                                  "fma_em_fp16_d96_window"])
+                                  "fma_em_fp16_d96_window", "split_f32_p16",
+                                  "split_f32_p64_window", "split_tf32_p16",
+                                  "split_f32_strip_offset"])
 def test_flash_telemetry_matches_plain(gen, case):
-    from repro_torch.kernels.flash_attention import kernel_tiles
+    """The telemetry instantiation of each variant on a damaged f32 pool
+    (``flash_fma`` on an f32 pool at D 32, which no tensor-core pair
+    takes; the split route at D 128)."""
     variant = case.split("_")[0]
-    d = 96 if "d96" in case else 128
+    d = 96 if "d96" in case else 32 if case.startswith("fma_f32") else 128
     page = 64 if "p64" in case else 16
     window = 40 if "window" in case else None
     q_offset = 64 if "offset" in case else 32
@@ -952,6 +1094,8 @@ def test_flash_telemetry_matches_plain(gen, case):
         fmt, src = "fp8", torch.float32
     elif "em_fp16" in case:
         fmt, src = "fp16", torch.float32
+    elif "tf32" in case:
+        fmt, src = "tf32", torch.float32
     elif "f32" in case:
         src = torch.float32
     else:
@@ -969,18 +1113,16 @@ def test_flash_telemetry_matches_plain(gen, case):
               softcap=50.0, q_offset=q_offset, src_fmt_name=fmt,
               src_dtype=src)
     bq, bk = kernel_tiles(src, fmt, sq, bkv, group, d)
+    assert flash_route(src, fmt, d) == variant
     off = flash_attention_cuda(q, k, v, lens, table, **kw)
-    before = (flash_attention_cuda.launches_tc,
-              flash_attention_cuda.launches_fma)
+    before = _flash_counts()
     on, visits, flags = flash_attention_cuda(
         q, k, v, lens, table, debug_visits=True, debug_flags=True, **kw)
     _, pv, pf = flash_attention_plain(q, k, v, lens, table, block_k=bk,
                                       block_q=bq, debug_visits=True,
                                       debug_flags=True, **kw)
     torch.cuda.synchronize()
-    ran = (flash_attention_cuda.launches_tc - before[0],
-           flash_attention_cuda.launches_fma - before[1])
-    assert ran == ((1, 0) if variant == "tc" else (0, 1))
+    assert _flash_counts() == _plus(before, 1, variant)
     assert torch.equal(on.view(torch.int32), off.view(torch.int32))
     assert torch.equal(visits, pv) and torch.equal(flags, pf)
     assert int(flags.sum()) > 0
@@ -1301,8 +1443,8 @@ def test_flash_noncausal_matches_plain(gen, variant, d, page, group, sq,
     fn = flash_attention_tc if variant == "tc" else flash_attention_fma
     before = _flash_counts() + (flash_attention_cuda.launches_noncausal,)
     got = fn(q, k, v, lens, table, **kw)
-    assert _flash_counts() == _plus(before[:3], 1, variant == "tc")
-    assert flash_attention_cuda.launches_noncausal == before[3] + 1
+    assert _flash_counts() == _plus(before[:4], 1, variant == "tc")
+    assert flash_attention_cuda.launches_noncausal == before[4] + 1
     want = flash_attention_plain(q, k, v, lens, table,
                                  block_k=64 if variant == "tc" else 32, **kw)
     causal = flash_attention_plain(q, k, v, lens, table,
@@ -1731,3 +1873,131 @@ def test_recorded_winners_drive_the_card_launches(card_tuner):
     assert by[(2, 4)] == before + 1 and plan.splits == 4
     assert ((got.float() - want.float()).abs()
             <= agreement_tol(a, w, got, want)).all()
+
+
+# ---------------------------------------------------------------------------
+# the split routes: non-finite operands, wide block tables, the tuner
+# ---------------------------------------------------------------------------
+def _same_class(got, want, tol):
+    """NaN where ``want`` is NaN, the same signed Inf where it is Inf, and
+    the finite outputs within ``tol`` (a number or a tensor)."""
+    got, want = got.float(), want.float()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf)
+    assert torch.equal(got[inf], want[inf])
+    fin = torch.isfinite(want)
+    tol = tol[fin] if torch.is_tensor(tol) else tol
+    assert ((got[fin] - want[fin]).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("m,k,n,quant", [
+    (64, 200, 160, None), (64, 3584, 256, None), (96, 640, 200, "tf32"),
+    (50, 100, 70, "tf32")])
+def test_tp_matmul_split_route_keeps_non_finite_results(gen, m, k, n, quant):
+    """Inf meeting a bf16-exact partner (lower pieces 0), Inf x Inf at one
+    index, Inf x 0, Inf - Inf and a NaN, one K split or several: the
+    values against the plain version, IEEE's NaN and signed Inf where it
+    has them and the finite outputs within ``agreement_tol``."""
+    a = torch.randn((m, k), generator=gen, device="cuda")
+    b = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+    a[0, 3], b[3, 1] = float("inf"), 0.5
+    b[3, 2] = -float("inf")
+    a[1, 4], b[4, 9] = -float("inf"), 0.0
+    a[2, 5], a[2, 6], b[5, 11], b[6, 11] = (float("inf"), float("inf"),
+                                            1.0, -1.0)
+    a[3, 0] = float("nan")
+    b[k - 1, n - 1] = float("inf")
+    plan = plan_split(m, k, n)
+    before = _mm_counts()
+    got = tp_matmul_cuda(a, b, quant_fmt_name=quant, plan=plan)
+    assert _mm_counts() == _plus(before, 1, "split")
+    want = tp_matmul_plain(a, b, quant_fmt_name=quant, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.isinf(want[0, 1]) and torch.isnan(want[1, 9])
+    _same_class(got, want, agreement_tol(a, b, got, want, quant))
+
+
+@pytest.mark.parametrize("d,grid,softcap", [
+    (256, None, None), (256, None, 50.0), (128, "tf32", 50.0),
+    (128, "tf32", None), (64, None, 30.0)])
+def test_flash_split_route_keeps_non_finite_results(gen, d, grid, softcap):
+    """Inf in one element of K and of V at live keys of a paged f32 pool
+    (GQA 2, so the kernel's query tile is the plain walk's 32 queries):
+    the split route's values against the plain version at its key tiles,
+    NaN and signed Inf where it has them, the finite outputs within
+    ``F32_TOL`` (``TOL`` on the tf32 grid); the telemetry output bitwise
+    the flags-off one."""
+    src, group = torch.float32, 2
+    q, k, v, lens, table = _flash_inputs(
+        gen, d=d, page=16, group=group, dtype=torch.float32, src=src,
+        rows=[96, 70], q_offset=32, sq=96)
+    for pos, row, pool, col, val in ((70, 0, k, 5, float("inf")),
+                                     (40, 0, v, 7, float("inf")),
+                                     (90, 1, v, 9, -float("inf")),
+                                     (50, 1, k, 2, -float("inf"))):
+        pool[int(table[row, pos // 16]), pos % 16, col] = val
+    kw = dict(group=group, scale=d ** -0.5, causal=True, window=None,
+              softcap=softcap, q_offset=32, src_fmt_name=grid, src_dtype=src)
+    before = _flash_counts()
+    got = flash_attention_cuda(q, k, v, lens, table, **kw)
+    assert _flash_counts() == _plus(before, 1, "split")
+    bq, bk = kernel_tiles(src, grid, 96, len(lens) // group, group, d)
+    assert bq == 32
+    want = flash_attention_plain(q, k, v, lens, table, block_k=bk, **kw)
+    on = flash_attention_cuda(q, k, v, lens, table, debug_flags=True, **kw)[0]
+    torch.cuda.synchronize()
+    assert torch.isinf(want).any()
+    _same_class(got, want, TOL if grid else F32_TOL)
+    assert torch.equal(on.view(torch.int32), got.view(torch.int32))
+
+
+def test_flash_split_route_through_a_wide_table(gen):
+    """The slice's chunk through 8192-key block tables: the staging pass
+    holds only the keys a query sees (``split_staged_keys``), and the
+    output equals the one through the chunk's own, narrow tables bitwise
+    (the same pages, so the same keys and tiles)."""
+    from repro_torch.kernels.flash_attention import split_staged_keys
+    d, group, page = 256, 2, 64
+    q, k, v, lens, table = _flash_inputs(
+        gen, d=d, page=page, group=group, dtype=torch.float32,
+        src=torch.float32, rows=[256, 200], q_offset=768, sq=256)
+    wide = torch.full((table.shape[0], 128), int(table[0, 0]),
+                      dtype=torch.int32, device="cuda")
+    wide[:, :table.shape[1]] = table
+    assert split_staged_keys(128, page, 256, 768, True) == 1024
+    kw = dict(group=group, scale=d ** -0.5, causal=True, window=4096,
+              softcap=50.0, q_offset=768, src_dtype=torch.float32)
+    got = flash_attention_cuda(q, k, v, lens, wide, **kw)
+    narrow = flash_attention_cuda(q, k, v, lens, table, **kw)
+    want = flash_attention_plain(q, k, v, lens, wide,
+                                 block_k=kernel_block_k(torch.float32, None,
+                                                        d), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, narrow)
+    assert (got - want).abs().max().item() <= F32_TOL
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float32+tf32"])
+def test_autotune_sweeps_the_split_route(card_tuner, dtype):
+    """``autotune_matmul`` on the split route's operands (f32 without a
+    grid, the tf32 grid): 128-row plans only, ``plan_split`` first, every
+    candidate held to its plain version and timed; a default call then
+    launches the split route under the winner."""
+    at = card_tuner
+    m, k, n = 256, 3584, 1024
+    winner, timings = at.autotune_matmul(m, k, n, dtype=dtype,
+                                         device="cuda", repeats=3)
+    assert list(timings) == at.candidates("matmul", (m, k, n), dtype)
+    assert list(timings)[0] == (1, plan_split(m, k, n).splits)
+    assert len(timings) > 1 and all(wm == 1 for wm, _ in timings)
+    a = torch.randn((m, k), device="cuda")
+    b = torch.randn((k, n), device="cuda")
+    by = tp_matmul_cuda.launches_by_plan
+    before, counts = dict(by), _mm_counts()
+    kops.tp_matmul(a, b, policy=at._matmul_policy(
+        torch.float32, dtype.partition("+")[2] or None))
+    torch.cuda.synchronize()
+    assert _mm_counts() == _plus(counts, 1, "split")
+    assert {p: c - before.get(p, 0) for p, c in by.items()
+            if c != before.get(p, 0)} == {winner: 1}
